@@ -1,0 +1,10 @@
+"""Hand-written Hopper kernels for the rollout's hot spots.
+
+Each module holds a kernel's wrapper, its plain PyTorch version and a
+launch counter. A wrapper takes the plain version only for a CPU tensor;
+for a CUDA tensor it launches the kernel or raises.
+
+  * ``prop_rollout``  CUDA C++ (``csrc/prop_rollout.cu``): all propagator steps
+  * ``fab_core``      CUDA C++ (``csrc/fab_core.cu``): the FAB c-space core
+  * ``group_norm``    Triton: GroupNorm + affine (+ swish)
+"""

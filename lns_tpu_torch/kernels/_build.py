@@ -1,0 +1,99 @@
+"""Build and load the CUDA kernels in ``lns_tpu_torch/csrc``.
+
+nvcc compiles every ``csrc/*.cu`` into one shared library with a plain C
+interface (``-gencode arch=compute_90a,code=sm_90a``), which ``ctypes``
+loads. The library lands in ``lns_tpu_torch/_build/`` (git-ignored) under a
+name keyed by a hash of the sources and flags, so a checkout builds it at
+first use and reuses it after. A missing nvcc or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "lns_fab_core": [_I] + [_P] * 8 + [_I] * 7 + [ctypes.c_float, _P],
+    "lns_prop_rollout": [_I] + [_P] * 13 + [_I] * 11 + [_P],
+}
+
+_lib = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def _sources():
+    return sorted(SOURCE_DIR.glob("*.cu")), sorted(SOURCE_DIR.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    sources, headers = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sources + headers:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"liblns_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build(ptxas_verbose: bool = False) -> str:
+    """Compile the library if it is not built yet; returns nvcc's messages
+    (with ``ptxas_verbose``, each kernel's registers, shared memory and
+    spills), or '' when the library was already there."""
+    out = library_path()
+    if out.exists() and not ptxas_verbose:
+        return ""
+    sources, _ = _sources()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if ptxas_verbose else []),
+           "-o", str(tmp), *map(str, sources)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return proc.stdout + proc.stderr
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        build()
+        lib = ctypes.CDLL(str(library_path()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.lns_error_string.argtypes = [ctypes.c_int]
+        lib.lns_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if rc != 0:
+        msg = library().lns_error_string(rc).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {rc} ({msg})")

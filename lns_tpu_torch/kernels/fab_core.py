@@ -1,0 +1,120 @@
+"""FAB core: the factorized-attention block's axial applications, InstanceNorm
+statistics and folded out-projection, as a CUDA C++ kernel for Hopper
+(``csrc/fab_core.cu``).
+
+Replaces ``lns_tpu/pallas_kernels/fab_core.py: fab_fused_core``
+(``_fused_kernel``), the drop-in for ``FABlock2D._batched_gram_core``
+(``lns_tpu/ops/factorized_attention.py:353``). Per (sample, head n):
+
+    bb_n   = k_x[n] . u . k_y[n]^T        (channel space; in_proj commutes)
+    phi_n  = bb_n . W_in[:, n]            (never formed: its InstanceNorm
+                                           moments come from sum(k_x), sum(k_y)
+                                           and the c x c Gram of bb_n)
+    m_n    = W_in[:, n] diag(inv_n) W_o1[n],   bias_n = (mean_n inv_n) W_o1[n]
+    out    = sum_n (bb_n . m_n - bias_n)
+
+What bounds it on an H100: arithmetic, not bytes. Per NS2d decode chunk
+(116 frames, 8 heads, c = 64) the 32x32 block is ~31 GFLOP and reads only
+u (15 MB bf16); the value tensor bb (8x u's size, f32) is what an unfused
+formulation writes and reads back.
+
+Design. The TPU kernel holds a sample's whole field per program and sums the
+heads over a sequential grid axis; on Hopper a 32x32x64 field in f32 does
+not fit in a block's 227 KB, so the kernel runs two passes and bb never
+reaches device memory:
+  1. statistics, one block per (head, sample): bb in tiles of rows, Gram
+     accumulated in shared memory, then m_n and bias_n (f32) to a small
+     scratch [b, n, c, o];
+  2. apply, one block per (row tile, sample): recompute the rows of bb for
+     each head, multiply by m_n and sum the heads in shared memory; write
+     the output once, in the input dtype.
+The math is FMA on CUDA cores in f32; tensor cores (wgmma) and TMA are later
+work. Orientation: the kernel applies k_x (rows) then k_y (columns) for any
+h, w; the plain version keeps the JAX core's order (``w > h`` branch).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from lns_tpu_torch.kernels import _build
+
+
+def fab_core_plain(u, k_x, k_y, w_in, w_o1, eps: float = 1e-5):
+    """Plain PyTorch version (``_batched_gram_core``): u [b, h, w, c],
+    k_x [b, n, h, h], k_y [b, n, w, w], w_in [c, n, d], w_o1 [n, d, o] ->
+    [b, h, w, o] in u's dtype."""
+    dt = u.dtype
+    k_x, k_y, w_in = k_x.to(dt), k_y.to(dt), w_in.to(dt)
+    b, h, w, c = u.shape
+    n_px = h * w
+    if w > h:
+        a = torch.einsum("bnih,bhwc->bnwic", k_x, u)
+        bb = torch.einsum("bnlw,bnwic->bnlic", k_y, a)    # (w-index, h-index)
+    else:
+        a = torch.einsum("bnlw,bhwc->bnhlc", k_y, u)
+        bb = torch.einsum("bnih,bnhlc->bnilc", k_x, a)    # (h-index, w-index)
+    kx_s = k_x.float().sum(dim=2)                         # [b, n, h]
+    ky_s = k_y.float().sum(dim=2)                         # [b, n, w]
+    mean_c = torch.einsum("bnh,bnw,bhwc->bnc", kx_s, ky_s, u.float()) / n_px
+    bbf = bb.float()
+    g = torch.einsum("bnilc,bnile->bnce", bbf, bbf)
+    wf = w_in.float()
+    mean = torch.einsum("bnc,cnd->bnd", mean_c, wf)
+    ex2 = torch.einsum("cnd,bnce,end->bnd", wf, g / n_px, wf)
+    inv = torch.rsqrt((ex2 - mean.square()).clamp_min(0.0) + eps)
+    w1f = w_o1.float()
+    m = torch.einsum("cnd,bnd,ndo->bnco", wf, inv, w1f).to(dt)
+    bias = torch.einsum("bnd,ndo->bo", mean * inv, w1f).to(dt)[:, None, None, :]
+    if w > h:
+        return (torch.einsum("bnlic,bnco->blio", bb, m) - bias).transpose(1, 2).contiguous()
+    return torch.einsum("bnilc,bnco->bilo", bb, m) - bias
+
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def fab_fused_core(u, k_x, k_y, w_in, w_o1, eps: float = 1e-5):
+    """FAB core with the JAX kernel's shapes: u [b, h, w, c] (post-GN),
+    k_x [b, n, h, h], k_y [b, n, w, w], w_in [c, n, d], w_o1 [n, d, o] ->
+    [b, h, w, o] in u's dtype.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    on the current stream or raises."""
+    if u.device.type == "cpu":
+        return fab_core_plain(u, k_x, k_y, w_in, w_o1, eps)
+    if u.device.type != "cuda":
+        raise ValueError(f"fab_fused_core: unsupported device {u.device}")
+    if u.dtype not in _DTYPE_CODE:
+        raise TypeError(f"fab_fused_core: unsupported dtype {u.dtype}")
+    if u.dim() != 4 or not u.is_contiguous():
+        raise ValueError("fab_fused_core: u must be contiguous [b, h, w, c]")
+    b, h, w, c = u.shape
+    n, d, o = w_o1.shape
+    expect = {"k_x": (k_x, (b, n, h, h)), "k_y": (k_y, (b, n, w, w)),
+              "w_in": (w_in, (c, n, d)), "w_o1": (w_o1, (n, d, o))}
+    for name, (t, shape) in expect.items():
+        if tuple(t.shape) != shape or t.device != u.device:
+            raise ValueError(f"fab_fused_core: {name} must be {shape} on {u.device}, "
+                             f"got {tuple(t.shape)} on {t.device}")
+    kx = k_x.to(u.dtype).contiguous()
+    ky = k_y.to(u.dtype).contiguous()
+    wi = w_in.to(u.dtype).contiguous()
+    w1 = w_o1.float().contiguous()
+    m = torch.empty((b, n, c, o), device=u.device, dtype=torch.float32)
+    bias = torch.empty((b, n, o), device=u.device, dtype=torch.float32)
+    out = torch.empty((b, h, w, o), device=u.device, dtype=u.dtype)
+    lib = _build.library()
+    rc = lib.lns_fab_core(
+        _DTYPE_CODE[u.dtype], u.data_ptr(), kx.data_ptr(), ky.data_ptr(),
+        wi.data_ptr(), w1.data_ptr(), m.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), b, n, h, w, c, d, o, ctypes.c_float(eps),
+        torch.cuda.current_stream(u.device).cuda_stream)
+    _build.check(rc, "lns_fab_core")
+    fab_fused_core.launches += 1
+    return out
+
+
+fab_fused_core.launches = 0

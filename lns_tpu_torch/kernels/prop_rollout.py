@@ -1,0 +1,179 @@
+"""Fused latent rollout: every SimpleCNN propagator step of a prediction in
+one CUDA C++ kernel launch (``csrc/prop_rollout.cu``; design notes there).
+
+Replaces ``lns_tpu/pallas_kernels/prop_rollout.py: fused_rollout``
+(``_rollout_kernel``, fed by ``pack_simple_cnn_params``). Each step: in-proj
+1x1; per block GN1 -> 3x3 -> GELU -> dilated 3x3 -> GELU -> 3x3, residual;
+GN1 -> 1x1 -> GELU -> 1x1, residual; then GN(groups) -> out 1x1. The carry
+stays on chip across steps. Padding: circular, zeros, half_periodic_x,
+half_periodic_y.
+
+What bounds it on an H100: f32 FMA throughput of the few SMs the batch
+fills (one block per sample: 32 of 132 SMs on NS2d, ~180 MFLOP per
+sample-step); the weights (2.9 MB in bf16) are read from L2 every step.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from lns_tpu_torch.kernels import _build
+
+_WRAP = {  # padding mode -> (wrap rows, wrap columns)
+    "circular": (1, 1),
+    "zeros": (0, 0),
+    "half_periodic_x": (0, 1),
+    "half_periodic_y": (1, 0),
+}
+
+
+class PackedSimpleCNN(NamedTuple):
+    """SimpleCNN weights in the layouts the kernel reads. Matrices and conv
+    taps in the activation dtype, GN parameters and biases in f32."""
+    in_w: torch.Tensor      # [C_lat, C]
+    in_b: torch.Tensor      # [C]
+    gn_s: torch.Tensor      # [n_block, 2, C]  (conv GN1, ffn GN1)
+    gn_b: torch.Tensor      # [n_block, 2, C]
+    conv_w: torch.Tensor    # [n_block, 3, 3, 3, C, C]  (conv, ky, kx, in, out)
+    conv_b: torch.Tensor    # [n_block, 3, C]
+    ffn_w: torch.Tensor     # [n_block, 2, C, C]  (in, out)
+    out_gn_s: torch.Tensor  # [C]
+    out_gn_b: torch.Tensor  # [C]
+    out_w: torch.Tensor     # [C, C_lat]
+    out_b: torch.Tensor     # [C_lat]
+
+
+def pack_simple_cnn(cnn, dtype: torch.dtype = torch.float32) -> PackedSimpleCNN:
+    """Pack the port's ``SimpleCNN`` (lns_tpu_torch.models.propagator)."""
+    def mat(conv1x1):        # [O, I, 1, 1] -> [I, O]
+        return conv1x1.weight[:, :, 0, 0].t().to(dtype)
+
+    def hwio(conv):          # [O, I, 3, 3] -> [3, 3, I, O]
+        return conv.weight.permute(2, 3, 1, 0).to(dtype)
+
+    blocks = list(cnn.net)
+    f32 = torch.float32
+    with torch.no_grad():
+        packed = PackedSimpleCNN(
+            in_w=mat(cnn.in_proj),
+            in_b=cnn.in_proj.bias.to(f32),
+            gn_s=torch.stack([torch.stack([b.conv[0].weight, b.ffn[0].weight]) for b in blocks]).to(f32),
+            gn_b=torch.stack([torch.stack([b.conv[0].bias, b.ffn[0].bias]) for b in blocks]).to(f32),
+            conv_w=torch.stack([torch.stack([hwio(b.conv[j]) for j in (1, 3, 5)]) for b in blocks]),
+            conv_b=torch.stack([torch.stack([b.conv[j].bias for j in (1, 3, 5)]) for b in blocks]).to(f32),
+            ffn_w=torch.stack([torch.stack([mat(b.ffn[1]), mat(b.ffn[3])]) for b in blocks]),
+            out_gn_s=cnn.out_proj[0].gn.weight.to(f32),
+            out_gn_b=cnn.out_proj[0].gn.bias.to(f32),
+            out_w=mat(cnn.out_proj[1]),
+            out_b=cnn.out_proj[1].bias.to(f32),
+        )
+    return PackedSimpleCNN(*(t.detach().contiguous() for t in packed))
+
+
+def _gn(x, scale, bias, groups, eps):
+    """GroupNorm on [B, H, W, C], f32 single-pass statistics (variance
+    clamped at 0), rounded once."""
+    b, c = x.shape[0], x.shape[-1]
+    xf = x.float().reshape(b, -1, groups, c // groups)
+    mean = xf.mean(dim=(1, 3), keepdim=True)
+    var = (xf.square().mean(dim=(1, 3), keepdim=True) - mean.square()).clamp_min(0.0)
+    y = ((xf - mean) * torch.rsqrt(var + eps)).reshape(x.shape) * scale + bias
+    return y.to(x.dtype)
+
+
+def _gelu(x):
+    return F.gelu(x.float()).to(x.dtype)
+
+
+def _conv3(x, w_hwio, bias, dil, padding_mode):
+    """3x3 conv, stride 1, 'same' padding `dil`, on [B, H, W, C]."""
+    wrap_y, wrap_x = _WRAP[padding_mode]
+    xc = x.permute(0, 3, 1, 2)
+    if wrap_x:
+        xc = F.pad(xc, (dil, dil, 0, 0), mode="circular")
+    if wrap_y:
+        xc = F.pad(xc, (0, 0, dil, dil), mode="circular")
+    pad = (0 if wrap_y else dil, 0 if wrap_x else dil)
+    out = F.conv2d(xc, w_hwio.permute(3, 2, 0, 1), None, 1, pad, dil)
+    return out.permute(0, 2, 3, 1) + bias.to(x.dtype)
+
+
+def fused_rollout_plain(z0, packed: PackedSimpleCNN, steps: int, n_block: int,
+                        dilation: int, padding_mode: str, groups: int = 32):
+    """Plain PyTorch version of the rollout, with the kernel's rounding
+    points: z0 [B, H, W, C_lat] -> [steps, B, H, W, C_lat] in the packed
+    weights' dtype."""
+    p = packed
+    dt = p.in_w.dtype
+    z = z0.to(dt)
+    outs = []
+    for _ in range(steps):
+        h = torch.matmul(z, p.in_w) + p.in_b.to(dt)
+        for i in range(n_block):
+            t = _gn(h, p.gn_s[i, 0], p.gn_b[i, 0], 1, 1e-5)
+            t = _gelu(_conv3(t, p.conv_w[i, 0], p.conv_b[i, 0], 1, padding_mode))
+            t = _gelu(_conv3(t, p.conv_w[i, 1], p.conv_b[i, 1], dilation, padding_mode))
+            h = h + _conv3(t, p.conv_w[i, 2], p.conv_b[i, 2], 1, padding_mode)
+            f = _gn(h, p.gn_s[i, 1], p.gn_b[i, 1], 1, 1e-5)
+            h = h + torch.matmul(_gelu(torch.matmul(f, p.ffn_w[i, 0])), p.ffn_w[i, 1])
+        h = _gn(h, p.out_gn_s, p.out_gn_b, groups, 1e-6)
+        z = torch.matmul(h, p.out_w) + p.out_b.to(dt)
+        outs.append(z)
+    return torch.stack(outs)
+
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def fused_rollout(z0, packed: PackedSimpleCNN, steps: int, n_block: int,
+                  dilation: int, padding_mode: str, groups: int = 32):
+    """Run `steps` SimpleCNN applications: z0 [B, H, W, C_lat] ->
+    [steps, B, H, W, C_lat] (step-major, like the JAX kernel) in the packed
+    weights' dtype.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    on the current stream or raises."""
+    if z0.device.type == "cpu":
+        return fused_rollout_plain(z0, packed, steps, n_block, dilation, padding_mode, groups)
+    if z0.device.type != "cuda":
+        raise ValueError(f"fused_rollout: unsupported device {z0.device}")
+    if padding_mode not in _WRAP:
+        raise ValueError(f"fused_rollout: unsupported padding mode {padding_mode}")
+    dt = packed.in_w.dtype
+    if dt not in _DTYPE_CODE:
+        raise TypeError(f"fused_rollout: unsupported dtype {dt}")
+    if z0.dim() != 4:
+        raise ValueError("fused_rollout: z0 must be [B, H, W, C_lat]")
+    b, h, w, c_lat = z0.shape
+    c = packed.in_w.shape[1]
+    shapes = {
+        "in_w": (c_lat, c), "in_b": (c,), "gn_s": (n_block, 2, c), "gn_b": (n_block, 2, c),
+        "conv_w": (n_block, 3, 3, 3, c, c), "conv_b": (n_block, 3, c),
+        "ffn_w": (n_block, 2, c, c), "out_gn_s": (c,), "out_gn_b": (c,),
+        "out_w": (c, c_lat), "out_b": (c_lat,),
+    }
+    for name, shape in shapes.items():
+        t = getattr(packed, name)
+        want = dt if name in ("in_w", "conv_w", "ffn_w", "out_w") else torch.float32
+        if (tuple(t.shape) != shape or t.dtype != want or t.device != z0.device
+                or not t.is_contiguous()):
+            raise ValueError(f"fused_rollout: {name} must be contiguous {want} {shape} on "
+                             f"{z0.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    z = z0.to(dt).contiguous()
+    out = torch.empty((steps, b, h, w, c_lat), device=z0.device, dtype=dt)
+    wrap_y, wrap_x = _WRAP[padding_mode]
+    rc = _build.library().lns_prop_rollout(
+        _DTYPE_CODE[dt], z.data_ptr(), *(t.data_ptr() for t in packed), out.data_ptr(),
+        b, h, w, c_lat, c, n_block, dilation, wrap_y, wrap_x, groups, steps,
+        torch.cuda.current_stream(z0.device).cuda_stream)
+    # the C entry refuses shapes its thread layout or shared memory cannot
+    # hold (C or C_lat not dividing 512, too many positions per thread)
+    _build.check(rc, f"lns_prop_rollout(H*W={h * w}, C={c}, C_lat={c_lat}, groups={groups})")
+    fused_rollout.launches += 1
+    return out
+
+
+fused_rollout.launches = 0

@@ -1,0 +1,139 @@
+"""Stage-1 autoencoder, periodic square variant (NS2d).
+
+``SimpleAutoencoder`` maps NHWC fields to the latent grid and back:
+encode = quant_conv(encoder(x)), decode = decoder(post_quant_conv(z)),
+mirroring the reference's module skeleton (modules/autoencoder2d.py:160-186)
+and its checkpoint names. The encoder and decoder stacks come from the
+layer specs (``models.specs``). Modules work on NCHW tensors in
+channels-last memory; ``encode``/``decode`` take and return NHWC, as the
+JAX package does.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from lns_tpu_torch.models.specs import LayerSpec, decoder_spec, encoder_spec
+from lns_tpu_torch.ops.activations import Swish
+from lns_tpu_torch.ops.attention import SABlock
+from lns_tpu_torch.ops.conv import Conv1x1, ConvND
+from lns_tpu_torch.ops.factorized_attention import FABlock2D
+from lns_tpu_torch.ops.norms import GroupNorm, GroupNormWrapper
+from lns_tpu_torch.ops.resblocks import DownSampleBlock, ResidualBlock, UpSampleBlock
+
+
+class Resize(nn.Module):
+    """Nearest resize to (out_h, out_w) with torch's index rule; a no-op
+    when the following conv carries the exact 2x (``fused``)."""
+
+    def __init__(self, out_h: int, out_w: int, fused: bool = False):
+        super().__init__()
+        self.size = (out_h, out_w)
+        self.fused = fused
+
+    def forward(self, x):
+        if self.fused or tuple(x.shape[2:]) == self.size:
+            return x
+        return F.interpolate(x, size=self.size, mode="nearest")
+
+
+def build_layer(spec: LayerSpec, in_ch: int, dtype=None) -> nn.Module:
+    """The module for one layer spec, given its input channel count."""
+    kw = spec.kw
+    kind = spec.kind
+    if kind == "conv":
+        if kw.get("kernel_size", 1) == 1 and kw.get("stride", 1) == 1:
+            return Conv1x1(in_ch, kw["features"], dtype=dtype)
+        return ConvND(in_ch, kw["features"], kw["kernel_size"], stride=kw.get("stride", 1),
+                      padding=kw.get("padding", 0),
+                      padding_mode=kw.get("padding_mode", "zeros"),
+                      upsample_2x=kw.get("upsample_2x", False), dtype=dtype)
+    if kind == "gn":
+        if kw.get("wrapper"):
+            return GroupNormWrapper(kw["channels"], kw["groups"], kw["eps"])
+        return GroupNorm(kw["groups"], kw["channels"], kw["eps"])
+    if kind == "swish":
+        return Swish()
+    if kind == "resize":
+        return Resize(kw["out_h"], kw["out_w"], kw.get("fused", False))
+    if kind == "resblock":
+        return ResidualBlock(kw["in_channels"], kw["out_channels"],
+                             padding_mode=kw.get("padding_mode", "zeros"), dtype=dtype)
+    if kind == "down":
+        return DownSampleBlock(kw["channels"], kw.get("padding_mode", "zeros"), dtype=dtype)
+    if kind == "up":
+        return UpSampleBlock(kw["channels"], kw.get("padding_mode", "zeros"), dtype=dtype)
+    if kind == "sablock":
+        return SABlock(kw["dim"], kw["heads"], kw["dim_head"], use_pe=kw["use_pe"],
+                       block_size=kw["block_size"])
+    if kind == "fablock":
+        return FABlock2D(kw["dim"], kw["dim_head"], kw["latent_dim"], kw["heads"], kw["dim_out"])
+    raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
+
+
+def _out_channels(spec: LayerSpec, in_ch: int) -> int:
+    kw = spec.kw
+    for key in ("features", "out_channels", "dim_out"):
+        if key in kw:
+            return kw[key]
+    return in_ch
+
+
+class SpecSequential(nn.Module):
+    """Sequential stack built from a layer-spec list; parameters live under
+    ``model.{idx}`` as in the reference. A GroupNorm followed by a swish runs
+    as one fused GroupNorm(+swish) call."""
+
+    def __init__(self, specs: Sequence[LayerSpec], in_channels: int, dtype=None):
+        super().__init__()
+        self.specs = tuple(specs)
+        layers, ch = [], in_channels
+        for i, spec in enumerate(self.specs):
+            if spec.idx != i:
+                raise ValueError(f"spec {spec} out of order at position {i}")
+            layers.append(build_layer(spec, ch, dtype))
+            ch = _out_channels(spec, ch)
+        self.model = nn.Sequential(*layers)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        i, n = 0, len(self.specs)
+        while i < n:
+            layer = self.model[i]
+            if self.specs[i].kind == "gn" and i + 1 < n and self.specs[i + 1].kind == "swish":
+                x = layer(x, apply_swish=True)
+                i += 2
+                continue
+            x = layer(x)
+            i += 1
+        return x
+
+
+class SimpleAutoencoder(nn.Module):
+    """Deterministic conv autoencoder (reference SimpleAutoencoder)."""
+
+    def __init__(self, cfg, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        if cfg.ae_variant != "periodic":
+            raise NotImplementedError(f"AE variant {cfg.ae_variant!r} is not ported yet")
+        self.cfg = cfg
+        self.encoder = SpecSequential(encoder_spec(cfg), cfg.in_channels, dtype)
+        self.decoder = SpecSequential(decoder_spec(cfg), cfg.latent_dim, dtype)
+        self.quant_conv = Conv1x1(cfg.latent_dim, cfg.latent_dim, dtype=dtype)
+        self.post_quant_conv = Conv1x1(cfg.latent_dim, cfg.latent_dim, dtype=dtype)
+
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B, H, W, C] -> z [B, h, w, latent_dim]."""
+        z = self.quant_conv(self.encoder(x.permute(0, 3, 1, 2)))
+        return z.permute(0, 2, 3, 1)
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        """z [B, h, w, latent_dim] -> x [B, H, W, C]."""
+        x = self.decoder(self.post_quant_conv(z.permute(0, 3, 1, 2)))
+        return x.permute(0, 2, 3, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.decode(self.encode(x))

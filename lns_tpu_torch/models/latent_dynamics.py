@@ -1,0 +1,93 @@
+"""Latent dynamics: a frozen autoencoder and a latent propagator, with the
+fused inference rollout (counterpart of ``lns_tpu.models.latent_dynamics``).
+
+``predict`` encodes once, runs every propagator step, then decodes the
+(batch x steps) latents in chunks. On a CUDA device the steps run as one
+launch of the rollout kernel (``kernels.prop_rollout``); with
+``use_kernels(False)`` every kernel of the model is replaced by its plain
+PyTorch version, on any device. Parameters live under ``vq_ae`` and
+``propagator``, the reference trainer's state-dict names.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from lns_tpu_torch.kernels.prop_rollout import fused_rollout, pack_simple_cnn
+from lns_tpu_torch.models.autoencoder import SimpleAutoencoder
+from lns_tpu_torch.models.propagator import build_propagator
+
+
+class LatentDynamics(nn.Module):
+    """Autoencoder (``vq_ae``) + propagator; NHWC in and out."""
+
+    def __init__(self, cfg, dtype: Optional[torch.dtype] = None,
+                 ae_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = dtype
+        self.vq_ae = SimpleAutoencoder(cfg, dtype=ae_dtype)
+        self.propagator = build_propagator(cfg, dtype=dtype)
+        self.use_kernel = True
+
+    def use_kernels(self, flag: bool) -> "LatentDynamics":
+        """Route every kernel of the model (rollout, FAB core, GroupNorm)
+        through its kernel (True) or its plain version (False)."""
+        for m in self.modules():
+            if hasattr(m, "use_kernel"):
+                m.use_kernel = flag
+        return self
+
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        return self.vq_ae.encode(x)
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        return self.vq_ae.decode(z)
+
+    def propagate(self, z: torch.Tensor) -> torch.Tensor:
+        return self.propagator(z)
+
+    @torch.no_grad()
+    def predict_latents(self, x: torch.Tensor, steps: int) -> torch.Tensor:
+        """Encode once, roll the propagator `steps` times:
+        x [b, H, W, c] -> [b, steps, h, w, latent_dim]."""
+        z = self.encode(x)
+        if self.dtype is not None:
+            z = z.to(self.dtype)  # the carry is in the propagator's dtype
+        if self.use_kernel:
+            p = self.propagator
+            packed = pack_simple_cnn(p, self.dtype or torch.float32)
+            zs = fused_rollout(z, packed, steps, p.prop_n_block, p.dilation, p.padding_mode)
+            return zs.transpose(0, 1)
+        zs = []
+        for _ in range(steps):
+            z = self.propagate(z)
+            zs.append(z)
+        return torch.stack(zs, dim=1)
+
+    @torch.no_grad()
+    def predict(self, x: torch.Tensor, steps: int, to_x: bool = True,
+                decode_chunk: Optional[int] = None) -> torch.Tensor:
+        """Encode -> `steps` propagator steps -> decode:
+        x [b, H, W, c] -> [b, steps, H, W, c] (latents when not `to_x`).
+
+        The b * steps latents are decoded `decode_chunk` frames at a time
+        (all at once when None); the last chunk is zero-padded to full size,
+        as the JAX package does, so every chunk has one shape."""
+        zs = self.predict_latents(x, steps)
+        if not to_x:
+            return zs
+        b, t = zs.shape[:2]
+        zflat = zs.reshape((b * t,) + zs.shape[2:])
+        if decode_chunk is None:
+            y = self.decode(zflat)
+        else:
+            n = b * t
+            pad = (-n) % decode_chunk
+            zpad = F.pad(zflat, (0, 0) * (zflat.dim() - 1) + (0, pad))
+            y = torch.cat([self.decode(c) for c in zpad.split(decode_chunk)])[:n]
+        return y.reshape((b, t) + y.shape[1:])

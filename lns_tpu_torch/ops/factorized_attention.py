@@ -1,0 +1,116 @@
+"""Factorized (axial low-rank) attention (reference:
+modules/factorized_attention.py), on NCHW tensors.
+
+FABlock2D builds one n x n integral kernel per spatial axis from pooled axis
+descriptors (no softmax), applies both to the value in channel space, and
+folds in_proj, the InstanceNorm and out_fc1 into one per-(sample, head)
+matrix — the math of ``lns_tpu``'s ``FABlock2D._batched_gram_core``. That
+core is the FAB-core kernel (``kernels.fab_core``) for every shape here.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from lns_tpu_torch.kernels.fab_core import fab_core_plain, fab_fused_core
+from lns_tpu_torch.ops.activations import gelu
+from lns_tpu_torch.ops.conv import Conv1x1, Dense
+from lns_tpu_torch.ops.embedding import RotaryEmbedding, apply_rotary_pos_emb
+from lns_tpu_torch.ops.norms import GroupNorm, LayerNorm
+
+
+class LowRankKernel(nn.Module):
+    """Per-head n x n kernel on ONE axis (reference:
+    factorized_attention.py:11-69): axis descriptors [b, n, dim] ->
+    K [b, heads, n, n]. Positions linspace(0, 1, n) go through rotary
+    embeddings when ``use_rotary_emb``."""
+
+    def __init__(self, dim: int, dim_head: int, heads: int, use_rotary_emb: bool = False):
+        super().__init__()
+        self.dim_head = dim_head
+        self.heads = heads
+        self.to_qk = Dense(dim, dim_head * heads * 2, use_bias=False)
+        self.pos_emb = RotaryEmbedding(dim_head) if use_rotary_emb else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, n, _ = x.shape
+        q, k = self.to_qk(x).chunk(2, dim=-1)
+        q = q.reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
+        k = k.reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
+        if self.pos_emb is not None:
+            pos = torch.linspace(0.0, 1.0, n, device=x.device).reshape(1, n)
+            freqs = self.pos_emb(pos)[:, None].to(q.dtype)  # [1, 1, n, d]
+            q = apply_rotary_pos_emb(q, freqs)
+            k = apply_rotary_pos_emb(k, freqs)
+        return torch.einsum("bhid,bhjd->bhij", q, k)
+
+
+class PoolingReducer(nn.Module):
+    """Project, mean-pool all spatial dims but the first, then LN-MLP
+    (reference: factorized_attention.py:72-94): [b, n1, n2, c] ->
+    [b, n1, out_dim]."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int):
+        super().__init__()
+        self.to_in = Dense(in_dim, hidden_dim, use_bias=False)
+        self.out_ffn = nn.Sequential(
+            LayerNorm(hidden_dim),
+            Dense(hidden_dim, hidden_dim * 2, use_bias=False),
+            nn.GELU(),
+            Dense(hidden_dim * 2, out_dim),
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.to_in(x)
+        pool_dims = tuple(range(2, x.dim() - 1))
+        if pool_dims:
+            x = x.mean(dim=pool_dims)
+        return self.out_ffn(x)
+
+
+class FABlock2D(nn.Module):
+    """Factorized attention block (reference: factorized_attention.py:97-160):
+    GN(1) input norm -> pooled per-row / per-column descriptors -> two
+    LowRankKernels k_x (h x h), k_y (w x w) -> FAB core (axial applications,
+    InstanceNorm, out_fc1, head sum) -> GELU -> out_fc2, residual.
+
+    ``use_kernel=False`` runs the core's plain version on any device."""
+
+    def __init__(self, dim: int, dim_head: int, latent_dim: int, heads: int, dim_out: int):
+        super().__init__()
+        self.heads = heads
+        self.dim_head = dim_head
+        self.dim_out = dim_out
+        self.in_norm = GroupNorm(1, dim, eps=1e-5)
+        self.in_proj = Conv1x1(dim, heads * dim_head, use_bias=False)
+        self.to_in = nn.Sequential(Conv1x1(dim, dim, use_bias=False))
+        self.to_x = nn.Sequential(PoolingReducer(dim, dim, latent_dim))
+        self.to_y = nn.Sequential(nn.Identity(), PoolingReducer(dim, dim, latent_dim))
+        kd = dim_head * 2  # the reference's kernel_multiplier, 2 in every shipped config
+        self.low_rank_kernel_x = LowRankKernel(latent_dim, kd, heads, use_rotary_emb=True)
+        self.low_rank_kernel_y = LowRankKernel(latent_dim, kd, heads, use_rotary_emb=True)
+        self.to_out = nn.Sequential(
+            nn.Identity(),  # the reference's InstanceNorm2d, folded into the core
+            Conv1x1(heads * dim_head, dim_out, use_bias=False),
+            nn.GELU(),
+            Conv1x1(dim_out, dim_out, use_bias=False),
+        )
+        self.use_kernel = True
+
+    def forward(self, u: torch.Tensor) -> torch.Tensor:
+        u_skip = u
+        un = self.in_norm(u).movedim(1, -1)  # [b, h, w, c]
+        c = un.shape[-1]
+        w_in = self.in_proj.weight[:, :, 0, 0].t().reshape(c, self.heads, self.dim_head)
+        u_in = self.to_in[0].forward_last(un)
+        u_x = self.to_x[0](u_in)                  # per-row descriptors
+        u_y = self.to_y[1](u_in.transpose(1, 2))  # per-column descriptors
+        k_x = self.low_rank_kernel_x(u_x)         # [b, heads, h, h]
+        k_y = self.low_rank_kernel_y(u_y)         # [b, heads, w, w]
+        w_o1 = self.to_out[1].weight[:, :, 0, 0].t().reshape(
+            self.heads, self.dim_head, self.dim_out)
+        core = fab_fused_core if self.use_kernel else fab_core_plain
+        out = core(un.contiguous(), k_x, k_y, w_in, w_o1)
+        out = self.to_out[3].forward_last(gelu(out))
+        return out.movedim(-1, 1) + u_skip

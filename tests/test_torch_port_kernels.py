@@ -1,0 +1,114 @@
+"""The port's kernel wrappers on CPU tensors (their plain PyTorch versions)
+against the JAX package's Pallas kernels run in interpret mode, on the cases
+tests/test_pallas_kernels.py holds them to, with the same tolerances:
+
+  * GroupNorm(+swish): atol 2e-6 (test_pallas_kernels.py:24);
+  * fused rollout: atol 2e-5 x max|z| (:193), f32 over 5 steps;
+  * FAB core: rtol 2e-5, atol 2e-5 x max|out| (:260).
+
+The kernels themselves need a CUDA card; ``chip_smoke.py`` holds each one to
+its plain version there. Here the wrappers must take the plain version for a
+CPU tensor, refuse any other non-CUDA device, and count no launch.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lns_tpu.models.propagator import SimpleCNN as JSimpleCNN
+from lns_tpu.pallas_kernels import fab_core as jfab
+from lns_tpu.pallas_kernels import group_norm as jgn
+from lns_tpu.pallas_kernels import prop_rollout as jpr
+from lns_tpu_torch.config import Config
+from lns_tpu_torch.kernels import fab_core, group_norm, prop_rollout
+from lns_tpu_torch.models.propagator import SimpleCNN
+from lns_tpu_torch.utils.convert import propagator_state_dict
+
+from _torch_port import load, perturb
+
+_COUNTED = (group_norm.fused_group_norm_swish, fab_core.fab_fused_core,
+            prop_rollout.fused_rollout)
+
+
+@pytest.mark.parametrize("groups,eps,swish,shape", [
+    (32, 1e-6, True, (3, 16, 16, 64)),
+    (8, 1e-5, True, (2, 16, 16, 64)),
+    (1, 1e-5, False, (2, 12, 20, 64)),
+])
+def test_group_norm_matches_pallas(groups, eps, swish, shape):
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal(shape).astype(np.float32)
+    scale = (rng.standard_normal(shape[-1]) * 0.1 + 1).astype(np.float32)
+    bias = (rng.standard_normal(shape[-1]) * 0.1).astype(np.float32)
+    ref = jgn.fused_group_norm_swish(jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias),
+                                     groups, eps=eps, apply_swish=swish, interpret=True)
+    out = group_norm.fused_group_norm_swish(torch.from_numpy(x), torch.from_numpy(scale),
+                                            torch.from_numpy(bias), groups, eps, swish)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-6)
+
+
+@pytest.mark.parametrize(
+    "pm,h,w,c_lat",
+    [("circular", 8, 8, 16), ("zeros", 7, 15, 64), ("half_periodic_x", 12, 24, 64)],
+)
+def test_fused_rollout_matches_pallas(pm, h, w, c_lat):
+    nb, c, dil, steps, b = 2, 64, 2, 5, 2
+    jmodel = JSimpleCNN(latent_dim=c_lat, prop_n_block=nb, prop_n_embd=c, dilation=dil,
+                        padding_mode=pm, dtype=jnp.float32)
+    z0 = np.random.default_rng(1).standard_normal((b, h, w, c_lat)).astype(np.float32)
+    params = perturb(jmodel.init(jax.random.PRNGKey(0), jnp.asarray(z0))["params"], 2,
+                     scale=0.05)
+    packed = jpr.pack_simple_cnn_params(params, nb, dtype=jnp.float32)
+    ref = np.asarray(jpr.fused_rollout(jnp.asarray(z0), packed, steps=steps, n_block=nb,
+                                       dilation=dil, padding_mode=pm, interpret=True))
+
+    # the port's SimpleCNN holds the weights; the padding mode is the kernel's argument
+    cnn = load(SimpleCNN(c_lat, nb, c, dil, padding_mode="circular"),
+               propagator_state_dict(Config(prop_n_block=nb), params))
+    zs = prop_rollout.fused_rollout(torch.from_numpy(z0), prop_rollout.pack_simple_cnn(cnn),
+                                    steps, nb, dil, pm)
+    assert zs.shape == (steps, b, h, w, c_lat)
+    np.testing.assert_allclose(zs.numpy(), ref, atol=2e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("b,n,h,w,c", [(4, 8, 16, 16, 32), (3, 4, 12, 24, 16),
+                                       (3, 4, 24, 12, 16)])
+def test_fab_core_matches_pallas(b, n, h, w, c):
+    rng = np.random.default_rng(3)
+    u = rng.standard_normal((b, h, w, c)).astype(np.float32)
+    kx = (rng.standard_normal((b, n, h, h)) / h).astype(np.float32)
+    ky = (rng.standard_normal((b, n, w, w)) / w).astype(np.float32)
+    w_in = (rng.standard_normal((c, n, c)) / np.sqrt(c)).astype(np.float32)
+    w_o1 = (rng.standard_normal((n, c, c)) / np.sqrt(c)).astype(np.float32)
+    ref = np.asarray(jfab.fab_fused_core(*map(jnp.asarray, (u, kx, ky, w_in, w_o1)),
+                                         interpret=True))
+    out = fab_core.fab_fused_core(*map(torch.from_numpy, (u, kx, ky, w_in, w_o1)))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=2e-5, atol=2e-5 * np.abs(ref).max())
+
+
+def test_wrappers_count_no_launch_on_cpu():
+    before = [f.launches for f in _COUNTED]
+    x = torch.randn(2, 8, 8, 64)
+    group_norm.fused_group_norm_swish(x, torch.ones(64), torch.zeros(64), 32)
+    fab_core.fab_fused_core(x, torch.randn(2, 2, 8, 8), torch.randn(2, 2, 8, 8),
+                            torch.randn(64, 2, 8), torch.randn(2, 8, 64))
+    cnn = SimpleCNN(16, 1, 32, 2)
+    prop_rollout.fused_rollout(torch.randn(2, 4, 4, 16), prop_rollout.pack_simple_cnn(cnn),
+                               2, 1, 2, "circular")
+    assert [f.launches for f in _COUNTED] == before == [0, 0, 0]
+
+
+def test_wrappers_refuse_other_devices():
+    """Only a CPU tensor takes the plain version; any other device that is
+    not CUDA is refused, never computed some other way."""
+    x = torch.empty(2, 8, 8, 64, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        group_norm.fused_group_norm_swish(x, torch.ones(64), torch.zeros(64), 32)
+    with pytest.raises(ValueError, match="device"):
+        fab_core.fab_fused_core(x, x, x, x, x)
+    cnn = SimpleCNN(16, 1, 32, 2)
+    with pytest.raises(ValueError, match="device"):
+        prop_rollout.fused_rollout(torch.empty(2, 4, 4, 16, device="meta"),
+                                   prop_rollout.pack_simple_cnn(cnn), 2, 1, 2, "circular")
