@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's NS2d inference rollout once on one CUDA card.
+"""Drive the PyTorch port's NS2d inference rollouts once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -7,17 +7,25 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card,
 CUDA PyTorch, Triton and nvcc. It imports nothing of JAX. In order it:
 
   1. prints the card (torch and nvidia-smi); fails if there is no CUDA card;
-  2. builds the CUDA kernels from lns_tpu_torch/csrc (nvcc, sm_90a);
-  3. holds each hand-written kernel against its plain PyTorch version on
-     the card, at the shapes the main path gives it, TF32 off, and times
-     both with CUDA events;
-  4. runs ``LatentDynamics.predict`` of ``ns2d_config()`` at full width
-     (batch 32, 29 steps, 116-frame decode chunks, bf16 activations, f32
-     weights from a seeded generator), checks the output and that every
-     kernel launched as often as the model's layer specs imply, compares
-     the kernel path with the all-plain path in f32 on a small input, and
-     times frames/s of both paths;
-  5. prints one JSON line of per-kernel results, then the closing JSON line.
+  2. builds the CUDA kernels from lns_tpu_torch/csrc (nvcc, sm_90a, one
+     process per source);
+  3. holds each of the seven hand-written kernels against its plain PyTorch
+     version on the card, at the shapes the paths give it (and, for the
+     library kernels off the paths, at the TPU package's shapes), TF32 off,
+     and times both with CUDA events; times the c-space and the d-space FAB
+     core at every FAB shape of the paths;
+  4. runs ``LatentDynamics.predict`` at full width (batch 32, 29 steps,
+     116-frame decode chunks, bf16 activations, f32 weights from a seeded
+     generator) on two paths: ``ns2d_config()`` (path 1) and the same model
+     with attention in the encoder, ``use_attn_enc=True`` (path 2, whose
+     16x16 c128 encoder FAB takes the d-space core). For each path it sets
+     every launch count to 0, runs one predict, checks the output and that
+     every kernel launched as often as the model's layer specs imply,
+     compares the kernel path with the all-plain path in f32 on a small
+     input, and times frames/s of both;
+  5. prints one JSON line of per-kernel results (launches, and ms / plain_ms
+     per predict, summed over one predict of each path), then the closing
+     JSON line.
 
 Any failed check or exception exits non-zero before the closing line.
 """
@@ -75,7 +83,8 @@ def compare(name, kernel_fn, plain_fn, rel_tol, reps=5):
 
 # -- phase 3: each kernel against its plain version --------------------------
 
-def check_rollout(dev, gen):
+def check_rollout(dev, gen, calls):
+    """calls: rollout launches in one predict of each path."""
     from lns_tpu_torch.kernels.prop_rollout import (fused_rollout, fused_rollout_plain,
                                                     pack_simple_cnn)
     from lns_tpu_torch.models.propagator import SimpleCNN
@@ -114,21 +123,19 @@ def check_rollout(dev, gen):
     print(f"      prop_rollout bf16 {STEPS} steps B{BATCH} (main path): kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms", flush=True)
     err = max(r[0] for r in results.values())
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": err, "ms": ms * calls, "plain_ms": plain_ms * calls}
 
 
-def check_fab_core(dev, gen, calls_per_predict):
-    """calls_per_predict: {field side: FAB core calls per predict}."""
+def check_fab_core(dev, gen, sites, n, d):
+    """sites: {(batch, h, w, c): c-space FAB core calls per predict}."""
     from lns_tpu_torch.kernels.fab_core import fab_core_plain, fab_fused_core
 
-    n, c, d = 8, 64, 64
     errs, ms_sum, plain_sum = [], 0.0, 0.0
-    # the main path's square fields, then both orientations of a non-square
-    # one (the plain version branches on w > h; the kernel must not care),
-    # and odd sides (a last row tile that is only partly filled)
-    shapes = [(CHUNK, hw, hw) for hw in sorted(calls_per_predict)] + [
-        (4, 12, 24), (4, 24, 12), (2, 15, 31)]
-    for b, h, w in shapes:
+    # the paths' fields, then both orientations of a non-square one (the
+    # plain version branches on w > h; the kernel must not care), and odd
+    # sides (a last row tile that is only partly filled)
+    shapes = sorted(sites) + [(4, 12, 24, 64), (4, 24, 12, 64), (2, 15, 31, 64)]
+    for b, h, w, c in shapes:
         u = torch.randn(b, h, w, c, generator=gen)
         kx = torch.randn(b, n, h, h, generator=gen) / h
         ky = torch.randn(b, n, w, w, generator=gen) / w
@@ -143,9 +150,9 @@ def check_fab_core(dev, gen, calls_per_predict):
                 f"fab_core {str(dt)[6:]} b{b} {h}x{w} c{c} n{n}",
                 lambda: fab_fused_core(*a), lambda: fab_core_plain(*a), tol)
             errs.append(err)
-            if dt == torch.bfloat16 and h == w:
-                ms_sum += ms * calls_per_predict[h]
-                plain_sum += plain_ms * calls_per_predict[h]
+            if dt == torch.bfloat16 and (b, h, w, c) in sites:
+                ms_sum += ms * sites[(b, h, w, c)]
+                plain_sum += plain_ms * sites[(b, h, w, c)]
     return {"max_abs_err": max(errs), "ms": ms_sum, "plain_ms": plain_sum}
 
 
@@ -175,13 +182,142 @@ def check_group_norm(dev, gen, sites):
     return {"max_abs_err": max(errs), "ms": ms_sum, "plain_ms": plain_sum}
 
 
+def _axial_inputs(gen, dev, g_shape, h, w, d):
+    """kx [*g_shape, h, h], ky [*g_shape, w, w] (scaled to keep values of
+    order 1 through both applies) and phi [*g_shape, h, w, d]."""
+    kx = torch.randn(*g_shape, h, h, generator=gen) / h ** 0.5
+    ky = torch.randn(*g_shape, w, w, generator=gen) / w ** 0.5
+    phi = torch.randn(*g_shape, h, w, d, generator=gen)
+    return kx.to(dev), ky.to(dev), phi.to(dev)
+
+
+# f32: the same sums in another order; bf16: each apply is rounded to bf16 in
+# both versions, and an f32 sum in another order can move a value across a
+# rounding boundary, which the next apply and the norm carry on (a few bf16
+# ulps of the largest value)
+_AXIAL_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def check_axial(dev, gen, sites, n, d):
+    """Kernel 4 at the paths' d-space FAB shapes (sites: {(batch, h, w, c):
+    calls per predict}), at the decode chunk's 32x32 and at an odd 15x31,
+    with and without the norm; kernel 5 at G = batch x heads 16x16 and at
+    an odd 7x15 d 128."""
+    from lns_tpu_torch.kernels.axial import (axial_kernel_apply_headmajor,
+                                             axial_kernel_apply_headmajor_plain,
+                                             fab_axial_in_fused, fab_axial_in_plain)
+
+    errs4, ms4, plain4 = [], 0.0, 0.0
+    # (batch, heads, h, w, d, calls per predict)
+    cases = [(b, n, h, w, d, calls) for (b, h, w, _), calls in sorted(sites.items())] + [
+        (CHUNK, n, 32, 32, d, 0), (2, 4, 15, 31, d, 0)]
+    for b, nh, h, w, dd, calls in cases:
+        kx, ky, phi = _axial_inputs(gen, dev, (b, nh), h, w, dd)
+        for with_in in (True, False):
+            for dt, tol in _AXIAL_TOL.items():
+                p = phi.to(dt)
+                err, ms, plain_ms = compare(
+                    f"fab_axial_in_fused {str(dt)[6:]} [{b},{nh},{h},{w},{dd}] "
+                    f"{'IN' if with_in else 'no IN'}",
+                    lambda: fab_axial_in_fused(kx, ky, p, with_in),
+                    lambda: fab_axial_in_plain(kx, ky, p, with_in), tol)
+                errs4.append(err)
+                if dt == torch.bfloat16 and with_in:
+                    ms4 += ms * calls
+                    plain4 += plain_ms * calls
+    errs5, res5 = [], None
+    for g, h, w, dd in ((BATCH * n, 16, 16, d), (16, 7, 15, 128)):
+        kx, ky, phi = _axial_inputs(gen, dev, (g,), h, w, dd)
+        for dt, tol in _AXIAL_TOL.items():
+            p = phi.to(dt)
+            err, ms, plain_ms = compare(
+                f"axial_kernel_apply_headmajor {str(dt)[6:]} [{g},{h},{w},{dd}]",
+                lambda: axial_kernel_apply_headmajor(kx, ky, p),
+                lambda: axial_kernel_apply_headmajor_plain(kx, ky, p), tol)
+            errs5.append(err)
+            if res5 is None and dt == torch.bfloat16:
+                res5 = {"ms": ms, "plain_ms": plain_ms}
+    return ({"max_abs_err": max(errs4), "ms": ms4, "plain_ms": plain4},
+            {"max_abs_err": max(errs5), **res5})
+
+
+def check_pipeline(dev, gen, n, d):
+    """Kernel 6 at the TPU probes' [B, 2, 128, 2048] with B = one decode
+    chunk, kernel 7 at a decode chunk's head-major 32x32 value."""
+    from lns_tpu_torch.kernels.axial_pipeline import (bmm_blockdiag, bmm_blockdiag_plain,
+                                                      transpose_hw, transpose_hw_plain)
+
+    kb = (torch.randn(CHUNK, 2, 128, 128, generator=gen) / 128 ** 0.5).to(dev)
+    x = torch.randn(CHUNK, 2, 128, 2048, generator=gen).to(dev)
+    errs6, res6 = [], None
+    # f32: 128-term sums in another order; bf16: both sum in f32 and round
+    # once, so at most about one bf16 ulp apart
+    for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        xd = x.to(dt)
+        err, ms, plain_ms = compare(f"bmm_blockdiag {str(dt)[6:]} [{CHUNK},2,128,2048]",
+                                    lambda: bmm_blockdiag(kb, xd),
+                                    lambda: bmm_blockdiag_plain(kb, xd), tol)
+        errs6.append(err)
+        if dt == torch.bfloat16:
+            res6 = {"ms": ms, "plain_ms": plain_ms}
+    del kb, x
+    y = torch.randn(CHUNK, n, 32, 32, d, generator=gen).to(dev)
+    errs7, res7 = [], None
+    for dt in (torch.float32, torch.bfloat16):  # data movement: exactly equal
+        yd = y.to(dt)
+        err, ms, plain_ms = compare(f"transpose_hw {str(dt)[6:]} [{CHUNK},{n},32,32,{d}]",
+                                    lambda: transpose_hw(yd), lambda: transpose_hw_plain(yd), 0.0)
+        errs7.append(err)
+        if dt == torch.bfloat16:
+            res7 = {"ms": ms, "plain_ms": plain_ms}
+    return ({"max_abs_err": max(errs6), **res6}, {"max_abs_err": max(errs7), **res7})
+
+
+def _fab_inputs(gen, dev, b, h, w, c, n, d, dt):
+    u = torch.randn(b, h, w, c, generator=gen).to(dev, dt)
+    kx = (torch.randn(b, n, h, h, generator=gen) / h).to(dev, dt)
+    ky = (torch.randn(b, n, w, w, generator=gen) / w).to(dev, dt)
+    w_in = (torch.randn(c, n, d, generator=gen) / c ** 0.5).to(dev)
+    w_o1 = (torch.randn(n, d, c, generator=gen) / d ** 0.5).to(dev)
+    return u, kx, ky, w_in, w_o1
+
+
+def check_fab_cores(dev, gen, shapes, n, d):
+    """The d-space core's kernel path against its plain version at the
+    paths' d-space shapes, then both cores' kernel paths (and plain
+    versions) timed at every FAB shape of the paths, bf16."""
+    from lns_tpu_torch.kernels.fab_core import fab_core_plain, fab_fused_core
+    from lns_tpu_torch.ops.factorized_attention import (_fab_impl_for, fab_dspace_core,
+                                                        fab_dspace_core_plain)
+
+    for b, h, w, c in shapes:
+        if _fab_impl_for(c, d) != "batched":
+            continue
+        # f32: normalise-then-project against the norm folded into the
+        # projection, sums in another order; bf16: the kernel path rounds the
+        # normalised value to bf16, the plain version rounds wp = inv W and
+        # the bias instead (the c-space core's bound)
+        for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
+            a = _fab_inputs(gen, dev, b, h, w, c, n, d, dt)
+            compare(f"fab_dspace_core {str(dt)[6:]} b{b} {h}x{w} c{c} n{n} d{d}",
+                    lambda: fab_dspace_core(*a), lambda: fab_dspace_core_plain(*a), tol)
+    print("      both FAB cores, bf16, ms (CUDA events): c-space kernel / plain, "
+          "d-space kernel path / plain", flush=True)
+    for b, h, w, c in shapes:
+        a = _fab_inputs(gen, dev, b, h, w, c, n, d, torch.bfloat16)
+        t = [cuda_ms(lambda: f(*a)) for f in (fab_fused_core, fab_core_plain, fab_dspace_core,
+                                               fab_dspace_core_plain)]
+        print(f"      FAB b{b} {h}x{w} c{c} (rule: {_fab_impl_for(c, d)}): c-space {t[0]:.4f} / "
+              f"{t[1]:.4f}, d-space {t[2]:.4f} / {t[3]:.4f}", flush=True)
+
+
 # -- the model's kernel call sites and expected launch counts ---------------
 
 def call_sites(model, dev):
     """Every GroupNorm and FAB-block call of one encode (batch BATCH) and one
     decode (batch CHUNK), found with forward hooks on a one-frame run of the
     plain path. Returns ({(batch, spatial, C, groups, eps, swish): calls per
-    predict}, {FAB field side: calls per predict})."""
+    predict}, {(part, batch, h, w, c, formulation): calls per predict})."""
     from lns_tpu_torch.ops.factorized_attention import FABlock2D
     from lns_tpu_torch.ops.norms import GroupNorm
 
@@ -193,11 +329,11 @@ def call_sites(model, dev):
         part = name.split(".")[1]
 
         def hook(mod, args, kwargs, out, part=part):
-            spatial = tuple(args[0].shape[2:])
+            _, c, *spatial = args[0].shape
             if isinstance(mod, FABlock2D):
-                seen.append((part, "fab", spatial))
+                seen.append((part, "fab", (*spatial, c, mod.impl)))
             else:
-                seen.append((part, "gn", (spatial, mod.weight.numel(), mod.num_groups,
+                seen.append((part, "gn", (tuple(spatial), mod.weight.numel(), mod.num_groups,
                                           mod.eps, bool(kwargs.get("apply_swish", False)))))
         hooks.append(m.register_forward_hook(hook, with_kwargs=True))
     cfg = model.cfg
@@ -210,27 +346,35 @@ def call_sites(model, dev):
     gn, fab = {}, {}
     for part, what, key in seen:
         batch, calls = (BATCH, 1) if part == "encoder" else (CHUNK, n_chunks)
-        if what == "fab":
-            fab[key[0]] = fab.get(key[0], 0) + calls
-        else:
-            gn[(batch,) + key] = gn.get((batch,) + key, 0) + calls
+        site = (batch,) + key if what == "gn" else (part, batch) + key
+        sites = gn if what == "gn" else fab
+        sites[site] = sites.get(site, 0) + calls
     return gn, fab
 
 
 def expected_launches(cfg):
-    """Launches per predict that the layer specs imply: the rollout once,
-    the FAB core once per FAB block per decode chunk, the GroupNorm kernel
-    once per GN site (two per ResidualBlock, one per GN layer and per FAB
-    ``in_norm``) per encode or decode chunk."""
+    """Launches per predict that the layer specs imply: the rollout once;
+    per FAB block, once per encode or decode chunk, the FAB core (c-space)
+    or the axial kernel (d-space), as ``_fab_impl_for`` picks from the
+    block's dim and dim_head; the GroupNorm kernel once per GN site (two per
+    ResidualBlock, one per GN layer and per FAB ``in_norm``) per encode or
+    decode chunk."""
     from lns_tpu_torch.models.specs import decoder_spec, encoder_spec
-
-    def gns(specs):
-        return sum({"resblock": 2, "gn": 1, "fablock": 1}.get(s.kind, 0) for s in specs)
+    from lns_tpu_torch.ops.factorized_attention import _fab_impl_for
 
     n_chunks = -(-BATCH * STEPS // CHUNK)
-    n_fab = sum(s.kind == "fablock" for s in decoder_spec(cfg))
-    return {"prop_rollout": 1, "fab_core": n_fab * n_chunks,
-            "group_norm": gns(encoder_spec(cfg)) + n_chunks * gns(decoder_spec(cfg))}
+    parts = ((encoder_spec(cfg), 1), (decoder_spec(cfg), n_chunks))
+
+    def count(per_spec):
+        return sum(calls * sum(per_spec(s) for s in specs) for specs, calls in parts)
+
+    def fabs(impl):
+        return count(lambda s: s.kind == "fablock"
+                     and _fab_impl_for(s.kw["dim"], s.kw["dim_head"]) == impl)
+
+    return {"prop_rollout": 1, "fab_core": fabs("batchedgram"),
+            "fab_axial_in_fused": fabs("batched"),
+            "group_norm": count(lambda s: {"resblock": 2, "gn": 1, "fablock": 1}.get(s.kind, 0))}
 
 
 # -- main -------------------------------------------------------------------
@@ -269,46 +413,39 @@ def main() -> int:
     return 0
 
 
-def run(dev):
-    """Phases 3 and 4 on `dev`; returns the per-kernel results."""
-    from lns_tpu_torch.config import ns2d_config
-    from lns_tpu_torch.kernels import fab_core, group_norm, prop_rollout
+def _counted():
+    """Every kernel wrapper by the name the kernels JSON line gives it."""
+    from lns_tpu_torch.kernels import axial, axial_pipeline, fab_core, group_norm, prop_rollout
+
+    return {"prop_rollout": prop_rollout.fused_rollout, "fab_core": fab_core.fab_fused_core,
+            "group_norm": group_norm.fused_group_norm_swish,
+            "fab_axial_in_fused": axial.fab_axial_in_fused,
+            "axial_kernel_apply_headmajor": axial.axial_kernel_apply_headmajor,
+            "bmm_blockdiag": axial_pipeline.bmm_blockdiag,
+            "transpose_hw": axial_pipeline.transpose_hw}
+
+
+def drive_path(label, model, expect, gen, dev):
+    """One path: the launch counts of one predict, the f32 kernel-vs-plain
+    check and frames/s of both paths. Returns the launch counts."""
     from lns_tpu_torch.models import LatentDynamics
-    from lns_tpu_torch.ops.initializers import init_weights_
 
-    cfg = ns2d_config()
-    gen = torch.Generator().manual_seed(0)
-    model = init_weights_(LatentDynamics(cfg, dtype=torch.bfloat16, ae_dtype=torch.bfloat16),
-                          gen).to(dev)
-    sites, fab_sites = call_sites(model, dev)
-    expect = expected_launches(cfg)
-    _check(sum(sites.values()) == expect["group_norm"],
-           f"GroupNorm calls found {sum(sites.values())} == spec count {expect['group_norm']}")
-    _check(sum(fab_sites.values()) == expect["fab_core"] and sorted(fab_sites) == [16, 32],
-           f"FAB calls found {fab_sites} == spec count {expect['fab_core']}")
-
-    print("-- kernels against their plain versions (TF32 off)", flush=True)
-    t0 = time.perf_counter()
-    res_roll = check_rollout(dev, gen)
-    res_fab = check_fab_core(dev, gen, fab_sites)
-    res_gn = check_group_norm(dev, gen, sites)
-    print(f"      comparisons took {time.perf_counter() - t0:.1f} s", flush=True)
-
-    print(f"-- main path: NS2d predict, batch {BATCH}, {STEPS} steps, decode chunk {CHUNK}, "
-          "bf16", flush=True)
+    cfg = model.cfg
+    print(f"-- {label}: predict, batch {BATCH}, {STEPS} steps, decode chunk {CHUNK}, bf16",
+          flush=True)
     x = torch.randn(BATCH, cfg.Ly, cfg.Lx, cfg.in_channels, generator=gen).to(dev)
-    counted = {"prop_rollout": prop_rollout.fused_rollout, "fab_core": fab_core.fab_fused_core,
-               "group_norm": group_norm.fused_group_norm_swish}
+    counted = _counted()
     for f in counted.values():
         f.launches = 0
     y = model.predict(x, STEPS, decode_chunk=CHUNK)
     torch.cuda.synchronize()
     launches = {k: f.launches for k, f in counted.items()}
     _check(tuple(y.shape) == (BATCH, STEPS, cfg.Ly, cfg.Lx, cfg.in_channels),
-           f"output shape {tuple(y.shape)}")
-    _check(bool(torch.isfinite(y).all()), "output finite")
+           f"{label}: output shape {tuple(y.shape)}")
+    _check(bool(torch.isfinite(y).all()), f"{label}: output finite")
     for k, n in launches.items():
-        _check(n == expect[k] and n > 0, f"{k} launches {n} == {expect[k]}")
+        want = expect.get(k, 0)  # the library kernels (5-7) run on no path
+        _check(n == want and (n > 0) == (k in expect), f"{label}: {k} launches {n} == {want}")
 
     # the kernel path against the all-plain path, f32, small input; the
     # JAX package holds its own predict to 3e-4 (tests/test_torch_export.py)
@@ -319,7 +456,7 @@ def run(dev):
     yp = m32.use_kernels(False).predict(xs, 4, decode_chunk=CHUNK)
     err = (yk - yp).abs().max().item()
     _check(bool(torch.isfinite(yk).all()) and err <= 3e-4,
-           f"f32 predict B2 4 steps, kernels vs plain: max_abs_err {err:.3e} <= 3e-4")
+           f"{label}: f32 predict B2 4 steps, kernels vs plain: max_abs_err {err:.3e} <= 3e-4")
     del m32, yk, yp
 
     # frames/s: each predict timed alone by CUDA events (it ends on the host
@@ -335,23 +472,80 @@ def run(dev):
             times[flag].append(cuda_ms(lambda: model.predict(x, STEPS, decode_chunk=CHUNK),
                                        1, warm=False))
     model.use_kernels(True)
-    for flag, label in ((True, "kernel path"), (False, "plain path")):
+    for flag, path in ((True, "kernel path"), (False, "plain path")):
         t = sorted(times[flag])
         med = t[len(t) // 2]
-        print(f"      predict {label}: median {med:.2f} ms (min {t[0]:.2f}, max {t[-1]:.2f}, "
-              f"n={len(t)}), {frames / med * 1e3:.1f} frames/s", flush=True)
+        print(f"      {label} predict {path}: median {med:.2f} ms (min {t[0]:.2f}, "
+              f"max {t[-1]:.2f}, n={len(t)}), {frames / med * 1e3:.1f} frames/s", flush=True)
+    return launches
 
+
+def run(dev):
+    """Phases 3 and 4 on `dev`; returns the per-kernel results."""
+    from lns_tpu_torch.config import ns2d_config
+    from lns_tpu_torch.models import LatentDynamics
+    from lns_tpu_torch.ops.initializers import init_weights_
+
+    gen = torch.Generator().manual_seed(0)
+    paths = []  # (label, model, expected launches)
+    gn_sites, fab_sites = {}, {}  # summed over one predict of each path
+    for label, cfg in (("path 1 NS2d", ns2d_config()),
+                       ("path 2 NS2d use_attn_enc", ns2d_config().replace(use_attn_enc=True))):
+        model = init_weights_(LatentDynamics(cfg, dtype=torch.bfloat16,
+                                             ae_dtype=torch.bfloat16), gen).to(dev)
+        gn, fab = call_sites(model, dev)
+        expect = expected_launches(cfg)
+        _check(sum(gn.values()) == expect["group_norm"],
+               f"{label}: GroupNorm calls found {sum(gn.values())} == spec count "
+               f"{expect['group_norm']}")
+        for impl, k in (("batchedgram", "fab_core"), ("batched", "fab_axial_in_fused")):
+            found = {s: c for s, c in fab.items() if s[-1] == impl}
+            _check(sum(found.values()) == expect[k],
+                   f"{label}: {impl} FAB calls found {found} == spec count {expect[k]}")
+        paths.append((label, model, {k: v for k, v in expect.items() if v}))
+        for sites, new in ((gn_sites, gn), (fab_sites, fab)):
+            for s, c in new.items():
+                sites[s] = sites.get(s, 0) + c
+
+    def fab_shapes(impl):  # {(batch, h, w, c): calls} over both paths
+        out = {}
+        for (_, b, h, w, c, i), calls in fab_sites.items():
+            if i == impl:
+                out[(b, h, w, c)] = out.get((b, h, w, c), 0) + calls
+        return out
+
+    cfg = paths[0][1].cfg
+    n, d = cfg.attn_heads, cfg.attn_dim
+    print("-- kernels against their plain versions (TF32 off)", flush=True)
+    t0 = time.perf_counter()
+    res = {"prop_rollout": check_rollout(dev, gen, len(paths)),
+           "fab_core": check_fab_core(dev, gen, fab_shapes("batchedgram"), n, d),
+           "group_norm": check_group_norm(dev, gen, gn_sites)}
+    res["fab_axial_in_fused"], res["axial_kernel_apply_headmajor"] = check_axial(
+        dev, gen, fab_shapes("batched"), n, d)
+    res["bmm_blockdiag"], res["transpose_hw"] = check_pipeline(dev, gen, n, d)
+    check_fab_cores(dev, gen, sorted({**fab_shapes("batchedgram"), **fab_shapes("batched")}),
+                    n, d)
+    print(f"      comparisons took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    by_path = {label: drive_path(label, model, expect, gen, dev)
+               for label, model, expect in paths}
+
+    src = "lns_tpu_torch/csrc/"
     kernels = [
-        {"name": "prop_rollout", "route": "cuda", "source": "lns_tpu_torch/csrc/prop_rollout.cu",
-         "replaces": "lns_tpu/pallas_kernels/prop_rollout.py:292", **res_roll},
-        {"name": "fab_core", "route": "cuda", "source": "lns_tpu_torch/csrc/fab_core.cu",
-         "replaces": "lns_tpu/pallas_kernels/fab_core.py:170", **res_fab},
-        {"name": "group_norm", "route": "triton", "source": "lns_tpu_torch/kernels/group_norm.py",
-         "replaces": "lns_tpu/pallas_kernels/group_norm.py:50", **res_gn},
+        ("prop_rollout", "cuda", src + "prop_rollout.cu", "prop_rollout.py:292"),
+        ("fab_core", "cuda", src + "fab_core.cu", "fab_core.py:170"),
+        ("group_norm", "triton", "lns_tpu_torch/kernels/group_norm.py", "group_norm.py:50"),
+        ("fab_axial_in_fused", "cuda", src + "axial.cu", "axial_fused.py:132"),
+        ("axial_kernel_apply_headmajor", "cuda", src + "axial.cu", "axial_attention.py:75"),
+        ("bmm_blockdiag", "cuda", src + "axial_pipeline.cu", "axial_pipeline.py:59"),
+        ("transpose_hw", "cuda", src + "axial_pipeline.cu", "axial_pipeline.py:87"),
     ]
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
-    return kernels
+    return [{"name": name, "route": route, "source": source,
+             "replaces": "lns_tpu/pallas_kernels/" + rep,
+             "launches": sum(counts[name] for counts in by_path.values()),
+             "launches_by_path": {label: counts[name] for label, counts in by_path.items()},
+             **res[name]} for name, route, source, rep in kernels]
 
 
 if __name__ == "__main__":

@@ -7,4 +7,8 @@ for a CUDA tensor it launches the kernel or raises.
   * ``prop_rollout``  CUDA C++ (``csrc/prop_rollout.cu``): all propagator steps
   * ``fab_core``      CUDA C++ (``csrc/fab_core.cu``): the FAB c-space core
   * ``group_norm``    Triton: GroupNorm + affine (+ swish)
+  * ``axial``         CUDA C++ (``csrc/axial.cu``): head-major axial apply
+                      (+ InstanceNorm), the FAB d-space core
+  * ``axial_pipeline`` CUDA C++ (``csrc/axial_pipeline.cu``): batched
+                      square-by-wide matmul and the h <-> w swap
 """

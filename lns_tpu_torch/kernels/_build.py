@@ -1,6 +1,7 @@
 """Build and load the CUDA kernels in ``lns_tpu_torch/csrc``.
 
-nvcc compiles every ``csrc/*.cu`` into one shared library with a plain C
+nvcc compiles every ``csrc/*.cu`` (one nvcc process per source, all started
+together) and links the objects into one shared library with a plain C
 interface (``-gencode arch=compute_90a,code=sm_90a``), which ``ctypes``
 loads. The library lands in ``lns_tpu_torch/_build/`` (git-ignored) under a
 name keyed by a hash of the sources and flags, so a checkout builds it at
@@ -16,20 +17,38 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
+    "lns_axial_apply": [_I] * 3 + [_P] * 4 + [_I] * 5 + [ctypes.c_float, _P],
+    "lns_bmm": [_I] + [_P] * 3 + [_I] * 3 + [_P],
     "lns_fab_core": [_I] + [_P] * 8 + [_I] * 7 + [ctypes.c_float, _P],
     "lns_prop_rollout": [_I] + [_P] * 13 + [_I] * 11 + [_P],
+    "lns_transpose_hw": [_I] + [_P] * 2 + [_I] * 4 + [_P],
 }
 
 _lib = None
+
+# the C entry points' dtype argument: which T (float, __nv_bfloat16) to run
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def on_cuda(t: torch.Tensor, name: str) -> bool:
+    """False for a CPU tensor (the wrapper takes its plain version), True
+    for a CUDA tensor (it launches the kernel); any other device raises."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return True
 
 
 def _nvcc() -> str:
@@ -64,16 +83,29 @@ def build(ptxas_verbose: bool = False) -> str:
         return ""
     sources, _ = _sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if ptxas_verbose else []),
-           "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return proc.stdout + proc.stderr
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    tmp = out.with_name(f"{tag}.tmp.so")
+    nvcc, verbose = _nvcc(), (["-Xptxas", "-v"] if ptxas_verbose else [])
+    steps = [[[nvcc, *NVCC_FLAGS, *verbose, "-c", "-o", str(o), str(src)]
+              for src, o in zip(sources, objs)],
+             [[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]]]
+    msgs = []
+    try:
+        for cmds in steps:  # the compiles run side by side, then the link
+            procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True) for c in cmds]
+            texts = [proc.communicate()[0] for proc in procs]  # wait for every one
+            for cmd, proc, text in zip(cmds, procs, texts):
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                                       f"{text}")
+            msgs += texts
+        os.replace(tmp, out)
+    finally:
+        for f in objs + [tmp]:
+            f.unlink(missing_ok=True)
+    return "".join(msgs)
 
 
 def library() -> ctypes.CDLL:

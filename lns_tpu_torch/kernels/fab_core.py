@@ -73,9 +73,6 @@ def fab_core_plain(u, k_x, k_y, w_in, w_o1, eps: float = 1e-5):
     return torch.einsum("bnilc,bnco->bilo", bb, m) - bias
 
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-
 def fab_fused_core(u, k_x, k_y, w_in, w_o1, eps: float = 1e-5):
     """FAB core with the JAX kernel's shapes: u [b, h, w, c] (post-GN),
     k_x [b, n, h, h], k_y [b, n, w, w], w_in [c, n, d], w_o1 [n, d, o] ->
@@ -83,11 +80,9 @@ def fab_fused_core(u, k_x, k_y, w_in, w_o1, eps: float = 1e-5):
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     on the current stream or raises."""
-    if u.device.type == "cpu":
+    if not _build.on_cuda(u, "fab_fused_core"):
         return fab_core_plain(u, k_x, k_y, w_in, w_o1, eps)
-    if u.device.type != "cuda":
-        raise ValueError(f"fab_fused_core: unsupported device {u.device}")
-    if u.dtype not in _DTYPE_CODE:
+    if u.dtype not in _build.DTYPE_CODE:
         raise TypeError(f"fab_fused_core: unsupported dtype {u.dtype}")
     if u.dim() != 4 or not u.is_contiguous():
         raise ValueError("fab_fused_core: u must be contiguous [b, h, w, c]")
@@ -108,7 +103,7 @@ def fab_fused_core(u, k_x, k_y, w_in, w_o1, eps: float = 1e-5):
     out = torch.empty((b, h, w, o), device=u.device, dtype=u.dtype)
     lib = _build.library()
     rc = lib.lns_fab_core(
-        _DTYPE_CODE[u.dtype], u.data_ptr(), kx.data_ptr(), ky.data_ptr(),
+        _build.DTYPE_CODE[u.dtype], u.data_ptr(), kx.data_ptr(), ky.data_ptr(),
         wi.data_ptr(), w1.data_ptr(), m.data_ptr(), bias.data_ptr(),
         out.data_ptr(), b, n, h, w, c, d, o, ctypes.c_float(eps),
         torch.cuda.current_stream(u.device).cuda_stream)

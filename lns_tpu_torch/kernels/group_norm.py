@@ -24,6 +24,8 @@ from __future__ import annotations
 
 import torch
 
+from lns_tpu_torch.kernels import _build
+
 _KERNEL = None
 
 
@@ -107,10 +109,8 @@ def fused_group_norm_swish(x, scale, bias, num_groups: int, eps: float = 1e-6,
 
     A CPU tensor takes the plain version; a CUDA tensor launches the Triton
     kernel on the current stream or raises."""
-    if x.device.type == "cpu":
+    if not _build.on_cuda(x, "fused_group_norm_swish"):
         return group_norm_swish_plain(x, scale, bias, num_groups, eps, apply_swish)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_group_norm_swish: unsupported device {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16, torch.float16):
         raise TypeError(f"fused_group_norm_swish: unsupported dtype {x.dtype}")
     if not x.is_contiguous():

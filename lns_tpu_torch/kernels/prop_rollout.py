@@ -125,9 +125,6 @@ def fused_rollout_plain(z0, packed: PackedSimpleCNN, steps: int, n_block: int,
     return torch.stack(outs)
 
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-
 def fused_rollout(z0, packed: PackedSimpleCNN, steps: int, n_block: int,
                   dilation: int, padding_mode: str, groups: int = 32):
     """Run `steps` SimpleCNN applications: z0 [B, H, W, C_lat] ->
@@ -136,14 +133,12 @@ def fused_rollout(z0, packed: PackedSimpleCNN, steps: int, n_block: int,
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     on the current stream or raises."""
-    if z0.device.type == "cpu":
+    if not _build.on_cuda(z0, "fused_rollout"):
         return fused_rollout_plain(z0, packed, steps, n_block, dilation, padding_mode, groups)
-    if z0.device.type != "cuda":
-        raise ValueError(f"fused_rollout: unsupported device {z0.device}")
     if padding_mode not in _WRAP:
         raise ValueError(f"fused_rollout: unsupported padding mode {padding_mode}")
     dt = packed.in_w.dtype
-    if dt not in _DTYPE_CODE:
+    if dt not in _build.DTYPE_CODE:
         raise TypeError(f"fused_rollout: unsupported dtype {dt}")
     if z0.dim() != 4:
         raise ValueError("fused_rollout: z0 must be [B, H, W, C_lat]")
@@ -166,7 +161,7 @@ def fused_rollout(z0, packed: PackedSimpleCNN, steps: int, n_block: int,
     out = torch.empty((steps, b, h, w, c_lat), device=z0.device, dtype=dt)
     wrap_y, wrap_x = _WRAP[padding_mode]
     rc = _build.library().lns_prop_rollout(
-        _DTYPE_CODE[dt], z.data_ptr(), *(t.data_ptr() for t in packed), out.data_ptr(),
+        _build.DTYPE_CODE[dt], z.data_ptr(), *(t.data_ptr() for t in packed), out.data_ptr(),
         b, h, w, c_lat, c, n_block, dilation, wrap_y, wrap_x, groups, steps,
         torch.cuda.current_stream(z0.device).cuda_stream)
     # the C entry refuses shapes its thread layout or shared memory cannot

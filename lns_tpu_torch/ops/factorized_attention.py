@@ -2,10 +2,16 @@
 modules/factorized_attention.py), on NCHW tensors.
 
 FABlock2D builds one n x n integral kernel per spatial axis from pooled axis
-descriptors (no softmax), applies both to the value in channel space, and
-folds in_proj, the InstanceNorm and out_fc1 into one per-(sample, head)
-matrix — the math of ``lns_tpu``'s ``FABlock2D._batched_gram_core``. That
-core is the FAB-core kernel (``kernels.fab_core``) for every shape here.
+descriptors (no softmax) and applies both to the value. Its core takes one
+of the JAX package's two formulations, by the same rule
+(``_fab_impl_for``):
+
+  * c-space (``"batchedgram"``, ``_batched_gram_core``): the kernels apply in
+    channel space, and in_proj, the InstanceNorm and out_fc1 fold into one
+    per-(sample, head) matrix; the FAB-core kernel (``kernels.fab_core``).
+  * d-space (``"batched"``, ``_batched_core``): in_proj first, the axial
+    applies and the InstanceNorm on the head-major value
+    (``kernels.axial.fab_axial_in_fused``), then out_fc1 summed over heads.
 """
 
 from __future__ import annotations
@@ -13,6 +19,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from lns_tpu_torch.kernels.axial import fab_axial_in_fused
 from lns_tpu_torch.kernels.fab_core import fab_core_plain, fab_fused_core
 from lns_tpu_torch.ops.activations import gelu
 from lns_tpu_torch.ops.conv import Conv1x1, Dense
@@ -69,11 +76,55 @@ class PoolingReducer(nn.Module):
         return self.out_ffn(x)
 
 
+def _fab_impl_for(dim: int, dim_head: int) -> str:
+    """The JAX package's choice of FAB core (``lns_tpu.ops.factorized_attention.
+    _fab_impl_for``, without its benchmarking override): the c-space core
+    touches a heads x dim wide tensor in 5 passes, the d-space core a
+    heads x dim_head wide one in 9, so c-space iff 5 dim < 9 dim_head."""
+    return "batchedgram" if 5 * dim < 9 * dim_head else "batched"
+
+
+def fab_dspace_core_plain(u, k_x, k_y, w_in, w_o1, eps: float = 1e-5):
+    """Plain PyTorch version of the d-space core, line for line the JAX
+    package's ``FABlock2D._batched_core``: u [b, h, w, c], k_x [b, n, h, h],
+    k_y [b, n, w, w], w_in [c, n, d], w_o1 [n, d, o] -> [b, h, w, o] in u's
+    dtype. The InstanceNorm folds into per-sample out-projection weights
+    (wp = inv W, bias = mean inv W), with f32 statistics."""
+    dt = u.dtype
+    k_x, k_y, w_in = k_x.to(dt), k_y.to(dt), w_in.to(dt)
+    phi = torch.einsum("bhwc,cnd->bhwnd", u, w_in)
+    x = torch.einsum("bnih,bhwnd->bniwd", k_x, phi)
+    x = torch.einsum("bnlw,bniwd->bnlid", k_y, x)
+    mean = x.float().mean(dim=(2, 3))                          # [b, n, d]
+    sq = x.float().square().mean(dim=(2, 3))
+    inv = torch.rsqrt((sq - mean.square()).clamp_min(0.0) + eps)
+    w1f = w_o1.float()                                         # [n, d, o]
+    wp = (inv[..., None] * w1f[None]).to(dt)                   # [b, n, d, o]
+    bias = torch.einsum("bnd,ndo->bo", mean * inv, w1f).to(dt)
+    out = torch.einsum("bnlid,bndo->blio", x, wp) - bias[:, None, None, :]
+    return out.transpose(1, 2)
+
+
+def fab_dspace_core(u, k_x, k_y, w_in, w_o1, eps: float = 1e-5):
+    """The d-space core in three steps: in_proj to the head-major value
+    phi [b, n, h, w, d] (a plain product, as in the JAX package), the axial
+    applies and the InstanceNorm (``fab_axial_in_fused``, the kernel on a
+    CUDA tensor), and out_fc1 summed over heads (a plain product). Shapes as
+    ``fab_dspace_core_plain``. It rounds where the TPU kernel's caller does:
+    the normalised value is rounded to u's dtype before the projection,
+    where the plain version folds the norm into the projection weights."""
+    dt = u.dtype
+    phi = torch.einsum("bhwc,cnd->bnhwd", u, w_in.to(dt)).contiguous()
+    y = fab_axial_in_fused(k_x.to(dt), k_y.to(dt), phi, with_instance_norm=True, eps=eps)
+    return torch.einsum("bnhwd,ndo->bhwo", y, w_o1.to(dt))
+
+
 class FABlock2D(nn.Module):
     """Factorized attention block (reference: factorized_attention.py:97-160):
     GN(1) input norm -> pooled per-row / per-column descriptors -> two
     LowRankKernels k_x (h x h), k_y (w x w) -> FAB core (axial applications,
-    InstanceNorm, out_fc1, head sum) -> GELU -> out_fc2, residual.
+    InstanceNorm, out_fc1, head sum; c-space or d-space by
+    ``_fab_impl_for``) -> GELU -> out_fc2, residual.
 
     ``use_kernel=False`` runs the core's plain version on any device."""
 
@@ -96,6 +147,7 @@ class FABlock2D(nn.Module):
             nn.GELU(),
             Conv1x1(dim_out, dim_out, use_bias=False),
         )
+        self.impl = _fab_impl_for(dim, dim_head)
         self.use_kernel = True
 
     def forward(self, u: torch.Tensor) -> torch.Tensor:
@@ -110,7 +162,10 @@ class FABlock2D(nn.Module):
         k_y = self.low_rank_kernel_y(u_y)         # [b, heads, w, w]
         w_o1 = self.to_out[1].weight[:, :, 0, 0].t().reshape(
             self.heads, self.dim_head, self.dim_out)
-        core = fab_fused_core if self.use_kernel else fab_core_plain
+        if self.impl == "batchedgram":
+            core = fab_fused_core if self.use_kernel else fab_core_plain
+        else:
+            core = fab_dspace_core if self.use_kernel else fab_dspace_core_plain
         out = core(un.contiguous(), k_x, k_y, w_in, w_o1)
         out = self.to_out[3].forward_last(gelu(out))
         return out.movedim(-1, 1) + u_skip

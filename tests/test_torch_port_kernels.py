@@ -22,14 +22,16 @@ from lns_tpu.pallas_kernels import fab_core as jfab
 from lns_tpu.pallas_kernels import group_norm as jgn
 from lns_tpu.pallas_kernels import prop_rollout as jpr
 from lns_tpu_torch.config import Config
-from lns_tpu_torch.kernels import fab_core, group_norm, prop_rollout
+from lns_tpu_torch.kernels import axial, axial_pipeline, fab_core, group_norm, prop_rollout
 from lns_tpu_torch.models.propagator import SimpleCNN
 from lns_tpu_torch.utils.convert import propagator_state_dict
 
 from _torch_port import load, perturb
 
 _COUNTED = (group_norm.fused_group_norm_swish, fab_core.fab_fused_core,
-            prop_rollout.fused_rollout)
+            prop_rollout.fused_rollout, axial.fab_axial_in_fused,
+            axial.axial_kernel_apply_headmajor, axial_pipeline.bmm_blockdiag,
+            axial_pipeline.transpose_hw)
 
 
 @pytest.mark.parametrize("groups,eps,swish,shape", [
@@ -97,7 +99,11 @@ def test_wrappers_count_no_launch_on_cpu():
     cnn = SimpleCNN(16, 1, 32, 2)
     prop_rollout.fused_rollout(torch.randn(2, 4, 4, 16), prop_rollout.pack_simple_cnn(cnn),
                                2, 1, 2, "circular")
-    assert [f.launches for f in _COUNTED] == before == [0, 0, 0]
+    phi = torch.randn(2, 2, 8, 8, 16)
+    axial.fab_axial_in_fused(torch.randn(2, 2, 8, 8), torch.randn(2, 2, 8, 8), phi)
+    axial.axial_kernel_apply(torch.randn(2, 2, 8, 8), torch.randn(2, 2, 8, 8), x, 2)
+    axial_pipeline.axial_apply_pipeline(torch.randn(2, 2, 8, 8), torch.randn(2, 2, 8, 8), phi)
+    assert [f.launches for f in _COUNTED] == before == [0] * len(_COUNTED)
 
 
 def test_wrappers_refuse_other_devices():
@@ -112,3 +118,17 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="device"):
         prop_rollout.fused_rollout(torch.empty(2, 4, 4, 16, device="meta"),
                                    prop_rollout.pack_simple_cnn(cnn), 2, 1, 2, "circular")
+    k = torch.empty(2, 2, 8, 8, device="meta")
+    phi = torch.empty(2, 2, 8, 8, 16, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        axial.fab_axial_in_fused(k, k, phi)
+    with pytest.raises(ValueError, match="device"):
+        axial.axial_kernel_apply_headmajor(k[0], k[0], phi[0])
+    with pytest.raises(ValueError, match="device"):
+        axial.axial_kernel_apply(k, k, x, 2)
+    with pytest.raises(ValueError, match="device"):
+        axial_pipeline.bmm_blockdiag(k, phi.reshape(2, 2, 8, 128))
+    with pytest.raises(ValueError, match="device"):
+        axial_pipeline.transpose_hw(phi)
+    with pytest.raises(ValueError, match="device"):
+        axial_pipeline.axial_apply_pipeline(k, k, phi)

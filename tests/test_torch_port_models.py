@@ -13,6 +13,7 @@ import sys
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import __graft_entry__ as graft
@@ -44,16 +45,20 @@ def test_state_dict_from_jax_matches_export():
     load(LatentDynamics(Config(small_ns2d_dict())), ours)  # strict
 
 
-def test_full_size_keys_and_shapes_match():
-    """At the NS2d widths the main path runs: the converter's keys and
-    shapes are the port model's own (from the JAX init's shapes alone)."""
-    jmodel = JLatentDynamics(graft._ns2d_cfg())
+@pytest.mark.parametrize("use_attn_enc", [False, True])
+def test_full_size_keys_and_shapes_match(use_attn_enc):
+    """At the NS2d widths the main paths run (with and without the encoder's
+    attention blocks): the converter's keys and shapes are the port model's
+    own (from the JAX init's shapes alone)."""
+    jmodel = JLatentDynamics(graft._ns2d_cfg().replace(use_attn_enc=use_attn_enc))
     shapes = jax.eval_shape(lambda: jmodel.init(jax.random.PRNGKey(0), (1, 64, 64, 1)))
     params = jax.tree.map(lambda s: np.zeros(s.shape, np.float32), shapes["params"])
-    state = state_dict_from_jax(ns2d_config(), params)
-    own = LatentDynamics(ns2d_config()).state_dict()
+    cfg = ns2d_config().replace(use_attn_enc=use_attn_enc)
+    state = state_dict_from_jax(cfg, params)
+    own = LatentDynamics(cfg).state_dict()
     assert {k: tuple(v.shape) for k, v in state.items()} == \
         {k: tuple(v.shape) for k, v in own.items()}
+    assert any("encoder" in k and "low_rank_kernel" in k for k in own) == use_attn_enc
 
 
 def test_simple_cnn_step_matches_jax():
