@@ -51,14 +51,15 @@ def on_cuda(t: torch.Tensor, name: str) -> bool:
     return True
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str = "nvcc") -> str:
+    """Path of a CUDA toolkit program (nvcc, cuobjdump): the one beside nvcc
+    on PATH, else under /usr/local/cuda/bin; raises if there is none."""
     found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    bindir = Path(found).parent if found else Path("/usr/local/cuda/bin")
+    tool = bindir / name
+    if not tool.exists():
+        raise RuntimeError(f"{name} not found in {bindir}: the CUDA kernels need the CUDA toolkit")
+    return str(tool)
 
 
 def _sources():
@@ -86,7 +87,7 @@ def build(ptxas_verbose: bool = False) -> str:
     tag = f"{out.stem}.{os.getpid()}"
     objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
     tmp = out.with_name(f"{tag}.tmp.so")
-    nvcc, verbose = _nvcc(), (["-Xptxas", "-v"] if ptxas_verbose else [])
+    nvcc, verbose = cuda_tool(), (["-Xptxas", "-v"] if ptxas_verbose else [])
     steps = [[[nvcc, *NVCC_FLAGS, *verbose, "-c", "-o", str(o), str(src)]
               for src, o in zip(sources, objs)],
              [[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]]]
@@ -120,6 +121,8 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.lns_error_string.argtypes = [ctypes.c_int]
         lib.lns_error_string.restype = ctypes.c_char_p
+        lib.lns_fab_core_bf16_limit.argtypes = [ctypes.c_int] * 5
+        lib.lns_fab_core_bf16_limit.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 

@@ -5,7 +5,14 @@ Replaces ``lns_tpu/pallas_kernels/axial_pipeline.py``:
 
   * ``bmm_blockdiag`` (``_bmm_kernel``): batched ``[B, G, M, M] @ [B, G, M, N]``
     with f32 sums, rounded to x's dtype. ``kb`` may be any matrix: the
-    block-diagonal structure of the pipeline's operand is not used.
+    block-diagonal structure of the pipeline's operand is not used. Bound
+    by bytes on an H100 (64 FLOP per byte at M = 128, bf16). In bf16 it runs
+    on tensor cores (``mma.sync``, f32 accumulators): 128 x 128 output tiles,
+    K streamed through a 3-stage ``cp.async`` ring, 16-byte stores; 56,832
+    bytes of shared memory per block. Any M and N: ragged tiles are
+    zero-filled, and M or N not a multiple of 8 takes element-wise copies.
+    In f32 it is an SGEMM on CUDA cores (the TPU kernel's f32 dot runs at
+    HIGHEST precision, which has no bf16 tensor-core form).
   * ``transpose_hw`` (``_transpose_kernel``): ``[B, N, H, W, D] ->
     [B, N, W, H, D]``, one read and one write. It is a single pass of data
     movement; it is written in CUDA C++ beside ``bmm_blockdiag`` rather

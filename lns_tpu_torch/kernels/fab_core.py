@@ -14,23 +14,30 @@ Replaces ``lns_tpu/pallas_kernels/fab_core.py: fab_fused_core``
     out    = sum_n (bb_n . m_n - bias_n)
 
 What bounds it on an H100: arithmetic, not bytes. Per NS2d decode chunk
-(116 frames, 8 heads, c = 64) the 32x32 block is ~31 GFLOP and reads only
-u (15 MB bf16); the value tensor bb (8x u's size, f32) is what an unfused
-formulation writes and reads back.
+(116 frames, 8 heads, c = 64) the 32x32 block is ~31 GFLOP against ~34 MB
+of u, k and out, above the card's bf16 ridge, so the kernel's products run
+on tensor cores in bf16.
 
 Design. The TPU kernel holds a sample's whole field per program and sums the
-heads over a sequential grid axis; on Hopper a 32x32x64 field in f32 does
-not fit in a block's 227 KB, so the kernel runs two passes and bb never
-reaches device memory:
-  1. statistics, one block per (head, sample): bb in tiles of rows, Gram
-     accumulated in shared memory, then m_n and bias_n (f32) to a small
-     scratch [b, n, c, o];
-  2. apply, one block per (row tile, sample): recompute the rows of bb for
-     each head, multiply by m_n and sum the heads in shared memory; write
-     the output once, in the input dtype.
-The math is FMA on CUDA cores in f32; tensor cores (wgmma) and TMA are later
-work. Orientation: the kernel applies k_x (rows) then k_y (columns) for any
-h, w; the plain version keeps the JAX core's order (``w > h`` branch).
+heads over a sequential grid axis; on Hopper a sample's bb does not fit in a
+block's shared memory, so the kernel runs two passes and bb never reaches
+device memory:
+  1. statistics, one block per (head, sample): bb tile by tile, its Gram
+     summed across tiles, then m_n (in u's dtype) and bias_n (f32) to a
+     small scratch [b, n, c, o] / [b, n, o];
+  2. apply, one block per (tile of 8 columns, sample): recompute the tile's
+     bb for each head and add bb . m_n; write the output once.
+bf16 (``mma.sync`` m16n8k16, f32 accumulators, 512 threads per block): k_y
+first, as the TPU kernel, with a, bb, m, the bias, the head sum and the
+output rounded to bf16 where ``_batched_gram_core`` rounds them for w <= h.
+u is resident in shared memory where it fits (32x32 and 16x16 at c64), else
+it streams from L2 through a 2-stage ``cp.async`` ring. Shared memory per
+block: 225,152 bytes at 32x32 c64, 75,392 at 16x16 c64. The wrapper raises
+for a bf16 shape outside the kernel's limits, with the text of the C side's
+``lns_fab_core_bf16_limit``: c a multiple of 16 up to 128, o a multiple of
+16, h and w up to 128, and the block within the H100's 227 KB of shared
+memory (48x96 c64 takes 174,272 bytes; 96x48 c64 would need 244,160).
+f32: the same passes as f32 FMAs on CUDA cores, k_x first.
 """
 
 from __future__ import annotations
@@ -45,7 +52,8 @@ from lns_tpu_torch.kernels import _build
 def fab_core_plain(u, k_x, k_y, w_in, w_o1, eps: float = 1e-5):
     """Plain PyTorch version (``_batched_gram_core``): u [b, h, w, c],
     k_x [b, n, h, h], k_y [b, n, w, w], w_in [c, n, d], w_o1 [n, d, o] ->
-    [b, h, w, o] in u's dtype."""
+    [b, h, w, o] in u's dtype, rounding a, bb, m, the bias and the output to
+    it where ``_batched_gram_core`` does."""
     dt = u.dtype
     k_x, k_y, w_in = k_x.to(dt), k_y.to(dt), w_in.to(dt)
     b, h, w, c = u.shape
@@ -94,14 +102,25 @@ def fab_fused_core(u, k_x, k_y, w_in, w_o1, eps: float = 1e-5):
         if tuple(t.shape) != shape or t.device != u.device:
             raise ValueError(f"fab_fused_core: {name} must be {shape} on {u.device}, "
                              f"got {tuple(t.shape)} on {t.device}")
+    if not 0 < b <= 65535:
+        raise ValueError(f"fab_fused_core: batch {b}; the grid takes 1 to 65535")
+    lib = _build.library()
+    if u.dtype == torch.bfloat16:
+        limit = lib.lns_fab_core_bf16_limit(h, w, c, d, o)  # the kernel's own limits
+        if limit:
+            raise ValueError(f"fab_fused_core: bf16 at {h}x{w} c{c} d{d} o{o} needs "
+                             f"{limit.decode()}")
+        if u.data_ptr() % 16:  # u's rows stream as 16-byte copies
+            u = u.clone()
     kx = k_x.to(u.dtype).contiguous()
     ky = k_y.to(u.dtype).contiguous()
     wi = w_in.to(u.dtype).contiguous()
     w1 = w_o1.float().contiguous()
-    m = torch.empty((b, n, c, o), device=u.device, dtype=torch.float32)
+    if w1.data_ptr() % 16:  # read as 16-byte vectors
+        w1 = w1.clone()
+    m = torch.empty((b, n, c, o), device=u.device, dtype=u.dtype)  # m_n, rounded to u's dtype
     bias = torch.empty((b, n, o), device=u.device, dtype=torch.float32)
     out = torch.empty((b, h, w, o), device=u.device, dtype=u.dtype)
-    lib = _build.library()
     rc = lib.lns_fab_core(
         _build.DTYPE_CODE[u.dtype], u.data_ptr(), kx.data_ptr(), ky.data_ptr(),
         wi.data_ptr(), w1.data_ptr(), m.data_ptr(), bias.data_ptr(),

@@ -6,6 +6,12 @@ tests/test_pallas_kernels.py holds them to, with the same tolerances:
   * fused rollout: atol 2e-5 x max|z| (:193), f32 over 5 steps;
   * FAB core: rtol 2e-5, atol 2e-5 x max|out| (:260).
 
+In bf16 the plain versions are pinned to the JAX package's rounding points,
+which the Hopper kernels share (each bound is stated beside its test):
+
+  * the c-space FAB core against ``FABlock2D._batched_gram_core``;
+  * ``bmm_blockdiag`` against the Pallas kernel in interpret mode.
+
 The kernels themselves need a CUDA card; ``chip_smoke.py`` holds each one to
 its plain version there. Here the wrappers must take the plain version for a
 CPU tensor, refuse any other non-CUDA device, and count no launch.
@@ -18,6 +24,8 @@ import pytest
 import torch
 
 from lns_tpu.models.propagator import SimpleCNN as JSimpleCNN
+from lns_tpu.ops.factorized_attention import FABlock2D as JFABlock2D
+from lns_tpu.pallas_kernels import axial_pipeline as jap
 from lns_tpu.pallas_kernels import fab_core as jfab
 from lns_tpu.pallas_kernels import group_norm as jgn
 from lns_tpu.pallas_kernels import prop_rollout as jpr
@@ -88,6 +96,58 @@ def test_fab_core_matches_pallas(b, n, h, w, c):
                                          interpret=True))
     out = fab_core.fab_fused_core(*map(torch.from_numpy, (u, kx, ky, w_in, w_o1)))
     np.testing.assert_allclose(out.numpy(), ref, rtol=2e-5, atol=2e-5 * np.abs(ref).max())
+
+
+def _fab_inputs(seed, b, n, h, w, c):
+    rng = np.random.default_rng(seed)
+    u = rng.standard_normal((b, h, w, c)).astype(np.float32)
+    kx = (rng.standard_normal((b, n, h, h)) / h).astype(np.float32)
+    ky = (rng.standard_normal((b, n, w, w)) / w).astype(np.float32)
+    w_in = (rng.standard_normal((c, n, c)) / np.sqrt(c)).astype(np.float32)
+    w_o1 = (rng.standard_normal((n, c, c)) / np.sqrt(c)).astype(np.float32)
+    return u, kx, ky, w_in, w_o1
+
+
+@pytest.mark.parametrize("b,n,h,w,c", [(2, 8, 16, 16, 32), (3, 4, 12, 24, 16),
+                                       (3, 4, 24, 12, 16), (1, 4, 24, 48, 64),
+                                       (1, 2, 48, 96, 64)])
+def test_fab_core_plain_bf16_rounds_as_batched_gram_core(b, n, h, w, c):
+    """bf16 in, bf16 out: the plain version (and so the kernel it holds on the
+    card) rounds a, bb, m, the bias and the output to bf16 where
+    ``_batched_gram_core`` does. The f32 sums run in other orders, so a value
+    near a rounding boundary may land one bf16 ulp away and carry on: at
+    most 1e-2 x max|ref| (about one ulp of the largest value) and at most 1 %
+    of the elements differ (measured <= 0.5 %; with a, bb and m kept in f32
+    instead, ~60 % differ and the largest error is ~2x)."""
+    u, kx, ky, w_in, w_o1 = _fab_inputs(11, b, n, h, w, c)
+    bf = jnp.bfloat16
+    ref = JFABlock2D._batched_gram_core(jnp.asarray(u, bf), jnp.asarray(kx, bf),
+                                        jnp.asarray(ky, bf), jnp.asarray(w_in, bf),
+                                        jnp.asarray(w_o1))
+    ref = np.asarray(ref.astype(jnp.float32))
+    args = [torch.from_numpy(a).to(torch.bfloat16) for a in (u, kx, ky, w_in)]
+    out = fab_core.fab_core_plain(*args, torch.from_numpy(w_o1))
+    assert out.dtype == torch.bfloat16 and out.shape == (b, h, w, c)
+    out = out.float().numpy()
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-2 * np.abs(ref).max())
+    assert (out != ref).mean() <= 0.01
+
+
+@pytest.mark.parametrize("m,n", [(16, 40), (24, 96), (20, 37), (8, 3)])
+def test_bmm_blockdiag_plain_bf16_matches_pallas(m, n):
+    """bf16: both sum in f32 and round once, so an element differs only where
+    the f32 sums in other orders straddle a rounding boundary: one bf16 ulp,
+    at most 2**-7 x max|ref|."""
+    rng = np.random.default_rng(m)
+    kb = (rng.standard_normal((2, 3, m, m)) / np.sqrt(m)).astype(np.float32)
+    x = rng.standard_normal((2, 3, m, n)).astype(np.float32)
+    bf = jnp.bfloat16
+    ref = jap.bmm_blockdiag(jnp.asarray(kb, bf), jnp.asarray(x, bf), interpret=True)
+    ref = np.asarray(ref.astype(jnp.float32))
+    out = axial_pipeline.bmm_blockdiag(torch.from_numpy(kb).to(torch.bfloat16),
+                                       torch.from_numpy(x).to(torch.bfloat16))
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), ref, rtol=0, atol=2**-7 * np.abs(ref).max())
 
 
 def test_wrappers_count_no_launch_on_cpu():
