@@ -10,14 +10,19 @@ CUDA PyTorch, Triton and nvcc. It imports nothing of JAX. In order it:
   2. builds the CUDA kernels from lns_tpu_torch/csrc (nvcc, sm_90a, one
      process per source), and counts the tensor-core instructions (HMMA /
      HGMMA, from the toolkit's cuobjdump) in the bf16 code of the kernels
-     that run on tensor cores (2 and 6); a count of 0 fails;
+     that run on tensor cores (1, 2 and 6); a count of 0 fails;
   3. holds each of the seven hand-written kernels against its plain PyTorch
      version on the card, at the shapes the paths give it (and, for the
-     library kernels off the paths, at the TPU package's shapes; kernels 2
-     and 6 also at odd, ragged and misaligned shapes that take their other
-     code paths), TF32 off, and times both with CUDA events; checks that a
-     bf16 shape outside kernel 2's limits raises naming the limit; times the
-     c-space and the d-space FAB core at every FAB shape of the paths;
+     library kernels off the paths, at the TPU package's shapes; kernels 1,
+     2 and 6 also at shapes that take their other code paths: kernel 1 at
+     SW's 12x24 latent, every padding mode and batches that leave SMs idle,
+     one step against the plain version from its own carry at every step of
+     the main path's rollout, twice bitwise-identical), TF32 off, and times
+     both with CUDA events beside the least time the card could take (the
+     bound) and, for kernels 6 and 7, one PyTorch call of the same function;
+     checks that shapes outside kernel 1's and kernel 2's limits raise
+     naming the limit; times the c-space and the d-space FAB core at every
+     FAB shape of the paths;
   4. runs ``LatentDynamics.predict`` at full width (batch 32, 29 steps,
      116-frame decode chunks, bf16 activations, f32 weights from a seeded
      generator) on two paths: ``ns2d_config()`` (path 1) and the same model
@@ -26,10 +31,12 @@ CUDA PyTorch, Triton and nvcc. It imports nothing of JAX. In order it:
      every launch count to 0, runs one predict, checks the output and that
      every kernel launched as often as the model's layer specs imply,
      compares the kernel path with the all-plain path in f32 on a small
-     input, and times frames/s of both;
-  5. prints one JSON line of per-kernel results (launches, and ms / plain_ms
-     per predict, summed over one predict of each path), then the closing
-     JSON line.
+     input, times frames/s of both and the host's enqueue time per predict,
+     and profiles one predict of each (device busy and idle, largest
+     kernels);
+  5. prints one JSON line of per-kernel results (launches, and ms /
+     plain_ms / bound_ms per predict, summed over one predict of each path),
+     then the closing JSON line.
 
 Any failed check or exception exits non-zero before the closing line.
 """
@@ -55,11 +62,10 @@ def _check(ok: bool, what: str) -> None:
         _FAILS.append(what)
 
 
-def cuda_ms(fn, reps: int = 5, warm: bool = True) -> float:
+def cuda_ms(fn, reps: int = 5) -> float:
     """Mean time of fn() in ms by CUDA events around `reps` calls, after one
-    warm-up call unless `warm` is False."""
-    if warm:
-        fn()
+    warm-up call."""
+    fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
@@ -88,10 +94,40 @@ def compare(name, kernel_fn, plain_fn, rel_tol, reps=5, max_differ=1.0):
     return err, ms, plain_ms
 
 
+# the H100 SXM's published peaks (dense): bf16 tensor cores, f32 on CUDA
+# cores, HBM3 bytes
+PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+
+
+class Bound:
+    """The least time the card could take for a kernel's calls: per call the
+    larger of its operations at the peak rate for their type and the bytes
+    it must move (each input read once, each output written once) at the
+    memory rate, summed over calls."""
+
+    def __init__(self):
+        self.ms, self.by = 0.0, {}
+
+    def add(self, flops, nbytes, calls=1, rate=PEAK_BF16):
+        ops_ms, bytes_ms = flops / rate * 1e3, nbytes / PEAK_BYTES * 1e3
+        by = "operations" if ops_ms >= bytes_ms else "bytes"
+        self.ms += calls * max(ops_ms, bytes_ms)
+        self.by[by] = self.by.get(by, 0.0) + calls * max(ops_ms, bytes_ms)
+        return self
+
+    def result(self):
+        return {"bound_ms": self.ms, "bound_by": max(self.by, key=self.by.get) if self.by else None}
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 # -- phase 2b: the bf16 kernels run on tensor cores --------------------------
 
 # the redesigned kernels' bf16 entry points, by a piece of their SASS names
-TENSOR_CORE_KERNELS = {"fab_core": ("fab_stats_bf16", "fab_apply_bf16"),
+TENSOR_CORE_KERNELS = {"prop_rollout": ("rollout_bf16",),
+                       "fab_core": ("fab_stats_bf16", "fab_apply_bf16"),
                        "bmm_blockdiag": ("bmm_bf16_kernel",)}
 
 
@@ -127,54 +163,127 @@ def check_tensor_cores():
 
 # -- phase 3: each kernel against its plain version --------------------------
 
+def _rollout_work(b, h, w, c_lat, c, steps, n_block, packed):
+    """(FLOP, bytes) of one rollout call: every step's products (in-proj,
+    n_block x (three 3x3 convs, two FFN matrices), out-proj); z0, the
+    outputs and the packed weights moved once."""
+    p = h * w
+    flops = 2 * steps * b * p * (c_lat * c + n_block * 29 * c * c + c * c_lat)
+    dt = packed.in_w.element_size()
+    return flops, (1 + steps) * b * p * c_lat * dt + _nbytes(*packed)
+
+
 def check_rollout(dev, gen, calls):
     """calls: rollout launches in one predict of each path."""
     from lns_tpu_torch.kernels.prop_rollout import (fused_rollout, fused_rollout_plain,
-                                                    pack_simple_cnn)
+                                                    pack_simple_cnn, rollout_plan)
     from lns_tpu_torch.models.propagator import SimpleCNN
     from lns_tpu_torch.ops.initializers import init_weights_
 
-    results = {}
-    # (tag, dtype, batch, H, W, C_lat, C, steps, padding, rel_tol)
-    cases = [
-        # f32 over all steps: summation order only, grown over the steps
-        (f"f32 {STEPS} steps circular B{BATCH} 8x8 C128", torch.float32, BATCH, 8, 8, 16, 128,
-         STEPS, "circular", 1e-4),
-        # bf16, one step: both versions round at the same points; an f32 sum
-        # in another order can move a value across a bf16 rounding boundary
-        (f"bf16 1 step circular B{BATCH} 8x8 C128", torch.bfloat16, BATCH, 8, 8, 16, 128, 1,
-         "circular", 2e-2),
-        ("f32 4 steps zeros B2 7x15 C64", torch.float32, 2, 7, 15, 64, 64, 4, "zeros", 2e-5),
-        ("f32 4 steps half_periodic_x B2 6x12 C64", torch.float32, 2, 6, 12, 64, 64, 4,
-         "half_periodic_x", 2e-5),
-        ("f32 4 steps half_periodic_y B2 12x6 C64", torch.float32, 2, 12, 6, 64, 64, 4,
-         "half_periodic_y", 2e-5),
-    ]
-    for tag, dt, b, h, w, c_lat, c, steps, pm, tol in cases:
+    bf16 = torch.bfloat16
+
+    def packed_for(c_lat, c, dt):
         cnn = init_weights_(SimpleCNN(c_lat, 3, c, 2, padding_mode="circular"), gen)
-        packed = pack_simple_cnn(cnn.to(dev), dt)
+        return pack_simple_cnn(cnn.to(dev), dt)
+
+    errs = []
+    # (tag, dtype, batch, H, W, C_lat, C, steps, padding, dilation, rel_tol).
+    # f32 over several steps: summation order only, grown over the steps.
+    # bf16, one step: both versions round at the same points; an f32 sum in
+    # another order can move a value across a bf16 rounding boundary (about
+    # half the elements then differ by an ulp, which the next layers carry).
+    # The bf16 cases take each launch shape: clusters of 4 (B > 16) and 8,
+    # 1, 3 and 5 row tiles per warp, C 64 (clusters of 4 with 16 channels
+    # each), every padding mode, dilation 1 and 2, SW's 12x24 C_lat 64.
+    cases = [
+        (f"f32 {STEPS} steps circular B{BATCH} 8x8 C128", torch.float32, BATCH, 8, 8, 16, 128,
+         STEPS, "circular", 2, 1e-4),
+        ("f32 4 steps zeros B2 7x15 C64", torch.float32, 2, 7, 15, 64, 64, 4, "zeros", 2, 2e-5),
+        ("f32 4 steps half_periodic_x B2 6x12 C64", torch.float32, 2, 6, 12, 64, 64, 4,
+         "half_periodic_x", 2, 2e-5),
+        ("f32 4 steps half_periodic_y B2 12x6 C64", torch.float32, 2, 12, 6, 64, 64, 4,
+         "half_periodic_y", 2, 2e-5),
+        (f"bf16 1 step circular B{BATCH} 8x8 C_lat 16 C128", bf16, BATCH, 8, 8, 16, 128, 1,
+         "circular", 2, 2e-2),
+        ("bf16 1 step circular B2 8x8 C_lat 16 C128", bf16, 2, 8, 8, 16, 128, 1, "circular", 2,
+         2e-2),
+        ("bf16 1 step half_periodic_x B4 12x24 C_lat 64 C128 (SW)", bf16, 4, 12, 24, 64, 128, 1,
+         "half_periodic_x", 2, 2e-2),
+        ("bf16 1 step half_periodic_x B20 12x24 C_lat 64 C128 (SW)", bf16, 20, 12, 24, 64, 128,
+         1, "half_periodic_x", 2, 2e-2),
+        ("bf16 1 step half_periodic_y B4 12x6 C_lat 16 C128", bf16, 4, 12, 6, 16, 128, 1,
+         "half_periodic_y", 2, 2e-2),
+        ("bf16 1 step zeros B3 7x15 C_lat 64 C64", bf16, 3, 7, 15, 64, 64, 1, "zeros", 2, 2e-2),
+        ("bf16 1 step zeros B20 7x15 C_lat 64 C128 dilation 1", bf16, 20, 7, 15, 64, 128, 1,
+         "zeros", 1, 2e-2),
+    ]
+    for tag, dt, b, h, w, c_lat, c, steps, pm, dil, tol in cases:
+        packed = packed_for(c_lat, c, dt)
         z0 = torch.randn(b, h, w, c_lat, generator=gen).to(dev)
-        results[tag] = compare(
+        if dt == bf16:
+            print(f"      prop_rollout {tag}: launch {rollout_plan(b, h, w, c_lat, c)}", flush=True)
+        errs.append(compare(
             f"prop_rollout {tag}",
-            lambda: fused_rollout(z0, packed, steps, 3, 2, pm),
-            lambda: fused_rollout_plain(z0, packed, steps, 3, 2, pm), tol, reps=3)
+            lambda: fused_rollout(z0, packed, steps, 3, dil, pm),
+            lambda: fused_rollout_plain(z0, packed, steps, 3, dil, pm), tol, reps=3)[0])
+
     # the main path's call: bf16, all steps, B = 32
-    cnn = init_weights_(SimpleCNN(16, 3, 128, 2), gen).to(dev)
-    packed = pack_simple_cnn(cnn, torch.bfloat16)
+    packed = packed_for(16, 128, bf16)
     z0 = torch.randn(BATCH, 8, 8, 16, generator=gen).to(dev)
-    ms = cuda_ms(lambda: fused_rollout(z0, packed, STEPS, 3, 2, "circular"), 3)
+    plan = rollout_plan(BATCH, 8, 8, 16, 128)
+    _check(plan["cluster"] >= 2 and plan["blocks"] == BATCH * plan["cluster"]
+           and plan["max_active_clusters"] >= BATCH,
+           f"prop_rollout bf16 B{BATCH} 8x8 C_lat 16 C128 launch: {plan['cluster']} blocks per "
+           f"sample, {plan['blocks']} blocks of {plan['smem_bytes']} bytes of shared memory, "
+           f"{plan['tiles_per_warp']} row tile(s) per warp; the card holds "
+           f"{plan['max_active_clusters']} such clusters at once")
+    run = lambda: fused_rollout(z0, packed, STEPS, 3, 2, "circular")  # noqa: E731
+    zs, zs2 = run(), run()
+    torch.cuda.synchronize()
+    _check(torch.equal(zs, zs2), f"prop_rollout bf16 {STEPS} steps B{BATCH}: two runs "
+           "bitwise identical")
+    # every step from the kernel's own carry: one plain step from z_k against
+    # the kernel's z_(k+1), within the one-step bound (bf16's growth over a
+    # rollout does not enter)
+    prev = torch.cat([z0.to(bf16)[None], zs[:-1]])
+    one = fused_rollout_plain(prev.reshape(-1, 8, 8, 16), packed, 1, 3, 2, "circular")
+    one = one.reshape(zs.shape).float()
+    err = (one - zs.float()).abs().amax(dim=(1, 2, 3, 4))
+    ratio = (err / one.abs().amax(dim=(1, 2, 3, 4))).max().item()
+    differ = (one != zs.float()).float().mean().item()
+    _check(bool(torch.isfinite(zs).all()) and ratio <= 2e-2,
+           f"prop_rollout bf16 every step of {STEPS} (B{BATCH}) from the kernel's own carry: "
+           f"max_abs_err <= {ratio:.2e} x max|plain| (<= 2e-2); {differ:.2%} of elements differ")
+    errs.append(err.max().item())
+    ms = cuda_ms(run, 3)
     plain_ms = cuda_ms(lambda: fused_rollout_plain(z0, packed, STEPS, 3, 2, "circular"), 3)
+    bound = Bound().add(*_rollout_work(BATCH, 8, 8, 16, 128, STEPS, 3, packed))
     print(f"      prop_rollout bf16 {STEPS} steps B{BATCH} (main path): kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms", flush=True)
-    err = max(r[0] for r in results.values())
-    return {"max_abs_err": err, "ms": ms * calls, "plain_ms": plain_ms * calls}
+          f"plain {plain_ms:.4f} ms, bound {bound.ms:.4f} ms ({bound.result()['bound_by']})",
+          flush=True)
+
+    # f32 keeps one block per sample: SW's latent does not fit and raises
+    # naming the limit, with no launch
+    packed32 = packed_for(64, 128, torch.float32)
+    before = fused_rollout.launches
+    try:
+        fused_rollout(torch.zeros(4, 12, 24, 64, device=dev), packed32, 1, 3, 2,
+                      "half_periodic_x")
+        msg = "no error"
+    except ValueError as e:
+        msg = str(e)
+    _check("shared memory per block" in msg and fused_rollout.launches == before,
+           f"prop_rollout f32 B4 12x24 C_lat 64 C128 raises naming its limit: {msg}")
+    return {"max_abs_err": max(errs), "ms": ms * calls, "plain_ms": plain_ms * calls,
+            **Bound().add(*_rollout_work(BATCH, 8, 8, 16, 128, STEPS, 3, packed),
+                          calls=calls).result(), "library_ms": None}
 
 
 def check_fab_core(dev, gen, sites, n, d):
     """sites: {(batch, h, w, c): c-space FAB core calls per predict}."""
     from lns_tpu_torch.kernels.fab_core import fab_core_plain, fab_fused_core
 
-    errs, ms_sum, plain_sum = [], 0.0, 0.0
+    errs, ms_sum, plain_sum, bound = [], 0.0, 0.0, Bound()
     # the paths' fields, then both orientations of a non-square one (the
     # plain version branches on w > h; the kernel must not care), odd sides
     # (partly filled tiles, sides padded to 16), fields whose u is held in
@@ -222,7 +331,15 @@ def check_fab_core(dev, gen, sites, n, d):
             if dt == torch.bfloat16 and (b, h, w, c) in sites and not off:
                 ms_sum += ms * sites[(b, h, w, c)]
                 plain_sum += plain_ms * sites[(b, h, w, c)]
-    return {"max_abs_err": max(errs), "ms": ms_sum, "plain_ms": plain_sum}
+                # per (sample, head): k_y and k_x applied, the c x c Gram, the
+                # output product, and m's and E[phi^2]'s small products
+                o = c
+                flops = 2 * b * n * (h * w * w * c + h * h * w * c + h * w * c * c + h * w * c * o
+                                     + c * c * d + c * d * o)
+                bound.add(flops, _nbytes(*a[:3], a[0]) + c * n * d * 2 + _nbytes(a[4]),
+                          sites[(b, h, w, c)])
+    return {"max_abs_err": max(errs), "ms": ms_sum, "plain_ms": plain_sum, **bound.result(),
+            "library_ms": None}
 
 
 def _off_16(t):
@@ -264,7 +381,7 @@ def check_group_norm(dev, gen, sites):
     from lns_tpu_torch.kernels.group_norm import (fused_group_norm_swish,
                                                   group_norm_swish_plain)
 
-    errs, ms_sum, plain_sum = [], 0.0, 0.0
+    errs, ms_sum, plain_sum, bound = [], 0.0, 0.0, Bound()
     for (b, spatial, c, g, eps, swish), calls in sorted(sites.items()):
         x = (torch.randn((b,) + spatial + (c,), generator=gen) * 2 + 0.5).to(dev)
         scale = (torch.randn(c, generator=gen) * 0.1 + 1).to(dev)
@@ -282,7 +399,10 @@ def check_group_norm(dev, gen, sites):
             if dt == torch.bfloat16:
                 ms_sum += ms * calls
                 plain_sum += plain_ms * calls
-    return {"max_abs_err": max(errs), "ms": ms_sum, "plain_ms": plain_sum}
+                # x read and y written once; ~8 f32 operations per element
+                bound.add(8 * xd.numel(), 2 * _nbytes(xd) + _nbytes(scale, bias), calls, PEAK_F32)
+    return {"max_abs_err": max(errs), "ms": ms_sum, "plain_ms": plain_sum, **bound.result(),
+            "library_ms": None}
 
 
 def _axial_inputs(gen, dev, g_shape, h, w, d):
@@ -310,7 +430,10 @@ def check_axial(dev, gen, sites, n, d):
                                              axial_kernel_apply_headmajor_plain,
                                              fab_axial_in_fused, fab_axial_in_plain)
 
-    errs4, ms4, plain4 = [], 0.0, 0.0
+    errs4, ms4, plain4, bound4 = [], 0.0, 0.0, Bound()
+
+    def work(g, h, w, dd, p):  # both applies; phi in, out, k_x and k_y in phi's dtype
+        return 2 * g * dd * (h * h * w + h * w * w), 2 * _nbytes(p) + g * (h * h + w * w) * 2
     # (batch, heads, h, w, d, calls per predict)
     cases = [(b, n, h, w, d, calls) for (b, h, w, _), calls in sorted(sites.items())] + [
         (CHUNK, n, 32, 32, d, 0), (2, 4, 15, 31, d, 0)]
@@ -328,6 +451,7 @@ def check_axial(dev, gen, sites, n, d):
                 if dt == torch.bfloat16 and with_in:
                     ms4 += ms * calls
                     plain4 += plain_ms * calls
+                    bound4.add(*work(b * nh, h, w, dd, p), calls)
     errs5, res5 = [], None
     for g, h, w, dd in ((BATCH * n, 16, 16, d), (16, 7, 15, 128)):
         kx, ky, phi = _axial_inputs(gen, dev, (g,), h, w, dd)
@@ -339,9 +463,10 @@ def check_axial(dev, gen, sites, n, d):
                 lambda: axial_kernel_apply_headmajor_plain(kx, ky, p), tol)
             errs5.append(err)
             if res5 is None and dt == torch.bfloat16:
-                res5 = {"ms": ms, "plain_ms": plain_ms}
-    return ({"max_abs_err": max(errs4), "ms": ms4, "plain_ms": plain4},
-            {"max_abs_err": max(errs5), **res5})
+                res5 = {"ms": ms, "plain_ms": plain_ms,
+                        **Bound().add(*work(g, h, w, dd, p)).result(), "library_ms": None}
+    return ({"max_abs_err": max(errs4), "ms": ms4, "plain_ms": plain4, **bound4.result(),
+             "library_ms": None}, {"max_abs_err": max(errs5), **res5})
 
 
 def check_pipeline(dev, gen, n, d):
@@ -370,7 +495,14 @@ def check_pipeline(dev, gen, n, d):
                 lambda: bmm_blockdiag(kb, xd), lambda: bmm_blockdiag_plain(kb, xd), tol)
             errs6.append(err)
             if res6 is None and dt == torch.bfloat16:
-                res6 = {"ms": ms, "plain_ms": plain_ms}
+                # the library call: one bf16 torch.matmul (the plain version
+                # upcasts to f32)
+                kbd = kb.to(dt)
+                res6 = {"ms": ms, "plain_ms": plain_ms,
+                        **Bound().add(2 * b * g * m * m * nn, _nbytes(kbd, xd, xd)).result(),
+                        "library_ms": cuda_ms(lambda: torch.matmul(kbd, xd))}
+                print(f"      bmm_blockdiag bf16 [{b},{g},{m},{nn}]: torch.matmul "
+                      f"{res6['library_ms']:.4f} ms", flush=True)
     del kb, x
     y = torch.randn(CHUNK, n, 32, 32, d, generator=gen).to(dev)
     errs7, res7 = [], None
@@ -379,8 +511,9 @@ def check_pipeline(dev, gen, n, d):
         err, ms, plain_ms = compare(f"transpose_hw {str(dt)[6:]} [{CHUNK},{n},32,32,{d}]",
                                     lambda: transpose_hw(yd), lambda: transpose_hw_plain(yd), 0.0)
         errs7.append(err)
-        if dt == torch.bfloat16:
-            res7 = {"ms": ms, "plain_ms": plain_ms}
+        if dt == torch.bfloat16:  # the library call is the plain version itself
+            res7 = {"ms": ms, "plain_ms": plain_ms, **Bound().add(0, 2 * _nbytes(yd)).result(),
+                    "library_ms": cuda_ms(lambda: yd.transpose(2, 3).contiguous())}
     return ({"max_abs_err": max(errs6), **res6}, {"max_abs_err": max(errs7), **res7})
 
 
@@ -572,24 +705,66 @@ def drive_path(label, model, expect, gen, dev):
     del m32, yk, yp
 
     # frames/s: each predict timed alone by CUDA events (it ends on the host
-    # with a synchronize), paths alternated plain, kernel, kernel, plain
+    # with a synchronize), paths alternated plain, kernel, kernel, plain; the
+    # host's enqueue time of the same predict: a host clock around predict
+    # (which synchronizes nowhere), read before the synchronize
     frames = BATCH * STEPS
-    times = {True: [], False: []}
+    times, enqueue = {True: [], False: []}, {True: [], False: []}
     for flag in (False, True):
         model.use_kernels(flag)
         model.predict(x, STEPS, decode_chunk=CHUNK)  # warm-up
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     for flag in (False, True, True, False):
         model.use_kernels(flag)
         for _ in range(REPS):
-            times[flag].append(cuda_ms(lambda: model.predict(x, STEPS, decode_chunk=CHUNK),
-                                       1, warm=False))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            model.predict(x, STEPS, decode_chunk=CHUNK)
+            end.record()
+            enqueue[flag].append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            times[flag].append(start.elapsed_time(end))
     model.use_kernels(True)
     for flag, path in ((True, "kernel path"), (False, "plain path")):
-        t = sorted(times[flag])
+        t, e = sorted(times[flag]), sorted(enqueue[flag])
         med = t[len(t) // 2]
         print(f"      {label} predict {path}: median {med:.2f} ms (min {t[0]:.2f}, "
-              f"max {t[-1]:.2f}, n={len(t)}), {frames / med * 1e3:.1f} frames/s", flush=True)
+              f"max {t[-1]:.2f}, n={len(t)}), {frames / med * 1e3:.1f} frames/s; host enqueue "
+              f"median {e[len(e) // 2]:.2f} ms (min {e[0]:.2f}, max {e[-1]:.2f})", flush=True)
+    for flag, path in ((True, "kernel path"), (False, "plain path")):
+        profile_predict(model.use_kernels(flag), x, f"{label} {path}")
+    model.use_kernels(True)
     return launches
+
+
+def profile_predict(model, x, label, top=8):
+    """One predict under torch.profiler (after the timed ones): its wall time
+    by CUDA events, the device's busy time (every kernel and copy) and idle
+    share, and the kernels that take the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        model.predict(x, STEPS, decode_chunk=CHUNK)
+        end.record()
+        torch.cuda.synchronize()
+    wall = start.elapsed_time(end)
+    rows = []  # device-side entries only (an operator's entry repeats its kernels' time)
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if ev.device_type == DeviceType.CUDA and us > 0:
+            rows.append((us / 1e3, ev.count, ev.key))
+    busy, ops = sum(r[0] for r in rows), sum(r[1] for r in rows)
+    print(f"      profile {label}: wall {wall:.2f} ms, device busy {busy:.2f} ms, idle "
+          f"{max(0.0, 1 - busy / wall):.1%}, {ops} device ops", flush=True)
+    for ms, count, key in sorted(rows, reverse=True)[:top]:
+        print(f"        {ms:9.3f} ms {count:6d}x  {key[:90]}")
 
 
 def run(dev):

@@ -123,6 +123,10 @@ def library() -> ctypes.CDLL:
         lib.lns_error_string.restype = ctypes.c_char_p
         lib.lns_fab_core_bf16_limit.argtypes = [ctypes.c_int] * 5
         lib.lns_fab_core_bf16_limit.restype = ctypes.c_char_p
+        lib.lns_prop_rollout_limit.argtypes = [ctypes.c_int] * 7
+        lib.lns_prop_rollout_limit.restype = ctypes.c_char_p
+        lib.lns_prop_rollout_plan.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+        lib.lns_prop_rollout_plan.restype = ctypes.c_int
         _lib = lib
     return _lib
 

@@ -8,13 +8,24 @@ GN1 -> 1x1 -> GELU -> 1x1, residual; then GN(groups) -> out 1x1. The carry
 stays on chip across steps. Padding: circular, zeros, half_periodic_x,
 half_periodic_y.
 
-What bounds it on an H100: f32 FMA throughput of the few SMs the batch
-fills (one block per sample: 32 of 132 SMs on NS2d, ~180 MFLOP per
-sample-step); the weights (2.9 MB in bf16) are read from L2 every step.
+What bounds it on an H100: in principle tensor-core arithmetic (~183 MFLOP
+per sample-step at NS2d, 0.17 ms for B32 x 29 steps at 989 TFLOP/s); in
+practice the latency of a chain of ~20 small dependent products per step.
+bf16: a thread-block cluster of CL blocks per sample (CL = 4 at B32, 8 for
+B <= 8), each block computing C/CL channels of every layer as implicit
+GEMMs on tensor cores (``mma.sync``), bf16 activations exchanged through
+distributed shared memory, weights streamed per slice through a
+``cp.async`` ring. It takes SW's 12x24 latent at C 128, C_lat 64 (222,112
+bytes of shared memory per block). f32 keeps one block per sample on CUDA
+cores (the check path), within 227 KB of shared memory for one sample's
+f32 activations, so SW's latent raises there. The wrapper raises for a
+shape outside a kernel's limits with the text of the C side's
+``lns_prop_rollout_limit``, and launches nothing.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -157,18 +168,35 @@ def fused_rollout(z0, packed: PackedSimpleCNN, steps: int, n_block: int,
                 or not t.is_contiguous()):
             raise ValueError(f"fused_rollout: {name} must be contiguous {want} {shape} on "
                              f"{z0.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    z = z0.to(dt).contiguous()
+    lib = _build.library()
+    limit = lib.lns_prop_rollout_limit(_build.DTYPE_CODE[dt], b, h, w, c_lat, c, groups)
+    if limit:  # the kernel's own limits
+        raise ValueError(f"fused_rollout: {str(dt)[6:]} at B{b} {h}x{w} C_lat {c_lat} C {c} "
+                         f"groups {groups} needs {limit.decode()}")
+    # bf16 reads z0 and the weights as 16-byte vectors
+    z, *weights = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (z0.to(dt).contiguous(), *packed))
     out = torch.empty((steps, b, h, w, c_lat), device=z0.device, dtype=dt)
     wrap_y, wrap_x = _WRAP[padding_mode]
-    rc = _build.library().lns_prop_rollout(
-        _build.DTYPE_CODE[dt], z.data_ptr(), *(t.data_ptr() for t in packed), out.data_ptr(),
+    rc = lib.lns_prop_rollout(
+        _build.DTYPE_CODE[dt], z.data_ptr(), *(t.data_ptr() for t in weights), out.data_ptr(),
         b, h, w, c_lat, c, n_block, dilation, wrap_y, wrap_x, groups, steps,
         torch.cuda.current_stream(z0.device).cuda_stream)
-    # the C entry refuses shapes its thread layout or shared memory cannot
-    # hold (C or C_lat not dividing 512, too many positions per thread)
     _build.check(rc, f"lns_prop_rollout(H*W={h * w}, C={c}, C_lat={c_lat}, groups={groups})")
     fused_rollout.launches += 1
     return out
+
+
+def rollout_plan(b: int, h: int, w: int, c_lat: int, c: int, groups: int = 32) -> dict:
+    """The bf16 kernel's launch at this shape (needs the card): blocks per
+    sample (the cluster), blocks, shared memory bytes per block, the
+    clusters the card holds at once (``cudaOccupancyMaxActiveClusters``),
+    and the 16-row tiles per warp it is built for."""
+    res = (ctypes.c_int * 5)()
+    _build.check(_build.library().lns_prop_rollout_plan(b, h, w, c_lat, c, groups, res),
+                 "lns_prop_rollout_plan")
+    return dict(zip(("cluster", "blocks", "smem_bytes", "max_active_clusters", "tiles_per_warp"),
+                    res))
 
 
 fused_rollout.launches = 0

@@ -10,7 +10,8 @@ In bf16 the plain versions are pinned to the JAX package's rounding points,
 which the Hopper kernels share (each bound is stated beside its test):
 
   * the c-space FAB core against ``FABlock2D._batched_gram_core``;
-  * ``bmm_blockdiag`` against the Pallas kernel in interpret mode.
+  * ``bmm_blockdiag`` and the fused rollout against the Pallas kernels in
+    interpret mode.
 
 The kernels themselves need a CUDA card; ``chip_smoke.py`` holds each one to
 its plain version there. Here the wrappers must take the plain version for a
@@ -81,6 +82,40 @@ def test_fused_rollout_matches_pallas(pm, h, w, c_lat):
                                     steps, nb, dil, pm)
     assert zs.shape == (steps, b, h, w, c_lat)
     np.testing.assert_allclose(zs.numpy(), ref, atol=2e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize(
+    "pm,h,w,c_lat",
+    [("circular", 8, 8, 16), ("half_periodic_x", 12, 24, 64), ("zeros", 7, 15, 64)],
+)
+def test_fused_rollout_plain_bf16_matches_pallas(pm, h, w, c_lat):
+    """bf16 weights and activations, one step: the plain version (and so the
+    kernel it holds on the card) rounds where the Pallas kernel does, but
+    its f32 sums run in other orders, and a value that lands one bf16 ulp
+    away moves the next GroupNorm, conv and GELU: about 80 % of the elements
+    differ, by at most ~1.2 % of max|ref| (measured 1.0-1.2 % at these
+    shapes). The JAX package's own XLA ``SimpleCNN`` in bf16 differs from
+    its Pallas kernel by the same (1.0-1.2 %, 81-83 % of the elements), so
+    the bound is 2e-2 x max|ref|, the one ``chip_smoke.py`` holds the kernel
+    to against the plain version."""
+    nb, c, dil, b = 2, 64, 2, 2
+    jmodel = JSimpleCNN(latent_dim=c_lat, prop_n_block=nb, prop_n_embd=c, dilation=dil,
+                        padding_mode=pm, dtype=jnp.float32)
+    z0 = np.random.default_rng(1).standard_normal((b, h, w, c_lat)).astype(np.float32)
+    params = perturb(jmodel.init(jax.random.PRNGKey(0), jnp.asarray(z0))["params"], 2,
+                     scale=0.05)
+    packed = jpr.pack_simple_cnn_params(params, nb, dtype=jnp.bfloat16)
+    ref = jpr.fused_rollout(jnp.asarray(z0, jnp.bfloat16), packed, steps=1, n_block=nb,
+                            dilation=dil, padding_mode=pm, interpret=True)
+    ref = np.asarray(ref.astype(jnp.float32))
+
+    cnn = load(SimpleCNN(c_lat, nb, c, dil, padding_mode="circular"),
+               propagator_state_dict(Config(prop_n_block=nb), params))
+    zs = prop_rollout.fused_rollout_plain(torch.from_numpy(z0).to(torch.bfloat16),
+                                          prop_rollout.pack_simple_cnn(cnn, torch.bfloat16),
+                                          1, nb, dil, pm)
+    assert zs.dtype == torch.bfloat16 and zs.shape == (1, b, h, w, c_lat)
+    np.testing.assert_allclose(zs.float().numpy(), ref, rtol=0, atol=2e-2 * np.abs(ref).max())
 
 
 @pytest.mark.parametrize("b,n,h,w,c", [(4, 8, 16, 16, 32), (3, 4, 12, 24, 16),
