@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with an NVIDIA Hopper card,
-CUDA PyTorch, Triton and nvcc. It imports nothing of JAX. In order it:
+CUDA PyTorch and nvcc. It imports nothing of JAX. In order it:
 
   1. prints the card (torch and nvidia-smi); fails if there is no CUDA card;
   2. builds the CUDA kernels from lns_tpu_torch/csrc (nvcc, sm_90a, one
@@ -14,13 +14,17 @@ CUDA PyTorch, Triton and nvcc. It imports nothing of JAX. In order it:
   3. holds each of the seven hand-written kernels against its plain PyTorch
      version on the card, at the shapes the paths give it (and, for the
      library kernels off the paths, at the TPU package's shapes; kernels 1,
-     2 and 6 also at shapes that take their other code paths: kernel 1 at
+     2, 3 and 6 also at shapes that take their other code paths: kernel 1 at
      SW's 12x24 latent, every padding mode and batches that leave SMs idle,
      one step against the plain version from its own carry at every step of
-     the main path's rollout, twice bitwise-identical), TF32 off, and times
-     both with CUDA events beside the least time the card could take (the
-     bound) and, for kernels 6 and 7, one PyTorch call of the same function;
-     checks that shapes outside kernel 1's and kernel 2's limits raise
+     the main path's rollout, twice bitwise-identical; kernel 3 in bf16 and
+     f32 at every GroupNorm site, and also in f16 at an odd field, 3
+     channels per group, batch 1 and the largest f32 slab, printing each
+     launch plan, twice bitwise-identical), TF32 off, and times both with
+     CUDA events beside the least time the card could take (the bound) and,
+     for kernels 3, 6 and 7, one PyTorch call of the same function (kernel 3
+     also by CUDA graph replays, without the host's launch cost); checks
+     that shapes outside kernel 1's, kernel 2's and kernel 3's limits raise
      naming the limit; times the c-space and the d-space FAB core at every
      FAB shape of the paths;
   4. runs ``LatentDynamics.predict`` at full width (batch 32, 29 steps,
@@ -44,6 +48,7 @@ Any failed check or exception exits non-zero before the closing line.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -376,33 +381,136 @@ def check_fab_core_limits(dev, n, d):
                f"fab_core bf16 {h}x{w} c{c} o{o} raises naming '{limit}': {msg}")
 
 
+def graph_ms(fn, calls: int = 20, reps: int = 3) -> float:
+    """Device time of one fn() in ms with the host's launch cost taken out:
+    `calls` calls captured in one CUDA graph, the graph replayed `reps`
+    times between CUDA events (after one warm-up call and one replay)."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (reps * calls)
+    del g
+    return ms
+
+
+def _gn_library(xd, scale, bias, groups, eps, swish, cast):
+    """One PyTorch call of the same function: F.group_norm on the NCHW view
+    of the channels-last memory (weights cast to the activations' dtype when
+    `cast`), then F.silu at the swish sites (a second call)."""
+    import torch.nn.functional as F
+
+    w, b = (scale.to(xd.dtype), bias.to(xd.dtype)) if cast else (scale, bias)
+    y = F.group_norm(xd.movedim(-1, 1), groups, w, b, eps)
+    return F.silu(y) if swish else y
+
+
 def check_group_norm(dev, gen, sites):
-    """sites: {(batch, spatial, C, groups, eps, swish): calls per predict}."""
-    from lns_tpu_torch.kernels.group_norm import (fused_group_norm_swish,
+    """Kernel 3 at every GroupNorm site of both paths (sites: {(batch,
+    spatial, C, groups, eps, swish): calls per predict}) and at shapes that
+    take its other plans, in bf16 and f32 (f16 too at those shapes); two
+    runs bitwise equal at the largest site; shapes outside its limits raise
+    naming the limit."""
+    from lns_tpu_torch.kernels.group_norm import (fused_group_norm_swish, group_norm_plan,
                                                   group_norm_swish_plain)
 
-    errs, ms_sum, plain_sum, bound = [], 0.0, 0.0, Bound()
-    for (b, spatial, c, g, eps, swish), calls in sorted(sites.items()):
+    bf16, f32 = torch.bfloat16, torch.float32
+    # an odd field, 3 channels per group, G1 at another batch, batch 1, and
+    # the largest slab f32 takes (a cluster of 8 blocks of ~200 KB)
+    extra = [(4, (7, 15), 64, 32, 1e-6, True), (4, (16, 16), 96, 32, 1e-6, True),
+             (2, (32, 32), 64, 1, 1e-5, False), (1, (64, 64), 64, 8, 1e-5, True),
+             (2, (64, 64), 96, 32, 1e-6, True)]
+    # does F.group_norm take f32 weights with bf16 input?
+    x0 = torch.zeros(1, 4, 4, 32, device=dev, dtype=bf16)
+    try:
+        _gn_library(x0, torch.ones(32, device=dev), torch.zeros(32, device=dev), 32, 1e-6,
+                    False, False)
+        cast = False
+    except RuntimeError:
+        cast = True
+    print(f"      library call: F.group_norm (+ F.silu at swish sites) on the NCHW view"
+          f"{'; bf16 weights (F.group_norm refuses f32 weights with bf16 input)' if cast else ''}",
+          flush=True)
+    errs, bound = [], Bound()
+    ms_sum = dev_sum = plain_sum = lib_sum = 0.0
+    cases = [(site, calls) for site, calls in sorted(sites.items())] + [(e, 0) for e in extra]
+    for (b, spatial, c, g, eps, swish), calls in cases:
         x = (torch.randn((b,) + spatial + (c,), generator=gen) * 2 + 0.5).to(dev)
         scale = (torch.randn(c, generator=gen) * 0.1 + 1).to(dev)
         bias = (torch.randn(c, generator=gen) * 0.1).to(dev)
-        # f32: statistics summed in another order; bf16: both round once
-        # from f32, so at most about one bf16 ulp apart
-        for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        s = x.numel() // (b * c)
+        tag = f"{b}x{'x'.join(map(str, spatial))}x{c} G{g} eps{eps:g}{' +swish' if swish else ''}"
+        # f32: statistics summed in another order. bf16 (and f16, by the
+        # same rule, at the extra shapes): both round sc, sh, the product,
+        # the sum and every op of the swish at the same points; an f32 sum in
+        # another order can move one (sample, channel)'s sc or sh by one
+        # ulp, and some of that channel's elements with it
+        dtypes = [(f32, 1e-5, 1.0), (bf16, 1e-2, 0.02)]
+        for dt, tol, differ in dtypes + ([] if calls else [(torch.float16, 1e-2, 0.02)]):
             xd = x.to(dt)
+            plan = group_norm_plan(dt, b, s, c, g)
+            print(f"      group_norm {str(dt)[6:]} {tag}: cluster {plan['cluster']}, "
+                  f"{plan['blocks']} blocks of {plan['smem_bytes']} bytes of shared memory, "
+                  f"{plan['rows_per_block']} rows each; the card holds "
+                  f"{plan['max_active_clusters']} such clusters at once", flush=True)
             err, ms, plain_ms = compare(
-                f"group_norm {str(dt)[6:]} {b}x{'x'.join(map(str, spatial))}x{c} G{g} "
-                f"eps{eps:g}{' +swish' if swish else ''}",
+                f"group_norm {str(dt)[6:]} {tag}",
                 lambda: fused_group_norm_swish(xd, scale, bias, g, eps, swish),
-                lambda: group_norm_swish_plain(xd, scale, bias, g, eps, swish), tol)
+                lambda: group_norm_swish_plain(xd, scale, bias, g, eps, swish), tol,
+                max_differ=differ)
             errs.append(err)
-            if dt == torch.bfloat16:
+            if dt == bf16 and calls:
+                dms = graph_ms(lambda: fused_group_norm_swish(xd, scale, bias, g, eps, swish))
+                lms = cuda_ms(lambda: _gn_library(xd, scale, bias, g, eps, swish, cast))
+                print(f"      group_norm bf16 {tag}: device {dms:.4f} ms (CUDA graph of 20 "
+                      f"calls), library {lms:.4f} ms; {calls} calls per predict", flush=True)
                 ms_sum += ms * calls
+                dev_sum += dms * calls
                 plain_sum += plain_ms * calls
+                lib_sum += lms * calls
                 # x read and y written once; ~8 f32 operations per element
                 bound.add(8 * xd.numel(), 2 * _nbytes(xd) + _nbytes(scale, bias), calls, PEAK_F32)
-    return {"max_abs_err": max(errs), "ms": ms_sum, "plain_ms": plain_sum, **bound.result(),
-            "library_ms": None}
+
+    # the largest site twice: the same bits (statistics added in rank order)
+    (b, spatial, c, g, eps, swish) = max(sites, key=lambda k: k[0] * math.prod(k[1]) * k[2])
+    for dt in (bf16, f32):
+        x = (torch.randn((b,) + spatial + (c,), generator=gen) * 2 + 0.5).to(dev, dt)
+        one = torch.ones(c, device=dev)
+        y1 = fused_group_norm_swish(x, one, one * 0.1, g, eps, swish)
+        y2 = fused_group_norm_swish(x, one, one * 0.1, g, eps, swish)
+        torch.cuda.synchronize()
+        _check(torch.equal(y1, y2), f"group_norm {str(dt)[6:]} {b}x{'x'.join(map(str, spatial))}"
+               f"x{c} G{g}: two runs bitwise identical")
+        del x, y1, y2
+
+    # outside the limits: raises naming the limit the C side states, no launch
+    for (b, h, w, c), g, dt, limit in (((1, 8, 8, 60), 4, bf16, "C a multiple of 8"),
+                                       ((1, 96, 192, 64), 8, bf16, "the slab of one sample"),
+                                       ((1, 128, 128, 64), 32, f32, "the slab of one sample")):
+        before = fused_group_norm_swish.launches
+        try:
+            fused_group_norm_swish(torch.zeros(b, h, w, c, device=dev, dtype=dt),
+                                   torch.ones(c, device=dev), torch.zeros(c, device=dev), g)
+            msg = "no error"
+        except ValueError as e:
+            msg = str(e)
+        _check(limit in msg and fused_group_norm_swish.launches == before,
+               f"group_norm {str(dt)[6:]} {b}x{h}x{w}x{c} G{g} raises naming '{limit}': {msg}")
+    print(f"      group_norm per predict (bf16, both paths): kernel {ms_sum:.4f} ms by CUDA "
+          f"events, {dev_sum:.4f} ms device (CUDA graphs), plain {plain_sum:.4f} ms, library "
+          f"{lib_sum:.4f} ms, bound {bound.ms:.4f} ms", flush=True)
+    return {"max_abs_err": max(errs), "ms": ms_sum, "device_ms": dev_sum, "plain_ms": plain_sum,
+            **bound.result(), "library_ms": lib_sum}
 
 
 def _axial_inputs(gen, dev, g_shape, h, w, d):
@@ -576,9 +684,10 @@ def call_sites(model, dev):
             _, c, *spatial = args[0].shape
             if isinstance(mod, FABlock2D):
                 seen.append((part, "fab", (*spatial, c, mod.impl)))
-            else:
+            else:  # GroupNormWrapper passes apply_swish by position
+                swish = kwargs.get("apply_swish", args[1] if len(args) > 1 else False)
                 seen.append((part, "gn", (tuple(spatial), mod.weight.numel(), mod.num_groups,
-                                          mod.eps, bool(kwargs.get("apply_swish", False)))))
+                                          mod.eps, bool(swish))))
         hooks.append(m.register_forward_hook(hook, with_kwargs=True))
     cfg = model.cfg
     model.use_kernels(False)
@@ -694,7 +803,7 @@ def drive_path(label, model, expect, gen, dev):
 
     # the kernel path against the all-plain path, f32, small input; the
     # JAX package holds its own predict to 3e-4 (tests/test_torch_export.py)
-    m32 = LatentDynamics(cfg).to(dev)
+    m32 = LatentDynamics(cfg, device=dev)
     m32.load_state_dict(model.state_dict())
     xs = x[:2].float()
     yk = m32.use_kernels(True).predict(xs, 4, decode_chunk=CHUNK)
@@ -765,6 +874,10 @@ def profile_predict(model, x, label, top=8):
           f"{max(0.0, 1 - busy / wall):.1%}, {ops} device ops", flush=True)
     for ms, count, key in sorted(rows, reverse=True)[:top]:
         print(f"        {ms:9.3f} ms {count:6d}x  {key[:90]}")
+    gn = [r for r in rows if "gn_kernel" in r[2]]
+    if gn:
+        print(f"        kernel 3 (gn_kernel): {sum(r[0] for r in gn):.3f} ms of device time in "
+              f"{sum(r[1] for r in gn)} calls", flush=True)
 
 
 def run(dev):
@@ -778,8 +891,9 @@ def run(dev):
     gn_sites, fab_sites = {}, {}  # summed over one predict of each path
     for label, cfg in (("path 1 NS2d", ns2d_config()),
                        ("path 2 NS2d use_attn_enc", ns2d_config().replace(use_attn_enc=True))):
-        model = init_weights_(LatentDynamics(cfg, dtype=torch.bfloat16,
-                                             ae_dtype=torch.bfloat16), gen).to(dev)
+        # initialised on the CPU from the seeded generator, then moved
+        model = init_weights_(LatentDynamics(cfg, dtype=torch.bfloat16, ae_dtype=torch.bfloat16,
+                                             device="cpu"), gen).to(dev)
         gn, fab = call_sites(model, dev)
         expect = expected_launches(cfg)
         _check(sum(gn.values()) == expect["group_norm"],
@@ -823,7 +937,7 @@ def run(dev):
     kernels = [
         ("prop_rollout", "cuda", src + "prop_rollout.cu", "prop_rollout.py:292"),
         ("fab_core", "cuda", src + "fab_core.cu", "fab_core.py:170"),
-        ("group_norm", "triton", "lns_tpu_torch/kernels/group_norm.py", "group_norm.py:50"),
+        ("group_norm", "cuda", src + "group_norm.cu", "group_norm.py:50"),
         ("fab_axial_in_fused", "cuda", src + "axial.cu", "axial_fused.py:132"),
         ("axial_kernel_apply_headmajor", "cuda", src + "axial.cu", "axial_attention.py:75"),
         ("bmm_blockdiag", "cuda", src + "axial_pipeline.cu", "axial_pipeline.py:59"),

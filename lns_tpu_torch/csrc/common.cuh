@@ -3,6 +3,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace lns {
@@ -12,12 +13,14 @@ constexpr size_t kMaxDynamicSmem = 232448;
 
 __device__ __forceinline__ float ld(float v) { return v; }
 __device__ __forceinline__ float ld(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float ld(__half v) { return __half2float(v); }
 
 template <typename T> __device__ __forceinline__ T cvt(float v);
 template <> __device__ __forceinline__ float cvt<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 cvt<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as torch and XLA cast
 }
+template <> __device__ __forceinline__ __half cvt<__half>(float v) { return __float2half_rn(v); }
 
 // Round an f32 value to the storage dtype T and back: marks the points where
 // the reference computation holds a value in its activation dtype.

@@ -6,7 +6,8 @@ for a CUDA tensor it launches the kernel or raises.
 
   * ``prop_rollout``  CUDA C++ (``csrc/prop_rollout.cu``): all propagator steps
   * ``fab_core``      CUDA C++ (``csrc/fab_core.cu``): the FAB c-space core
-  * ``group_norm``    Triton: GroupNorm + affine (+ swish)
+  * ``group_norm``    CUDA C++ (``csrc/group_norm.cu``): GroupNorm + affine
+                      (+ swish), a thread-block cluster per sample
   * ``axial``         CUDA C++ (``csrc/axial.cu``): head-major axial apply
                       (+ InstanceNorm), the FAB d-space core
   * ``axial_pipeline`` CUDA C++ (``csrc/axial_pipeline.cu``): batched

@@ -6,7 +6,8 @@ fused inference rollout (counterpart of ``lns_tpu.models.latent_dynamics``).
 launch of the rollout kernel (``kernels.prop_rollout``); with
 ``use_kernels(False)`` every kernel of the model is replaced by its plain
 PyTorch version, on any device. Parameters live under ``vq_ae`` and
-``propagator``, the reference trainer's state-dict names.
+``propagator``, the reference trainer's state-dict names. The model is built
+on the card unless the caller names another device (``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -26,12 +27,18 @@ class LatentDynamics(nn.Module):
     """Autoencoder (``vq_ae``) + propagator; NHWC in and out."""
 
     def __init__(self, cfg, dtype: Optional[torch.dtype] = None,
-                 ae_dtype: Optional[torch.dtype] = None):
+                 ae_dtype: Optional[torch.dtype] = None, device=None):
+        """Parameters are built on `device`: the CUDA card when None."""
         super().__init__()
+        device = torch.device("cuda" if device is None else device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("LatentDynamics: no CUDA device; pass device=\"cpu\" to build "
+                               "the model on the CPU")
         self.cfg = cfg
         self.dtype = dtype
-        self.vq_ae = SimpleAutoencoder(cfg, dtype=ae_dtype)
-        self.propagator = build_propagator(cfg, dtype=dtype)
+        with device:  # the submodules' parameters are allocated there
+            self.vq_ae = SimpleAutoencoder(cfg, dtype=ae_dtype)
+            self.propagator = build_propagator(cfg, dtype=dtype)
         self.use_kernel = True
 
     def use_kernels(self, flag: bool) -> "LatentDynamics":

@@ -31,7 +31,7 @@ def models():
     jmodel = JLatentDynamics(JConfig(d))
     init = jax.jit(lambda key: jmodel.init(key, (1, 32, 32, 1)))
     params = perturb(init(jax.random.PRNGKey(8))["params"], 9, 0.02)
-    model = load(LatentDynamics(Config(d)), state_dict_from_jax(Config(d), params))
+    model = load(LatentDynamics(Config(d), device="cpu"), state_dict_from_jax(Config(d), params))
     x = np.random.default_rng(10).standard_normal((3, 32, 32, 1)).astype(np.float32)
     return jmodel, params, model, x
 

@@ -42,7 +42,7 @@ def test_state_dict_from_jax_matches_export():
     assert sorted(ours) == sorted(ref)
     for k, v in ref.items():
         np.testing.assert_array_equal(ours[k].numpy(), np.asarray(v, np.float32), err_msg=k)
-    load(LatentDynamics(Config(small_ns2d_dict())), ours)  # strict
+    load(LatentDynamics(Config(small_ns2d_dict()), device="cpu"), ours)  # strict
 
 
 @pytest.mark.parametrize("use_attn_enc", [False, True])
@@ -55,10 +55,21 @@ def test_full_size_keys_and_shapes_match(use_attn_enc):
     params = jax.tree.map(lambda s: np.zeros(s.shape, np.float32), shapes["params"])
     cfg = ns2d_config().replace(use_attn_enc=use_attn_enc)
     state = state_dict_from_jax(cfg, params)
-    own = LatentDynamics(cfg).state_dict()
+    own = LatentDynamics(cfg, device="cpu").state_dict()
     assert {k: tuple(v.shape) for k, v in state.items()} == \
         {k: tuple(v.shape) for k, v in own.items()}
     assert any("encoder" in k and "low_rank_kernel" in k for k in own) == use_attn_enc
+
+
+def test_latent_dynamics_builds_on_the_card_unless_told(monkeypatch):
+    """With no device named the model is built on the CUDA card; where there
+    is none that raises, naming ``device="cpu"``, which builds on the CPU."""
+    cfg = Config(small_ns2d_dict())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        LatentDynamics(cfg)
+    model = LatentDynamics(cfg, device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
 
 
 def test_simple_cnn_step_matches_jax():
