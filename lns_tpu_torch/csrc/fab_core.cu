@@ -26,16 +26,17 @@
 //   apply  one block per (tile, sample): for each head, recompute the tile's
 //          bb and add bb . m; subtract the summed bias, write the tile once.
 //
-// bf16: tensor cores (mma.sync m16n8k16, f32 accumulators; mma.cuh), in the
-// TPU kernel's order and at the rounding points of _batched_gram_core for
-// w <= h (every NS2d field):
+// bf16: tensor cores (mma.sync m16n8k16, f32 accumulators; mma.cuh), at the
+// rounding points of _batched_gram_core. For w <= h (every NS2d field), in
+// the TPU kernel's order:
 //   a  = u . k_y^T  rounded to bf16    [h, 8, c] for a tile of 8 columns
 //   bb = k_x . a    rounded to bf16    [h, 8, c]
 //   G += bb^T bb    (f32)              m rounded to bf16; the bias summed
 //   out = bf16(bf16(sum_n bb . m_n) - bf16(sum_n bias_n))  over heads in f32
-// For w > h, _batched_gram_core applies k_x first and rounds other
-// intermediates; the kernel keeps the TPU kernel's k_y-first order for
-// every shape.
+// For w > h, _batched_gram_core applies k_x first. The kernels then run on
+// the transposed field: h and w swap, k_x and k_y swap, and u and out are
+// read and written through transposed pixel strides (Plan::sj, sm, oi, ol),
+// so a tile is 8 rows of the k_x-applied axis and nothing is copied.
 // Design. 512 threads (16 warps) per block, one block per SM. A tile is the
 // columns l0..l0+7 of the k_y-applied axis. Its a needs every row of u: u
 // is resident in shared memory where it fits (loaded once per block with
@@ -58,12 +59,14 @@
 //   + u h wp (c+8) + bb 8 hp (c+8)          (u resident), or
 //   + max(ring 2 R wp (c+8), bb)             (u streamed)
 // plus the column sums of k_x, k_y (stats) or the bias sum (apply), f32:
-// 225,152 bytes at 32x32 c64 and 75,392 at 16x16 c64. Limits, stated once
-// in bf16_limit (the launcher refuses, the wrapper raises with its text):
-// c a multiple of 16 up to 128, o a multiple of 16, h and w up to 128, and
-// the block within 227 KB (48x96 c64 takes 174,272 bytes; 96x48 c64 would
-// need 244,160 and raises). Each apply block covers oc = 64 columns of o
-// (32 when h > 32).
+// 225,152 bytes at 32x32 c64 and 75,392 at 16x16 c64. Where no streamed
+// plan fits, a drops the 8-element pad between its tile columns (its rows
+// stay conflict-free; its writes take 4-way conflicts): 96x48 c64, and SW's
+// 48x96 c64 run transposed, take 231,872 bytes instead of 244,160. Limits,
+// stated once in bf16_limit (the launcher refuses, the wrapper raises with
+// its text): c a multiple of 16 up to 128, o a multiple of 16, h and w up
+// to 128, and the block within 227 KB. Each apply block covers oc = 64
+// columns of o (32 when the second-applied side exceeds 32).
 //
 // f32: the same two passes with f32 FMAs on CUDA cores, bb in tiles of
 // kTI = 2 rows, k_x applied first; f32 has no tensor-core form at the TPU
@@ -299,6 +302,8 @@ static_assert(kWarps == 2 * kTL, "warps w and w + 8 share column l0 + w of a til
 struct Plan {
   int hp, wp, rows, resident;  // h, w padded to 16; u rows per stage; u held whole
   int ldk, ldy, ldc, lda;      // strides: k_x, k_y tile, u / bb rows (c + 8), a
+  int ldac;                    // a's stride between tile columns: c + 8, or c (compact)
+  int sj, sm, oi, ol;          // pixel strides of u's (j, m) and out's (i, l)
   int off_ky, off_a, off_u, off_bb;
   int oc, ldm;                 // apply: o columns per block and m's stride
   int stats_bytes, apply_bytes;
@@ -306,7 +311,7 @@ struct Plan {
 
 int round16(int v) { return (v + 15) / 16 * 16; }
 
-Plan make_plan(int h, int w, int c, int d, int o, int rows, bool resident) {
+Plan make_plan(int h, int w, int c, int d, int o, int rows, bool resident, bool compact) {
   Plan p;
   p.hp = round16(h);
   p.wp = round16(w);
@@ -315,7 +320,12 @@ Plan make_plan(int h, int w, int c, int d, int o, int rows, bool resident) {
   p.ldk = p.hp + 8;
   p.ldy = p.wp + 8;
   p.ldc = c + 8;
-  p.lda = kTL * p.ldc + 8;
+  p.ldac = compact ? c : p.ldc;
+  p.lda = kTL * p.ldac + 8;
+  p.sj = w;
+  p.sm = 1;
+  p.oi = w;
+  p.ol = 1;
   p.oc = p.hp <= 32 ? 64 : 32;
   p.ldm = p.oc + 8;
   p.off_ky = p.hp * p.ldk;
@@ -335,18 +345,33 @@ Plan make_plan(int h, int w, int c, int d, int o, int rows, bool resident) {
 
 int plan_smem(const Plan& p) { return std::max(p.stats_bytes, p.apply_bytes); }
 
-// u resident when it fits (each block then reads u from L2 once, not once
-// per tile or head); else the most u rows per ring stage (16, 8, 4, 2, 1)
-// that fit; else rows = 1 (which does not fit).
-Plan plan_for(int h, int w, int c, int d, int o) {
+// The plan in the kernels' own (h, w), which for w > h is the transposed
+// field: u resident when it fits (each block then reads u from L2 once, not
+// once per tile or head); else the most u rows per ring stage (16, 8, 4, 2)
+// that fit, with a padded, then compact; else rows = 1 (which does not fit).
+Plan plan_kernel(int h, int w, int c, int d, int o) {
   const int limit = static_cast<int>(lns::kMaxDynamicSmem);
-  const Plan whole = make_plan(h, w, c, d, o, h, true);
+  const Plan whole = make_plan(h, w, c, d, o, h, true, false);
   if (plan_smem(whole) <= limit) return whole;
-  for (int rows = kWarps; rows > 1; rows /= 2) {
-    const Plan p = make_plan(h, w, c, d, o, rows, false);
-    if (plan_smem(p) <= limit) return p;
-  }
-  return make_plan(h, w, c, d, o, 1, false);
+  for (bool compact : {false, true})
+    for (int rows = kWarps; rows > 1; rows /= 2) {
+      const Plan p = make_plan(h, w, c, d, o, rows, false, compact);
+      if (plan_smem(p) <= limit) return p;
+    }
+  return make_plan(h, w, c, d, o, 1, false, true);
+}
+
+// The plan for a field h x w: k_y first for w <= h; for w > h the kernels
+// see the transposed field (h, w swapped), reading u and writing out through
+// transposed pixel strides.
+Plan plan_for(int h, int w, int c, int d, int o) {
+  if (w <= h) return plan_kernel(h, w, c, d, o);
+  Plan p = plan_kernel(w, h, c, d, o);
+  p.sj = 1;  // u'(j, m) = u[m][j], out'(i, l) = out[l][i], both [h][w] in memory
+  p.sm = w;
+  p.oi = 1;
+  p.ol = w;
+  return p;
 }
 
 // The bf16 kernels' limits, stated once: nullptr when they take the shape,
@@ -380,7 +405,7 @@ __device__ __forceinline__ void copy_u_rows(const bf16* __restrict__ us, const P
     const int j = r0 + r;
     const bool valid = j < h && m < w;
     lns::cp_async16(dst + (r * p.wp + m) * p.ldc + c8,
-                    valid ? us + (static_cast<size_t>(j) * w + m) * c + c8 : us, valid);
+                    valid ? us + (static_cast<size_t>(j) * p.sj + m * p.sm) * c + c8 : us, valid);
   }
 }
 
@@ -438,10 +463,10 @@ __device__ __forceinline__ void tile_a_bb(const bf16* __restrict__ us, const Pla
         for (int q4 = 0; q4 < 4; ++q4)
           if (m0 + q4 < ct) {  // (cc, l = 2t), (cc, 2t+1), (cc+8, 2t), (cc+8, 2t+1)
             const int cc = (m0 + q4) * 16 + g;
-            ar[2 * t * p.ldc + cc] = __float2bfloat16(acc[q4][0]);
-            ar[(2 * t + 1) * p.ldc + cc] = __float2bfloat16(acc[q4][1]);
-            ar[2 * t * p.ldc + cc + 8] = __float2bfloat16(acc[q4][2]);
-            ar[(2 * t + 1) * p.ldc + cc + 8] = __float2bfloat16(acc[q4][3]);
+            ar[2 * t * p.ldac + cc] = __float2bfloat16(acc[q4][0]);
+            ar[(2 * t + 1) * p.ldac + cc] = __float2bfloat16(acc[q4][1]);
+            ar[2 * t * p.ldac + cc + 8] = __float2bfloat16(acc[q4][2]);
+            ar[(2 * t + 1) * p.ldac + cc + 8] = __float2bfloat16(acc[q4][3]);
           }
       }
     }
@@ -458,11 +483,11 @@ __device__ __forceinline__ void tile_a_bb(const bf16* __restrict__ us, const Pla
     for (int ks = 0; ks < p.hp; ks += 16) {
       uint32_t af[4], bfr[4];
       lns::ldsm_x4(af, kx_s + lns::a_addr(lane, mt * 16, ks, p.ldk));
-      lns::ldsm_x4_trans(bfr, a_s + lns::b_addr(lane, ks, col * p.ldc + n0, p.lda));
+      lns::ldsm_x4_trans(bfr, a_s + lns::b_addr(lane, ks, col * p.ldac + n0, p.lda));
       lns::mma_bf16(acc[0], af, bfr[0], bfr[1]);
       lns::mma_bf16(acc[1], af, bfr[2], bfr[3]);
       if (two) {
-        lns::ldsm_x4_trans(bfr, a_s + lns::b_addr(lane, ks, col * p.ldc + n0 + 16, p.lda));
+        lns::ldsm_x4_trans(bfr, a_s + lns::b_addr(lane, ks, col * p.ldac + n0 + 16, p.lda));
         lns::mma_bf16(acc[2], af, bfr[0], bfr[1]);
         lns::mma_bf16(acc[3], af, bfr[2], bfr[3]);
       }
@@ -603,7 +628,7 @@ fab_stats_bf16(const bf16* __restrict__ u, const bf16* __restrict__ kx,
     for (int px = tid / c8n; px < h * w; px += groups) {
       const uint4 v = p.resident
           ? *reinterpret_cast<const uint4*>(u_s + (j * p.wp + m) * p.ldc + c8)
-          : *reinterpret_cast<const uint4*>(us + static_cast<size_t>(px) * c + c8);
+          : *reinterpret_cast<const uint4*>(us + (static_cast<size_t>(j) * p.sj + m * p.sm) * c + c8);
       const bf16* vb = reinterpret_cast<const bf16*>(&v);
       const float wgt = sx[j] * sy[m];
 #pragma unroll
@@ -856,7 +881,8 @@ fab_apply_bf16(const bf16* __restrict__ u, const bf16* __restrict__ kx,
   for (int e = tid; e < h * kTL * (OC / 8); e += kTcThreads) {  // 16-byte stores
     const int c8 = e % (OC / 8) * 8, il = e / (OC / 8), l = il % kTL, i = il / kTL;
     if (l0 + l >= w || o0 + c8 >= o) continue;
-    *reinterpret_cast<uint4*>(out + ((static_cast<size_t>(s) * h + i) * w + l0 + l) * o + o0 + c8) =
+    const size_t px = static_cast<size_t>(s) * h * w + i * p.oi + (l0 + l) * p.ol;
+    *reinterpret_cast<uint4*>(out + px * o + o0 + c8) =
         *reinterpret_cast<const uint4*>(st + (l * p.hp + i) * p.ldm + c8);
   }
 }
@@ -911,6 +937,10 @@ int launch_bf16(const bf16* u, const bf16* kx, const bf16* ky, const bf16* w_in,
                 float eps, cudaStream_t stream) {
   if (bf16_limit(h, w, c, d, o)) return cudaErrorInvalidValue;
   const Plan p = plan_for(h, w, c, d, o);
+  if (w > h) {  // the transposed field: k_x applied first
+    std::swap(h, w);
+    std::swap(kx, ky);
+  }
   return p.wp > 64 ? launch_bf16_kf<8>(u, kx, ky, w_in, w1, m, bias, out, b, n, h, w, c, d, o, eps,
                                        p, stream)
                    : launch_bf16_kf<4>(u, kx, ky, w_in, w1, m, bias, out, b, n, h, w, c, d, o, eps,

@@ -28,7 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "lns_axial_apply": [_I] * 3 + [_P] * 4 + [_I] * 5 + [ctypes.c_float, _P],
+    "lns_axial_apply": [_I] * 3 + [_P] * 5 + [_I] * 6 + [ctypes.c_float, _P],
     "lns_bmm": [_I] + [_P] * 3 + [_I] * 3 + [_P],
     "lns_fab_core": [_I] + [_P] * 8 + [_I] * 7 + [ctypes.c_float, _P],
     "lns_group_norm": [_I] + [_P] * 4 + [_I] * 4 + [ctypes.c_float, _I, _P],
@@ -122,6 +122,10 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.lns_error_string.argtypes = [ctypes.c_int]
         lib.lns_error_string.restype = ctypes.c_char_p
+        lib.lns_axial_limit.argtypes = [ctypes.c_int] * 4
+        lib.lns_axial_limit.restype = ctypes.c_char_p
+        lib.lns_axial_plan.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+        lib.lns_axial_plan.restype = ctypes.c_int
         lib.lns_fab_core_bf16_limit.argtypes = [ctypes.c_int] * 5
         lib.lns_fab_core_bf16_limit.restype = ctypes.c_char_p
         lib.lns_group_norm_limit.argtypes = [ctypes.c_int] * 5

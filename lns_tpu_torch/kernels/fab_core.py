@@ -27,17 +27,18 @@ device memory:
      small scratch [b, n, c, o] / [b, n, o];
   2. apply, one block per (tile of 8 columns, sample): recompute the tile's
      bb for each head and add bb . m_n; write the output once.
-bf16 (``mma.sync`` m16n8k16, f32 accumulators, 512 threads per block): k_y
-first, as the TPU kernel, with a, bb, m, the bias, the head sum and the
-output rounded to bf16 where ``_batched_gram_core`` rounds them for w <= h.
-u is resident in shared memory where it fits (32x32 and 16x16 at c64), else
-it streams from L2 through a 2-stage ``cp.async`` ring. Shared memory per
-block: 225,152 bytes at 32x32 c64, 75,392 at 16x16 c64. The wrapper raises
-for a bf16 shape outside the kernel's limits, with the text of the C side's
+bf16 (``mma.sync`` m16n8k16, f32 accumulators, 512 threads per block): in
+``_batched_gram_core``'s order, k_y first for w <= h and k_x first for
+w > h (the kernels then walk the transposed field through transposed
+strides of u and out), with a, bb, m, the bias, the head sum and the output
+rounded to bf16 where it rounds them. u is resident in shared memory where
+it fits (32x32 and 16x16 at c64), else it streams from L2 through a 2-stage
+``cp.async`` ring. Shared memory per block: 225,152 bytes at 32x32 c64,
+75,392 at 16x16 c64, 231,872 at 48x96 c64. The wrapper raises for a bf16
+shape outside the kernel's limits, with the text of the C side's
 ``lns_fab_core_bf16_limit``: c a multiple of 16 up to 128, o a multiple of
 16, h and w up to 128, and the block within the H100's 227 KB of shared
-memory (48x96 c64 takes 174,272 bytes; 96x48 c64 would need 244,160).
-f32: the same passes as f32 FMAs on CUDA cores, k_x first.
+memory. f32: the same passes as f32 FMAs on CUDA cores, k_x first.
 """
 
 from __future__ import annotations

@@ -30,6 +30,7 @@ import math
 import torch
 
 from lns_tpu_torch.kernels import _build
+from lns_tpu_torch.ops.activations import swish
 
 # the C entry points' dtype argument
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -52,7 +53,8 @@ def group_norm_swish_plain(x, scale, bias, num_groups: int, eps: float = 1e-6,
       * ``y = x * sc + sh`` in the activation dtype: the product rounded,
         then the sum;
       * swish as ``y * (1 / (1 + exp(-y)))``, each op rounded to the
-        activation dtype (what XLA computes for ``y * sigmoid(y)``).
+        activation dtype (``ops.activations.swish``, what XLA computes for
+        ``y * sigmoid(y)``).
     """
     b, c = x.shape[0], x.shape[-1]
     cg = c // num_groups
@@ -62,9 +64,7 @@ def group_norm_swish_plain(x, scale, bias, num_groups: int, eps: float = 1e-6,
         var = (xf - mean).square().mean(dim=(1, 3), keepdim=True).clamp_min(0.0)
         y = ((xf - mean) * torch.rsqrt(var + eps)).reshape(b, -1, c)
         y = y * scale.float() + bias.float()
-        if apply_swish:
-            y = y * torch.sigmoid(y)
-        return y.reshape(x.shape)
+        return (swish(y) if apply_swish else y).reshape(x.shape)
     n = xf.shape[1] * cg  # sums divided by n, as jnp.mean (torch's CUDA mean multiplies by 1/n)
     mean = xf.sum(dim=(1, 3)) / n                                  # [B, G]
     var = (xf.square().sum(dim=(1, 3)) / n - mean.square()).clamp_min(0.0)
@@ -72,9 +72,7 @@ def group_norm_swish_plain(x, scale, bias, num_groups: int, eps: float = 1e-6,
     sc = inv.repeat_interleave(cg, dim=1) * scale.float()          # [B, C]
     sh = bias.float() - mean.repeat_interleave(cg, dim=1) * sc
     y = x.reshape(b, -1, c) * sc[:, None].to(x.dtype) + sh[:, None].to(x.dtype)
-    if apply_swish:
-        y = y * (1 / (1 + torch.exp(-y)))
-    return y.reshape(x.shape)
+    return (swish(y) if apply_swish else y).reshape(x.shape)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,0 +1,109 @@
+"""Time kernels 4 and 5 (``csrc/axial.cu``) and kernel 2 (``csrc/fab_core.cu``)
+of one source tree on the card, for comparing two trees on one card.
+
+    python3 lns_tpu_torch/kernels/probe_axial.py [--tree DIR] [--label NAME]
+
+``--tree`` is the root of the checkout whose ``lns_tpu_torch`` is timed
+(default: the one this file is in), so an older tree is timed with this
+script unchanged; each tree builds its own kernel library. Per shape it
+prints the mean time of one call by CUDA events over back-to-back calls
+(the host's launch pace included, as ``chip_smoke.py``'s ``ms``) and the
+device time by CUDA-graph replays (20 calls in one graph, the host's cost
+taken out), then one JSON line with the card's name and power limit. Run
+trees in turns (parent, change, change, parent) in one call of the card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", default=os.path.join(os.path.dirname(__file__), "..", ".."))
+    ap.add_argument("--label", default="")
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.tree))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("probe_axial: no CUDA device", file=sys.stderr)
+        return 1
+    from lns_tpu_torch.kernels import _build, axial, fab_core
+
+    _build.library()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+                          "-i", "0"], capture_output=True, text=True, timeout=60).stdout.strip()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(0)
+    bf = torch.bfloat16
+
+    def events_ms(fn, reps=5):
+        fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def graph_ms(fn, calls=20, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, capture_error_mode="relaxed"):
+            for _ in range(calls):
+                fn()
+        g.replay()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            g.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / (reps * calls)
+
+    def axial_inputs(g_shape, h, w, d):
+        kx = (torch.randn(*g_shape, h, h, generator=gen) / h ** 0.5).to(dev, bf)
+        ky = (torch.randn(*g_shape, w, w, generator=gen) / w ** 0.5).to(dev, bf)
+        return kx, ky, torch.randn(*g_shape, h, w, d, generator=gen).to(dev, bf)
+
+    def fab_inputs(b, h, w, c, n=8, d=64):
+        return (torch.randn(b, h, w, c, generator=gen).to(dev, bf),
+                (torch.randn(b, n, h, h, generator=gen) / h).to(dev, bf),
+                (torch.randn(b, n, w, w, generator=gen) / w).to(dev, bf),
+                (torch.randn(c, n, d, generator=gen) / c ** 0.5).to(dev),
+                (torch.randn(n, d, c, generator=gen) / d ** 0.5).to(dev))
+
+    cases = []
+    for b, n, h, w, d in ((32, 8, 16, 16, 64), (116, 8, 32, 32, 64)):
+        kx, ky, phi = axial_inputs((b, n), h, w, d)
+        cases.append((f"fab_axial_in_fused bf16 [{b},{n},{h},{w},{d}] IN",
+                      lambda kx=kx, ky=ky, phi=phi: axial.fab_axial_in_fused(kx, ky, phi)))
+    for g, h, w, d in ((256, 16, 16, 64), (928, 32, 32, 64)):
+        kx, ky, phi = axial_inputs((g,), h, w, d)
+        cases.append((f"axial_kernel_apply_headmajor bf16 [{g},{h},{w},{d}]",
+                      lambda kx=kx, ky=ky, phi=phi: axial.axial_kernel_apply_headmajor(kx, ky, phi)))
+    for b, h, w, c in ((116, 16, 16, 64), (116, 32, 32, 64), (4, 24, 48, 64), (2, 48, 96, 64)):
+        a = fab_inputs(b, h, w, c)
+        cases.append((f"fab_core bf16 b{b} {h}x{w} c{c}",
+                      lambda a=a: fab_core.fab_fused_core(*a)))
+    out = {}
+    for name, fn in cases:
+        ev, dv = events_ms(fn), graph_ms(fn)
+        out[name] = {"events_ms": ev, "device_ms": dv}
+        print(f"{args.label} {name}: {ev:.4f} ms by events, {dv:.4f} ms device (graph)", flush=True)
+    print(json.dumps({"label": args.label, "tree": os.path.abspath(args.tree), "card": smi,
+                      "times": out}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

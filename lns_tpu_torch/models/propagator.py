@@ -14,7 +14,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from lns_tpu_torch.ops.activations import gelu
+from lns_tpu_torch.ops.activations import GELU, gelu
 from lns_tpu_torch.ops.conv import Conv1x1, ConvND
 from lns_tpu_torch.ops.norms import GroupNorm, GroupNormWrapper
 
@@ -31,10 +31,10 @@ class DilatedResidualBlock(nn.Module):
             return ConvND(dim, dim, 3, padding=dil, dilation=dil,
                           padding_mode=padding_mode, dtype=dtype)
 
-        self.conv = nn.Sequential(GroupNorm(1, dim, eps=1e-5), conv3(1), nn.GELU(),
-                                  conv3(dilation), nn.GELU(), conv3(1))
+        self.conv = nn.Sequential(GroupNorm(1, dim, eps=1e-5), conv3(1), GELU(),
+                                  conv3(dilation), GELU(), conv3(1))
         self.ffn = nn.Sequential(GroupNorm(1, dim, eps=1e-5),
-                                 Conv1x1(dim, dim, use_bias=False, dtype=dtype), nn.GELU(),
+                                 Conv1x1(dim, dim, use_bias=False, dtype=dtype), GELU(),
                                  Conv1x1(dim, dim, use_bias=False, dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

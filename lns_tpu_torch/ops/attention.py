@@ -13,6 +13,20 @@ from lns_tpu_torch.ops.conv import Dense
 from lns_tpu_torch.ops.norms import LayerNorm
 
 
+def softmax_last(a: torch.Tensor, scale: float) -> torch.Tensor:
+    """softmax(a * scale) over the last dim. bf16 / f16 round where the
+    JAX package's ``jax.nn.softmax(a * scale)`` rounds under ``jax.jit``
+    (measured against it, ``tests/test_torch_port_bf16.py``): the scale as
+    a constant of a's dtype, s = a * scale and s - max(s) rounded, exp in
+    f32, the f32 sum of the unrounded exps rounded, then
+    ``bf16(exp) / bf16(sum)`` rounded."""
+    if a.dtype not in (torch.bfloat16, torch.float16):
+        return (a * scale).softmax(dim=-1)
+    s = a * float(torch.tensor(scale, dtype=a.dtype))
+    e = torch.exp((s - s.amax(dim=-1, keepdim=True)).float())
+    return e.to(a.dtype) / e.sum(dim=-1, keepdim=True).to(a.dtype)
+
+
 class SABlock(nn.Module):
     """Self-attention over the row-major tokens of x [B, C, H, W] (or a
     token sequence [B, N, C]), optional learnable positional embedding of
@@ -45,8 +59,7 @@ class SABlock(nn.Module):
         if self.pe is not None:
             h = h + self.pe[:, :n].to(h.dtype)
         q, k, v = (self._split(f(h)) for f in (self.to_q, self.to_k, self.to_v))
-        attn = torch.einsum("bhid,bhjd->bhij", q, k) * (self.dim_head ** -0.5)
-        attn = attn.softmax(dim=-1)
+        attn = softmax_last(torch.einsum("bhid,bhjd->bhij", q, k), self.dim_head ** -0.5)
         out = torch.einsum("bhij,bhjd->bhid", attn, v)
         out = out.transpose(1, 2).reshape(out.shape[0], n, -1)
         out = x + self.proj_out(out)

@@ -10,7 +10,11 @@ make zero parameters: load a state dict, or fill them with
 
 Circular padding is an explicit ``F.pad(mode="circular")``; zero padding
 rides the convolution. ``upsample_2x`` is a nearest-2x upsample followed by
-the conv.
+a 3x3 stride-1 pad-1 conv (the reference's upsample blocks and decoder
+tail), run as the JAX package lowers it (``lns_tpu.ops.conv._up2x_conv``):
+one input-dilated conv over the small grid with the box-summed 4x4 kernel,
+whose taps are summed in the activation dtype (so rounded in bf16), here a
+stride-2 transposed conv.
 """
 
 from __future__ import annotations
@@ -52,24 +56,46 @@ class ConvND(nn.Module):
         else:
             self.pads = [tuple(p) for p in padding]
         self.padding_mode = padding_mode
+        if upsample_2x and ((kh, kw) != (3, 3) or self.stride != (1, 1)
+                            or self.dilation != (1, 1) or self.pads != [(1, 1), (1, 1)]):
+            raise ValueError("upsample_2x takes a 3x3 conv with stride 1, dilation 1, pad 1")
         self.upsample_2x = upsample_2x
         self.dtype = dtype
         self.weight = nn.Parameter(torch.zeros(features, in_channels, kh, kw))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
+    def _up2x(self, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+        """Nearest-2x upsample + this 3x3 conv as the JAX package's
+        input-dilated conv: K4 = K * box2 per axis (taps [K0, K0+K1, K1+K2,
+        K2]) summed in dt in its order, then a stride-2 transposed conv with
+        the flipped K4, which is the input-dilated conv. A circular axis
+        wraps x by one small-grid pixel, a zero axis pads the dilated input
+        by 2."""
+        w = self.weight.to(dt)
+        k4 = torch.zeros(w.shape[:2] + (4, 4), dtype=dt, device=w.device)
+        for dp in range(2):
+            for dq in range(2):
+                k4[:, :, dp:dp + 3, dq:dq + 3] += w
+        pad = 1
+        if self.padding_mode == "circular":
+            x = pad_nd(x, [(1, 1), (1, 1)], mode="circular")
+            pad = 3
+        return F.conv_transpose2d(x.to(dt), k4.flip(2, 3).transpose(0, 1), None, 2, pad)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or x.dtype
         if self.upsample_2x:
-            x = F.interpolate(x, scale_factor=2, mode="nearest")
-        conv_pad = (0, 0)
-        if any(p != (0, 0) for p in self.pads):
-            symmetric = all(lo == hi for lo, hi in self.pads)
-            if self.padding_mode == "zeros" and symmetric:
-                conv_pad = tuple(lo for lo, _ in self.pads)
-            else:
-                x = pad_nd(x, self.pads, mode=self.padding_mode)
-        out = F.conv2d(x.to(dt), self.weight.to(dt), None, self.stride,
-                       conv_pad, self.dilation)
+            out = self._up2x(x, dt)
+        else:
+            conv_pad = (0, 0)
+            if any(p != (0, 0) for p in self.pads):
+                symmetric = all(lo == hi for lo, hi in self.pads)
+                if self.padding_mode == "zeros" and symmetric:
+                    conv_pad = tuple(lo for lo, _ in self.pads)
+                else:
+                    x = pad_nd(x, self.pads, mode=self.padding_mode)
+            out = F.conv2d(x.to(dt), self.weight.to(dt), None, self.stride,
+                           conv_pad, self.dilation)
         if self.bias is not None:
             out = out + self.bias.to(dt)[:, None, None]
         return out

@@ -19,9 +19,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from lns_tpu_torch.kernels.axial import fab_axial_in_fused
+from lns_tpu_torch.kernels.axial import axial_stats_plain, fab_axial_in_fused
 from lns_tpu_torch.kernels.fab_core import fab_core_plain, fab_fused_core
-from lns_tpu_torch.ops.activations import gelu
+from lns_tpu_torch.ops.activations import GELU, gelu
 from lns_tpu_torch.ops.conv import Conv1x1, Dense
 from lns_tpu_torch.ops.embedding import RotaryEmbedding, apply_rotary_pos_emb
 from lns_tpu_torch.ops.norms import GroupNorm, LayerNorm
@@ -64,7 +64,7 @@ class PoolingReducer(nn.Module):
         self.out_ffn = nn.Sequential(
             LayerNorm(hidden_dim),
             Dense(hidden_dim, hidden_dim * 2, use_bias=False),
-            nn.GELU(),
+            GELU(),
             Dense(hidden_dim * 2, out_dim),
         )
 
@@ -84,39 +84,58 @@ def _fab_impl_for(dim: int, dim_head: int) -> str:
     return "batchedgram" if 5 * dim < 9 * dim_head else "batched"
 
 
+def _fold_norm(x_sum, x_sq, n_px: int, w_o1, dt, eps: float):
+    """The InstanceNorm folded into the out-projection, as
+    ``FABlock2D._batched_core``: from the f32 sums of x and of f32(x)**2 over
+    the n_px pixels per (b, n, d), ``mean``, ``sq`` (each sum divided by
+    n_px, as ``jnp.mean``), ``inv = rsqrt(max(sq - mean**2, 0) + eps)``, then
+    ``wp = inv W_o1`` [b, n, d, o] and ``bias = (mean inv) @ W_o1`` [b, o],
+    each rounded to dt."""
+    mean, sq = x_sum / n_px, x_sq / n_px
+    inv = torch.rsqrt((sq - mean.square()).clamp_min(0.0) + eps)
+    w1f = w_o1.float()                                         # [n, d, o]
+    wp = (inv[..., None] * w1f[None]).to(dt)
+    bias = torch.einsum("bnd,ndo->bo", mean * inv, w1f).to(dt)
+    return wp, bias
+
+
 def fab_dspace_core_plain(u, k_x, k_y, w_in, w_o1, eps: float = 1e-5):
     """Plain PyTorch version of the d-space core, line for line the JAX
     package's ``FABlock2D._batched_core``: u [b, h, w, c], k_x [b, n, h, h],
     k_y [b, n, w, w], w_in [c, n, d], w_o1 [n, d, o] -> [b, h, w, o] in u's
-    dtype. The InstanceNorm folds into per-sample out-projection weights
-    (wp = inv W, bias = mean inv W), with f32 statistics."""
+    dtype. phi and both applies are rounded to u's dtype; the InstanceNorm
+    folds into per-sample out-projection weights (``_fold_norm``), so the
+    normalised value is never formed."""
     dt = u.dtype
     k_x, k_y, w_in = k_x.to(dt), k_y.to(dt), w_in.to(dt)
+    _, h, w, _ = u.shape
     phi = torch.einsum("bhwc,cnd->bhwnd", u, w_in)
     x = torch.einsum("bnih,bhwnd->bniwd", k_x, phi)
     x = torch.einsum("bnlw,bniwd->bnlid", k_y, x)
-    mean = x.float().mean(dim=(2, 3))                          # [b, n, d]
-    sq = x.float().square().mean(dim=(2, 3))
-    inv = torch.rsqrt((sq - mean.square()).clamp_min(0.0) + eps)
-    w1f = w_o1.float()                                         # [n, d, o]
-    wp = (inv[..., None] * w1f[None]).to(dt)                   # [b, n, d, o]
-    bias = torch.einsum("bnd,ndo->bo", mean * inv, w1f).to(dt)
+    stats = axial_stats_plain(x)  # the sums over (l, i) per (b, n, d)
+    wp, bias = _fold_norm(stats[..., 0], stats[..., 1], h * w, w_o1, dt, eps)
     out = torch.einsum("bnlid,bndo->blio", x, wp) - bias[:, None, None, :]
     return out.transpose(1, 2)
 
 
 def fab_dspace_core(u, k_x, k_y, w_in, w_o1, eps: float = 1e-5):
-    """The d-space core in three steps: in_proj to the head-major value
-    phi [b, n, h, w, d] (a plain product, as in the JAX package), the axial
-    applies and the InstanceNorm (``fab_axial_in_fused``, the kernel on a
-    CUDA tensor), and out_fc1 summed over heads (a plain product). Shapes as
-    ``fab_dspace_core_plain``. It rounds where the TPU kernel's caller does:
-    the normalised value is rounded to u's dtype before the projection,
-    where the plain version folds the norm into the projection weights."""
+    """The d-space core through kernel 4, rounding where the plain version
+    (``_batched_core``) rounds: in_proj to the value phi [b, h, w, n, d] (a
+    plain product, as in the JAX package, in its own layout); the rows
+    apply, then the columns apply, each rounded, with the f32 sums of x and
+    f32(x)**2 per (b, n, d) taken from the rounded x
+    (``fab_axial_in_fused`` with the norm off and ``stats=True``: the kernel
+    on a CUDA tensor); the norm folded into wp and the bias
+    (``_fold_norm``); out_fc1 summed over heads as one plain product of the
+    un-normalised x with wp, minus the bias. Shapes as
+    ``fab_dspace_core_plain``."""
     dt = u.dtype
-    phi = torch.einsum("bhwc,cnd->bnhwd", u, w_in.to(dt)).contiguous()
-    y = fab_axial_in_fused(k_x.to(dt), k_y.to(dt), phi, with_instance_norm=True, eps=eps)
-    return torch.einsum("bnhwd,ndo->bhwo", y, w_o1.to(dt))
+    _, h, w, _ = u.shape
+    phi = torch.einsum("bhwc,cnd->bhwnd", u, w_in.to(dt))  # heads last: one product, no copy
+    x, stats = fab_axial_in_fused(k_x.to(dt), k_y.to(dt), phi, with_instance_norm=False,
+                                  stats=True, heads_last=True)
+    wp, bias = _fold_norm(stats[..., 0], stats[..., 1], h * w, w_o1, dt, eps)
+    return torch.einsum("bhwnd,bndo->bhwo", x, wp) - bias[:, None, None, :]
 
 
 class FABlock2D(nn.Module):
@@ -144,7 +163,7 @@ class FABlock2D(nn.Module):
         self.to_out = nn.Sequential(
             nn.Identity(),  # the reference's InstanceNorm2d, folded into the core
             Conv1x1(heads * dim_head, dim_out, use_bias=False),
-            nn.GELU(),
+            GELU(),
             Conv1x1(dim_out, dim_out, use_bias=False),
         )
         self.impl = _fab_impl_for(dim, dim_head)

@@ -243,6 +243,8 @@ def test_wrappers_count_no_launch_on_cpu():
                                2, 1, 2, "circular")
     phi = torch.randn(2, 2, 8, 8, 16)
     axial.fab_axial_in_fused(torch.randn(2, 2, 8, 8), torch.randn(2, 2, 8, 8), phi)
+    axial.fab_axial_in_fused(torch.randn(2, 2, 8, 8), torch.randn(2, 2, 8, 8), phi,
+                             with_instance_norm=False, stats=True)
     axial.axial_kernel_apply(torch.randn(2, 2, 8, 8), torch.randn(2, 2, 8, 8), x, 2)
     axial_pipeline.axial_apply_pipeline(torch.randn(2, 2, 8, 8), torch.randn(2, 2, 8, 8), phi)
     assert [f.launches for f in _COUNTED] == before == [0] * len(_COUNTED)
@@ -264,6 +266,8 @@ def test_wrappers_refuse_other_devices():
     phi = torch.empty(2, 2, 8, 8, 16, device="meta")
     with pytest.raises(ValueError, match="device"):
         axial.fab_axial_in_fused(k, k, phi)
+    with pytest.raises(ValueError, match="device"):
+        axial.fab_axial_in_fused(k, k, phi, with_instance_norm=False, stats=True)
     with pytest.raises(ValueError, match="device"):
         axial.axial_kernel_apply_headmajor(k[0], k[0], phi[0])
     with pytest.raises(ValueError, match="device"):
