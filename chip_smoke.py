@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's NS2d inference rollouts once on one CUDA card.
+"""Drive the PyTorch port's NS2d inference rollouts and its stage-2 training
+once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -20,7 +21,9 @@ CUDA PyTorch and nvcc. It imports nothing of JAX. In order it:
      the main path's rollout, twice bitwise-identical; kernel 3 in bf16 and
      f32 at every GroupNorm site, and also in f16 at an odd field, 3
      channels per group, batch 1 and the largest f32 slab, printing each
-     launch plan, twice bitwise-identical; kernels 4 and 5 in bf16, f16 and
+     launch plan, twice bitwise-identical, and at the GroupNorm sites of a
+     stage-2 train step's forward, found by recording the calls of one
+     ``rollout_loss`` on the card; kernels 4 and 5 in bf16, f16 and
      f32 at the paths' and the decode chunk's shapes and at sides and
      channel counts off their tiles, kernel 4 with the norm, without it and
      with its statistics output, printing each launch plan and each d-tile's
@@ -44,15 +47,32 @@ CUDA PyTorch and nvcc. It imports nothing of JAX. In order it:
      input, times frames/s of both and the host's enqueue time per predict,
      and profiles one predict of each (device busy and idle, largest
      kernels);
-  5. prints one JSON line of per-kernel results (launches, and ms /
-     plain_ms / bound_ms per predict, summed over one predict of each path),
-     then the closing JSON line.
+  5. trains stage 2 at full NS2d width (``Stage2Trainer``, bf16): a
+     synthetic corpus of 64 cases x 30 frames, a seeded AE saved as a
+     stage-1 ``.pt`` and loaded (bitwise), the encode pre-pass (kernel 3 at
+     every encoder GN site, each call held to the plain version on its own
+     input; its corpus against an all-plain encode in bf16 and f32), one
+     train step's gradients on the kernel path against the plain path (f32
+     and bf16; kernel 3 launched in the forward through its autograd
+     Function, each launch held to the plain version on its own input with
+     its gradient, every GroupNorm parameter with a gradient), kernels 1, 2
+     and 4-7 refusing a gradient, two epochs (96 steps) with three
+     validations through ``predict`` (kernels 1-3), launch counts, finite
+     losses, a frozen AE, checkpoints and a resume; then validation on the
+     trained weights against the plain path (every kernel call of its
+     predict on its own input, ``validate`` on the plain path, and the f32
+     latents at its shape); prints train ms per step, steps/s, encode
+     frames/s, validate ms and a profile of five train steps;
+  6. prints one JSON line of per-kernel results (launches per path, and ms
+     / plain_ms / bound_ms per predict, summed over one predict of each
+     inference path), then the closing JSON line.
 
 Any failed check or exception exits non-zero before the closing line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -420,12 +440,13 @@ def _gn_library(xd, scale, bias, groups, eps, swish, cast):
     return F.silu(y) if swish else y
 
 
-def check_group_norm(dev, gen, sites):
+def check_group_norm(dev, gen, sites, train_sites):
     """Kernel 3 at every GroupNorm site of both paths (sites: {(batch,
-    spatial, C, groups, eps, swish): calls per predict}) and at shapes that
-    take its other plans, in bf16 and f32 (f16 too at those shapes); two
-    runs bitwise equal at the largest site; shapes outside its limits raise
-    naming the limit."""
+    spatial, C, groups, eps, swish): calls per predict}), at every site of a
+    stage-2 train step's forward (train_sites: {site: calls per train
+    step}) and at shapes that take its other plans, in bf16 and f32 (f16
+    too at those shapes); two runs bitwise equal at the largest site; shapes
+    outside its limits raise naming the limit."""
     from lns_tpu_torch.kernels.group_norm import (fused_group_norm_swish, group_norm_plan,
                                                   group_norm_swish_plain)
 
@@ -448,8 +469,12 @@ def check_group_norm(dev, gen, sites):
           flush=True)
     errs, bound = [], Bound()
     ms_sum = dev_sum = plain_sum = lib_sum = 0.0
-    cases = [(site, calls) for site, calls in sorted(sites.items())] + [(e, 0) for e in extra]
-    for (b, spatial, c, g, eps, swish), calls in cases:
+    train = dict.fromkeys(("ms", "dev", "plain", "lib"), 0.0)
+    per_site = {site: [calls, 0] for site, calls in sites.items()}
+    for site, calls in train_sites.items():
+        per_site.setdefault(site, [0, 0])[1] = calls
+    cases = sorted(per_site.items()) + [(e, [0, 0]) for e in extra]
+    for (b, spatial, c, g, eps, swish), (calls, train_calls) in cases:
         x = (torch.randn((b,) + spatial + (c,), generator=gen) * 2 + 0.5).to(dev)
         scale = (torch.randn(c, generator=gen) * 0.1 + 1).to(dev)
         bias = (torch.randn(c, generator=gen) * 0.1).to(dev)
@@ -461,7 +486,8 @@ def check_group_norm(dev, gen, sites):
         # another order can move one (sample, channel)'s sc or sh by one
         # ulp, and some of that channel's elements with it
         dtypes = [(f32, 1e-5, 1.0), (bf16, 1e-2, 0.02)]
-        for dt, tol, differ in dtypes + ([] if calls else [(torch.float16, 1e-2, 0.02)]):
+        timed = calls or train_calls
+        for dt, tol, differ in dtypes + ([] if timed else [(torch.float16, 1e-2, 0.02)]):
             xd = x.to(dt)
             plan = group_norm_plan(dt, b, s, c, g)
             print(f"      group_norm {str(dt)[6:]} {tag}: cluster {plan['cluster']}, "
@@ -474,11 +500,14 @@ def check_group_norm(dev, gen, sites):
                 lambda: group_norm_swish_plain(xd, scale, bias, g, eps, swish), tol,
                 max_differ=differ)
             errs.append(err)
-            if dt == bf16 and calls:
+            if dt == bf16 and timed:
                 dms = graph_ms(lambda: fused_group_norm_swish(xd, scale, bias, g, eps, swish))
                 lms = cuda_ms(lambda: _gn_library(xd, scale, bias, g, eps, swish, cast))
                 print(f"      group_norm bf16 {tag}: device {dms:.4f} ms (CUDA graph of 20 "
-                      f"calls), library {lms:.4f} ms; {calls} calls per predict", flush=True)
+                      f"calls), library {lms:.4f} ms; {calls} calls per predict, {train_calls} "
+                      "per train step", flush=True)
+                for k, v in (("ms", ms), ("dev", dms), ("plain", plain_ms), ("lib", lms)):
+                    train[k] += v * train_calls
                 ms_sum += ms * calls
                 dev_sum += dms * calls
                 plain_sum += plain_ms * calls
@@ -514,6 +543,9 @@ def check_group_norm(dev, gen, sites):
     print(f"      group_norm per predict (bf16, both paths): kernel {ms_sum:.4f} ms by CUDA "
           f"events, {dev_sum:.4f} ms device (CUDA graphs), plain {plain_sum:.4f} ms, library "
           f"{lib_sum:.4f} ms, bound {bound.ms:.4f} ms", flush=True)
+    print(f"      group_norm per stage-2 train step's forward (bf16): kernel {train['ms']:.4f} ms "
+          f"by CUDA events, {train['dev']:.4f} ms device (CUDA graphs), plain "
+          f"{train['plain']:.4f} ms, library {train['lib']:.4f} ms", flush=True)
     return {"max_abs_err": max(errs), "ms": ms_sum, "device_ms": dev_sum, "plain_ms": plain_sum,
             **bound.result(), "library_ms": lib_sum}
 
@@ -844,18 +876,61 @@ def call_sites(model, dev):
     return gn, fab
 
 
-def expected_launches(cfg):
+@contextlib.contextmanager
+def recording(module, name):
+    """Every call of ``module.<name>`` (a kernel's wrapper, by the name a
+    layer calls it) while open, in a list: its arguments, tensors detached
+    and copied. The calls go on to the wrapper, which counts its launches."""
+    real, calls = getattr(module, name), []
+
+    def record(*args):
+        calls.append(tuple(a.detach().clone() if isinstance(a, torch.Tensor) else a
+                           for a in args))
+        return real(*args)
+
+    setattr(module, name, record)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def train_gn_sites(model, dev):
+    """Every GroupNorm call of one stage-2 train step's forward
+    (``rollout_loss`` at batch S2_BATCH, ``out_tw`` propagator steps), as the
+    layers call kernel 3 on the card: {(batch, spatial, C, groups, eps,
+    swish): calls per train step}."""
+    from lns_tpu_torch.ops import norms
+
+    cfg = model.cfg
+    with torch.no_grad():
+        z = model.encode(torch.zeros(1, cfg.Ly, cfg.Lx, cfg.in_channels, device=dev))
+        z_in = torch.zeros((S2_BATCH, 1) + tuple(z.shape[1:]), device=dev)
+        z_out = torch.zeros((S2_BATCH, cfg.out_tw) + tuple(z.shape[1:]), device=dev)
+        with recording(norms, "fused_group_norm_swish") as calls:
+            model.rollout_loss(z_in, z_out)
+    sites = {}
+    for x, scale, _, g, eps, swish in calls:
+        site = (x.shape[0], tuple(x.shape[1:-1]), x.shape[-1], g, eps, bool(swish))
+        sites[site] = sites.get(site, 0) + 1
+    return sites
+
+
+def expected_launches(cfg, n_chunks=None, encodes=1):
     """Launches per predict that the layer specs imply: the rollout once;
     per FAB block, once per encode or decode chunk, the FAB core (c-space)
     or the axial kernel (d-space), as ``_fab_impl_for`` picks from the
     block's dim and dim_head; the GroupNorm kernel once per GN site (two per
     ResidualBlock, one per GN layer and per FAB ``in_norm``) per encode or
-    decode chunk."""
+    decode chunk. `n_chunks` decode chunks (those of the main paths' predict
+    when None) and `encodes` encoder calls; with ``n_chunks=0`` (an encode
+    pass alone) the rollout is not counted."""
     from lns_tpu_torch.models.specs import decoder_spec, encoder_spec
     from lns_tpu_torch.ops.factorized_attention import _fab_impl_for
 
-    n_chunks = -(-BATCH * STEPS // CHUNK)
-    parts = ((encoder_spec(cfg), 1), (decoder_spec(cfg), n_chunks))
+    if n_chunks is None:
+        n_chunks = -(-BATCH * STEPS // CHUNK)
+    parts = ((encoder_spec(cfg), encodes), (decoder_spec(cfg), n_chunks))
 
     def count(per_spec):
         return sum(calls * sum(per_spec(s) for s in specs) for specs, calls in parts)
@@ -864,7 +939,7 @@ def expected_launches(cfg):
         return count(lambda s: s.kind == "fablock"
                      and _fab_impl_for(s.kw["dim"], s.kw["dim_head"]) == impl)
 
-    return {"prop_rollout": 1, "fab_core": fabs("batchedgram"),
+    return {"prop_rollout": int(n_chunks > 0), "fab_core": fabs("batchedgram"),
             "fab_axial_in_fused": fabs("batched"),
             "group_norm": count(lambda s: {"resblock": 2, "gn": 1, "fablock": 1}.get(s.kind, 0))}
 
@@ -896,7 +971,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     check_tensor_cores()
 
-    kernels = run(dev)
+    kernels = run(dev, smi)
     print(json.dumps({"kernels": kernels}))
     if _FAILS:
         print(f"chip_smoke: {len(_FAILS)} check(s) failed", file=sys.stderr)
@@ -981,15 +1056,17 @@ def drive_path(label, model, expect, gen, dev):
               f"max {t[-1]:.2f}, n={len(t)}), {frames / med * 1e3:.1f} frames/s; host enqueue "
               f"median {e[len(e) // 2]:.2f} ms (min {e[0]:.2f}, max {e[-1]:.2f})", flush=True)
     for flag, path in ((True, "kernel path"), (False, "plain path")):
-        profile_predict(model.use_kernels(flag), x, f"{label} {path}")
+        model.use_kernels(flag)
+        profile_device(lambda: model.predict(x, STEPS, decode_chunk=CHUNK), f"{label} {path}")
     model.use_kernels(True)
     return launches
 
 
-def profile_predict(model, x, label, top=8):
-    """One predict under torch.profiler (after the timed ones): its wall time
-    by CUDA events, the device's busy time (every kernel and copy) and idle
-    share, and the kernels that take the most device time."""
+def profile_device(fn, label, top=8):
+    """fn() (one predict, or a few train steps, after the timed ones) under
+    torch.profiler: its wall time by CUDA events, the device's busy time
+    (every kernel and copy) and idle share, and the kernels that take the
+    most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -997,23 +1074,27 @@ def profile_predict(model, x, label, top=8):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start.record()
-        model.predict(x, STEPS, decode_chunk=CHUNK)
+        fn()
         end.record()
         torch.cuda.synchronize()
     wall = start.elapsed_time(end)
-    rows = []  # device-side entries only (an operator's entry repeats its kernels' time)
+    # device-side entries only: an operator's entry, or a user annotation's
+    # (the optimizer's step), repeats its kernels' time
+    rows = []
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0)
-        if ev.device_type == DeviceType.CUDA and us > 0:
+        if (ev.device_type == DeviceType.CUDA and us > 0
+                and not getattr(ev, "is_user_annotation", False)):
             rows.append((us / 1e3, ev.count, ev.key))
     busy, ops = sum(r[0] for r in rows), sum(r[1] for r in rows)
     print(f"      profile {label}: wall {wall:.2f} ms, device busy {busy:.2f} ms, idle "
           f"{max(0.0, 1 - busy / wall):.1%}, {ops} device ops", flush=True)
     for ms, count, key in sorted(rows, reverse=True)[:top]:
         print(f"        {ms:9.3f} ms {count:6d}x  {key[:90]}")
-    for label_k, part in (("kernel 2 (fab_stats, fab_apply)", "fab_"), ("kernel 3 (gn_kernel)", "gn_kernel"),
+    for label_k, part in (("kernel 2 (fab_stats, fab_apply)", "fab_"),
+                          ("kernel 3 (gn_kernel)", "::gn_kernel<"),
                           ("kernel 4 (axial_tc)", "axial_tc")):
         found = [r for r in rows if part in r[2]]
         if found:
@@ -1021,8 +1102,522 @@ def profile_predict(model, x, label, top=8):
                   f"{sum(r[1] for r in found)} calls", flush=True)
 
 
-def run(dev):
-    """Phases 3 and 4 on `dev`; returns the per-kernel results."""
+# -- phase 5: stage-2 training ------------------------------------------------
+
+# the stage-2 corpus: synthetic 64x64 cases of 30 frames; 64 cases split
+# into 57 training cases (27 windows each: 48 steps of batch 32 per epoch)
+# and 7 validation cases (a 29-step rollout each)
+S2_CASES, S2_CASE_LEN, S2_EPOCHS, S2_BATCH = 64, 30, 2, 32
+
+
+def _refusal_calls(dev):
+    """Each of kernels 1, 2 and 4-7, by its JSON name, called on small
+    tensors on the card that require grad."""
+    from lns_tpu_torch.kernels import axial, axial_pipeline, fab_core, prop_rollout
+
+    def t(*shape):
+        return torch.ones(shape, device=dev, requires_grad=True)
+
+    packed = prop_rollout.PackedSimpleCNN(
+        t(16, 128), t(128), t(3, 2, 128), t(3, 2, 128), t(3, 3, 3, 3, 128, 128), t(3, 3, 128),
+        t(3, 2, 128, 128), t(128), t(128), t(128, 16), t(16))
+    return {
+        "prop_rollout": lambda: prop_rollout.fused_rollout(t(2, 8, 8, 16), packed, 1, 3, 2,
+                                                           "circular"),
+        "fab_core": lambda: fab_core.fab_fused_core(t(1, 16, 16, 64), t(1, 8, 16, 16),
+                                                    t(1, 8, 16, 16), t(64, 8, 64), t(8, 64, 64)),
+        "fab_axial_in_fused": lambda: axial.fab_axial_in_fused(t(1, 8, 16, 16), t(1, 8, 16, 16),
+                                                               t(1, 8, 16, 16, 64)),
+        "axial_kernel_apply_headmajor": lambda: axial.axial_kernel_apply_headmajor(
+            t(8, 16, 16), t(8, 16, 16), t(8, 16, 16, 64)),
+        "bmm_blockdiag": lambda: axial_pipeline.bmm_blockdiag(t(1, 2, 128, 128),
+                                                              t(1, 2, 128, 256)),
+        "transpose_hw": lambda: axial_pipeline.transpose_hw(t(1, 8, 32, 32, 64)),
+    }
+
+
+def check_gn_calls(where, calls, gen=None):
+    """Kernel 3 on the inputs its call sites really received (`calls`, from
+    ``recording``), each call against the plain version at
+    ``check_group_norm``'s bounds: bf16 within 1e-2 x max|plain| with at most
+    2 % of the elements differing, f32 within 1e-5 x max|plain|. With `gen`,
+    also the gradient through ``GroupNormSwishFunction`` (the kernel's
+    forward, the plain version's backward) for a seeded upstream gradient,
+    against plain autograd's: bitwise equal, since the backward recomputes
+    the plain version from the same inputs."""
+    from lns_tpu_torch.kernels.group_norm import fused_group_norm_swish, group_norm_swish_plain
+
+    for i, (x, scale, bias, g, eps, swish) in enumerate(calls):
+        args = (g, eps, bool(swish))
+        with torch.no_grad():
+            yk = fused_group_norm_swish(x, scale, bias, *args).float()
+            yp = group_norm_swish_plain(x, scale, bias, *args).float()
+        bf16 = x.dtype == torch.bfloat16
+        tol = 1e-2 if bf16 else 1e-5
+        ratio = (yk - yp).abs().max().item() / max(yp.abs().max().item(), 1e-30)
+        differ = (yk != yp).float().mean().item()
+        msg = (f"{where}, call {i} ({str(x.dtype)[6:]} {'x'.join(map(str, x.shape))} G{g} "
+               f"eps{eps:g}{' +swish' if swish else ''}), kernel 3 vs plain on its own input: "
+               f"max_abs_err {ratio:.2e} x max|plain| (<= {tol:.0e}); {differ:.2%} of elements "
+               f"differ{' (<= 2 %)' if bf16 else ''}")
+        ok = bool(torch.isfinite(yk).all()) and ratio <= tol and (differ <= 0.02 or not bf16)
+        if gen is not None:
+            go = torch.randn(x.shape, generator=gen).to(x.device, x.dtype)
+            grads = []
+            for fn in (fused_group_norm_swish, group_norm_swish_plain):
+                leaves = [t.clone().requires_grad_() for t in (x, scale, bias)]
+                y = fn(*leaves, *args)
+                grads.append(torch.autograd.grad(y, leaves, go))
+            same = all(torch.equal(a, b) for a, b in zip(*grads))
+            ok = ok and same
+            msg += f"; gradients w.r.t. x, scale, bias bitwise equal to plain autograd's: {same}"
+        _check(ok, msg)
+
+
+def _step_grads(model, z_in, z_out, use_kernel):
+    """One train step's gradients w.r.t. every propagator parameter, and
+    kernel 3's launches in its forward and in its backward."""
+    from lns_tpu_torch.kernels.group_norm import fused_group_norm_swish
+
+    model.use_kernels(use_kernel)
+    params = dict(model.propagator.named_parameters())
+    before = fused_group_norm_swish.launches
+    loss = model.rollout_loss(z_in, z_out)
+    fwd = fused_group_norm_swish.launches - before
+    grads = torch.autograd.grad(loss, list(params.values()))
+    model.use_kernels(True)
+    return dict(zip(params, grads)), fwd, fused_group_norm_swish.launches - before - fwd
+
+
+def check_stage2_gradients(trainer, m32, dev):
+    """One train step's gradients w.r.t. every propagator parameter, kernel
+    path against ``use_kernels(False)`` (TF32 off), on a batch of the
+    corpus: f32 within 1e-4 x max|g| per tensor (sums in another order);
+    bf16 cosine similarity >= 0.999 per tensor (the forwards differ by
+    bf16 roundings, the backward is the same plain recompute); every
+    GroupNorm scale and shift with a nonzero gradient; kernel 3 launched
+    7 x out_tw times in the forward (GN(1) twice in each of 3 blocks, and
+    out_proj's GN(32), per step) and never in the backward. Each of those
+    launches is also held to the plain version on its own input, with its
+    gradient (``check_gn_calls``)."""
+    from lns_tpu_torch.ops import norms
+
+    cfg = trainer.cfg
+    z_in, z_out = _s2_batch(trainer, dev)
+    per_step = 2 * cfg.prop_n_block + 1
+    gen = torch.Generator().manual_seed(2)
+    for label, model in (("f32", m32), ("bf16", trainer.model)):
+        with recording(norms, "fused_group_norm_swish") as calls, torch.no_grad():
+            model.rollout_loss(z_in, z_out)
+        _check(len(calls) == per_step * cfg.out_tw,
+               f"stage-2 {label} train step: {len(calls)} GroupNorm calls in the forward")
+        check_gn_calls(f"stage-2 {label} train step", calls, gen)
+        del calls
+        gk, fwd, bwd = _step_grads(model, z_in, z_out, True)
+        gp, fwd_p, _ = _step_grads(model, z_in, z_out, False)
+        worst = (None, 0.0) if label == "f32" else (None, 1.0)
+        for k, g in gk.items():
+            ref = gp[k].float()
+            if label == "f32":
+                r = (g - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+                worst = max(worst, (k, r), key=lambda w: w[1])
+            else:
+                c = torch.nn.functional.cosine_similarity(g.flatten().float(), ref.flatten(),
+                                                          dim=0).item()
+                worst = min(worst, (k, c), key=lambda w: w[1])
+        ok = worst[1] <= 1e-4 if label == "f32" else worst[1] >= 0.999
+        _check(ok and all(bool(torch.isfinite(g).all()) for g in gk.values()),
+               f"stage-2 {label} train-step gradients, kernel path vs plain, {len(gk)} tensors: "
+               + (f"max_abs_err <= {worst[1]:.2e} x max|g| (<= 1e-4)" if label == "f32" else
+                  f"cosine similarity >= {worst[1]:.6f} (>= 0.999)") + f", worst {worst[0]}")
+        gn = {k: g for k, g in gk.items() if ".conv.0." in k or ".ffn.0." in k or ".gn." in k}
+        _check(len(gn) == 2 * per_step and all(g.abs().max().item() > 0 for g in gn.values()),
+               f"stage-2 {label}: all {len(gn)} GroupNorm scales and shifts have a nonzero "
+               f"gradient (smallest max|g| {min(g.abs().max().item() for g in gn.values()):.3e})")
+        _check(fwd == per_step * cfg.out_tw and bwd == 0 and fwd_p == 0,
+               f"stage-2 {label}: kernel 3 launched {fwd} times in the forward of a train step "
+               f"(== {per_step} x out_tw {cfg.out_tw}), {bwd} in its backward, {fwd_p} on the "
+               f"plain path")
+
+
+def _s2_batch(trainer, dev):
+    """The first S2_BATCH windows of the corpus, on the card."""
+    import numpy as np
+
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in trainer.train_ds.get_batch(np.arange(S2_BATCH)))
+
+
+def check_stage2_corpus(trainer, m32, dev):
+    """The encode pre-pass's latent corpus (kernel 3 at every encoder GN
+    site) against an all-plain encode of the same frames, in bf16 (the
+    trainer's) and f32 (`m32`, the same weights). f32: within 1e-4 x
+    max|plain| (sums in another order). bf16: within 2e-2 x max|plain| with
+    at most 2 % of the elements differing: kernel 3 matches the plain
+    version bitwise on most inputs, but an f32 sum in another order can move
+    one (sample, channel)'s scale or shift by an ulp, and the encoder's
+    later layers carry that on through the whole frame (one kernel call
+    alone is held to 1e-2; kernel 1's 2e-2 bounds one composed propagator
+    step alike). So the frames that differ are counted, and each GroupNorm
+    call of the first encode call that holds one is held to 1e-2 on its own
+    input (``check_gn_calls``). Returns the seconds of the bf16 pre-pass run
+    again, timed by the host clock (it ends in the copy to the host)."""
+    import numpy as np
+
+    from lns_tpu_torch.ops import norms
+
+    ds = trainer.train_ds
+    corpus = ds.encoded
+    for label, model, tol in (("bf16", trainer.model, 2e-2), ("f32", m32, 1e-4)):
+        t0 = time.perf_counter()
+        ds.encode_dataset(model.encode, dev)
+        if label == "bf16":
+            secs = time.perf_counter() - t0
+        kern = ds.encoded
+        model.use_kernels(False)
+        ds.encode_dataset(model.encode, dev)
+        plain = ds.encoded
+        model.use_kernels(True)
+        err, scale = float(np.abs(kern - plain).max()), float(np.abs(plain).max())
+        differ = float((kern != plain).mean())
+        ok = bool(np.isfinite(kern).all()) and err <= tol * scale
+        if label == "bf16":
+            ok = ok and differ <= 0.02 and np.array_equal(kern, corpus)
+            # (case, t) of each frame that differs, as an index into the
+            # frames the pre-pass encodes 64 at a time
+            case, t = np.nonzero((kern != plain).reshape(*kern.shape[:2], -1).any(-1))
+            frames = case * ds.case_len + t * ds.interval
+        _check(ok, f"stage-2 latent corpus {tuple(kern.shape)} {label}, kernel path vs an "
+               f"all-plain encode: max_abs_err {err:.3e} <= {tol:.0e} x max|plain| "
+               f"({tol * scale:.3e}); {differ:.2%} of elements differ"
+               + (f" (<= 2 %), in {len(frames)} of {kern.shape[0] * kern.shape[1]} frames and "
+                  f"{len(set(frames // 64))} of {-(-ds.n_cases * ds.case_len // 64)} encode "
+                  "calls; the pre-pass run again: bitwise equal" if label == "bf16" else ""))
+    ds.encoded = corpus
+
+    call = int(frames[0] // 64) if len(frames) else 0
+    x = ds.normalize(np.moveaxis(ds.data, -1, 0))[..., None].astype(np.float32)
+    x = x.reshape(-1, *x.shape[2:])[call * 64: call * 64 + 64]
+    x = np.concatenate([x, np.repeat(x[-1:], 64 - len(x), axis=0)])  # padded as the pre-pass does
+    with recording(norms, "fused_group_norm_swish") as calls, torch.no_grad():
+        trainer.model.encode(torch.from_numpy(x).to(dev))
+    check_gn_calls(f"stage-2 pre-pass bf16 encode call {call}"
+                   + (" (the first whose frames differ)" if len(frames) else ""), calls)
+    return secs
+
+
+def _parity(where, kern, plain, ref, more=""):
+    """One kernel call on the inputs its call site really received, held to
+    accuracy parity with its plain version: its largest distance from
+    `ref` (the plain version evaluated in f32 on the same inputs) at most
+    1.5 x the plain bf16 version's. Prints the kernel's distance from the
+    plain version and the share of elements that differ beside it."""
+    kern, plain = kern.float(), plain.float()
+    scale = max(ref.abs().max().item(), 1e-30)
+    ek, ep = ((kern - ref).abs().max().item() / scale, (plain - ref).abs().max().item() / scale)
+    kp = (kern - plain).abs().max().item() / max(plain.abs().max().item(), 1e-30)
+    _check(bool(torch.isfinite(kern).all()) and ek <= 1.5 * ep,
+           f"{where}: max_abs_err from the plain version in f32 {ek:.2e} x max|ref| (<= 1.5 x "
+           f"the plain bf16 version's, {ep:.2e}); against the plain version {kp:.2e} x "
+           f"max|plain|, {(kern != plain).float().mean().item():.2%} of elements differ{more}")
+
+
+def _cpu_spread(plain_fn, args, plain):
+    """The plain version on the CPU (sums in another order) against the
+    card's `plain`, as text: max_abs_err / max|plain| and the share of
+    elements that differ."""
+    cpu = plain_fn(*[a.cpu() if isinstance(a, torch.Tensor) else a for a in args]).float()
+    plain = plain.float().cpu()
+    return (f"; the plain version on the CPU against the card's: "
+            f"{(cpu - plain).abs().max().item() / max(plain.abs().max().item(), 1e-30):.2e} x "
+            f"max|plain|, {(cpu != plain).float().mean().item():.2%} of elements differ")
+
+
+def check_stage2_validation(trainer, val_kernel, tmp, dev):
+    """Validation on the trained weights against the plain path.
+
+    bf16 (the trainer's model): validate's predict (the validation cases in
+    one batch, 29 steps, decoded 116 frames at a time, the last chunk
+    zero-padded) once more on the kernel path, every call of kernels 1-3
+    recorded. The trained propagator's latents are small and the decoder's
+    features nearly flat, so these functions are ill-conditioned there:
+    the plain version on the CPU (sums in another order) misses the bounds
+    that random inputs are held to. Each call is held to accuracy parity
+    instead (``_parity``: no farther from the plain version in f32 than
+    1.5 x the plain bf16 version); the kernel against the plain version,
+    and for kernels 1 and 2 the plain version on the CPU against the
+    card's, are printed beside it. Kernel 1: each step from its own carry.
+    Then ``validate`` on the plain path (``use_kernels(False)``): its
+    val_seq_rel_l2 within 1e-2 (relative) of the kernel path's
+    (`val_kernel`, the run's last validation, on these weights); printed
+    beside it, the two paths' predictions' difference and the plain path's
+    own under a one-ulp change of its input.
+
+    f32 (the same weights in an f32 model): the latent rollout at that
+    shape, kernel 1 against the plain path at every step within 1e-4 x
+    max|plain| (kernel 1's f32 bound over 29 steps). The decode of those
+    latents is printed, kernel path against plain, beside the plain
+    decode's own change under a one-ulp change of the latents."""
+    from lns_tpu_torch.kernels.fab_core import fab_core_plain, fab_fused_core
+    from lns_tpu_torch.kernels.group_norm import fused_group_norm_swish, group_norm_swish_plain
+    from lns_tpu_torch.kernels.prop_rollout import fused_rollout_plain, pack_simple_cnn
+    from lns_tpu_torch.models import LatentDynamics, latent_dynamics
+    from lns_tpu_torch.ops import factorized_attention, norms
+    from lns_tpu_torch.train.logging_utils import MetricLogger
+
+    cfg, model, ds = trainer.cfg, trainer.model, trainer.val_ds
+    x0, y = ds.eval_trajectories()
+    x, steps = torch.from_numpy(x0[:, 0]).to(dev), y.shape[1]
+    _check(x.shape[0] <= 8, f"stage-2 validate: {x.shape[0]} cases, one predict (batch 8)")
+    with recording(latent_dynamics, "fused_rollout") as k1, \
+            recording(factorized_attention, "fab_fused_core") as k2, \
+            recording(norms, "fused_group_norm_swish") as k3:
+        yk = model.predict(x, steps, decode_chunk=cfg.decode_chunk)
+    where = f"stage-2 validate bf16 (B{x.shape[0]}, decode chunk {cfg.decode_chunk})"
+    _check(len(k1) == 1 and len(k2) > 0 and len(k3) > 0,
+           f"{where}: kernel calls recorded: {len(k1)} / {len(k2)} / {len(k3)} (kernels 1 / 2 / 3)")
+    with torch.no_grad():
+        p32 = pack_simple_cnn(model.propagator, torch.float32)
+        for z0, packed, n, n_block, dil, pm in k1:
+            zs = latent_dynamics.fused_rollout(z0, packed, n, n_block, dil, pm)
+            prev = torch.cat([z0.to(zs.dtype)[None], zs[:-1]]).reshape(-1, *z0.shape[1:])
+            args = (prev, packed, 1, n_block, dil, pm)
+            plain = fused_rollout_plain(*args).reshape(zs.shape)
+            ref = fused_rollout_plain(prev.float(), p32, 1, n_block, dil, pm).reshape(zs.shape)
+            cpu_packed = type(packed)(*[t.cpu() for t in packed])
+            more = _cpu_spread(fused_rollout_plain, (prev, cpu_packed) + args[2:],
+                               plain.reshape(prev.shape))
+            _parity(f"{where}, kernel 1, every step of {n} (B{z0.shape[0]}) from its own carry",
+                    zs, plain, ref, more)
+        for i, args in enumerate(k2):
+            plain = fab_core_plain(*args)
+            _parity(f"{where}, kernel 2 call {i} (u {'x'.join(map(str, args[0].shape))})",
+                    fab_fused_core(*args), plain, fab_core_plain(*[a.float() for a in args]),
+                    _cpu_spread(fab_core_plain, args, plain))
+        for i, (xg, scale, bias, g, eps, swish) in enumerate(k3):
+            a = (scale, bias, g, eps, bool(swish))
+            _parity(f"{where}, kernel 3 call {i} ({'x'.join(map(str, xg.shape))} G{g})",
+                    fused_group_norm_swish(xg, *a), group_norm_swish_plain(xg, *a),
+                    group_norm_swish_plain(xg.float(), *a))
+    del k1, k2, k3
+
+    logger, log_dir = trainer.logger, os.path.join(tmp, "log_plain_validate")
+    os.makedirs(log_dir)
+    trainer.logger = MetricLogger(log_dir, use_wandb=False)
+    model.use_kernels(False)
+    yp = model.predict(x, steps, decode_chunk=cfg.decode_chunk)
+    yq = model.predict(x * (1 + 2 ** -8), steps, decode_chunk=cfg.decode_chunk)
+    val_plain = trainer.validate("plain")
+    model.use_kernels(True)
+    trainer.logger.finish()
+    trainer.logger = logger
+    y_norm = ds.denormalize(torch.from_numpy(y).to(dev)).flatten(1).norm(dim=1)
+
+    def spread(a, b):  # mean over cases of ||a - b|| / ||y||, denormalised as validate does
+        d = (ds.denormalize(a).float() - ds.denormalize(b).float()).flatten(1)
+        return (d.norm(dim=1) / y_norm).mean().item()
+
+    _check(math.isfinite(val_plain) and abs(val_kernel - val_plain) <= 1e-2 * val_plain,
+           f"stage-2 validate bf16, kernel path vs plain on the same weights: val_seq_rel_l2 "
+           f"{val_kernel:.6f} vs {val_plain:.6f}, within {abs(val_kernel / val_plain - 1):.2e} "
+           f"(<= 1e-2); the predictions differ by {spread(yk, yp):.3e} (mean ||y_kernel - "
+           f"y_plain|| / ||y||); the plain path's own, with its input moved one bf16 ulp: "
+           f"{spread(yq, yp):.3e}")
+
+    m32 = LatentDynamics(cfg, device=dev)
+    m32.load_state_dict(model.state_dict())
+    zk = m32.use_kernels(True).predict(x, steps, to_x=False)
+    zp = m32.use_kernels(False).predict(x, steps, to_x=False)
+    ratio = ((zk - zp).abs().amax(dim=(0, 2, 3, 4)) / zp.abs().amax(dim=(0, 2, 3, 4))).max().item()
+    _check(bool(torch.isfinite(zk).all()) and ratio <= 1e-4,
+           f"stage-2 validate f32 latents (B{x.shape[0]}, {steps} steps), kernel 1 vs the plain "
+           f"path at every step: max_abs_err <= {ratio:.2e} x max|plain| (<= 1e-4)")
+    lat = zk.flatten(0, 1)[: cfg.decode_chunk]
+    with torch.no_grad():
+        dk = m32.decode(lat)
+        m32.use_kernels(False)
+        dp, dq = m32.decode(lat), m32.decode(lat * (1 + 2 ** -23))
+        m32.use_kernels(True)
+    top = dp.abs().max().item()
+    print(f"      stage-2 validate f32 decode of {lat.shape[0]} of those latents: kernel path vs "
+          f"plain {(dk - dp).abs().max().item() / top:.2e} x max|plain|; the plain decode's own "
+          f"change with the latents moved one ulp: {(dq - dp).abs().max().item() / top:.2e} x "
+          "max|plain|", flush=True)
+
+
+def drive_stage2(dev, smi):
+    """The stage-2 trainer at full NS2d width on the card: returns the
+    kernels' launches over its encode pre-pass and its training run."""
+    import tempfile
+
+    import numpy as np
+
+    from lns_tpu_torch.config import ns2d_config
+    from lns_tpu_torch.data.synthetic import make_ns2d_npz
+    from lns_tpu_torch.models import LatentDynamics
+    from lns_tpu_torch.ops.initializers import init_weights_
+    from lns_tpu_torch.train import checkpoint
+    from lns_tpu_torch.train.stage2 import Stage2Trainer
+
+    t_phase = time.perf_counter()
+    counted = _counted()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = ns2d_config().replace(
+            data_dir=make_ns2d_npz(os.path.join(tmp, "ns2d.npz"), ncase=S2_CASES,
+                                   case_len=S2_CASE_LEN, h=64, w=64),
+            case_len=S2_CASE_LEN, num_case=S2_CASES, dataset_stat=os.path.join(tmp, "stat.npz"),
+            batch_size=S2_BATCH, epochs=S2_EPOCHS, learning_rate=5e-4, mixed_precision=True,
+            ckpt_every=1, decode_chunk=CHUNK, log_dir=os.path.join(tmp, "log"),
+            overwrite_exist=True)
+        ae = init_weights_(LatentDynamics(cfg, device="cpu"), torch.Generator().manual_seed(1))
+        ae_path = os.path.join(tmp, "ae.pt")
+        checkpoint.save(checkpoint.state_dict_cpu(ae.vq_ae), ae_path)
+        cfg = cfg.replace(pretrained_checkpoint_path=ae_path)
+        print(f"-- stage-2 training: {S2_CASES} cases x {S2_CASE_LEN} frames of "
+              f"{cfg.resolution}x{cfg.resolution}, batch {S2_BATCH}, {S2_EPOCHS} epochs, "
+              f"out_tw {cfg.out_tw}, bf16 activations", flush=True)
+
+        for f in counted.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        trainer = Stage2Trainer(cfg, seed=1234, use_wandb=False, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        prepass = {k: f.launches for k, f in counted.items()}
+        ds, n_frames = trainer.train_ds, trainer.train_ds.n_cases * S2_CASE_LEN
+        print(f"      trainer built in {build_s:.2f} s ({len(ds)} windows, "
+              f"{trainer.steps_per_epoch} steps per epoch, {len(trainer.val_ds)} validation "
+              f"cases); encode pre-pass launches {prepass}", flush=True)
+
+        saved = torch.load(ae_path, weights_only=True)
+        ae_now = trainer.model.vq_ae.state_dict()
+        _check(saved.keys() == ae_now.keys()
+               and all(torch.equal(ae_now[k].cpu(), v) for k, v in saved.items()),
+               f"stage-2: the AE loaded bit-identical to the saved .pt ({len(saved)} tensors)")
+
+        encodes = -(-n_frames // 64)
+        want = expected_launches(cfg, n_chunks=0, encodes=encodes)
+        _check(all(prepass[k] == want.get(k, 0) for k in prepass) and prepass["group_norm"] > 0,
+               f"stage-2 encode pre-pass: group_norm launched {prepass['group_norm']} times "
+               f"(== {want['group_norm'] // encodes} encoder GN sites x {encodes} encode calls), "
+               "no other kernel")
+        m32 = LatentDynamics(cfg, device=dev)
+        m32.load_state_dict(trainer.model.state_dict())
+        enc_s = check_stage2_corpus(trainer, m32, dev)
+        check_stage2_gradients(trainer, m32, dev)
+        del m32
+        for name, call in _refusal_calls(dev).items():
+            before = counted[name].launches
+            try:
+                call()
+                msg = "no error"
+            except RuntimeError as e:
+                msg = str(e)
+            _check("has no gradient" in msg and counted[name].launches == before,
+                   f"stage-2: {name} under grad on a tensor that requires grad raises before "
+                   f"launching: {msg}")
+
+        # the training run: each train step between CUDA events, each
+        # validation by the host clock between synchronizes
+        step_events, val_ms = [], []
+        step_fn, validate = trainer.train_step, trainer.validate
+
+        def timed_step(*args):
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = step_fn(*args)
+            ev[1].record()
+            step_events.append(ev)
+            return out
+
+        def timed_validate(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            v = validate(*args)
+            torch.cuda.synchronize()
+            val_ms.append((time.perf_counter() - t0) * 1e3)
+            return v
+
+        trainer.train_step, trainer.validate = timed_step, timed_validate
+        ae0 = {k: v.clone() for k, v in trainer.model.vq_ae.state_dict().items()}
+        for f in counted.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in counted.items()}
+        trainer.train_step, trainer.validate = step_fn, validate
+
+        n_steps = S2_EPOCHS * trainer.steps_per_epoch
+        n_val, steps = len(trainer.val_ds), S2_CASE_LEN - 1
+        want = {k: 0 for k in launches}
+        for _ in range(S2_EPOCHS + 1):  # validate at every epoch (ckpt_every 1) and at the end
+            for i in range(0, n_val, 8):  # validate's predict batches
+                b = min(8, n_val - i)
+                for k, v in expected_launches(cfg, n_chunks=-(-b * steps // CHUNK)).items():
+                    want[k] += v
+        want["group_norm"] += n_steps * (2 * cfg.prop_n_block + 1) * cfg.out_tw
+        _check(launches == want, f"stage-2 training run: launches {launches} == {want} "
+               f"({S2_EPOCHS + 1} validations, {n_steps} train steps)")
+
+        log = cfg.log_dir
+        with open(os.path.join(log, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        loss = [r["loss"] for r in recs if "loss" in r]
+        val = [r["val_seq_rel_l2"] for r in recs if "val_seq_rel_l2" in r]
+        _check(len(loss) == n_steps and all(math.isfinite(v) for v in loss),
+               f"stage-2: {len(loss)} train losses, all finite (first {loss[0]:.5f}, last "
+               f"{loss[-1]:.5f})")
+        _check(len(val) == S2_EPOCHS + 1 and all(math.isfinite(v) for v in val),
+               f"stage-2: val_seq_rel_l2 finite at each validation: {val}")
+        _check(all(torch.equal(v, ae0[k]) and torch.equal(v.cpu(), saved[k])
+                   for k, v in trainer.model.vq_ae.state_dict().items()),
+               "stage-2: the AE is bit-identical to the loaded one after training")
+        ckpt = os.path.join(log, "checkpoints")
+        files = ("model_best.pt", "model_final.pt", "optim_final.pt", "meta_final.json",
+                 "model_1.pt", "optim_1.pt", "meta_1.json")
+        _check(all(os.path.exists(os.path.join(ckpt, f)) for f in files),
+               f"stage-2: checkpoints written: {', '.join(files)}")
+
+        resumed = Stage2Trainer(cfg.replace(log_dir=os.path.join(tmp, "log_resumed"),
+                                            resume_training=True,
+                                            resume_ckpt=os.path.join(ckpt, "model_1.pt")),
+                                seed=1234, use_wandb=False, device=dev)
+        saved1 = torch.load(os.path.join(ckpt, "model_1.pt"), weights_only=True)
+        opt_steps = {int(st["step"].item()) for st in resumed.opt.state_dict()["state"].values()}
+        _check(resumed.start_epoch == 1 and opt_steps == {trainer.steps_per_epoch}
+               and resumed.sched.last_epoch == trainer.steps_per_epoch
+               and all(torch.equal(v.cpu(), saved1[k])
+                       for k, v in resumed.model.state_dict().items()),
+               f"stage-2: a trainer resumed from model_1 restores epoch {resumed.start_epoch} "
+               f"(== 1), optimizer steps {sorted(opt_steps)} and schedule step "
+               f"{resumed.sched.last_epoch} (== {trainer.steps_per_epoch}), and its parameters "
+               "equal the saved ones bitwise")
+        del resumed
+        check_stage2_validation(trainer, val[-1], tmp, dev)
+        z_in, z_out = _s2_batch(trainer, dev)
+        profile_device(lambda: [trainer.train_step(z_in, z_out, 0, i) for i in range(5)],
+                       "stage-2 5 train steps (bf16, batch 32)")
+        del trainer
+
+    ms = sorted(s.elapsed_time(e) for s, e in step_events)
+    med = ms[len(ms) // 2]
+    print(f"      stage-2 train step (bf16, batch {S2_BATCH}, out_tw {cfg.out_tw}): median "
+          f"{med:.3f} ms by CUDA events (min {ms[0]:.3f}, max {ms[-1]:.3f}, n={len(ms)}), "
+          f"{1e3 / med:.1f} steps/s; train() {train_s:.2f} s for {n_steps} steps, "
+          f"{len(val_ms)} validations and {S2_EPOCHS + 2} checkpoint saves; {smi}", flush=True)
+    print(f"      stage-2 encode pre-pass: {n_frames} frames in {enc_s * 1e3:.1f} ms, "
+          f"{n_frames / enc_s:.1f} frames/s (host clock, ends in the copy to the host); {smi}",
+          flush=True)
+    print(f"      stage-2 validate ({n_val} cases, {steps} steps, decode chunk {CHUNK}): wall "
+          f"{', '.join(f'{v:.1f}' for v in val_ms)} ms; {smi}", flush=True)
+    print(f"      stage-2 phase wall {time.perf_counter() - t_phase:.1f} s; {smi}", flush=True)
+    return {k: prepass[k] + launches[k] for k in launches}
+
+
+def run(dev, smi=""):
+    """Phases 3, 4 and 5 on `dev`; returns the per-kernel results."""
     from lns_tpu_torch.config import ns2d_config
     from lns_tpu_torch.models import LatentDynamics
     from lns_tpu_torch.ops.initializers import init_weights_
@@ -1058,11 +1653,15 @@ def run(dev):
 
     cfg = paths[0][1].cfg
     n, d = cfg.attn_heads, cfg.attn_dim
+    train_sites = train_gn_sites(paths[0][1], dev)
+    _check(sum(train_sites.values()) == (2 * cfg.prop_n_block + 1) * cfg.out_tw,
+           f"stage-2 train step: GroupNorm calls found {train_sites} == "
+           f"{2 * cfg.prop_n_block + 1} per step x out_tw {cfg.out_tw}")
     print("-- kernels against their plain versions (TF32 off)", flush=True)
     t0 = time.perf_counter()
     res = {"prop_rollout": check_rollout(dev, gen, len(paths)),
            "fab_core": check_fab_core(dev, gen, fab_shapes("batchedgram"), n, d),
-           "group_norm": check_group_norm(dev, gen, gn_sites)}
+           "group_norm": check_group_norm(dev, gen, gn_sites, train_sites)}
     check_fab_core_limits(dev, n, d)
     res["fab_axial_in_fused"], res["axial_kernel_apply_headmajor"] = check_axial(
         dev, gen, fab_shapes("batched"), n, d)
@@ -1074,6 +1673,7 @@ def run(dev):
 
     by_path = {label: drive_path(label, model, expect, gen, dev)
                for label, model, expect in paths}
+    by_path["stage-2 training"] = drive_stage2(dev, smi)
 
     src = "lns_tpu_torch/csrc/"
     kernels = [

@@ -2,7 +2,11 @@
 
 Each module holds a kernel's wrapper, its plain PyTorch version and a
 launch counter. A wrapper takes the plain version only for a CPU tensor;
-for a CUDA tensor it launches the kernel or raises.
+for a CUDA tensor it launches the kernel or raises. The kernels have no
+backward: under grad, with an input that requires grad, a wrapper raises
+on a CUDA tensor before launching, except ``fused_group_norm_swish``,
+whose autograd Function launches the kernel and carries the plain
+version's gradient.
 
   * ``prop_rollout``  CUDA C++ (``csrc/prop_rollout.cu``): all propagator steps
   * ``fab_core``      CUDA C++ (``csrc/fab_core.cu``): the FAB c-space core

@@ -42,13 +42,33 @@ _lib = None
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def on_cuda(t: torch.Tensor, name: str) -> bool:
-    """False for a CPU tensor (the wrapper takes its plain version), True
-    for a CUDA tensor (it launches the kernel); any other device raises."""
+def is_card(t: torch.Tensor, name: str) -> bool:
+    """False for a CPU tensor, True for a CUDA tensor; any other device
+    raises."""
     if t.device.type == "cpu":
         return False
     if t.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {t.device}")
+    return True
+
+
+def on_cuda(t: torch.Tensor, name: str, *inputs) -> bool:
+    """False for a CPU tensor (the wrapper takes its plain version), True
+    for a CUDA tensor (it launches the kernel); any other device raises.
+
+    The kernels carry no gradient (``fused_group_norm_swish`` wraps its
+    launch in an autograd Function of its own). So for a CUDA tensor with
+    grad mode on and `t` or one of the wrapper's other tensor `inputs`
+    requiring grad it raises, before anything launches: the output of a
+    launch has no ``grad_fn``, and a backward through it would silently
+    drop the gradient of everything upstream."""
+    if not is_card(t, name):
+        return False
+    if torch.is_grad_enabled() and any(isinstance(x, torch.Tensor) and x.requires_grad
+                                       for x in (t, *inputs)):
+        raise RuntimeError(f"{name}: the kernel has no gradient, and an input requires grad; "
+                           "call it under torch.no_grad() or on tensors that do not require "
+                           "grad")
     return True
 
 

@@ -175,7 +175,7 @@ def fab_axial_in_fused(kx, ky, phi, with_instance_norm: bool = True, eps: float 
     tensor launches the kernel on the current stream or raises."""
     if stats and with_instance_norm:
         raise ValueError("fab_axial_in_fused: stats are returned with the norm off")
-    if not _build.on_cuda(phi, "fab_axial_in_fused"):
+    if not _build.on_cuda(phi, "fab_axial_in_fused", kx, ky):
         return fab_axial_in_plain(kx, ky, phi, with_instance_norm, eps, stats, heads_last)
     if phi.dim() != 5:
         raise ValueError("fab_axial_in_fused: phi must be [B, n, H, W, d] or [B, H, W, n, d]")
@@ -201,7 +201,7 @@ def axial_kernel_apply_headmajor(kx, ky, phi):
     phi [G, H, W, d] with G = B x heads -> [G, H, W, d] in phi's dtype.
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (kernel 4's source, columns first, no norm) or raises."""
-    if not _build.on_cuda(phi, "axial_kernel_apply_headmajor"):
+    if not _build.on_cuda(phi, "axial_kernel_apply_headmajor", kx, ky):
         return axial_kernel_apply_headmajor_plain(kx, ky, phi)
     if phi.dim() != 4:
         raise ValueError("axial_kernel_apply_headmajor: phi must be [G, H, W, d]")

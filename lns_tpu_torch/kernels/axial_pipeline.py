@@ -50,7 +50,7 @@ def bmm_blockdiag(kb, x):
     """kb [B, G, M, M] @ x [B, G, M, N] -> [B, G, M, N] in x's dtype (kb is
     cast to it). A CPU tensor takes the plain version; a CUDA tensor
     launches the kernel on the current stream or raises."""
-    if not _build.on_cuda(x, "bmm_blockdiag"):
+    if not _build.on_cuda(x, "bmm_blockdiag", kb):
         return bmm_blockdiag_plain(kb, x)
     if x.dtype not in _build.DTYPE_CODE:
         raise TypeError(f"bmm_blockdiag: unsupported dtype {x.dtype}")

@@ -89,7 +89,7 @@ def fab_fused_core(u, k_x, k_y, w_in, w_o1, eps: float = 1e-5):
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     on the current stream or raises."""
-    if not _build.on_cuda(u, "fab_fused_core"):
+    if not _build.on_cuda(u, "fab_fused_core", k_x, k_y, w_in, w_o1):
         return fab_core_plain(u, k_x, k_y, w_in, w_o1, eps)
     if u.dtype not in _build.DTYPE_CODE:
         raise TypeError(f"fab_fused_core: unsupported dtype {u.dtype}")

@@ -83,6 +83,30 @@ def _limit(code: int, b: int, s: int, c: int, groups: int):
     return msg.decode() if msg else None
 
 
+class GroupNormSwishFunction(torch.autograd.Function):
+    """Kernel 3 with a gradient. The forward launches the kernel (the plain
+    version for a CPU tensor) and saves x, scale and bias; the backward
+    recomputes ``group_norm_swish_plain`` from them under grad and returns
+    that function's gradients. The JAX package has no backward kernel to
+    port (XLA differentiates ``norms.GroupNorm``), so none is written here;
+    the gradient is the plain version's, in its layout and dtypes."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, num_groups: int, eps: float, apply_swish: bool):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.args = (num_groups, eps, apply_swish)
+        return _group_norm_swish(x, scale, bias, num_groups, eps, apply_swish)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            y = group_norm_swish_plain(*inputs, *ctx.args)
+        grads = iter(torch.autograd.grad(y, [t for t in inputs if t.requires_grad], grad))
+        return tuple(next(grads) if t.requires_grad else None for t in inputs) + (None,) * 3
+
+
 def fused_group_norm_swish(x, scale, bias, num_groups: int, eps: float = 1e-6,
                            apply_swish: bool = True):
     """GroupNorm (+swish) on x [B, *spatial, C] (contiguous, channels last).
@@ -90,8 +114,18 @@ def fused_group_norm_swish(x, scale, bias, num_groups: int, eps: float = 1e-6,
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     on the current stream or raises (for a shape outside the kernel's
     limits, with the text of the C side's ``lns_group_norm_limit``, before
-    any launch)."""
-    if not _build.on_cuda(x, "fused_group_norm_swish"):
+    any launch). With grad mode on and x, scale or bias requiring grad the
+    call goes through ``GroupNormSwishFunction``, which launches the same
+    kernel and carries the plain version's gradient."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
+                                    or bias.requires_grad):
+        return GroupNormSwishFunction.apply(x, scale, bias, num_groups, eps, apply_swish)
+    return _group_norm_swish(x, scale, bias, num_groups, eps, apply_swish)
+
+
+def _group_norm_swish(x, scale, bias, num_groups: int, eps: float, apply_swish: bool):
+    """The launch (or, for a CPU tensor, the plain version), without grad."""
+    if not _build.on_cuda(x, "fused_group_norm_swish", scale, bias):
         return group_norm_swish_plain(x, scale, bias, num_groups, eps, apply_swish)
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"fused_group_norm_swish: unsupported dtype {x.dtype}")

@@ -144,7 +144,7 @@ def fused_rollout(z0, packed: PackedSimpleCNN, steps: int, n_block: int,
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     on the current stream or raises."""
-    if not _build.on_cuda(z0, "fused_rollout"):
+    if not _build.on_cuda(z0, "fused_rollout", *packed):
         return fused_rollout_plain(z0, packed, steps, n_block, dilation, padding_mode, groups)
     if padding_mode not in _WRAP:
         raise ValueError(f"fused_rollout: unsupported padding mode {padding_mode}")

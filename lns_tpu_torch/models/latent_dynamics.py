@@ -1,5 +1,11 @@
 """Latent dynamics: a frozen autoencoder and a latent propagator, with the
-fused inference rollout (counterpart of ``lns_tpu.models.latent_dynamics``).
+stage-2 training rollout and the fused inference rollout (counterpart of
+``lns_tpu.models.latent_dynamics``).
+
+``rollout_loss`` feeds the propagator its own predictions ``t_out`` times
+with full backpropagation through time, as the JAX package's training scan
+does; it runs the module step, never the fused rollout kernel, and on the
+card its GroupNorms launch kernel 3 through its autograd Function.
 
 ``predict`` encodes once, runs every propagator step, then decodes the
 (batch x steps) latents in chunks. On a CUDA device the steps run as one
@@ -17,10 +23,12 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from lns_tpu_torch.kernels.prop_rollout import fused_rollout, pack_simple_cnn
 from lns_tpu_torch.models.autoencoder import SimpleAutoencoder
 from lns_tpu_torch.models.propagator import build_propagator
+from lns_tpu_torch.ops.losses import smooth_l1_loss
 
 
 class LatentDynamics(nn.Module):
@@ -57,6 +65,28 @@ class LatentDynamics(nn.Module):
 
     def propagate(self, z: torch.Tensor) -> torch.Tensor:
         return self.propagator(z)
+
+    def rollout_loss(self, z_in: torch.Tensor, z_out: torch.Tensor, loss_fn=smooth_l1_loss,
+                     remat: Optional[bool] = None) -> torch.Tensor:
+        """The stage-2 training loss (reference train_stage2_ns2d.py:126-141):
+        the propagator fed its own prediction ``t_out`` times, the loss of
+        the stacked predictions against the latent targets, in f32.
+
+        z_in [b, 1, h, w, c], z_out [b, t_out, h, w, c]. The carry is cast to
+        the propagator's dtype when it has one. With `remat` (else
+        ``cfg.remat``) each step is recomputed in the backward pass
+        (``torch.utils.checkpoint``), which trades one more forward per
+        step for activation memory that does not grow with ``t_out``."""
+        z = z_in[:, 0]  # only the time axis: a batch of 1 stays a batch
+        if self.dtype is not None:
+            z = z.to(self.dtype)
+        use_remat = bool(self.cfg.remat) if remat is None else remat
+        preds = []
+        for _ in range(z_out.shape[1]):
+            z = checkpoint(self.propagate, z, use_reentrant=False) if use_remat \
+                else self.propagate(z)
+            preds.append(z)
+        return loss_fn(torch.stack(preds, dim=1).float(), z_out.float())
 
     @torch.no_grad()
     def predict_latents(self, x: torch.Tensor, steps: int) -> torch.Tensor:

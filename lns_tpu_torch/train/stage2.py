@@ -1,0 +1,224 @@
+"""Stage-2 training: the latent propagator trained by rollout BPTT in latent
+space, the autoencoder frozen (counterpart of ``lns_tpu.train.stage2``;
+mirrors the reference's TrainDynamics, train_stage2_ns2d.py).
+
+A one-time encode pre-pass over the training corpus; Adam and the per-epoch
+cosine schedule over the propagator's parameters only; the smooth-L1
+rollout loss over ``out_tw`` steps; validation by the full-rollout
+``LatentDynamics.predict`` with frame-wise and sequence-wise relative L2 on
+denormalised fields. On the card the encode pre-pass and validation run the
+hand-written kernels 1-3 under ``torch.no_grad``, and every train step's
+GroupNorms launch kernel 3 through its autograd Function. NS2d only; the
+trainer runs on one device (data parallelism is not ported).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+from lns_tpu_torch.data import NS2DStage2, epoch_batches, to_device
+from lns_tpu_torch.models import LatentDynamics
+from lns_tpu_torch.ops.initializers import init_weights_
+from lns_tpu_torch.ops.losses import relative_lp_loss
+from lns_tpu_torch.train import checkpoint
+from lns_tpu_torch.train.logging_utils import (MetricLogger, log_sequence, plot_error_curve,
+                                               prepare_training)
+from lns_tpu_torch.train.optim import stage2_optimizer
+
+
+class Stage2Trainer:
+    """Builds the model on `device` (the CUDA card when None; without CUDA
+    it raises unless told ``device="cpu"``), initialises it from a
+    ``torch.Generator`` seeded with `seed`, loads and freezes the pretrained
+    autoencoder (``cfg.pretrained_checkpoint_path``, a stage-1 ``.pt``),
+    encodes the training corpus, and resumes from ``cfg.resume_ckpt`` when
+    ``cfg.resume_training`` is set.
+
+    ``cfg.mixed_precision``: bf16 activations through the frozen AE and the
+    rollout; parameters, optimizer and loss in f32. ``cfg.device_data``:
+    the latent windows live on the device and batches are gathered there by
+    index; otherwise each batch is copied from pinned host memory without
+    waiting."""
+
+    def __init__(self, cfg, seed: int = 1234, use_wandb: bool = True,
+                 config_path: Optional[str] = None, device=None):
+        if cfg.workload != "ns2d" or cfg.is_conditional:
+            raise NotImplementedError(f"stage-2 training of {cfg.workload!r} is not ported yet")
+        self.device = torch.device("cuda" if device is None else device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Stage2Trainer: no CUDA device; pass device=\"cpu\" to train on "
+                               "the CPU")
+        self.cfg = cfg
+        self.seed = seed
+        prepare_training(cfg.log_dir, bool(cfg.overwrite_exist), config_path=config_path,
+                         config_dict=cfg.to_dict())
+        self.logger = MetricLogger(cfg.log_dir, project=cfg.project_name, config=cfg.to_dict(),
+                                   use_wandb=use_wandb)
+
+        dt = torch.bfloat16 if cfg.mixed_precision else None
+        self.model = init_weights_(LatentDynamics(cfg, dtype=dt, ae_dtype=dt, device=self.device),
+                                   torch.Generator().manual_seed(seed))
+        self.train_ds = NS2DStage2(cfg, train_mode=True)
+        self.val_ds = NS2DStage2(cfg, train_mode=False)
+        if cfg.pretrained_checkpoint_path:
+            print(f"Loading pretrained autoencoder from {cfg.pretrained_checkpoint_path}")
+            checkpoint.load_autoencoder_checkpoint(cfg.pretrained_checkpoint_path,
+                                                   self.model.vq_ae)
+            print("Pretrained autoencoder loaded successfully")
+        self.model.vq_ae.requires_grad_(False).eval()  # frozen
+        print(f"Number of parameters: {sum(p.numel() for p in self.model.propagator.parameters())}")
+
+        self.device_data = bool(cfg.device_data)
+        self.train_ds.encode_dataset(self.model.encode, self.device)
+        self.steps_per_epoch = max(1, len(self.train_ds) // cfg.batch_size)
+        self.opt, self.sched = stage2_optimizer(cfg, self.model.propagator.parameters(),
+                                                self.steps_per_epoch)
+        self.noise_level = float(cfg.noise_level or 0.0)
+        self.start_epoch = 0
+        # the lowest validation rollout error so far, saved as model_best
+        self.best_val = float("inf")
+        self.best_epoch = None
+        if cfg.resume_training and cfg.resume_ckpt:
+            self.load(cfg.resume_ckpt)
+
+    # ------------------------------------------------------------------
+    def _noise_generator(self, epoch: int, step: int) -> torch.Generator:
+        """A generator on the device seeded by (seed, epoch, step), like the
+        data order: a resumed run draws the same noise."""
+        seed = np.random.SeedSequence([self.seed, epoch, step]).generate_state(1, np.uint64)[0]
+        return torch.Generator(device=self.device).manual_seed(int(seed) >> 1)
+
+    def train_step(self, z_in: torch.Tensor, z_out: torch.Tensor, epoch: int,
+                   step: int) -> torch.Tensor:
+        """One optimizer step on a batch of windows; returns the loss (a 0-d
+        tensor on the device, not fetched)."""
+        if self.noise_level > 0:
+            g = self._noise_generator(epoch, step)
+            z_in = z_in + self.noise_level * torch.randn(z_in.shape, generator=g,
+                                                         device=z_in.device, dtype=z_in.dtype)
+        loss = self.model.rollout_loss(z_in, z_out)
+        self.opt.zero_grad(set_to_none=True)
+        loss.backward()
+        self.opt.step()
+        self.sched.step()
+        return loss.detach()
+
+    def train(self):
+        cfg = self.cfg
+        n = len(self.train_ds)
+        if self.device_data:  # every window on the device; batches gathered there
+            z_in_all, z_out_all = (to_device(a, self.device)
+                                   for a in self.train_ds.get_batch(np.arange(n)))
+        for epoch in range(self.start_epoch, cfg.epochs):
+            # the data order is a function of (seed, epoch): a run resumed at
+            # epoch k sees the batches a fresh run would
+            rng = np.random.default_rng([self.seed, epoch])
+            if epoch % cfg.ckpt_every == 0:
+                self._maybe_save_best(self.validate(epoch), epoch)
+                self.save(epoch)
+            for step, idx in enumerate(epoch_batches(n, cfg.batch_size, rng, drop_last=True)):
+                if self.device_data:
+                    i = to_device(idx, self.device)
+                    z_in, z_out = z_in_all.index_select(0, i), z_out_all.index_select(0, i)
+                else:
+                    z_in, z_out = (to_device(a, self.device)
+                                   for a in self.train_ds.get_batch(idx))
+                self.logger.log({"loss": self.train_step(z_in, z_out, epoch, step)})
+        self._maybe_save_best(self.validate(cfg.epochs), cfg.epochs)
+        self.save("final")
+        self.logger.finish()
+
+    def _maybe_save_best(self, val: float, epoch) -> None:
+        """Keep ``model_best``: the parameters with the lowest validation
+        sequence rel-L2 so far (the reference saves every ckpt_every and
+        leaves the pick to the user)."""
+        if val >= self.best_val:
+            return
+        self.best_val, self.best_epoch = float(val), epoch
+        ckpt = os.path.join(self.cfg.log_dir, "checkpoints")
+        checkpoint.save(checkpoint.state_dict_cpu(self.model), os.path.join(ckpt, "model_best.pt"))
+        with open(os.path.join(ckpt, "meta_best.json"), "w") as f:
+            json.dump({"epoch": int(epoch), "val_seq_rel_l2": self.best_val, "seed": self.seed}, f)
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def validate(self, epoch, batch_size: int = 8) -> float:
+        """Full autoregressive rollout of the validation cases: frame-wise
+        and sequence-wise relative L2 on denormalised fields
+        (train_stage2_ns2d.py:238-293); returns the mean sequence-wise
+        error, also logged as ``val_seq_rel_l2``."""
+        cfg = self.cfg
+        x0, y = self.val_ds.eval_trajectories()
+        n, steps = y.shape[0], y.shape[1]
+        frame_errs, seq_errs = [], []
+        sample_pred = sample_gt = None
+        for i in range(0, n, batch_size):
+            xb = torch.from_numpy(x0[i: i + batch_size, 0]).to(self.device)
+            yhat = self.model.predict(xb, steps, decode_chunk=cfg.decode_chunk)
+            # denormalised in the prediction's dtype, as the JAX package does
+            yhat_d = self.val_ds.denormalize(yhat).float()
+            y_d = self.val_ds.denormalize(torch.from_numpy(y[i: i + batch_size]).to(self.device))
+            # [b, t, h, w, c]: frame-wise over (h, w); sequence-wise over (t, h, w)
+            frame_errs.append(relative_lp_loss(yhat_d, y_d, reduce_dim=(2, 3)))
+            seq_errs.append(relative_lp_loss(yhat_d, y_d, reduce_dim=(1, 2, 3)))
+            if sample_pred is None:
+                sample_pred, sample_gt = yhat_d.cpu().numpy(), y_d.cpu().numpy()
+        frame_err = torch.cat(frame_errs).cpu().numpy()  # [n, t, c]
+        seq_mean = torch.cat(seq_errs).cpu().numpy().mean(axis=0)  # [c]
+        print(f"Averaged sequence-wise relative loss: {seq_mean}")
+        val = float(seq_mean.mean())
+        self.logger.log({"val_seq_rel_l2": val})
+
+        sdir = os.path.join(cfg.log_dir, "samples")
+        stride, nshow = max(1, steps // 6), min(4, sample_pred.shape[0])
+        spath = os.path.join(sdir, f"sample_{epoch}.png")
+        log_sequence(sample_pred[:nshow, ::stride, :, :, 0], spath)
+        log_sequence(sample_gt[:nshow, ::stride, :, :, 0], os.path.join(sdir, f"gt_{epoch}.png"))
+        cpath = os.path.join(sdir, f"err_curve_{epoch}.png")
+        plot_error_curve(frame_err.mean(axis=(0, 2)), frame_err.std(axis=0).mean(-1), cpath)
+        self.logger.log_image("val_error_curve", cpath)
+        self.logger.log_image("sample", spath)
+        return val
+
+    def save(self, epoch) -> None:
+        """``model_{epoch}.pt`` (the ``vq_ae.`` / ``propagator.`` state dict),
+        ``optim_{epoch}.pt`` (optimizer and schedule) and
+        ``meta_{epoch}.json`` (the epoch to resume at, seed, best so far)."""
+        ckpt = os.path.join(self.cfg.log_dir, "checkpoints")
+        checkpoint.save(checkpoint.state_dict_cpu(self.model),
+                        os.path.join(ckpt, f"model_{epoch}.pt"))
+        checkpoint.save({"optimizer": self.opt.state_dict(), "scheduler": self.sched.state_dict()},
+                        os.path.join(ckpt, f"optim_{epoch}.pt"))
+        with open(os.path.join(ckpt, f"meta_{epoch}.json"), "w") as f:
+            json.dump({"epoch": self.cfg.epochs if epoch == "final" else int(epoch),
+                       "seed": self.seed,
+                       "best_val": None if self.best_val == float("inf") else self.best_val,
+                       "best_epoch": self.best_epoch}, f)
+
+    def load(self, model_path: str) -> None:
+        """Resume from ``model_{k}.pt``: the parameters, then (when beside
+        it) ``optim_{k}.pt``'s optimizer and schedule state and
+        ``meta_{k}.json``'s epoch, seed and best validation, so ``train``
+        continues at epoch k as the run that saved it would have."""
+        checkpoint.load_latent_dynamics_checkpoint(model_path, self.model)
+        folder, name = os.path.split(model_path)
+        stem = os.path.splitext(name)[0]
+        optim_path = os.path.join(folder, stem.replace("model_", "optim_", 1) + ".pt")
+        if optim_path != model_path and os.path.exists(optim_path):
+            state = torch.load(optim_path, map_location="cpu", weights_only=True)
+            self.opt.load_state_dict(state["optimizer"])
+            self.sched.load_state_dict(state["scheduler"])
+        meta_path = os.path.join(folder, stem.replace("model_", "meta_", 1) + ".json")
+        if os.path.exists(meta_path):
+            with open(meta_path) as f:
+                meta = json.load(f)
+            self.start_epoch = int(meta["epoch"])
+            self.seed = int(meta.get("seed", self.seed))
+            if meta.get("best_val") is not None:  # a resumed run keeps the best so far
+                self.best_val = float(meta["best_val"])
+                self.best_epoch = meta.get("best_epoch")
