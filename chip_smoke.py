@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's NS2d inference rollouts and its stage-2 training
-once on one CUDA card.
+"""Drive the PyTorch port's NS2d inference rollouts and its stage-2 and
+stage-1 training once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -55,15 +55,31 @@ CUDA PyTorch and nvcc. It imports nothing of JAX. In order it:
      train step's gradients on the kernel path against the plain path (f32
      and bf16; kernel 3 launched in the forward through its autograd
      Function, each launch held to the plain version on its own input with
-     its gradient, every GroupNorm parameter with a gradient), kernels 1, 2
-     and 4-7 refusing a gradient, two epochs (96 steps) with three
+     its gradient, every GroupNorm parameter with a gradient), kernels 1
+     and 5-7 and kernel 4 with its norm refusing a gradient, two epochs
+     (96 steps) with three
      validations through ``predict`` (kernels 1-3), launch counts, finite
      losses, a frozen AE, checkpoints and a resume; then validation on the
      trained weights against the plain path (every kernel call of its
      predict on its own input, ``validate`` on the plain path, and the f32
      latents at its shape); prints train ms per step, steps/s, encode
      frames/s, validate ms and a profile of five train steps;
-  6. prints one JSON line of per-kernel results (launches per path, and ms
+  6. trains stage 1 at full NS2d width (``Stage1Trainer``, bf16, batch 32,
+     the frames on the card) on the same synthetic corpus: one train step's
+     launches (kernel 3 at every AE GroupNorm site and kernel 2 at each FAB
+     in the forward, nothing in the backward) and gradients, kernel path
+     against the plain path (f32 and bf16; every AE parameter with a
+     gradient; each kernel 2 and 4 call held on its own input with its
+     gradient), on path 1 and on path 2 (whose encoder FAB runs kernel 4
+     under grad); two epochs (108 steps, three validations) with launch
+     counts, finite and falling losses, checkpoints and a resume; the
+     trained AE's validation against the plain path (every kernel 2 and 3
+     call held to accuracy parity, kernel 2's conditioning on the trained
+     decode printed); the final checkpoint loaded into ``LatentDynamics``
+     for one full-size predict on kernels 1-3; prints train ms per step,
+     steps/s, frames/s, validate ms, the backward's share in the plain
+     recomputes and a profile of five train steps;
+  7. prints one JSON line of per-kernel results (launches per path, and ms
      / plain_ms / bound_ms per predict, summed over one predict of each
      inference path), then the closing JSON line.
 
@@ -880,13 +896,14 @@ def call_sites(model, dev):
 def recording(module, name):
     """Every call of ``module.<name>`` (a kernel's wrapper, by the name a
     layer calls it) while open, in a list: its arguments, tensors detached
-    and copied. The calls go on to the wrapper, which counts its launches."""
+    and copied, and its keyword arguments as a last dict where it had any.
+    The calls go on to the wrapper, which counts its launches."""
     real, calls = getattr(module, name), []
 
-    def record(*args):
+    def record(*args, **kwargs):
         calls.append(tuple(a.detach().clone() if isinstance(a, torch.Tensor) else a
-                           for a in args))
-        return real(*args)
+                           for a in args) + ((kwargs,) if kwargs else ()))
+        return real(*args, **kwargs)
 
     setattr(module, name, record)
     try:
@@ -1111,9 +1128,10 @@ S2_CASES, S2_CASE_LEN, S2_EPOCHS, S2_BATCH = 64, 30, 2, 32
 
 
 def _refusal_calls(dev):
-    """Each of kernels 1, 2 and 4-7, by its JSON name, called on small
-    tensors on the card that require grad."""
-    from lns_tpu_torch.kernels import axial, axial_pipeline, fab_core, prop_rollout
+    """Each kernel that refuses a gradient (kernels 1 and 5-7, and kernel 4
+    with its norm), by its JSON name, called on small tensors on the card
+    that require grad."""
+    from lns_tpu_torch.kernels import axial, axial_pipeline, prop_rollout
 
     def t(*shape):
         return torch.ones(shape, device=dev, requires_grad=True)
@@ -1124,8 +1142,6 @@ def _refusal_calls(dev):
     return {
         "prop_rollout": lambda: prop_rollout.fused_rollout(t(2, 8, 8, 16), packed, 1, 3, 2,
                                                            "circular"),
-        "fab_core": lambda: fab_core.fab_fused_core(t(1, 16, 16, 64), t(1, 8, 16, 16),
-                                                    t(1, 8, 16, 16), t(64, 8, 64), t(8, 64, 64)),
         "fab_axial_in_fused": lambda: axial.fab_axial_in_fused(t(1, 8, 16, 16), t(1, 8, 16, 16),
                                                                t(1, 8, 16, 16, 64)),
         "axial_kernel_apply_headmajor": lambda: axial.axial_kernel_apply_headmajor(
@@ -1616,8 +1632,494 @@ def drive_stage2(dev, smi):
     return {k: prepass[k] + launches[k] for k in launches}
 
 
+# -- phase 6: stage-1 training ------------------------------------------------
+
+# the stage-1 corpus: the stage-2 phase's 64 cases x 30 frames of 64x64; 57
+# training cases (1,710 frames: 54 steps of batch 32 per epoch, the last of
+# 14) and 7 validation cases (210 frames, reconstructed 64 at a time)
+S1_CASES, S1_CASE_LEN, S1_EPOCHS, S1_BATCH = 64, 30, 2, 32
+
+
+def _ae_step(model, x, use_kernel):
+    """The stage-1 loss of frames x on `model` (``reconstruction_loss``,
+    the trainer's) and its gradient w.r.t. every parameter; each kernel's
+    launches in the forward and in the backward."""
+    from lns_tpu_torch.train.stage1 import reconstruction_loss
+
+    counted = _counted()
+    model.use_kernels(use_kernel)
+    params = dict(model.named_parameters())
+    before = {k: f.launches for k, f in counted.items()}
+    loss = reconstruction_loss(model, x)
+    mid = {k: f.launches for k, f in counted.items()}
+    grads = torch.autograd.grad(loss, list(params.values()))
+    model.use_kernels(True)
+    return (dict(zip(params, grads)), {k: mid[k] - before[k] for k in counted},
+            {k: f.launches - mid[k] for k, f in counted.items()})
+
+
+def check_fab_calls(where, core_calls, axial_calls):
+    """Kernels 2 and 4 on the inputs their call sites really received in a
+    train step's forward (from ``recording``), each against the plain
+    version, and the gradient w.r.t. every input through its autograd
+    Function (the kernel's forward, the plain version's backward) for
+    seeded upstream gradients against plain autograd's: bitwise equal,
+    since the backward recomputes the plain version from the same inputs.
+
+    f32: at ``check_fab_core``'s and ``check_axial``'s bounds (kernel 2
+    1e-4 x max|plain|, kernel 4 2e-5; kernel 4's statistics as
+    ``_stats_check``). bf16: these inputs (the AE's features of smooth
+    frames) can be nearly flat, where the FAB core's variance, E[x^2] -
+    mean^2 as in ``_batched_gram_core``, cancels and a sum in another order
+    moves many elements; so each call is held to accuracy parity
+    (``_parity``: no farther from the plain version in f32 than 1.5 x the
+    plain bf16 version), and whether it also meets the bounds random inputs
+    meet (1e-2 x max|plain| for kernel 2, 2e-2 for kernel 4; at most 2 % of
+    elements differing) is printed beside it."""
+    from lns_tpu_torch.kernels.axial import fab_axial_in_fused, fab_axial_in_plain
+    from lns_tpu_torch.kernels.fab_core import fab_core_plain, fab_fused_core
+
+    cases = [("kernel 2", fab_fused_core, fab_core_plain, c, {}, c[0], 1e-2, 1e-4)
+             for c in core_calls]
+    cases += [("kernel 4", fab_axial_in_fused, fab_axial_in_plain, c[:-1], c[-1], c[2], 2e-2, 2e-5)
+              for c in axial_calls]
+    for i, (name, kern, plain, args, kw, main, tol_bf16, tol_f32) in enumerate(cases):
+        bf16 = main.dtype == torch.bfloat16
+        label = f"{where}, {name} call {i} ({str(main.dtype)[6:]} {'x'.join(map(str, main.shape))})"
+        with torch.no_grad():
+            yk, yp = kern(*args, **kw), plain(*args, **kw)
+            y32 = plain(*[a.float() for a in args], **kw) if bf16 else None
+        if isinstance(yk, tuple):  # heads last: _stats_check takes y head-major
+            _stats_check(label, yk[0].permute(0, 3, 1, 2, 4), yk[1])
+        yk, yp = (yk if isinstance(yk, tuple) else (yk,)), (yp if isinstance(yp, tuple) else (yp,))
+        ratio = ((yk[0].float() - yp[0].float()).abs().max().item()
+                 / max(yp[0].float().abs().max().item(), 1e-30))
+        differ = (yk[0] != yp[0]).float().mean().item()
+        if bf16:
+            y32 = y32[0] if isinstance(y32, tuple) else y32
+            inside = ratio <= tol_bf16 and differ <= 0.02
+            _parity(label, yk[0], yp[0], y32,
+                    f"; {'within' if inside else 'outside'} the bounds random inputs meet "
+                    f"({tol_bf16:.0e} x max|plain|, 2 %)")
+        else:
+            _check(bool(torch.isfinite(yk[0]).all()) and ratio <= tol_f32,
+                   f"{label}, kernel vs plain on its own input: max_abs_err {ratio:.2e} x "
+                   f"max|plain| (<= {tol_f32:.0e}); {differ:.2%} of elements differ")
+        gen = torch.Generator().manual_seed(i)
+        gos = [torch.randn(t.shape, generator=gen).to(t.device, t.dtype) for t in yk]
+        grads = []
+        for fn in (kern, plain):
+            leaves = [a.clone().requires_grad_() for a in args]
+            ys = fn(*leaves, **kw)
+            grads.append(torch.autograd.grad(ys if isinstance(ys, tuple) else (ys,), leaves, gos))
+        _check(all(torch.equal(a, b) for a, b in zip(*grads)),
+               f"{label}: gradients w.r.t. its {len(args)} inputs through its autograd Function "
+               "bitwise equal to plain autograd's")
+
+
+def check_stage1_step(label, model, m32, x):
+    """One stage-1 train step's loss gradient w.r.t. every AE parameter, on
+    frames x, kernel path against ``use_kernels(False)`` (TF32 off), in f32
+    (`m32`, the same weights) and in bf16 (`model`).
+
+    The AE's gradient is sensitive to its forward at the ulp level: the
+    plain path's own gradient moves by some 1e-5 to 1e-4 x max|g| in f32
+    (cosine 0.9-0.99 in bf16) when its input moves one ulp, and the kernel
+    path's forward differs from the plain path's by sums in another order
+    (a few f32 ulps in kernels 2-4, some bf16 elements an ulp apart). So:
+    f32, per tensor max|g_kernel - g_plain| / max|g_plain| at most 2 x the
+    largest such change of the plain path's own gradient under a one-ulp
+    move of its input; bf16, per tensor accuracy parity: the kernel path's
+    gradient no farther from the f32 plain path's (L2) than 1.5 x the
+    plain bf16 path's. The largest f32 ratio and the smallest bf16 cosine
+    between the two paths are printed beside.
+
+    Every parameter tensor gets a nonzero gradient, the FAB blocks'
+    ``in_proj``, ``to_out[1]``, ``in_norm`` and low-rank-kernel weights
+    named among them. The forward launches kernel 3 once per AE GroupNorm
+    site and each FAB block's core once (kernel 2 c-space, kernel 4
+    d-space), as the layer specs imply; the backward and the plain path
+    launch nothing. Each kernel 2 and 4 call of the forward is also held on
+    its own input, with its gradient (``check_fab_calls``)."""
+    from lns_tpu_torch.ops import factorized_attention
+    from lns_tpu_torch.ops.factorized_attention import FABlock2D
+
+    want = expected_launches(model.cfg, n_chunks=1)  # one encode, one decode
+    want["prop_rollout"] = 0
+    fab_names = [f"{p}.{w}" for p, m in model.named_modules() if isinstance(m, FABlock2D)
+                 for w in ("in_proj.weight", "to_out.1.weight", "in_norm.weight", "in_norm.bias",
+                           "low_rank_kernel_x.to_qk.weight", "low_rank_kernel_y.to_qk.weight")]
+    for dt, m in (("f32", m32), ("bf16", model)):
+        where = f"stage-1 {label} {dt} train step (batch {x.shape[0]})"
+        with recording(factorized_attention, "fab_fused_core") as k2, \
+                recording(factorized_attention, "fab_axial_in_fused") as k4, torch.no_grad():
+            m(x)
+        check_fab_calls(where, k2, k4)
+        del k2, k4
+        gk, fwd, bwd = _ae_step(m, x, True)
+        gp, fwd_p, bwd_p = _ae_step(m, x, False)
+        # the plain path's own gradient with its input moved one ulp: how
+        # far the gradient moves for a change of the forward's size
+        gq, _, _ = _ae_step(m, x * (1 + (2 ** -23 if dt == "f32" else 2 ** -8)), False)
+        _check(all(fwd[k] == want.get(k, 0) for k in fwd)
+               and not any(bwd.values()) and not any(fwd_p.values()) and not any(bwd_p.values()),
+               f"{where}: launches in the forward {({k: v for k, v in fwd.items() if v})} == "
+               f"{({k: v for k, v in want.items() if v})} (the layer specs), in the backward "
+               f"{sum(bwd.values())}, on the plain path "
+               f"{sum(fwd_p.values()) + sum(bwd_p.values())}")
+        def rel(a, b):
+            return {k: (a[k] - b[k]).abs().max().item() / max(b[k].abs().max().item(), 1e-30)
+                    for k in a}
+
+        def cos(a, b):
+            return {k: torch.nn.functional.cosine_similarity(a[k].flatten(), b[k].flatten(),
+                                                             dim=0).item() for k in a}
+
+        if dt == "f32":
+            score, own = rel(gk, gp), rel(gq, gp)
+            worst, worst_own = max(score.items(), key=lambda kv: kv[1]), max(own.values())
+            g32 = gp
+        else:
+            score, own = cos(gk, gp), cos(gq, gp)
+            worst, worst_own = min(score.items(), key=lambda kv: kv[1]), min(own.values())
+            parity = {k: (gk[k] - g32[k]).norm().item() / max((gp[k] - g32[k]).norm().item(),
+                                                               1e-30) for k in gk}
+        finite = all(bool(torch.isfinite(g).all()) for g in gk.values())
+        if dt == "f32":
+            _check(finite and worst[1] <= 2 * worst_own,
+                   f"{where}: gradients, kernel path vs plain, {len(gk)} tensors: max_abs_err <= "
+                   f"{worst[1]:.2e} x max|g| ({worst[0]}), <= 2 x the plain path's own change "
+                   f"with its input moved one ulp ({worst_own:.2e} x max|g|)")
+        else:
+            top = max(parity, key=parity.get)
+            _check(finite and parity[top] <= 1.5,
+                   f"{where}: gradients, {len(gk)} tensors, distance from the f32 plain "
+                   f"gradient, kernel path / plain path: at most {parity[top]:.3f} (<= 1.5; "
+                   f"{top}); cosine similarity kernel path vs plain >= {worst[1]:.6f} "
+                   f"({worst[0]}); the plain path's own with its input moved one ulp >= "
+                   f"{worst_own:.6f}")
+        top = {k: g.abs().max().item() for k, g in gk.items()}
+        low = min(top, key=top.get)
+        low_fab = min(fab_names, key=top.get)
+        _check(all(v > 0 for v in top.values()) and set(fab_names) <= top.keys(),
+               f"{where}: all {len(top)} parameter tensors have a nonzero gradient (smallest "
+               f"max|g| {top[low]:.3e}, {low}); the {len(fab_names)} FAB in_proj, to_out[1], "
+               f"in_norm and low-rank-kernel tensors among them (smallest {top[low_fab]:.3e}, "
+               f"{low_fab})")
+
+
+def backward_recompute_share(trainer, x, reps=3):
+    """The backward of `reps` train steps' losses on frames x (after one
+    warm-up), each between CUDA events, and the spans of the autograd
+    Functions' backward recomputes (kernels 2, 3 and 4: the plain version
+    re-run under grad) between CUDA events inside it. Returns [(backward
+    ms, recompute ms, recomputes, backward host ms)] per step. The step is
+    host-bound, so these spans read the host's pace as much as the card's."""
+    from lns_tpu_torch.kernels.axial import AxialInFunction
+    from lns_tpu_torch.kernels.fab_core import FabCoreFunction
+    from lns_tpu_torch.kernels.group_norm import GroupNormSwishFunction
+
+    spans = []
+
+    def timed(real):
+        def backward(ctx, *grads):
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = real(ctx, *grads)
+            ev[1].record()
+            spans.append(ev)
+            return out
+        return staticmethod(backward)
+
+    fns = (FabCoreFunction, GroupNormSwishFunction, AxialInFunction)
+    reals = [f.backward for f in fns]
+    for f in fns:
+        f.backward = timed(f.backward)
+    res = []
+    try:
+        for _ in range(reps + 1):
+            loss = trainer._loss(x)
+            spans.clear()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            loss.backward()
+            end.record()
+            torch.cuda.synchronize()
+            res.append((start.elapsed_time(end), sum(s.elapsed_time(e) for s, e in spans),
+                        len(spans), (time.perf_counter() - t0) * 1e3))
+    finally:
+        for f, real in zip(fns, reals):
+            f.backward = staticmethod(real)
+        trainer.opt.zero_grad(set_to_none=True)
+    return res[1:]
+
+
+def check_stage1_validation(trainer, val_kernel, tmp):
+    """Validation of the trained AE against the plain path, and kernel 2's
+    conditioning on the trained AE's decode.
+
+    bf16: one validation call (64 frames of the held-out trajectories)
+    reconstructed on the kernel path, every call of kernels 2 and 3
+    recorded; each held to accuracy parity with its plain version
+    (``_parity``: no farther from the plain version in f32 than 1.5 x the
+    plain bf16 version). For kernel 2 also printed: against its plain
+    version (max error, share of elements that differ) beside the bounds
+    that random inputs meet (1e-2 x max|plain|, 2 %), the plain version on
+    the CPU against the card's, and the kernel in f32 against the plain
+    version in f32 on the same inputs beside its random-input bound (1e-4):
+    whether the trained AE keeps the decode well-conditioned. Then
+    ``validate`` on the plain path (``use_kernels(False)``): its
+    val_recon_loss within 1e-2 (relative) of the kernel path's
+    (`val_kernel`, the run's last validation, on these weights)."""
+    from lns_tpu_torch.kernels.fab_core import fab_core_plain, fab_fused_core
+    from lns_tpu_torch.kernels.group_norm import fused_group_norm_swish, group_norm_swish_plain
+    from lns_tpu_torch.ops import factorized_attention, norms
+    from lns_tpu_torch.train.logging_utils import MetricLogger
+
+    traj = trainer.val_ds.eval_trajectories()
+    frames = traj.reshape(-1, *traj.shape[2:])[:64]
+    with recording(factorized_attention, "fab_fused_core") as k2, \
+            recording(norms, "fused_group_norm_swish") as k3:
+        trainer.reconstruct(frames)
+    where = f"stage-1 validate bf16 (trained AE, {frames.shape[0]} held-out frames)"
+    _check(len(k2) > 0 and len(k3) > 0,
+           f"{where}: kernel calls recorded: {len(k2)} / {len(k3)} (kernels 2 / 3)")
+    conditioned = True
+    with torch.no_grad():
+        for i, args in enumerate(k2):
+            yk, plain = fab_fused_core(*args), fab_core_plain(*args)
+            _parity(f"{where}, kernel 2 call {i} (u {'x'.join(map(str, args[0].shape))})",
+                    yk, plain, fab_core_plain(*[a.float() for a in args]),
+                    _cpu_spread(fab_core_plain, args, plain))
+            a32 = [a.float() for a in args]
+            k32, p32 = fab_fused_core(*a32), fab_core_plain(*a32)
+            r16 = (yk.float() - plain.float()).abs().max().item() / plain.float().abs().max().item()
+            d16 = (yk != plain).float().mean().item()
+            r32 = (k32 - p32).abs().max().item() / p32.abs().max().item()
+            d32 = (k32 != p32).float().mean().item()
+            ok = r16 <= 1e-2 and d16 <= 0.02 and r32 <= 1e-4
+            conditioned = conditioned and ok
+            print(f"      {where}, kernel 2 call {i}: bf16 kernel vs plain {r16:.2e} x max|plain| "
+                  f"(random inputs: <= 1e-2), {d16:.2%} of elements differ (<= 2 %); f32 kernel "
+                  f"vs plain {r32:.2e} x max|plain| (<= 1e-4), {d32:.2%} differ: "
+                  f"{'within' if ok else 'outside'} the random-input bounds", flush=True)
+        for i, (xg, scale, bias, g, eps, swish) in enumerate(k3):
+            a = (scale, bias, g, eps, bool(swish))
+            _parity(f"{where}, kernel 3 call {i} ({'x'.join(map(str, xg.shape))} G{g})",
+                    fused_group_norm_swish(xg, *a), group_norm_swish_plain(xg, *a),
+                    group_norm_swish_plain(xg.float(), *a))
+    print(f"      {where}: conditioning of the FAB core on the trained AE's decode: "
+          + ("every kernel 2 call within the bounds random inputs meet: well-conditioned"
+             if conditioned else "some kernel 2 call outside the bounds random inputs meet: "
+             "ill-conditioned"), flush=True)
+    del k2, k3
+
+    logger, log_dir = trainer.logger, os.path.join(tmp, "log_plain_validate")
+    os.makedirs(log_dir)
+    trainer.logger = MetricLogger(log_dir, use_wandb=False)
+    trainer.model.use_kernels(False)
+    val_plain = trainer.validate("plain")
+    trainer.model.use_kernels(True)
+    trainer.logger.finish()
+    trainer.logger = logger
+    _check(math.isfinite(val_plain) and abs(val_kernel - val_plain) <= 1e-2 * val_plain,
+           f"stage-1 validate bf16, kernel path vs plain on the same weights: val_recon_loss "
+           f"{val_kernel:.6f} vs {val_plain:.6f}, within {abs(val_kernel / val_plain - 1):.2e} "
+           "(<= 1e-2)")
+    return conditioned
+
+
+def check_handoff(cfg, path, frames, dev):
+    """The trained AE's ``vqgan_epoch_final.pt`` loaded strictly into a
+    ``LatentDynamics`` (a seeded propagator), bitwise, and one predict at
+    the main path's size (batch BATCH, STEPS steps, CHUNK-frame decode
+    chunks, bf16) from `frames`: finite, of its shape, on kernels 1-3 as
+    often as the layer specs imply."""
+    from lns_tpu_torch.models import LatentDynamics
+    from lns_tpu_torch.ops.initializers import init_weights_
+    from lns_tpu_torch.train import checkpoint
+
+    model = init_weights_(LatentDynamics(cfg, dtype=torch.bfloat16, ae_dtype=torch.bfloat16,
+                                         device="cpu"), torch.Generator().manual_seed(3)).to(dev)
+    checkpoint.load_autoencoder_checkpoint(path, model.vq_ae)
+    saved = torch.load(path, weights_only=True)
+    now = model.vq_ae.state_dict()
+    _check(saved.keys() == now.keys()
+           and all(torch.equal(now[k].cpu(), v) for k, v in saved.items()),
+           f"stage-1 hand-off: vqgan_epoch_final.pt ({len(saved)} tensors) loaded strictly into "
+           "LatentDynamics.vq_ae, bitwise")
+    counted = _counted()
+    for f in counted.values():
+        f.launches = 0
+    y = model.predict(frames, STEPS, decode_chunk=CHUNK)
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counted.items()}
+    want = expected_launches(cfg)
+    _check(tuple(y.shape) == (frames.shape[0], STEPS) + tuple(frames.shape[1:])
+           and bool(torch.isfinite(y).all())
+           and all(launches[k] == want.get(k, 0) for k in launches),
+           f"stage-1 hand-off: predict from the trained AE, batch {frames.shape[0]}, {STEPS} "
+           f"steps: output {tuple(y.shape)} finite; launches "
+           f"{({k: v for k, v in launches.items() if v})} == "
+           f"{({k: v for k, v in want.items() if v})}")
+
+
+def drive_stage1(dev, smi):
+    """The stage-1 trainer at full NS2d width on the card: returns the
+    kernels' launches over its training run."""
+    import tempfile
+
+    import numpy as np
+
+    from lns_tpu_torch.config import ns2d_config
+    from lns_tpu_torch.data import epoch_batches
+    from lns_tpu_torch.data.synthetic import make_ns2d_npz
+    from lns_tpu_torch.models import SimpleAutoencoder
+    from lns_tpu_torch.ops.initializers import init_weights_
+    from lns_tpu_torch.train.stage1 import Stage1Trainer
+
+    t_phase = time.perf_counter()
+    counted = _counted()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = ns2d_config().replace(
+            data_dir=make_ns2d_npz(os.path.join(tmp, "ns2d.npz"), ncase=S1_CASES,
+                                   case_len=S1_CASE_LEN, h=64, w=64),
+            case_len=S1_CASE_LEN, num_case=S1_CASES, dataset_stat=os.path.join(tmp, "stat.npz"),
+            batch_size=S1_BATCH, epochs=S1_EPOCHS, learning_rate=5e-4, mixed_precision=True,
+            ckpt_every=1, device_data=True, log_dir=os.path.join(tmp, "log"),
+            overwrite_exist=True)
+        print(f"-- stage-1 training: {S1_CASES} cases x {S1_CASE_LEN} frames of "
+              f"{cfg.resolution}x{cfg.resolution}, batch {S1_BATCH}, {S1_EPOCHS} epochs, bf16 "
+              "activations, frames on the card", flush=True)
+        trainer = Stage1Trainer(cfg, seed=1234, use_wandb=False, device=dev)
+        ds = trainer.train_ds
+        n, n_val = len(ds), trainer.val_ds.n_cases * S1_CASE_LEN
+        steps_per_epoch = -(-n // S1_BATCH)
+        x = torch.from_numpy(ds.get_batch(np.arange(S1_BATCH))).to(dev)
+
+        m32 = SimpleAutoencoder(cfg).to(dev)
+        m32.load_state_dict(trainer.model.state_dict())
+        check_stage1_step("path 1", trainer.model, m32, x)
+        cfg2 = cfg.replace(use_attn_enc=True)
+        ae2 = init_weights_(SimpleAutoencoder(cfg2, dtype=torch.bfloat16),
+                            torch.Generator().manual_seed(2)).to(dev)
+        m32 = SimpleAutoencoder(cfg2).to(dev)
+        m32.load_state_dict(ae2.state_dict())
+        check_stage1_step("path 2 use_attn_enc", ae2, m32, x)
+        del m32, ae2
+
+        # the training run: each train step between CUDA events, each
+        # validation by the host clock between synchronizes
+        step_events, val_ms = [], []
+        step_fn, validate = trainer.train_step, trainer.validate
+
+        def timed_step(*args):
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = step_fn(*args)
+            ev[1].record()
+            step_events.append(ev)
+            return out
+
+        def timed_validate(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            v = validate(*args)
+            torch.cuda.synchronize()
+            val_ms.append((time.perf_counter() - t0) * 1e3)
+            return v
+
+        trainer.train_step, trainer.validate = timed_step, timed_validate
+        for f in counted.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in counted.items()}
+        trainer.train_step, trainer.validate = step_fn, validate
+
+        n_steps = S1_EPOCHS * steps_per_epoch
+        calls = -(-n_val // 64)  # validate's reconstruct calls
+        want = {k: 0 for k in launches}
+        for k, v in expected_launches(cfg, n_chunks=1).items():
+            want[k] += n_steps * v + (S1_EPOCHS + 1) * calls * v
+        want["prop_rollout"] = 0
+        _check(launches == want, f"stage-1 training run: launches {launches} == {want} "
+               f"({n_steps} train steps, {S1_EPOCHS + 1} validations of {calls} calls)")
+
+        with open(os.path.join(cfg.log_dir, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        loss = [r["rec_loss"] for r in recs if "rec_loss" in r]
+        val = [r["val_recon_loss"] for r in recs if "val_recon_loss" in r]
+        first, last = np.mean(loss[:steps_per_epoch]), np.mean(loss[-steps_per_epoch:])
+        _check(len(loss) == n_steps and all(math.isfinite(v) for v in loss) and last < first,
+               f"stage-1: {len(loss)} train losses, all finite, falling: epoch means "
+               f"{first:.5f} -> {last:.5f} (first {loss[0]:.5f}, last {loss[-1]:.5f})")
+        _check(len(val) == S1_EPOCHS + 1 and all(math.isfinite(v) for v in val)
+               and val[-1] < val[0], f"stage-1: val_recon_loss finite and falling: {val}")
+        ckpt = os.path.join(cfg.log_dir, "checkpoints")
+        files = ("vqgan_epoch_best.pt", "meta_epoch_best.json", "vqgan_epoch_final.pt",
+                 "optim_epoch_final.pt", "meta_epoch_final.json", "vqgan_epoch_1.pt",
+                 "optim_epoch_1.pt", "meta_epoch_1.json")
+        _check(all(os.path.exists(os.path.join(ckpt, f)) for f in files),
+               f"stage-1: checkpoints written: {', '.join(files)}")
+
+        resumed = Stage1Trainer(cfg.replace(log_dir=os.path.join(tmp, "log_resumed"),
+                                            resume_training=True,
+                                            resume_ckpt=os.path.join(ckpt, "vqgan_epoch_1.pt")),
+                                seed=999, use_wandb=False, device=dev)
+        saved = torch.load(os.path.join(ckpt, "vqgan_epoch_1.pt"), weights_only=True)
+        opt_saved = torch.load(os.path.join(ckpt, "optim_epoch_1.pt"), map_location="cpu",
+                               weights_only=True)["state"]
+        opt_now = resumed.opt.state_dict()["state"]
+        order = [next(epoch_batches(n, S1_BATCH, np.random.default_rng([s, 1])))
+                 for s in (resumed.seed, trainer.seed)]
+        _check(resumed.start_epoch == 1 and resumed.seed == trainer.seed
+               and np.array_equal(*order)
+               and all(torch.equal(v.cpu(), saved[k])
+                       for k, v in resumed.model.state_dict().items())
+               and opt_now.keys() == opt_saved.keys()
+               and all(torch.equal(v.cpu(), opt_saved[i][k])
+                       for i, st in opt_now.items() for k, v in st.items()),
+               f"stage-1: a trainer resumed from vqgan_epoch_1 with seed 999 passed restores "
+               f"epoch {resumed.start_epoch} (== 1), seed {resumed.seed} (so epoch 1's batch "
+               f"order), the parameters and the optimizer state of {len(opt_now)} tensors, "
+               "bitwise")
+        del resumed
+
+        conditioned = check_stage1_validation(trainer, val[-1], tmp)
+        frames = torch.from_numpy(ds.get_batch(np.arange(BATCH) * S1_CASE_LEN)).to(dev)
+        check_handoff(cfg, os.path.join(ckpt, "vqgan_epoch_final.pt"), frames, dev)
+        share = backward_recompute_share(trainer, x)
+        profile_device(lambda: [trainer.train_step(x) for _ in range(5)],
+                       f"stage-1 5 train steps (bf16, batch {S1_BATCH})")
+        del trainer
+
+    ms = sorted(s.elapsed_time(e) for s, e in step_events)
+    med = ms[len(ms) // 2]
+    print(f"      stage-1 train step (bf16, batch {S1_BATCH}, the last of each epoch "
+          f"{n - (steps_per_epoch - 1) * S1_BATCH}): median {med:.3f} ms by CUDA events (min "
+          f"{ms[0]:.3f}, max {ms[-1]:.3f}, n={len(ms)}), {1e3 / med:.1f} steps/s, "
+          f"{S1_BATCH * 1e3 / med:.1f} frames/s; train() {train_s:.2f} s for {n_steps} steps, "
+          f"{len(val_ms)} validations and {S1_EPOCHS + 2} checkpoint saves; {smi}", flush=True)
+    print(f"      stage-1 validate ({n_val} frames in {calls} calls of 64): wall "
+          f"{', '.join(f'{v:.1f}' for v in val_ms)} ms; {smi}", flush=True)
+    bw = sorted(share)
+    print(f"      stage-1 backward (bf16, batch {S1_BATCH}, after one warm-up), by CUDA events: "
+          + "; ".join(f"{b:.2f} ms, of which {r:.2f} ms ({r / b:.1%}) in {k} plain recomputes "
+                      f"(kernels 2 and 3), host {h:.2f} ms" for b, r, k, h in bw)
+          + f"; {smi}", flush=True)
+    print(f"      stage-1: the trained AE's decode {'keeps' if conditioned else 'does not keep'} "
+          f"kernel 2 within its random-input bounds; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s; {smi}", flush=True)
+    return launches
+
+
 def run(dev, smi=""):
-    """Phases 3, 4 and 5 on `dev`; returns the per-kernel results."""
+    """Phases 3-6 on `dev`; returns the per-kernel results."""
     from lns_tpu_torch.config import ns2d_config
     from lns_tpu_torch.models import LatentDynamics
     from lns_tpu_torch.ops.initializers import init_weights_
@@ -1674,6 +2176,7 @@ def run(dev, smi=""):
     by_path = {label: drive_path(label, model, expect, gen, dev)
                for label, model, expect in paths}
     by_path["stage-2 training"] = drive_stage2(dev, smi)
+    by_path["stage-1 training"] = drive_stage1(dev, smi)
 
     src = "lns_tpu_torch/csrc/"
     kernels = [

@@ -1,11 +1,11 @@
-"""The NS2d latent corpus for stage-2 training (counterpart of
-``lns_tpu.data.ns2d``; mirrors the reference's
-dataset/ns2d_fno_stage2_simpleae.py).
+"""The NS2d corpora for stage-1 and stage-2 training (counterpart of
+``lns_tpu.data.ns2d``; mirrors the reference's dataset/ns2d_fno_stage1.py
+and dataset/ns2d_fno_stage2_simpleae.py).
 
 One .npz with ``all_sol_center`` [T, H, W, Ncase]; the reference's 90/10
 case split under numpy's global seed 1; a global scalar mean and a
 per-frame-averaged std, cached at ``dataset_stat``. Frames are channels-last
-[H, W, 1]. ``NS2DStage1`` (single frames) is not ported yet.
+[H, W, 1]; the corpus is kept as f32 numpy.
 """
 
 from __future__ import annotations
@@ -59,6 +59,25 @@ class _NS2DBase:
         """[..., H, W, C] -> physical units (ns2d_fno_stage1.py:106-114);
         numpy arrays and tensors alike."""
         return x * float(self.stats["std"]) + float(self.stats["mean"])
+
+
+class NS2DStage1(_NS2DBase):
+    """Stage 1: train batches are single normalised frames [b, H, W, 1];
+    eval returns whole trajectories [n, T, H, W, 1]."""
+
+    def __len__(self):
+        if self.train_mode:
+            return self.n_cases * self.case_len
+        return self.n_cases
+
+    def get_batch(self, indices: np.ndarray) -> np.ndarray:
+        """Frames by index (case-major: index = case x case_len + t)."""
+        case, t = indices // self.case_len, indices % self.case_len
+        return self.normalize(self.data[t, :, :, case])[..., None].astype(np.float32)
+
+    def eval_trajectories(self) -> np.ndarray:
+        return self.normalize(np.moveaxis(self.data[: self.case_len], -1, 0))[..., None] \
+            .astype(np.float32)
 
 
 class NS2DStage2(_NS2DBase):

@@ -3,10 +3,11 @@
 Each module holds a kernel's wrapper, its plain PyTorch version and a
 launch counter. A wrapper takes the plain version only for a CPU tensor;
 for a CUDA tensor it launches the kernel or raises. The kernels have no
-backward: under grad, with an input that requires grad, a wrapper raises
-on a CUDA tensor before launching, except ``fused_group_norm_swish``,
-whose autograd Function launches the kernel and carries the plain
-version's gradient.
+backward kernel: under grad, with an input that requires grad,
+``fab_fused_core``, ``fused_group_norm_swish`` and ``fab_axial_in_fused``
+in the d-space core's mode go through autograd Functions that launch the
+kernel and carry the plain version's gradient; the other wrappers raise on
+a CUDA tensor before launching.
 
   * ``prop_rollout``  CUDA C++ (``csrc/prop_rollout.cu``): all propagator steps
   * ``fab_core``      CUDA C++ (``csrc/fab_core.cu``): the FAB c-space core

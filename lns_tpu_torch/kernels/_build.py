@@ -56,19 +56,25 @@ def on_cuda(t: torch.Tensor, name: str, *inputs) -> bool:
     """False for a CPU tensor (the wrapper takes its plain version), True
     for a CUDA tensor (it launches the kernel); any other device raises.
 
-    The kernels carry no gradient (``fused_group_norm_swish`` wraps its
-    launch in an autograd Function of its own). So for a CUDA tensor with
-    grad mode on and `t` or one of the wrapper's other tensor `inputs`
-    requiring grad it raises, before anything launches: the output of a
-    launch has no ``grad_fn``, and a backward through it would silently
-    drop the gradient of everything upstream."""
+    A launch's output has no ``grad_fn``. Three wrappers carry a gradient
+    by launching inside an autograd Function whose backward is the plain
+    version's (the Function's forward runs without grad, so it passes
+    here): kernel 2 ``fab_fused_core``, kernel 3 ``fused_group_norm_swish``
+    and kernel 4 ``fab_axial_in_fused`` in the d-space core's mode. Every
+    other launch (kernels 1, 5, 6, 7, and kernel 4 in its other modes)
+    raises here for a CUDA tensor with grad mode on and `t` or one of the
+    wrapper's other tensor `inputs` requiring grad, before anything
+    launches: a backward through it would silently drop the gradient of
+    everything upstream."""
     if not is_card(t, name):
         return False
     if torch.is_grad_enabled() and any(isinstance(x, torch.Tensor) and x.requires_grad
                                        for x in (t, *inputs)):
         raise RuntimeError(f"{name}: the kernel has no gradient, and an input requires grad; "
                            "call it under torch.no_grad() or on tensors that do not require "
-                           "grad")
+                           "grad (the kernels with a gradient: fab_fused_core, "
+                           "fused_group_norm_swish, and fab_axial_in_fused with the norm off, "
+                           "stats=True and heads_last=True)")
     return True
 
 

@@ -159,6 +159,32 @@ def launch(name, kx, ky, phi, dims, rows_first: bool, mode: int, eps: float,
     return out if stats is None else (out, stats)
 
 
+class AxialInFunction(torch.autograd.Function):
+    """Kernel 4 with a gradient, in the mode the d-space FAB core calls
+    (``fab_dspace_core``: norm off, statistics out, heads last). The forward
+    launches the kernel (the plain version for a CPU tensor) and saves kx,
+    ky and phi; the backward recomputes ``fab_axial_in_plain`` in that mode
+    under grad and returns its gradients, through both outputs (x, and the
+    f32 statistics that ``_fold_norm`` consumes). The JAX package has no
+    backward kernel to port (XLA differentiates ``_batched_core``)."""
+
+    @staticmethod
+    def forward(ctx, kx, ky, phi, eps: float):
+        ctx.save_for_backward(kx, ky, phi)
+        ctx.eps = eps
+        return _fab_axial_in(kx, ky, phi, False, eps, True, True)
+
+    @staticmethod
+    def backward(ctx, grad_x, grad_stats):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            outs = fab_axial_in_plain(*inputs, False, ctx.eps, True, True)
+        grads = iter(torch.autograd.grad(outs, [t for t in inputs if t.requires_grad],
+                                         (grad_x, grad_stats)))
+        return tuple(next(grads) if t.requires_grad else None for t in inputs) + (None,)
+
+
 def fab_axial_in_fused(kx, ky, phi, with_instance_norm: bool = True, eps: float = 1e-5,
                        stats: bool = False, heads_last: bool = False):
     """Fused axial apply (+ InstanceNorm), head-major: kx [B, n, H, H],
@@ -172,9 +198,22 @@ def fab_axial_in_fused(kx, ky, phi, with_instance_norm: bool = True, eps: float 
     The TPU kernel's ``group`` argument (how many heads it packs into one
     block-diagonal matrix) does not change the result and is dropped; so is
     its ``interpret`` flag. A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel on the current stream or raises."""
+    tensor launches the kernel on the current stream or raises. With grad
+    mode on and kx, ky or phi requiring grad, the d-space core's mode (norm
+    off, ``stats``, ``heads_last``) goes through ``AxialInFunction``, which
+    launches the same kernel and carries the plain version's gradient; the
+    other modes refuse a gradient on a CUDA tensor."""
     if stats and with_instance_norm:
         raise ValueError("fab_axial_in_fused: stats are returned with the norm off")
+    if (stats and heads_last and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (kx, ky, phi))):
+        return AxialInFunction.apply(kx, ky, phi, eps)
+    return _fab_axial_in(kx, ky, phi, with_instance_norm, eps, stats, heads_last)
+
+
+def _fab_axial_in(kx, ky, phi, with_instance_norm: bool, eps: float, stats: bool,
+                  heads_last: bool):
+    """The launch (or, for a CPU tensor, the plain version)."""
     if not _build.on_cuda(phi, "fab_axial_in_fused", kx, ky):
         return fab_axial_in_plain(kx, ky, phi, with_instance_norm, eps, stats, heads_last)
     if phi.dim() != 5:

@@ -82,13 +82,48 @@ def fab_core_plain(u, k_x, k_y, w_in, w_o1, eps: float = 1e-5):
     return torch.einsum("bnilc,bnco->bilo", bb, m) - bias
 
 
+class FabCoreFunction(torch.autograd.Function):
+    """Kernel 2 with a gradient. The forward launches the kernel (the plain
+    version for a CPU tensor) and saves its five inputs as they were given,
+    before the wrapper's casts: w_in and w_o1 are views of the 1x1 conv
+    weights, so autograd maps their gradients back to ``in_proj`` and
+    ``to_out[1]``. The backward recomputes ``fab_core_plain`` from them
+    under grad (the casts happen inside it) and returns that function's
+    gradients. The JAX package has no backward kernel to port (XLA
+    differentiates ``_batched_gram_core``), so none is written here."""
+
+    @staticmethod
+    def forward(ctx, u, k_x, k_y, w_in, w_o1, eps: float):
+        ctx.save_for_backward(u, k_x, k_y, w_in, w_o1)
+        ctx.eps = eps
+        return _fab_core(u, k_x, k_y, w_in, w_o1, eps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            y = fab_core_plain(*inputs, ctx.eps)
+        grads = iter(torch.autograd.grad(y, [t for t in inputs if t.requires_grad], grad))
+        return tuple(next(grads) if t.requires_grad else None for t in inputs) + (None,)
+
+
 def fab_fused_core(u, k_x, k_y, w_in, w_o1, eps: float = 1e-5):
     """FAB core with the JAX kernel's shapes: u [b, h, w, c] (post-GN),
     k_x [b, n, h, h], k_y [b, n, w, w], w_in [c, n, d], w_o1 [n, d, o] ->
     [b, h, w, o] in u's dtype.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    on the current stream or raises."""
+    on the current stream or raises. With grad mode on and any of the five
+    tensors requiring grad the call goes through ``FabCoreFunction``, which
+    launches the same kernel and carries the plain version's gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (u, k_x, k_y, w_in, w_o1)):
+        return FabCoreFunction.apply(u, k_x, k_y, w_in, w_o1, eps)
+    return _fab_core(u, k_x, k_y, w_in, w_o1, eps)
+
+
+def _fab_core(u, k_x, k_y, w_in, w_o1, eps: float):
+    """The launch (or, for a CPU tensor, the plain version), without grad."""
     if not _build.on_cuda(u, "fab_fused_core", k_x, k_y, w_in, w_o1):
         return fab_core_plain(u, k_x, k_y, w_in, w_o1, eps)
     if u.dtype not in _build.DTYPE_CODE:

@@ -125,6 +125,14 @@ class SimpleAutoencoder(nn.Module):
         self.quant_conv = Conv1x1(cfg.latent_dim, cfg.latent_dim, dtype=dtype)
         self.post_quant_conv = Conv1x1(cfg.latent_dim, cfg.latent_dim, dtype=dtype)
 
+    def use_kernels(self, flag: bool) -> "SimpleAutoencoder":
+        """Route the FAB cores and GroupNorms through their kernels (True)
+        or their plain versions (False)."""
+        for m in self.modules():
+            if hasattr(m, "use_kernel"):
+                m.use_kernel = flag
+        return self
+
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """x [B, H, W, C] -> z [B, h, w, latent_dim]."""
         z = self.quant_conv(self.encoder(x.permute(0, 3, 1, 2)))

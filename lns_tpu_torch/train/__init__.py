@@ -1,3 +1,6 @@
-"""Training (counterpart of ``lns_tpu.train``): the stage-2 trainer, its
-optimizer and schedule, ``.pt`` checkpoints and metric logging. Stage 1 is
-not ported yet."""
+"""Training (counterpart of ``lns_tpu.train``): the stage-1 autoencoder
+trainer, the stage-2 propagator trainer, their optimizers, ``.pt``
+checkpoints and metric logging."""
+
+from lns_tpu_torch.train.stage1 import Stage1Trainer  # noqa: F401
+from lns_tpu_torch.train.stage2 import Stage2Trainer  # noqa: F401

@@ -5,16 +5,25 @@ Saves are atomic (written to ``path + ".tmp"``, then renamed). State dicts
 carry the reference's key names, so the loaders read what the reference
 trainers and ``lns_tpu.utils.torch_export`` write: a stage-1 autoencoder
 (bare ``encoder.model...`` / ``quant_conv`` keys, ``export_autoencoder`` +
-``save_torch_checkpoint``) and a stage-2 model (``vq_ae.`` / ``propagator.``
-keys, ``export_latent_dynamics``), each loaded ``strict=True``. The JAX
+``save_torch_checkpoint``, or the port's stage-1 trainer) and a stage-2
+model (``vq_ae.`` / ``propagator.`` keys, ``export_latent_dynamics``),
+each loaded ``strict=True``. The JAX
 package's flax msgpack and orbax formats are not read: a JAX-trained model
 reaches the port through ``torch_export``.
+
+A stage-1 run writes, per saved epoch (``tag`` an epoch number or
+``final``), ``vqgan_epoch_{tag}.pt`` (the autoencoder, as the reference
+names it), ``optim_epoch_{tag}.pt`` (the optimizer state) and
+``meta_epoch_{tag}.json`` (the epoch to resume at, the seed, the best
+validation so far), and ``vqgan_epoch_best.pt`` with ``meta_epoch_best.json``;
+``stage1_sidecars`` finds the optimizer and meta files beside a model file.
 """
 
 from __future__ import annotations
 
+import json
 import os
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -25,6 +34,41 @@ def save(obj: Any, path: str) -> None:
     tmp = path + ".tmp"
     torch.save(obj, tmp)
     os.replace(tmp, path)
+
+
+def save_json(obj: Any, path: str) -> None:
+    """json.dump to `path`, atomically."""
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(obj, f)
+    os.replace(tmp, path)
+
+
+def load_json(path: str) -> Any:
+    with open(path) as f:
+        return json.load(f)
+
+
+def save_stage1(ckpt_dir: str, tag, ae: nn.Module, meta: dict,
+                optimizer: Optional[torch.optim.Optimizer] = None) -> None:
+    """``vqgan_epoch_{tag}.pt``, ``meta_epoch_{tag}.json`` and, with an
+    optimizer, ``optim_epoch_{tag}.pt`` in `ckpt_dir`."""
+    save(state_dict_cpu(ae), os.path.join(ckpt_dir, f"vqgan_epoch_{tag}.pt"))
+    if optimizer is not None:
+        save(optimizer.state_dict(), os.path.join(ckpt_dir, f"optim_epoch_{tag}.pt"))
+    save_json(meta, os.path.join(ckpt_dir, f"meta_epoch_{tag}.json"))
+
+
+def stage1_sidecars(model_path: str) -> Tuple[Optional[str], Optional[str]]:
+    """(optimizer file, meta file) saved beside a ``vqgan_epoch_{tag}.pt``,
+    each None where it does not exist (a reference checkpoint has neither)."""
+    folder, name = os.path.split(model_path)
+    stem = os.path.splitext(name)[0]
+    if not stem.startswith("vqgan_epoch_"):
+        return None, None
+    optim = os.path.join(folder, "optim_" + stem[len("vqgan_"):] + ".pt")
+    meta = os.path.join(folder, "meta_" + stem[len("vqgan_"):] + ".json")
+    return (optim if os.path.exists(optim) else None, meta if os.path.exists(meta) else None)
 
 
 def state_dict_cpu(module: nn.Module) -> Dict[str, torch.Tensor]:

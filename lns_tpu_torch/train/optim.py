@@ -1,8 +1,10 @@
-"""The stage-2 optimizer and its schedule (counterpart of
-``lns_tpu.train.optim``): Adam with torch's default betas (0.9, 0.999) and
-eps 1e-8, and CosineAnnealingLR(T_max=epochs, eta_min=1e-6) stepped per
-epoch (reference train_stage2_ns2d.py:177-187), as one schedule over
-optimizer steps whose lr is constant within an epoch.
+"""The optimizers of both stages (counterpart of ``lns_tpu.train.optim``).
+
+Stage 1: Adam with the config's betas and eps 1e-8, no schedule. Stage 2:
+Adam with torch's default betas (0.9, 0.999) and eps 1e-8, and
+CosineAnnealingLR(T_max=epochs, eta_min=1e-6) stepped per epoch (reference
+train_stage2_ns2d.py:177-187), as one schedule over optimizer steps whose
+lr is constant within an epoch.
 """
 
 from __future__ import annotations
@@ -10,6 +12,17 @@ from __future__ import annotations
 import math
 
 import torch
+
+
+def stage1_optimizer(cfg, params):
+    """Adam over `params` at ``cfg.learning_rate`` with betas
+    (``cfg.beta1``, ``cfg.beta2``), 0.9 and 0.999 where the config has none,
+    and eps 1e-8, as ``lns_tpu.train.optim.stage1_optimizer`` reads them.
+    That function's docstring names the reference's betas (0.5, 0.9)
+    (train_stage1_ns2d.py:37-54), but its code takes the config's values
+    with these defaults; this follows the code."""
+    return torch.optim.Adam(params, lr=cfg.learning_rate,
+                            betas=(cfg.get("beta1", 0.9), cfg.get("beta2", 0.999)), eps=1e-8)
 
 
 def cosine_annealing_per_epoch(lr0: float, epochs: int, steps_per_epoch: int,

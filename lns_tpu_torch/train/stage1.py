@@ -1,0 +1,214 @@
+"""Stage-1 training: the autoencoder trained to reconstruct single frames
+with the relative-L2 loss (counterpart of ``lns_tpu.train.stage1``;
+mirrors the reference's TrainAE, train_stage1_ns2d.py).
+
+Adam over every AE parameter (``stage1_optimizer``); the loss is
+``relative_lp_loss`` over the spatial dims with ``reduce_all``, in f32;
+validation and checkpoints every ``ckpt_every`` epochs, validation as the
+per-frame reconstruction rel-L2 on denormalised held-out trajectories. On
+the card every train step differentiates through the hand-written kernels
+2 and 3 (kernel 4 where the encoder has a d-space FAB) by their autograd
+Functions, and validation runs them under ``torch.no_grad``. NS2d only; the
+trainer runs on one device (data parallelism and the async checkpointer
+are not ported).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+from lns_tpu_torch.data import NS2DStage1, epoch_batches, to_device
+from lns_tpu_torch.models import SimpleAutoencoder
+from lns_tpu_torch.ops.initializers import init_weights_
+from lns_tpu_torch.ops.losses import relative_lp_loss
+from lns_tpu_torch.train import checkpoint
+from lns_tpu_torch.train.logging_utils import (MetricLogger, log_sequence, plot_error_curve,
+                                               prepare_training)
+from lns_tpu_torch.train.optim import stage1_optimizer
+
+# the workloads of the JAX package's stage-1 trainer that the port does not
+# train yet, with the slice that brings each
+_NOT_PORTED = {"sw": "the SW family", "twophase": "the two-phase families",
+               "twophase_conditional": "the two-phase families"}
+
+
+def reconstruction_loss(model, x: torch.Tensor) -> torch.Tensor:
+    """The stage-1 loss of `model` on frames x [b, H, W, C] (f32): the
+    relative L2 of the reconstruction over (H, W) per sample and channel,
+    averaged; computed in f32 whatever the activation dtype."""
+    return relative_lp_loss(model(x).float(), x, reduce_dim=(1, 2), p=2, reduce_all=True)
+
+
+class Stage1Trainer:
+    """Builds the autoencoder on `device` (the CUDA card when None; without
+    CUDA it raises unless told ``device="cpu"``), initialises it from a
+    ``torch.Generator`` seeded with `seed`, and resumes from
+    ``cfg.resume_ckpt`` when ``cfg.resume_training`` is set.
+
+    ``cfg.mixed_precision``: bf16 activations; parameters, optimizer and
+    loss in f32. ``cfg.device_data``: the training frames live on the
+    device and batches are gathered there by index; otherwise each batch is
+    copied from pinned host memory without waiting."""
+
+    def __init__(self, cfg, seed: int = 1234, use_wandb: bool = True,
+                 config_path: Optional[str] = None, device=None):
+        if cfg.workload in _NOT_PORTED:
+            raise NotImplementedError(f"stage-1 training of {cfg.workload!r} is not ported yet; "
+                                      f"it comes with {_NOT_PORTED[cfg.workload]}")
+        self.device = torch.device("cuda" if device is None else device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Stage1Trainer: no CUDA device; pass device=\"cpu\" to train on "
+                               "the CPU")
+        self.cfg = cfg
+        self.seed = seed
+        prepare_training(cfg.log_dir, bool(cfg.overwrite_exist), config_path=config_path,
+                         config_dict=cfg.to_dict())
+        self.logger = MetricLogger(cfg.log_dir, project=cfg.project_name, config=cfg.to_dict(),
+                                   use_wandb=use_wandb)
+
+        self.train_ds = NS2DStage1(cfg, train_mode=True)
+        self.val_ds = NS2DStage1(cfg, train_mode=False)
+        with self.device:  # the parameters are allocated there
+            self.model = SimpleAutoencoder(
+                cfg, dtype=torch.bfloat16 if cfg.mixed_precision else None)
+        init_weights_(self.model, torch.Generator().manual_seed(seed))
+        self.opt = stage1_optimizer(cfg, self.model.parameters())
+        self.device_data = bool(cfg.device_data)
+        self.start_epoch = 0
+        # the lowest validation reconstruction rel-L2 so far, saved as
+        # vqgan_epoch_best (the reference saves every ckpt_every only)
+        self.best_val = float("inf")
+        self.best_epoch = None
+        if cfg.resume_training and cfg.resume_ckpt:
+            self.load(cfg.resume_ckpt)
+        print(f"Number of trainable parameters: {sum(p.numel() for p in self.model.parameters())}")
+
+    # ------------------------------------------------------------------
+    def _loss(self, x: torch.Tensor) -> torch.Tensor:
+        return reconstruction_loss(self.model, x)
+
+    def train_step(self, x: torch.Tensor) -> torch.Tensor:
+        """One optimizer step on a batch of frames; returns the loss (a 0-d
+        tensor on the device, not fetched)."""
+        loss = self._loss(x)
+        self.opt.zero_grad(set_to_none=True)
+        loss.backward()
+        self.opt.step()
+        return loss.detach()
+
+    def train(self):
+        cfg = self.cfg
+        n = len(self.train_ds)
+        if self.device_data:  # every frame on the device; batches gathered there
+            frames = to_device(self.train_ds.get_batch(np.arange(n)), self.device)
+        for epoch in range(self.start_epoch, cfg.epochs):
+            # the data order is a function of (seed, epoch): a run resumed at
+            # epoch k sees the batches a fresh run would
+            rng = np.random.default_rng([self.seed, epoch])
+            if epoch % cfg.ckpt_every == 0:
+                self._maybe_save_best(self.validate(epoch), epoch)
+                self.save(epoch)
+            for idx in epoch_batches(n, cfg.batch_size, rng, drop_last=False):
+                if self.device_data:
+                    x = frames.index_select(0, to_device(idx, self.device))
+                else:
+                    x = to_device(self.train_ds.get_batch(idx), self.device)
+                self.logger.log({"rec_loss": self.train_step(x)})
+        self._maybe_save_best(self.validate("final"), "final")
+        self.save("final")
+        self.logger.finish()
+
+    def _maybe_save_best(self, val: float, epoch) -> None:
+        """Keep ``vqgan_epoch_best``: the AE with the lowest validation
+        reconstruction rel-L2 so far."""
+        if val >= self.best_val:
+            return
+        self.best_val, self.best_epoch = float(val), epoch
+        checkpoint.save_stage1(os.path.join(self.cfg.log_dir, "checkpoints"), "best", self.model,
+                               {"epoch": self._next_epoch(epoch), "val_recon_loss": self.best_val,
+                                "seed": self.seed})
+
+    def _next_epoch(self, epoch) -> int:
+        return self.cfg.epochs if epoch == "final" else int(epoch)
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def reconstruct(self, frames: np.ndarray, batch: int = 64) -> torch.Tensor:
+        """The AE's reconstruction of frames [N, H, W, C] (numpy, f32), on
+        the device in the activation dtype; `batch` frames per call, the
+        last call padded with repeats of its last frame, as the JAX
+        package's validation does."""
+        outs = []
+        bs = min(batch, frames.shape[0])
+        for i in range(0, frames.shape[0], bs):
+            chunk = frames[i: i + bs]
+            pad = bs - chunk.shape[0]
+            if pad:
+                chunk = np.concatenate([chunk, np.repeat(chunk[-1:], pad, axis=0)])
+            y = self.model(to_device(chunk, self.device))
+            outs.append(y[: bs - pad])
+        return torch.cat(outs)
+
+    def validate(self, epoch) -> float:
+        """Per-frame reconstruction rel-L2 on denormalised held-out
+        trajectories (train_stage1_ns2d.py:99-148); returns its mean, also
+        logged as ``val_recon_loss``."""
+        cfg = self.cfg
+        traj = self.val_ds.eval_trajectories()  # [n, t, h, w, c]
+        nc, t = traj.shape[:2]
+        recon = self.reconstruct(traj.reshape(nc * t, *traj.shape[2:])).reshape(traj.shape)
+        # denormalised in the reconstruction's dtype, as the JAX package does
+        recon_d = self.val_ds.denormalize(recon).float()
+        traj_d = self.val_ds.denormalize(torch.from_numpy(traj).to(self.device))
+        # [n, t, h, w, c] -> rel-L2 over (h, w) -> [n, t, c]
+        err = relative_lp_loss(recon_d, traj_d, reduce_dim=(2, 3), p=2).cpu().numpy()
+        val = float(err.mean())
+        print(f"Validation Reconstruction Loss: {val}")
+        self.logger.log({"val_recon_loss": val})
+
+        sdir = os.path.join(cfg.log_dir, "samples")
+        stride, nshow = max(1, t // 6), min(4, nc)
+        spath = os.path.join(sdir, f"sample_{epoch}.png")
+        log_sequence(recon_d[:nshow, ::stride, :, :, 0].cpu().numpy(), spath)
+        log_sequence(traj_d[:nshow, ::stride, :, :, 0].cpu().numpy(),
+                     os.path.join(sdir, f"gt_{epoch}.png"))
+        self.logger.log_image("sample", spath)
+        cpath = os.path.join(sdir, f"err_curve_{epoch}.png")
+        plot_error_curve(err.mean(axis=(0, 2)), err.std(axis=0).mean(-1), cpath)
+        self.logger.log_image("val_error_curve", cpath)
+        return val
+
+    def save(self, epoch) -> None:
+        """``vqgan_epoch_{epoch}.pt`` (the AE's state dict, the reference's
+        keys), ``optim_epoch_{epoch}.pt`` and ``meta_epoch_{epoch}.json``
+        (the epoch to resume at, seed, best so far)."""
+        checkpoint.save_stage1(
+            os.path.join(self.cfg.log_dir, "checkpoints"), epoch, self.model,
+            {"epoch": self._next_epoch(epoch), "seed": self.seed,
+             "best_val": None if self.best_val == float("inf") else self.best_val,
+             "best_epoch": self.best_epoch}, self.opt)
+
+    def load(self, model_path: str) -> None:
+        """Resume from ``vqgan_epoch_{k}.pt`` (or start from any stage-1
+        ``.pt``): the parameters, then, when beside it, the optimizer state
+        of ``optim_epoch_{k}.pt`` and the epoch, seed and best validation of
+        ``meta_epoch_{k}.json``, so ``train`` continues at epoch k with the
+        batch order of the run that saved it. (The JAX trainer resets its
+        best validation after loading; this one keeps the saved one, so a
+        resumed run does not overwrite a better ``vqgan_epoch_best``.)"""
+        checkpoint.load_autoencoder_checkpoint(model_path, self.model)
+        optim_path, meta_path = checkpoint.stage1_sidecars(model_path)
+        if optim_path is not None:
+            self.opt.load_state_dict(torch.load(optim_path, map_location="cpu",
+                                                weights_only=True))
+        if meta_path is not None:
+            meta = checkpoint.load_json(meta_path)
+            self.start_epoch = int(meta["epoch"])
+            self.seed = int(meta.get("seed", self.seed))
+            if meta.get("best_val") is not None:
+                self.best_val = float(meta["best_val"])
+                self.best_epoch = meta.get("best_epoch")

@@ -388,10 +388,12 @@ def _guarded_calls(t):
 
 def test_kernels_refuse_a_gradient_before_launching(monkeypatch):
     """With the device test of ``_build.on_cuda`` reporting a card, each of
-    kernels 1, 2 and 4-7 raises a RuntimeError naming itself when grad mode
-    is on and an input requires grad, before it builds or launches anything;
-    without grad it goes on to the launch. Kernel 3 goes on to its launch
-    under grad (its autograd Function)."""
+    kernels 1, 5, 6 and 7, and kernel 4 with its norm, raises a
+    RuntimeError naming itself when grad mode is on and an input requires
+    grad, before it builds or launches anything; without grad it goes on to
+    the launch. Kernels 2 and 3, and kernel 4 in the d-space core's mode
+    (norm off, stats, heads last), go on to their launch under grad (their
+    autograd Functions)."""
 
     class Launched(Exception):
         pass
@@ -402,9 +404,14 @@ def test_kernels_refuse_a_gradient_before_launching(monkeypatch):
     monkeypatch.setattr(_build, "is_card", lambda t, name: True)
     monkeypatch.setattr(_build, "library", library)
     monkeypatch.setattr(axial, "_limit", lambda *a: None)
+    with_grad = {"fab_fused_core"}
     for name, call in _guarded_calls(lambda s: torch.ones(s, requires_grad=True)).items():
-        with pytest.raises(RuntimeError, match=f"{name}: the kernel has no gradient"):
-            call()
+        if name in with_grad:
+            with pytest.raises(Launched):
+                call()
+        else:
+            with pytest.raises(RuntimeError, match=f"{name}: the kernel has no gradient"):
+                call()
         with torch.no_grad(), pytest.raises(Launched):
             call()
     for name, call in _guarded_calls(lambda s: torch.ones(s)).items():
@@ -413,6 +420,9 @@ def test_kernels_refuse_a_gradient_before_launching(monkeypatch):
     x, w = torch.ones(2, 4, 4, 8, requires_grad=True), torch.ones(8)
     with pytest.raises(Launched):
         group_norm.fused_group_norm_swish(x, w, w, 2)
+    k, phi = torch.ones(1, 2, 4, 4, requires_grad=True), torch.ones(1, 4, 4, 2, 8)
+    with pytest.raises(Launched):
+        axial.fab_axial_in_fused(k, k, phi, False, stats=True, heads_last=True)
 
 
 @pytest.mark.parametrize("swish", [True, False])
