@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's NS2d inference rollouts and its stage-2 and
-stage-1 training once on one CUDA card.
+"""Drive the PyTorch port's NS2d and SW inference rollouts and the stage-2
+and stage-1 training of both families once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -18,12 +18,15 @@ CUDA PyTorch and nvcc. It imports nothing of JAX. In order it:
      2, 3 and 6 also at shapes that take their other code paths: kernel 1 at
      SW's 12x24 latent, every padding mode and batches that leave SMs idle,
      one step against the plain version from its own carry at every step of
-     the main path's rollout, twice bitwise-identical; kernel 3 in bf16 and
-     f32 at every GroupNorm site, and also in f16 at an odd field, 3
-     channels per group, batch 1 and the largest f32 slab, printing each
-     launch plan, twice bitwise-identical, and at the GroupNorm sites of a
-     stage-2 train step's forward, found by recording the calls of one
-     ``rollout_loss`` on the card; kernels 4 and 5 in bf16, f16 and
+     the NS2d and the SW rollout, twice bitwise-identical, and in f32 at
+     SW's latent (its activations in a global workspace); kernel 3 in bf16
+     and f32 at every GroupNorm site of the three paths (SW's 96x192 fields
+     take its split plan), and also in f16 at an odd field, 3 channels per
+     group, batch 1, the largest f32 slab a cluster holds and two slabs past
+     it, printing each launch plan, twice bitwise-identical, and at the
+     GroupNorm sites of a stage-2 train step's forward of each family, found
+     by recording the calls of one ``rollout_loss`` on the card; kernel 2
+     also at SW's 24x48 and 48x96 c64 at batch 336; kernels 4 and 5 in bf16, f16 and
      f32 at the paths' and the decode chunk's shapes and at sides and
      channel counts off their tiles, kernel 4 with the norm, without it and
      with its statistics output, printing each launch plan and each d-tile's
@@ -36,17 +39,19 @@ CUDA PyTorch and nvcc. It imports nothing of JAX. In order it:
      and times the c-space and the d-space core at every FAB shape of the
      paths; compares GELU, swish and the SABlock's softmax in bf16 on the
      card with the CPU, where the tests pin them to the JAX package;
-  4. runs ``LatentDynamics.predict`` at full width (batch 32, 29 steps,
-     116-frame decode chunks, bf16 activations, f32 weights from a seeded
-     generator) on two paths: ``ns2d_config()`` (path 1) and the same model
-     with attention in the encoder, ``use_attn_enc=True`` (path 2, whose
-     16x16 c128 encoder FAB takes the d-space core). For each path it sets
+  4. runs ``LatentDynamics.predict`` at full width (bf16 activations, f32
+     weights from a seeded generator) on three paths: ``ns2d_config()``
+     (path 1) and the same model with attention in the encoder,
+     ``use_attn_enc=True`` (path 2, whose 16x16 c128 encoder FAB takes the
+     d-space core), each at batch 32, 29 steps and 116-frame decode chunks,
+     and ``sw_config()`` (path 3: batch 8, 42 steps, the 336 frames decoded
+     at once, as the JAX package's SW benchmark). For each path it sets
      every launch count to 0, runs one predict, checks the output and that
      every kernel launched as often as the model's layer specs imply,
      compares the kernel path with the all-plain path in f32 on a small
      input, times frames/s of both and the host's enqueue time per predict,
-     and profiles one predict of each (device busy and idle, largest
-     kernels);
+     prints the peak device memory of one predict, and profiles one predict
+     of each (device busy and idle, largest kernels);
   5. trains stage 2 at full NS2d width (``Stage2Trainer``, bf16): a
      synthetic corpus of 64 cases x 30 frames, a seeded AE saved as a
      stage-1 ``.pt`` and loaded (bitwise), the encode pre-pass (kernel 3 at
@@ -79,7 +84,17 @@ CUDA PyTorch and nvcc. It imports nothing of JAX. In order it:
      for one full-size predict on kernels 1-3; prints train ms per step,
      steps/s, frames/s, validate ms, the backward's share in the plain
      recomputes and a profile of five train steps;
-  7. prints one JSON line of per-kernel results (launches per path, and ms
+  7. trains the SW family at full width on a synthetic 96x192 corpus (12
+     training and 4 test cases x 24 frames): stage 1 (``Stage1Trainer``,
+     bf16, batch 32, two epochs) with one train step's launches and
+     gradients against the plain path (as phase 6), then stage 2
+     (``Stage2Trainer`` on that checkpoint, batch 32, out_tw 5, three
+     epochs) with its encode pre-pass and one train step's gradients
+     against the plain path (f32 within 2 x the plain path's own change
+     under a one-ulp move of its input, bf16 at accuracy parity); launch
+     counts, finite and falling losses, the per-channel validation losses,
+     train ms per step and a profile of three steps each;
+  8. prints one JSON line of per-kernel results (launches per path, and ms
      / plain_ms / bound_ms per predict, summed over one predict of each
      inference path), then the closing JSON line.
 
@@ -99,6 +114,9 @@ import time
 import torch
 
 BATCH, STEPS, CHUNK = 32, 29, 116
+# the SW predict (path 3): the reference's SW rollout, batch 8 x 42 steps,
+# decoded all at once (benchmarks/run_benchmarks.py:88, 113-116)
+SW_BATCH, SW_STEPS = 8, 42
 REPS = 3  # timed predicts per path and round (two rounds per path)
 _FAILS: list = []
 
@@ -224,7 +242,8 @@ def _rollout_work(b, h, w, c_lat, c, steps, n_block, packed):
 
 
 def check_rollout(dev, gen, calls):
-    """calls: rollout launches in one predict of each path."""
+    """calls: rollout launches in one predict of each NS2d path; SW's
+    predict (path 3) adds one call at its shape."""
     from lns_tpu_torch.kernels.prop_rollout import (fused_rollout, fused_rollout_plain,
                                                     pack_simple_cnn, rollout_plan)
     from lns_tpu_torch.models.propagator import SimpleCNN
@@ -287,50 +306,71 @@ def check_rollout(dev, gen, calls):
            f"sample, {plan['blocks']} blocks of {plan['smem_bytes']} bytes of shared memory, "
            f"{plan['tiles_per_warp']} row tile(s) per warp; the card holds "
            f"{plan['max_active_clusters']} such clusters at once")
-    run = lambda: fused_rollout(z0, packed, STEPS, 3, 2, "circular")  # noqa: E731
+    err, ms, plain_ms, bound = _path_rollout("main path", z0, packed, STEPS, 3, 2, "circular")
+    errs.append(err)
+
+    # SW's call (path 3): bf16, B8 x 42 steps at 12x24, C_lat 64, C 128, 4
+    # residual blocks, dilation 3, half_periodic_x
+    sw = init_weights_(SimpleCNN(64, 4, 128, 3, padding_mode="half_periodic_x"), gen).to(dev)
+    z0 = torch.randn(SW_BATCH, 12, 24, 64, generator=gen).to(dev)
+    print(f"      prop_rollout bf16 B{SW_BATCH} 12x24 C_lat 64 C128 (SW): launch "
+          f"{rollout_plan(SW_BATCH, 12, 24, 64, 128)}", flush=True)
+    sw_err, sw_ms, sw_plain_ms, sw_bound = _path_rollout(
+        "SW", z0, pack_simple_cnn(sw, bf16), SW_STEPS, 4, 3, "half_periodic_x")
+    errs.append(sw_err)
+
+    # f32 keeps one block per sample; SW's activations (517,888 bytes per
+    # sample) live in the workspace the wrapper allocates. Over 4 steps,
+    # summation order only (the f32 cases above)
+    z0 = torch.randn(2, 12, 24, 64, generator=gen).to(dev)
+    packed32 = pack_simple_cnn(sw, torch.float32)
+    err, f32_ms, _ = compare(
+        "prop_rollout f32 4 steps half_periodic_x B2 12x24 C_lat 64 C128, 4 blocks, dilation 3 "
+        "(SW; the activations in the workspace)",
+        lambda: fused_rollout(z0, packed32, 4, 4, 3, "half_periodic_x"),
+        lambda: fused_rollout_plain(z0, packed32, 4, 4, 3, "half_periodic_x"), 2e-5, reps=3)
+    errs.append(err)
+    return {"max_abs_err": max(errs), "ms": ms * calls + sw_ms,
+            "plain_ms": plain_ms * calls + sw_plain_ms,
+            "bound_ms": bound.ms * calls + sw_bound.ms, "bound_by": bound.result()["bound_by"],
+            "library_ms": None}
+
+
+def _path_rollout(tag, z0, packed, steps, n_block, dil, pm):
+    """A path's rollout call (bf16, all its steps): two runs bitwise equal;
+    every step from the kernel's own carry, one plain step from z_k against
+    the kernel's z_(k+1), within the one-step bound (bf16's growth over a
+    rollout does not enter); the kernel's and the plain version's time and
+    the bound. Returns (max error, ms, plain ms, Bound)."""
+    from lns_tpu_torch.kernels.prop_rollout import fused_rollout, fused_rollout_plain
+
+    b, h, w, c_lat = z0.shape
+    label = f"prop_rollout bf16 {steps} steps B{b} {h}x{w} ({tag})"
+    run = lambda: fused_rollout(z0, packed, steps, n_block, dil, pm)  # noqa: E731
     zs, zs2 = run(), run()
     torch.cuda.synchronize()
-    _check(torch.equal(zs, zs2), f"prop_rollout bf16 {STEPS} steps B{BATCH}: two runs "
-           "bitwise identical")
-    # every step from the kernel's own carry: one plain step from z_k against
-    # the kernel's z_(k+1), within the one-step bound (bf16's growth over a
-    # rollout does not enter)
-    prev = torch.cat([z0.to(bf16)[None], zs[:-1]])
-    one = fused_rollout_plain(prev.reshape(-1, 8, 8, 16), packed, 1, 3, 2, "circular")
+    _check(torch.equal(zs, zs2), f"{label}: two runs bitwise identical")
+    prev = torch.cat([z0.to(torch.bfloat16)[None], zs[:-1]])
+    one = fused_rollout_plain(prev.reshape(-1, h, w, c_lat), packed, 1, n_block, dil, pm)
     one = one.reshape(zs.shape).float()
     err = (one - zs.float()).abs().amax(dim=(1, 2, 3, 4))
     ratio = (err / one.abs().amax(dim=(1, 2, 3, 4))).max().item()
     differ = (one != zs.float()).float().mean().item()
     _check(bool(torch.isfinite(zs).all()) and ratio <= 2e-2,
-           f"prop_rollout bf16 every step of {STEPS} (B{BATCH}) from the kernel's own carry: "
-           f"max_abs_err <= {ratio:.2e} x max|plain| (<= 2e-2); {differ:.2%} of elements differ")
-    errs.append(err.max().item())
+           f"{label}, every step from the kernel's own carry: max_abs_err <= {ratio:.2e} x "
+           f"max|plain| (<= 2e-2); {differ:.2%} of elements differ")
     ms = cuda_ms(run, 3)
-    plain_ms = cuda_ms(lambda: fused_rollout_plain(z0, packed, STEPS, 3, 2, "circular"), 3)
-    bound = Bound().add(*_rollout_work(BATCH, 8, 8, 16, 128, STEPS, 3, packed))
-    print(f"      prop_rollout bf16 {STEPS} steps B{BATCH} (main path): kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {bound.ms:.4f} ms ({bound.result()['bound_by']})",
-          flush=True)
-
-    # f32 keeps one block per sample: SW's latent does not fit and raises
-    # naming the limit, with no launch
-    packed32 = packed_for(64, 128, torch.float32)
-    before = fused_rollout.launches
-    try:
-        fused_rollout(torch.zeros(4, 12, 24, 64, device=dev), packed32, 1, 3, 2,
-                      "half_periodic_x")
-        msg = "no error"
-    except ValueError as e:
-        msg = str(e)
-    _check("shared memory per block" in msg and fused_rollout.launches == before,
-           f"prop_rollout f32 B4 12x24 C_lat 64 C128 raises naming its limit: {msg}")
-    return {"max_abs_err": max(errs), "ms": ms * calls, "plain_ms": plain_ms * calls,
-            **Bound().add(*_rollout_work(BATCH, 8, 8, 16, 128, STEPS, 3, packed),
-                          calls=calls).result(), "library_ms": None}
+    plain_ms = cuda_ms(lambda: fused_rollout_plain(z0, packed, steps, n_block, dil, pm), 3)
+    bound = Bound().add(*_rollout_work(b, h, w, c_lat, packed.in_w.shape[1], steps, n_block,
+                                       packed))
+    print(f"      {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound.ms:.4f} ms "
+          f"({bound.result()['bound_by']})", flush=True)
+    return err.max().item(), ms, plain_ms, bound
 
 
-def check_fab_core(dev, gen, sites, n, d):
-    """sites: {(batch, h, w, c): c-space FAB core calls per predict}."""
+def check_fab_core(dev, gen, sites, n, d, extras=True):
+    """sites: {(batch, h, w, c): c-space FAB core calls per predict}; with
+    `extras`, also the shapes that take the kernel's other code paths."""
     from lns_tpu_torch.kernels.fab_core import fab_core_plain, fab_fused_core
 
     errs, ms_sum, plain_sum, bound = [], 0.0, 0.0, Bound()
@@ -348,9 +388,9 @@ def check_fab_core(dev, gen, sites, n, d):
                               (32, 16, 16, 128), (8, 16, 16, 96),
                               (2, 48, 40, 64), (1, 64, 64, 64), (2, 32, 32, 128),
                               (2, 80, 40, 64), (1, 128, 24, 32),
-                              (4, 24, 48, 64), (2, 48, 96, 64), (1, 40, 128, 32)]
+                              (4, 24, 48, 64), (2, 48, 96, 64), (1, 40, 128, 32)] * extras
     # last, u and w_o1 off 16-byte boundaries (the wrapper copies them)
-    for (b, h, w, c), off in [(s, False) for s in shapes] + [((2, 16, 16, 64), True)]:
+    for (b, h, w, c), off in [(s, False) for s in shapes] + [((2, 16, 16, 64), True)] * extras:
         u = torch.randn(b, h, w, c, generator=gen)
         kx = torch.randn(b, n, h, h, generator=gen) / h
         ky = torch.randn(b, n, w, w, generator=gen) / w
@@ -456,22 +496,27 @@ def _gn_library(xd, scale, bias, groups, eps, swish, cast):
     return F.silu(y) if swish else y
 
 
-def check_group_norm(dev, gen, sites, train_sites):
-    """Kernel 3 at every GroupNorm site of both paths (sites: {(batch,
+def check_group_norm(dev, gen, sites, train_sites, label="both NS2d paths", extras=True):
+    """Kernel 3 at every GroupNorm site of the paths (sites: {(batch,
     spatial, C, groups, eps, swish): calls per predict}), at every site of a
     stage-2 train step's forward (train_sites: {site: calls per train
-    step}) and at shapes that take its other plans, in bf16 and f32 (f16
-    too at those shapes); two runs bitwise equal at the largest site; shapes
-    outside its limits raise naming the limit."""
+    step}) and, with `extras`, at shapes that take its other plans, in bf16
+    and f32 (f16 too at those shapes); two runs bitwise equal at the largest
+    site; with `extras`, a shape outside its limits raises naming the
+    limit. Slabs that a cluster of 8 blocks cannot hold (SW's 96x192 fields)
+    take the split plan; its launch is printed like the cluster's."""
     from lns_tpu_torch.kernels.group_norm import (fused_group_norm_swish, group_norm_plan,
                                                   group_norm_swish_plain)
 
     bf16, f32 = torch.bfloat16, torch.float32
-    # an odd field, 3 channels per group, G1 at another batch, batch 1, and
-    # the largest slab f32 takes (a cluster of 8 blocks of ~200 KB)
+    # an odd field, 3 channels per group, G1 at another batch, batch 1, the
+    # largest slab f32 takes in a cluster (8 blocks of ~200 KB), and slabs
+    # past it that take the split plan (f32 64x64x128, bf16 128x128 without
+    # the swish)
     extra = [(4, (7, 15), 64, 32, 1e-6, True), (4, (16, 16), 96, 32, 1e-6, True),
              (2, (32, 32), 64, 1, 1e-5, False), (1, (64, 64), 64, 8, 1e-5, True),
-             (2, (64, 64), 96, 32, 1e-6, True)]
+             (2, (64, 64), 96, 32, 1e-6, True), (2, (64, 64), 128, 32, 1e-6, True),
+             (3, (128, 128), 64, 8, 1e-5, False)] if extras else []
     # does F.group_norm take f32 weights with bf16 input?
     x0 = torch.zeros(1, 4, 4, 32, device=dev, dtype=bf16)
     try:
@@ -506,10 +551,17 @@ def check_group_norm(dev, gen, sites, train_sites):
         for dt, tol, differ in dtypes + ([] if timed else [(torch.float16, 1e-2, 0.02)]):
             xd = x.to(dt)
             plan = group_norm_plan(dt, b, s, c, g)
-            print(f"      group_norm {str(dt)[6:]} {tag}: cluster {plan['cluster']}, "
-                  f"{plan['blocks']} blocks of {plan['smem_bytes']} bytes of shared memory, "
-                  f"{plan['rows_per_block']} rows each; the card holds "
-                  f"{plan['max_active_clusters']} such clusters at once", flush=True)
+            if plan["chunks"]:
+                print(f"      group_norm {str(dt)[6:]} {tag}: split plan (x read twice), "
+                      f"{plan['chunks']} chunks of {plan['rows_per_block']} rows per sample, "
+                      f"{plan['blocks']} blocks of {plan['smem_bytes']} bytes of shared memory "
+                      f"per pass; the card holds {plan['max_active_clusters']} such blocks at "
+                      "once", flush=True)
+            else:
+                print(f"      group_norm {str(dt)[6:]} {tag}: cluster {plan['cluster']}, "
+                      f"{plan['blocks']} blocks of {plan['smem_bytes']} bytes of shared memory, "
+                      f"{plan['rows_per_block']} rows each; the card holds "
+                      f"{plan['max_active_clusters']} such clusters at once", flush=True)
             err, ms, plain_ms = compare(
                 f"group_norm {str(dt)[6:]} {tag}",
                 lambda: fused_group_norm_swish(xd, scale, bias, g, eps, swish),
@@ -517,11 +569,18 @@ def check_group_norm(dev, gen, sites, train_sites):
                 max_differ=differ)
             errs.append(err)
             if dt == bf16 and timed:
-                dms = graph_ms(lambda: fused_group_norm_swish(xd, scale, bias, g, eps, swish))
+                # a graph of 20 calls, fewer for slabs of hundreds of MB (each
+                # captured call keeps its output)
+                n_graph = max(2, min(20, int(4e9 // (2 * _nbytes(xd)))))
+                dms = graph_ms(lambda: fused_group_norm_swish(xd, scale, bias, g, eps, swish),
+                               calls=n_graph)
                 lms = cuda_ms(lambda: _gn_library(xd, scale, bias, g, eps, swish, cast))
-                print(f"      group_norm bf16 {tag}: device {dms:.4f} ms (CUDA graph of 20 "
-                      f"calls), library {lms:.4f} ms; {calls} calls per predict, {train_calls} "
-                      "per train step", flush=True)
+                one = Bound().add(8 * xd.numel(), 2 * _nbytes(xd) + _nbytes(scale, bias),
+                                  rate=PEAK_F32)
+                print(f"      group_norm bf16 {tag}: device {dms:.4f} ms (CUDA graph of "
+                      f"{n_graph} calls), events {ms:.4f} ms, library {lms:.4f} ms, bound "
+                      f"{one.ms:.4f} ms ({one.result()['bound_by']}); {calls} calls per "
+                      f"predict, {train_calls} per train step", flush=True)
                 for k, v in (("ms", ms), ("dev", dms), ("plain", plain_ms), ("lib", lms)):
                     train[k] += v * train_calls
                 ms_sum += ms * calls
@@ -531,7 +590,8 @@ def check_group_norm(dev, gen, sites, train_sites):
                 # x read and y written once; ~8 f32 operations per element
                 bound.add(8 * xd.numel(), 2 * _nbytes(xd) + _nbytes(scale, bias), calls, PEAK_F32)
 
-    # the largest site twice: the same bits (statistics added in rank order)
+    # the largest site twice: the same bits (statistics added in rank order,
+    # or in chunk order in the split plan)
     (b, spatial, c, g, eps, swish) = max(sites, key=lambda k: k[0] * math.prod(k[1]) * k[2])
     for dt in (bf16, f32):
         x = (torch.randn((b,) + spatial + (c,), generator=gen) * 2 + 0.5).to(dev, dt)
@@ -544,9 +604,8 @@ def check_group_norm(dev, gen, sites, train_sites):
         del x, y1, y2
 
     # outside the limits: raises naming the limit the C side states, no launch
-    for (b, h, w, c), g, dt, limit in (((1, 8, 8, 60), 4, bf16, "C a multiple of 8"),
-                                       ((1, 96, 192, 64), 8, bf16, "the slab of one sample"),
-                                       ((1, 128, 128, 64), 32, f32, "the slab of one sample")):
+    limits = [((1, 8, 8, 60), 4, bf16, "C a multiple of 8")] if extras else []
+    for (b, h, w, c), g, dt, limit in limits:
         before = fused_group_norm_swish.launches
         try:
             fused_group_norm_swish(torch.zeros(b, h, w, c, device=dev, dtype=dt),
@@ -556,10 +615,11 @@ def check_group_norm(dev, gen, sites, train_sites):
             msg = str(e)
         _check(limit in msg and fused_group_norm_swish.launches == before,
                f"group_norm {str(dt)[6:]} {b}x{h}x{w}x{c} G{g} raises naming '{limit}': {msg}")
-    print(f"      group_norm per predict (bf16, both paths): kernel {ms_sum:.4f} ms by CUDA "
+    print(f"      group_norm per predict (bf16, {label}): kernel {ms_sum:.4f} ms by CUDA "
           f"events, {dev_sum:.4f} ms device (CUDA graphs), plain {plain_sum:.4f} ms, library "
           f"{lib_sum:.4f} ms, bound {bound.ms:.4f} ms", flush=True)
-    print(f"      group_norm per stage-2 train step's forward (bf16): kernel {train['ms']:.4f} ms "
+    print(f"      group_norm per stage-2 train step's forward (bf16, {label}): kernel "
+          f"{train['ms']:.4f} ms "
           f"by CUDA events, {train['dev']:.4f} ms device (CUDA graphs), plain "
           f"{train['plain']:.4f} ms, library {train['lib']:.4f} ms", flush=True)
     return {"max_abs_err": max(errs), "ms": ms_sum, "device_ms": dev_sum, "plain_ms": plain_sum,
@@ -852,15 +912,17 @@ def check_fab_cores(dev, gen, shapes, n, d):
 
 # -- the model's kernel call sites and expected launch counts ---------------
 
-def call_sites(model, dev):
-    """Every GroupNorm and FAB-block call of one encode (batch BATCH) and one
-    decode (batch CHUNK), found with forward hooks on a one-frame run of the
+def call_sites(model, dev, batch=BATCH, steps=STEPS, chunk=CHUNK):
+    """Every GroupNorm and FAB-block call of one encode (batch `batch`) and
+    of the decode of `batch` x `steps` frames in chunks of `chunk` (all at
+    once when None), found with forward hooks on a one-frame run of the
     plain path. Returns ({(batch, spatial, C, groups, eps, swish): calls per
     predict}, {(part, batch, h, w, c, formulation): calls per predict})."""
     from lns_tpu_torch.ops.factorized_attention import FABlock2D
     from lns_tpu_torch.ops.norms import GroupNorm
 
-    n_chunks = -(-BATCH * STEPS // CHUNK)
+    chunk = chunk or batch * steps
+    n_chunks = -(-batch * steps // chunk)
     seen, hooks = [], []
     for name, m in model.named_modules():
         if not name.startswith("vq_ae.") or not isinstance(m, (GroupNorm, FABlock2D)):
@@ -885,8 +947,8 @@ def call_sites(model, dev):
         h.remove()
     gn, fab = {}, {}
     for part, what, key in seen:
-        batch, calls = (BATCH, 1) if part == "encoder" else (CHUNK, n_chunks)
-        site = (batch,) + key if what == "gn" else (part, batch) + key
+        b, calls = (batch, 1) if part == "encoder" else (chunk, n_chunks)
+        site = (b,) + key if what == "gn" else (part, b) + key
         sites = gn if what == "gn" else fab
         sites[site] = sites.get(site, 0) + calls
     return gn, fab
@@ -940,7 +1002,8 @@ def expected_launches(cfg, n_chunks=None, encodes=1):
     block's dim and dim_head; the GroupNorm kernel once per GN site (two per
     ResidualBlock, one per GN layer and per FAB ``in_norm``) per encode or
     decode chunk. `n_chunks` decode chunks (those of the main paths' predict
-    when None) and `encodes` encoder calls; with ``n_chunks=0`` (an encode
+    when None) and `encodes` encoder calls; a ResidualBlock and a
+    HalfPeriodicResBlock2d alike; with ``n_chunks=0`` (an encode
     pass alone) the rollout is not counted."""
     from lns_tpu_torch.models.specs import decoder_spec, encoder_spec
     from lns_tpu_torch.ops.factorized_attention import _fab_impl_for
@@ -958,7 +1021,8 @@ def expected_launches(cfg, n_chunks=None, encodes=1):
 
     return {"prop_rollout": int(n_chunks > 0), "fab_core": fabs("batchedgram"),
             "fab_axial_in_fused": fabs("batched"),
-            "group_norm": count(lambda s: {"resblock": 2, "gn": 1, "fablock": 1}.get(s.kind, 0))}
+            "group_norm": count(lambda s: {"resblock": 2, "hp_resblock": 2, "gn": 1,
+                                           "fablock": 1}.get(s.kind, 0))}
 
 
 # -- main -------------------------------------------------------------------
@@ -1010,22 +1074,29 @@ def _counted():
             "transpose_hw": axial_pipeline.transpose_hw}
 
 
-def drive_path(label, model, expect, gen, dev):
-    """One path: the launch counts of one predict, the f32 kernel-vs-plain
-    check and frames/s of both paths. Returns the launch counts."""
+def drive_path(label, model, expect, gen, dev, batch=BATCH, steps=STEPS, chunk=CHUNK):
+    """One path (batch `batch`, `steps` steps, decode chunks of `chunk`
+    frames, or all at once when None): the launch counts of one predict, the
+    f32 kernel-vs-plain check, frames/s of both paths and the peak device
+    memory of one predict. Returns the launch counts."""
     from lns_tpu_torch.models import LatentDynamics
 
     cfg = model.cfg
-    print(f"-- {label}: predict, batch {BATCH}, {STEPS} steps, decode chunk {CHUNK}, bf16",
-          flush=True)
-    x = torch.randn(BATCH, cfg.Ly, cfg.Lx, cfg.in_channels, generator=gen).to(dev)
+    print(f"-- {label}: predict, batch {batch}, {steps} steps, decode chunk "
+          f"{chunk or 'none (all frames at once)'}, bf16", flush=True)
+    x = torch.randn(batch, cfg.Ly, cfg.Lx, cfg.in_channels, generator=gen).to(dev)
     counted = _counted()
     for f in counted.values():
         f.launches = 0
-    y = model.predict(x, STEPS, decode_chunk=CHUNK)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    y = model.predict(x, steps, decode_chunk=chunk)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
     launches = {k: f.launches for k, f in counted.items()}
-    _check(tuple(y.shape) == (BATCH, STEPS, cfg.Ly, cfg.Lx, cfg.in_channels),
+    print(f"      {label}: peak device memory of one predict {peak / 2**30:.3f} GiB "
+          "(torch.cuda.max_memory_allocated, the model included)", flush=True)
+    _check(tuple(y.shape) == (batch, steps, cfg.Ly, cfg.Lx, cfg.in_channels),
            f"{label}: output shape {tuple(y.shape)}")
     _check(bool(torch.isfinite(y).all()), f"{label}: output finite")
     for k, n in launches.items():
@@ -1037,8 +1108,8 @@ def drive_path(label, model, expect, gen, dev):
     m32 = LatentDynamics(cfg, device=dev)
     m32.load_state_dict(model.state_dict())
     xs = x[:2].float()
-    yk = m32.use_kernels(True).predict(xs, 4, decode_chunk=CHUNK)
-    yp = m32.use_kernels(False).predict(xs, 4, decode_chunk=CHUNK)
+    yk = m32.use_kernels(True).predict(xs, 4, decode_chunk=chunk)
+    yp = m32.use_kernels(False).predict(xs, 4, decode_chunk=chunk)
     err = (yk - yp).abs().max().item()
     _check(bool(torch.isfinite(yk).all()) and err <= 3e-4,
            f"{label}: f32 predict B2 4 steps, kernels vs plain: max_abs_err {err:.3e} <= 3e-4")
@@ -1048,11 +1119,11 @@ def drive_path(label, model, expect, gen, dev):
     # with a synchronize), paths alternated plain, kernel, kernel, plain; the
     # host's enqueue time of the same predict: a host clock around predict
     # (which synchronizes nowhere), read before the synchronize
-    frames = BATCH * STEPS
+    frames = batch * steps
     times, enqueue = {True: [], False: []}, {True: [], False: []}
     for flag in (False, True):
         model.use_kernels(flag)
-        model.predict(x, STEPS, decode_chunk=CHUNK)  # warm-up
+        model.predict(x, steps, decode_chunk=chunk)  # warm-up
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     for flag in (False, True, True, False):
         model.use_kernels(flag)
@@ -1060,7 +1131,7 @@ def drive_path(label, model, expect, gen, dev):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             start.record()
-            model.predict(x, STEPS, decode_chunk=CHUNK)
+            model.predict(x, steps, decode_chunk=chunk)
             end.record()
             enqueue[flag].append((time.perf_counter() - t0) * 1e3)
             torch.cuda.synchronize()
@@ -1074,7 +1145,7 @@ def drive_path(label, model, expect, gen, dev):
               f"median {e[len(e) // 2]:.2f} ms (min {e[0]:.2f}, max {e[-1]:.2f})", flush=True)
     for flag, path in ((True, "kernel path"), (False, "plain path")):
         model.use_kernels(flag)
-        profile_device(lambda: model.predict(x, STEPS, decode_chunk=CHUNK), f"{label} {path}")
+        profile_device(lambda: model.predict(x, steps, decode_chunk=chunk), f"{label} {path}")
     model.use_kernels(True)
     return launches
 
@@ -1110,10 +1181,11 @@ def profile_device(fn, label, top=8):
           f"{max(0.0, 1 - busy / wall):.1%}, {ops} device ops", flush=True)
     for ms, count, key in sorted(rows, reverse=True)[:top]:
         print(f"        {ms:9.3f} ms {count:6d}x  {key[:90]}")
-    for label_k, part in (("kernel 2 (fab_stats, fab_apply)", "fab_"),
-                          ("kernel 3 (gn_kernel)", "::gn_kernel<"),
-                          ("kernel 4 (axial_tc)", "axial_tc")):
-        found = [r for r in rows if part in r[2]]
+    for label_k, parts in (("kernel 2 (fab_stats, fab_apply)", ("fab_",)),
+                           ("kernel 3 (gn_kernel; split plan gn_partials, gn_apply)",
+                            ("::gn_kernel<", "::gn_partials<", "::gn_apply<")),
+                           ("kernel 4 (axial_tc)", ("axial_tc",))):
+        found = [r for r in rows if any(p in r[2] for p in parts)]
         if found:
             print(f"        {label_k}: {sum(r[0] for r in found):.3f} ms of device time in "
                   f"{sum(r[1] for r in found)} calls", flush=True)
@@ -1533,37 +1605,8 @@ def drive_stage2(dev, smi):
                    f"stage-2: {name} under grad on a tensor that requires grad raises before "
                    f"launching: {msg}")
 
-        # the training run: each train step between CUDA events, each
-        # validation by the host clock between synchronizes
-        step_events, val_ms = [], []
-        step_fn, validate = trainer.train_step, trainer.validate
-
-        def timed_step(*args):
-            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-            out = step_fn(*args)
-            ev[1].record()
-            step_events.append(ev)
-            return out
-
-        def timed_validate(*args):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            v = validate(*args)
-            torch.cuda.synchronize()
-            val_ms.append((time.perf_counter() - t0) * 1e3)
-            return v
-
-        trainer.train_step, trainer.validate = timed_step, timed_validate
         ae0 = {k: v.clone() for k, v in trainer.model.vq_ae.state_dict().items()}
-        for f in counted.values():
-            f.launches = 0
-        t0 = time.perf_counter()
-        trainer.train()
-        torch.cuda.synchronize()
-        train_s = time.perf_counter() - t0
-        launches = {k: f.launches for k, f in counted.items()}
-        trainer.train_step, trainer.validate = step_fn, validate
+        step_events, val_ms, launches, train_s = _timed_train(trainer)
 
         n_steps = S2_EPOCHS * trainer.steps_per_epoch
         n_val, steps = len(trainer.val_ds), S2_CASE_LEN - 1
@@ -1717,6 +1760,47 @@ def check_fab_calls(where, core_calls, axial_calls):
                "bitwise equal to plain autograd's")
 
 
+def _hold_gradients(where, dt, gk, gp, gq, g32):
+    """A train step's gradients {tensor: g} on the kernel path (gk) against
+    the plain path (gp), under the rules the stage-1 phase holds a sensitive
+    function to:
+    f32, per tensor max|g_kernel - g_plain| / max|g_plain| at most 2 x the
+    largest such change of the plain path's own gradient (gq) under a
+    one-ulp move of its input; bf16, per tensor accuracy parity: the kernel
+    path's gradient no farther (L2) from the f32 plain path's (g32) than
+    1.5 x the plain bf16 path's. Prints the largest f32 ratio or the
+    smallest bf16 cosine between the two paths beside."""
+    def rel(a, b):
+        return {k: (a[k] - b[k]).abs().max().item() / max(b[k].abs().max().item(), 1e-30)
+                for k in a}
+
+    def cos(a, b):
+        return {k: torch.nn.functional.cosine_similarity(a[k].flatten().float(),
+                                                         b[k].flatten().float(), dim=0).item()
+                for k in a}
+
+    finite = all(bool(torch.isfinite(g).all()) for g in gk.values())
+    if dt == "f32":
+        score, own = rel(gk, gp), rel(gq, gp)
+        worst, worst_own = max(score.items(), key=lambda kv: kv[1]), max(own.values())
+        _check(finite and worst[1] <= 2 * worst_own,
+               f"{where}: gradients, kernel path vs plain, {len(gk)} tensors: max_abs_err <= "
+               f"{worst[1]:.2e} x max|g| ({worst[0]}), <= 2 x the plain path's own change "
+               f"with its input moved one ulp ({worst_own:.2e} x max|g|)")
+        return
+    score, own = cos(gk, gp), cos(gq, gp)
+    worst, worst_own = min(score.items(), key=lambda kv: kv[1]), min(own.values())
+    parity = {k: (gk[k].float() - g32[k]).norm().item()
+              / max((gp[k].float() - g32[k]).norm().item(), 1e-30) for k in gk}
+    top = max(parity, key=parity.get)
+    _check(finite and parity[top] <= 1.5,
+           f"{where}: gradients, {len(gk)} tensors, distance from the f32 plain "
+           f"gradient, kernel path / plain path: at most {parity[top]:.3f} (<= 1.5; "
+           f"{top}); cosine similarity kernel path vs plain >= {worst[1]:.6f} "
+           f"({worst[0]}); the plain path's own with its input moved one ulp >= "
+           f"{worst_own:.6f}")
+
+
 def check_stage1_step(label, model, m32, x):
     """One stage-1 train step's loss gradient w.r.t. every AE parameter, on
     frames x, kernel path against ``use_kernels(False)`` (TF32 off), in f32
@@ -1767,37 +1851,9 @@ def check_stage1_step(label, model, m32, x):
                f"{({k: v for k, v in want.items() if v})} (the layer specs), in the backward "
                f"{sum(bwd.values())}, on the plain path "
                f"{sum(fwd_p.values()) + sum(bwd_p.values())}")
-        def rel(a, b):
-            return {k: (a[k] - b[k]).abs().max().item() / max(b[k].abs().max().item(), 1e-30)
-                    for k in a}
-
-        def cos(a, b):
-            return {k: torch.nn.functional.cosine_similarity(a[k].flatten(), b[k].flatten(),
-                                                             dim=0).item() for k in a}
-
         if dt == "f32":
-            score, own = rel(gk, gp), rel(gq, gp)
-            worst, worst_own = max(score.items(), key=lambda kv: kv[1]), max(own.values())
             g32 = gp
-        else:
-            score, own = cos(gk, gp), cos(gq, gp)
-            worst, worst_own = min(score.items(), key=lambda kv: kv[1]), min(own.values())
-            parity = {k: (gk[k] - g32[k]).norm().item() / max((gp[k] - g32[k]).norm().item(),
-                                                               1e-30) for k in gk}
-        finite = all(bool(torch.isfinite(g).all()) for g in gk.values())
-        if dt == "f32":
-            _check(finite and worst[1] <= 2 * worst_own,
-                   f"{where}: gradients, kernel path vs plain, {len(gk)} tensors: max_abs_err <= "
-                   f"{worst[1]:.2e} x max|g| ({worst[0]}), <= 2 x the plain path's own change "
-                   f"with its input moved one ulp ({worst_own:.2e} x max|g|)")
-        else:
-            top = max(parity, key=parity.get)
-            _check(finite and parity[top] <= 1.5,
-                   f"{where}: gradients, {len(gk)} tensors, distance from the f32 plain "
-                   f"gradient, kernel path / plain path: at most {parity[top]:.3f} (<= 1.5; "
-                   f"{top}); cosine similarity kernel path vs plain >= {worst[1]:.6f} "
-                   f"({worst[0]}); the plain path's own with its input moved one ulp >= "
-                   f"{worst_own:.6f}")
+        _hold_gradients(where, dt, gk, gp, gq, g32)
         top = {k: g.abs().max().item() for k, g in gk.items()}
         low = min(top, key=top.get)
         low_fab = min(fab_names, key=top.get)
@@ -1981,7 +2037,6 @@ def drive_stage1(dev, smi):
     from lns_tpu_torch.train.stage1 import Stage1Trainer
 
     t_phase = time.perf_counter()
-    counted = _counted()
     with tempfile.TemporaryDirectory() as tmp:
         cfg = ns2d_config().replace(
             data_dir=make_ns2d_npz(os.path.join(tmp, "ns2d.npz"), ncase=S1_CASES,
@@ -2010,36 +2065,7 @@ def drive_stage1(dev, smi):
         check_stage1_step("path 2 use_attn_enc", ae2, m32, x)
         del m32, ae2
 
-        # the training run: each train step between CUDA events, each
-        # validation by the host clock between synchronizes
-        step_events, val_ms = [], []
-        step_fn, validate = trainer.train_step, trainer.validate
-
-        def timed_step(*args):
-            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-            out = step_fn(*args)
-            ev[1].record()
-            step_events.append(ev)
-            return out
-
-        def timed_validate(*args):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            v = validate(*args)
-            torch.cuda.synchronize()
-            val_ms.append((time.perf_counter() - t0) * 1e3)
-            return v
-
-        trainer.train_step, trainer.validate = timed_step, timed_validate
-        for f in counted.values():
-            f.launches = 0
-        t0 = time.perf_counter()
-        trainer.train()
-        torch.cuda.synchronize()
-        train_s = time.perf_counter() - t0
-        launches = {k: f.launches for k, f in counted.items()}
-        trainer.train_step, trainer.validate = step_fn, validate
+        step_events, val_ms, launches, train_s = _timed_train(trainer)
 
         n_steps = S1_EPOCHS * steps_per_epoch
         calls = -(-n_val // 64)  # validate's reconstruct calls
@@ -2118,22 +2144,258 @@ def drive_stage1(dev, smi):
     return launches
 
 
+# -- phase 7: the SW family's training ---------------------------------------
+
+# the SW corpus: synthetic 96x192 fields (u, v, pres) from make_sw_store, 12
+# training and 4 test cases of 24 frames. Stage 1: 264 training frames (9
+# steps of batch 32 per epoch, the last of 8), two epochs; stage 2: out_tw
+# 5 at the hard-coded interval 2, 120 windows (3 steps of batch 32 per
+# epoch), three epochs. Each validates before its first epoch and at the end.
+SW_CASES, SW_CASE_LEN, SW_TRAIN_BATCH, SW_S1_EPOCHS, SW_S2_EPOCHS = 12, 24, 32, 2, 3
+
+
+def _sw_train_config(tmp, **over):
+    """``sw_config()`` on a synthetic corpus under `tmp`, bf16, batch 32,
+    validating only before the first epoch and at the end; the trainers'
+    hyperparameters of the JAX package's SW convergence runs
+    (benchmarks/convergence_families.py:117-128) given in `over`."""
+    from lns_tpu_torch.config import sw_config
+    from lns_tpu_torch.data.synthetic import make_sw_store
+
+    data = os.path.join(tmp, "sw")
+    if not os.path.exists(data):
+        make_sw_store(data, ncase=SW_CASES, case_len=SW_CASE_LEN, h=96, w=192, seed=0)
+    return sw_config().replace(
+        train_data_dir=os.path.join(data, "train.zarr"), test_data_dir=os.path.join(data, "test.zarr"),
+        dataset_stat=os.path.join(data, "normstats.npz"), case_len=SW_CASE_LEN,
+        num_case=SW_CASES, batch_size=SW_TRAIN_BATCH, mixed_precision=True, ckpt_every=1000,
+        overwrite_exist=True, **over)
+
+
+def _timed_train(trainer):
+    """trainer.train() with each train step between CUDA events and each
+    validation by the host clock between synchronizes; returns (step
+    events, validation ms, launches per kernel, seconds)."""
+    counted = _counted()
+    step_events, val_ms = [], []
+    step_fn, validate = trainer.train_step, trainer.validate
+
+    def timed_step(*args):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = step_fn(*args)
+        ev[1].record()
+        step_events.append(ev)
+        return out
+
+    def timed_validate(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v = validate(*args)
+        torch.cuda.synchronize()
+        val_ms.append((time.perf_counter() - t0) * 1e3)
+        return v
+
+    trainer.train_step, trainer.validate = timed_step, timed_validate
+    for f in counted.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    trainer.train_step, trainer.validate = step_fn, validate
+    return step_events, val_ms, {k: f.launches for k, f in counted.items()}, secs
+
+
+def _check_sw_run(where, log_dir, loss_key, val_keys, steps_per_epoch, epochs):
+    """The run's train losses finite and falling (epoch means), each
+    validation key logged before the first epoch and at the end, finite."""
+    import numpy as np
+
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    loss = [r[loss_key] for r in recs if loss_key in r]
+    first, last = np.mean(loss[:steps_per_epoch]), np.mean(loss[-steps_per_epoch:])
+    _check(len(loss) == epochs * steps_per_epoch and all(math.isfinite(v) for v in loss)
+           and last < first,
+           f"{where}: {len(loss)} train losses, all finite, falling: epoch means {first:.5f} -> "
+           f"{last:.5f} (first {loss[0]:.5f}, last {loss[-1]:.5f})")
+    vals = {k: [r[k] for r in recs if k in r] for k in val_keys}
+    _check(all(len(v) == 2 and all(math.isfinite(x) for x in v) for v in vals.values()),
+           f"{where}: validation before the first epoch and at the end, finite: "
+           + ", ".join(f"{k} {v}" for k, v in vals.items()))
+
+
+def _print_steps(where, step_events, secs, batch, smi):
+    ms = sorted(s.elapsed_time(e) for s, e in step_events)
+    med = ms[len(ms) // 2]
+    print(f"      {where} train step (bf16, batch {batch}): median {med:.3f} ms by CUDA events "
+          f"(min {ms[0]:.3f}, max {ms[-1]:.3f}, n={len(ms)}), {1e3 / med:.1f} steps/s; train() "
+          f"{secs:.2f} s; {smi}", flush=True)
+
+
+def drive_sw_stage1(dev, smi, tmp):
+    """The stage-1 trainer at full SW width on the card. Returns the kernels'
+    launches over its training run and the path of its final checkpoint."""
+    import numpy as np
+
+    from lns_tpu_torch.models import SimpleAutoencoder
+    from lns_tpu_torch.train.stage1 import Stage1Trainer
+
+    t_phase = time.perf_counter()
+    cfg = _sw_train_config(tmp, epochs=SW_S1_EPOCHS, learning_rate=3e-5, beta1=0.5, beta2=0.9,
+                           device_data=True, log_dir=os.path.join(tmp, "sw_s1"))
+    print(f"-- SW stage-1 training: {SW_CASES} cases x {SW_CASE_LEN} frames of 96x192x3, batch "
+          f"{SW_TRAIN_BATCH}, {SW_S1_EPOCHS} epochs, lr 3e-5, bf16 activations, frames on the "
+          "card", flush=True)
+    trainer = Stage1Trainer(cfg, seed=1234, use_wandb=False, device=dev)
+    n, n_val = len(trainer.train_ds), trainer.val_ds.num_case * (SW_CASE_LEN - 2)
+    steps_per_epoch = -(-n // SW_TRAIN_BATCH)
+    x = torch.from_numpy(trainer.train_ds.get_batch(np.arange(SW_TRAIN_BATCH))).to(dev)
+    m32 = SimpleAutoencoder(cfg).to(dev)
+    m32.load_state_dict(trainer.model.state_dict())
+    check_stage1_step("SW", trainer.model, m32, x)
+    del m32
+
+    step_events, val_ms, launches, secs = _timed_train(trainer)
+    n_steps = SW_S1_EPOCHS * steps_per_epoch
+    calls = -(-n_val // 64)  # validate's reconstruct calls
+    want = {k: (n_steps + 2 * calls) * v
+            for k, v in expected_launches(cfg, n_chunks=1).items()}
+    want["prop_rollout"] = 0
+    _check(all(launches[k] == want.get(k, 0) for k in launches),
+           f"SW stage-1 training run: launches {({k: v for k, v in launches.items() if v})} == "
+           f"{({k: v for k, v in want.items() if v})} ({n_steps} train steps, 2 validations of "
+           f"{calls} calls)")
+    print(f"      SW stage-1 launches per train step: "
+          f"{({k: v for k, v in expected_launches(cfg, n_chunks=1).items() if v and k != 'prop_rollout'})}",
+          flush=True)
+    _check_sw_run("SW stage-1", cfg.log_dir, "rec_loss",
+                  ("val_recon_loss", "val_recon_loss_vx", "val_recon_loss_vy",
+                   "val_recon_loss_prs"), steps_per_epoch, SW_S1_EPOCHS)
+    ckpt = os.path.join(cfg.log_dir, "checkpoints", "vqgan_epoch_final.pt")
+    _check(os.path.exists(ckpt), "SW stage-1: vqgan_epoch_final.pt written")
+    profile_device(lambda: [trainer.train_step(x) for _ in range(3)],
+                   f"SW stage-1 3 train steps (bf16, batch {SW_TRAIN_BATCH})")
+    del trainer
+    _print_steps("SW stage-1", step_events, secs, SW_TRAIN_BATCH, smi)
+    print(f"      SW stage-1 validate ({n_val} frames in {calls} calls of 64): wall "
+          f"{', '.join(f'{v:.1f}' for v in val_ms)} ms; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s; {smi}", flush=True)
+    return launches, ckpt
+
+
+def check_sw_stage2_gradients(trainer, m32, dev):
+    """One SW stage-2 train step's gradients w.r.t. every propagator
+    parameter, kernel path against ``use_kernels(False)`` (TF32 off), on a
+    batch of the corpus, under the stage-1 phase's rules (``_hold_gradients``); every
+    parameter tensor with a nonzero gradient; kernel 3 launched (2 n_block +
+    1) x out_tw times in the forward and never in the backward."""
+    cfg = trainer.cfg
+    z_in, z_out = _s2_batch(trainer, dev)
+    per_step = 2 * cfg.prop_n_block + 1
+    for dt, model in (("f32", m32), ("bf16", trainer.model)):
+        where = f"SW stage-2 {dt} train step (batch {z_in.shape[0]}, out_tw {cfg.out_tw})"
+        gk, fwd, bwd = _step_grads(model, z_in, z_out, True)
+        gp, fwd_p, _ = _step_grads(model, z_in, z_out, False)
+        gq, _, _ = _step_grads(model, z_in * (1 + (2 ** -23 if dt == "f32" else 2 ** -8)), z_out,
+                               False)
+        if dt == "f32":
+            g32 = gp
+        _hold_gradients(where, dt, gk, gp, gq, g32)
+        top = {k: g.abs().max().item() for k, g in gk.items()}
+        low = min(top, key=top.get)
+        _check(all(v > 0 for v in top.values()),
+               f"{where}: all {len(top)} parameter tensors have a nonzero gradient (smallest "
+               f"max|g| {top[low]:.3e}, {low})")
+        _check(fwd == per_step * cfg.out_tw and bwd == 0 and fwd_p == 0,
+               f"{where}: kernel 3 launched {fwd} times in the forward (== {per_step} x out_tw "
+               f"{cfg.out_tw}), {bwd} in its backward, {fwd_p} on the plain path")
+
+
+def drive_sw_stage2(dev, smi, tmp, ae_path):
+    """The stage-2 trainer at full SW width on the card, on the stage-1
+    phase's final checkpoint: returns the kernels' launches over its encode
+    pre-pass and its training run."""
+    from lns_tpu_torch.models import LatentDynamics
+    from lns_tpu_torch.train.stage2 import Stage2Trainer
+
+    t_phase = time.perf_counter()
+    cfg = _sw_train_config(tmp, epochs=SW_S2_EPOCHS, learning_rate=3e-4,
+                           pretrained_checkpoint_path=ae_path, log_dir=os.path.join(tmp, "sw_s2"))
+    print(f"-- SW stage-2 training: the stage-1 checkpoint, batch {SW_TRAIN_BATCH}, out_tw "
+          f"{cfg.out_tw}, interval 2, {SW_S2_EPOCHS} epochs, lr 3e-4, bf16 activations",
+          flush=True)
+    counted = _counted()
+    for f in counted.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    trainer = Stage2Trainer(cfg, seed=1234, use_wandb=False, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    prepass = {k: f.launches for k, f in counted.items()}
+    encodes = -(-SW_CASES * SW_CASE_LEN // 32)  # the pre-pass's calls of 32 frames
+    want = expected_launches(cfg, n_chunks=0, encodes=encodes)
+    _check(all(prepass[k] == want.get(k, 0) for k in prepass) and prepass["group_norm"] > 0,
+           f"SW stage-2 encode pre-pass: group_norm launched {prepass['group_norm']} times (== "
+           f"{want['group_norm'] // encodes} encoder GN sites x {encodes} encode calls), no "
+           f"other kernel; trainer built in {build_s:.2f} s ({len(trainer.train_ds)} windows, "
+           f"{trainer.steps_per_epoch} steps per epoch)")
+    saved = torch.load(ae_path, weights_only=True)
+    _check(all(torch.equal(v.cpu(), saved[k]) for k, v in trainer.model.vq_ae.state_dict().items()),
+           f"SW stage-2: the stage-1 checkpoint loaded bit-identical ({len(saved)} tensors)")
+    m32 = LatentDynamics(cfg, device=dev)
+    m32.load_state_dict(trainer.model.state_dict())
+    check_sw_stage2_gradients(trainer, m32, dev)
+    del m32
+
+    step_events, val_ms, launches, secs = _timed_train(trainer)
+    n_steps = SW_S2_EPOCHS * trainer.steps_per_epoch
+    n_val = trainer.val_ds.num_case
+    want = {k: 2 * v * -(-n_val // 8) for k, v in expected_launches(cfg, n_chunks=1).items()}
+    want["group_norm"] += n_steps * (2 * cfg.prop_n_block + 1) * cfg.out_tw
+    _check(launches == {k: want.get(k, 0) for k in launches},
+           f"SW stage-2 training run: launches {({k: v for k, v in launches.items() if v})} == "
+           f"{({k: v for k, v in want.items() if v})} (2 validations of {n_val} cases, {n_steps} "
+           "train steps)")
+    print(f"      SW stage-2 launches per train step: group_norm "
+          f"{(2 * cfg.prop_n_block + 1) * cfg.out_tw}", flush=True)
+    _check_sw_run("SW stage-2", cfg.log_dir, "loss",
+                  ("val_seq_rel_l2", "val_pred_loss_vx", "val_pred_loss_vy", "val_pred_loss_prs"),
+                  trainer.steps_per_epoch, SW_S2_EPOCHS)
+    z_in, z_out = _s2_batch(trainer, dev)
+    profile_device(lambda: [trainer.train_step(z_in, z_out, 0, i) for i in range(3)],
+                   f"SW stage-2 3 train steps (bf16, batch {SW_TRAIN_BATCH})")
+    del trainer
+    _print_steps("SW stage-2", step_events, secs, SW_TRAIN_BATCH, smi)
+    print(f"      SW stage-2 validate ({n_val} cases, {SW_CASE_LEN // 2 - 2} steps, decoded at "
+          f"once): wall {', '.join(f'{v:.1f}' for v in val_ms)} ms; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s; {smi}", flush=True)
+    return {k: prepass[k] + launches[k] for k in launches}
+
+
 def run(dev, smi=""):
-    """Phases 3-6 on `dev`; returns the per-kernel results."""
-    from lns_tpu_torch.config import ns2d_config
+    """Phases 3-7 on `dev`; returns the per-kernel results."""
+    import tempfile
+
+    from lns_tpu_torch.config import ns2d_config, sw_config
     from lns_tpu_torch.models import LatentDynamics
     from lns_tpu_torch.ops.initializers import init_weights_
 
     gen = torch.Generator().manual_seed(0)
-    paths = []  # (label, model, expected launches)
-    gn_sites, fab_sites = {}, {}  # summed over one predict of each path
-    for label, cfg in (("path 1 NS2d", ns2d_config()),
-                       ("path 2 NS2d use_attn_enc", ns2d_config().replace(use_attn_enc=True))):
+    paths = []  # (label, model, expected launches, batch, steps, decode chunk)
+    gn_sites, fab_sites = {}, {}  # summed over one predict of each NS2d path
+    for label, cfg, size in (
+            ("path 1 NS2d", ns2d_config(), (BATCH, STEPS, CHUNK)),
+            ("path 2 NS2d use_attn_enc", ns2d_config().replace(use_attn_enc=True),
+             (BATCH, STEPS, CHUNK)),
+            ("path 3 SW", sw_config(), (SW_BATCH, SW_STEPS, None))):
         # initialised on the CPU from the seeded generator, then moved
         model = init_weights_(LatentDynamics(cfg, dtype=torch.bfloat16, ae_dtype=torch.bfloat16,
                                              device="cpu"), gen).to(dev)
-        gn, fab = call_sites(model, dev)
-        expect = expected_launches(cfg)
+        b, steps, chunk = size
+        gn, fab = call_sites(model, dev, b, steps, chunk)
+        expect = expected_launches(cfg, n_chunks=-(-b * steps // (chunk or b * steps)))
         _check(sum(gn.values()) == expect["group_norm"],
                f"{label}: GroupNorm calls found {sum(gn.values())} == spec count "
                f"{expect['group_norm']}")
@@ -2141,14 +2403,17 @@ def run(dev, smi=""):
             found = {s: c for s, c in fab.items() if s[-1] == impl}
             _check(sum(found.values()) == expect[k],
                    f"{label}: {impl} FAB calls found {found} == spec count {expect[k]}")
-        paths.append((label, model, {k: v for k, v in expect.items() if v}))
+        paths.append((label, model, {k: v for k, v in expect.items() if v}, size))
+        if cfg.workload == "sw":
+            sw_gn, sw_fab = gn, fab
+            continue
         for sites, new in ((gn_sites, gn), (fab_sites, fab)):
             for s, c in new.items():
                 sites[s] = sites.get(s, 0) + c
 
-    def fab_shapes(impl):  # {(batch, h, w, c): calls} over both paths
+    def fab_shapes(sites, impl):  # {(batch, h, w, c): calls}
         out = {}
-        for (_, b, h, w, c, i), calls in fab_sites.items():
+        for (_, b, h, w, c, i), calls in sites.items():
             if i == impl:
                 out[(b, h, w, c)] = out.get((b, h, w, c), 0) + calls
         return out
@@ -2159,24 +2424,41 @@ def run(dev, smi=""):
     _check(sum(train_sites.values()) == (2 * cfg.prop_n_block + 1) * cfg.out_tw,
            f"stage-2 train step: GroupNorm calls found {train_sites} == "
            f"{2 * cfg.prop_n_block + 1} per step x out_tw {cfg.out_tw}")
+    sw = paths[2][1]
+    sw_train_sites = train_gn_sites(sw, dev)
+    _check(sum(sw_train_sites.values()) == (2 * sw.cfg.prop_n_block + 1) * sw.cfg.out_tw,
+           f"SW stage-2 train step: GroupNorm calls found {sw_train_sites} == "
+           f"{2 * sw.cfg.prop_n_block + 1} per step x out_tw {sw.cfg.out_tw}")
     print("-- kernels against their plain versions (TF32 off)", flush=True)
     t0 = time.perf_counter()
-    res = {"prop_rollout": check_rollout(dev, gen, len(paths)),
-           "fab_core": check_fab_core(dev, gen, fab_shapes("batchedgram"), n, d),
-           "group_norm": check_group_norm(dev, gen, gn_sites, train_sites)}
+    res = {"prop_rollout": check_rollout(dev, gen, 2),
+           "fab_core": _summed(check_fab_core(dev, gen, fab_shapes(fab_sites, "batchedgram"),
+                                              n, d),
+                               check_fab_core(dev, gen, fab_shapes(sw_fab, "batchedgram"),
+                                              sw.cfg.decoder_attn_heads, sw.cfg.decoder_attn_dim,
+                                              extras=False)),
+           "group_norm": _summed(check_group_norm(dev, gen, gn_sites, train_sites),
+                                 check_group_norm(dev, gen, sw_gn, sw_train_sites,
+                                                  label="SW", extras=False))}
     check_fab_core_limits(dev, n, d)
     res["fab_axial_in_fused"], res["axial_kernel_apply_headmajor"] = check_axial(
-        dev, gen, fab_shapes("batched"), n, d)
+        dev, gen, fab_shapes(fab_sites, "batched"), n, d)
     res["bmm_blockdiag"], res["transpose_hw"] = check_pipeline(dev, gen, n, d)
-    check_fab_cores(dev, gen, sorted({**fab_shapes("batchedgram"), **fab_shapes("batched")}),
-                    n, d)
+    check_fab_cores(dev, gen, sorted({**fab_shapes(fab_sites, "batchedgram"),
+                                      **fab_shapes(fab_sites, "batched")}), n, d)
     check_activations(dev, gen)
     print(f"      comparisons took {time.perf_counter() - t0:.1f} s", flush=True)
 
-    by_path = {label: drive_path(label, model, expect, gen, dev)
-               for label, model, expect in paths}
+    by_path = {}
+    for label, model, expect, (b, steps, chunk) in paths:
+        by_path[label] = drive_path(label, model, expect, gen, dev, b, steps, chunk)
+        del model
+    del paths, sw
     by_path["stage-2 training"] = drive_stage2(dev, smi)
     by_path["stage-1 training"] = drive_stage1(dev, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        by_path["SW stage-1 training"], ae_path = drive_sw_stage1(dev, smi, tmp)
+        by_path["SW stage-2 training"] = drive_sw_stage2(dev, smi, tmp, ae_path)
 
     src = "lns_tpu_torch/csrc/"
     kernels = [
@@ -2193,6 +2475,17 @@ def run(dev, smi=""):
              "launches": sum(counts[name] for counts in by_path.values()),
              "launches_by_path": {label: counts[name] for label, counts in by_path.items()},
              **res[name]} for name, route, source, rep in kernels]
+
+
+def _summed(a, b):
+    """Two kernel results (each summed over its paths' predicts) as one:
+    times and bounds added, the larger error, the bound's larger part."""
+    out = {"max_abs_err": max(a["max_abs_err"], b["max_abs_err"])}
+    for k in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms"):
+        if k in a:
+            out[k] = None if a[k] is None else a[k] + b[k]
+    out["bound_by"] = a["bound_by"] if a["bound_ms"] >= b["bound_ms"] else b["bound_by"]
+    return out
 
 
 if __name__ == "__main__":

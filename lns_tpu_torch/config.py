@@ -109,3 +109,20 @@ def ns2d_config(res: int = 64, latent_res: int = 8) -> Config:
         prop_n_block=3, prop_n_embd=128, dilation=2, noise_level=0.0,
         out_tw=2, interval=1,
     )
+
+
+def sw_config() -> Config:
+    """The SW (shallow-water) latent surrogate at the reference's widths:
+    96x192x3 field (u, v, pressure), 12x24x64 latent, half-periodic in x,
+    FAB decoder attention at 24x48 and 48x96, a 4 x 128 SimpleCNN with
+    dilation 3 and out_tw 5 (configs/SW_stage1_ae.yml, SW_stage2_prop.yml;
+    the JAX package's benchmarks/run_benchmarks.py: sw_cfg)."""
+    return Config(
+        latent_dim=64, Ly=96, Lx=192, resolutions=[96, 192], in_channels=3,
+        latent_resolution=12, periodic_direction="x", hw_ratio=2,
+        encoder_channels=[64, 64, 64, 128, 128], fourier_resolutions=[],
+        encoder_res_blocks=1, use_fa=True, decoder_channels=[128, 128, 64, 64],
+        attn_resolutions=[24, 48], decoder_res_blocks=1, final_smoothing=False,
+        decoder_attn_heads=8, decoder_attn_dim=64, disable_coarse_attn=False,
+        prop_n_block=4, prop_n_embd=128, dilation=3, out_tw=5, noise_level=0.0,
+    )

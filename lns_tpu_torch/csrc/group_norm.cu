@@ -37,6 +37,20 @@
 // bf16 (CL 8, 64 KB slices, three blocks per SM) and 1 MB in f32 (CL 8,
 // 128 KB slices, one block per SM).
 //
+// The split plan, for a slab that a cluster of 8 cannot hold (SW's 96x192x64
+// is 2.36 MB in bf16): x is read twice instead of once, and no block holds
+// more than 16 sweeps of rows. A grid over (sample, chunk of R rows):
+//   1. gn_partials: each block sums its chunk's rows per channel (x, and x^2
+//      for bf16 / f16) in f32 registers, folds them per group as above and
+//      writes its [G, 2] partials to a workspace the wrapper allocates;
+//   2. f32 only, gn_partials again: each block adds its sample's chunk
+//      partials in chunk order into the mean and sums (x - mean)^2 over its
+//      chunk, so the statistics stay the exact two-pass ones;
+//   3. gn_apply: each block adds its sample's partials in chunk order (every
+//      block of a sample the same bits: no atomics, two runs give the same
+//      bits), forms the coefficients as the one-pass kernel does, and
+//      normalises its chunk from HBM, at the same rounding points.
+//
 // Rounding. f32 (norms.py:45-54): mean, then the centred variance; y = (x -
 // mean) inv scale + bias; swish y / (1 + exp(-y)). bf16 / f16 (norms.py:55-76
 // and activations.swish): f32 sums of x and x^2; var = max(E[x^2] - mean^2,
@@ -49,9 +63,11 @@
 // a product and a sum that the reference rounds apart.
 //
 // Limits, stated once (shape_limit; the wrapper raises with its text): C a
-// multiple of 8 and of G, with C / VW <= 256 threads; one sample's slab
-// within a cluster of 8 blocks of 227 KB of shared memory each; the cluster
-// fits on the card (cudaOccupancyMaxActiveClusters).
+// multiple of 8 and of G, with C / VW <= 256 threads; the grid of the split
+// plan (B x chunks blocks) within 2^31 - 1; the cluster (or the split plan's
+// block) fits on the card (cudaOccupancyMaxActiveClusters). Any S: a slab
+// within a cluster of 8 blocks of 227 KB of shared memory takes the one-pass
+// kernel, a larger one the split plan.
 
 #include <cooperative_groups.h>
 
@@ -77,8 +93,10 @@ struct Params {
   const float* scale;  // [C]
   const float* bias;   // [C]
   void* out;           // [B, S, C] T
-  int S, C, G, cl, rows;  // rows of the slab per block
+  int S, C, G, cl, rows;  // rows of the slab per block (cluster) or per chunk (split)
   float eps;
+  int chunks;          // chunks per sample: 0 for the one-pass kernel
+  float* ws;           // the split plan's partials [2][B, chunks, G, 2]
 };
 
 // Rows of per-thread partial sums the block folds through shared memory:
@@ -187,6 +205,74 @@ __device__ __forceinline__ float rank_sum(const float* red, int G, int cl, int g
   return s;
 }
 
+// bf16 / f16: a channel's sc = inv scale and sh = bias - mean sc, each
+// rounded to T, from its group's f32 sums of x and x^2 over n elements.
+template <typename T>
+__device__ __forceinline__ void low_coef(float sum, float sumsq, float n, float eps, float scale,
+                                         float bias, float* sc, float* sh) {
+  const float mean = __fdiv_rn(sum, n);
+  const float ex2 = __fdiv_rn(sumsq, n);
+  const float var = fmaxf(__fsub_rn(ex2, __fmul_rn(mean, mean)), 0.f);
+  const float s = __fmul_rn(rsqrtf(__fadd_rn(var, eps)), scale);
+  *sc = rnd<T>(s);
+  *sh = rnd<T>(__fsub_rn(bias, __fmul_rn(mean, s)));
+}
+
+// Normalise, affine (+ swish) this thread's rows of xs (the block's slice
+// in shared memory, or its chunk in HBM) into yg, from coef: f32 [mean C]
+// [mul C] [add C]; bf16 / f16 [sc C] [sh C]. 16-byte loads and stores.
+template <typename T, bool kSwish>
+__device__ __forceinline__ void normalise(const T* xs, T* yg, const float* coef, int C, int c0,
+                                          int row0, int nrows, int pstep) {
+  constexpr int VW = 16 / sizeof(T);
+  if constexpr (std::is_same<T, float>::value) {
+    float mean[VW], mul[VW], add[VW];
+#pragma unroll
+    for (int k = 0; k < VW; ++k) {
+      mean[k] = coef[c0 + k];
+      mul[k] = coef[C + c0 + k];
+      add[k] = coef[2 * C + c0 + k];
+    }
+    for (int r = row0; r < nrows; r += pstep) {
+      float4 v = *reinterpret_cast<const float4*>(xs + static_cast<size_t>(r) * C + c0);
+      float* e = reinterpret_cast<float*>(&v);
+#pragma unroll
+      for (int k = 0; k < VW; ++k) {
+        float y = fmaf(e[k] - mean[k], mul[k], add[k]);
+        if (kSwish) y = y / (1.f + expf(-y));
+        e[k] = y;
+      }
+      *reinterpret_cast<float4*>(yg + static_cast<size_t>(r) * C + c0) = v;
+    }
+  } else {
+    // pairs of T: the x2 instructions round once, which gives the bits of
+    // the f32 op rounded to T (f32 carries more than 2 p + 2 bits of T's p)
+    using P = typename Pair<T>::type;
+    P sc[VW / 2], sh[VW / 2];
+#pragma unroll
+    for (int j = 0; j < VW / 2; ++j) {
+      sc[j] = pack<P>(coef[c0 + 2 * j], coef[c0 + 2 * j + 1]);
+      sh[j] = pack<P>(coef[C + c0 + 2 * j], coef[C + c0 + 2 * j + 1]);
+    }
+    const P one = pack<P>(1.f, 1.f);
+    for (int r = row0; r < nrows; r += pstep) {
+      uint4 v = *reinterpret_cast<const uint4*>(xs + static_cast<size_t>(r) * C + c0);
+      P* e = reinterpret_cast<P*>(&v);
+#pragma unroll
+      for (int j = 0; j < VW / 2; ++j) {
+        P y = __hadd2_rn(__hmul2_rn(e[j], sc[j]), sh[j]);
+        if (kSwish) {  // y (1 / (1 + exp(-y))), every op rounded to T
+          const float2 t = unpack(y);
+          const float2 d = unpack(__hadd2_rn(one, pack<P>(expf(-t.x), expf(-t.y))));
+          y = __hmul2_rn(y, pack<P>(__frcp_rn(d.x), __frcp_rn(d.y)));
+        }
+        e[j] = y;
+      }
+      *reinterpret_cast<uint4*>(yg + static_cast<size_t>(r) * C + c0) = v;
+    }
+  }
+}
+
 // At most 80 registers a thread, so three blocks fit on an SM.
 template <typename T, bool kSwish>
 __global__ void __launch_bounds__(kThreads, 3) gn_kernel(Params p) {
@@ -270,63 +356,139 @@ __global__ void __launch_bounds__(kThreads, 3) gn_kernel(Params p) {
   } else {
     for (int c = tid; c < C; c += kThreads) {
       const int g = c / cpg;
-      const float mean = __fdiv_rn(rank_sum(red, G, cl, g, 0), n);
-      const float ex2 = __fdiv_rn(rank_sum(red, G, cl, g, 1), n);
-      const float var = fmaxf(__fsub_rn(ex2, __fmul_rn(mean, mean)), 0.f);
-      const float sc = __fmul_rn(rsqrtf(__fadd_rn(var, p.eps)), p.scale[c]);
-      coef[c] = rnd<T>(sc);
-      coef[C + c] = rnd<T>(__fsub_rn(p.bias[c], __fmul_rn(mean, sc)));
+      low_coef<T>(rank_sum(red, G, cl, g, 0), rank_sum(red, G, cl, g, 1), n, p.eps, p.scale[c],
+                  p.bias[c], coef + c, coef + C + c);
     }
   }
   __syncthreads();
 
-  // 5. normalise, affine (+ swish) from shared memory; 16-byte stores
-  if constexpr (kTwoPass) {
-    float mean[VW], mul[VW], add[VW];
+  // 5. normalise, affine (+ swish) from shared memory
+  normalise<T, kSwish>(xs, yg, coef, C, c0, row0, nrows, pstep);
+}
+
+// ---------------------------------------------------------------------------
+// The split plan: two (f32: three) launches over (sample, chunk of rows).
+
+constexpr int kChunkSweeps = 16;  // sweeps of the block's threads over a chunk
+
+// Per-channel sums of the block's thread partials, then per group into
+// out[g] (x sum, and the second sum), in a fixed order.
+__device__ void chunk_groups(const float* chan, float* out, int C, int G) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, cpg = C / G;
+  for (int g = warp; g < G; g += kWarps) {
+    float a = 0.f, q = 0.f;
+    for (int k = lane; k < cpg; k += 32) {
+      a += chan[g * cpg + k];
+      q += chan[C + g * cpg + k];
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      a += __shfl_xor_sync(0xffffffffu, a, off);
+      q += __shfl_xor_sync(0xffffffffu, q, off);
+    }
+    if (lane == 0) *reinterpret_cast<float2*>(out + 2 * g) = make_float2(a, q);
+  }
+}
+
+// Slot j of group g summed over the sample's chunks, in chunk order.
+__device__ __forceinline__ float chunk_sum(const float* part, int chunks, int G, int g, int j) {
+  float s = 0.f;
+  for (int k = 0; k < chunks; ++k) s += part[2 * (k * G + g) + j];
+  return s;
+}
+
+// Shared memory of the split kernels: per-thread partials [2 part_rows C],
+// per-channel sums [2 C], coefficients [3 C] (floats).
+__host__ __device__ inline int split_smem(int esize, int C) {
+  return 4 * (2 * part_rows(C * esize / 16) * C + 5 * C);
+}
+
+// Pass 1 (kCentred false): sums of x (and x^2 for bf16 / f16) over the
+// chunk, into ws[0]. Pass 2 (f32, kCentred true): the sample's mean from
+// ws[0], then sums of (x - mean)^2 over the chunk, into ws[1].
+template <typename T, bool kCentred>
+__global__ void __launch_bounds__(kThreads) gn_partials(Params p) {
+  constexpr int VW = 16 / sizeof(T);
+  extern __shared__ float4 smem4[];
+  const int C = p.C, G = p.G, cpg = C / G, tid = threadIdx.x;
+  const int V = C / VW, pstep = kThreads / V, row0 = tid / V, c0 = (tid % V) * VW;
+  const int sample = blockIdx.x / p.chunks, chunk = blockIdx.x % p.chunks;
+  const int r0 = chunk * p.rows;
+  const int nrows = row0 < pstep ? max(0, min(p.rows, p.S - r0)) : 0;
+  const T* xg = static_cast<const T*>(p.x) + (static_cast<size_t>(sample) * p.S + r0) * C;
+  const size_t stride = static_cast<size_t>(gridDim.x) * G * 2;  // one set of partials
+  float* part = reinterpret_cast<float*>(smem4);
+  float* chan = part + 2 * part_rows(V) * C;
+  float* coef = chan + 2 * C;
+
+  float m[VW];
+#pragma unroll
+  for (int k = 0; k < VW; ++k) m[k] = 0.f;
+  if (kCentred) {
+    const float n = static_cast<float>(p.S) * cpg;
+    const float* p1 = p.ws + static_cast<size_t>(sample) * p.chunks * G * 2;
+    for (int c = tid; c < C; c += kThreads) coef[c] = chunk_sum(p1, p.chunks, G, c / cpg, 0) / n;
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < VW; ++k) m[k] = coef[c0 + k];
+  }
+  float a[VW], q[VW];
+#pragma unroll
+  for (int k = 0; k < VW; ++k) a[k] = q[k] = 0.f;
+  for (int r = row0; r < nrows; r += pstep) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(xg + static_cast<size_t>(r) * C + c0);
+    const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
     for (int k = 0; k < VW; ++k) {
-      mean[k] = coef[c0 + k];
-      mul[k] = coef[C + c0 + k];
-      add[k] = coef[2 * C + c0 + k];
-    }
-    for (int r = row0; r < nrows; r += pstep) {
-      float4 v = *reinterpret_cast<const float4*>(xs + r * C + c0);
-      float* e = reinterpret_cast<float*>(&v);
-#pragma unroll
-      for (int k = 0; k < VW; ++k) {
-        float y = fmaf(e[k] - mean[k], mul[k], add[k]);
-        if (kSwish) y = y / (1.f + expf(-y));
-        e[k] = y;
+      const float f = ld(e[k]);
+      if (kCentred) {
+        const float d = f - m[k];
+        a[k] = fmaf(d, d, a[k]);
+      } else {
+        a[k] += f;
+        if (!std::is_same<T, float>::value) q[k] = fmaf(f, f, q[k]);
       }
-      *reinterpret_cast<float4*>(yg + static_cast<size_t>(r) * C + c0) = v;
-    }
-  } else {
-    // pairs of T: the x2 instructions round once, which gives the bits of
-    // the f32 op rounded to T (f32 carries more than 2 p + 2 bits of T's p)
-    using P = typename Pair<T>::type;
-    P sc[VW / 2], sh[VW / 2];
-#pragma unroll
-    for (int j = 0; j < VW / 2; ++j) {
-      sc[j] = pack<P>(coef[c0 + 2 * j], coef[c0 + 2 * j + 1]);
-      sh[j] = pack<P>(coef[C + c0 + 2 * j], coef[C + c0 + 2 * j + 1]);
-    }
-    const P one = pack<P>(1.f, 1.f);
-    for (int r = row0; r < nrows; r += pstep) {
-      uint4 v = *reinterpret_cast<const uint4*>(xs + r * C + c0);
-      P* e = reinterpret_cast<P*>(&v);
-#pragma unroll
-      for (int j = 0; j < VW / 2; ++j) {
-        P y = __hadd2_rn(__hmul2_rn(e[j], sc[j]), sh[j]);
-        if (kSwish) {  // y (1 / (1 + exp(-y))), every op rounded to T
-          const float2 t = unpack(y);
-          const float2 d = unpack(__hadd2_rn(one, pack<P>(expf(-t.x), expf(-t.y))));
-          y = __hmul2_rn(y, pack<P>(__frcp_rn(d.x), __frcp_rn(d.y)));
-        }
-        e[j] = y;
-      }
-      *reinterpret_cast<uint4*>(yg + static_cast<size_t>(r) * C + c0) = v;
     }
   }
+  channel_sums<VW>(a, q, C, V, part, chan);
+  __syncthreads();
+  chunk_groups(chan, p.ws + (kCentred ? stride : 0) + static_cast<size_t>(blockIdx.x) * G * 2,
+               C, G);
+}
+
+// Pass 3: the coefficients from the sample's chunk partials (every block of
+// a sample adds them in the same order), then normalise, affine (+ swish)
+// the chunk's rows from HBM.
+template <typename T, bool kSwish>
+__global__ void __launch_bounds__(kThreads) gn_apply(Params p) {
+  constexpr int VW = 16 / sizeof(T);
+  constexpr bool kTwoPass = std::is_same<T, float>::value;
+  extern __shared__ float4 smem4[];
+  const int C = p.C, G = p.G, cpg = C / G, tid = threadIdx.x;
+  const int V = C / VW, pstep = kThreads / V, row0 = tid / V, c0 = (tid % V) * VW;
+  const int sample = blockIdx.x / p.chunks, chunk = blockIdx.x % p.chunks;
+  const int r0 = chunk * p.rows;
+  const int nrows = row0 < pstep ? max(0, min(p.rows, p.S - r0)) : 0;
+  const size_t base = (static_cast<size_t>(sample) * p.S + r0) * C;
+  const T* xg = static_cast<const T*>(p.x) + base;
+  T* yg = static_cast<T*>(p.out) + base;
+  const size_t stride = static_cast<size_t>(gridDim.x) * G * 2;
+  const float* p1 = p.ws + static_cast<size_t>(sample) * p.chunks * G * 2;
+  float* coef = reinterpret_cast<float*>(smem4) + 2 * part_rows(V) * C + 2 * C;
+  const float n = static_cast<float>(p.S) * cpg;
+  for (int c = tid; c < C; c += kThreads) {
+    const int g = c / cpg;
+    if (kTwoPass) {
+      const float var = chunk_sum(p1 + stride, p.chunks, G, g, 0) / n;
+      coef[c] = chunk_sum(p1, p.chunks, G, g, 0) / n;
+      coef[C + c] = rsqrtf(var + p.eps) * p.scale[c];
+      coef[2 * C + c] = p.bias[c];
+    } else {
+      low_coef<T>(chunk_sum(p1, p.chunks, G, g, 0), chunk_sum(p1, p.chunks, G, g, 1), n, p.eps,
+                  p.scale[c], p.bias[c], coef + c, coef + C + c);
+    }
+  }
+  __syncthreads();
+  normalise<T, kSwish>(xg, yg, coef, C, c0, row0, nrows, pstep);
 }
 
 int esize_of(int dtype) { return dtype == 0 ? 4 : 2; }
@@ -349,6 +511,17 @@ int cluster_for(int esize, int B, int S, int C, int G) {
   return cl;
 }
 
+// Whether one sample's slab fits in a cluster of kMaxCluster blocks (the
+// one-pass kernel); else the split plan takes it.
+bool one_pass(int esize, int S, int C, int G) {
+  const long long slice = (S + kMaxCluster - 1LL) / kMaxCluster * C * esize;
+  return slice <= static_cast<long long>(lns::kMaxDynamicSmem) &&
+         layout_of(esize, S, C, G, kMaxCluster).bytes <= static_cast<int>(lns::kMaxDynamicSmem);
+}
+
+// The split plan's rows per chunk: kChunkSweeps sweeps of the block.
+int chunk_rows(int esize, int C) { return kChunkSweeps * (kThreads / (C * esize / 16)); }
+
 // The kernel's limits, stated once: nullptr when it takes the shape, else
 // the limit the shape breaks.
 const char* shape_limit(int dtype, int B, int S, int C, int G) {
@@ -360,12 +533,11 @@ const char* shape_limit(int dtype, int B, int S, int C, int G) {
   } else if (C % 8 || G < 1 || C % G || C / vw > kThreads) {
     snprintf(msg, sizeof msg, "C a multiple of 8 and of G, with C <= %d (16-byte vectors of %d "
              "channels over %d threads), got C %d, G %d", vw * kThreads, vw, kThreads, C, G);
-  } else if (layout_of(esize, S, C, G, kMaxCluster).bytes > static_cast<int>(lns::kMaxDynamicSmem)) {
-    snprintf(msg, sizeof msg, "the slab of one sample (%d x %d x %d bytes) in a cluster of %d "
-             "blocks, each within %zu bytes of shared memory, needs %d per block; a larger slab "
-             "(SW's 96x192 fields) needs a cluster of 16 blocks (non-portable) or a kernel that "
-             "reads x twice", S, C, esize, kMaxCluster, lns::kMaxDynamicSmem,
-             layout_of(esize, S, C, G, kMaxCluster).bytes);
+  } else if (!one_pass(esize, S, C, G) &&
+             static_cast<long long>(B) * ((S + chunk_rows(esize, C) - 1) / chunk_rows(esize, C))
+                 > 2147483647LL) {
+    snprintf(msg, sizeof msg, "the split plan's grid (B x chunks of %d rows) within 2^31 - 1 "
+             "blocks, got B %d, S %d", chunk_rows(esize, C), B, S);
   } else {
     return nullptr;
   }
@@ -397,14 +569,45 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream, int* n) {
   return cudaGetLastError();
 }
 
+// Launch the split plan's kernels in order on `stream` (n null), or count
+// the blocks of its last kernel the card holds at once (into n).
+template <typename T, bool kSwish>
+cudaError_t launch_split(const Params& p, int B, cudaStream_t stream, int* n) {
+  constexpr bool kTwoPass = std::is_same<T, float>::value;
+  const int smem = split_smem(sizeof(T), p.C), blocks = B * p.chunks;
+  cudaError_t e = lns::allow_smem(gn_partials<T, false>, smem);
+  if (e == cudaSuccess && kTwoPass) e = lns::allow_smem(gn_partials<T, true>, smem);
+  if (e == cudaSuccess) e = lns::allow_smem(gn_apply<T, kSwish>, smem);
+  if (e != cudaSuccess) return e;
+  if (n) {
+    int per_sm = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gn_apply<T, kSwish>, kThreads,
+                                                      smem);
+    *n = per_sm * sm_count();
+    return e;
+  }
+  if (p.ws == nullptr) return cudaErrorInvalidValue;
+  gn_partials<T, false><<<blocks, kThreads, smem, stream>>>(p);
+  if (kTwoPass) gn_partials<T, true><<<blocks, kThreads, smem, stream>>>(p);
+  gn_apply<T, kSwish><<<blocks, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 cudaError_t dispatch(int dtype, bool swish, const Params& p, int B, cudaStream_t stream, int* n) {
+  const bool split = p.chunks > 0;
   switch (dtype * 2 + swish) {
-    case 0: return launch<float, false>(p, B, stream, n);
-    case 1: return launch<float, true>(p, B, stream, n);
-    case 2: return launch<__nv_bfloat16, false>(p, B, stream, n);
-    case 3: return launch<__nv_bfloat16, true>(p, B, stream, n);
-    case 4: return launch<__half, false>(p, B, stream, n);
-    case 5: return launch<__half, true>(p, B, stream, n);
+    case 0: return split ? launch_split<float, false>(p, B, stream, n)
+                         : launch<float, false>(p, B, stream, n);
+    case 1: return split ? launch_split<float, true>(p, B, stream, n)
+                         : launch<float, true>(p, B, stream, n);
+    case 2: return split ? launch_split<__nv_bfloat16, false>(p, B, stream, n)
+                         : launch<__nv_bfloat16, false>(p, B, stream, n);
+    case 3: return split ? launch_split<__nv_bfloat16, true>(p, B, stream, n)
+                         : launch<__nv_bfloat16, true>(p, B, stream, n);
+    case 4: return split ? launch_split<__half, false>(p, B, stream, n)
+                         : launch<__half, false>(p, B, stream, n);
+    case 5: return split ? launch_split<__half, true>(p, B, stream, n)
+                         : launch<__half, true>(p, B, stream, n);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -415,16 +618,29 @@ Params plan_params(int dtype, int B, int S, int C, int G) {
   p.S = S;
   p.C = C;
   p.G = G;
-  p.cl = cluster_for(esize_of(dtype), B, S, C, G);
-  p.rows = (S + p.cl - 1) / p.cl;
+  const int esize = esize_of(dtype);
+  if (one_pass(esize, S, C, G)) {
+    p.cl = cluster_for(esize, B, S, C, G);
+    p.rows = (S + p.cl - 1) / p.cl;
+  } else {
+    p.cl = 1;
+    p.rows = chunk_rows(esize, C);
+    p.chunks = (S + p.rows - 1) / p.rows;
+  }
   return p;
+}
+
+// Shared memory bytes per block of the plan.
+int smem_of(int dtype, const Params& p) {
+  return p.chunks ? split_smem(esize_of(dtype), p.C)
+                  : layout_of(esize_of(dtype), p.S, p.C, p.G, p.cl).bytes;
 }
 
 }  // namespace
 
 // nullptr when the kernel of this dtype (0 f32, 1 bf16, 2 f16) takes the
-// shape, else the limit it breaks; also when the cluster fits on no part of
-// the card (cudaOccupancyMaxActiveClusters).
+// shape, else the limit it breaks; also when the cluster (the split plan's
+// block) fits on no part of the card (cudaOccupancyMaxActiveClusters).
 extern "C" const char* lns_group_norm_limit(int dtype, int B, int S, int C, int G) {
   if (const char* msg = shape_limit(dtype, B, S, C, G)) return msg;
   static thread_local char msg[200];
@@ -433,30 +649,41 @@ extern "C" const char* lns_group_norm_limit(int dtype, int B, int S, int C, int 
   const cudaError_t e = dispatch(dtype, true, p, B, nullptr, &n);
   if (e != cudaSuccess || n < 1) {
     snprintf(msg, sizeof msg, "a cluster of %d blocks of %d bytes of shared memory that the card "
-             "can hold (cudaOccupancyMaxActiveClusters: %d, %s)", p.cl,
-             layout_of(esize_of(dtype), S, C, G, p.cl).bytes, n, cudaGetErrorString(e));
+             "can hold (cudaOccupancyMaxActiveClusters: %d, %s)", p.cl, smem_of(dtype, p), n,
+             cudaGetErrorString(e));
     return msg;
   }
   return nullptr;
 }
 
-// The launch for this shape: out = {blocks per sample (the cluster), blocks,
-// shared memory bytes per block, clusters the card holds at once, rows of
-// the slab per block}.
+// Bytes of workspace the launch of this shape needs (0: the one-pass kernel
+// needs none; the split plan one or, in f32, two sets of [B, chunks, G, 2]
+// f32 partials).
+extern "C" long long lns_group_norm_workspace(int dtype, int B, int S, int C, int G) {
+  if (shape_limit(dtype, B, S, C, G)) return -1;
+  const Params p = plan_params(dtype, B, S, C, G);
+  return static_cast<long long>(dtype == 0 ? 2 : 1) * B * p.chunks * G * 2 * sizeof(float);
+}
+
+// The launch for this shape: out = {blocks per sample (the cluster; 1 in the
+// split plan), blocks, shared memory bytes per block, clusters the card
+// holds at once, rows of the slab per block, chunks per sample (0: the
+// one-pass kernel; else the split plan, whose blocks each take one chunk)}.
 extern "C" int lns_group_norm_plan(int dtype, int B, int S, int C, int G, int* out) {
   if (shape_limit(dtype, B, S, C, G)) return cudaErrorInvalidValue;
   const Params p = plan_params(dtype, B, S, C, G);
   out[0] = p.cl;
-  out[1] = B * p.cl;
-  out[2] = layout_of(esize_of(dtype), S, C, G, p.cl).bytes;
+  out[1] = B * (p.chunks ? p.chunks : p.cl);
+  out[2] = smem_of(dtype, p);
   out[3] = 0;
   out[4] = p.rows;
+  out[5] = p.chunks;
   return dispatch(dtype, true, p, B, nullptr, &out[3]);
 }
 
 extern "C" int lns_group_norm(int dtype, const void* x, const void* scale, const void* bias,
-                              void* out, int B, int S, int C, int G, float eps, int swish,
-                              void* stream) {
+                              void* out, void* workspace, int B, int S, int C, int G, float eps,
+                              int swish, void* stream) {
   if (shape_limit(dtype, B, S, C, G)) return cudaErrorInvalidValue;
   Params p = plan_params(dtype, B, S, C, G);
   p.x = x;
@@ -464,5 +691,6 @@ extern "C" int lns_group_norm(int dtype, const void* x, const void* scale, const
   p.bias = static_cast<const float*>(bias);
   p.out = out;
   p.eps = eps;
+  p.ws = static_cast<float*>(workspace);
   return dispatch(dtype, swish != 0, p, B, static_cast<cudaStream_t>(stream), nullptr);
 }

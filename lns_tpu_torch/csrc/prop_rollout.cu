@@ -71,11 +71,17 @@
 //
 // f32 (rollout_kernel<float>, the check path): one block per sample runs
 // all steps with f32 FMAs on CUDA cores; the carry, the residual stream
-// and two scratch activations live in shared memory as f32 ([H*W+1, C]
-// each; the extra row is all zeros), so it needs 4 (3 (H W + 1) C + (H W +
-// 1) C_lat + 4 C + 1024) bytes within 227 KB: SW's 12x24 at C 128 does
-// not fit and raises. Thread (co, position group) owns one output channel
-// for a run of positions and keeps their accumulators in registers.
+// and two scratch activations are f32 ([H*W+1, C] each; the extra row is
+// all zeros), 4 (3 (H W + 1) C + (H W + 1) C_lat) bytes per sample. They
+// live in shared memory when that and the GN scratch (4 (4 C + 1024)
+// bytes) fit in 227 KB (NS2d's 8x8: 83,520 bytes); else in a global-memory
+// workspace that the wrapper allocates, one slice per sample (SW's 12x24 at
+// C 128, C_lat 64: 517,888 bytes, which stays in L2 at a check's small B),
+// and shared memory keeps the GN scratch alone. The same code runs both:
+// every access is through a generic pointer, and __syncthreads() orders a
+// block's global writes as it does its shared ones. Thread (co, position
+// group) owns one output channel for a run of positions and keeps their
+// accumulators in registers.
 //
 // Rounding (both): products accumulate in f32 and are rounded to the
 // activation dtype, then the bias (rounded the same way) is added and the
@@ -123,6 +129,7 @@ struct Params {
   int B, C_lat, C, n_block, dilation, groups, steps;
   Geo geo;
   int cl;               // blocks per sample (bf16)
+  float* ws;            // f32: the activations [B][3 (P+1) C + (P+1) C_lat], or null
 };
 
 // Source row of output position p through tap offset (dy, dx); P is the zero row.
@@ -278,15 +285,17 @@ __global__ void __launch_bounds__(kThreads) rollout_kernel(Params prm) {
   const Geo g = prm.geo;
   const int P = g.P, C = prm.C, CL = prm.C_lat;
   const int rows = P + 1;
-  float* h = smem;                // residual stream [P+1, C]
+  const int b = blockIdx.x, tid = threadIdx.x;
+  // the activations: this sample's slice of the workspace, or shared memory
+  float* act = prm.ws ? prm.ws + static_cast<size_t>(b) * rows * (3 * C + CL) : smem;
+  float* h = act;                 // residual stream [P+1, C]
   float* t1 = h + rows * C;       // scratch        [P+1, C]
   float* t2 = t1 + rows * C;      // scratch        [P+1, C]
   float* z = t2 + rows * C;       // latent carry   [P+1, C_lat]
-  float* red = z + rows * CL;     // 2 * kThreads
+  float* red = prm.ws ? smem : z + rows * CL;  // 2 * kThreads
   float* chan = red + 2 * kThreads;   // 2 * C
   float* stats = chan + 2 * C;        // 2 * C (2 * groups used)
 
-  const int b = blockIdx.x, tid = threadIdx.x;
   const T* z0 = static_cast<const T*>(prm.z0) + static_cast<size_t>(b) * P * CL;
   for (int i = tid; i < P * CL; i += blockDim.x) z[i] = ld(z0[i]);
   for (int i = tid; i < CL; i += blockDim.x) z[P * CL + i] = 0.f;
@@ -325,24 +334,34 @@ __global__ void __launch_bounds__(kThreads) rollout_kernel(Params prm) {
 
 bool fits(int cout) { return cout > 0 && kThreads % cout == 0; }
 
-size_t f32_smem(int P, int C_lat, int C) {
-  return (static_cast<size_t>(3) * (P + 1) * C + static_cast<size_t>(P + 1) * C_lat +
-          2 * kThreads + 4 * C) * sizeof(float);
+// Bytes of one sample's f32 activations (h, two scratch, the carry).
+size_t f32_act_bytes(int P, int C_lat, int C) {
+  return static_cast<size_t>(P + 1) * (3 * C + C_lat) * sizeof(float);
 }
 
-// The f32 kernel's limits: nullptr when it takes the shape.
+// Whether the f32 activations live in the workspace (not shared memory).
+bool f32_in_workspace(int P, int C_lat, int C) {
+  return f32_act_bytes(P, C_lat, C) + (2 * kThreads + 4 * C) * sizeof(float) >
+         lns::kMaxDynamicSmem;
+}
+
+size_t f32_smem(int P, int C_lat, int C) {
+  return (f32_in_workspace(P, C_lat, C) ? 0 : f32_act_bytes(P, C_lat, C)) +
+         (2 * kThreads + 4 * C) * sizeof(float);
+}
+
+// The f32 kernel's limits: nullptr when it takes the shape. Any H W: the
+// activations of a sample that shared memory cannot hold go to the
+// workspace.
 const char* f32_limit(int P, int C_lat, int C, int groups) {
   static thread_local char msg[200];
-  const size_t need = f32_smem(P, C_lat, C);
   if (C % 4 || C_lat % 4 || !fits(C) || !fits(C_lat)) {
     snprintf(msg, sizeof msg, "C and C_lat multiples of 4 dividing %d (a thread per output "
              "channel), got C %d, C_lat %d", kThreads, C, C_lat);
   } else if (groups <= 0 || C % groups) {
     snprintf(msg, sizeof msg, "groups dividing C, got %d", groups);
-  } else if (need > lns::kMaxDynamicSmem) {
-    snprintf(msg, sizeof msg, "shared memory per block within %zu bytes, needs %zu (f32 holds "
-             "one sample's h, two scratch activations and the carry in one block)",
-             lns::kMaxDynamicSmem, need);
+  } else if (P < 1) {
+    snprintf(msg, sizeof msg, "H W >= 1, got %d", P);
   } else {
     return nullptr;
   }
@@ -948,22 +967,35 @@ extern "C" int lns_prop_rollout_plan(int B, int H, int W, int C_lat, int C, int 
   return dispatch_bf16(prm, nullptr, &out[3]);
 }
 
+// Bytes of workspace the launch of this shape needs: for f32 the
+// activations of B samples when shared memory cannot hold one sample's;
+// else 0.
+extern "C" long long lns_prop_rollout_workspace(int dtype, int B, int H, int W, int C_lat,
+                                                int C) {
+  if (dtype != 0 || !f32_in_workspace(H * W, C_lat, C)) return 0;
+  return static_cast<long long>(B) * f32_act_bytes(H * W, C_lat, C);
+}
+
 extern "C" int lns_prop_rollout(int dtype, const void* z0, const void* in_w, const void* in_b,
                                 const void* gn_s, const void* gn_b, const void* conv_w,
                                 const void* conv_b, const void* ffn_w, const void* out_gn_s,
                                 const void* out_gn_b, const void* out_w, const void* out_b,
-                                void* out, int B, int H, int W, int C_lat, int C, int n_block,
-                                int dilation, int wrap_y, int wrap_x, int groups, int steps,
-                                void* stream) {
+                                void* out, void* workspace, int B, int H, int W, int C_lat, int C,
+                                int n_block, int dilation, int wrap_y, int wrap_x, int groups,
+                                int steps, void* stream) {
   const int P = H * W;
   Params prm{z0, in_w, static_cast<const float*>(in_b), static_cast<const float*>(gn_s),
              static_cast<const float*>(gn_b), conv_w, static_cast<const float*>(conv_b),
              ffn_w, static_cast<const float*>(out_gn_s), static_cast<const float*>(out_gn_b),
              out_w, static_cast<const float*>(out_b), out, B, C_lat, C, n_block, dilation,
-             groups, steps, Geo{H, W, P, wrap_y, wrap_x}, 1};
+             groups, steps, Geo{H, W, P, wrap_y, wrap_x}, 1, nullptr};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     if (f32_limit(P, C_lat, C, groups)) return cudaErrorInvalidValue;
+    if (f32_in_workspace(P, C_lat, C)) {
+      if (workspace == nullptr) return cudaErrorInvalidValue;
+      prm.ws = static_cast<float*>(workspace);
+    }
     const size_t smem = f32_smem(P, C_lat, C);
     cudaError_t e = lns::allow_smem(rollout_kernel<float>, smem);
     if (e != cudaSuccess) return e;

@@ -31,8 +31,8 @@ _SIGNATURES = {
     "lns_axial_apply": [_I] * 3 + [_P] * 5 + [_I] * 6 + [ctypes.c_float, _P],
     "lns_bmm": [_I] + [_P] * 3 + [_I] * 3 + [_P],
     "lns_fab_core": [_I] + [_P] * 8 + [_I] * 7 + [ctypes.c_float, _P],
-    "lns_group_norm": [_I] + [_P] * 4 + [_I] * 4 + [ctypes.c_float, _I, _P],
-    "lns_prop_rollout": [_I] + [_P] * 13 + [_I] * 11 + [_P],
+    "lns_group_norm": [_I] + [_P] * 5 + [_I] * 4 + [ctypes.c_float, _I, _P],
+    "lns_prop_rollout": [_I] + [_P] * 14 + [_I] * 11 + [_P],
     "lns_transpose_hw": [_I] + [_P] * 2 + [_I] * 4 + [_P],
 }
 
@@ -156,10 +156,14 @@ def library() -> ctypes.CDLL:
         lib.lns_fab_core_bf16_limit.restype = ctypes.c_char_p
         lib.lns_group_norm_limit.argtypes = [ctypes.c_int] * 5
         lib.lns_group_norm_limit.restype = ctypes.c_char_p
+        lib.lns_group_norm_workspace.argtypes = [ctypes.c_int] * 5
+        lib.lns_group_norm_workspace.restype = ctypes.c_longlong
         lib.lns_group_norm_plan.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
         lib.lns_group_norm_plan.restype = ctypes.c_int
         lib.lns_prop_rollout_limit.argtypes = [ctypes.c_int] * 7
         lib.lns_prop_rollout_limit.restype = ctypes.c_char_p
+        lib.lns_prop_rollout_workspace.argtypes = [ctypes.c_int] * 6
+        lib.lns_prop_rollout_workspace.restype = ctypes.c_longlong
         lib.lns_prop_rollout_plan.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
         lib.lns_prop_rollout_plan.restype = ctypes.c_int
         _lib = lib

@@ -18,7 +18,11 @@ Design: one thread-block cluster of 1-8 blocks per sample. Each block holds
 a run of the sample's rows in shared memory (one HBM read), the blocks
 exchange per-group f32 partial sums through distributed shared memory and
 add them in rank order (f32 exchanges twice, for the exact two-pass
-variance), then normalise from shared memory (one HBM write).
+variance), then normalise from shared memory (one HBM write). A slab that a
+cluster of 8 cannot hold (SW's 96x192x64 fields) takes the split plan: x
+read twice, per-group partials of each chunk of rows written to a workspace
+that this wrapper allocates, added in chunk order (f32 takes a second,
+centred pass), then a normalising pass; any S.
 """
 
 from __future__ import annotations
@@ -34,6 +38,21 @@ from lns_tpu_torch.ops.activations import swish
 
 # the C entry points' dtype argument
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+_SUM_ROWS = 1024
+
+
+def _group_sums(t):
+    """Sums of t [B, S, G, C/G] over (S, C/G) per (sample, group), f32: in
+    runs of at most _SUM_ROWS rows, then over the runs (a single run over
+    SW's 18,432 rows loses ~1e-6 relative to the order the JAX package's
+    reduction takes)."""
+    b, s, g, cg = t.shape
+    if s <= _SUM_ROWS:
+        return t.sum(dim=(1, 3))
+    t = torch.nn.functional.pad(t, (0, 0, 0, 0, 0, (-s) % _SUM_ROWS))
+    return t.reshape(b, -1, _SUM_ROWS, g, cg).sum(dim=(2, 4)).sum(dim=1)
 
 
 def group_norm_swish_plain(x, scale, bias, num_groups: int, eps: float = 1e-6,
@@ -60,14 +79,15 @@ def group_norm_swish_plain(x, scale, bias, num_groups: int, eps: float = 1e-6,
     cg = c // num_groups
     xf = x.float().reshape(b, -1, num_groups, cg)
     if x.dtype == torch.float32:
-        mean = xf.mean(dim=(1, 3), keepdim=True)
-        var = (xf - mean).square().mean(dim=(1, 3), keepdim=True).clamp_min(0.0)
+        n = xf.shape[1] * cg
+        mean = (_group_sums(xf) / n)[:, None, :, None]
+        var = (_group_sums((xf - mean).square()) / n)[:, None, :, None].clamp_min(0.0)
         y = ((xf - mean) * torch.rsqrt(var + eps)).reshape(b, -1, c)
         y = y * scale.float() + bias.float()
         return (swish(y) if apply_swish else y).reshape(x.shape)
     n = xf.shape[1] * cg  # sums divided by n, as jnp.mean (torch's CUDA mean multiplies by 1/n)
-    mean = xf.sum(dim=(1, 3)) / n                                  # [B, G]
-    var = (xf.square().sum(dim=(1, 3)) / n - mean.square()).clamp_min(0.0)
+    mean = _group_sums(xf) / n                                     # [B, G]
+    var = (_group_sums(xf.square()) / n - mean.square()).clamp_min(0.0)
     inv = torch.rsqrt(var + eps)
     sc = inv.repeat_interleave(cg, dim=1) * scale.float()          # [B, C]
     sh = bias.float() - mean.repeat_interleave(cg, dim=1) * sc
@@ -81,6 +101,13 @@ def _limit(code: int, b: int, s: int, c: int, groups: int):
     when the kernel takes it, else the limit it breaks."""
     msg = _build.library().lns_group_norm_limit(code, b, s, c, groups)
     return msg.decode() if msg else None
+
+
+@functools.lru_cache(maxsize=None)
+def _workspace_bytes(code: int, b: int, s: int, c: int, groups: int) -> int:
+    """Bytes of the split plan's workspace for this shape (0 for the
+    one-pass kernel), as the C side computes them."""
+    return int(_build.library().lns_group_norm_workspace(code, b, s, c, groups))
 
 
 class GroupNormSwishFunction(torch.autograd.Function):
@@ -146,10 +173,12 @@ def _group_norm_swish(x, scale, bias, num_groups: int, eps: float, apply_swish: 
                          f"G{num_groups} needs {limit}")
     xk = x if x.data_ptr() % 16 == 0 else x.clone()  # read as 16-byte vectors
     out = torch.empty_like(x)
+    ws_bytes = _workspace_bytes(code, b, s, c, num_groups)
+    ws = torch.empty(ws_bytes, dtype=torch.uint8, device=x.device) if ws_bytes else None
     rc = _build.library().lns_group_norm(
-        code, xk.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), b, s, c,
-        num_groups, float(eps), int(bool(apply_swish)),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        code, xk.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), b, s, c, num_groups, float(eps),
+        int(bool(apply_swish)), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, f"lns_group_norm(B={b}, S={s}, C={c}, G={num_groups})")
     fused_group_norm_swish.launches += 1
     return out
@@ -157,14 +186,16 @@ def _group_norm_swish(x, scale, bias, num_groups: int, eps: float, apply_swish: 
 
 def group_norm_plan(dtype: torch.dtype, b: int, s: int, c: int, groups: int) -> dict:
     """The kernel's launch for a shape (needs the card): blocks per sample
-    (the cluster), blocks, shared memory bytes per block, the clusters the
-    card holds at once (``cudaOccupancyMaxActiveClusters``) and rows of the
-    slab per block."""
-    res = (ctypes.c_int * 5)()
+    (the cluster; 1 in the split plan), blocks, shared memory bytes per
+    block, the clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters``), rows of the slab per block, and
+    chunks per sample (0 for the one-pass kernel; the split plan's blocks
+    take one chunk each)."""
+    res = (ctypes.c_int * 6)()
     _build.check(_build.library().lns_group_norm_plan(_DTYPE_CODE[dtype], b, s, c, groups, res),
                  "lns_group_norm_plan")
-    return dict(zip(("cluster", "blocks", "smem_bytes", "max_active_clusters", "rows_per_block"),
-                    res))
+    return dict(zip(("cluster", "blocks", "smem_bytes", "max_active_clusters", "rows_per_block",
+                     "chunks"), res))
 
 
 fused_group_norm_swish.launches = 0

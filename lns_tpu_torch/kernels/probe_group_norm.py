@@ -140,7 +140,7 @@ def main() -> None:
         b, h, w, c, g, eps, sw, _ = SITES[i]
         x, scale, bias, out = data[i]
         rc = lib.lns_group_norm(1, x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                                out.data_ptr(), b, h * w, c, g, eps,
+                                out.data_ptr(), None, b, h * w, c, g, eps,
                                 int(sw if swish is None else swish),
                                 torch.cuda.current_stream().cuda_stream)
         _build.check(rc, "probe lns_group_norm")

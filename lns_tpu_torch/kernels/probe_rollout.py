@@ -166,7 +166,8 @@ def main() -> None:
         z = z0[:b].contiguous()
         out = torch.empty((steps, b, h, w, c_lat), device=dev, dtype=torch.bfloat16)
         rc = lib.lns_prop_rollout(1, z.data_ptr(), *(t.data_ptr() for t in packed),
-                                  out.data_ptr(), b, h, w, c_lat, 128, 3, 2, *_WRAP[pm], 32, steps,
+                                  out.data_ptr(), None, b, h, w, c_lat, 128, 3, 2, *_WRAP[pm], 32,
+                                  steps,
                                   torch.cuda.current_stream().cuda_stream)
         _build.check(rc, "probe lns_prop_rollout")
         return out

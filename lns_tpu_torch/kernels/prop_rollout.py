@@ -17,9 +17,10 @@ GEMMs on tensor cores (``mma.sync``), bf16 activations exchanged through
 distributed shared memory, weights streamed per slice through a
 ``cp.async`` ring. It takes SW's 12x24 latent at C 128, C_lat 64 (222,112
 bytes of shared memory per block). f32 keeps one block per sample on CUDA
-cores (the check path), within 227 KB of shared memory for one sample's
-f32 activations, so SW's latent raises there. The wrapper raises for a
-shape outside a kernel's limits with the text of the C side's
+cores (the check path); one sample's f32 activations live in shared memory
+where they fit (NS2d) and else in a global-memory workspace that this
+wrapper allocates (SW's 12x24: 517,888 bytes per sample). The wrapper
+raises for a shape outside a kernel's limits with the text of the C side's
 ``lns_prop_rollout_limit``, and launches nothing.
 """
 
@@ -177,11 +178,13 @@ def fused_rollout(z0, packed: PackedSimpleCNN, steps: int, n_block: int,
     z, *weights = (t if t.data_ptr() % 16 == 0 else t.clone()
                    for t in (z0.to(dt).contiguous(), *packed))
     out = torch.empty((steps, b, h, w, c_lat), device=z0.device, dtype=dt)
+    ws_bytes = lib.lns_prop_rollout_workspace(_build.DTYPE_CODE[dt], b, h, w, c_lat, c)
+    ws = torch.empty(ws_bytes, dtype=torch.uint8, device=z0.device) if ws_bytes else None
     wrap_y, wrap_x = _WRAP[padding_mode]
     rc = lib.lns_prop_rollout(
         _build.DTYPE_CODE[dt], z.data_ptr(), *(t.data_ptr() for t in weights), out.data_ptr(),
-        b, h, w, c_lat, c, n_block, dilation, wrap_y, wrap_x, groups, steps,
-        torch.cuda.current_stream(z0.device).cuda_stream)
+        None if ws is None else ws.data_ptr(), b, h, w, c_lat, c, n_block, dilation, wrap_y,
+        wrap_x, groups, steps, torch.cuda.current_stream(z0.device).cuda_stream)
     _build.check(rc, f"lns_prop_rollout(H*W={h * w}, C={c}, C_lat={c_lat}, groups={groups})")
     fused_rollout.launches += 1
     return out

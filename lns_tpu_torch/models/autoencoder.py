@@ -1,4 +1,5 @@
-"""Stage-1 autoencoder, periodic square variant (NS2d).
+"""Stage-1 autoencoder: the periodic square variant (NS2d) and the
+half-periodic variant (SW).
 
 ``SimpleAutoencoder`` maps NHWC fields to the latent grid and back:
 encode = quant_conv(encoder(x)), decode = decoder(post_quant_conv(z)),
@@ -23,7 +24,9 @@ from lns_tpu_torch.ops.attention import SABlock
 from lns_tpu_torch.ops.conv import Conv1x1, ConvND
 from lns_tpu_torch.ops.factorized_attention import FABlock2D
 from lns_tpu_torch.ops.norms import GroupNorm, GroupNormWrapper
-from lns_tpu_torch.ops.resblocks import DownSampleBlock, ResidualBlock, UpSampleBlock
+from lns_tpu_torch.ops.resblocks import (DownSampleBlock, DownSampleBlock2dHalfPeriodic,
+                                         HalfPeriodicResBlock2d, ResidualBlock, UpSampleBlock,
+                                         UpSampleBlock2dHalfPeriodic)
 
 
 class Resize(nn.Module):
@@ -52,6 +55,11 @@ def build_layer(spec: LayerSpec, in_ch: int, dtype=None) -> nn.Module:
                       padding=kw.get("padding", 0),
                       padding_mode=kw.get("padding_mode", "zeros"),
                       upsample_2x=kw.get("upsample_2x", False), dtype=dtype)
+    if kind == "hp_conv":  # the reference's HalfPeriodicConv2d
+        return ConvND(in_ch, kw["features"], kw.get("kernel_size", 3), stride=kw.get("stride", 1),
+                      padding=kw.get("padding", 0),
+                      padding_mode=f"half_periodic_{kw.get('periodic_direction', 'x')}",
+                      upsample_2x=kw.get("upsample_2x", False), dtype=dtype)
     if kind == "gn":
         if kw.get("wrapper"):
             return GroupNormWrapper(kw["channels"], kw["groups"], kw["eps"])
@@ -63,6 +71,15 @@ def build_layer(spec: LayerSpec, in_ch: int, dtype=None) -> nn.Module:
     if kind == "resblock":
         return ResidualBlock(kw["in_channels"], kw["out_channels"],
                              padding_mode=kw.get("padding_mode", "zeros"), dtype=dtype)
+    if kind == "hp_resblock":
+        return HalfPeriodicResBlock2d(kw["in_channels"], kw["out_channels"],
+                                      kw.get("periodic_direction", "x"), dtype=dtype)
+    if kind == "hp_down":
+        return DownSampleBlock2dHalfPeriodic(kw["channels"], kw.get("periodic_direction", "x"),
+                                             dtype=dtype)
+    if kind == "hp_up":
+        return UpSampleBlock2dHalfPeriodic(kw["channels"], kw.get("periodic_direction", "x"),
+                                           dtype=dtype)
     if kind == "down":
         return DownSampleBlock(kw["channels"], kw.get("padding_mode", "zeros"), dtype=dtype)
     if kind == "up":
@@ -117,8 +134,9 @@ class SimpleAutoencoder(nn.Module):
 
     def __init__(self, cfg, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if cfg.ae_variant != "periodic":
-            raise NotImplementedError(f"AE variant {cfg.ae_variant!r} is not ported yet")
+        if cfg.ae_variant not in ("periodic", "half_periodic"):
+            raise NotImplementedError(f"AE variant {cfg.ae_variant!r} is not ported yet; it "
+                                      "comes with the two-phase families")
         self.cfg = cfg
         self.encoder = SpecSequential(encoder_spec(cfg), cfg.in_channels, dtype)
         self.decoder = SpecSequential(decoder_spec(cfg), cfg.latent_dim, dtype)

@@ -1,5 +1,9 @@
 """Latent-space propagator: ``SimpleCNN`` with ``DilatedResidualBlock``s
-(reference: train_stage2_ns2d.py:25-87), circular padding on NS2d.
+(reference: train_stage2_ns2d.py:25-87), circular padding on NS2d and
+half-periodic-x on SW (train_stage2_SW.py). A half-periodic conv rounds
+as ``ops.conv.ConvND`` states (the JAX module step's rounding points); the
+fused rollout kernel sums the nine taps in one accumulator, as the JAX
+package's Pallas rollout does.
 
 Checkpoint names follow the reference trainer: ``in_proj``,
 ``net.{i}.conv.{0,1,3,5}``, ``net.{i}.ffn.{0,1,3}``, ``out_proj.{0.gn,1}``.
@@ -69,9 +73,15 @@ class SimpleCNN(nn.Module):
         return self.out_proj(h).permute(0, 2, 3, 1)
 
 
+# the SimpleCNN's padding per workload (lns_tpu/models/propagator.py:256)
+PADDING = {"ns2d": "circular", "sw": "half_periodic_x"}
+
+
 def build_propagator(cfg, dtype: Optional[torch.dtype] = None) -> SimpleCNN:
-    """The stage-2 propagator of a config (NS2d: circular SimpleCNN)."""
-    if cfg.is_conditional or cfg.workload != "ns2d":
-        raise NotImplementedError(f"propagator for {cfg.workload!r} is not ported yet")
+    """The stage-2 propagator of a config: a SimpleCNN, circular on NS2d,
+    half-periodic in x on SW."""
+    if cfg.is_conditional or cfg.workload not in PADDING:
+        raise NotImplementedError(f"propagator for {cfg.workload!r} is not ported yet; it "
+                                  "comes with the two-phase families")
     return SimpleCNN(cfg.latent_dim, cfg.prop_n_block, cfg.prop_n_embd,
-                     dilation=cfg.dilation, padding_mode="circular", dtype=dtype)
+                     dilation=cfg.dilation, padding_mode=PADDING[cfg.workload], dtype=dtype)

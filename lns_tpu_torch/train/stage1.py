@@ -8,7 +8,8 @@ validation and checkpoints every ``ckpt_every`` epochs, validation as the
 per-frame reconstruction rel-L2 on denormalised held-out trajectories. On
 the card every train step differentiates through the hand-written kernels
 2 and 3 (kernel 4 where the encoder has a d-space FAB) by their autograd
-Functions, and validation runs them under ``torch.no_grad``. NS2d only; the
+Functions, and validation runs them under ``torch.no_grad``. The NS2d and
+SW families (the two-phase families raise, naming their slice); the
 trainer runs on one device (data parallelism and the async checkpointer
 are not ported).
 """
@@ -21,7 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from lns_tpu_torch.data import NS2DStage1, epoch_batches, to_device
+from lns_tpu_torch.data import NS2DStage1, SWStage1, epoch_batches, to_device
 from lns_tpu_torch.models import SimpleAutoencoder
 from lns_tpu_torch.ops.initializers import init_weights_
 from lns_tpu_torch.ops.losses import relative_lp_loss
@@ -30,10 +31,11 @@ from lns_tpu_torch.train.logging_utils import (MetricLogger, log_sequence, plot_
                                                prepare_training)
 from lns_tpu_torch.train.optim import stage1_optimizer
 
-# the workloads of the JAX package's stage-1 trainer that the port does not
-# train yet, with the slice that brings each
-_NOT_PORTED = {"sw": "the SW family", "twophase": "the two-phase families",
-               "twophase_conditional": "the two-phase families"}
+STAGE1_DATASETS = {"ns2d": NS2DStage1, "sw": SWStage1}
+
+# per-workload field channel names, in the dataset's channel order
+# (reference: train_stage1_SW.py:119-131 logs vx / vy / prs losses)
+CHANNEL_NAMES = {"ns2d": ("vorticity",), "sw": ("vx", "vy", "prs")}
 
 
 def reconstruction_loss(model, x: torch.Tensor) -> torch.Tensor:
@@ -56,9 +58,9 @@ class Stage1Trainer:
 
     def __init__(self, cfg, seed: int = 1234, use_wandb: bool = True,
                  config_path: Optional[str] = None, device=None):
-        if cfg.workload in _NOT_PORTED:
+        if cfg.workload not in STAGE1_DATASETS:
             raise NotImplementedError(f"stage-1 training of {cfg.workload!r} is not ported yet; "
-                                      f"it comes with {_NOT_PORTED[cfg.workload]}")
+                                      "it comes with the two-phase families")
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Stage1Trainer: no CUDA device; pass device=\"cpu\" to train on "
@@ -70,8 +72,9 @@ class Stage1Trainer:
         self.logger = MetricLogger(cfg.log_dir, project=cfg.project_name, config=cfg.to_dict(),
                                    use_wandb=use_wandb)
 
-        self.train_ds = NS2DStage1(cfg, train_mode=True)
-        self.val_ds = NS2DStage1(cfg, train_mode=False)
+        ds_cls = STAGE1_DATASETS[cfg.workload]
+        self.train_ds = ds_cls(cfg, train_mode=True)
+        self.val_ds = ds_cls(cfg, train_mode=False)
         with self.device:  # the parameters are allocated there
             self.model = SimpleAutoencoder(
                 cfg, dtype=torch.bfloat16 if cfg.mixed_precision else None)
@@ -168,15 +171,25 @@ class Stage1Trainer:
         err = relative_lp_loss(recon_d, traj_d, reduce_dim=(2, 3), p=2).cpu().numpy()
         val = float(err.mean())
         print(f"Validation Reconstruction Loss: {val}")
-        self.logger.log({"val_recon_loss": val})
+        metrics = {"val_recon_loss": val}
+        names = CHANNEL_NAMES[cfg.workload]
+        per_ch = err.mean(axis=(0, 1))  # [c]
+        if len(names) > 1:  # per-channel losses (train_stage1_SW.py:119-131)
+            for c, name in enumerate(names):
+                print(f"Validation Reconstruction Loss on {name}: {per_ch[c]}")
+                metrics[f"val_recon_loss_{name}"] = float(per_ch[c])
+        self.logger.log(metrics)
 
         sdir = os.path.join(cfg.log_dir, "samples")
         stride, nshow = max(1, t // 6), min(4, nc)
-        spath = os.path.join(sdir, f"sample_{epoch}.png")
-        log_sequence(recon_d[:nshow, ::stride, :, :, 0].cpu().numpy(), spath)
-        log_sequence(traj_d[:nshow, ::stride, :, :, 0].cpu().numpy(),
-                     os.path.join(sdir, f"gt_{epoch}.png"))
-        self.logger.log_image("sample", spath)
+        # a sample / gt grid per channel where there are several
+        for c, name in enumerate(names):
+            sfx = f"_{name}" if len(names) > 1 else ""
+            spath = os.path.join(sdir, f"sample{sfx}_{epoch}.png")
+            log_sequence(recon_d[:nshow, ::stride, :, :, c].cpu().numpy(), spath)
+            log_sequence(traj_d[:nshow, ::stride, :, :, c].cpu().numpy(),
+                         os.path.join(sdir, f"gt{sfx}_{epoch}.png"))
+            self.logger.log_image(f"sample{sfx}", spath)
         cpath = os.path.join(sdir, f"err_curve_{epoch}.png")
         plot_error_curve(err.mean(axis=(0, 2)), err.std(axis=0).mean(-1), cpath)
         self.logger.log_image("val_error_curve", cpath)

@@ -8,8 +8,9 @@ rollout loss over ``out_tw`` steps; validation by the full-rollout
 ``LatentDynamics.predict`` with frame-wise and sequence-wise relative L2 on
 denormalised fields. On the card the encode pre-pass and validation run the
 hand-written kernels 1-3 under ``torch.no_grad``, and every train step's
-GroupNorms launch kernel 3 through its autograd Function. NS2d only; the
-trainer runs on one device (data parallelism is not ported).
+GroupNorms launch kernel 3 through its autograd Function. The NS2d and SW
+families (the two-phase families raise, naming their slice); the trainer
+runs on one device (data parallelism is not ported).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from lns_tpu_torch.data import NS2DStage2, epoch_batches, to_device
+from lns_tpu_torch.data import NS2DStage2, SWStage2, epoch_batches, to_device
 from lns_tpu_torch.models import LatentDynamics
 from lns_tpu_torch.ops.initializers import init_weights_
 from lns_tpu_torch.ops.losses import relative_lp_loss
@@ -29,6 +30,9 @@ from lns_tpu_torch.train import checkpoint
 from lns_tpu_torch.train.logging_utils import (MetricLogger, log_sequence, plot_error_curve,
                                                prepare_training)
 from lns_tpu_torch.train.optim import stage2_optimizer
+from lns_tpu_torch.train.stage1 import CHANNEL_NAMES
+
+STAGE2_DATASETS = {"ns2d": NS2DStage2, "sw": SWStage2}
 
 
 class Stage2Trainer:
@@ -47,8 +51,9 @@ class Stage2Trainer:
 
     def __init__(self, cfg, seed: int = 1234, use_wandb: bool = True,
                  config_path: Optional[str] = None, device=None):
-        if cfg.workload != "ns2d" or cfg.is_conditional:
-            raise NotImplementedError(f"stage-2 training of {cfg.workload!r} is not ported yet")
+        if cfg.workload not in STAGE2_DATASETS or cfg.is_conditional:
+            raise NotImplementedError(f"stage-2 training of {cfg.workload!r} is not ported yet; "
+                                      "it comes with the two-phase families")
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Stage2Trainer: no CUDA device; pass device=\"cpu\" to train on "
@@ -63,8 +68,9 @@ class Stage2Trainer:
         dt = torch.bfloat16 if cfg.mixed_precision else None
         self.model = init_weights_(LatentDynamics(cfg, dtype=dt, ae_dtype=dt, device=self.device),
                                    torch.Generator().manual_seed(seed))
-        self.train_ds = NS2DStage2(cfg, train_mode=True)
-        self.val_ds = NS2DStage2(cfg, train_mode=False)
+        ds_cls = STAGE2_DATASETS[cfg.workload]
+        self.train_ds = ds_cls(cfg, train_mode=True)
+        self.val_ds = ds_cls(cfg, train_mode=False)
         if cfg.pretrained_checkpoint_path:
             print(f"Loading pretrained autoencoder from {cfg.pretrained_checkpoint_path}")
             checkpoint.load_autoencoder_checkpoint(cfg.pretrained_checkpoint_path,
@@ -172,10 +178,23 @@ class Stage2Trainer:
         seq_mean = torch.cat(seq_errs).cpu().numpy().mean(axis=0)  # [c]
         print(f"Averaged sequence-wise relative loss: {seq_mean}")
         val = float(seq_mean.mean())
-        self.logger.log({"val_seq_rel_l2": val})
+        metrics = {"val_seq_rel_l2": val}
+        names = CHANNEL_NAMES[cfg.workload]
+        if len(names) > 1:  # per-channel losses (train_stage2_SW.py:264-287)
+            for c, name in enumerate(names):
+                print(f"Averaged sequence-wise relative loss on {name}: {seq_mean[c]}")
+                metrics[f"val_pred_loss_{name}"] = float(seq_mean[c])
+        self.logger.log(metrics)
 
         sdir = os.path.join(cfg.log_dir, "samples")
         stride, nshow = max(1, steps // 6), min(4, sample_pred.shape[0])
+        if len(names) > 1:  # and a sample / gt grid per channel
+            for c, name in enumerate(names):
+                spath_c = os.path.join(sdir, f"sample_{name}_{epoch}.png")
+                log_sequence(sample_pred[:nshow, ::stride, :, :, c], spath_c)
+                log_sequence(sample_gt[:nshow, ::stride, :, :, c],
+                             os.path.join(sdir, f"gt_{name}_{epoch}.png"))
+                self.logger.log_image(f"sample_{name}", spath_c)
         spath = os.path.join(sdir, f"sample_{epoch}.png")
         log_sequence(sample_pred[:nshow, ::stride, :, :, 0], spath)
         log_sequence(sample_gt[:nshow, ::stride, :, :, 0], os.path.join(sdir, f"gt_{epoch}.png"))

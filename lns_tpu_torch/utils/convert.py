@@ -5,9 +5,9 @@ parameter tree (nested dicts of numpy arrays; ``np.asarray`` of the JAX
 arrays) into the state dict of ``lns_tpu_torch.models.LatentDynamics``,
 which carries the reference's key names and OIHW / [out, in] layouts. It
 follows ``lns_tpu.utils.torch_export.export_latent_dynamics`` for the
-families this package runs (the periodic square NS2d autoencoder and the
-plain SimpleCNN propagator), driven by the port's own layer specs, and
-imports no JAX.
+families this package runs (the periodic square NS2d autoencoder, the
+half-periodic SW autoencoder and the plain SimpleCNN propagator), driven by
+the port's own layer specs, and imports no JAX.
 """
 
 from __future__ import annotations
@@ -67,8 +67,19 @@ def _sequential(out, specs, params, prefix):
             _conv(out, f"{pf}.block.5", p["conv2"])
             if kw["in_channels"] != kw["out_channels"]:
                 _conv(out, f"{pf}.channel_up", p["channel_up"])
+        elif spec.kind == "hp_conv":
+            _conv(out, pf, p["conv"])
+        elif spec.kind == "hp_resblock":
+            _norm(out, f"{pf}.norm_act1.norm_act.0.gn", p["gn1"])
+            _conv(out, f"{pf}.conv1", p["conv1"]["conv"])
+            _norm(out, f"{pf}.norm_act2.norm_act.0.gn", p["gn2"])
+            _conv(out, f"{pf}.conv2", p["conv2"]["conv"])
+            if kw["in_channels"] != kw["out_channels"]:
+                _conv(out, f"{pf}.channel_up", p["channel_up"])
         elif spec.kind in ("down", "up"):
             _conv(out, f"{pf}.conv_layer", p["conv"])
+        elif spec.kind in ("hp_down", "hp_up"):
+            _conv(out, f"{pf}.conv_layer", p["conv"]["conv"])
         elif spec.kind == "sablock":
             _norm(out, f"{pf}.ln", p["ln"])
             _linear(out, f"{pf}.to_q", p["to_q"], bias=False)
@@ -113,8 +124,9 @@ def _propagator(out, cfg, params, prefix):
 def state_dict_from_jax(cfg, params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """``{'vq_ae', 'propagator'}`` (optionally under ``'params'``) -> the
     state dict of ``LatentDynamics(cfg)``, f32 tensors on the CPU."""
-    if cfg.workload != "ns2d" or cfg.is_conditional:
-        raise NotImplementedError(f"workload {cfg.workload!r} is not ported yet")
+    if cfg.workload not in ("ns2d", "sw") or cfg.is_conditional:
+        raise NotImplementedError(f"workload {cfg.workload!r} is not ported yet; it comes "
+                                  "with the two-phase families")
     params = params.get("params", params)
     ae = params["vq_ae"]
     out: Dict[str, np.ndarray] = {}

@@ -119,6 +119,8 @@ def test_import_leaves_jax_out():
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'yaml', 'lns_tpu')]\n"
         "assert not bad, bad\n"
         "assert 'lns_tpu_torch.kernels.prop_rollout' in sys.modules\n"
+        "assert 'lns_tpu_torch.data.shallow_water' in sys.modules\n"
+        "assert 'lns_tpu_torch.data.zarr_reader' in sys.modules\n"
         "assert 'triton' not in sys.modules\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

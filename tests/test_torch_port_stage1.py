@@ -420,10 +420,11 @@ def test_device_data_matches_host_batches(tmp_path, monkeypatch):
 def test_trainer_needs_cuda_unless_cpu(tmp_path):
     """Without a CUDA card the trainer refuses to build on its default
     device and leaves no log directory behind; a workload the port does
-    not train yet (SW) raises, naming it."""
+    not train yet (two-phase: ``resolutions`` without ``periodic_direction``)
+    raises, naming it."""
     d = _data_cfg(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="'sw' is not ported yet"):
-        stage1.Stage1Trainer(Config(d, periodic_direction="x"), use_wandb=False, device="cpu")
+    with pytest.raises(NotImplementedError, match="'twophase' is not ported yet"):
+        stage1.Stage1Trainer(Config(d, resolutions=[32, 32]), use_wandb=False, device="cpu")
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA card")
     with pytest.raises(RuntimeError, match="no CUDA device"):
