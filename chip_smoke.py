@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's NS2d and SW inference rollouts and the stage-2
-and stage-1 training of both families once on one CUDA card.
+"""Drive the PyTorch port's NS2d, SW and two-phase inference rollouts and
+the stage-2 and stage-1 training of each family once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -18,10 +18,11 @@ CUDA PyTorch and nvcc. It imports nothing of JAX. In order it:
      2, 3 and 6 also at shapes that take their other code paths: kernel 1 at
      SW's 12x24 latent, every padding mode and batches that leave SMs idle,
      one step against the plain version from its own carry at every step of
-     the NS2d and the SW rollout, twice bitwise-identical, and in f32 at
-     SW's latent (its activations in a global workspace); kernel 3 in bf16
-     and f32 at every GroupNorm site of the three paths (SW's 96x192 fields
-     take its split plan), and also in f16 at an odd field, 3 channels per
+     the NS2d, the SW and the two-phase (zeros, 7x15) rollout, twice
+     bitwise-identical, and in f32 at SW's latent (its activations in a
+     global workspace) and at the two-phase latent; kernel 3 in bf16 and
+     f32 at every GroupNorm site of the four paths (SW's 96x192 fields take
+     its split plan), and also in f16 at an odd field, 3 channels per
      group, batch 1, the largest f32 slab a cluster holds and two slabs past
      it, printing each launch plan, twice bitwise-identical, and at the
      GroupNorm sites of a stage-2 train step's forward of each family, found
@@ -40,12 +41,14 @@ CUDA PyTorch and nvcc. It imports nothing of JAX. In order it:
      paths; compares GELU, swish and the SABlock's softmax in bf16 on the
      card with the CPU, where the tests pin them to the JAX package;
   4. runs ``LatentDynamics.predict`` at full width (bf16 activations, f32
-     weights from a seeded generator) on three paths: ``ns2d_config()``
+     weights from a seeded generator) on four paths: ``ns2d_config()``
      (path 1) and the same model with attention in the encoder,
      ``use_attn_enc=True`` (path 2, whose 16x16 c128 encoder FAB takes the
      d-space core), each at batch 32, 29 steps and 116-frame decode chunks,
-     and ``sw_config()`` (path 3: batch 8, 42 steps, the 336 frames decoded
-     at once, as the JAX package's SW benchmark). For each path it sets
+     ``sw_config()`` (path 3: batch 8, 42 steps, the 336 frames decoded at
+     once, as the JAX package's SW benchmark) and ``twophase_config()``
+     (path 4: batch 8, 78 steps, the 624 frames decoded at once, as its
+     two-phase benchmark). For each path it sets
      every launch count to 0, runs one predict, checks the output and that
      every kernel launched as often as the model's layer specs imply,
      compares the kernel path with the all-plain path in f32 on a small
@@ -85,15 +88,18 @@ CUDA PyTorch and nvcc. It imports nothing of JAX. In order it:
      steps/s, frames/s, validate ms, the backward's share in the plain
      recomputes and a profile of five train steps;
   7. trains the SW family at full width on a synthetic 96x192 corpus (12
-     training and 4 test cases x 24 frames): stage 1 (``Stage1Trainer``,
-     bf16, batch 32, two epochs) with one train step's launches and
-     gradients against the plain path (as phase 6), then stage 2
-     (``Stage2Trainer`` on that checkpoint, batch 32, out_tw 5, three
-     epochs) with its encode pre-pass and one train step's gradients
-     against the plain path (f32 within 2 x the plain path's own change
-     under a one-ulp move of its input, bf16 at accuracy parity); launch
-     counts, finite and falling losses, the per-channel validation losses,
-     train ms per step and a profile of three steps each;
+     training and 4 test cases x 24 frames) and the two-phase family on a
+     61x121 linear-sloshing corpus (``make_sloshing_dir``, 20 training and
+     3 test cases x 16 frames): stage 1 (``Stage1Trainer``, bf16, batch 32,
+     two epochs; the two-phase loss on denormalised fields) with one train
+     step's launches and gradients against the plain path (as phase 6),
+     then stage 2 (``Stage2Trainer`` on that checkpoint, batch 32, out_tw
+     5, three epochs) with its encode pre-pass and one train step's
+     gradients against the plain path (f32 within 2 x the plain path's own
+     change under a one-ulp move of its input, bf16 at accuracy parity);
+     launch counts, finite and falling losses, the per-channel validation
+     losses, the final checkpoint resumed bitwise, train ms per step and a
+     profile of three steps each;
   8. prints one JSON line of per-kernel results (launches per path, and ms
      / plain_ms / bound_ms per predict, summed over one predict of each
      inference path), then the closing JSON line.
@@ -117,6 +123,9 @@ BATCH, STEPS, CHUNK = 32, 29, 116
 # the SW predict (path 3): the reference's SW rollout, batch 8 x 42 steps,
 # decoded all at once (benchmarks/run_benchmarks.py:88, 113-116)
 SW_BATCH, SW_STEPS = 8, 42
+# the two-phase predict (path 4): batch 8 x 78 steps, the 624 frames decoded
+# at once (benchmarks/run_benchmarks.py:89, 113-116)
+TP_BATCH, TP_STEPS = 8, 78
 REPS = 3  # timed predicts per path and round (two rounds per path)
 _FAILS: list = []
 
@@ -241,9 +250,10 @@ def _rollout_work(b, h, w, c_lat, c, steps, n_block, packed):
     return flops, (1 + steps) * b * p * c_lat * dt + _nbytes(*packed)
 
 
-def check_rollout(dev, gen, calls):
+def check_rollout(dev, gen, calls, tp_prop):
     """calls: rollout launches in one predict of each NS2d path; SW's
-    predict (path 3) adds one call at its shape."""
+    predict (path 3) and the two-phase predict (path 4, whose propagator is
+    `tp_prop`) add one call each at their shapes."""
     from lns_tpu_torch.kernels.prop_rollout import (fused_rollout, fused_rollout_plain,
                                                     pack_simple_cnn, rollout_plan)
     from lns_tpu_torch.models.propagator import SimpleCNN
@@ -324,16 +334,34 @@ def check_rollout(dev, gen, calls):
     # summation order only (the f32 cases above)
     z0 = torch.randn(2, 12, 24, 64, generator=gen).to(dev)
     packed32 = pack_simple_cnn(sw, torch.float32)
-    err, f32_ms, _ = compare(
+    err, _, _ = compare(
         "prop_rollout f32 4 steps half_periodic_x B2 12x24 C_lat 64 C128, 4 blocks, dilation 3 "
         "(SW; the activations in the workspace)",
         lambda: fused_rollout(z0, packed32, 4, 4, 3, "half_periodic_x"),
         lambda: fused_rollout_plain(z0, packed32, 4, 4, 3, "half_periodic_x"), 2e-5, reps=3)
     errs.append(err)
-    return {"max_abs_err": max(errs), "ms": ms * calls + sw_ms,
-            "plain_ms": plain_ms * calls + sw_plain_ms,
-            "bound_ms": bound.ms * calls + sw_bound.ms, "bound_by": bound.result()["bound_by"],
-            "library_ms": None}
+
+    # the two-phase call (path 4): bf16, B8 x 78 steps at 7x15, C_lat 64, C
+    # 128, 4 residual blocks, dilation 2, zeros; the JAX package runs zeros
+    # mode as its XLA scan, the port launches kernel 1 (the times printed
+    # here, kernel against the plain step loop, are why)
+    z0 = torch.randn(TP_BATCH, 7, 15, 64, generator=gen).to(dev)
+    print(f"      prop_rollout bf16 B{TP_BATCH} 7x15 C_lat 64 C128 (two-phase): launch "
+          f"{rollout_plan(TP_BATCH, 7, 15, 64, 128)}", flush=True)
+    tp_err, tp_ms, tp_plain_ms, tp_bound = _path_rollout(
+        "two-phase", z0, pack_simple_cnn(tp_prop, bf16), TP_STEPS, 4, 2, "zeros")
+    errs.append(tp_err)
+    z0 = torch.randn(2, 7, 15, 64, generator=gen).to(dev)
+    packed32 = pack_simple_cnn(tp_prop, torch.float32)
+    err, _, _ = compare(
+        "prop_rollout f32 4 steps zeros B2 7x15 C_lat 64 C128, 4 blocks, dilation 2 (two-phase)",
+        lambda: fused_rollout(z0, packed32, 4, 4, 2, "zeros"),
+        lambda: fused_rollout_plain(z0, packed32, 4, 4, 2, "zeros"), 2e-5, reps=3)
+    errs.append(err)
+    return {"max_abs_err": max(errs), "ms": ms * calls + sw_ms + tp_ms,
+            "plain_ms": plain_ms * calls + sw_plain_ms + tp_plain_ms,
+            "bound_ms": bound.ms * calls + sw_bound.ms + tp_bound.ms,
+            "bound_by": bound.result()["bound_by"], "library_ms": None}
 
 
 def _path_rollout(tag, z0, packed, steps, n_block, dil, pm):
@@ -370,8 +398,11 @@ def _path_rollout(tag, z0, packed, steps, n_block, dil, pm):
 
 def check_fab_core(dev, gen, sites, n, d, extras=True):
     """sites: {(batch, h, w, c): c-space FAB core calls per predict}; with
-    `extras`, also the shapes that take the kernel's other code paths."""
-    from lns_tpu_torch.kernels.fab_core import fab_core_plain, fab_fused_core
+    `extras`, also the shapes that take the kernel's other code paths. Both
+    versions take one mean_c, computed once (its two means the rounded bb's,
+    as the function jitted alone; with `extras`, at one shape also a first
+    mean that cancels the variance, which takes the guard)."""
+    from lns_tpu_torch.kernels.fab_core import fab_core_plain, fab_fused_core, rounded_mean_c
 
     errs, ms_sum, plain_sum, bound = [], 0.0, 0.0, Bound()
     # the paths' fields, then both orientations of a non-square one (both
@@ -409,11 +440,20 @@ def check_fab_core(dev, gen, sites, n, d, extras=True):
             a = [args[0].to(dt), args[1].to(dt), args[2].to(dt), args[3], args[4]]
             if off:
                 a[0], a[4] = _off_16(a[0]), _off_16(a[4])
+            mr = rounded_mean_c(*a[:3])
+            mc = torch.stack([mr, mr], -1)
             err, ms, plain_ms = compare(
                 f"fab_core {str(dt)[6:]} b{b} {h}x{w} c{c} n{n}"
                 + (" (u, w_o1 off 16-byte boundaries)" if off else ""),
-                lambda: fab_fused_core(*a), lambda: fab_core_plain(*a), tol, max_differ=differ)
+                lambda: fab_fused_core(*a, mean_c=mc), lambda: fab_core_plain(*a, mean_c=mc),
+                tol, max_differ=differ)
             errs.append(err)
+            if extras and (b, h, w, c) == (4, 12, 24, 64):
+                mg = torch.stack([mr * 30, mr], -1)
+                errs.append(compare(
+                    f"fab_core {str(dt)[6:]} b{b} {h}x{w} c{c} n{n}, a first mean that cancels "
+                    "the variance (the guard)", lambda: fab_fused_core(*a, mean_c=mg),
+                    lambda: fab_core_plain(*a, mean_c=mg), tol, max_differ=differ)[0])
             if dt == torch.bfloat16 and (b, h, w, c) in sites and not off:
                 ms_sum += ms * sites[(b, h, w, c)]
                 plain_sum += plain_ms * sites[(b, h, w, c)]
@@ -422,7 +462,7 @@ def check_fab_core(dev, gen, sites, n, d, extras=True):
                 o = c
                 flops = 2 * b * n * (h * w * w * c + h * h * w * c + h * w * c * c + h * w * c * o
                                      + c * c * d + c * d * o)
-                bound.add(flops, _nbytes(*a[:3], a[0]) + c * n * d * 2 + _nbytes(a[4]),
+                bound.add(flops, _nbytes(*a[:3], a[0], mc) + c * n * d * 2 + _nbytes(a[4]),
                           sites[(b, h, w, c)])
     return {"max_abs_err": max(errs), "ms": ms_sum, "plain_ms": plain_sum, **bound.result(),
             "library_ms": None}
@@ -1410,11 +1450,22 @@ def _parity(where, kern, plain, ref, more=""):
            f"max|plain|, {(kern != plain).float().mean().item():.2%} of elements differ{more}")
 
 
-def _cpu_spread(plain_fn, args, plain):
+def _split_call(call):
+    """A call that ``recording`` kept as (positional arguments, keyword
+    arguments)."""
+    if call and isinstance(call[-1], dict):
+        return call[:-1], call[-1]
+    return call, {}
+
+
+def _cpu_spread(plain_fn, args, plain, kw=None):
     """The plain version on the CPU (sums in another order) against the
     card's `plain`, as text: max_abs_err / max|plain| and the share of
     elements that differ."""
-    cpu = plain_fn(*[a.cpu() if isinstance(a, torch.Tensor) else a for a in args]).float()
+    def cpu(a):
+        return a.cpu() if isinstance(a, torch.Tensor) else a
+
+    cpu = plain_fn(*[cpu(a) for a in args], **{k: cpu(v) for k, v in (kw or {}).items()}).float()
     plain = plain.float().cpu()
     return (f"; the plain version on the CPU against the card's: "
             f"{(cpu - plain).abs().max().item() / max(plain.abs().max().item(), 1e-30):.2e} x "
@@ -1477,11 +1528,12 @@ def check_stage2_validation(trainer, val_kernel, tmp, dev):
                                plain.reshape(prev.shape))
             _parity(f"{where}, kernel 1, every step of {n} (B{z0.shape[0]}) from its own carry",
                     zs, plain, ref, more)
-        for i, args in enumerate(k2):
-            plain = fab_core_plain(*args)
+        for i, (args, kw) in enumerate(map(_split_call, k2)):
+            plain = fab_core_plain(*args, **kw)
             _parity(f"{where}, kernel 2 call {i} (u {'x'.join(map(str, args[0].shape))})",
-                    fab_fused_core(*args), plain, fab_core_plain(*[a.float() for a in args]),
-                    _cpu_spread(fab_core_plain, args, plain))
+                    fab_fused_core(*args, **kw), plain,
+                    fab_core_plain(*[a.float() for a in args], **kw),
+                    _cpu_spread(fab_core_plain, args, plain, kw))
         for i, (xg, scale, bias, g, eps, swish) in enumerate(k3):
             a = (scale, bias, g, eps, bool(swish))
             _parity(f"{where}, kernel 3 call {i} ({'x'.join(map(str, xg.shape))} G{g})",
@@ -1683,17 +1735,18 @@ def drive_stage2(dev, smi):
 S1_CASES, S1_CASE_LEN, S1_EPOCHS, S1_BATCH = 64, 30, 2, 32
 
 
-def _ae_step(model, x, use_kernel):
+def _ae_step(model, x, use_kernel, denormalize=None):
     """The stage-1 loss of frames x on `model` (``reconstruction_loss``,
-    the trainer's) and its gradient w.r.t. every parameter; each kernel's
-    launches in the forward and in the backward."""
+    the trainer's; on fields denormalised by `denormalize` where the
+    family's trainer takes it so) and its gradient w.r.t. every parameter;
+    each kernel's launches in the forward and in the backward."""
     from lns_tpu_torch.train.stage1 import reconstruction_loss
 
     counted = _counted()
     model.use_kernels(use_kernel)
     params = dict(model.named_parameters())
     before = {k: f.launches for k, f in counted.items()}
-    loss = reconstruction_loss(model, x)
+    loss = reconstruction_loss(model, x, denormalize)
     mid = {k: f.launches for k, f in counted.items()}
     grads = torch.autograd.grad(loss, list(params.values()))
     model.use_kernels(True)
@@ -1722,10 +1775,10 @@ def check_fab_calls(where, core_calls, axial_calls):
     from lns_tpu_torch.kernels.axial import fab_axial_in_fused, fab_axial_in_plain
     from lns_tpu_torch.kernels.fab_core import fab_core_plain, fab_fused_core
 
-    cases = [("kernel 2", fab_fused_core, fab_core_plain, c, {}, c[0], 1e-2, 1e-4)
+    cases = [("kernel 2", fab_fused_core, fab_core_plain, *_split_call(c), c[0], 1e-2, 1e-4)
              for c in core_calls]
-    cases += [("kernel 4", fab_axial_in_fused, fab_axial_in_plain, c[:-1], c[-1], c[2], 2e-2, 2e-5)
-              for c in axial_calls]
+    cases += [("kernel 4", fab_axial_in_fused, fab_axial_in_plain, *_split_call(c), c[2], 2e-2,
+               2e-5) for c in axial_calls]
     for i, (name, kern, plain, args, kw, main, tol_bf16, tol_f32) in enumerate(cases):
         bf16 = main.dtype == torch.bfloat16
         label = f"{where}, {name} call {i} ({str(main.dtype)[6:]} {'x'.join(map(str, main.shape))})"
@@ -1751,13 +1804,16 @@ def check_fab_calls(where, core_calls, axial_calls):
         gen = torch.Generator().manual_seed(i)
         gos = [torch.randn(t.shape, generator=gen).to(t.device, t.dtype) for t in yk]
         grads = []
-        for fn in (kern, plain):
+        for fn in (kern, plain):  # every tensor input, kernel 2's mean_c too
             leaves = [a.clone().requires_grad_() for a in args]
-            ys = fn(*leaves, **kw)
+            kwl = {k: v.clone().requires_grad_() if isinstance(v, torch.Tensor) else v
+                   for k, v in kw.items()}
+            ys = fn(*leaves, **kwl)
+            leaves += [v for v in kwl.values() if isinstance(v, torch.Tensor)]
             grads.append(torch.autograd.grad(ys if isinstance(ys, tuple) else (ys,), leaves, gos))
         _check(all(torch.equal(a, b) for a, b in zip(*grads)),
-               f"{label}: gradients w.r.t. its {len(args)} inputs through its autograd Function "
-               "bitwise equal to plain autograd's")
+               f"{label}: gradients w.r.t. its {len(grads[0])} inputs through its autograd "
+               "Function bitwise equal to plain autograd's")
 
 
 def _hold_gradients(where, dt, gk, gp, gq, g32):
@@ -1768,7 +1824,11 @@ def _hold_gradients(where, dt, gk, gp, gq, g32):
     largest such change of the plain path's own gradient (gq) under a
     one-ulp move of its input; bf16, per tensor accuracy parity: the kernel
     path's gradient no farther (L2) from the f32 plain path's (g32) than
-    1.5 x the plain bf16 path's. Prints the largest f32 ratio or the
+    1.5 x the plain bf16 path's, that distance taken as at least one bf16
+    unit of the gradient (2^-8 |g32|): a bf16 gradient is no closer to the
+    f32 one than its own rounding, and below it the ratio measures chance
+    (a one-element bias whose plain bf16 gradient lands 0.09 % from the
+    f32 one, the kernel path's 0.41 %). Prints the largest f32 ratio or the
     smallest bf16 cosine between the two paths beside."""
     def rel(a, b):
         return {k: (a[k] - b[k]).abs().max().item() / max(b[k].abs().max().item(), 1e-30)
@@ -1791,20 +1851,24 @@ def _hold_gradients(where, dt, gk, gp, gq, g32):
     score, own = cos(gk, gp), cos(gq, gp)
     worst, worst_own = min(score.items(), key=lambda kv: kv[1]), min(own.values())
     parity = {k: (gk[k].float() - g32[k]).norm().item()
-              / max((gp[k].float() - g32[k]).norm().item(), 1e-30) for k in gk}
+              / max((gp[k].float() - g32[k]).norm().item(),
+                    2 ** -8 * g32[k].norm().item(), 1e-30)
+              for k in gk}
     top = max(parity, key=parity.get)
     _check(finite and parity[top] <= 1.5,
            f"{where}: gradients, {len(gk)} tensors, distance from the f32 plain "
-           f"gradient, kernel path / plain path: at most {parity[top]:.3f} (<= 1.5; "
-           f"{top}); cosine similarity kernel path vs plain >= {worst[1]:.6f} "
+           f"gradient, kernel path / max(plain path, 2^-8 |g32|): at most {parity[top]:.3f} "
+           f"(<= 1.5; {top}); cosine similarity kernel path vs plain >= {worst[1]:.6f} "
            f"({worst[0]}); the plain path's own with its input moved one ulp >= "
            f"{worst_own:.6f}")
 
 
-def check_stage1_step(label, model, m32, x):
+def check_stage1_step(label, model, m32, x, denormalize=None):
     """One stage-1 train step's loss gradient w.r.t. every AE parameter, on
-    frames x, kernel path against ``use_kernels(False)`` (TF32 off), in f32
-    (`m32`, the same weights) and in bf16 (`model`).
+    frames x (the loss on fields denormalised by `denormalize` where the
+    family's trainer takes it so), kernel path against
+    ``use_kernels(False)`` (TF32 off), in f32 (`m32`, the same weights) and
+    in bf16 (`model`).
 
     The AE's gradient is sensitive to its forward at the ulp level: the
     plain path's own gradient moves by some 1e-5 to 1e-4 x max|g| in f32
@@ -1840,11 +1904,12 @@ def check_stage1_step(label, model, m32, x):
             m(x)
         check_fab_calls(where, k2, k4)
         del k2, k4
-        gk, fwd, bwd = _ae_step(m, x, True)
-        gp, fwd_p, bwd_p = _ae_step(m, x, False)
+        gk, fwd, bwd = _ae_step(m, x, True, denormalize)
+        gp, fwd_p, bwd_p = _ae_step(m, x, False, denormalize)
         # the plain path's own gradient with its input moved one ulp: how
         # far the gradient moves for a change of the forward's size
-        gq, _, _ = _ae_step(m, x * (1 + (2 ** -23 if dt == "f32" else 2 ** -8)), False)
+        gq, _, _ = _ae_step(m, x * (1 + (2 ** -23 if dt == "f32" else 2 ** -8)), False,
+                            denormalize)
         _check(all(fwd[k] == want.get(k, 0) for k in fwd)
                and not any(bwd.values()) and not any(fwd_p.values()) and not any(bwd_p.values()),
                f"{where}: launches in the forward {({k: v for k, v in fwd.items() if v})} == "
@@ -1856,12 +1921,12 @@ def check_stage1_step(label, model, m32, x):
         _hold_gradients(where, dt, gk, gp, gq, g32)
         top = {k: g.abs().max().item() for k, g in gk.items()}
         low = min(top, key=top.get)
-        low_fab = min(fab_names, key=top.get)
+        fab_low = (f" (smallest {top[min(fab_names, key=top.get)]:.3e}, "
+                   f"{min(fab_names, key=top.get)})" if fab_names else "")
         _check(all(v > 0 for v in top.values()) and set(fab_names) <= top.keys(),
                f"{where}: all {len(top)} parameter tensors have a nonzero gradient (smallest "
                f"max|g| {top[low]:.3e}, {low}); the {len(fab_names)} FAB in_proj, to_out[1], "
-               f"in_norm and low-rank-kernel tensors among them (smallest {top[low_fab]:.3e}, "
-               f"{low_fab})")
+               f"in_norm and low-rank-kernel tensors among them{fab_low}")
 
 
 def backward_recompute_share(trainer, x, reps=3):
@@ -1944,13 +2009,13 @@ def check_stage1_validation(trainer, val_kernel, tmp):
            f"{where}: kernel calls recorded: {len(k2)} / {len(k3)} (kernels 2 / 3)")
     conditioned = True
     with torch.no_grad():
-        for i, args in enumerate(k2):
-            yk, plain = fab_fused_core(*args), fab_core_plain(*args)
+        for i, (args, kw) in enumerate(map(_split_call, k2)):
+            yk, plain = fab_fused_core(*args, **kw), fab_core_plain(*args, **kw)
             _parity(f"{where}, kernel 2 call {i} (u {'x'.join(map(str, args[0].shape))})",
-                    yk, plain, fab_core_plain(*[a.float() for a in args]),
-                    _cpu_spread(fab_core_plain, args, plain))
+                    yk, plain, fab_core_plain(*[a.float() for a in args], **kw),
+                    _cpu_spread(fab_core_plain, args, plain, kw))
             a32 = [a.float() for a in args]
-            k32, p32 = fab_fused_core(*a32), fab_core_plain(*a32)
+            k32, p32 = fab_fused_core(*a32, **kw), fab_core_plain(*a32, **kw)
             r16 = (yk.float() - plain.float()).abs().max().item() / plain.float().abs().max().item()
             d16 = (yk != plain).float().mean().item()
             r32 = (k32 - p32).abs().max().item() / p32.abs().max().item()
@@ -2144,7 +2209,7 @@ def drive_stage1(dev, smi):
     return launches
 
 
-# -- phase 7: the SW family's training ---------------------------------------
+# -- phase 7: the SW and two-phase families' training -------------------------
 
 # the SW corpus: synthetic 96x192 fields (u, v, pres) from make_sw_store, 12
 # training and 4 test cases of 24 frames. Stage 1: 264 training frames (9
@@ -2152,13 +2217,17 @@ def drive_stage1(dev, smi):
 # 5 at the hard-coded interval 2, 120 windows (3 steps of batch 32 per
 # epoch), three epochs. Each validates before its first epoch and at the end.
 SW_CASES, SW_CASE_LEN, SW_TRAIN_BATCH, SW_S1_EPOCHS, SW_S2_EPOCHS = 12, 24, 32, 2, 3
+# the two-phase corpus: 61x121 linear-sloshing fields (vx, vy, prs, vof) from
+# make_sloshing_dir(vary="depth"), the non-conditional "varying height"
+# corpus, 23 cases of 16 frames (the seed-44 split: 20 training, 3 test).
+# Stage 1: 320 training frames (10 steps of batch 32 per epoch), two epochs;
+# stage 2: in_tw 1, out_tw 5, 200 windows (6 steps of batch 32), three epochs
+TP_CASES, TP_CASE_LEN, TP_TRAIN_BATCH, TP_S1_EPOCHS, TP_S2_EPOCHS = 23, 16, 32, 2, 3
 
 
 def _sw_train_config(tmp, **over):
     """``sw_config()`` on a synthetic corpus under `tmp`, bf16, batch 32,
-    validating only before the first epoch and at the end; the trainers'
-    hyperparameters of the JAX package's SW convergence runs
-    (benchmarks/convergence_families.py:117-128) given in `over`."""
+    validating only before the first epoch and at the end."""
     from lns_tpu_torch.config import sw_config
     from lns_tpu_torch.data.synthetic import make_sw_store
 
@@ -2170,6 +2239,40 @@ def _sw_train_config(tmp, **over):
         dataset_stat=os.path.join(data, "normstats.npz"), case_len=SW_CASE_LEN,
         num_case=SW_CASES, batch_size=SW_TRAIN_BATCH, mixed_precision=True, ckpt_every=1000,
         overwrite_exist=True, **over)
+
+
+def _tp_train_config(tmp, **over):
+    """``twophase_config()`` on a sloshing corpus under `tmp`, bf16, batch
+    32, validating only before the first epoch and at the end."""
+    from lns_tpu_torch.config import twophase_config
+    from lns_tpu_torch.data.sloshing_solver import make_sloshing_dir
+
+    data = os.path.join(tmp, "sloshing")
+    if not os.path.exists(data):
+        make_sloshing_dir(data, ncase=TP_CASES, case_len=TP_CASE_LEN, seed=3, vary="depth")
+    return twophase_config().replace(
+        data_dir=data, dataset_stat=os.path.join(tmp, "twophase_stat.npz"), case_len=TP_CASE_LEN,
+        num_case=TP_CASES, batch_size=TP_TRAIN_BATCH, mixed_precision=True, ckpt_every=1000,
+        overwrite_exist=True, **over)
+
+
+# each family's training phases: its config on its corpus, the batch, the
+# epochs and the optimizer settings of the JAX package's convergence runs
+# (benchmarks/convergence_families.py: SW :117-128, two-phase :140-153;
+# cut: the corpus and the epochs), its channels and what its corpus is
+FAMILIES = {
+    "SW": dict(config=_sw_train_config, batch=SW_TRAIN_BATCH, epochs=(SW_S1_EPOCHS, SW_S2_EPOCHS),
+               s1=dict(learning_rate=3e-5, beta1=0.5, beta2=0.9), s2=dict(learning_rate=3e-4),
+               channels=("vx", "vy", "prs"),
+               corpus=f"{SW_CASES} cases x {SW_CASE_LEN} frames of 96x192x3 (make_sw_store)"),
+    "two-phase": dict(config=_tp_train_config, batch=TP_TRAIN_BATCH,
+                      epochs=(TP_S1_EPOCHS, TP_S2_EPOCHS),
+                      s1=dict(learning_rate=3e-5, beta1=0.5, beta2=0.9),
+                      s2=dict(learning_rate=5e-4, in_tw=1, out_tw=5),
+                      channels=("vx", "vy", "prs", "vof"),
+                      corpus=f"{TP_CASES} cases x {TP_CASE_LEN} frames of 61x121x4 "
+                             "(make_sloshing_dir, vary='depth')"),
+}
 
 
 def _timed_train(trainer):
@@ -2207,7 +2310,7 @@ def _timed_train(trainer):
     return step_events, val_ms, {k: f.launches for k, f in counted.items()}, secs
 
 
-def _check_sw_run(where, log_dir, loss_key, val_keys, steps_per_epoch, epochs):
+def _check_family_run(where, log_dir, loss_key, val_keys, steps_per_epoch, epochs):
     """The run's train losses finite and falling (epoch means), each
     validation key logged before the first epoch and at the end, finite."""
     import numpy as np
@@ -2234,68 +2337,104 @@ def _print_steps(where, step_events, secs, batch, smi):
           f"{secs:.2f} s; {smi}", flush=True)
 
 
-def drive_sw_stage1(dev, smi, tmp):
-    """The stage-1 trainer at full SW width on the card. Returns the kernels'
-    launches over its training run and the path of its final checkpoint."""
+def _same_state(model, path):
+    """Whether `model`'s state dict equals the ``.pt`` at `path`, bitwise."""
+    saved = torch.load(path, weights_only=True)
+    return saved.keys() == model.state_dict().keys() and all(
+        torch.equal(v.cpu(), saved[k]) for k, v in model.state_dict().items())
+
+
+def drive_family_stage1(fam, dev, smi, tmp):
+    """The stage-1 trainer of family `fam` (``FAMILIES``) at full width on
+    the card: one train step's launches and gradients against the plain
+    path, a timed run with its launch counts and falling losses, and a
+    trainer resumed from its final checkpoint. Returns the kernels'
+    launches over the run and the path of its final checkpoint."""
     import numpy as np
 
     from lns_tpu_torch.models import SimpleAutoencoder
     from lns_tpu_torch.train.stage1 import Stage1Trainer
 
+    spec = FAMILIES[fam]
     t_phase = time.perf_counter()
-    cfg = _sw_train_config(tmp, epochs=SW_S1_EPOCHS, learning_rate=3e-5, beta1=0.5, beta2=0.9,
-                           device_data=True, log_dir=os.path.join(tmp, "sw_s1"))
-    print(f"-- SW stage-1 training: {SW_CASES} cases x {SW_CASE_LEN} frames of 96x192x3, batch "
-          f"{SW_TRAIN_BATCH}, {SW_S1_EPOCHS} epochs, lr 3e-5, bf16 activations, frames on the "
-          "card", flush=True)
+    epochs, batch = spec["epochs"][0], spec["batch"]
+    cfg = spec["config"](tmp, epochs=epochs, device_data=True,
+                         log_dir=os.path.join(tmp, "s1"), **spec["s1"])
+    print(f"-- {fam} stage-1 training: {spec['corpus']}, batch {batch}, {epochs} epochs, lr "
+          f"{cfg.learning_rate:g}, betas ({cfg.beta1}, {cfg.beta2}), bf16 activations, frames "
+          "on the card", flush=True)
     trainer = Stage1Trainer(cfg, seed=1234, use_wandb=False, device=dev)
-    n, n_val = len(trainer.train_ds), trainer.val_ds.num_case * (SW_CASE_LEN - 2)
-    steps_per_epoch = -(-n // SW_TRAIN_BATCH)
-    x = torch.from_numpy(trainer.train_ds.get_batch(np.arange(SW_TRAIN_BATCH))).to(dev)
+    traj = trainer.val_ds.eval_trajectories()
+    n, n_val = len(trainer.train_ds), traj.shape[0] * traj.shape[1]
+    steps_per_epoch = -(-n // batch)
+    x = torch.from_numpy(trainer.train_ds.get_batch(np.arange(batch))).to(dev)
     m32 = SimpleAutoencoder(cfg).to(dev)
     m32.load_state_dict(trainer.model.state_dict())
-    check_stage1_step("SW", trainer.model, m32, x)
+    check_stage1_step(fam, trainer.model, m32, x, trainer._loss_denorm)
     del m32
 
     step_events, val_ms, launches, secs = _timed_train(trainer)
-    n_steps = SW_S1_EPOCHS * steps_per_epoch
+    n_steps = epochs * steps_per_epoch
     calls = -(-n_val // 64)  # validate's reconstruct calls
     want = {k: (n_steps + 2 * calls) * v
             for k, v in expected_launches(cfg, n_chunks=1).items()}
     want["prop_rollout"] = 0
     _check(all(launches[k] == want.get(k, 0) for k in launches),
-           f"SW stage-1 training run: launches {({k: v for k, v in launches.items() if v})} == "
-           f"{({k: v for k, v in want.items() if v})} ({n_steps} train steps, 2 validations of "
-           f"{calls} calls)")
-    print(f"      SW stage-1 launches per train step: "
-          f"{({k: v for k, v in expected_launches(cfg, n_chunks=1).items() if v and k != 'prop_rollout'})}",
-          flush=True)
-    _check_sw_run("SW stage-1", cfg.log_dir, "rec_loss",
-                  ("val_recon_loss", "val_recon_loss_vx", "val_recon_loss_vy",
-                   "val_recon_loss_prs"), steps_per_epoch, SW_S1_EPOCHS)
-    ckpt = os.path.join(cfg.log_dir, "checkpoints", "vqgan_epoch_final.pt")
-    _check(os.path.exists(ckpt), "SW stage-1: vqgan_epoch_final.pt written")
+           f"{fam} stage-1 training run: launches {({k: v for k, v in launches.items() if v})} "
+           f"== {({k: v for k, v in want.items() if v})} ({n_steps} train steps, 2 validations "
+           f"of {calls} calls)")
+    per_step = {k: v for k, v in expected_launches(cfg, n_chunks=1).items()
+                if v and k != "prop_rollout"}
+    print(f"      {fam} stage-1 launches per train step: {per_step}", flush=True)
+    _check_family_run(f"{fam} stage-1", cfg.log_dir, "rec_loss",
+                      ("val_recon_loss",) + tuple(f"val_recon_loss_{c}" for c in spec["channels"]),
+                      steps_per_epoch, epochs)
+    ckpt = os.path.join(cfg.log_dir, "checkpoints")
+    files = ("vqgan_epoch_final.pt", "optim_epoch_final.pt", "meta_epoch_final.json",
+             "vqgan_epoch_best.pt")
+    _check(all(os.path.exists(os.path.join(ckpt, f)) for f in files),
+           f"{fam} stage-1: checkpoints written: {', '.join(files)}")
+    resumed = Stage1Trainer(cfg.replace(log_dir=os.path.join(tmp, "s1_resumed"),
+                                        resume_training=True,
+                                        resume_ckpt=os.path.join(ckpt, "vqgan_epoch_final.pt")),
+                            seed=999, use_wandb=False, device=dev)
+    opt_saved = torch.load(os.path.join(ckpt, "optim_epoch_final.pt"), map_location="cpu",
+                           weights_only=True)["state"]
+    opt_now = resumed.opt.state_dict()["state"]
+    _check(resumed.start_epoch == epochs and resumed.seed == 1234
+           and _same_state(resumed.model, os.path.join(ckpt, "vqgan_epoch_final.pt"))
+           and opt_now.keys() == opt_saved.keys()
+           and all(torch.equal(v.cpu(), opt_saved[i][k]) for i, st in opt_now.items()
+                   for k, v in st.items()),
+           f"{fam} stage-1: a trainer resumed from vqgan_epoch_final with seed 999 passed "
+           f"restores epoch {resumed.start_epoch} (== {epochs}), seed {resumed.seed}, the "
+           f"parameters and the optimizer state of {len(opt_now)} tensors, bitwise")
+    del resumed
     profile_device(lambda: [trainer.train_step(x) for _ in range(3)],
-                   f"SW stage-1 3 train steps (bf16, batch {SW_TRAIN_BATCH})")
+                   f"{fam} stage-1 3 train steps (bf16, batch {batch})")
     del trainer
-    _print_steps("SW stage-1", step_events, secs, SW_TRAIN_BATCH, smi)
-    print(f"      SW stage-1 validate ({n_val} frames in {calls} calls of 64): wall "
+    _print_steps(f"{fam} stage-1", step_events, secs, batch, smi)
+    print(f"      {fam} stage-1 validate ({n_val} frames in {calls} calls of 64): wall "
           f"{', '.join(f'{v:.1f}' for v in val_ms)} ms; phase wall "
           f"{time.perf_counter() - t_phase:.1f} s; {smi}", flush=True)
-    return launches, ckpt
+    return launches, os.path.join(ckpt, "vqgan_epoch_final.pt")
 
 
-def check_sw_stage2_gradients(trainer, m32, dev):
-    """One SW stage-2 train step's gradients w.r.t. every propagator
-    parameter, kernel path against ``use_kernels(False)`` (TF32 off), on a
-    batch of the corpus, under the stage-1 phase's rules (``_hold_gradients``); every
-    parameter tensor with a nonzero gradient; kernel 3 launched (2 n_block +
-    1) x out_tw times in the forward and never in the backward."""
+def check_family_stage2_gradients(fam, trainer, m32):
+    """One stage-2 train step's gradients w.r.t. every propagator
+    parameter, kernel path against ``use_kernels(False)`` (TF32 off), on the
+    batch's first windows of the corpus, under the stage-1 phase's rules
+    (``_hold_gradients``); every parameter tensor with a nonzero gradient;
+    kernel 3 launched (2 n_block + 1) x out_tw times in the forward and
+    never in the backward."""
+    import numpy as np
+
     cfg = trainer.cfg
-    z_in, z_out = _s2_batch(trainer, dev)
+    z_in, z_out = (torch.from_numpy(np.ascontiguousarray(a)).to(trainer.device)
+                   for a in trainer.train_ds.get_batch(np.arange(cfg.batch_size)))
     per_step = 2 * cfg.prop_n_block + 1
     for dt, model in (("f32", m32), ("bf16", trainer.model)):
-        where = f"SW stage-2 {dt} train step (batch {z_in.shape[0]}, out_tw {cfg.out_tw})"
+        where = f"{fam} stage-2 {dt} train step (batch {z_in.shape[0]}, out_tw {cfg.out_tw})"
         gk, fwd, bwd = _step_grads(model, z_in, z_out, True)
         gp, fwd_p, _ = _step_grads(model, z_in, z_out, False)
         gq, _, _ = _step_grads(model, z_in * (1 + (2 ** -23 if dt == "f32" else 2 ** -8)), z_out,
@@ -2311,20 +2450,26 @@ def check_sw_stage2_gradients(trainer, m32, dev):
         _check(fwd == per_step * cfg.out_tw and bwd == 0 and fwd_p == 0,
                f"{where}: kernel 3 launched {fwd} times in the forward (== {per_step} x out_tw "
                f"{cfg.out_tw}), {bwd} in its backward, {fwd_p} on the plain path")
+    return z_in, z_out
 
 
-def drive_sw_stage2(dev, smi, tmp, ae_path):
-    """The stage-2 trainer at full SW width on the card, on the stage-1
-    phase's final checkpoint: returns the kernels' launches over its encode
-    pre-pass and its training run."""
+def drive_family_stage2(fam, dev, smi, tmp, ae_path):
+    """The stage-2 trainer of family `fam` at full width on the card, on its
+    stage-1 phase's final checkpoint: the encode pre-pass's launches, one
+    train step's gradients against the plain path, a timed run with its
+    launch counts and falling losses, and a trainer resumed from its final
+    checkpoint. Returns the kernels' launches over the pre-pass and the
+    run."""
     from lns_tpu_torch.models import LatentDynamics
     from lns_tpu_torch.train.stage2 import Stage2Trainer
 
+    spec = FAMILIES[fam]
     t_phase = time.perf_counter()
-    cfg = _sw_train_config(tmp, epochs=SW_S2_EPOCHS, learning_rate=3e-4,
-                           pretrained_checkpoint_path=ae_path, log_dir=os.path.join(tmp, "sw_s2"))
-    print(f"-- SW stage-2 training: the stage-1 checkpoint, batch {SW_TRAIN_BATCH}, out_tw "
-          f"{cfg.out_tw}, interval 2, {SW_S2_EPOCHS} epochs, lr 3e-4, bf16 activations",
+    epochs, batch = spec["epochs"][1], spec["batch"]
+    cfg = spec["config"](tmp, epochs=epochs, pretrained_checkpoint_path=ae_path,
+                         log_dir=os.path.join(tmp, "s2"), **spec["s2"])
+    print(f"-- {fam} stage-2 training: the stage-1 checkpoint, batch {batch}, out_tw "
+          f"{cfg.out_tw}, {epochs} epochs, lr {cfg.learning_rate:g}, bf16 activations",
           flush=True)
     counted = _counted()
     for f in counted.values():
@@ -2334,42 +2479,56 @@ def drive_sw_stage2(dev, smi, tmp, ae_path):
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     prepass = {k: f.launches for k, f in counted.items()}
-    encodes = -(-SW_CASES * SW_CASE_LEN // 32)  # the pre-pass's calls of 32 frames
+    frames = trainer.train_ds.fields.shape[0] * trainer.train_ds.fields.shape[1]
+    encodes = -(-frames // 32)  # the pre-pass's calls of 32 frames
     want = expected_launches(cfg, n_chunks=0, encodes=encodes)
     _check(all(prepass[k] == want.get(k, 0) for k in prepass) and prepass["group_norm"] > 0,
-           f"SW stage-2 encode pre-pass: group_norm launched {prepass['group_norm']} times (== "
-           f"{want['group_norm'] // encodes} encoder GN sites x {encodes} encode calls), no "
+           f"{fam} stage-2 encode pre-pass: group_norm launched {prepass['group_norm']} times "
+           f"(== {want['group_norm'] // encodes} encoder GN sites x {encodes} encode calls), no "
            f"other kernel; trainer built in {build_s:.2f} s ({len(trainer.train_ds)} windows, "
            f"{trainer.steps_per_epoch} steps per epoch)")
-    saved = torch.load(ae_path, weights_only=True)
-    _check(all(torch.equal(v.cpu(), saved[k]) for k, v in trainer.model.vq_ae.state_dict().items()),
-           f"SW stage-2: the stage-1 checkpoint loaded bit-identical ({len(saved)} tensors)")
+    _check(_same_state(trainer.model.vq_ae, ae_path),
+           f"{fam} stage-2: the stage-1 checkpoint loaded bit-identical")
     m32 = LatentDynamics(cfg, device=dev)
     m32.load_state_dict(trainer.model.state_dict())
-    check_sw_stage2_gradients(trainer, m32, dev)
+    z_in, z_out = check_family_stage2_gradients(fam, trainer, m32)
     del m32
 
     step_events, val_ms, launches, secs = _timed_train(trainer)
-    n_steps = SW_S2_EPOCHS * trainer.steps_per_epoch
-    n_val = trainer.val_ds.num_case
+    n_steps = epochs * trainer.steps_per_epoch
+    n_val = len(trainer.val_ds)
     want = {k: 2 * v * -(-n_val // 8) for k, v in expected_launches(cfg, n_chunks=1).items()}
     want["group_norm"] += n_steps * (2 * cfg.prop_n_block + 1) * cfg.out_tw
     _check(launches == {k: want.get(k, 0) for k in launches},
-           f"SW stage-2 training run: launches {({k: v for k, v in launches.items() if v})} == "
-           f"{({k: v for k, v in want.items() if v})} (2 validations of {n_val} cases, {n_steps} "
-           "train steps)")
-    print(f"      SW stage-2 launches per train step: group_norm "
+           f"{fam} stage-2 training run: launches {({k: v for k, v in launches.items() if v})} "
+           f"== {({k: v for k, v in want.items() if v})} (2 validations of {n_val} cases, "
+           f"{n_steps} train steps)")
+    print(f"      {fam} stage-2 launches per train step: group_norm "
           f"{(2 * cfg.prop_n_block + 1) * cfg.out_tw}", flush=True)
-    _check_sw_run("SW stage-2", cfg.log_dir, "loss",
-                  ("val_seq_rel_l2", "val_pred_loss_vx", "val_pred_loss_vy", "val_pred_loss_prs"),
-                  trainer.steps_per_epoch, SW_S2_EPOCHS)
-    z_in, z_out = _s2_batch(trainer, dev)
+    _check_family_run(f"{fam} stage-2", cfg.log_dir, "loss",
+                      ("val_seq_rel_l2",) + tuple(f"val_pred_loss_{c}" for c in spec["channels"]),
+                      trainer.steps_per_epoch, epochs)
+    ckpt = os.path.join(cfg.log_dir, "checkpoints")
+    resumed = Stage2Trainer(cfg.replace(log_dir=os.path.join(tmp, "s2_resumed"),
+                                        resume_training=True,
+                                        resume_ckpt=os.path.join(ckpt, "model_final.pt")),
+                            seed=1234, use_wandb=False, device=dev)
+    opt_steps = {int(st["step"].item()) for st in resumed.opt.state_dict()["state"].values()}
+    _check(resumed.start_epoch == epochs and opt_steps == {n_steps}
+           and resumed.sched.last_epoch == n_steps
+           and _same_state(resumed.model, os.path.join(ckpt, "model_final.pt")),
+           f"{fam} stage-2: a trainer resumed from model_final restores epoch "
+           f"{resumed.start_epoch} (== {epochs}), optimizer steps {sorted(opt_steps)} and "
+           f"schedule step {resumed.sched.last_epoch} (== {n_steps}), and its parameters "
+           "equal the saved ones bitwise")
+    del resumed
     profile_device(lambda: [trainer.train_step(z_in, z_out, 0, i) for i in range(3)],
-                   f"SW stage-2 3 train steps (bf16, batch {SW_TRAIN_BATCH})")
+                   f"{fam} stage-2 3 train steps (bf16, batch {batch})")
+    steps = trainer.val_ds.eval_trajectories()[1].shape[1]
     del trainer
-    _print_steps("SW stage-2", step_events, secs, SW_TRAIN_BATCH, smi)
-    print(f"      SW stage-2 validate ({n_val} cases, {SW_CASE_LEN // 2 - 2} steps, decoded at "
-          f"once): wall {', '.join(f'{v:.1f}' for v in val_ms)} ms; phase wall "
+    _print_steps(f"{fam} stage-2", step_events, secs, batch, smi)
+    print(f"      {fam} stage-2 validate ({n_val} cases, {steps} steps, decoded at once): wall "
+          f"{', '.join(f'{v:.1f}' for v in val_ms)} ms; phase wall "
           f"{time.perf_counter() - t_phase:.1f} s; {smi}", flush=True)
     return {k: prepass[k] + launches[k] for k in launches}
 
@@ -2378,7 +2537,7 @@ def run(dev, smi=""):
     """Phases 3-7 on `dev`; returns the per-kernel results."""
     import tempfile
 
-    from lns_tpu_torch.config import ns2d_config, sw_config
+    from lns_tpu_torch.config import ns2d_config, sw_config, twophase_config
     from lns_tpu_torch.models import LatentDynamics
     from lns_tpu_torch.ops.initializers import init_weights_
 
@@ -2389,7 +2548,8 @@ def run(dev, smi=""):
             ("path 1 NS2d", ns2d_config(), (BATCH, STEPS, CHUNK)),
             ("path 2 NS2d use_attn_enc", ns2d_config().replace(use_attn_enc=True),
              (BATCH, STEPS, CHUNK)),
-            ("path 3 SW", sw_config(), (SW_BATCH, SW_STEPS, None))):
+            ("path 3 SW", sw_config(), (SW_BATCH, SW_STEPS, None)),
+            ("path 4 two-phase", twophase_config(), (TP_BATCH, TP_STEPS, None))):
         # initialised on the CPU from the seeded generator, then moved
         model = init_weights_(LatentDynamics(cfg, dtype=torch.bfloat16, ae_dtype=torch.bfloat16,
                                              device="cpu"), gen).to(dev)
@@ -2406,6 +2566,9 @@ def run(dev, smi=""):
         paths.append((label, model, {k: v for k, v in expect.items() if v}, size))
         if cfg.workload == "sw":
             sw_gn, sw_fab = gn, fab
+            continue
+        if cfg.workload == "twophase":
+            tp_gn = gn
             continue
         for sites, new in ((gn_sites, gn), (fab_sites, fab)):
             for s, c in new.items():
@@ -2424,22 +2587,27 @@ def run(dev, smi=""):
     _check(sum(train_sites.values()) == (2 * cfg.prop_n_block + 1) * cfg.out_tw,
            f"stage-2 train step: GroupNorm calls found {train_sites} == "
            f"{2 * cfg.prop_n_block + 1} per step x out_tw {cfg.out_tw}")
-    sw = paths[2][1]
-    sw_train_sites = train_gn_sites(sw, dev)
-    _check(sum(sw_train_sites.values()) == (2 * sw.cfg.prop_n_block + 1) * sw.cfg.out_tw,
-           f"SW stage-2 train step: GroupNorm calls found {sw_train_sites} == "
-           f"{2 * sw.cfg.prop_n_block + 1} per step x out_tw {sw.cfg.out_tw}")
+    sw, tp = paths[2][1], paths[3][1]
+    fam_train_sites = {}
+    for fam, m in (("SW", sw), ("two-phase", tp)):
+        found = fam_train_sites[fam] = train_gn_sites(m, dev)
+        _check(sum(found.values()) == (2 * m.cfg.prop_n_block + 1) * m.cfg.out_tw,
+               f"{fam} stage-2 train step: GroupNorm calls found {found} == "
+               f"{2 * m.cfg.prop_n_block + 1} per step x out_tw {m.cfg.out_tw}")
     print("-- kernels against their plain versions (TF32 off)", flush=True)
     t0 = time.perf_counter()
-    res = {"prop_rollout": check_rollout(dev, gen, 2),
+    res = {"prop_rollout": check_rollout(dev, gen, 2, tp.propagator),
            "fab_core": _summed(check_fab_core(dev, gen, fab_shapes(fab_sites, "batchedgram"),
                                               n, d),
                                check_fab_core(dev, gen, fab_shapes(sw_fab, "batchedgram"),
                                               sw.cfg.decoder_attn_heads, sw.cfg.decoder_attn_dim,
                                               extras=False)),
-           "group_norm": _summed(check_group_norm(dev, gen, gn_sites, train_sites),
-                                 check_group_norm(dev, gen, sw_gn, sw_train_sites,
-                                                  label="SW", extras=False))}
+           "group_norm": _summed(
+               _summed(check_group_norm(dev, gen, gn_sites, train_sites),
+                       check_group_norm(dev, gen, sw_gn, fam_train_sites["SW"], label="SW",
+                                        extras=False)),
+               check_group_norm(dev, gen, tp_gn, fam_train_sites["two-phase"],
+                                label="two-phase", extras=False))}
     check_fab_core_limits(dev, n, d)
     res["fab_axial_in_fused"], res["axial_kernel_apply_headmajor"] = check_axial(
         dev, gen, fab_shapes(fab_sites, "batched"), n, d)
@@ -2453,12 +2621,13 @@ def run(dev, smi=""):
     for label, model, expect, (b, steps, chunk) in paths:
         by_path[label] = drive_path(label, model, expect, gen, dev, b, steps, chunk)
         del model
-    del paths, sw
+    del paths, sw, tp
     by_path["stage-2 training"] = drive_stage2(dev, smi)
     by_path["stage-1 training"] = drive_stage1(dev, smi)
-    with tempfile.TemporaryDirectory() as tmp:
-        by_path["SW stage-1 training"], ae_path = drive_sw_stage1(dev, smi, tmp)
-        by_path["SW stage-2 training"] = drive_sw_stage2(dev, smi, tmp, ae_path)
+    for fam in FAMILIES:
+        with tempfile.TemporaryDirectory() as tmp:
+            by_path[f"{fam} stage-1 training"], ae_path = drive_family_stage1(fam, dev, smi, tmp)
+            by_path[f"{fam} stage-2 training"] = drive_family_stage2(fam, dev, smi, tmp, ae_path)
 
     src = "lns_tpu_torch/csrc/"
     kernels = [

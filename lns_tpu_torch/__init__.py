@@ -3,12 +3,12 @@
 The Latent Neural PDE Solver: a conv autoencoder from a full-order 2D field
 to a coarse latent grid, and a latent propagator rolled out autoregressively.
 This package runs the inference rollout (encode -> N propagator steps ->
-decode, chunked or whole) of the NS2d and SW (shallow-water, half-periodic)
-families with hand-written kernels for its hot spots
-(``lns_tpu_torch.kernels``), and trains both stages of both: the
-autoencoder (stage 1, ``lns_tpu_torch.train.stage1``) and the propagator
-(stage 2, ``lns_tpu_torch.train.stage2``, rollout BPTT against a frozen
-autoencoder).
+decode, chunked or whole) of the NS2d, SW (shallow-water, half-periodic)
+and two-phase (tank sloshing, zero-padded, non-square) families with
+hand-written kernels for its hot spots (``lns_tpu_torch.kernels``), and
+trains both stages of each: the autoencoder (stage 1,
+``lns_tpu_torch.train.stage1``) and the propagator (stage 2,
+``lns_tpu_torch.train.stage2``, rollout BPTT against a frozen autoencoder).
 Public functions keep the JAX package's NHWC layout, so the two packages
 are tested against each other directly.
 
@@ -17,4 +17,5 @@ Importing this package imports torch and numpy only.
 
 __version__ = "0.1.0"
 
-from lns_tpu_torch.config import Config, load_config, ns2d_config, sw_config  # noqa: F401
+from lns_tpu_torch.config import (Config, load_config, ns2d_config, sw_config,  # noqa: F401
+                                  twophase_config)

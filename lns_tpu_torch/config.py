@@ -126,3 +126,21 @@ def sw_config() -> Config:
         decoder_attn_heads=8, decoder_attn_dim=64, disable_coarse_attn=False,
         prop_n_block=4, prop_n_embd=128, dilation=3, out_tw=5, noise_level=0.0,
     )
+
+
+def twophase_config() -> Config:
+    """The two-phase (tank sloshing) latent surrogate at the reference's
+    widths: 61x121x4 field (vx, vy, pressure, vof), 7x15x64 latent, zero
+    padding, an SABlock at 7x15 in the decoder (its resolutions 7, 14, 28
+    hold no FAB: ``attn_resolutions`` [15, 30] name none of them), a 4 x 128
+    SimpleCNN with dilation 2 and zeros padding, in_tw 1, out_tw 5 (the JAX
+    package's benchmarks/run_benchmarks.py: twophase_cfg)."""
+    return Config(
+        latent_dim=64, Ly=61, Lx=121, resolutions=[61, 121], in_channels=4,
+        latent_resolution=7, is_periodic=False, hw_ratio=2,
+        encoder_channels=[64, 64, 64, 128, 128], fourier_resolutions=[],
+        encoder_res_blocks=1, use_fa=True, decoder_channels=[128, 128, 64, 64],
+        attn_resolutions=[15, 30], decoder_res_blocks=1, final_smoothing=False,
+        decoder_attn_heads=8, decoder_attn_dim=64, disable_coarse_attn=False,
+        prop_n_block=4, prop_n_embd=128, dilation=2, in_tw=1, out_tw=5, noise_level=0.0,
+    )

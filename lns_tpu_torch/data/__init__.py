@@ -1,9 +1,11 @@
-"""Data pipelines (numpy, channels-last): the NS2d and SW frames for
+"""Data pipelines (numpy, channels-last): the NS2d, SW and two-phase frames for
 stage-1 training and latent corpora for stage 2, batch index iteration and
-the synthetic NS2d and SW corpora. Copies of
+the synthetic corpora. Copies of
 ``lns_tpu.data``'s numpy modules for the families the port trains, so the
 port imports nothing of the JAX package."""
 
 from lns_tpu_torch.data.loader import epoch_batches, pad_batch, to_device  # noqa: F401
 from lns_tpu_torch.data.ns2d import NS2DStage1, NS2DStage2  # noqa: F401
 from lns_tpu_torch.data.shallow_water import SW2DDataSimple, SWStage1, SWStage2  # noqa: F401
+from lns_tpu_torch.data.twophase import (SimpleTankSloshingData,  # noqa: F401
+                                          TankSloshingStage1, TankSloshingStage2)

@@ -1,5 +1,5 @@
-"""Batch index iteration (copy of ``lns_tpu.data.loader``) and the
-host-to-device copy of a batch."""
+"""Batch index iteration (copy of ``lns_tpu.data.loader``), the
+host-to-device copy of a batch and the datasets' denormalising affine."""
 
 from __future__ import annotations
 
@@ -38,3 +38,15 @@ def to_device(a: np.ndarray, device) -> torch.Tensor:
     if torch.device(device).type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+def scale_shift(x, scale, shift):
+    """x * scale + shift, numpy arrays and tensors alike; a tensor's scalars
+    in its dtype, as JAX takes a Python scalar (weakly typed: for a bf16
+    array the scale is rounded to bf16, where torch would keep it in f32)."""
+    if isinstance(x, torch.Tensor):
+        scale, shift = (torch.tensor(float(v), dtype=x.dtype, device=x.device)
+                        for v in (scale, shift))
+    else:
+        scale, shift = float(scale), float(shift)
+    return x * scale + shift

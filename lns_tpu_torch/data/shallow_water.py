@@ -20,6 +20,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from lns_tpu_torch.data.loader import scale_shift
 from lns_tpu_torch.data.zarr_reader import open_zarr
 
 CHANNELS = ("u", "v", "pres")
@@ -77,8 +78,9 @@ class _SWBase:
 
     def denormalize(self, x):
         """[..., 3] -> physical units, channel by channel (numpy arrays and
-        tensors alike, in their dtype)."""
-        chans = [x[..., i: i + 1] * self.normstat[ch]["std"] + self.normstat[ch]["mean"]
+        tensors alike, in their dtype; a tensor's scalars in its dtype, as
+        JAX rounds a weakly typed scalar to a bf16 array's dtype)."""
+        chans = [scale_shift(x[..., i: i + 1], self.normstat[ch]["std"], self.normstat[ch]["mean"])
                  for i, ch in enumerate(CHANNELS)]
         if isinstance(x, torch.Tensor):
             return torch.cat(chans, dim=-1)

@@ -1,8 +1,9 @@
-"""Synthetic NS2d and SW corpora in the on-disk formats the loaders read
-(copies of ``_smooth_field``, ``make_ns2d_npz`` and ``make_sw_store`` from
-``lns_tpu.data.synthetic``): smooth random Fourier mixtures, so training can
-reduce the loss. The same seed gives the same bytes as the JAX package's
-copy."""
+"""Synthetic NS2d, two-phase and SW corpora in the on-disk formats the
+loaders read (copies of ``_smooth_field``, ``make_ns2d_npz``,
+``make_twophase_dir`` and ``make_sw_store`` from
+``lns_tpu.data.synthetic``): smooth random Fourier mixtures, so training
+can reduce the loss. The same seed gives the same bytes as the JAX
+package's copy."""
 
 from __future__ import annotations
 
@@ -36,6 +37,25 @@ def make_ns2d_npz(path: str, ncase: int = 8, case_len: int = 6, h: int = 32, w: 
     rng = np.random.default_rng(seed)
     sol = np.stack([_smooth_field(rng, case_len, h, w) for _ in range(ncase)], axis=-1)
     np.savez(path, all_sol_center=sol, all_sol_forward=sol, all_sol_backward=sol)
+    return path
+
+
+def make_twophase_dir(path: str, ncase: int = 8, case_len: int = 6, h: int = 61, w: int = 121,
+                      seed: int = 0, with_freq: bool = True) -> str:
+    """Write a two-phase directory of per-case .npz (vel [T, H, W, 2], prs
+    and vof [T, H, W], a scalar ``freq`` when `with_freq`), as
+    dataset/twophase_flow_stage1.py reads it; returns `path`."""
+    os.makedirs(path, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for i in range(ncase):
+        vel = np.stack([_smooth_field(rng, case_len, h, w), _smooth_field(rng, case_len, h, w)],
+                       axis=-1)
+        prs = _smooth_field(rng, case_len, h, w)
+        vof = np.clip(0.5 + 0.5 * _smooth_field(rng, case_len, h, w), 0, 1)
+        kw = dict(vel=vel, prs=prs, vof=vof)
+        if with_freq:
+            kw["freq"] = np.float32(rng.uniform(0.5, 2.0))
+        np.savez(os.path.join(path, f"case_{i:04d}.npz"), **kw)
     return path
 
 

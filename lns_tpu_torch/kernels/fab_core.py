@@ -50,12 +50,53 @@ import torch
 from lns_tpu_torch.kernels import _build
 
 
-def fab_core_plain(u, k_x, k_y, w_in, w_o1, eps: float = 1e-5):
+def fab_mean_c(u_f32, kx_s, ky_s):
+    """mean_c [b, n, c] f32, the pixel mean of k_x . u . k_y^T per channel:
+    ``einsum("bnh,bnw,bhwc->bnc", kx_s, ky_s, u_f32) / (h w)`` from the row
+    sums of the two kernels kx_s [b, n, h], ky_s [b, n, w] (f32) and u
+    [b, h, w, c] (f32), the outer product of the sums first, as XLA forms
+    it."""
+    h, w = u_f32.shape[1:3]
+    return torch.einsum("bnh,bnw,bhwc->bnc", kx_s, ky_s, u_f32) / (h * w)
+
+
+def rounded_mean_c(u, k_x, k_y):
+    """``_batched_gram_core``'s own mean_c [b, n, c]: the pixel mean of the
+    bb it forms, from the kernels in u's dtype and u as given (what the
+    function computes jitted alone)."""
+    dt = u.dtype
+    return fab_mean_c(u.float(), k_x.to(dt).float().sum(dim=2), k_y.to(dt).float().sum(dim=2))
+
+
+def guarded_var(ex2, mean, mean_r):
+    """The variance ``fab_core_plain`` normalises by, from E[phi^2] and the
+    two means (kernel 2's ``guarded_var``): ``max(ex2 - mean^2, 0)``, as
+    ``_batched_gram_core`` takes it, unless ``ex2 - mean^2`` falls below a
+    quarter of ``max(ex2 - mean_r^2, 0)``; then the latter."""
+    var, var_r = ex2 - mean.square(), (ex2 - mean_r.square()).clamp_min(0.0)
+    return torch.where(var >= 0.25 * var_r, var, var_r).clamp_min(0.0)
+
+
+def fab_core_plain(u, k_x, k_y, w_in, w_o1, eps: float = 1e-5, mean_c=None):
     """Plain PyTorch version (``_batched_gram_core``): u [b, h, w, c],
     k_x [b, n, h, h], k_y [b, n, w, w], w_in [c, n, d], w_o1 [n, d, o] ->
     [b, h, w, o] in u's dtype, rounding a, bb, m, the bias and the output to
-    it where ``_batched_gram_core`` does."""
+    it where ``_batched_gram_core`` does.
+
+    mean_c [b, n, c, 2] (f32): [..., 0] the mean the statistics use (the
+    FAB block's, ``fab_mean_c`` of the unrounded values, as the jitted JAX
+    block reads them), [..., 1] ``rounded_mean_c``; None: both the latter,
+    the function jitted alone. The variance is ``_batched_gram_core``'s,
+    ``max(E[phi^2] - mean^2, 0)``, unless it falls below a quarter of the
+    variance about the second mean: a mean from the unrounded values
+    against E[phi^2] of the rounded bb can cancel to or below zero on flat
+    features, where the clamp would scale the channel by rsqrt(eps) (in
+    139 of the 240 FAB core calls of ``chip_smoke.py``'s NS2d stage-1 run,
+    up to 94 (sample, head, d) each: ``kernels/probe_twophase.py``); there
+    the port takes the variance about the second mean."""
     dt = u.dtype
+    if mean_c is None:
+        mean_c = rounded_mean_c(u, k_x, k_y)[..., None].expand(-1, -1, -1, 2)
     k_x, k_y, w_in = k_x.to(dt), k_y.to(dt), w_in.to(dt)
     b, h, w, c = u.shape
     n_px = h * w
@@ -65,15 +106,12 @@ def fab_core_plain(u, k_x, k_y, w_in, w_o1, eps: float = 1e-5):
     else:
         a = torch.einsum("bnlw,bhwc->bnhlc", k_y, u)
         bb = torch.einsum("bnih,bnhlc->bnilc", k_x, a)    # (h-index, w-index)
-    kx_s = k_x.float().sum(dim=2)                         # [b, n, h]
-    ky_s = k_y.float().sum(dim=2)                         # [b, n, w]
-    mean_c = torch.einsum("bnh,bnw,bhwc->bnc", kx_s, ky_s, u.float()) / n_px
     bbf = bb.float()
     g = torch.einsum("bnilc,bnile->bnce", bbf, bbf)
     wf = w_in.float()
-    mean = torch.einsum("bnc,cnd->bnd", mean_c, wf)
+    mean, mean_r = torch.einsum("bnck,cnd->kbnd", mean_c, wf)
     ex2 = torch.einsum("cnd,bnce,end->bnd", wf, g / n_px, wf)
-    inv = torch.rsqrt((ex2 - mean.square()).clamp_min(0.0) + eps)
+    inv = torch.rsqrt(guarded_var(ex2, mean, mean_r) + eps)
     w1f = w_o1.float()
     m = torch.einsum("cnd,bnd,ndo->bnco", wf, inv, w1f).to(dt)
     bias = torch.einsum("bnd,ndo->bo", mean * inv, w1f).to(dt)[:, None, None, :]
@@ -84,48 +122,54 @@ def fab_core_plain(u, k_x, k_y, w_in, w_o1, eps: float = 1e-5):
 
 class FabCoreFunction(torch.autograd.Function):
     """Kernel 2 with a gradient. The forward launches the kernel (the plain
-    version for a CPU tensor) and saves its five inputs as they were given,
+    version for a CPU tensor) and saves its inputs as they were given,
     before the wrapper's casts: w_in and w_o1 are views of the 1x1 conv
     weights, so autograd maps their gradients back to ``in_proj`` and
-    ``to_out[1]``. The backward recomputes ``fab_core_plain`` from them
-    under grad (the casts happen inside it) and returns that function's
-    gradients. The JAX package has no backward kernel to port (XLA
-    differentiates ``_batched_gram_core``), so none is written here."""
+    ``to_out[1]``, and a given mean_c's reaches the GroupNorm and the
+    kernels it was computed from. The backward recomputes ``fab_core_plain``
+    from them under grad (the casts happen inside it) and returns that
+    function's gradients. The JAX package has no backward kernel to port
+    (XLA differentiates ``_batched_gram_core``), so none is written here."""
 
     @staticmethod
-    def forward(ctx, u, k_x, k_y, w_in, w_o1, eps: float):
-        ctx.save_for_backward(u, k_x, k_y, w_in, w_o1)
+    def forward(ctx, u, k_x, k_y, w_in, w_o1, eps: float, mean_c=None):
+        ctx.save_for_backward(u, k_x, k_y, w_in, w_o1, mean_c)
         ctx.eps = eps
-        return _fab_core(u, k_x, k_y, w_in, w_o1, eps)
+        return _fab_core(u, k_x, k_y, w_in, w_o1, eps, mean_c)
 
     @staticmethod
     def backward(ctx, grad):
-        inputs = [t.detach().requires_grad_(need)
-                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        needs = ctx.needs_input_grad[:5] + (ctx.needs_input_grad[6:] or (False,))  # mean_c last
+        inputs = [None if t is None else t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, needs)]
         with torch.enable_grad():
-            y = fab_core_plain(*inputs, ctx.eps)
-        grads = iter(torch.autograd.grad(y, [t for t in inputs if t.requires_grad], grad))
-        return tuple(next(grads) if t.requires_grad else None for t in inputs) + (None,)
+            y = fab_core_plain(*inputs[:5], ctx.eps, mean_c=inputs[5])
+        wanted = [t for t in inputs if t is not None and t.requires_grad]
+        grads = iter(torch.autograd.grad(y, wanted, grad))
+        out = [next(grads) if t is not None and t.requires_grad else None for t in inputs]
+        return tuple(out[:5]) + (None,) + tuple(out[5:len(ctx.needs_input_grad) - 1])
 
 
-def fab_fused_core(u, k_x, k_y, w_in, w_o1, eps: float = 1e-5):
+def fab_fused_core(u, k_x, k_y, w_in, w_o1, eps: float = 1e-5, mean_c=None):
     """FAB core with the JAX kernel's shapes: u [b, h, w, c] (post-GN),
-    k_x [b, n, h, h], k_y [b, n, w, w], w_in [c, n, d], w_o1 [n, d, o] ->
-    [b, h, w, o] in u's dtype.
+    k_x [b, n, h, h], k_y [b, n, w, w], w_in [c, n, d], w_o1 [n, d, o],
+    mean_c [b, n, c, 2] f32 or None (as ``fab_core_plain``; the kernel reads
+    it and computes the rest) -> [b, h, w, o] in u's dtype.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    on the current stream or raises. With grad mode on and any of the five
+    on the current stream or raises. With grad mode on and any of the
     tensors requiring grad the call goes through ``FabCoreFunction``, which
     launches the same kernel and carries the plain version's gradient."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (u, k_x, k_y, w_in, w_o1)):
-        return FabCoreFunction.apply(u, k_x, k_y, w_in, w_o1, eps)
-    return _fab_core(u, k_x, k_y, w_in, w_o1, eps)
+    inputs = (u, k_x, k_y, w_in, w_o1, mean_c)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
+        return FabCoreFunction.apply(u, k_x, k_y, w_in, w_o1, eps, mean_c)
+    return _fab_core(u, k_x, k_y, w_in, w_o1, eps, mean_c)
 
 
-def _fab_core(u, k_x, k_y, w_in, w_o1, eps: float):
+def _fab_core(u, k_x, k_y, w_in, w_o1, eps: float, mean_c):
     """The launch (or, for a CPU tensor, the plain version), without grad."""
-    if not _build.on_cuda(u, "fab_fused_core", k_x, k_y, w_in, w_o1):
-        return fab_core_plain(u, k_x, k_y, w_in, w_o1, eps)
+    if not _build.on_cuda(u, "fab_fused_core", k_x, k_y, w_in, w_o1, mean_c):
+        return fab_core_plain(u, k_x, k_y, w_in, w_o1, eps, mean_c=mean_c)
     if u.dtype not in _build.DTYPE_CODE:
         raise TypeError(f"fab_fused_core: unsupported dtype {u.dtype}")
     if u.dim() != 4 or not u.is_contiguous():
@@ -134,10 +178,14 @@ def _fab_core(u, k_x, k_y, w_in, w_o1, eps: float):
     n, d, o = w_o1.shape
     expect = {"k_x": (k_x, (b, n, h, h)), "k_y": (k_y, (b, n, w, w)),
               "w_in": (w_in, (c, n, d)), "w_o1": (w_o1, (n, d, o))}
+    if mean_c is not None:
+        expect["mean_c"] = (mean_c, (b, n, c, 2))
     for name, (t, shape) in expect.items():
         if tuple(t.shape) != shape or t.device != u.device:
             raise ValueError(f"fab_fused_core: {name} must be {shape} on {u.device}, "
                              f"got {tuple(t.shape)} on {t.device}")
+    if mean_c is None:
+        mean_c = rounded_mean_c(u, k_x, k_y)[..., None].expand(-1, -1, -1, 2)
     if not 0 < b <= 65535:
         raise ValueError(f"fab_fused_core: batch {b}; the grid takes 1 to 65535")
     lib = _build.library()
@@ -154,12 +202,13 @@ def _fab_core(u, k_x, k_y, w_in, w_o1, eps: float):
     w1 = w_o1.float().contiguous()
     if w1.data_ptr() % 16:  # read as 16-byte vectors
         w1 = w1.clone()
+    mc = mean_c.float().contiguous()
     m = torch.empty((b, n, c, o), device=u.device, dtype=u.dtype)  # m_n, rounded to u's dtype
     bias = torch.empty((b, n, o), device=u.device, dtype=torch.float32)
     out = torch.empty((b, h, w, o), device=u.device, dtype=u.dtype)
     rc = lib.lns_fab_core(
         _build.DTYPE_CODE[u.dtype], u.data_ptr(), kx.data_ptr(), ky.data_ptr(),
-        wi.data_ptr(), w1.data_ptr(), m.data_ptr(), bias.data_ptr(),
+        wi.data_ptr(), w1.data_ptr(), mc.data_ptr(), m.data_ptr(), bias.data_ptr(),
         out.data_ptr(), b, n, h, w, c, d, o, ctypes.c_float(eps),
         torch.cuda.current_stream(u.device).cuda_stream)
     _build.check(rc, "lns_fab_core")

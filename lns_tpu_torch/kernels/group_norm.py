@@ -75,24 +75,51 @@ def group_norm_swish_plain(x, scale, bias, num_groups: int, eps: float = 1e-6,
         activation dtype (``ops.activations.swish``, what XLA computes for
         ``y * sigmoid(y)``).
     """
+    if x.dtype != torch.float32:
+        y = _low_affine(x, scale, bias, num_groups, eps)
+        return (swish(y) if apply_swish else y).reshape(x.shape)
+    b, c = x.shape[0], x.shape[-1]
+    cg = c // num_groups
+    xf = x.reshape(b, -1, num_groups, cg)
+    n = xf.shape[1] * cg
+    mean = (_group_sums(xf) / n)[:, None, :, None]
+    var = (_group_sums((xf - mean).square()) / n)[:, None, :, None].clamp_min(0.0)
+    y = ((xf - mean) * torch.rsqrt(var + eps)).reshape(b, -1, c)
+    y = y * scale.float() + bias.float()
+    return (swish(y) if apply_swish else y).reshape(x.shape)
+
+
+def _low_affine(x, scale, bias, num_groups: int, eps: float, unrounded: bool = False):
+    """bf16 / f16 GroupNorm + affine of x [B, *spatial, C] as [B, S, C]:
+    ``x * sc + sh`` in x's dtype (``unrounded``: the sum in f32, before its
+    rounding)."""
     b, c = x.shape[0], x.shape[-1]
     cg = c // num_groups
     xf = x.float().reshape(b, -1, num_groups, cg)
-    if x.dtype == torch.float32:
-        n = xf.shape[1] * cg
-        mean = (_group_sums(xf) / n)[:, None, :, None]
-        var = (_group_sums((xf - mean).square()) / n)[:, None, :, None].clamp_min(0.0)
-        y = ((xf - mean) * torch.rsqrt(var + eps)).reshape(b, -1, c)
-        y = y * scale.float() + bias.float()
-        return (swish(y) if apply_swish else y).reshape(x.shape)
     n = xf.shape[1] * cg  # sums divided by n, as jnp.mean (torch's CUDA mean multiplies by 1/n)
     mean = _group_sums(xf) / n                                     # [B, G]
     var = (_group_sums(xf.square()) / n - mean.square()).clamp_min(0.0)
     inv = torch.rsqrt(var + eps)
     sc = inv.repeat_interleave(cg, dim=1) * scale.float()          # [B, C]
     sh = bias.float() - mean.repeat_interleave(cg, dim=1) * sc
-    y = x.reshape(b, -1, c) * sc[:, None].to(x.dtype) + sh[:, None].to(x.dtype)
-    return (swish(y) if apply_swish else y).reshape(x.shape)
+    prod = x.reshape(b, -1, c) * sc[:, None].to(x.dtype)
+    if unrounded:
+        return prod.float() + sh[:, None].to(x.dtype).float()
+    return prod + sh[:, None].to(x.dtype)
+
+
+def group_norm_unrounded(x, scale, bias, num_groups: int, eps: float = 1e-6):
+    """The GroupNorm + affine of ``group_norm_swish_plain`` (no swish) as
+    the f32 value before its last rounding: in bf16 / f16 ``T(x sc) + sh``
+    added in f32 and not rounded to T; in f32 the output itself. x
+    [B, *spatial, C] -> f32, same shape. Plain PyTorch on any device.
+
+    The jitted JAX FAB block reads its GroupNorm(1) output so where it
+    converts it to f32 (the ``mean_c`` of ``_batched_gram_core``): XLA drops
+    the bf16 round trip between the fused add and that consumer."""
+    if x.dtype == torch.float32:
+        return group_norm_swish_plain(x, scale, bias, num_groups, eps, apply_swish=False)
+    return _low_affine(x, scale, bias, num_groups, eps, unrounded=True).reshape(x.shape)
 
 
 @functools.lru_cache(maxsize=None)

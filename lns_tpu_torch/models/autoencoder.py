@@ -1,5 +1,6 @@
-"""Stage-1 autoencoder: the periodic square variant (NS2d) and the
-half-periodic variant (SW).
+"""Stage-1 autoencoder: the periodic square variant (NS2d), the
+half-periodic variant (SW) and the non-squared zero-padded variant
+(two-phase).
 
 ``SimpleAutoencoder`` maps NHWC fields to the latent grid and back:
 encode = quant_conv(encoder(x)), decode = decoder(post_quant_conv(z)),
@@ -30,8 +31,10 @@ from lns_tpu_torch.ops.resblocks import (DownSampleBlock, DownSampleBlock2dHalfP
 
 
 class Resize(nn.Module):
-    """Nearest resize to (out_h, out_w) with torch's index rule; a no-op
-    when the following conv carries the exact 2x (``fused``)."""
+    """Nearest resize to (out_h, out_w) with torch's index rule (source
+    index floor(i in / out), as ``lns_tpu.ops.sampling.resize_nearest_torch``
+    takes it); a no-op when the following conv carries the exact 2x
+    (``fused``)."""
 
     def __init__(self, out_h: int, out_w: int, fused: bool = False):
         super().__init__()
@@ -134,9 +137,9 @@ class SimpleAutoencoder(nn.Module):
 
     def __init__(self, cfg, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if cfg.ae_variant not in ("periodic", "half_periodic"):
-            raise NotImplementedError(f"AE variant {cfg.ae_variant!r} is not ported yet; it "
-                                      "comes with the two-phase families")
+        if cfg.is_conditional:
+            raise NotImplementedError("the conditional autoencoder (cond_channels) is not ported "
+                                      "yet; it comes with the conditional two-phase family")
         self.cfg = cfg
         self.encoder = SpecSequential(encoder_spec(cfg), cfg.in_channels, dtype)
         self.decoder = SpecSequential(decoder_spec(cfg), cfg.latent_dim, dtype)

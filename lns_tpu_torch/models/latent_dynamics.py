@@ -96,6 +96,12 @@ class LatentDynamics(nn.Module):
         if self.dtype is not None:
             z = z.to(self.dtype)  # the carry is in the propagator's dtype
         if self.use_kernel:
+            # every padding mode, zeros too: the JAX package takes its XLA
+            # scan in zeros mode because its Pallas rollout measured slower
+            # on a TPU (lns_tpu/models/latent_dynamics.py: _pallas_rollout_ok);
+            # on an H100 kernel 1 runs the two-phase rollout (B8 x 78 steps
+            # at 7x15) in 13.27 ms against 261.29 ms for the plain step loop
+            # (PERF.md, PR 11)
             p = self.propagator
             packed = pack_simple_cnn(p, self.dtype or torch.float32)
             zs = fused_rollout(z, packed, steps, p.prop_n_block, p.dilation, p.padding_mode)

@@ -1,6 +1,7 @@
 """Latent-space propagator: ``SimpleCNN`` with ``DilatedResidualBlock``s
-(reference: train_stage2_ns2d.py:25-87), circular padding on NS2d and
-half-periodic-x on SW (train_stage2_SW.py). A half-periodic conv rounds
+(reference: train_stage2_ns2d.py:25-87), circular padding on NS2d,
+half-periodic-x on SW (train_stage2_SW.py) and zeros on the two-phase
+family (train_stage2_twophase.py). A half-periodic conv rounds
 as ``ops.conv.ConvND`` states (the JAX module step's rounding points); the
 fused rollout kernel sums the nine taps in one accumulator, as the JAX
 package's Pallas rollout does.
@@ -74,14 +75,14 @@ class SimpleCNN(nn.Module):
 
 
 # the SimpleCNN's padding per workload (lns_tpu/models/propagator.py:256)
-PADDING = {"ns2d": "circular", "sw": "half_periodic_x"}
+PADDING = {"ns2d": "circular", "sw": "half_periodic_x", "twophase": "zeros"}
 
 
 def build_propagator(cfg, dtype: Optional[torch.dtype] = None) -> SimpleCNN:
     """The stage-2 propagator of a config: a SimpleCNN, circular on NS2d,
-    half-periodic in x on SW."""
-    if cfg.is_conditional or cfg.workload not in PADDING:
-        raise NotImplementedError(f"propagator for {cfg.workload!r} is not ported yet; it "
-                                  "comes with the two-phase families")
+    half-periodic in x on SW, zero-padded on the two-phase family."""
+    if cfg.is_conditional:
+        raise NotImplementedError("the conditional propagator (CondSimpleCNN) is not ported "
+                                  "yet; it comes with the conditional two-phase family")
     return SimpleCNN(cfg.latent_dim, cfg.prop_n_block, cfg.prop_n_embd,
                      dilation=cfg.dilation, padding_mode=PADDING[cfg.workload], dtype=dtype)

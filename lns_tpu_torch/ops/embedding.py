@@ -8,8 +8,12 @@ from torch import nn
 
 
 def rotary_inv_freq(dim: int) -> torch.Tensor:
-    """The reference's registered ``inv_freq`` buffer: [dim / 2] f32."""
-    return 1.0 / (10000 ** (torch.arange(0, dim, 2, dtype=torch.float32) / dim))
+    """The reference's registered ``inv_freq`` buffer, ``1 / 10000 **
+    (arange(0, dim, 2) / dim)``: [dim / 2] f32, with the values the jitted
+    JAX package uses (XLA folds the constant in f64 and rounds once; an f32
+    ``pow`` differs in the last bit at 19 of 64 entries for dim 128)."""
+    x = torch.arange(0, dim, 2, dtype=torch.float32) / dim
+    return (1.0 / 10000.0 ** x.double()).float()
 
 
 def rotary_freqs(coordinates: torch.Tensor, dim: int, min_freq: float = 1.0 / 64,
@@ -23,8 +27,10 @@ def rotary_freqs(coordinates: torch.Tensor, dim: int, min_freq: float = 1.0 / 64
 
 
 class RotaryEmbedding(nn.Module):
-    """The reference module: holds ``inv_freq`` as a buffer, which is part
-    of its checkpoint."""
+    """The reference module. Its ``inv_freq`` buffer is part of its
+    checkpoint (whatever values a checkpoint holds load there); the
+    frequencies use ``rotary_inv_freq(dim)``, the values of the jitted JAX
+    package, which a checkpoint's f32 ``pow`` can miss in the last bit."""
 
     def __init__(self, dim: int, min_freq: float = 1.0 / 64, scale: float = 1.0):
         super().__init__()
@@ -34,8 +40,7 @@ class RotaryEmbedding(nn.Module):
         self.register_buffer("inv_freq", rotary_inv_freq(dim))
 
     def forward(self, coordinates: torch.Tensor) -> torch.Tensor:
-        return rotary_freqs(coordinates, self.dim, self.min_freq, self.scale,
-                            self.inv_freq)
+        return rotary_freqs(coordinates, self.dim, self.min_freq, self.scale)
 
 
 def rotate_half(x: torch.Tensor) -> torch.Tensor:

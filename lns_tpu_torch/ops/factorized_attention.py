@@ -16,11 +16,15 @@ of the JAX package's two formulations, by the same rule
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 
 from lns_tpu_torch.kernels.axial import axial_stats_plain, fab_axial_in_fused
-from lns_tpu_torch.kernels.fab_core import fab_core_plain, fab_fused_core
+from lns_tpu_torch.kernels.fab_core import (fab_core_plain, fab_fused_core, fab_mean_c,
+                                            rounded_mean_c)
+from lns_tpu_torch.kernels.group_norm import group_norm_unrounded
 from lns_tpu_torch.ops.activations import GELU, gelu
 from lns_tpu_torch.ops.conv import Conv1x1, Dense
 from lns_tpu_torch.ops.embedding import RotaryEmbedding, apply_rotary_pos_emb
@@ -41,16 +45,36 @@ class LowRankKernel(nn.Module):
         self.pos_emb = RotaryEmbedding(dim_head) if use_rotary_emb else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.kernel_and_sums(x)[0]
+
+    def kernel_and_sums(self, x: torch.Tensor):
+        """(K in x's dtype, the f32 sums of K over its rows [b, heads, n]).
+
+        q k^T is one f32 product rounded once to K's dtype; the sums are
+        taken from the f32 product before that rounding, as the jitted JAX
+        block's column sums of ``_batched_gram_core`` read it (its
+        ``wrapped_reduce`` fusions consume the dot's f32 output, the axial
+        applies its bf16 round trip)."""
         b, n, _ = x.shape
         q, k = self.to_qk(x).chunk(2, dim=-1)
         q = q.reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
         k = k.reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
         if self.pos_emb is not None:
-            pos = torch.linspace(0.0, 1.0, n, device=x.device).reshape(1, n)
-            freqs = self.pos_emb(pos)[:, None].to(q.dtype)  # [1, 1, n, d]
+            freqs = self.pos_emb(_linspace01(n, x.device))[:, None].to(q.dtype)  # [1, 1, n, d]
             q = apply_rotary_pos_emb(q, freqs)
             k = apply_rotary_pos_emb(k, freqs)
-        return torch.einsum("bhid,bhjd->bhij", q, k)
+        kf = torch.einsum("bhid,bhjd->bhij", q.float(), k.float())
+        return kf.to(x.dtype), kf.sum(dim=2)
+
+
+def _linspace01(n: int, device) -> torch.Tensor:
+    """linspace(0, 1, n) [1, n] as ``jnp.linspace`` computes it in f32: i
+    times f32(1 / (n - 1)), the last point 1 (``torch.linspace`` takes the
+    upper half from the end, which differs in the last bit)."""
+    pos = torch.arange(n, dtype=torch.float32, device=device) * (1.0 / max(n - 1, 1))
+    if n > 1:
+        pos[-1] = 1.0
+    return pos.reshape(1, n)
 
 
 class PoolingReducer(nn.Module):
@@ -71,8 +95,11 @@ class PoolingReducer(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.to_in(x)
         pool_dims = tuple(range(2, x.dim() - 1))
-        if pool_dims:
-            x = x.mean(dim=pool_dims)
+        if pool_dims:  # the f32 sum times f32(1 / count), rounded once: XLA's mean
+            # (e.g. fused_computation.35 of the 12x24 block multiplies by
+            # 0.0416666679); torch's bf16 mean divides, which differs
+            count = math.prod(x.shape[d] for d in pool_dims)
+            x = (x.float().sum(dim=pool_dims) * (1.0 / count)).to(x.dtype)
         return self.out_ffn(x)
 
 
@@ -177,14 +204,30 @@ class FABlock2D(nn.Module):
         u_in = self.to_in[0].forward_last(un)
         u_x = self.to_x[0](u_in)                  # per-row descriptors
         u_y = self.to_y[1](u_in.transpose(1, 2))  # per-column descriptors
-        k_x = self.low_rank_kernel_x(u_x)         # [b, heads, h, h]
-        k_y = self.low_rank_kernel_y(u_y)         # [b, heads, w, w]
+        k_x, kx_s = self.low_rank_kernel_x.kernel_and_sums(u_x)  # [b, heads, h, h]
+        k_y, ky_s = self.low_rank_kernel_y.kernel_and_sums(u_y)  # [b, heads, w, w]
         w_o1 = self.to_out[1].weight[:, :, 0, 0].t().reshape(
             self.heads, self.dim_head, self.dim_out)
         if self.impl == "batchedgram":
+            # mean_c as the jitted JAX block computes it (its optimised HLO
+            # on the CPU, dim 32 at 16x16): the column sums of the kernels
+            # from the f32 products before their bf16 round (wrapped_reduce.1
+            # / .2 read dot_general.35 / .38; the applies read the rounded
+            # convert_convert_fusion.6), and the GroupNorm(1) output before
+            # its round (the mean_c dot reads add_bitcast_fusion; to_in and
+            # the applies read the rounded convert_bitcast_fusion.8 /
+            # copy_bitcast_fusion.11). Beside it, the mean of the rounded
+            # values, which guards the variance (fab_core_plain).
+            uf = un.float() if un.dtype == torch.float32 else self._in_norm_unrounded(u)
+            mean_c = torch.stack([fab_mean_c(uf, kx_s, ky_s), rounded_mean_c(un, k_x, k_y)], -1)
             core = fab_fused_core if self.use_kernel else fab_core_plain
+            out = core(un.contiguous(), k_x, k_y, w_in, w_o1, mean_c=mean_c)
         else:
             core = fab_dspace_core if self.use_kernel else fab_dspace_core_plain
-        out = core(un.contiguous(), k_x, k_y, w_in, w_o1)
+            out = core(un.contiguous(), k_x, k_y, w_in, w_o1)
         out = self.to_out[3].forward_last(gelu(out))
         return out.movedim(-1, 1) + u_skip
+
+    def _in_norm_unrounded(self, u: torch.Tensor) -> torch.Tensor:
+        n = self.in_norm
+        return group_norm_unrounded(u.movedim(1, -1), n.weight, n.bias, n.num_groups, n.eps)

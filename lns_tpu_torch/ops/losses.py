@@ -4,9 +4,10 @@
 (training_utils.py:9-23), with its eps floor on the ground-truth norm;
 ``smooth_l1_loss`` is ``torch.nn.functional.smooth_l1_loss`` (beta 1, mean),
 the stage-2 rollout loss (train_stage2_ns2d.py:213), written out as the JAX
-package writes it. Plain tensor functions: callers pass the ``reduce_dim``
-of their layout (the port keeps the JAX package's channels-last
-[b, (t,) h, w, c]).
+package writes it; ``gradient_domain_loss`` the two-phase family's
+finite-difference loss (training_utils.py:36-77). Plain tensor functions:
+callers pass the ``reduce_dim`` of their layout (the port keeps the JAX
+package's channels-last [b, (t,) h, w, c]).
 """
 
 from __future__ import annotations
@@ -50,3 +51,26 @@ def smooth_l1_loss(pred, gt, beta: float = 1.0, reduction: str = "mean"):
     if reduction == "sum":
         return torch.sum(loss)
     return loss
+
+
+def gradient_domain_loss(pred, gt, weight_space: float = 1.0, weight_time: float = 0.0,
+                         drop_last_channel: bool = True, spatial_axes: Tuple[int, int] = (-3, -2)):
+    """Spatial finite-difference relative L2 (the reference's
+    GradientDomainLoss, training_utils.py:36-77) on channels-last fields:
+    the last channel (vof) dropped when `drop_last_channel`; central
+    differences x[2:] - x[:-2] along each of `spatial_axes`; the two
+    ``relative_lp_loss`` terms (``reduce_all``) over those axes, summed and
+    weighted by `weight_space`. `weight_time` is accepted and unused, as in
+    the reference."""
+    if drop_last_channel:
+        pred, gt = pred[..., :-1], gt[..., :-1]
+
+    def fd(x, axis):
+        n = x.shape[axis]
+        return x.narrow(axis, 2, n - 2) - x.narrow(axis, 0, n - 2)
+
+    ax_h, ax_w = spatial_axes
+    rd = (ax_h, ax_w)
+    return weight_space * (
+        relative_lp_loss(fd(pred, ax_h), fd(gt, ax_h), reduce_dim=rd, reduce_all=True, p=2)
+        + relative_lp_loss(fd(pred, ax_w), fd(gt, ax_w), reduce_dim=rd, reduce_all=True, p=2))

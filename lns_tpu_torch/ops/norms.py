@@ -11,7 +11,6 @@ Torch semantics, as ``lns_tpu.ops.norms``:
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from lns_tpu_torch.kernels.group_norm import fused_group_norm_swish, group_norm_swish_plain
@@ -53,7 +52,13 @@ class GroupNormWrapper(nn.Module):
 
 class LayerNorm(nn.Module):
     """torch.nn.LayerNorm over the last dim; statistics in f32, output in the
-    input's dtype."""
+    input's dtype. Computed as ``lns_tpu.ops.norms.LayerNorm`` is (XLA's
+    fusion in ``jax.jit``): each mean a sum times 1/dim, the centred value
+    divided by ``sqrt(var + eps)`` (not multiplied by its rsqrt), then the
+    affine, rounded once (the jitted FAB block's LayerNorm fusions, e.g.
+    fused_computation.32 at 12x24: ``divide`` by ``sqrt``);
+    ``F.layer_norm``'s rsqrt product differs in the last bit, which a bf16
+    rounding shows at ~0.03 % of the elements."""
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
@@ -63,8 +68,11 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), (self.dim,), self.weight, self.bias,
-                            self.eps).to(x.dtype)
+        xf = x.float()
+        mean = xf.sum(dim=-1, keepdim=True) * (1.0 / self.dim)
+        xc = xf - mean
+        var = xc.square().sum(dim=-1, keepdim=True) * (1.0 / self.dim)
+        return (xc / torch.sqrt(var + self.eps) * self.weight + self.bias).to(x.dtype)
 
 
 def instance_norm_2d(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

@@ -8,10 +8,11 @@ validation and checkpoints every ``ckpt_every`` epochs, validation as the
 per-frame reconstruction rel-L2 on denormalised held-out trajectories. On
 the card every train step differentiates through the hand-written kernels
 2 and 3 (kernel 4 where the encoder has a d-space FAB) by their autograd
-Functions, and validation runs them under ``torch.no_grad``. The NS2d and
-SW families (the two-phase families raise, naming their slice); the
-trainer runs on one device (data parallelism and the async checkpointer
-are not ported).
+Functions, and validation runs them under ``torch.no_grad``. The NS2d, SW
+and two-phase families (the conditional two-phase family raises, naming its
+slice); the two-phase loss is taken on denormalised fields
+(train_stage1_twophase.py:71-73). The trainer runs on one device (data
+parallelism and the async checkpointer are not ported).
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from lns_tpu_torch.data import NS2DStage1, SWStage1, epoch_batches, to_device
+from lns_tpu_torch.data import (NS2DStage1, SWStage1, TankSloshingStage1, epoch_batches,
+                                to_device)
 from lns_tpu_torch.models import SimpleAutoencoder
 from lns_tpu_torch.ops.initializers import init_weights_
 from lns_tpu_torch.ops.losses import relative_lp_loss
@@ -31,18 +33,25 @@ from lns_tpu_torch.train.logging_utils import (MetricLogger, log_sequence, plot_
                                                prepare_training)
 from lns_tpu_torch.train.optim import stage1_optimizer
 
-STAGE1_DATASETS = {"ns2d": NS2DStage1, "sw": SWStage1}
+STAGE1_DATASETS = {"ns2d": NS2DStage1, "sw": SWStage1, "twophase": TankSloshingStage1}
 
 # per-workload field channel names, in the dataset's channel order
-# (reference: train_stage1_SW.py:119-131 logs vx / vy / prs losses)
-CHANNEL_NAMES = {"ns2d": ("vorticity",), "sw": ("vx", "vy", "prs")}
+# (reference: train_stage1_SW.py:119-131 logs vx / vy / prs losses;
+# train_stage1_twophase.py prints vx / vy / pressure / vof)
+CHANNEL_NAMES = {"ns2d": ("vorticity",), "sw": ("vx", "vy", "prs"),
+                 "twophase": ("vx", "vy", "prs", "vof")}
 
 
-def reconstruction_loss(model, x: torch.Tensor) -> torch.Tensor:
+def reconstruction_loss(model, x: torch.Tensor, denormalize=None) -> torch.Tensor:
     """The stage-1 loss of `model` on frames x [b, H, W, C] (f32): the
     relative L2 of the reconstruction over (H, W) per sample and channel,
-    averaged; computed in f32 whatever the activation dtype."""
-    return relative_lp_loss(model(x).float(), x, reduce_dim=(1, 2), p=2, reduce_all=True)
+    averaged; computed in f32 whatever the activation dtype. With
+    `denormalize` (the two-phase family) both fields are denormalised
+    first."""
+    x_hat = model(x).float()
+    if denormalize is not None:
+        x_hat, x = denormalize(x_hat), denormalize(x)
+    return relative_lp_loss(x_hat, x, reduce_dim=(1, 2), p=2, reduce_all=True)
 
 
 class Stage1Trainer:
@@ -60,7 +69,7 @@ class Stage1Trainer:
                  config_path: Optional[str] = None, device=None):
         if cfg.workload not in STAGE1_DATASETS:
             raise NotImplementedError(f"stage-1 training of {cfg.workload!r} is not ported yet; "
-                                      "it comes with the two-phase families")
+                                      "it comes with the conditional two-phase family")
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Stage1Trainer: no CUDA device; pass device=\"cpu\" to train on "
@@ -75,6 +84,8 @@ class Stage1Trainer:
         ds_cls = STAGE1_DATASETS[cfg.workload]
         self.train_ds = ds_cls(cfg, train_mode=True)
         self.val_ds = ds_cls(cfg, train_mode=False)
+        # the two-phase family takes its loss on denormalised fields
+        self._loss_denorm = self.train_ds.denormalize if cfg.workload == "twophase" else None
         with self.device:  # the parameters are allocated there
             self.model = SimpleAutoencoder(
                 cfg, dtype=torch.bfloat16 if cfg.mixed_precision else None)
@@ -92,7 +103,7 @@ class Stage1Trainer:
 
     # ------------------------------------------------------------------
     def _loss(self, x: torch.Tensor) -> torch.Tensor:
-        return reconstruction_loss(self.model, x)
+        return reconstruction_loss(self.model, x, self._loss_denorm)
 
     def train_step(self, x: torch.Tensor) -> torch.Tensor:
         """One optimizer step on a batch of frames; returns the loss (a 0-d

@@ -8,9 +8,10 @@ rollout loss over ``out_tw`` steps; validation by the full-rollout
 ``LatentDynamics.predict`` with frame-wise and sequence-wise relative L2 on
 denormalised fields. On the card the encode pre-pass and validation run the
 hand-written kernels 1-3 under ``torch.no_grad``, and every train step's
-GroupNorms launch kernel 3 through its autograd Function. The NS2d and SW
-families (the two-phase families raise, naming their slice); the trainer
-runs on one device (data parallelism is not ported).
+GroupNorms launch kernel 3 through its autograd Function. The NS2d, SW
+and two-phase families (the conditional two-phase family raises, naming
+its slice); the trainer runs on one device (data parallelism is not
+ported).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from lns_tpu_torch.data import NS2DStage2, SWStage2, epoch_batches, to_device
+from lns_tpu_torch.data import NS2DStage2, SWStage2, TankSloshingStage2, epoch_batches, to_device
 from lns_tpu_torch.models import LatentDynamics
 from lns_tpu_torch.ops.initializers import init_weights_
 from lns_tpu_torch.ops.losses import relative_lp_loss
@@ -32,7 +33,7 @@ from lns_tpu_torch.train.logging_utils import (MetricLogger, log_sequence, plot_
 from lns_tpu_torch.train.optim import stage2_optimizer
 from lns_tpu_torch.train.stage1 import CHANNEL_NAMES
 
-STAGE2_DATASETS = {"ns2d": NS2DStage2, "sw": SWStage2}
+STAGE2_DATASETS = {"ns2d": NS2DStage2, "sw": SWStage2, "twophase": TankSloshingStage2}
 
 
 class Stage2Trainer:
@@ -51,9 +52,9 @@ class Stage2Trainer:
 
     def __init__(self, cfg, seed: int = 1234, use_wandb: bool = True,
                  config_path: Optional[str] = None, device=None):
-        if cfg.workload not in STAGE2_DATASETS or cfg.is_conditional:
+        if cfg.workload not in STAGE2_DATASETS:
             raise NotImplementedError(f"stage-2 training of {cfg.workload!r} is not ported yet; "
-                                      "it comes with the two-phase families")
+                                      "it comes with the conditional two-phase family")
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Stage2Trainer: no CUDA device; pass device=\"cpu\" to train on "

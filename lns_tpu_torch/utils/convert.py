@@ -6,7 +6,8 @@ arrays) into the state dict of ``lns_tpu_torch.models.LatentDynamics``,
 which carries the reference's key names and OIHW / [out, in] layouts. It
 follows ``lns_tpu.utils.torch_export.export_latent_dynamics`` for the
 families this package runs (the periodic square NS2d autoencoder, the
-half-periodic SW autoencoder and the plain SimpleCNN propagator), driven by
+half-periodic SW autoencoder, the non-squared two-phase autoencoder and the
+plain SimpleCNN propagator), driven by
 the port's own layer specs, and imports no JAX.
 """
 
@@ -124,9 +125,9 @@ def _propagator(out, cfg, params, prefix):
 def state_dict_from_jax(cfg, params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """``{'vq_ae', 'propagator'}`` (optionally under ``'params'``) -> the
     state dict of ``LatentDynamics(cfg)``, f32 tensors on the CPU."""
-    if cfg.workload not in ("ns2d", "sw") or cfg.is_conditional:
-        raise NotImplementedError(f"workload {cfg.workload!r} is not ported yet; it comes "
-                                  "with the two-phase families")
+    if cfg.is_conditional:
+        raise NotImplementedError("the conditional two-phase model is not ported yet; it "
+                                  "comes with its own slice")
     params = params.get("params", params)
     ae = params["vq_ae"]
     out: Dict[str, np.ndarray] = {}

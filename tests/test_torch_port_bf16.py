@@ -38,6 +38,7 @@ from lns_tpu.ops.norms import LayerNorm as JLayerNorm
 from lns_tpu_torch.config import Config
 from lns_tpu_torch.kernels import axial
 from lns_tpu_torch.models import SimpleAutoencoder
+from lns_tpu_torch.models.specs import LayerSpec
 from lns_tpu_torch.ops import activations, attention, conv, norms
 from lns_tpu_torch.ops import factorized_attention as tfa
 from lns_tpu_torch.utils.convert import sequential_state_dict
@@ -214,6 +215,48 @@ def test_axial_stats_plain_matches_batched_core_moments(b, n, h, w, c, d):
     y2, st2 = axial.fab_axial_in_fused(tkx, tky, phi.permute(0, 2, 3, 1, 4),
                                        with_instance_norm=False, stats=True, heads_last=True)
     assert torch.equal(y2, y.permute(0, 2, 3, 1, 4)) and torch.equal(st2, st)
+
+
+# The c-space FAB block (``_fab_impl_for``: 5 dim < 9 dim_head) in bf16, per
+# (dim, dim_head, heads, h, w): the share of elements that differ from the
+# jitted JAX block, at most what was measured once the block read what XLA
+# feeds ``_batched_gram_core`` (mean_c from the GroupNorm(1) output before
+# its bf16 round and from the f32 kernel products before theirs; LayerNorm
+# dividing by sqrt(var + eps); the pooled mean a sum times 1/count; the
+# rotary positions and inv_freq as the jitted package computes them).
+# Before: 26.9 %, 29.4 %, 27.0 % and 42.8 %. The residue at SW's class
+# comes from one element of the y kernel's to_qk product (1 of 98,304; a
+# 64-term bf16 product summed in another order), which moves 5 of 9,216
+# elements of K_y and through them a whole row and column of the output
+# (with the JAX K_y fed in, 0.49 %; ROADMAP Queue 3).
+_CSPACE = {(32, 32, 4, 16, 16): 0.0, (32, 32, 4, 8, 16): 0.0, (32, 32, 4, 16, 8): 0.00025,
+           (64, 64, 8, 12, 24): 0.038}
+
+
+@pytest.mark.parametrize("dim,dim_head,heads,h,w", list(_CSPACE))
+def test_cspace_fab_block_bf16_matches_jitted_jax(dim, dim_head, heads, h, w):
+    """The port's bf16 ``FABlock2D`` (c-space core, on the CPU its plain
+    version) against the jitted ``lns_tpu.ops.FABlock2D`` on the same
+    converted weights (flax init, ``perturb`` seed 2; input
+    ``default_rng(28)``, batch 2): the largest error at most 1e-2 x max|ref|
+    and the share of differing elements at most ``_CSPACE``'s."""
+    jm = jops.FABlock2D(dim, dim_head, dim_head, heads, dim, dtype=jnp.bfloat16)
+    x = np.random.default_rng(28).standard_normal((2, h, w, dim)).astype(np.float32)
+    p = perturb(jm.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"], 2)
+    ref = jax.jit(lambda p, x: jm.apply({"params": p}, x))(p, jnp.asarray(x, jnp.bfloat16))
+    ref = np.asarray(ref.astype(jnp.float32))
+    spec = LayerSpec(0, "fablock", tuple(sorted(dict(
+        dim=dim, dim_head=dim_head, latent_dim=dim_head, heads=heads, dim_out=dim).items())))
+    state = sequential_state_dict([spec], {spec.name: p}, "")  # keys "0.{name}"
+    block = load(tfa.FABlock2D(dim, dim_head, dim_head, heads, dim),
+                 {k[len("0."):]: v for k, v in state.items()})
+    assert block.impl == "batchedgram"
+    with torch.no_grad():
+        out = nhwc(block(nchw(x).to(torch.bfloat16)))
+    err, share = np.abs(out - ref).max() / np.abs(ref).max(), _share(out, ref)
+    bound = _CSPACE[(dim, dim_head, heads, h, w)]
+    assert err <= 1e-2 and share <= bound, \
+        f"max_err {err:.2e} x max|ref| (<= 1e-2), {share:.4%} differ (<= {bound:.4%})"
 
 
 # Per layer kind: the share of elements differing, at most what

@@ -215,6 +215,27 @@ def test_fab_core_plain_bf16_rounds_as_batched_gram_core(b, n, h, w, c):
     assert (out != ref).mean() <= 0.01
 
 
+def test_fab_core_plain_guards_a_cancelled_variance():
+    """``mean_c`` [b, n, c, 2]: with both means the rounded bb's
+    (``rounded_mean_c``) the plain version is the default (the function
+    jitted alone), bitwise. ``guarded_var`` takes ``_batched_gram_core``'s
+    ``max(E[phi^2] - mean^2, 0)`` while it is at least a quarter of the
+    variance about the second mean, and that variance below it: never
+    negative, so never the clamp's rsqrt(eps)."""
+    u, kx, ky, w_in, w_o1 = map(torch.from_numpy, _fab_inputs(12, 2, 4, 12, 16, 16))
+    mr = fab_core.rounded_mean_c(u, kx, ky)
+    base = fab_core.fab_core_plain(u, kx, ky, w_in, w_o1)
+    assert torch.equal(fab_core.fab_core_plain(u, kx, ky, w_in, w_o1,
+                                               mean_c=torch.stack([mr, mr], -1)), base)
+    ex2 = torch.tensor([4.0, 4.0, 4.0, 4.0, 1e-3])
+    mean = torch.tensor([1.0, 1.9, 2.5, 0.0, 0.5])
+    mean_r = torch.tensor([1.0, 1.0, 1.0, 3.0, 0.0])
+    # 3 >= 0.75: JAX's; 0.39 < 0.75: the rounded bb's; -2.25: the rounded
+    # bb's; 4 >= 0 (the second clamped to 0): JAX's; -0.249 < 2.5e-4: 1e-3
+    want = torch.tensor([3.0, 3.0, 3.0, 4.0, 1e-3])
+    torch.testing.assert_close(fab_core.guarded_var(ex2, mean, mean_r), want, rtol=0, atol=1e-7)
+
+
 @pytest.mark.parametrize("m,n", [(16, 40), (24, 96), (20, 37), (8, 3)])
 def test_bmm_blockdiag_plain_bf16_matches_pallas(m, n):
     """bf16: both sum in f32 and round once, so an element differs only where

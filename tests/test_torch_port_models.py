@@ -121,6 +121,8 @@ def test_import_leaves_jax_out():
         "assert 'lns_tpu_torch.kernels.prop_rollout' in sys.modules\n"
         "assert 'lns_tpu_torch.data.shallow_water' in sys.modules\n"
         "assert 'lns_tpu_torch.data.zarr_reader' in sys.modules\n"
+        "assert 'lns_tpu_torch.data.twophase' in sys.modules\n"
+        "assert 'lns_tpu_torch.data.sloshing_solver' in sys.modules\n"
         "assert 'triton' not in sys.modules\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
