@@ -3,6 +3,7 @@
 the stage-2 and stage-1 training of each family once on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --var-floor-sweep   # kernel 2's variance floor only
 
 Run from the root of a checkout, on a machine with an NVIDIA Hopper card,
 CUDA PyTorch and nvcc. It imports nothing of JAX. In order it:
@@ -396,13 +397,32 @@ def _path_rollout(tag, z0, packed, steps, n_block, dil, pm):
     return err.max().item(), ms, plain_ms, bound
 
 
+def _block_mean_inputs(gen, dev, b, h, w, c, kx, ky):
+    """bf16 inputs of the FAB core as ``FABlock2D`` gives them: u the
+    GroupNorm(1) output bf16(bf16(x sc) + sh) of a block input x, and
+    mean_from (x, the coefficients [b, 2, c], the kernels' f32 row sums,
+    each 5 % off the sums of the rounded kernels, as the unrounded products'
+    sums are off them by less). Offsets sh of O(1) give each channel a mean
+    that the statistics must carry."""
+    x = (torch.randn(b, h, w, c, generator=gen) * 1.5 + 0.3).to(dev, torch.bfloat16)
+    sc = (1 + 0.2 * torch.randn(b, c, generator=gen)).to(dev, torch.bfloat16)
+    sh = torch.randn(b, c, generator=gen).to(dev, torch.bfloat16)
+    u = x * sc[:, None, None] + sh[:, None, None]
+    sums = [k.float().sum(2) * (1 + 0.05 * torch.randn(k.shape[:3], generator=gen).to(dev))
+            for k in (kx, ky)]
+    return u, (x, torch.stack([sc, sh], 1).float(), *sums)
+
+
 def check_fab_core(dev, gen, sites, n, d, extras=True):
     """sites: {(batch, h, w, c): c-space FAB core calls per predict}; with
-    `extras`, also the shapes that take the kernel's other code paths. Both
-    versions take one mean_c, computed once (its two means the rounded bb's,
-    as the function jitted alone; with `extras`, at one shape also a first
-    mean that cancels the variance, which takes the guard)."""
-    from lns_tpu_torch.kernels.fab_core import fab_core_plain, fab_fused_core, rounded_mean_c
+    `extras`, also the shapes that take the kernel's other code paths. bf16
+    takes its inputs as the FAB block gives them (``_block_mean_inputs``),
+    both means formed inside the call, so the times include them; with
+    `extras`, at one shape also the block's mean scaled so that the
+    variance about it cancels, in part or wholly, at several margins around
+    the floor (``guarded_var``)."""
+    from lns_tpu_torch.kernels.fab_core import (VAR_FLOOR, fab_core_plain, fab_fused_core,
+                                                phi_moments)
 
     errs, ms_sum, plain_sum, bound = [], 0.0, 0.0, Bound()
     # the paths' fields, then both orientations of a non-square one (both
@@ -438,31 +458,44 @@ def check_fab_core(dev, gen, sites, n, d, extras=True):
         # more differ)
         for dt, tol, differ in ((torch.float32, 1e-4, 1.0), (torch.bfloat16, 1e-2, 0.02)):
             a = [args[0].to(dt), args[1].to(dt), args[2].to(dt), args[3], args[4]]
+            mf = None
+            if dt == torch.bfloat16:
+                a[0], mf = _block_mean_inputs(gen, dev, b, h, w, c, a[1], a[2])
             if off:
                 a[0], a[4] = _off_16(a[0]), _off_16(a[4])
-            mr = rounded_mean_c(*a[:3])
-            mc = torch.stack([mr, mr], -1)
+                mf = mf and (_off_16(mf[0]),) + mf[1:]
             err, ms, plain_ms = compare(
                 f"fab_core {str(dt)[6:]} b{b} {h}x{w} c{c} n{n}"
-                + (" (u, w_o1 off 16-byte boundaries)" if off else ""),
-                lambda: fab_fused_core(*a, mean_c=mc), lambda: fab_core_plain(*a, mean_c=mc),
-                tol, max_differ=differ)
+                + (", the block's mean" if mf else "")
+                + (" (u, w_o1, x off 16-byte boundaries)" if off else ""),
+                lambda: fab_fused_core(*a, mean_from=mf),
+                lambda: fab_core_plain(*a, mean_from=mf), tol, max_differ=differ)
             errs.append(err)
-            if extras and (b, h, w, c) == (4, 12, 24, 64):
-                mg = torch.stack([mr * 30, mr], -1)
-                errs.append(compare(
-                    f"fab_core {str(dt)[6:]} b{b} {h}x{w} c{c} n{n}, a first mean that cancels "
-                    "the variance (the guard)", lambda: fab_fused_core(*a, mean_c=mg),
-                    lambda: fab_core_plain(*a, mean_c=mg), tol, max_differ=differ)[0])
+            if extras and mf and (b, h, w, c) == (4, 12, 24, 64):
+                for scale in (1.02, 1.1, 1.5, 4.0, 30.0):
+                    ms_ = (mf[0], mf[1], mf[2] * scale, mf[3])
+                    ex2, mean, mean_r = phi_moments(*a[:4], mean_from=ms_)
+                    var, var_r = ex2 - mean.square(), (ex2 - mean_r.square()).clamp_min(0.0)
+                    ratio = var / (VAR_FLOOR * var_r).clamp_min(1e-30)
+                    errs.append(compare(
+                        f"fab_core bf16 b{b} {h}x{w} c{c} n{n}, the block's mean x {scale}: "
+                        f"{int((ratio < 1).sum())} of {ratio.numel()} (sample, head, d) under "
+                        f"the floor ({VAR_FLOOR} x the rounded bb's variance), "
+                        f"{int((var <= 0).sum())} cancelled to <= 0, "
+                        f"{int(((ratio - 1).abs() < 1e-2).sum())} within 1 % of it",
+                        lambda: fab_fused_core(*a, mean_from=ms_),
+                        lambda: fab_core_plain(*a, mean_from=ms_), tol,
+                        max_differ=differ)[0])
             if dt == torch.bfloat16 and (b, h, w, c) in sites and not off:
                 ms_sum += ms * sites[(b, h, w, c)]
                 plain_sum += plain_ms * sites[(b, h, w, c)]
                 # per (sample, head): k_y and k_x applied, the c x c Gram, the
-                # output product, and m's and E[phi^2]'s small products
+                # output product, the two means and m's and E[phi^2]'s small
+                # products
                 o = c
                 flops = 2 * b * n * (h * w * w * c + h * h * w * c + h * w * c * c + h * w * c * o
-                                     + c * c * d + c * d * o)
-                bound.add(flops, _nbytes(*a[:3], a[0], mc) + c * n * d * 2 + _nbytes(a[4]),
+                                     + 2 * h * w * c + c * c * d + c * d * o)
+                bound.add(flops, _nbytes(*a[:3], a[0], *mf) + c * n * d * 2 + _nbytes(a[4]),
                           sites[(b, h, w, c)])
     return {"max_abs_err": max(errs), "ms": ms_sum, "plain_ms": plain_sum, **bound.result(),
             "library_ms": None}
@@ -608,6 +641,16 @@ def check_group_norm(dev, gen, sites, train_sites, label="both NS2d paths", extr
                 lambda: group_norm_swish_plain(xd, scale, bias, g, eps, swish), tol,
                 max_differ=differ)
             errs.append(err)
+            if dt != f32:  # the per-sample coefficients the FAB core reads
+                (yk, ck), (_, cp) = (fn(xd, scale, bias, g, eps, swish, with_coef=True)
+                                     for fn in (fused_group_norm_swish, group_norm_swish_plain))
+                cerr = (ck - cp).abs().max().item() / cp.abs().max().item()
+                _check(torch.equal(yk, fused_group_norm_swish(xd, scale, bias, g, eps, swish))
+                       and ck.shape == (b, 2, c) and cerr <= 1e-2,
+                       f"group_norm {str(dt)[6:]} {tag} with its coefficients: the same output "
+                       f"bitwise; sc and sh [{b}, 2, {c}] within {cerr:.2e} x max|plain| "
+                       f"(<= 1e-2, a {str(dt)[6:]} ulp); {(ck != cp).float().mean().item():.2%} "
+                       "differ")
             if dt == bf16 and timed:
                 # a graph of 20 calls, fewer for slabs of hundreds of MB (each
                 # captured call keeps its output)
@@ -994,17 +1037,28 @@ def call_sites(model, dev, batch=BATCH, steps=STEPS, chunk=CHUNK):
     return gn, fab
 
 
+def _map_tuple(fn, t):
+    """fn over a tuple's items, keeping a named tuple's type."""
+    items = [fn(a) for a in t]
+    return type(t)(*items) if hasattr(t, "_fields") else tuple(items)
+
+
 @contextlib.contextmanager
 def recording(module, name):
     """Every call of ``module.<name>`` (a kernel's wrapper, by the name a
     layer calls it) while open, in a list: its arguments, tensors detached
-    and copied, and its keyword arguments as a last dict where it had any.
+    and copied (in tuples too), and its keyword arguments as a last dict
+    where it had any.
     The calls go on to the wrapper, which counts its launches."""
     real, calls = getattr(module, name), []
 
+    def copy(a):
+        if isinstance(a, torch.Tensor):
+            return a.detach().clone()
+        return _map_tuple(copy, a) if isinstance(a, tuple) else a
+
     def record(*args, **kwargs):
-        calls.append(tuple(a.detach().clone() if isinstance(a, torch.Tensor) else a
-                           for a in args) + ((kwargs,) if kwargs else ()))
+        calls.append(copy(args) + (({k: copy(v) for k, v in kwargs.items()},) if kwargs else ()))
         return real(*args, **kwargs)
 
     setattr(module, name, record)
@@ -1029,7 +1083,7 @@ def train_gn_sites(model, dev):
         with recording(norms, "fused_group_norm_swish") as calls:
             model.rollout_loss(z_in, z_out)
     sites = {}
-    for x, scale, _, g, eps, swish in calls:
+    for x, scale, _, g, eps, swish, *_ in calls:
         site = (x.shape[0], tuple(x.shape[1:-1]), x.shape[-1], g, eps, bool(swish))
         sites[site] = sites.get(site, 0) + 1
     return sites
@@ -1092,6 +1146,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     check_tensor_cores()
 
+    if "--var-floor-sweep" in sys.argv:
+        sweep_var_floor(dev, smi)
+        return 1 if _FAILS else 0
     kernels = run(dev, smi)
     print(json.dumps({"kernels": kernels}))
     if _FAILS:
@@ -1275,7 +1332,7 @@ def check_gn_calls(where, calls, gen=None):
     the plain version from the same inputs."""
     from lns_tpu_torch.kernels.group_norm import fused_group_norm_swish, group_norm_swish_plain
 
-    for i, (x, scale, bias, g, eps, swish) in enumerate(calls):
+    for i, (x, scale, bias, g, eps, swish, *_) in enumerate(calls):
         args = (g, eps, bool(swish))
         with torch.no_grad():
             yk = fused_group_norm_swish(x, scale, bias, *args).float()
@@ -1463,7 +1520,9 @@ def _cpu_spread(plain_fn, args, plain, kw=None):
     card's `plain`, as text: max_abs_err / max|plain| and the share of
     elements that differ."""
     def cpu(a):
-        return a.cpu() if isinstance(a, torch.Tensor) else a
+        if isinstance(a, torch.Tensor):
+            return a.cpu()
+        return _map_tuple(cpu, a) if isinstance(a, tuple) else a
 
     cpu = plain_fn(*[cpu(a) for a in args], **{k: cpu(v) for k, v in (kw or {}).items()}).float()
     plain = plain.float().cpu()
@@ -1534,7 +1593,7 @@ def check_stage2_validation(trainer, val_kernel, tmp, dev):
                     fab_fused_core(*args, **kw), plain,
                     fab_core_plain(*[a.float() for a in args], **kw),
                     _cpu_spread(fab_core_plain, args, plain, kw))
-        for i, (xg, scale, bias, g, eps, swish) in enumerate(k3):
+        for i, (xg, scale, bias, g, eps, swish, *_) in enumerate(k3):
             a = (scale, bias, g, eps, bool(swish))
             _parity(f"{where}, kernel 3 call {i} ({'x'.join(map(str, xg.shape))} G{g})",
                     fused_group_norm_swish(xg, *a), group_norm_swish_plain(xg, *a),
@@ -1804,12 +1863,16 @@ def check_fab_calls(where, core_calls, axial_calls):
         gen = torch.Generator().manual_seed(i)
         gos = [torch.randn(t.shape, generator=gen).to(t.device, t.dtype) for t in yk]
         grads = []
-        for fn in (kern, plain):  # every tensor input, kernel 2's mean_c too
+        for fn in (kern, plain):  # every tensor input, kernel 2's kernel sums too
             leaves = [a.clone().requires_grad_() for a in args]
-            kwl = {k: v.clone().requires_grad_() if isinstance(v, torch.Tensor) else v
-                   for k, v in kw.items()}
+            kwl = dict(kw)
+            if kw.get("mean_from"):  # x and the coefficients carry no gradient
+                x, coef, kx_s, ky_s = kw["mean_from"]
+                sums = [kx_s.clone().requires_grad_(), ky_s.clone().requires_grad_()]
+                kwl["mean_from"] = (x, coef, *sums)
             ys = fn(*leaves, **kwl)
-            leaves += [v for v in kwl.values() if isinstance(v, torch.Tensor)]
+            if kw.get("mean_from"):
+                leaves += sums
             grads.append(torch.autograd.grad(ys if isinstance(ys, tuple) else (ys,), leaves, gos))
         _check(all(torch.equal(a, b) for a, b in zip(*grads)),
                f"{label}: gradients w.r.t. its {len(grads[0])} inputs through its autograd "
@@ -1824,12 +1887,10 @@ def _hold_gradients(where, dt, gk, gp, gq, g32):
     largest such change of the plain path's own gradient (gq) under a
     one-ulp move of its input; bf16, per tensor accuracy parity: the kernel
     path's gradient no farther (L2) from the f32 plain path's (g32) than
-    1.5 x the plain bf16 path's, that distance taken as at least one bf16
-    unit of the gradient (2^-8 |g32|): a bf16 gradient is no closer to the
-    f32 one than its own rounding, and below it the ratio measures chance
-    (a one-element bias whose plain bf16 gradient lands 0.09 % from the
-    f32 one, the kernel path's 0.41 %). Prints the largest f32 ratio or the
-    smallest bf16 cosine between the two paths beside."""
+    1.5 x the plain bf16 path's. Prints the largest f32 ratio or the
+    smallest bf16 cosine between the two paths beside, and for bf16 the
+    largest ratio also with the plain path's distance taken as at least
+    one bf16 unit of the gradient (2^-8 |g32|), for comparison only."""
     def rel(a, b):
         return {k: (a[k] - b[k]).abs().max().item() / max(b[k].abs().max().item(), 1e-30)
                 for k in a}
@@ -1850,17 +1911,18 @@ def _hold_gradients(where, dt, gk, gp, gq, g32):
         return
     score, own = cos(gk, gp), cos(gq, gp)
     worst, worst_own = min(score.items(), key=lambda kv: kv[1]), min(own.values())
-    parity = {k: (gk[k].float() - g32[k]).norm().item()
-              / max((gp[k].float() - g32[k]).norm().item(),
-                    2 ** -8 * g32[k].norm().item(), 1e-30)
-              for k in gk}
-    top = max(parity, key=parity.get)
+    dk = {k: (gk[k].float() - g32[k]).norm().item() for k in gk}
+    dp = {k: (gp[k].float() - g32[k]).norm().item() for k in gk}
+    parity = {k: dk[k] / max(dp[k], 1e-30) for k in gk}
+    floored = {k: dk[k] / max(dp[k], 2 ** -8 * g32[k].norm().item(), 1e-30) for k in gk}
+    top, top_f = max(parity, key=parity.get), max(floored, key=floored.get)
     _check(finite and parity[top] <= 1.5,
            f"{where}: gradients, {len(gk)} tensors, distance from the f32 plain "
-           f"gradient, kernel path / max(plain path, 2^-8 |g32|): at most {parity[top]:.3f} "
-           f"(<= 1.5; {top}); cosine similarity kernel path vs plain >= {worst[1]:.6f} "
-           f"({worst[0]}); the plain path's own with its input moved one ulp >= "
-           f"{worst_own:.6f}")
+           f"gradient, kernel path / plain path: at most {parity[top]:.3f} (<= 1.5; "
+           f"{top}, {gk[top].numel()} elements); cosine similarity kernel path vs plain >= "
+           f"{worst[1]:.6f} ({worst[0]}); the plain path's own with its input moved one ulp "
+           f">= {worst_own:.6f}; with the plain path's distance at least 2^-8 |g32| (not "
+           f"applied) at most {floored[top_f]:.3f} ({top_f})")
 
 
 def check_stage1_step(label, model, m32, x, denormalize=None):
@@ -1977,6 +2039,34 @@ def backward_recompute_share(trainer, x, reps=3):
     return res[1:]
 
 
+FLOORS = (0.1, 0.25, 0.5)  # guarded_var floors the readings compare
+
+
+def floor_readings(calls):
+    """Over recorded bf16 kernel 2 calls (their mean_from given): per
+    (sample, head, d), how often the variance about the block's mean,
+    E[phi^2] - mean^2 (``_batched_gram_core``'s, before its clamp),
+    cancels to <= 0 and falls under each of FLOORS x the variance about
+    the rounded bb's mean, from the plain version's moments, as text."""
+    from lns_tpu_torch.kernels.fab_core import phi_moments
+
+    total, calls_hit, counts = 0, 0, {f: 0 for f in (0.0,) + FLOORS}
+    with torch.no_grad():
+        for args, kw in map(_split_call, calls):
+            if not kw.get("mean_from"):
+                continue
+            ex2, mean, mean_r = phi_moments(*args[:4], mean_from=kw["mean_from"])
+            var, var_r = ex2 - mean.square(), (ex2 - mean_r.square()).clamp_min(0.0)
+            total += var.numel()
+            calls_hit += int(bool((var <= 0).any()))
+            counts[0.0] += int((var <= 0).sum())
+            for f in FLOORS:
+                counts[f] += int((var < f * var_r).sum())
+    return (f"of {total} (sample, head, d) in {len(calls)} calls, E[phi^2] - mean^2 <= 0 at "
+            f"{counts[0.0]} (in {calls_hit} calls); under floor x the rounded bb's variance "
+            + ", ".join(f"{f}: {counts[f]}" for f in FLOORS))
+
+
 def check_stage1_validation(trainer, val_kernel, tmp):
     """Validation of the trained AE against the plain path, and kernel 2's
     conditioning on the trained AE's decode.
@@ -2014,8 +2104,8 @@ def check_stage1_validation(trainer, val_kernel, tmp):
             _parity(f"{where}, kernel 2 call {i} (u {'x'.join(map(str, args[0].shape))})",
                     yk, plain, fab_core_plain(*[a.float() for a in args], **kw),
                     _cpu_spread(fab_core_plain, args, plain, kw))
-            a32 = [a.float() for a in args]
-            k32, p32 = fab_fused_core(*a32, **kw), fab_core_plain(*a32, **kw)
+            a32 = [a.float() for a in args]  # f32 takes the mean from u (mean_from is bf16's)
+            k32, p32 = fab_fused_core(*a32), fab_core_plain(*a32)
             r16 = (yk.float() - plain.float()).abs().max().item() / plain.float().abs().max().item()
             d16 = (yk != plain).float().mean().item()
             r32 = (k32 - p32).abs().max().item() / p32.abs().max().item()
@@ -2026,11 +2116,12 @@ def check_stage1_validation(trainer, val_kernel, tmp):
                   f"(random inputs: <= 1e-2), {d16:.2%} of elements differ (<= 2 %); f32 kernel "
                   f"vs plain {r32:.2e} x max|plain| (<= 1e-4), {d32:.2%} differ: "
                   f"{'within' if ok else 'outside'} the random-input bounds", flush=True)
-        for i, (xg, scale, bias, g, eps, swish) in enumerate(k3):
+        for i, (xg, scale, bias, g, eps, swish, *_) in enumerate(k3):
             a = (scale, bias, g, eps, bool(swish))
             _parity(f"{where}, kernel 3 call {i} ({'x'.join(map(str, xg.shape))} G{g})",
                     fused_group_norm_swish(xg, *a), group_norm_swish_plain(xg, *a),
                     group_norm_swish_plain(xg.float(), *a))
+    print(f"      {where}: kernel 2's variance, {floor_readings(k2)}", flush=True)
     print(f"      {where}: conditioning of the FAB core on the trained AE's decode: "
           + ("every kernel 2 call within the bounds random inputs meet: well-conditioned"
              if conditioned else "some kernel 2 call outside the bounds random inputs meet: "
@@ -2207,6 +2298,54 @@ def drive_stage1(dev, smi):
           f"kernel 2 within its random-input bounds; phase wall "
           f"{time.perf_counter() - t_phase:.1f} s; {smi}", flush=True)
     return launches
+
+
+def sweep_var_floor(dev, smi):
+    """``--var-floor-sweep``: the stage-1 phase's NS2d training run (the same
+    corpus, seed and settings) once per floor of kernel 2's variance guard,
+    0 (``_batched_gram_core``'s clamp alone) and FLOORS: the epoch means of
+    the train loss, the validation losses, and over every kernel 2 call of
+    the run (recorded) how often the variance cancels and falls under each
+    floor."""
+    import tempfile
+
+    import numpy as np
+
+    from lns_tpu_torch.config import ns2d_config
+    from lns_tpu_torch.data.synthetic import make_ns2d_npz
+    from lns_tpu_torch.kernels import fab_core
+    from lns_tpu_torch.ops import factorized_attention
+    from lns_tpu_torch.train.stage1 import Stage1Trainer
+
+    default = fab_core.VAR_FLOOR
+    with tempfile.TemporaryDirectory() as tmp:
+        data = make_ns2d_npz(os.path.join(tmp, "ns2d.npz"), ncase=S1_CASES,
+                             case_len=S1_CASE_LEN, h=64, w=64)
+        for floor in (0.0,) + FLOORS:
+            fab_core.VAR_FLOOR = floor
+            log = os.path.join(tmp, f"log_{floor}")
+            cfg = ns2d_config().replace(
+                data_dir=data, case_len=S1_CASE_LEN, num_case=S1_CASES,
+                dataset_stat=os.path.join(tmp, "stat.npz"), batch_size=S1_BATCH,
+                epochs=S1_EPOCHS, learning_rate=5e-4, mixed_precision=True, ckpt_every=1,
+                device_data=True, log_dir=log, overwrite_exist=True)
+            trainer = Stage1Trainer(cfg, seed=1234, use_wandb=False, device=dev)
+            steps_per_epoch = -(-len(trainer.train_ds) // S1_BATCH)
+            with recording(factorized_attention, "fab_fused_core") as k2:
+                trainer.train()
+            with open(os.path.join(log, "metrics.jsonl")) as f:
+                recs = [json.loads(line) for line in f]
+            loss = [r["rec_loss"] for r in recs if "rec_loss" in r]
+            val = [r["val_recon_loss"] for r in recs if "val_recon_loss" in r]
+            means = [float(np.mean(loss[i:i + steps_per_epoch]))
+                     for i in range(0, len(loss), steps_per_epoch)]
+            _check(all(math.isfinite(v) for v in loss + val),
+                   f"var floor {floor}: NS2d stage-1, {len(loss)} steps: epoch means of the "
+                   f"train loss {', '.join(f'{m:.5f}' for m in means)}; max step loss "
+                   f"{max(loss):.5f}; val_recon_loss {', '.join(f'{v:.5f}' for v in val)}; "
+                   f"kernel 2's variance in the run, {floor_readings(k2)}; {smi}")
+            del trainer, k2
+    fab_core.VAR_FLOOR = default
 
 
 # -- phase 7: the SW and two-phase families' training -------------------------

@@ -6,16 +6,22 @@
 //   u [b, h, w, c]   k_x [b, n, h, h]   k_y [b, n, w, w]   (dtype T)
 //   w_in [c, n, d] (T)   w_o1 [n, d, o] (f32)   ->   out [b, h, w, o] (T)
 // Per (sample, head): bb = k_x . u . k_y^T (per channel), phi = bb . W_in
-// (never formed), mean/var of phi over (h, w) per d from mean = mean_c W_in
-// and E[phi^2] = W_in^T (G/N) W_in with G the c x c Gram of bb; m = W_in
-// diag(inv) W_o1, bias = (mean inv) W_o1; out = sum_heads (bb . m) -
-// sum_heads bias. mean_c [b, n, c, 2] (f32) is an input that the caller
-// computes (kernels/fab_core.py: fab_core_plain states it): [.., 0] the
-// pixel mean of bb per channel as the jitted JAX block takes it, from
-// values the core never sees (the unrounded GroupNorm output and kernel
-// products), [.., 1] the pixel mean of the rounded bb; the variance about
-// the first stands unless that mean's rounding puts it below a quarter of
-// the variance about the second (guarded_var).
+// (never formed), mean/var of phi over (h, w) per d from
+// mean_c = sum_ij sum(k_x)_i sum(k_y)_j u_ij / N and E[phi^2] = W_in^T (G/N) W_in
+// with G the c x c Gram of bb; m = W_in diag(inv) W_o1, bias = (mean inv) W_o1;
+// out = sum_heads (bb . m) - sum_heads bias.
+//
+// bf16 also takes the mean as the jitted JAX FAB block feeds it to
+// _batched_gram_core (kernels/fab_core.py: block_mean_c), where the caller
+// gives its inputs: x [b, h, w, c] (bf16; u = bf16(bf16(x sc) + sh), the
+// block's GroupNorm(1)), coef [b, 2, c] (its sc, sh; f32) and the f32 row
+// sums of the unrounded kernels, sx [b, n, h] and sy [b, n, w]: mean_c =
+// sum_ij sx_i sy_j (bf16(x_ij sc) + sh) / N, from the GroupNorm output
+// before its last rounding, by a first pass over each sample's x
+// (fab_block_mean_bf16) into a [b, n, c] scratch that the statistics read.
+// The variance stays E[phi^2] - mean^2, but no less than var_floor times the
+// variance about the rounded bb's own mean (guarded_var): a mean from the
+// unrounded values can cancel it below zero.
 //
 // What bounds it on an H100: arithmetic. At 32x32, c = o = 64, 8 heads and
 // 116 samples one call is ~31 GFLOP (both axial applies, the Gram and the
@@ -56,19 +62,19 @@
 // of a column, accumulated in registers across the heads) read bb from
 // shared memory. The apply fetches the next head's k_y tile, m, bias and
 // (for h <= 64) k_x into registers while this head's bb . m runs. The
-// statistics' f32 epilogue runs on every thread; its arrays overwrite the
-// bf16 ones once every read of them has ended.
+// statistics' f32 epilogue runs on every thread (mean_c from the resident
+// u); its arrays overwrite the bf16 ones once every read of them has ended.
 // Side lengths are padded to 16 with zeros in shared memory (zero rows and
 // columns of k_x, k_y add nothing); the statistics divide by the true h w.
 // Shared memory per block (bf16 elements, hp, wp = h, w padded to 16):
 //   k_x hp (hp+8) + k_y tile 8 (wp+8) + a hp (8 (c+8) + 8)
 //   + u h wp (c+8) + bb 8 hp (c+8)          (u resident), or
 //   + max(ring 2 R wp (c+8), bb)             (u streamed)
-// plus the bias sum (apply), f32: 225,152 bytes at 32x32 c64 and 75,392 at
-// 16x16 c64. Where no streamed plan fits, a drops the 8-element pad between
-// its tile columns (its rows stay conflict-free; its writes take 4-way
-// conflicts): 96x48 c64, and SW's 48x96 c64 run transposed, take 231,872
-// bytes instead of 244,160. Limits,
+// plus the column sums of k_x, k_y (stats) or the bias sum (apply), f32:
+// 225,152 bytes at 32x32 c64 and 75,392 at 16x16 c64. Where no streamed
+// plan fits, a drops the 8-element pad between its tile columns (its rows
+// stay conflict-free; its writes take 4-way conflicts): 96x48 c64, and SW's
+// 48x96 c64 run transposed, take 231,872 bytes instead of 244,160. Limits,
 // stated once in bf16_limit (the launcher refuses, the wrapper raises with
 // its text): c a multiple of 16 up to 128, o a multiple of 16, h and w up
 // to 128, and the block within 227 KB. Each apply block covers oc = 64
@@ -96,15 +102,12 @@ constexpr int kThreads = 256;
 constexpr int kTI = 2;  // rows of bb per tile
 
 // The variance of phi per d from E[phi^2] (e2) and the mean the statistics
-// use (mean; max(var, 0) as _batched_gram_core takes it), unless that
-// mean's rounding points, the jitted JAX block's, put it below a quarter of
-// the variance about the pixel mean of the rounded bb (mean_r): there the
-// latter (a mean from the unrounded values against E[phi^2] of the rounded
-// ones can cancel below zero, which the clamp would turn into rsqrt(eps)).
-__device__ __forceinline__ float guarded_var(float e2, float mean, float mean_r) {
-  const float v = e2 - mean * mean;
-  const float vr = fmaxf(e2 - mean_r * mean_r, 0.f);
-  return fmaxf(v >= 0.25f * vr ? v : vr, 0.f);
+// use, as _batched_gram_core takes it (max(var, 0)), but no less than
+// `floor` times the variance about the rounded bb's mean (mean_r): a mean
+// from the unrounded values against E[phi^2] of the rounded bb can cancel
+// below zero on flat features, where the clamp alone gives rsqrt(eps).
+__device__ __forceinline__ float guarded_var(float e2, float mean, float mean_r, float floor) {
+  return fmaxf(e2 - mean * mean, floor * fmaxf(e2 - mean_r * mean_r, 0.f));
 }
 
 // t[ii, m, cc] = sum_j kxr[ii, j] u[j, m, cc]; bb[ii, l, cc] = sum_m ky[l, m] t[ii, m, cc]
@@ -141,8 +144,7 @@ __device__ void tile_bb(const float* __restrict__ u, const float* __restrict__ k
 __global__ void __launch_bounds__(kThreads)
 fab_stats_f32(const float* __restrict__ u, const float* __restrict__ kx,
               const float* __restrict__ ky, const float* __restrict__ w_in,
-              const float* __restrict__ w1, const float* __restrict__ mean_c,
-              float* __restrict__ m_out,
+              const float* __restrict__ w1, float* __restrict__ m_out,
               float* __restrict__ bias_out, int n, int h, int w, int c, int d, int o, float eps) {
   extern __shared__ float4 smem4[];
   float* kx_s = reinterpret_cast<float*>(smem4);  // [h, h]
@@ -152,8 +154,10 @@ fab_stats_f32(const float* __restrict__ u, const float* __restrict__ kx,
   float* t_s = g_s + c * c;                       // [kTI, w, c]
   float* bb_s = t_s + kTI * w * c;                // [kTI, w, c]
   float* kxr_s = bb_s + kTI * w * c;              // [kTI, h]
-  float* meanc = kxr_s + kTI * h;                 // [c, 2]
-  float* mean_d = meanc + 2 * c;                  // [d]
+  float* sx = kxr_s + kTI * h;                    // [h]
+  float* sy = sx + h;                             // [w]
+  float* meanc = sy + w;                          // [c]
+  float* mean_d = meanc + c;                      // [d]
   float* inv_d = mean_d + d;                      // [d]
 
   const int hd = blockIdx.x, s = blockIdx.y, tid = threadIdx.x, nt = blockDim.x;
@@ -164,9 +168,28 @@ fab_stats_f32(const float* __restrict__ u, const float* __restrict__ kx,
   for (int i = tid; i < c * d; i += nt)
     win_s[i] = w_in[(static_cast<size_t>(i / d) * n + hd) * d + i % d];
   for (int i = tid; i < c * c; i += nt) g_s[i] = 0.f;
-  for (int cc = tid; cc < 2 * c; cc += nt) meanc[cc] = mean_c[sn * 2 * c + cc];
+  __syncthreads();
+  for (int j = tid; j < h; j += nt) {
+    float a = 0.f;
+    for (int i = 0; i < h; ++i) a += kx_s[i * h + j];
+    sx[j] = a;
+  }
+  for (int m = tid; m < w; m += nt) {
+    float a = 0.f;
+    for (int l = 0; l < w; ++l) a += ky_s[l * w + m];
+    sy[m] = a;
+  }
   __syncthreads();
   const float inv_n = 1.f / static_cast<float>(h * w);
+  for (int cc = tid; cc < c; cc += nt) {
+    float a = 0.f;
+    for (int j = 0; j < h; ++j) {
+      float r = 0.f;
+      for (int m = 0; m < w; ++m) r = fmaf(sy[m], us[(j * w + m) * c + cc], r);
+      a = fmaf(sx[j], r, a);
+    }
+    meanc[cc] = a * inv_n;
+  }
   for (int i0 = 0; i0 < h; i0 += kTI) {
     const int rows = min(kTI, h - i0);
     for (int i = tid; i < kTI * h; i += nt) {
@@ -185,16 +208,16 @@ fab_stats_f32(const float* __restrict__ u, const float* __restrict__ kx,
     __syncthreads();
   }
   for (int dd = tid; dd < d; dd += nt) {
-    float mean = 0.f, mean_r = 0.f, ex2 = 0.f;
+    float mean = 0.f, ex2 = 0.f;
     for (int ci = 0; ci < c; ++ci) {
-      mean = fmaf(meanc[2 * ci], win_s[ci * d + dd], mean);
-      mean_r = fmaf(meanc[2 * ci + 1], win_s[ci * d + dd], mean_r);
+      mean = fmaf(meanc[ci], win_s[ci * d + dd], mean);
       float gw = 0.f;
       for (int cj = 0; cj < c; ++cj) gw = fmaf(g_s[ci * c + cj], win_s[cj * d + dd], gw);
       ex2 = fmaf(win_s[ci * d + dd], gw, ex2);
     }
+    const float var = fmaxf(ex2 * inv_n - mean * mean, 0.f);
     mean_d[dd] = mean;
-    inv_d[dd] = rsqrtf(guarded_var(ex2 * inv_n, mean, mean_r) + eps);
+    inv_d[dd] = rsqrtf(var + eps);
   }
   __syncthreads();
   const float* w1h = w1 + static_cast<size_t>(hd) * d * o;
@@ -257,11 +280,11 @@ fab_apply_f32(const float* __restrict__ u, const float* __restrict__ kx,
 }
 
 int launch_f32(const float* u, const float* kx, const float* ky, const float* w_in,
-               const float* w1, const float* mean_c, float* m, float* bias, float* out, int b,
-               int n, int h, int w, int c, int d, int o, float eps, cudaStream_t stream) {
+               const float* w1, float* m, float* bias, float* out, int b, int n, int h, int w,
+               int c, int d, int o, float eps, cudaStream_t stream) {
   const size_t stats_smem =
       sizeof(float) * (static_cast<size_t>(h) * h + w * w + c * d + c * c + 2 * kTI * w * c +
-                       kTI * h + 2 * c + 2 * d);
+                       kTI * h + h + w + c + 2 * d);
   const size_t apply_smem =
       sizeof(float) * (static_cast<size_t>(w) * w + c * o + 2 * kTI * w * c + kTI * w * o +
                        kTI * h + o);
@@ -269,8 +292,8 @@ int launch_f32(const float* u, const float* kx, const float* ky, const float* w_
   if (e != cudaSuccess) return e;
   e = lns::allow_smem(fab_apply_f32, apply_smem);
   if (e != cudaSuccess) return e;
-  fab_stats_f32<<<dim3(n, b), kThreads, stats_smem, stream>>>(u, kx, ky, w_in, w1, mean_c, m,
-                                                              bias, n, h, w, c, d, o, eps);
+  fab_stats_f32<<<dim3(n, b), kThreads, stats_smem, stream>>>(u, kx, ky, w_in, w1, m, bias, n, h,
+                                                              w, c, d, o, eps);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   fab_apply_f32<<<dim3((h + kTI - 1) / kTI, b), kThreads, apply_smem, stream>>>(
@@ -332,10 +355,11 @@ Plan make_plan(int h, int w, int c, int d, int o, int rows, bool resident, bool 
   const int u = resident ? h * p.wp * p.ldc : 2 * rows * p.wp * p.ldc, bb = kTL * p.hp * p.ldc;
   p.off_bb = resident ? p.off_u + u : p.off_u;
   const int end = resident ? p.off_bb + bb : p.off_u + std::max(u, bb);
-  // f32 epilogue (aliases the rest): G, W_in, W_o1, mean_c (two per
-  // channel), mean, inv and the partial sums of E[phi^2]
-  const int epilogue = 4 * (c * c + c * d + d * o + 2 * c + 2 * d + c / 4 * d);
-  p.stats_bytes = std::max(2 * end, epilogue);
+  // f32 epilogue (aliases the rest): G, W_in, W_o1, mean_c, mean, inv and
+  // the partial sums; then sx, sy past its end
+  const int part = std::max(kTcThreads / (c / 8) * c, c / 4 * d);
+  const int epilogue = 4 * (c * c + c * d + d * o + c + 2 * d + part);
+  p.stats_bytes = std::max(2 * end, epilogue) + 4 * (p.hp + p.wp);
   p.apply_bytes = 2 * std::max(end, p.off_a + kTL * p.hp * p.ldm) + 4 * p.oc;
   return p;
 }
@@ -543,20 +567,95 @@ __device__ __forceinline__ void zero_a_tail(const Plan& p, bf16* a_s, int h) {
   for (int e = threadIdx.x; e < (p.hp - h) * p.lda; e += kTcThreads) a_s[h * p.lda + e] = zero;
 }
 
+// The block's mean_c [b, n, c] (f32) as the jitted JAX FAB block feeds it
+// to _batched_gram_core: sum_px sx[n, j] sy[n, m] (bf16(x[px] sc) + sh) / N,
+// from the GroupNorm(1) output before its last rounding and the f32 row sums
+// of the unrounded kernels. One block per (sample, kHC heads) reads the
+// sample's x once for its heads (the statistics' blocks, one per head,
+// would read it n times): 8 channels and a run of pixels per thread, partial
+// sums added through shared memory in a fixed order. In the field's own
+// orientation: a channel mean does not depend on it.
+constexpr int kMeanThreads = 256, kHC = 4;
+
+__global__ void __launch_bounds__(kMeanThreads)
+fab_block_mean_bf16(const bf16* __restrict__ x, const float* __restrict__ coef,
+                    const float* __restrict__ sxg, const float* __restrict__ syg,
+                    float* __restrict__ mean_b, int n, int h, int w, int c) {
+  extern __shared__ float4 smem_mean[];
+  float* sx = reinterpret_cast<float*>(smem_mean);  // [n, h]
+  float* sy = sx + n * h;                            // [n, w]
+  float* part = sy + n * w;                          // [groups, kHC, c]
+  const int tid = threadIdx.x, s = blockIdx.x, n0 = blockIdx.y * kHC;
+  const int c8n = c / 8, groups = kMeanThreads / c8n, c8 = tid % c8n * 8, grp = tid / c8n;
+  for (int e = tid; e < n * h; e += kMeanThreads) sx[e] = sxg[static_cast<size_t>(s) * n * h + e];
+  for (int e = tid; e < n * w; e += kMeanThreads) sy[e] = syg[static_cast<size_t>(s) * n * w + e];
+  float sc[8] = {}, sh[8] = {};
+  if (grp < groups)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      sc[q] = coef[2 * static_cast<size_t>(s) * c + c8 + q];
+      sh[q] = coef[(2 * static_cast<size_t>(s) + 1) * c + c8 + q];
+    }
+  __syncthreads();
+  const bf16* xs = x + static_cast<size_t>(s) * h * w * c;
+  const float inv_n = 1.f / static_cast<float>(h * w);
+  const int hc = min(kHC, n - n0);
+  float acc[kHC][8] = {};
+  if (grp < groups)
+#pragma unroll 4
+    for (int px = grp; px < h * w; px += groups) {
+      const int j = px / w, m = px % w;
+      const uint4 xv =
+          __ldg(reinterpret_cast<const uint4*>(xs + static_cast<size_t>(px) * c + c8));
+      const bf16* xb = reinterpret_cast<const bf16*>(&xv);
+      float uf[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q)  // bf16(x sc) + sh in f32: the GN output before its rounding
+        uf[q] = __fadd_rn(lns::rnd<bf16>(__fmul_rn(ld(xb[q]), sc[q])), sh[q]);
+#pragma unroll
+      for (int k = 0; k < kHC; ++k) {
+        if (k >= hc) break;
+        const float wgt = sx[(n0 + k) * h + j] * sy[(n0 + k) * w + m];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) acc[k][q] = fmaf(wgt, uf[q], acc[k][q]);
+      }
+    }
+  if (grp < groups)
+#pragma unroll
+    for (int k = 0; k < kHC; ++k)
+#pragma unroll
+      for (int q = 0; q < 8; ++q) part[(grp * kHC + k) * c + c8 + q] = acc[k][q];
+  __syncthreads();
+  for (int e = tid; e < hc * c; e += kMeanThreads) {
+    const int k = e / c, cc = e % c;
+    float a = 0.f;
+    for (int g = 0; g < groups; ++g) a += part[(g * kHC + k) * c + cc];
+    mean_b[(static_cast<size_t>(s) * n + n0 + k) * c + cc] = a * inv_n;
+  }
+}
+
+int block_mean_smem(int n, int h, int w, int c) {
+  return 4 * (n * (h + w) + kMeanThreads / (c / 8) * kHC * c);
+}
+
 template <int KF>
 __global__ void __launch_bounds__(kTcThreads, 1)
 fab_stats_bf16(const bf16* __restrict__ u, const bf16* __restrict__ kx,
                const bf16* __restrict__ ky, const bf16* __restrict__ w_in,
-               const float* __restrict__ w1, const float* __restrict__ mean_c,
+               const float* __restrict__ w1, const float* __restrict__ mean_b,
                bf16* __restrict__ m_out,
                float* __restrict__ bias_out, int n, int h, int w, int c, int d, int o, float eps,
-               Plan p) {
+               float var_floor, Plan p) {
   extern __shared__ uint4 smem_fab[];
   bf16* kx_s = reinterpret_cast<bf16*>(smem_fab);
   bf16* ky_s = kx_s + p.off_ky;
   bf16* a_s = kx_s + p.off_a;
   bf16* u_s = kx_s + p.off_u;
   bf16* bb_s = kx_s + p.off_bb;
+  // column sums of k_x and k_y (f32), kept past the epilogue's aliasing
+  float* sx = reinterpret_cast<float*>(reinterpret_cast<char*>(smem_fab) + p.stats_bytes) -
+              (p.hp + p.wp);
+  float* sy = sx + p.hp;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, g = lane / 4, t = lane % 4;
   const int tid = threadIdx.x, hd = blockIdx.x, s = blockIdx.y;
   const size_t sn = static_cast<size_t>(s) * n + hd;
@@ -565,8 +664,14 @@ fab_stats_bf16(const bf16* __restrict__ u, const bf16* __restrict__ kx,
   load_u_resident(us, p, u_s, h, w, c);
   load_kx(kx, sn, p, kx_s, h);
   zero_a_tail(p, a_s, h);
+  for (int m = tid; m < w; m += kTcThreads) sy[m] = 0.f;
   lns::cp_async_wait<0>();
   __syncthreads();
+  for (int j = tid; j < h; j += kTcThreads) {
+    float a = 0.f;
+    for (int i = 0; i < h; ++i) a += ld(kx_s[i * p.ldk + j]);
+    sx[j] = a;
+  }
   // the Gram in 16 x 32 blocks: block warp % 8 + 8 k, over half of each
   // tile's rows (warp / 8 says which)
   const int cn = (c + 31) / 32, blocks = (c / 16) * cn, half = warp / kTL, kh = kTL * p.hp / 2;
@@ -577,6 +682,11 @@ fab_stats_bf16(const bf16* __restrict__ u, const bf16* __restrict__ kx,
     store_ky_pair(kyr, p, ky_s);
     __syncthreads();
     if (l0 + kTL < w) kyr = fetch_ky_pair(ky, sn, p, l0 + kTL, w);
+    for (int m = tid; m < w; m += kTcThreads) {
+      float a = sy[m];
+      for (int l = 0; l < kTL; ++l) a += ld(ky_s[l * p.ldy + m]);
+      sy[m] = a;
+    }
     tile_a_bb<KF>(us, p, kx_s, ky_s, a_s, u_s, bb_s, h, w, c);
 #pragma unroll 2
     for (int ks = half * kh; ks < (half + 1) * kh; ks += 16) {
@@ -600,12 +710,38 @@ fab_stats_bf16(const bf16* __restrict__ u, const bf16* __restrict__ kx,
     __syncthreads();
   }
 
-  // f32 epilogue on every thread; its arrays alias the bf16 ones
+  // mean_c = sum_px sx[j] sy[m] u[px, :] / N: partial sums over pixels for 8
+  // channels per thread, from the resident u (else from L2)
+  const int c8n = c / 8, groups = kTcThreads / c8n;
+  float mc[8] = {};
+  if (tid < groups * c8n) {
+    const int c8 = tid % c8n * 8, dj = groups / w, dm = groups % w;
+    int j = tid / c8n / w, m = tid / c8n % w;  // pixel px = j w + m
+#pragma unroll 4
+    for (int px = tid / c8n; px < h * w; px += groups) {
+      const uint4 v = p.resident
+          ? *reinterpret_cast<const uint4*>(u_s + (j * p.wp + m) * p.ldc + c8)
+          : *reinterpret_cast<const uint4*>(us + (static_cast<size_t>(j) * p.sj + m * p.sm) * c + c8);
+      const bf16* vb = reinterpret_cast<const bf16*>(&v);
+      const float wgt = sx[j] * sy[m];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) mc[q] = fmaf(wgt, ld(vb[q]), mc[q]);
+      j += dj;
+      m += dm;
+      if (m >= w) {
+        m -= w;
+        ++j;
+      }
+    }
+  }
+  __syncthreads();  // every read of u (above) and of bb ends before G overwrites them
+
+  // f32 epilogue on every thread; its arrays alias everything but sx, sy
   float* g_s = reinterpret_cast<float*>(smem_fab);  // [c, c]
   float* win_s = g_s + c * c;                       // [c, d]
   float* w1_s = win_s + c * d;                      // [d, o]: W_o1, then diag(inv) W_o1
-  float* meanc = w1_s + d * o;                      // [c, 2]
-  float* mean_d = meanc + 2 * c;                    // [d]
+  float* meanc = w1_s + d * o;                      // [c]
+  float* mean_d = meanc + c;                        // [d]
   float* inv_d = mean_d + d;                        // [d]
   float* part = inv_d + d;                          // partial sums
   for (int pass = 0; pass < 2; ++pass) {  // the first half's sums, then the second's added
@@ -636,9 +772,30 @@ fab_stats_bf16(const bf16* __restrict__ u, const bf16* __restrict__ kx,
 #pragma unroll 4
   for (int e = tid; e < d * o / 4; e += kTcThreads)
     reinterpret_cast<float4*>(w1_s)[e] = reinterpret_cast<const float4*>(w1h)[e];
-  for (int cc = tid; cc < 2 * c; cc += kTcThreads) meanc[cc] = mean_c[sn * 2 * c + cc];
+  if (tid < groups * c8n)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) part[tid / c8n * c + tid % c8n * 8 + q] = mc[q];
   __syncthreads();
   const float inv_n = 1.f / static_cast<float>(h * w);
+  for (int cc = tid; cc < c; cc += kTcThreads) {
+    float a = 0.f;
+    for (int gi = 0; gi < groups; ++gi) a += part[gi * c + cc];
+    meanc[cc] = a * inv_n;
+  }
+  __syncthreads();
+  // the rounded bb's mean of phi per d, held in inv_d until the variance;
+  // then, given, the block's mean_c (fab_block_mean_bf16) in meanc
+  for (int dd = tid; dd < d; dd += kTcThreads) {
+    float mean_r = 0.f;
+#pragma unroll 8
+    for (int ci = 0; ci < c; ++ci) mean_r = fmaf(meanc[ci], win_s[ci * d + dd], mean_r);
+    inv_d[dd] = mean_r;
+  }
+  if (mean_b) {
+    __syncthreads();
+    for (int cc = tid; cc < c; cc += kTcThreads) meanc[cc] = mean_b[sn * c + cc];
+  }
+  __syncthreads();
   // E[phi^2] = W_in^T G W_in / N: 4 x 2 blocks of (G W_in)[ci, dd] per thread,
   // reduced over ci in a fixed order through `part` [c / 4][d]
   const int dq = (d + 1) / 2;
@@ -669,15 +826,12 @@ fab_stats_bf16(const bf16* __restrict__ u, const bf16* __restrict__ kx,
   }
   __syncthreads();
   for (int dd = tid; dd < d; dd += kTcThreads) {
-    float mean = 0.f, mean_r = 0.f, ex2 = 0.f;
+    float mean = 0.f, ex2 = 0.f;
 #pragma unroll 8
-    for (int ci = 0; ci < c; ++ci) {
-      mean = fmaf(meanc[2 * ci], win_s[ci * d + dd], mean);
-      mean_r = fmaf(meanc[2 * ci + 1], win_s[ci * d + dd], mean_r);
-    }
+    for (int ci = 0; ci < c; ++ci) mean = fmaf(meanc[ci], win_s[ci * d + dd], mean);
     for (int k = 0; k < c / 4; ++k) ex2 += part[k * d + dd];
     mean_d[dd] = mean;
-    inv_d[dd] = rsqrtf(guarded_var(ex2 * inv_n, mean, mean_r) + eps);
+    inv_d[dd] = rsqrtf(guarded_var(ex2 * inv_n, mean, inv_d[dd], var_floor) + eps);
   }
   __syncthreads();
   for (int e = tid; e < d * o; e += kTcThreads) w1_s[e] *= inv_d[e / o];  // diag(inv) W_o1
@@ -858,15 +1012,22 @@ int launch_apply_bf16(const bf16* u, const bf16* kx, const bf16* ky, const bf16*
   return cudaGetLastError();
 }
 
+// The block's mean inputs (all null: mean_c from u alone) and its scratch.
+struct MeanFrom {
+  const bf16* x;
+  const float *coef, *sx, *sy;
+  float* mean;  // [b, n, c]
+};
+
 template <int KF>
 int launch_bf16_kf(const bf16* u, const bf16* kx, const bf16* ky, const bf16* w_in,
-                   const float* w1, const float* mean_c, bf16* m, float* bias, bf16* out, int b,
-                   int n, int h, int w, int c, int d, int o, float eps, const Plan& p,
-                   cudaStream_t stream) {
+                   const float* w1, const float* mean_b, bf16* m, float* bias, bf16* out, int b,
+                   int n, int h, int w, int c, int d, int o, float eps, float var_floor,
+                   const Plan& p, cudaStream_t stream) {
   cudaError_t e = prepare(fab_stats_bf16<KF>, p.stats_bytes);
   if (e != cudaSuccess) return e;
   fab_stats_bf16<KF><<<dim3(n, b), kTcThreads, p.stats_bytes, stream>>>(
-      u, kx, ky, w_in, w1, mean_c, m, bias, n, h, w, c, d, o, eps, p);
+      u, kx, ky, w_in, w1, mean_b, m, bias, n, h, w, c, d, o, eps, var_floor, p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 #define LNS_APPLY(MT) \
@@ -885,18 +1046,29 @@ int launch_bf16_kf(const bf16* u, const bf16* kx, const bf16* ky, const bf16* w_
 }
 
 int launch_bf16(const bf16* u, const bf16* kx, const bf16* ky, const bf16* w_in, const float* w1,
-                const float* mean_c, bf16* m, float* bias, bf16* out, int b, int n, int h, int w,
-                int c, int d, int o, float eps, cudaStream_t stream) {
+                const MeanFrom& mf, bf16* m, float* bias, bf16* out, int b, int n, int h, int w,
+                int c, int d, int o, float eps, float var_floor, cudaStream_t stream) {
   if (bf16_limit(h, w, c, d, o)) return cudaErrorInvalidValue;
+  if (!mf.x != !mf.coef || !mf.x != !mf.sx || !mf.x != !mf.sy || !mf.x != !mf.mean)
+    return cudaErrorInvalidValue;
+  if (mf.x) {
+    const int bytes = block_mean_smem(n, h, w, c);
+    cudaError_t e = lns::allow_smem(fab_block_mean_bf16, bytes);
+    if (e != cudaSuccess) return e;
+    fab_block_mean_bf16<<<dim3(b, (n + kHC - 1) / kHC), kMeanThreads, bytes, stream>>>(
+        mf.x, mf.coef, mf.sx, mf.sy, mf.mean, n, h, w, c);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
   const Plan p = plan_for(h, w, c, d, o);
   if (w > h) {  // the transposed field: k_x applied first
     std::swap(h, w);
     std::swap(kx, ky);
   }
-  return p.wp > 64 ? launch_bf16_kf<8>(u, kx, ky, w_in, w1, mean_c, m, bias, out, b, n, h, w, c, d,
-                                       o, eps, p, stream)
-                   : launch_bf16_kf<4>(u, kx, ky, w_in, w1, mean_c, m, bias, out, b, n, h, w, c, d,
-                                       o, eps, p, stream);
+  return p.wp > 64 ? launch_bf16_kf<8>(u, kx, ky, w_in, w1, mf.mean, m, bias, out, b, n, h, w, c,
+                                       d, o, eps, var_floor, p, stream)
+                   : launch_bf16_kf<4>(u, kx, ky, w_in, w1, mf.mean, m, bias, out, b, n, h, w, c,
+                                       d, o, eps, var_floor, p, stream);
 }
 
 }  // namespace
@@ -906,23 +1078,31 @@ extern "C" const char* lns_fab_core_bf16_limit(int h, int w, int c, int d, int o
   return bf16_limit(h, w, c, d, o);
 }
 
+// x, coef, sx, sy: the block's mean inputs, mean_ws their [b, n, c] f32
+// scratch (bf16 only; all null for mean_c from u alone).
 extern "C" int lns_fab_core(int dtype, const void* u, const void* kx, const void* ky,
-                            const void* w_in, const void* w_o1, const void* mean_c, void* m,
-                            void* bias, void* out, int b, int n, int h, int w, int c, int d, int o,
-                            float eps, void* stream) {
+                            const void* w_in, const void* w_o1, const void* x, const void* coef,
+                            const void* sx, const void* sy, void* mean_ws, void* m, void* bias,
+                            void* out,
+                            int b, int n, int h, int w, int c, int d, int o, float eps,
+                            float var_floor, void* stream) {
   const float* w1 = static_cast<const float*>(w_o1);
-  const float* mc = static_cast<const float*>(mean_c);
   float* bf = static_cast<float*>(bias);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
+  if (dtype == 0) {
+    if (x || coef || sx || sy || mean_ws) return cudaErrorInvalidValue;
     return launch_f32(static_cast<const float*>(u), static_cast<const float*>(kx),
-                      static_cast<const float*>(ky), static_cast<const float*>(w_in), w1, mc,
+                      static_cast<const float*>(ky), static_cast<const float*>(w_in), w1,
                       static_cast<float*>(m), bf, static_cast<float*>(out), b, n, h, w, c, d, o,
                       eps, st);
+  }
   if (dtype == 1)
     return launch_bf16(static_cast<const bf16*>(u), static_cast<const bf16*>(kx),
-                       static_cast<const bf16*>(ky), static_cast<const bf16*>(w_in), w1, mc,
+                       static_cast<const bf16*>(ky), static_cast<const bf16*>(w_in), w1,
+                       MeanFrom{static_cast<const bf16*>(x), static_cast<const float*>(coef),
+                                static_cast<const float*>(sx), static_cast<const float*>(sy),
+                                static_cast<float*>(mean_ws)},
                        static_cast<bf16*>(m), bf, static_cast<bf16*>(out), b, n, h, w, c, d, o,
-                       eps, st);
+                       eps, var_floor, st);
   return cudaErrorInvalidValue;
 }

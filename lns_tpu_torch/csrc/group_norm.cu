@@ -62,6 +62,12 @@
 // reference's f32 op rounded to T. The _rn intrinsics keep nvcc from fusing
 // a product and a sum that the reference rounds apart.
 //
+// With coef_out (bf16 / f16), the block that holds a sample's first rows
+// (the cluster's rank 0, or the split plan's first chunk) also writes the
+// sample's sc and sh [2, C], the rounded values as f32: the FAB core forms
+// its mean from the GroupNorm(1) output before its last rounding, T(x sc) +
+// sh in f32, from them (kernels/fab_core.py).
+//
 // Limits, stated once (shape_limit; the wrapper raises with its text): C a
 // multiple of 8 and of G, with C / VW <= 256 threads; the grid of the split
 // plan (B x chunks blocks) within 2^31 - 1; the cluster (or the split plan's
@@ -97,6 +103,7 @@ struct Params {
   float eps;
   int chunks;          // chunks per sample: 0 for the one-pass kernel
   float* ws;           // the split plan's partials [2][B, chunks, G, 2]
+  float* coef_out;     // bf16 / f16, or null: each sample's sc and sh [B, 2, C]
 };
 
 // Rows of per-thread partial sums the block folds through shared memory:
@@ -354,10 +361,16 @@ __global__ void __launch_bounds__(kThreads, 3) gn_kernel(Params p) {
       coef[2 * C + c] = p.bias[c];
     }
   } else {
+    float* co = p.coef_out && rank == 0 ? p.coef_out + static_cast<size_t>(blockIdx.x / cl) * 2 * C
+                                        : nullptr;
     for (int c = tid; c < C; c += kThreads) {
       const int g = c / cpg;
       low_coef<T>(rank_sum(red, G, cl, g, 0), rank_sum(red, G, cl, g, 1), n, p.eps, p.scale[c],
                   p.bias[c], coef + c, coef + C + c);
+      if (co) {
+        co[c] = coef[c];
+        co[C + c] = coef[C + c];
+      }
     }
   }
   __syncthreads();
@@ -485,6 +498,10 @@ __global__ void __launch_bounds__(kThreads) gn_apply(Params p) {
     } else {
       low_coef<T>(chunk_sum(p1, p.chunks, G, g, 0), chunk_sum(p1, p.chunks, G, g, 1), n, p.eps,
                   p.scale[c], p.bias[c], coef + c, coef + C + c);
+      if (p.coef_out && chunk == 0) {
+        p.coef_out[static_cast<size_t>(sample) * 2 * C + c] = coef[c];
+        p.coef_out[static_cast<size_t>(sample) * 2 * C + C + c] = coef[C + c];
+      }
     }
   }
   __syncthreads();
@@ -682,8 +699,9 @@ extern "C" int lns_group_norm_plan(int dtype, int B, int S, int C, int G, int* o
 }
 
 extern "C" int lns_group_norm(int dtype, const void* x, const void* scale, const void* bias,
-                              void* out, void* workspace, int B, int S, int C, int G, float eps,
-                              int swish, void* stream) {
+                              void* out, void* workspace, void* coef_out, int B, int S, int C,
+                              int G, float eps, int swish, void* stream) {
+  if (coef_out && dtype == 0) return cudaErrorInvalidValue;
   if (shape_limit(dtype, B, S, C, G)) return cudaErrorInvalidValue;
   Params p = plan_params(dtype, B, S, C, G);
   p.x = x;
@@ -692,5 +710,6 @@ extern "C" int lns_group_norm(int dtype, const void* x, const void* scale, const
   p.out = out;
   p.eps = eps;
   p.ws = static_cast<float*>(workspace);
+  p.coef_out = static_cast<float*>(coef_out);
   return dispatch(dtype, swish != 0, p, B, static_cast<cudaStream_t>(stream), nullptr);
 }

@@ -50,69 +50,97 @@ import torch
 from lns_tpu_torch.kernels import _build
 
 
-def fab_mean_c(u_f32, kx_s, ky_s):
-    """mean_c [b, n, c] f32, the pixel mean of k_x . u . k_y^T per channel:
-    ``einsum("bnh,bnw,bhwc->bnc", kx_s, ky_s, u_f32) / (h w)`` from the row
-    sums of the two kernels kx_s [b, n, h], ky_s [b, n, w] (f32) and u
-    [b, h, w, c] (f32), the outer product of the sums first, as XLA forms
-    it."""
-    h, w = u_f32.shape[1:3]
-    return torch.einsum("bnh,bnw,bhwc->bnc", kx_s, ky_s, u_f32) / (h * w)
+# guarded_var's floor, as a share of the variance about the rounded bb's mean
+# (read at each call: chip_smoke.py --var-floor-sweep trains at others)
+VAR_FLOOR = 0.25
 
 
 def rounded_mean_c(u, k_x, k_y):
-    """``_batched_gram_core``'s own mean_c [b, n, c]: the pixel mean of the
-    bb it forms, from the kernels in u's dtype and u as given (what the
-    function computes jitted alone)."""
-    dt = u.dtype
-    return fab_mean_c(u.float(), k_x.to(dt).float().sum(dim=2), k_y.to(dt).float().sum(dim=2))
+    """``_batched_gram_core``'s own mean_c [b, n, c] f32, the pixel mean of
+    the bb it forms: the row sums of the kernels in u's dtype, their outer
+    product, times u (what the function computes jitted alone)."""
+    dt, (h, w) = u.dtype, u.shape[1:3]
+    kx_s, ky_s = k_x.to(dt).float().sum(dim=2), k_y.to(dt).float().sum(dim=2)
+    return torch.einsum("bnh,bnw,bhwc->bnc", kx_s, ky_s, u.float()) / (h * w)
 
 
-def guarded_var(ex2, mean, mean_r):
+def block_mean_c(u, mean_from):
+    """mean_c [b, n, c] f32 as the jitted JAX FAB block reads it into
+    ``_batched_gram_core`` (bf16; ``ops/factorized_attention.py`` names the
+    fusions): from the GroupNorm(1) output before its last rounding, T(x sc)
+    + sh in f32, and the row sums of the kernels' f32 products before
+    theirs. mean_from = (x [b, h, w, c] the block's input in u's dtype,
+    coef [b, 2, c] the GroupNorm's rounded sc and sh as f32, kx_s [b, n, h]
+    and ky_s [b, n, w] f32), with u = T(T(x sc) + sh). The gradient goes
+    through u, kx_s and ky_s: the rounding residue T(x sc) + sh - u has none
+    (rounding passes the gradient on unchanged)."""
+    x, coef, kx_s, ky_s = mean_from
+    h, w = u.shape[1:3]
+    uf = (x * coef[:, None, None, 0].to(x.dtype)).float() + coef[:, None, None, 1]
+    u32 = u.float()
+    u32 = u32 + (uf - u32).detach()  # uf's value, u's gradient
+    return torch.einsum("bnh,bnw,bhwc->bnc", kx_s, ky_s, u32) / (h * w)
+
+
+def guarded_var(ex2, mean, mean_r, floor: float):
     """The variance ``fab_core_plain`` normalises by, from E[phi^2] and the
-    two means (kernel 2's ``guarded_var``): ``max(ex2 - mean^2, 0)``, as
-    ``_batched_gram_core`` takes it, unless ``ex2 - mean^2`` falls below a
-    quarter of ``max(ex2 - mean_r^2, 0)``; then the latter."""
-    var, var_r = ex2 - mean.square(), (ex2 - mean_r.square()).clamp_min(0.0)
-    return torch.where(var >= 0.25 * var_r, var, var_r).clamp_min(0.0)
+    two means (kernel 2's ``guarded_var``): ``ex2 - mean^2``, as
+    ``_batched_gram_core`` takes it, but at least ``floor`` x the variance
+    about the rounded bb's mean, ``max(ex2 - mean_r^2, 0)`` (``floor`` 0:
+    ``_batched_gram_core``'s ``max(ex2 - mean^2, 0)``)."""
+    return torch.maximum(ex2 - mean.square(), floor * (ex2 - mean_r.square()).clamp_min(0.0))
 
 
-def fab_core_plain(u, k_x, k_y, w_in, w_o1, eps: float = 1e-5, mean_c=None):
+def _apply_pair(u, k_x, k_y):
+    """bb, both axial applies in ``_batched_gram_core``'s order and
+    rounding: (b, n, h-index, w-index, c), or (w-index, h-index) for w > h."""
+    if u.shape[2] > u.shape[1]:
+        return torch.einsum("bnlw,bnwic->bnlic", k_y, torch.einsum("bnih,bhwc->bnwic", k_x, u))
+    return torch.einsum("bnih,bnhlc->bnilc", k_x, torch.einsum("bnlw,bhwc->bnhlc", k_y, u))
+
+
+def phi_moments(u, k_x, k_y, w_in, mean_from=None, bb=None):
+    """E[phi^2] and the two means of phi = bb . W_in per (b, n, d), f32:
+    (ex2, mean, mean_r), mean from ``block_mean_c`` (``rounded_mean_c``
+    without mean_from), mean_r from ``rounded_mean_c``."""
+    dt = u.dtype
+    k_x, k_y = k_x.to(dt), k_y.to(dt)
+    if bb is None:
+        bb = _apply_pair(u, k_x, k_y)
+    bbf = bb.float()
+    g = torch.einsum("bnilc,bnile->bnce", bbf, bbf)
+    wf = w_in.to(dt).float()
+    mean_r = torch.einsum("bnc,cnd->bnd", rounded_mean_c(u, k_x, k_y), wf)
+    mean = mean_r if mean_from is None else torch.einsum(
+        "bnc,cnd->bnd", block_mean_c(u, mean_from), wf)
+    ex2 = torch.einsum("cnd,bnce,end->bnd", wf, g / (u.shape[1] * u.shape[2]), wf)
+    return ex2, mean, mean_r
+
+
+def fab_core_plain(u, k_x, k_y, w_in, w_o1, eps: float = 1e-5, mean_from=None,
+                   var_floor: float = None):
     """Plain PyTorch version (``_batched_gram_core``): u [b, h, w, c],
     k_x [b, n, h, h], k_y [b, n, w, w], w_in [c, n, d], w_o1 [n, d, o] ->
     [b, h, w, o] in u's dtype, rounding a, bb, m, the bias and the output to
     it where ``_batched_gram_core`` does.
 
-    mean_c [b, n, c, 2] (f32): [..., 0] the mean the statistics use (the
-    FAB block's, ``fab_mean_c`` of the unrounded values, as the jitted JAX
-    block reads them), [..., 1] ``rounded_mean_c``; None: both the latter,
-    the function jitted alone. The variance is ``_batched_gram_core``'s,
-    ``max(E[phi^2] - mean^2, 0)``, unless it falls below a quarter of the
-    variance about the second mean: a mean from the unrounded values
-    against E[phi^2] of the rounded bb can cancel to or below zero on flat
-    features, where the clamp would scale the channel by rsqrt(eps) (in
-    139 of the 240 FAB core calls of ``chip_smoke.py``'s NS2d stage-1 run,
-    up to 94 (sample, head, d) each: ``kernels/probe_twophase.py``); there
-    the port takes the variance about the second mean."""
+    mean_from: None, the function jitted alone (mean_c the rounded bb's);
+    or the inputs of ``block_mean_c``, mean_c as the jitted JAX block takes
+    it from values the core never sees. The variance is
+    ``_batched_gram_core``'s, E[phi^2] - mean^2, but no less than
+    ``var_floor`` x the variance about the rounded bb's mean
+    (``guarded_var``): a mean from the unrounded values against E[phi^2] of
+    the rounded bb can cancel to or below zero on flat features, where the
+    clamp to 0 would scale the channel by rsqrt(eps). var_floor None:
+    ``VAR_FLOOR``."""
     dt = u.dtype
-    if mean_c is None:
-        mean_c = rounded_mean_c(u, k_x, k_y)[..., None].expand(-1, -1, -1, 2)
     k_x, k_y, w_in = k_x.to(dt), k_y.to(dt), w_in.to(dt)
     b, h, w, c = u.shape
-    n_px = h * w
-    if w > h:
-        a = torch.einsum("bnih,bhwc->bnwic", k_x, u)
-        bb = torch.einsum("bnlw,bnwic->bnlic", k_y, a)    # (w-index, h-index)
-    else:
-        a = torch.einsum("bnlw,bhwc->bnhlc", k_y, u)
-        bb = torch.einsum("bnih,bnhlc->bnilc", k_x, a)    # (h-index, w-index)
-    bbf = bb.float()
-    g = torch.einsum("bnilc,bnile->bnce", bbf, bbf)
-    wf = w_in.float()
-    mean, mean_r = torch.einsum("bnck,cnd->kbnd", mean_c, wf)
-    ex2 = torch.einsum("cnd,bnce,end->bnd", wf, g / n_px, wf)
-    inv = torch.rsqrt(guarded_var(ex2, mean, mean_r) + eps)
-    w1f = w_o1.float()
+    bb = _apply_pair(u, k_x, k_y)
+    ex2, mean, mean_r = phi_moments(u, k_x, k_y, w_in, mean_from, bb)
+    floor = VAR_FLOOR if var_floor is None else var_floor
+    inv = torch.rsqrt(guarded_var(ex2, mean, mean_r, floor) + eps)
+    wf, w1f = w_in.float(), w_o1.float()
     m = torch.einsum("cnd,bnd,ndo->bnco", wf, inv, w1f).to(dt)
     bias = torch.einsum("bnd,ndo->bo", mean * inv, w1f).to(dt)[:, None, None, :]
     if w > h:
@@ -125,67 +153,71 @@ class FabCoreFunction(torch.autograd.Function):
     version for a CPU tensor) and saves its inputs as they were given,
     before the wrapper's casts: w_in and w_o1 are views of the 1x1 conv
     weights, so autograd maps their gradients back to ``in_proj`` and
-    ``to_out[1]``, and a given mean_c's reaches the GroupNorm and the
-    kernels it was computed from. The backward recomputes ``fab_core_plain``
-    from them under grad (the casts happen inside it) and returns that
-    function's gradients. The JAX package has no backward kernel to port
-    (XLA differentiates ``_batched_gram_core``), so none is written here."""
+    ``to_out[1]``, and kx_s, ky_s of a mean_from reach the low-rank kernels.
+    The backward recomputes ``fab_core_plain`` from them under grad (the
+    casts happen inside it) and returns that function's gradients. The JAX
+    package has no backward kernel to port (XLA differentiates
+    ``_batched_gram_core``), so none is written here."""
 
     @staticmethod
-    def forward(ctx, u, k_x, k_y, w_in, w_o1, eps: float, mean_c=None):
-        ctx.save_for_backward(u, k_x, k_y, w_in, w_o1, mean_c)
-        ctx.eps = eps
-        return _fab_core(u, k_x, k_y, w_in, w_o1, eps, mean_c)
+    def forward(ctx, u, k_x, k_y, w_in, w_o1, eps: float, var_floor: float = None,
+                *mean_from):
+        var_floor = VAR_FLOOR if var_floor is None else var_floor
+        ctx.save_for_backward(u, k_x, k_y, w_in, w_o1, *mean_from)
+        ctx.args = (eps, var_floor)
+        return _fab_core(u, k_x, k_y, w_in, w_o1, eps, mean_from or None, var_floor)
 
     @staticmethod
     def backward(ctx, grad):
-        needs = ctx.needs_input_grad[:5] + (ctx.needs_input_grad[6:] or (False,))  # mean_c last
-        inputs = [None if t is None else t.detach().requires_grad_(need)
-                  for t, need in zip(ctx.saved_tensors, needs)]
+        needs = ctx.needs_input_grad[:5] + ctx.needs_input_grad[7:]
+        inputs = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, needs)]
         with torch.enable_grad():
-            y = fab_core_plain(*inputs[:5], ctx.eps, mean_c=inputs[5])
-        wanted = [t for t in inputs if t is not None and t.requires_grad]
-        grads = iter(torch.autograd.grad(y, wanted, grad))
-        out = [next(grads) if t is not None and t.requires_grad else None for t in inputs]
-        return tuple(out[:5]) + (None,) + tuple(out[5:len(ctx.needs_input_grad) - 1])
+            y = fab_core_plain(*inputs[:5], ctx.args[0], tuple(inputs[5:]) or None, ctx.args[1])
+        wanted = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(y, wanted, grad, allow_unused=True))
+        out = [next(grads) if t.requires_grad else None for t in inputs]
+        return (tuple(out[:5]) + (None, None) + tuple(out[5:]))[:len(ctx.needs_input_grad)]
 
 
-def fab_fused_core(u, k_x, k_y, w_in, w_o1, eps: float = 1e-5, mean_c=None):
+def fab_fused_core(u, k_x, k_y, w_in, w_o1, eps: float = 1e-5, mean_from=None,
+                   var_floor: float = None):
     """FAB core with the JAX kernel's shapes: u [b, h, w, c] (post-GN),
     k_x [b, n, h, h], k_y [b, n, w, w], w_in [c, n, d], w_o1 [n, d, o],
-    mean_c [b, n, c, 2] f32 or None (as ``fab_core_plain``; the kernel reads
-    it and computes the rest) -> [b, h, w, o] in u's dtype.
+    mean_from None or (x, coef, kx_s, ky_s) as ``fab_core_plain`` (bf16; the
+    kernel computes both means itself) -> [b, h, w, o] in u's dtype.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     on the current stream or raises. With grad mode on and any of the
     tensors requiring grad the call goes through ``FabCoreFunction``, which
     launches the same kernel and carries the plain version's gradient."""
-    inputs = (u, k_x, k_y, w_in, w_o1, mean_c)
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
-        return FabCoreFunction.apply(u, k_x, k_y, w_in, w_o1, eps, mean_c)
-    return _fab_core(u, k_x, k_y, w_in, w_o1, eps, mean_c)
+    var_floor = VAR_FLOOR if var_floor is None else var_floor
+    tensors = (u, k_x, k_y, w_in, w_o1) + tuple(mean_from or ())
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return FabCoreFunction.apply(u, k_x, k_y, w_in, w_o1, eps, var_floor, *(mean_from or ()))
+    return _fab_core(u, k_x, k_y, w_in, w_o1, eps, mean_from, var_floor)
 
 
-def _fab_core(u, k_x, k_y, w_in, w_o1, eps: float, mean_c):
+def _fab_core(u, k_x, k_y, w_in, w_o1, eps: float, mean_from, var_floor: float):
     """The launch (or, for a CPU tensor, the plain version), without grad."""
-    if not _build.on_cuda(u, "fab_fused_core", k_x, k_y, w_in, w_o1, mean_c):
-        return fab_core_plain(u, k_x, k_y, w_in, w_o1, eps, mean_c=mean_c)
+    if not _build.on_cuda(u, "fab_fused_core", k_x, k_y, w_in, w_o1, *(mean_from or ())):
+        return fab_core_plain(u, k_x, k_y, w_in, w_o1, eps, mean_from, var_floor)
     if u.dtype not in _build.DTYPE_CODE:
         raise TypeError(f"fab_fused_core: unsupported dtype {u.dtype}")
     if u.dim() != 4 or not u.is_contiguous():
         raise ValueError("fab_fused_core: u must be contiguous [b, h, w, c]")
+    if mean_from is not None and u.dtype != torch.bfloat16:
+        raise ValueError("fab_fused_core: mean_from takes bf16")
     b, h, w, c = u.shape
     n, d, o = w_o1.shape
     expect = {"k_x": (k_x, (b, n, h, h)), "k_y": (k_y, (b, n, w, w)),
               "w_in": (w_in, (c, n, d)), "w_o1": (w_o1, (n, d, o))}
-    if mean_c is not None:
-        expect["mean_c"] = (mean_c, (b, n, c, 2))
+    if mean_from is not None:
+        expect.update(zip(("x", "coef", "kx_s", "ky_s"), zip(
+            mean_from, ((b, h, w, c), (b, 2, c), (b, n, h), (b, n, w)))))
     for name, (t, shape) in expect.items():
         if tuple(t.shape) != shape or t.device != u.device:
             raise ValueError(f"fab_fused_core: {name} must be {shape} on {u.device}, "
                              f"got {tuple(t.shape)} on {t.device}")
-    if mean_c is None:
-        mean_c = rounded_mean_c(u, k_x, k_y)[..., None].expand(-1, -1, -1, 2)
     if not 0 < b <= 65535:
         raise ValueError(f"fab_fused_core: batch {b}; the grid takes 1 to 65535")
     lib = _build.library()
@@ -202,14 +234,22 @@ def _fab_core(u, k_x, k_y, w_in, w_o1, eps: float, mean_c):
     w1 = w_o1.float().contiguous()
     if w1.data_ptr() % 16:  # read as 16-byte vectors
         w1 = w1.clone()
-    mc = mean_c.float().contiguous()
+    ptrs = [None] * 5
+    if mean_from is not None:
+        x, coef, kx_s, ky_s = mean_from
+        x = x.to(u.dtype).contiguous()
+        if x.data_ptr() % 16:  # read as 16-byte vectors, as u
+            x = x.clone()
+        mf = (x, coef.float().contiguous(), kx_s.float().contiguous(), ky_s.float().contiguous(),
+              torch.empty((b, n, c), device=u.device))  # the block's mean_c
+        ptrs = [t.data_ptr() for t in mf]
     m = torch.empty((b, n, c, o), device=u.device, dtype=u.dtype)  # m_n, rounded to u's dtype
     bias = torch.empty((b, n, o), device=u.device, dtype=torch.float32)
     out = torch.empty((b, h, w, o), device=u.device, dtype=u.dtype)
     rc = lib.lns_fab_core(
         _build.DTYPE_CODE[u.dtype], u.data_ptr(), kx.data_ptr(), ky.data_ptr(),
-        wi.data_ptr(), w1.data_ptr(), mc.data_ptr(), m.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), b, n, h, w, c, d, o, ctypes.c_float(eps),
+        wi.data_ptr(), w1.data_ptr(), *ptrs, m.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), b, n, h, w, c, d, o, ctypes.c_float(eps), ctypes.c_float(var_floor),
         torch.cuda.current_stream(u.device).cuda_stream)
     _build.check(rc, "lns_fab_core")
     fab_fused_core.launches += 1

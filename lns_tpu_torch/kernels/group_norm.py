@@ -56,7 +56,7 @@ def _group_sums(t):
 
 
 def group_norm_swish_plain(x, scale, bias, num_groups: int, eps: float = 1e-6,
-                           apply_swish: bool = True):
+                           apply_swish: bool = True, with_coef: bool = False):
     """Plain PyTorch version: x [B, *spatial, C] -> same shape and dtype,
     rounded where ``lns_tpu.ops.norms.GroupNorm`` and
     ``lns_tpu.ops.activations.swish`` round.
@@ -74,52 +74,32 @@ def group_norm_swish_plain(x, scale, bias, num_groups: int, eps: float = 1e-6,
       * swish as ``y * (1 / (1 + exp(-y)))``, each op rounded to the
         activation dtype (``ops.activations.swish``, what XLA computes for
         ``y * sigmoid(y)``).
+
+    ``with_coef`` (bf16 / f16): also each sample's sc and sh [B, 2, C], the
+    rounded values as f32 (the FAB core reads them).
     """
-    if x.dtype != torch.float32:
-        y = _low_affine(x, scale, bias, num_groups, eps)
-        return (swish(y) if apply_swish else y).reshape(x.shape)
-    b, c = x.shape[0], x.shape[-1]
-    cg = c // num_groups
-    xf = x.reshape(b, -1, num_groups, cg)
-    n = xf.shape[1] * cg
-    mean = (_group_sums(xf) / n)[:, None, :, None]
-    var = (_group_sums((xf - mean).square()) / n)[:, None, :, None].clamp_min(0.0)
-    y = ((xf - mean) * torch.rsqrt(var + eps)).reshape(b, -1, c)
-    y = y * scale.float() + bias.float()
-    return (swish(y) if apply_swish else y).reshape(x.shape)
-
-
-def _low_affine(x, scale, bias, num_groups: int, eps: float, unrounded: bool = False):
-    """bf16 / f16 GroupNorm + affine of x [B, *spatial, C] as [B, S, C]:
-    ``x * sc + sh`` in x's dtype (``unrounded``: the sum in f32, before its
-    rounding)."""
     b, c = x.shape[0], x.shape[-1]
     cg = c // num_groups
     xf = x.float().reshape(b, -1, num_groups, cg)
+    if x.dtype == torch.float32:
+        if with_coef:
+            raise ValueError("group_norm_swish_plain: with_coef takes bf16 or f16")
+        n = xf.shape[1] * cg
+        mean = (_group_sums(xf) / n)[:, None, :, None]
+        var = (_group_sums((xf - mean).square()) / n)[:, None, :, None].clamp_min(0.0)
+        y = ((xf - mean) * torch.rsqrt(var + eps)).reshape(b, -1, c)
+        y = y * scale.float() + bias.float()
+        return (swish(y) if apply_swish else y).reshape(x.shape)
     n = xf.shape[1] * cg  # sums divided by n, as jnp.mean (torch's CUDA mean multiplies by 1/n)
     mean = _group_sums(xf) / n                                     # [B, G]
     var = (_group_sums(xf.square()) / n - mean.square()).clamp_min(0.0)
     inv = torch.rsqrt(var + eps)
     sc = inv.repeat_interleave(cg, dim=1) * scale.float()          # [B, C]
     sh = bias.float() - mean.repeat_interleave(cg, dim=1) * sc
-    prod = x.reshape(b, -1, c) * sc[:, None].to(x.dtype)
-    if unrounded:
-        return prod.float() + sh[:, None].to(x.dtype).float()
-    return prod + sh[:, None].to(x.dtype)
-
-
-def group_norm_unrounded(x, scale, bias, num_groups: int, eps: float = 1e-6):
-    """The GroupNorm + affine of ``group_norm_swish_plain`` (no swish) as
-    the f32 value before its last rounding: in bf16 / f16 ``T(x sc) + sh``
-    added in f32 and not rounded to T; in f32 the output itself. x
-    [B, *spatial, C] -> f32, same shape. Plain PyTorch on any device.
-
-    The jitted JAX FAB block reads its GroupNorm(1) output so where it
-    converts it to f32 (the ``mean_c`` of ``_batched_gram_core``): XLA drops
-    the bf16 round trip between the fused add and that consumer."""
-    if x.dtype == torch.float32:
-        return group_norm_swish_plain(x, scale, bias, num_groups, eps, apply_swish=False)
-    return _low_affine(x, scale, bias, num_groups, eps, unrounded=True).reshape(x.shape)
+    sc, sh = sc.to(x.dtype), sh.to(x.dtype)
+    y = x.reshape(b, -1, c) * sc[:, None] + sh[:, None]
+    y = (swish(y) if apply_swish else y).reshape(x.shape)
+    return (y, torch.stack([sc, sh], 1).float()) if with_coef else y
 
 
 @functools.lru_cache(maxsize=None)
@@ -143,26 +123,32 @@ class GroupNormSwishFunction(torch.autograd.Function):
     recomputes ``group_norm_swish_plain`` from them under grad and returns
     that function's gradients. The JAX package has no backward kernel to
     port (XLA differentiates ``norms.GroupNorm``), so none is written here;
-    the gradient is the plain version's, in its layout and dtypes."""
+    the gradient is the plain version's, in its layout and dtypes. The
+    coefficients of ``with_coef`` carry none (the FAB core reads them for a
+    rounding residue whose gradient is zero)."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, num_groups: int, eps: float, apply_swish: bool):
+    def forward(ctx, x, scale, bias, num_groups: int, eps: float, apply_swish: bool,
+                with_coef: bool = False):
         ctx.save_for_backward(x, scale, bias)
         ctx.args = (num_groups, eps, apply_swish)
-        return _group_norm_swish(x, scale, bias, num_groups, eps, apply_swish)
+        out = _group_norm_swish(x, scale, bias, num_groups, eps, apply_swish, with_coef)
+        if with_coef:
+            ctx.mark_non_differentiable(out[1])
+        return out
 
     @staticmethod
-    def backward(ctx, grad):
+    def backward(ctx, grad, *_):
         inputs = [t.detach().requires_grad_(need)
                   for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
         with torch.enable_grad():
             y = group_norm_swish_plain(*inputs, *ctx.args)
         grads = iter(torch.autograd.grad(y, [t for t in inputs if t.requires_grad], grad))
-        return tuple(next(grads) if t.requires_grad else None for t in inputs) + (None,) * 3
+        return tuple(next(grads) if t.requires_grad else None for t in inputs) + (None,) * 4
 
 
 def fused_group_norm_swish(x, scale, bias, num_groups: int, eps: float = 1e-6,
-                           apply_swish: bool = True):
+                           apply_swish: bool = True, with_coef: bool = False):
     """GroupNorm (+swish) on x [B, *spatial, C] (contiguous, channels last).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
@@ -170,19 +156,25 @@ def fused_group_norm_swish(x, scale, bias, num_groups: int, eps: float = 1e-6,
     limits, with the text of the C side's ``lns_group_norm_limit``, before
     any launch). With grad mode on and x, scale or bias requiring grad the
     call goes through ``GroupNormSwishFunction``, which launches the same
-    kernel and carries the plain version's gradient."""
+    kernel and carries the plain version's gradient. ``with_coef`` (bf16 /
+    f16): (y, each sample's sc and sh [B, 2, C] f32), as
+    ``group_norm_swish_plain``."""
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
                                     or bias.requires_grad):
-        return GroupNormSwishFunction.apply(x, scale, bias, num_groups, eps, apply_swish)
-    return _group_norm_swish(x, scale, bias, num_groups, eps, apply_swish)
+        return GroupNormSwishFunction.apply(x, scale, bias, num_groups, eps, apply_swish,
+                                            with_coef)
+    return _group_norm_swish(x, scale, bias, num_groups, eps, apply_swish, with_coef)
 
 
-def _group_norm_swish(x, scale, bias, num_groups: int, eps: float, apply_swish: bool):
+def _group_norm_swish(x, scale, bias, num_groups: int, eps: float, apply_swish: bool,
+                      with_coef: bool = False):
     """The launch (or, for a CPU tensor, the plain version), without grad."""
     if not _build.on_cuda(x, "fused_group_norm_swish", scale, bias):
-        return group_norm_swish_plain(x, scale, bias, num_groups, eps, apply_swish)
+        return group_norm_swish_plain(x, scale, bias, num_groups, eps, apply_swish, with_coef)
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"fused_group_norm_swish: unsupported dtype {x.dtype}")
+    if with_coef and x.dtype == torch.float32:
+        raise ValueError("fused_group_norm_swish: with_coef takes bf16 or f16")
     if not x.is_contiguous():
         raise ValueError("fused_group_norm_swish: x must be contiguous [B, *spatial, C]")
     c = x.shape[-1]
@@ -200,15 +192,17 @@ def _group_norm_swish(x, scale, bias, num_groups: int, eps: float, apply_swish: 
                          f"G{num_groups} needs {limit}")
     xk = x if x.data_ptr() % 16 == 0 else x.clone()  # read as 16-byte vectors
     out = torch.empty_like(x)
+    coef = torch.empty((b, 2, c), device=x.device) if with_coef else None
     ws_bytes = _workspace_bytes(code, b, s, c, num_groups)
     ws = torch.empty(ws_bytes, dtype=torch.uint8, device=x.device) if ws_bytes else None
     rc = _build.library().lns_group_norm(
         code, xk.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(), b, s, c, num_groups, float(eps),
+        None if ws is None else ws.data_ptr(), None if coef is None else coef.data_ptr(),
+        b, s, c, num_groups, float(eps),
         int(bool(apply_swish)), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, f"lns_group_norm(B={b}, S={s}, C={c}, G={num_groups})")
     fused_group_norm_swish.launches += 1
-    return out
+    return (out, coef) if with_coef else out
 
 
 def group_norm_plan(dtype: torch.dtype, b: int, s: int, c: int, groups: int) -> dict:

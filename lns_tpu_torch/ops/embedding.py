@@ -27,20 +27,31 @@ def rotary_freqs(coordinates: torch.Tensor, dim: int, min_freq: float = 1.0 / 64
 
 
 class RotaryEmbedding(nn.Module):
-    """The reference module. Its ``inv_freq`` buffer is part of its
-    checkpoint (whatever values a checkpoint holds load there); the
-    frequencies use ``rotary_inv_freq(dim)``, the values of the jitted JAX
-    package, which a checkpoint's f32 ``pow`` can miss in the last bit."""
+    """The reference module. The frequencies use ``rotary_inv_freq(dim)``,
+    the values of the jitted JAX package, held on the module's device in a
+    buffer outside the state dict. The reference's checkpoint holds an
+    ``inv_freq`` buffer of its own (an f32 ``pow``, which can miss those in
+    the last bit): the state dict writes the reference's values under that
+    key, and a load takes the key and drops it."""
 
     def __init__(self, dim: int, min_freq: float = 1.0 / 64, scale: float = 1.0):
         super().__init__()
         self.dim = dim
         self.min_freq = min_freq
         self.scale = scale
-        self.register_buffer("inv_freq", rotary_inv_freq(dim))
+        self.register_buffer("freq", rotary_inv_freq(dim), persistent=False)
 
     def forward(self, coordinates: torch.Tensor) -> torch.Tensor:
-        return rotary_freqs(coordinates, self.dim, self.min_freq, self.scale)
+        return rotary_freqs(coordinates, self.dim, self.min_freq, self.scale, self.freq)
+
+    def _save_to_state_dict(self, destination, prefix, keep_vars):
+        super()._save_to_state_dict(destination, prefix, keep_vars)
+        destination[prefix + "inv_freq"] = 1.0 / (
+            10000 ** (torch.arange(0, self.dim, 2, dtype=torch.float32) / self.dim))
+
+    def _load_from_state_dict(self, state_dict, prefix, *args):
+        state_dict.pop(prefix + "inv_freq", None)
+        super()._load_from_state_dict(state_dict, prefix, *args)
 
 
 def rotate_half(x: torch.Tensor) -> torch.Tensor:

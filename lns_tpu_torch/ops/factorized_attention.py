@@ -22,9 +22,7 @@ import torch
 from torch import nn
 
 from lns_tpu_torch.kernels.axial import axial_stats_plain, fab_axial_in_fused
-from lns_tpu_torch.kernels.fab_core import (fab_core_plain, fab_fused_core, fab_mean_c,
-                                            rounded_mean_c)
-from lns_tpu_torch.kernels.group_norm import group_norm_unrounded
+from lns_tpu_torch.kernels.fab_core import fab_core_plain, fab_fused_core
 from lns_tpu_torch.ops.activations import GELU, gelu
 from lns_tpu_torch.ops.conv import Conv1x1, Dense
 from lns_tpu_torch.ops.embedding import RotaryEmbedding, apply_rotary_pos_emb
@@ -70,10 +68,11 @@ class LowRankKernel(nn.Module):
 def _linspace01(n: int, device) -> torch.Tensor:
     """linspace(0, 1, n) [1, n] as ``jnp.linspace`` computes it in f32: i
     times f32(1 / (n - 1)), the last point 1 (``torch.linspace`` takes the
-    upper half from the end, which differs in the last bit)."""
-    pos = torch.arange(n, dtype=torch.float32, device=device) * (1.0 / max(n - 1, 1))
-    if n > 1:
-        pos[-1] = 1.0
+    upper half from the end, which differs in the last bit). Built on the
+    device without a host copy (``pos[-1] = 1.0`` on a CUDA tensor waits for
+    the device)."""
+    i = torch.arange(n, dtype=torch.float32, device=device)
+    pos = torch.where(i == n - 1, 1.0, i * (1.0 / max(n - 1, 1))) if n > 1 else i
     return pos.reshape(1, n)
 
 
@@ -198,7 +197,10 @@ class FABlock2D(nn.Module):
 
     def forward(self, u: torch.Tensor) -> torch.Tensor:
         u_skip = u
-        un = self.in_norm(u).movedim(1, -1)  # [b, h, w, c]
+        low = u.dtype != torch.float32 and self.impl == "batchedgram"
+        un = self.in_norm(u, with_coef=low)
+        un, coef = un if low else (un, None)
+        un = un.movedim(1, -1)  # [b, h, w, c]
         c = un.shape[-1]
         w_in = self.in_proj.weight[:, :, 0, 0].t().reshape(c, self.heads, self.dim_head)
         u_in = self.to_in[0].forward_last(un)
@@ -209,25 +211,21 @@ class FABlock2D(nn.Module):
         w_o1 = self.to_out[1].weight[:, :, 0, 0].t().reshape(
             self.heads, self.dim_head, self.dim_out)
         if self.impl == "batchedgram":
-            # mean_c as the jitted JAX block computes it (its optimised HLO
-            # on the CPU, dim 32 at 16x16): the column sums of the kernels
-            # from the f32 products before their bf16 round (wrapped_reduce.1
-            # / .2 read dot_general.35 / .38; the applies read the rounded
-            # convert_convert_fusion.6), and the GroupNorm(1) output before
-            # its round (the mean_c dot reads add_bitcast_fusion; to_in and
-            # the applies read the rounded convert_bitcast_fusion.8 /
-            # copy_bitcast_fusion.11). Beside it, the mean of the rounded
-            # values, which guards the variance (fab_core_plain).
-            uf = un.float() if un.dtype == torch.float32 else self._in_norm_unrounded(u)
-            mean_c = torch.stack([fab_mean_c(uf, kx_s, ky_s), rounded_mean_c(un, k_x, k_y)], -1)
+            # bf16: the core's mean_c as the jitted JAX block computes it
+            # (its optimised HLO on the CPU, dim 32 at 16x16): the column
+            # sums of the kernels from the f32 products before their bf16
+            # round (wrapped_reduce.1 / .2 read dot_general.35 / .38; the
+            # applies read the rounded convert_convert_fusion.6), and the
+            # GroupNorm(1) output before its round (the mean_c dot reads
+            # add_bitcast_fusion; to_in and the applies read the rounded
+            # convert_bitcast_fusion.8 / copy_bitcast_fusion.11). The core
+            # forms it from the block's input, the GroupNorm's sc and sh and
+            # the f32 sums (block_mean_c).
+            mean_from = (u.movedim(1, -1), coef, kx_s, ky_s) if low else None
             core = fab_fused_core if self.use_kernel else fab_core_plain
-            out = core(un.contiguous(), k_x, k_y, w_in, w_o1, mean_c=mean_c)
+            out = core(un.contiguous(), k_x, k_y, w_in, w_o1, mean_from=mean_from)
         else:
             core = fab_dspace_core if self.use_kernel else fab_dspace_core_plain
             out = core(un.contiguous(), k_x, k_y, w_in, w_o1)
         out = self.to_out[3].forward_last(gelu(out))
         return out.movedim(-1, 1) + u_skip
-
-    def _in_norm_unrounded(self, u: torch.Tensor) -> torch.Tensor:
-        n = self.in_norm
-        return group_norm_unrounded(u.movedim(1, -1), n.weight, n.bias, n.num_groups, n.eps)

@@ -31,11 +31,13 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.use_kernel = True
 
-    def forward(self, x: torch.Tensor, apply_swish: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, apply_swish: bool = False, with_coef: bool = False):
+        """y, or with ``with_coef`` (bf16 / f16) (y, each sample's sc and sh
+        [B, 2, C] f32, as ``group_norm_swish_plain``)."""
         xl = x.movedim(1, -1).contiguous()  # a view when x is channels-last
         fn = fused_group_norm_swish if self.use_kernel else group_norm_swish_plain
-        y = fn(xl, self.weight, self.bias, self.num_groups, self.eps, apply_swish)
-        return y.movedim(-1, 1)
+        y = fn(xl, self.weight, self.bias, self.num_groups, self.eps, apply_swish, with_coef)
+        return (y[0].movedim(-1, 1), y[1]) if with_coef else y.movedim(-1, 1)
 
 
 class GroupNormWrapper(nn.Module):

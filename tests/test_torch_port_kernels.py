@@ -216,24 +216,56 @@ def test_fab_core_plain_bf16_rounds_as_batched_gram_core(b, n, h, w, c):
 
 
 def test_fab_core_plain_guards_a_cancelled_variance():
-    """``mean_c`` [b, n, c, 2]: with both means the rounded bb's
-    (``rounded_mean_c``) the plain version is the default (the function
-    jitted alone), bitwise. ``guarded_var`` takes ``_batched_gram_core``'s
-    ``max(E[phi^2] - mean^2, 0)`` while it is at least a quarter of the
-    variance about the second mean, and that variance below it: never
-    negative, so never the clamp's rsqrt(eps)."""
+    """Without ``mean_from`` the plain version takes both means from the
+    rounded bb (the function jitted alone), and a floor of 0 leaves it
+    bitwise as it is. ``guarded_var`` is ``_batched_gram_core``'s ``ex2 -
+    mean^2`` with a floor of ``var_floor`` x the variance about the rounded
+    bb's mean: continuous in both, never negative, so never the clamp's
+    rsqrt(eps)."""
     u, kx, ky, w_in, w_o1 = map(torch.from_numpy, _fab_inputs(12, 2, 4, 12, 16, 16))
-    mr = fab_core.rounded_mean_c(u, kx, ky)
     base = fab_core.fab_core_plain(u, kx, ky, w_in, w_o1)
-    assert torch.equal(fab_core.fab_core_plain(u, kx, ky, w_in, w_o1,
-                                               mean_c=torch.stack([mr, mr], -1)), base)
+    assert torch.equal(fab_core.fab_core_plain(u, kx, ky, w_in, w_o1, var_floor=0.0), base)
     ex2 = torch.tensor([4.0, 4.0, 4.0, 4.0, 1e-3])
     mean = torch.tensor([1.0, 1.9, 2.5, 0.0, 0.5])
     mean_r = torch.tensor([1.0, 1.0, 1.0, 3.0, 0.0])
-    # 3 >= 0.75: JAX's; 0.39 < 0.75: the rounded bb's; -2.25: the rounded
-    # bb's; 4 >= 0 (the second clamped to 0): JAX's; -0.249 < 2.5e-4: 1e-3
-    want = torch.tensor([3.0, 3.0, 3.0, 4.0, 1e-3])
-    torch.testing.assert_close(fab_core.guarded_var(ex2, mean, mean_r), want, rtol=0, atol=1e-7)
+    # 3 >= 0.75; 0.39 < 0.75: the floor; -2.25: the floor; 4 >= 0 (the
+    # second clamped to 0); -0.249 < 2.5e-4: the floor
+    want = torch.tensor([3.0, 0.75, 0.75, 4.0, 2.5e-4])
+    torch.testing.assert_close(fab_core.guarded_var(ex2, mean, mean_r, 0.25), want,
+                               rtol=0, atol=1e-7)
+    torch.testing.assert_close(fab_core.guarded_var(ex2, mean, mean_r, 0.0),
+                               (ex2 - mean.square()).clamp_min(0.0), rtol=0, atol=0)
+
+
+def test_block_mean_reads_the_unrounded_group_norm():
+    """``block_mean_c`` forms mean_c from T(x sc) + sh in f32 (the GroupNorm
+    output before its last rounding, whose rounding gives u) and the f32
+    sums of the kernels: against the f32 einsum of those values, and not
+    the mean of the rounded u. Its gradient is u's: the same as mean_c
+    from u with those sums (the rounding residue carries none)."""
+    rng = np.random.default_rng(5)
+    b, n, h, w, c = 2, 3, 6, 5, 16
+    x = torch.from_numpy(rng.standard_normal((b, h, w, c)).astype(np.float32)).bfloat16()
+    scale = torch.from_numpy(1 + 0.1 * rng.standard_normal(c).astype(np.float32))
+    bias = torch.from_numpy(0.1 * rng.standard_normal(c).astype(np.float32))
+    u, coef = group_norm.group_norm_swish_plain(x, scale, bias, 1, 1e-5, apply_swish=False,
+                                                with_coef=True)
+    assert torch.equal(u, group_norm.group_norm_swish_plain(x, scale, bias, 1, 1e-5, False))
+    sc, sh = coef[:, 0].bfloat16(), coef[:, 1].bfloat16()
+    assert torch.equal(coef, torch.stack([sc, sh], 1).float())
+    uf = (x * sc[:, None, None]).float() + sh[:, None, None].float()
+    assert torch.equal(uf.bfloat16(), u) and not torch.equal(uf, u.float())
+    kx_s = torch.from_numpy(rng.standard_normal((b, n, h)).astype(np.float32))
+    ky_s = torch.from_numpy(rng.standard_normal((b, n, w)).astype(np.float32))
+    ur = u.clone().requires_grad_()
+    mean = fab_core.block_mean_c(ur, (x, coef, kx_s, ky_s))
+    want = torch.einsum("bnh,bnw,bhwc->bnc", kx_s, ky_s, uf) / (h * w)
+    assert torch.equal(mean, want)
+    gm = torch.from_numpy(rng.standard_normal(mean.shape).astype(np.float32))
+    mean.backward(gm)
+    u2 = u.clone().requires_grad_()
+    (torch.einsum("bnh,bnw,bhwc->bnc", kx_s, ky_s, u2.float()) / (h * w)).backward(gm)
+    assert torch.equal(ur.grad, u2.grad)
 
 
 @pytest.mark.parametrize("m,n", [(16, 40), (24, 96), (20, 37), (8, 3)])

@@ -32,7 +32,7 @@ from lns_tpu.utils.torch_export import export_autoencoder
 from lns_tpu_torch.config import Config
 from lns_tpu_torch.data import synthetic
 from lns_tpu_torch.data.ns2d import NS2DStage1
-from lns_tpu_torch.kernels import axial, fab_core
+from lns_tpu_torch.kernels import axial, fab_core, group_norm
 from lns_tpu_torch.models import SimpleAutoencoder
 from lns_tpu_torch.models.specs import decoder_spec, encoder_spec
 from lns_tpu_torch.ops.initializers import init_weights_
@@ -118,6 +118,47 @@ def test_fab_core_function_gives_the_plain_gradient(dtype, hw):
     y = fab_core.fab_fused_core(u0.requires_grad_(), kx0, ky0, wi0[:, :, 0, 0].t().reshape(c, n, d),
                                 wo0[:, :, 0, 0].t().reshape(n, d, o))
     assert type(y.grad_fn).__name__ == "FabCoreFunctionBackward"
+
+
+@pytest.mark.parametrize("hw", [(6, 4), (4, 6)], ids=["w<=h", "w>h"])
+def test_fab_core_function_with_block_mean_gives_the_plain_gradient(hw):
+    """bf16 with ``mean_from`` (the block's input x, the GroupNorm's sc and
+    sh, the kernels' f32 sums; as ``FABlock2D`` passes them):
+    ``FabCoreFunction`` returns ``fab_core_plain``'s output and gradients
+    bitwise, for u, k_x, k_y, the two conv weights and the two sums; x and
+    the coefficients get none (the residue they give the mean has no
+    gradient)."""
+    h, w = hw
+    b, n, d, c, o = 2, 2, 8, 16, 16
+    rng = np.random.default_rng(32)
+
+    def arr(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32))
+
+    x0 = arr(b, h, w, c).bfloat16()
+    u0, coef = group_norm.group_norm_swish_plain(x0, 1 + 0.1 * arr(c), 0.1 * arr(c), 1, 1e-5,
+                                                 apply_swish=False, with_coef=True)
+    kx0, ky0 = arr(b, n, h, h, scale=0.3), arr(b, n, w, w, scale=0.3)
+    sx0, sy0 = kx0.sum(2) + 1e-3 * arr(b, n, h), ky0.sum(2) + 1e-3 * arr(b, n, w)
+    wi0, wo0 = arr(n * d, c, 1, 1, scale=0.25), arr(o, n * d, 1, 1, scale=0.1)
+    gy = arr(b, h, w, o).bfloat16()
+    out = []
+    for fn in (fab_core.FabCoreFunction.apply, fab_core.fab_core_plain):
+        u, kx, ky = (t.bfloat16().requires_grad_() for t in (u0, kx0, ky0))
+        x, sx, sy = (t.clone().requires_grad_() for t in (x0, sx0, sy0))
+        wi, wo = wi0.clone().requires_grad_(), wo0.clone().requires_grad_()
+        w_in = wi[:, :, 0, 0].t().reshape(c, n, d)
+        w_o1 = wo[:, :, 0, 0].t().reshape(n, d, o)
+        if fn is fab_core.fab_core_plain:
+            y = fn(u, kx, ky, w_in, w_o1, 1e-5, (x, coef, sx, sy))
+        else:
+            y = fn(u, kx, ky, w_in, w_o1, 1e-5, fab_core.VAR_FLOOR, x, coef, sx, sy)
+        y.backward(gy)
+        out.append((y.detach(), u.grad, kx.grad, ky.grad, wi.grad, wo.grad, sx.grad, sy.grad))
+        assert x.grad is None or not x.grad.any()
+    for name, a, r in zip(("out", "u", "k_x", "k_y", "in_proj", "to_out[1]", "kx_s", "ky_s"),
+                          *out):
+        assert a.dtype == r.dtype and torch.equal(a, r), name
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
