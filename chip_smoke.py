@@ -3,7 +3,6 @@
 the stage-2 and stage-1 training of each family once on one CUDA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --var-floor-sweep   # kernel 2's variance floor only
 
 Run from the root of a checkout, on a machine with an NVIDIA Hopper card,
 CUDA PyTorch and nvcc. It imports nothing of JAX. In order it:
@@ -417,12 +416,11 @@ def check_fab_core(dev, gen, sites, n, d, extras=True):
     """sites: {(batch, h, w, c): c-space FAB core calls per predict}; with
     `extras`, also the shapes that take the kernel's other code paths. bf16
     takes its inputs as the FAB block gives them (``_block_mean_inputs``),
-    both means formed inside the call, so the times include them; with
+    the mean formed inside the call, so the times include it; with
     `extras`, at one shape also the block's mean scaled so that the
-    variance about it cancels, in part or wholly, at several margins around
-    the floor (``guarded_var``)."""
-    from lns_tpu_torch.kernels.fab_core import (VAR_FLOOR, fab_core_plain, fab_fused_core,
-                                                phi_moments)
+    variance about it cancels, for some (sample, head, d) or most, where
+    both take ``_batched_gram_core``'s clamp to 0."""
+    from lns_tpu_torch.kernels.fab_core import fab_core_plain, fab_fused_core, phi_moments
 
     errs, ms_sum, plain_sum, bound = [], 0.0, 0.0, Bound()
     # the paths' fields, then both orientations of a non-square one (both
@@ -472,17 +470,13 @@ def check_fab_core(dev, gen, sites, n, d, extras=True):
                 lambda: fab_core_plain(*a, mean_from=mf), tol, max_differ=differ)
             errs.append(err)
             if extras and mf and (b, h, w, c) == (4, 12, 24, 64):
-                for scale in (1.02, 1.1, 1.5, 4.0, 30.0):
+                for scale in (4.0, 30.0):
                     ms_ = (mf[0], mf[1], mf[2] * scale, mf[3])
-                    ex2, mean, mean_r = phi_moments(*a[:4], mean_from=ms_)
-                    var, var_r = ex2 - mean.square(), (ex2 - mean_r.square()).clamp_min(0.0)
-                    ratio = var / (VAR_FLOOR * var_r).clamp_min(1e-30)
+                    ex2, mean = phi_moments(*a[:4], mean_from=ms_)
                     errs.append(compare(
-                        f"fab_core bf16 b{b} {h}x{w} c{c} n{n}, the block's mean x {scale}: "
-                        f"{int((ratio < 1).sum())} of {ratio.numel()} (sample, head, d) under "
-                        f"the floor ({VAR_FLOOR} x the rounded bb's variance), "
-                        f"{int((var <= 0).sum())} cancelled to <= 0, "
-                        f"{int(((ratio - 1).abs() < 1e-2).sum())} within 1 % of it",
+                        f"fab_core bf16 b{b} {h}x{w} c{c} n{n}, the block's mean x {scale}: the "
+                        f"variance cancelled to <= 0 at {int((ex2 - mean.square() <= 0).sum())} "
+                        f"of {ex2.numel()} (sample, head, d)",
                         lambda: fab_fused_core(*a, mean_from=ms_),
                         lambda: fab_core_plain(*a, mean_from=ms_), tol,
                         max_differ=differ)[0])
@@ -1146,9 +1140,6 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     check_tensor_cores()
 
-    if "--var-floor-sweep" in sys.argv:
-        sweep_var_floor(dev, smi)
-        return 1 if _FAILS else 0
     kernels = run(dev, smi)
     print(json.dumps({"kernels": kernels}))
     if _FAILS:
@@ -1221,6 +1212,17 @@ def drive_path(label, model, expect, gen, dev, batch=BATCH, steps=STEPS, chunk=C
     for flag in (False, True):
         model.use_kernels(flag)
         model.predict(x, steps, decode_chunk=chunk)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # the kernel path's predict waits for the card nowhere
+    try:
+        model.predict(x, steps, decode_chunk=chunk)
+        sync = "none"
+    except RuntimeError as e:
+        sync = str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    _check(sync == "none", f"{label}: one predict on the kernel path under "
+           f"torch.cuda.set_sync_debug_mode('error'): synchronizing calls: {sync}")
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     for flag in (False, True, True, False):
         model.use_kernels(flag)
@@ -2039,32 +2041,24 @@ def backward_recompute_share(trainer, x, reps=3):
     return res[1:]
 
 
-FLOORS = (0.1, 0.25, 0.5)  # guarded_var floors the readings compare
-
-
-def floor_readings(calls):
-    """Over recorded bf16 kernel 2 calls (their mean_from given): per
-    (sample, head, d), how often the variance about the block's mean,
-    E[phi^2] - mean^2 (``_batched_gram_core``'s, before its clamp),
-    cancels to <= 0 and falls under each of FLOORS x the variance about
-    the rounded bb's mean, from the plain version's moments, as text."""
+def cancellations(calls):
+    """Over recorded bf16 kernel 2 calls (their mean_from given): how often
+    the variance of phi per (sample, head, d), E[phi^2] - mean^2 with the
+    block's mean, cancels to <= 0, where ``_batched_gram_core``'s clamp
+    scales the channel by rsqrt(eps); from the plain version's moments, as
+    text."""
     from lns_tpu_torch.kernels.fab_core import phi_moments
 
-    total, calls_hit, counts = 0, 0, {f: 0 for f in (0.0,) + FLOORS}
+    total = hit = calls_hit = 0
     with torch.no_grad():
         for args, kw in map(_split_call, calls):
             if not kw.get("mean_from"):
                 continue
-            ex2, mean, mean_r = phi_moments(*args[:4], mean_from=kw["mean_from"])
-            var, var_r = ex2 - mean.square(), (ex2 - mean_r.square()).clamp_min(0.0)
-            total += var.numel()
-            calls_hit += int(bool((var <= 0).any()))
-            counts[0.0] += int((var <= 0).sum())
-            for f in FLOORS:
-                counts[f] += int((var < f * var_r).sum())
-    return (f"of {total} (sample, head, d) in {len(calls)} calls, E[phi^2] - mean^2 <= 0 at "
-            f"{counts[0.0]} (in {calls_hit} calls); under floor x the rounded bb's variance "
-            + ", ".join(f"{f}: {counts[f]}" for f in FLOORS))
+            ex2, mean = phi_moments(*args[:4], mean_from=kw["mean_from"])
+            cancelled = int((ex2 - mean.square() <= 0).sum())
+            total, hit, calls_hit = total + ex2.numel(), hit + cancelled, calls_hit + (cancelled > 0)
+    return (f"E[phi^2] - mean^2 <= 0 at {hit} of {total} (sample, head, d), in {calls_hit} of "
+            f"{len(calls)} calls")
 
 
 def check_stage1_validation(trainer, val_kernel, tmp):
@@ -2121,7 +2115,7 @@ def check_stage1_validation(trainer, val_kernel, tmp):
             _parity(f"{where}, kernel 3 call {i} ({'x'.join(map(str, xg.shape))} G{g})",
                     fused_group_norm_swish(xg, *a), group_norm_swish_plain(xg, *a),
                     group_norm_swish_plain(xg.float(), *a))
-    print(f"      {where}: kernel 2's variance, {floor_readings(k2)}", flush=True)
+    print(f"      {where}: kernel 2's variance: {cancellations(k2)}", flush=True)
     print(f"      {where}: conditioning of the FAB core on the trained AE's decode: "
           + ("every kernel 2 call within the bounds random inputs meet: well-conditioned"
              if conditioned else "some kernel 2 call outside the bounds random inputs meet: "
@@ -2298,54 +2292,6 @@ def drive_stage1(dev, smi):
           f"kernel 2 within its random-input bounds; phase wall "
           f"{time.perf_counter() - t_phase:.1f} s; {smi}", flush=True)
     return launches
-
-
-def sweep_var_floor(dev, smi):
-    """``--var-floor-sweep``: the stage-1 phase's NS2d training run (the same
-    corpus, seed and settings) once per floor of kernel 2's variance guard,
-    0 (``_batched_gram_core``'s clamp alone) and FLOORS: the epoch means of
-    the train loss, the validation losses, and over every kernel 2 call of
-    the run (recorded) how often the variance cancels and falls under each
-    floor."""
-    import tempfile
-
-    import numpy as np
-
-    from lns_tpu_torch.config import ns2d_config
-    from lns_tpu_torch.data.synthetic import make_ns2d_npz
-    from lns_tpu_torch.kernels import fab_core
-    from lns_tpu_torch.ops import factorized_attention
-    from lns_tpu_torch.train.stage1 import Stage1Trainer
-
-    default = fab_core.VAR_FLOOR
-    with tempfile.TemporaryDirectory() as tmp:
-        data = make_ns2d_npz(os.path.join(tmp, "ns2d.npz"), ncase=S1_CASES,
-                             case_len=S1_CASE_LEN, h=64, w=64)
-        for floor in (0.0,) + FLOORS:
-            fab_core.VAR_FLOOR = floor
-            log = os.path.join(tmp, f"log_{floor}")
-            cfg = ns2d_config().replace(
-                data_dir=data, case_len=S1_CASE_LEN, num_case=S1_CASES,
-                dataset_stat=os.path.join(tmp, "stat.npz"), batch_size=S1_BATCH,
-                epochs=S1_EPOCHS, learning_rate=5e-4, mixed_precision=True, ckpt_every=1,
-                device_data=True, log_dir=log, overwrite_exist=True)
-            trainer = Stage1Trainer(cfg, seed=1234, use_wandb=False, device=dev)
-            steps_per_epoch = -(-len(trainer.train_ds) // S1_BATCH)
-            with recording(factorized_attention, "fab_fused_core") as k2:
-                trainer.train()
-            with open(os.path.join(log, "metrics.jsonl")) as f:
-                recs = [json.loads(line) for line in f]
-            loss = [r["rec_loss"] for r in recs if "rec_loss" in r]
-            val = [r["val_recon_loss"] for r in recs if "val_recon_loss" in r]
-            means = [float(np.mean(loss[i:i + steps_per_epoch]))
-                     for i in range(0, len(loss), steps_per_epoch)]
-            _check(all(math.isfinite(v) for v in loss + val),
-                   f"var floor {floor}: NS2d stage-1, {len(loss)} steps: epoch means of the "
-                   f"train loss {', '.join(f'{m:.5f}' for m in means)}; max step loss "
-                   f"{max(loss):.5f}; val_recon_loss {', '.join(f'{v:.5f}' for v in val)}; "
-                   f"kernel 2's variance in the run, {floor_readings(k2)}; {smi}")
-            del trainer, k2
-    fab_core.VAR_FLOOR = default
 
 
 # -- phase 7: the SW and two-phase families' training -------------------------

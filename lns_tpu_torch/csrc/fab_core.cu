@@ -18,10 +18,9 @@
 // sums of the unrounded kernels, sx [b, n, h] and sy [b, n, w]: mean_c =
 // sum_ij sx_i sy_j (bf16(x_ij sc) + sh) / N, from the GroupNorm output
 // before its last rounding, by a first pass over each sample's x
-// (fab_block_mean_bf16) into a [b, n, c] scratch that the statistics read.
-// The variance stays E[phi^2] - mean^2, but no less than var_floor times the
-// variance about the rounded bb's own mean (guarded_var): a mean from the
-// unrounded values can cancel it below zero.
+// (fab_block_mean_bf16) into a [b, n, c] scratch that the statistics read
+// in place of their own mean. The variance stays max(E[phi^2] - mean^2, 0),
+// as in _batched_gram_core.
 //
 // What bounds it on an H100: arithmetic. At 32x32, c = o = 64, 8 heads and
 // 116 samples one call is ~31 GFLOP (both axial applies, the Gram and the
@@ -100,15 +99,6 @@ constexpr int kThreads = 256;
 // ---- f32: FMA kernels ------------------------------------------------------
 
 constexpr int kTI = 2;  // rows of bb per tile
-
-// The variance of phi per d from E[phi^2] (e2) and the mean the statistics
-// use, as _batched_gram_core takes it (max(var, 0)), but no less than
-// `floor` times the variance about the rounded bb's mean (mean_r): a mean
-// from the unrounded values against E[phi^2] of the rounded bb can cancel
-// below zero on flat features, where the clamp alone gives rsqrt(eps).
-__device__ __forceinline__ float guarded_var(float e2, float mean, float mean_r, float floor) {
-  return fmaxf(e2 - mean * mean, floor * fmaxf(e2 - mean_r * mean_r, 0.f));
-}
 
 // t[ii, m, cc] = sum_j kxr[ii, j] u[j, m, cc]; bb[ii, l, cc] = sum_m ky[l, m] t[ii, m, cc]
 // for the kTI rows of a tile (rows >= `rows` come out zero). kxr, ky, t, bb in
@@ -645,7 +635,7 @@ fab_stats_bf16(const bf16* __restrict__ u, const bf16* __restrict__ kx,
                const float* __restrict__ w1, const float* __restrict__ mean_b,
                bf16* __restrict__ m_out,
                float* __restrict__ bias_out, int n, int h, int w, int c, int d, int o, float eps,
-               float var_floor, Plan p) {
+               Plan p) {
   extern __shared__ uint4 smem_fab[];
   bf16* kx_s = reinterpret_cast<bf16*>(smem_fab);
   bf16* ky_s = kx_s + p.off_ky;
@@ -711,10 +701,11 @@ fab_stats_bf16(const bf16* __restrict__ u, const bf16* __restrict__ kx,
   }
 
   // mean_c = sum_px sx[j] sy[m] u[px, :] / N: partial sums over pixels for 8
-  // channels per thread, from the resident u (else from L2)
+  // channels per thread, from the resident u (else from L2); none where the
+  // block's mean is given
   const int c8n = c / 8, groups = kTcThreads / c8n;
   float mc[8] = {};
-  if (tid < groups * c8n) {
+  if (!mean_b && tid < groups * c8n) {
     const int c8 = tid % c8n * 8, dj = groups / w, dm = groups % w;
     int j = tid / c8n / w, m = tid / c8n % w;  // pixel px = j w + m
 #pragma unroll 4
@@ -772,28 +763,16 @@ fab_stats_bf16(const bf16* __restrict__ u, const bf16* __restrict__ kx,
 #pragma unroll 4
   for (int e = tid; e < d * o / 4; e += kTcThreads)
     reinterpret_cast<float4*>(w1_s)[e] = reinterpret_cast<const float4*>(w1h)[e];
-  if (tid < groups * c8n)
+  if (!mean_b && tid < groups * c8n)
 #pragma unroll
     for (int q = 0; q < 8; ++q) part[tid / c8n * c + tid % c8n * 8 + q] = mc[q];
   __syncthreads();
   const float inv_n = 1.f / static_cast<float>(h * w);
-  for (int cc = tid; cc < c; cc += kTcThreads) {
+  for (int cc = tid; cc < c; cc += kTcThreads) {  // or the block's (fab_block_mean_bf16)
     float a = 0.f;
-    for (int gi = 0; gi < groups; ++gi) a += part[gi * c + cc];
-    meanc[cc] = a * inv_n;
-  }
-  __syncthreads();
-  // the rounded bb's mean of phi per d, held in inv_d until the variance;
-  // then, given, the block's mean_c (fab_block_mean_bf16) in meanc
-  for (int dd = tid; dd < d; dd += kTcThreads) {
-    float mean_r = 0.f;
-#pragma unroll 8
-    for (int ci = 0; ci < c; ++ci) mean_r = fmaf(meanc[ci], win_s[ci * d + dd], mean_r);
-    inv_d[dd] = mean_r;
-  }
-  if (mean_b) {
-    __syncthreads();
-    for (int cc = tid; cc < c; cc += kTcThreads) meanc[cc] = mean_b[sn * c + cc];
+    if (!mean_b)
+      for (int gi = 0; gi < groups; ++gi) a += part[gi * c + cc];
+    meanc[cc] = mean_b ? mean_b[sn * c + cc] : a * inv_n;
   }
   __syncthreads();
   // E[phi^2] = W_in^T G W_in / N: 4 x 2 blocks of (G W_in)[ci, dd] per thread,
@@ -830,8 +809,9 @@ fab_stats_bf16(const bf16* __restrict__ u, const bf16* __restrict__ kx,
 #pragma unroll 8
     for (int ci = 0; ci < c; ++ci) mean = fmaf(meanc[ci], win_s[ci * d + dd], mean);
     for (int k = 0; k < c / 4; ++k) ex2 += part[k * d + dd];
+    const float var = fmaxf(ex2 * inv_n - mean * mean, 0.f);
     mean_d[dd] = mean;
-    inv_d[dd] = rsqrtf(guarded_var(ex2 * inv_n, mean, inv_d[dd], var_floor) + eps);
+    inv_d[dd] = rsqrtf(var + eps);
   }
   __syncthreads();
   for (int e = tid; e < d * o; e += kTcThreads) w1_s[e] *= inv_d[e / o];  // diag(inv) W_o1
@@ -1022,12 +1002,12 @@ struct MeanFrom {
 template <int KF>
 int launch_bf16_kf(const bf16* u, const bf16* kx, const bf16* ky, const bf16* w_in,
                    const float* w1, const float* mean_b, bf16* m, float* bias, bf16* out, int b,
-                   int n, int h, int w, int c, int d, int o, float eps, float var_floor,
-                   const Plan& p, cudaStream_t stream) {
+                   int n, int h, int w, int c, int d, int o, float eps, const Plan& p,
+                   cudaStream_t stream) {
   cudaError_t e = prepare(fab_stats_bf16<KF>, p.stats_bytes);
   if (e != cudaSuccess) return e;
   fab_stats_bf16<KF><<<dim3(n, b), kTcThreads, p.stats_bytes, stream>>>(
-      u, kx, ky, w_in, w1, mean_b, m, bias, n, h, w, c, d, o, eps, var_floor, p);
+      u, kx, ky, w_in, w1, mean_b, m, bias, n, h, w, c, d, o, eps, p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 #define LNS_APPLY(MT) \
@@ -1047,7 +1027,7 @@ int launch_bf16_kf(const bf16* u, const bf16* kx, const bf16* ky, const bf16* w_
 
 int launch_bf16(const bf16* u, const bf16* kx, const bf16* ky, const bf16* w_in, const float* w1,
                 const MeanFrom& mf, bf16* m, float* bias, bf16* out, int b, int n, int h, int w,
-                int c, int d, int o, float eps, float var_floor, cudaStream_t stream) {
+                int c, int d, int o, float eps, cudaStream_t stream) {
   if (bf16_limit(h, w, c, d, o)) return cudaErrorInvalidValue;
   if (!mf.x != !mf.coef || !mf.x != !mf.sx || !mf.x != !mf.sy || !mf.x != !mf.mean)
     return cudaErrorInvalidValue;
@@ -1066,9 +1046,9 @@ int launch_bf16(const bf16* u, const bf16* kx, const bf16* ky, const bf16* w_in,
     std::swap(kx, ky);
   }
   return p.wp > 64 ? launch_bf16_kf<8>(u, kx, ky, w_in, w1, mf.mean, m, bias, out, b, n, h, w, c,
-                                       d, o, eps, var_floor, p, stream)
+                                       d, o, eps, p, stream)
                    : launch_bf16_kf<4>(u, kx, ky, w_in, w1, mf.mean, m, bias, out, b, n, h, w, c,
-                                       d, o, eps, var_floor, p, stream);
+                                       d, o, eps, p, stream);
 }
 
 }  // namespace
@@ -1085,7 +1065,7 @@ extern "C" int lns_fab_core(int dtype, const void* u, const void* kx, const void
                             const void* sx, const void* sy, void* mean_ws, void* m, void* bias,
                             void* out,
                             int b, int n, int h, int w, int c, int d, int o, float eps,
-                            float var_floor, void* stream) {
+                            void* stream) {
   const float* w1 = static_cast<const float*>(w_o1);
   float* bf = static_cast<float*>(bias);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1103,6 +1083,6 @@ extern "C" int lns_fab_core(int dtype, const void* u, const void* kx, const void
                                 static_cast<const float*>(sx), static_cast<const float*>(sy),
                                 static_cast<float*>(mean_ws)},
                        static_cast<bf16*>(m), bf, static_cast<bf16*>(out), b, n, h, w, c, d, o,
-                       eps, var_floor, st);
+                       eps, st);
   return cudaErrorInvalidValue;
 }

@@ -30,7 +30,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "lns_axial_apply": [_I] * 3 + [_P] * 5 + [_I] * 6 + [ctypes.c_float, _P],
     "lns_bmm": [_I] + [_P] * 3 + [_I] * 3 + [_P],
-    "lns_fab_core": [_I] + [_P] * 13 + [_I] * 7 + [ctypes.c_float] * 2 + [_P],
+    "lns_fab_core": [_I] + [_P] * 13 + [_I] * 7 + [ctypes.c_float, _P],
     "lns_group_norm": [_I] + [_P] * 6 + [_I] * 4 + [ctypes.c_float, _I, _P],
     "lns_prop_rollout": [_I] + [_P] * 14 + [_I] * 11 + [_P],
     "lns_transpose_hw": [_I] + [_P] * 2 + [_I] * 4 + [_P],

@@ -50,11 +50,6 @@ import torch
 from lns_tpu_torch.kernels import _build
 
 
-# guarded_var's floor, as a share of the variance about the rounded bb's mean
-# (read at each call: chip_smoke.py --var-floor-sweep trains at others)
-VAR_FLOOR = 0.25
-
-
 def rounded_mean_c(u, k_x, k_y):
     """``_batched_gram_core``'s own mean_c [b, n, c] f32, the pixel mean of
     the bb it forms: the row sums of the kernels in u's dtype, their outer
@@ -82,15 +77,6 @@ def block_mean_c(u, mean_from):
     return torch.einsum("bnh,bnw,bhwc->bnc", kx_s, ky_s, u32) / (h * w)
 
 
-def guarded_var(ex2, mean, mean_r, floor: float):
-    """The variance ``fab_core_plain`` normalises by, from E[phi^2] and the
-    two means (kernel 2's ``guarded_var``): ``ex2 - mean^2``, as
-    ``_batched_gram_core`` takes it, but at least ``floor`` x the variance
-    about the rounded bb's mean, ``max(ex2 - mean_r^2, 0)`` (``floor`` 0:
-    ``_batched_gram_core``'s ``max(ex2 - mean^2, 0)``)."""
-    return torch.maximum(ex2 - mean.square(), floor * (ex2 - mean_r.square()).clamp_min(0.0))
-
-
 def _apply_pair(u, k_x, k_y):
     """bb, both axial applies in ``_batched_gram_core``'s order and
     rounding: (b, n, h-index, w-index, c), or (w-index, h-index) for w > h."""
@@ -100,9 +86,9 @@ def _apply_pair(u, k_x, k_y):
 
 
 def phi_moments(u, k_x, k_y, w_in, mean_from=None, bb=None):
-    """E[phi^2] and the two means of phi = bb . W_in per (b, n, d), f32:
-    (ex2, mean, mean_r), mean from ``block_mean_c`` (``rounded_mean_c``
-    without mean_from), mean_r from ``rounded_mean_c``."""
+    """E[phi^2] and the mean of phi = bb . W_in per (b, n, d), f32: (ex2,
+    mean), the mean from ``block_mean_c`` (``rounded_mean_c`` without
+    mean_from)."""
     dt = u.dtype
     k_x, k_y = k_x.to(dt), k_y.to(dt)
     if bb is None:
@@ -110,15 +96,13 @@ def phi_moments(u, k_x, k_y, w_in, mean_from=None, bb=None):
     bbf = bb.float()
     g = torch.einsum("bnilc,bnile->bnce", bbf, bbf)
     wf = w_in.to(dt).float()
-    mean_r = torch.einsum("bnc,cnd->bnd", rounded_mean_c(u, k_x, k_y), wf)
-    mean = mean_r if mean_from is None else torch.einsum(
-        "bnc,cnd->bnd", block_mean_c(u, mean_from), wf)
+    mean_c = rounded_mean_c(u, k_x, k_y) if mean_from is None else block_mean_c(u, mean_from)
+    mean = torch.einsum("bnc,cnd->bnd", mean_c, wf)
     ex2 = torch.einsum("cnd,bnce,end->bnd", wf, g / (u.shape[1] * u.shape[2]), wf)
-    return ex2, mean, mean_r
+    return ex2, mean
 
 
-def fab_core_plain(u, k_x, k_y, w_in, w_o1, eps: float = 1e-5, mean_from=None,
-                   var_floor: float = None):
+def fab_core_plain(u, k_x, k_y, w_in, w_o1, eps: float = 1e-5, mean_from=None):
     """Plain PyTorch version (``_batched_gram_core``): u [b, h, w, c],
     k_x [b, n, h, h], k_y [b, n, w, w], w_in [c, n, d], w_o1 [n, d, o] ->
     [b, h, w, o] in u's dtype, rounding a, bb, m, the bias and the output to
@@ -127,19 +111,16 @@ def fab_core_plain(u, k_x, k_y, w_in, w_o1, eps: float = 1e-5, mean_from=None,
     mean_from: None, the function jitted alone (mean_c the rounded bb's);
     or the inputs of ``block_mean_c``, mean_c as the jitted JAX block takes
     it from values the core never sees. The variance is
-    ``_batched_gram_core``'s, E[phi^2] - mean^2, but no less than
-    ``var_floor`` x the variance about the rounded bb's mean
-    (``guarded_var``): a mean from the unrounded values against E[phi^2] of
-    the rounded bb can cancel to or below zero on flat features, where the
-    clamp to 0 would scale the channel by rsqrt(eps). var_floor None:
-    ``VAR_FLOOR``."""
+    ``_batched_gram_core``'s, ``max(E[phi^2] - mean^2, 0)``: with the
+    block's mean against E[phi^2] of the rounded bb it cancels to zero on
+    flat features as in the jitted JAX block, which then scales the channel
+    by rsqrt(eps) (``chip_smoke.py`` counts how often)."""
     dt = u.dtype
     k_x, k_y, w_in = k_x.to(dt), k_y.to(dt), w_in.to(dt)
     b, h, w, c = u.shape
     bb = _apply_pair(u, k_x, k_y)
-    ex2, mean, mean_r = phi_moments(u, k_x, k_y, w_in, mean_from, bb)
-    floor = VAR_FLOOR if var_floor is None else var_floor
-    inv = torch.rsqrt(guarded_var(ex2, mean, mean_r, floor) + eps)
+    ex2, mean = phi_moments(u, k_x, k_y, w_in, mean_from, bb)
+    inv = torch.rsqrt((ex2 - mean.square()).clamp_min(0.0) + eps)
     wf, w1f = w_in.float(), w_o1.float()
     m = torch.einsum("cnd,bnd,ndo->bnco", wf, inv, w1f).to(dt)
     bias = torch.einsum("bnd,ndo->bo", mean * inv, w1f).to(dt)[:, None, None, :]
@@ -160,47 +141,43 @@ class FabCoreFunction(torch.autograd.Function):
     ``_batched_gram_core``), so none is written here."""
 
     @staticmethod
-    def forward(ctx, u, k_x, k_y, w_in, w_o1, eps: float, var_floor: float = None,
-                *mean_from):
-        var_floor = VAR_FLOOR if var_floor is None else var_floor
+    def forward(ctx, u, k_x, k_y, w_in, w_o1, eps: float, *mean_from):
         ctx.save_for_backward(u, k_x, k_y, w_in, w_o1, *mean_from)
-        ctx.args = (eps, var_floor)
-        return _fab_core(u, k_x, k_y, w_in, w_o1, eps, mean_from or None, var_floor)
+        ctx.eps = eps
+        return _fab_core(u, k_x, k_y, w_in, w_o1, eps, mean_from or None)
 
     @staticmethod
     def backward(ctx, grad):
-        needs = ctx.needs_input_grad[:5] + ctx.needs_input_grad[7:]
+        needs = ctx.needs_input_grad[:5] + ctx.needs_input_grad[6:]
         inputs = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, needs)]
         with torch.enable_grad():
-            y = fab_core_plain(*inputs[:5], ctx.args[0], tuple(inputs[5:]) or None, ctx.args[1])
+            y = fab_core_plain(*inputs[:5], ctx.eps, tuple(inputs[5:]) or None)
         wanted = [t for t in inputs if t.requires_grad]
         grads = iter(torch.autograd.grad(y, wanted, grad, allow_unused=True))
         out = [next(grads) if t.requires_grad else None for t in inputs]
-        return (tuple(out[:5]) + (None, None) + tuple(out[5:]))[:len(ctx.needs_input_grad)]
+        return tuple(out[:5]) + (None,) + tuple(out[5:])
 
 
-def fab_fused_core(u, k_x, k_y, w_in, w_o1, eps: float = 1e-5, mean_from=None,
-                   var_floor: float = None):
+def fab_fused_core(u, k_x, k_y, w_in, w_o1, eps: float = 1e-5, mean_from=None):
     """FAB core with the JAX kernel's shapes: u [b, h, w, c] (post-GN),
     k_x [b, n, h, h], k_y [b, n, w, w], w_in [c, n, d], w_o1 [n, d, o],
     mean_from None or (x, coef, kx_s, ky_s) as ``fab_core_plain`` (bf16; the
-    kernel computes both means itself) -> [b, h, w, o] in u's dtype.
+    kernel forms the mean from them) -> [b, h, w, o] in u's dtype.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     on the current stream or raises. With grad mode on and any of the
     tensors requiring grad the call goes through ``FabCoreFunction``, which
     launches the same kernel and carries the plain version's gradient."""
-    var_floor = VAR_FLOOR if var_floor is None else var_floor
     tensors = (u, k_x, k_y, w_in, w_o1) + tuple(mean_from or ())
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        return FabCoreFunction.apply(u, k_x, k_y, w_in, w_o1, eps, var_floor, *(mean_from or ()))
-    return _fab_core(u, k_x, k_y, w_in, w_o1, eps, mean_from, var_floor)
+        return FabCoreFunction.apply(u, k_x, k_y, w_in, w_o1, eps, *(mean_from or ()))
+    return _fab_core(u, k_x, k_y, w_in, w_o1, eps, mean_from)
 
 
-def _fab_core(u, k_x, k_y, w_in, w_o1, eps: float, mean_from, var_floor: float):
+def _fab_core(u, k_x, k_y, w_in, w_o1, eps: float, mean_from):
     """The launch (or, for a CPU tensor, the plain version), without grad."""
     if not _build.on_cuda(u, "fab_fused_core", k_x, k_y, w_in, w_o1, *(mean_from or ())):
-        return fab_core_plain(u, k_x, k_y, w_in, w_o1, eps, mean_from, var_floor)
+        return fab_core_plain(u, k_x, k_y, w_in, w_o1, eps, mean_from)
     if u.dtype not in _build.DTYPE_CODE:
         raise TypeError(f"fab_fused_core: unsupported dtype {u.dtype}")
     if u.dim() != 4 or not u.is_contiguous():
@@ -249,7 +226,7 @@ def _fab_core(u, k_x, k_y, w_in, w_o1, eps: float, mean_from, var_floor: float):
     rc = lib.lns_fab_core(
         _build.DTYPE_CODE[u.dtype], u.data_ptr(), kx.data_ptr(), ky.data_ptr(),
         wi.data_ptr(), w1.data_ptr(), *ptrs, m.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), b, n, h, w, c, d, o, ctypes.c_float(eps), ctypes.c_float(var_floor),
+        out.data_ptr(), b, n, h, w, c, d, o, ctypes.c_float(eps),
         torch.cuda.current_stream(u.device).cuda_stream)
     _build.check(rc, "lns_fab_core")
     fab_fused_core.launches += 1

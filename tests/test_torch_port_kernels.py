@@ -215,28 +215,6 @@ def test_fab_core_plain_bf16_rounds_as_batched_gram_core(b, n, h, w, c):
     assert (out != ref).mean() <= 0.01
 
 
-def test_fab_core_plain_guards_a_cancelled_variance():
-    """Without ``mean_from`` the plain version takes both means from the
-    rounded bb (the function jitted alone), and a floor of 0 leaves it
-    bitwise as it is. ``guarded_var`` is ``_batched_gram_core``'s ``ex2 -
-    mean^2`` with a floor of ``var_floor`` x the variance about the rounded
-    bb's mean: continuous in both, never negative, so never the clamp's
-    rsqrt(eps)."""
-    u, kx, ky, w_in, w_o1 = map(torch.from_numpy, _fab_inputs(12, 2, 4, 12, 16, 16))
-    base = fab_core.fab_core_plain(u, kx, ky, w_in, w_o1)
-    assert torch.equal(fab_core.fab_core_plain(u, kx, ky, w_in, w_o1, var_floor=0.0), base)
-    ex2 = torch.tensor([4.0, 4.0, 4.0, 4.0, 1e-3])
-    mean = torch.tensor([1.0, 1.9, 2.5, 0.0, 0.5])
-    mean_r = torch.tensor([1.0, 1.0, 1.0, 3.0, 0.0])
-    # 3 >= 0.75; 0.39 < 0.75: the floor; -2.25: the floor; 4 >= 0 (the
-    # second clamped to 0); -0.249 < 2.5e-4: the floor
-    want = torch.tensor([3.0, 0.75, 0.75, 4.0, 2.5e-4])
-    torch.testing.assert_close(fab_core.guarded_var(ex2, mean, mean_r, 0.25), want,
-                               rtol=0, atol=1e-7)
-    torch.testing.assert_close(fab_core.guarded_var(ex2, mean, mean_r, 0.0),
-                               (ex2 - mean.square()).clamp_min(0.0), rtol=0, atol=0)
-
-
 def test_block_mean_reads_the_unrounded_group_norm():
     """``block_mean_c`` forms mean_c from T(x sc) + sh in f32 (the GroupNorm
     output before its last rounding, whose rounding gives u) and the f32

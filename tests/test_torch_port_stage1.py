@@ -152,7 +152,7 @@ def test_fab_core_function_with_block_mean_gives_the_plain_gradient(hw):
         if fn is fab_core.fab_core_plain:
             y = fn(u, kx, ky, w_in, w_o1, 1e-5, (x, coef, sx, sy))
         else:
-            y = fn(u, kx, ky, w_in, w_o1, 1e-5, fab_core.VAR_FLOOR, x, coef, sx, sy)
+            y = fn(u, kx, ky, w_in, w_o1, 1e-5, x, coef, sx, sy)
         y.backward(gy)
         out.append((y.detach(), u.grad, kx.grad, ky.grad, wi.grad, wo.grad, sx.grad, sy.grad))
         assert x.grad is None or not x.grad.any()
