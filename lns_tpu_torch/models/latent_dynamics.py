@@ -100,8 +100,8 @@ class LatentDynamics(nn.Module):
             # scan in zeros mode because its Pallas rollout measured slower
             # on a TPU (lns_tpu/models/latent_dynamics.py: _pallas_rollout_ok);
             # on an H100 kernel 1 runs the two-phase rollout (B8 x 78 steps
-            # at 7x15) in 13.27 ms against 261.29 ms for the plain step loop
-            # (PERF.md, PR 11)
+            # at 7x15) in about 13 ms against 220-280 ms for the plain step
+            # loop (chip_smoke.py; PERF.md's kernel table)
             p = self.propagator
             packed = pack_simple_cnn(p, self.dtype or torch.float32)
             zs = fused_rollout(z, packed, steps, p.prop_n_block, p.dilation, p.padding_mode)
