@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's NS2d, SW and two-phase inference rollouts and
-the stage-2 and stage-1 training of each family once on one CUDA card.
+"""Drive the PyTorch port's NS2d, SW, two-phase and conditional two-phase
+inference rollouts and the stage-2 and stage-1 training of each family once
+on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -21,8 +22,10 @@ CUDA PyTorch and nvcc. It imports nothing of JAX. In order it:
      the NS2d, the SW and the two-phase (zeros, 7x15) rollout, twice
      bitwise-identical, and in f32 at SW's latent (its activations in a
      global workspace) and at the two-phase latent; kernel 3 in bf16 and
-     f32 at every GroupNorm site of the four paths (SW's 96x192 fields take
-     its split plan), and also in f16 at an odd field, 3 channels per
+     f32 at every GroupNorm site of the five paths (SW's 96x192 fields take
+     its split plan; the conditional propagator's GN(1) sites in bf16 and
+     f32, one of them over one row per sample, and its GN(32), each also
+     with its gradient), and also in f16 at an odd field, 3 channels per
      group, batch 1, the largest f32 slab a cluster holds and two slabs past
      it, printing each launch plan, twice bitwise-identical, and at the
      GroupNorm sites of a stage-2 train step's forward of each family, found
@@ -46,9 +49,14 @@ CUDA PyTorch and nvcc. It imports nothing of JAX. In order it:
      ``use_attn_enc=True`` (path 2, whose 16x16 c128 encoder FAB takes the
      d-space core), each at batch 32, 29 steps and 116-frame decode chunks,
      ``sw_config()`` (path 3: batch 8, 42 steps, the 336 frames decoded at
-     once, as the JAX package's SW benchmark) and ``twophase_config()``
+     once, as the JAX package's SW benchmark), ``twophase_config()``
      (path 4: batch 8, 78 steps, the 624 frames decoded at once, as its
-     two-phase benchmark). For each path it sets
+     two-phase benchmark) and ``twophase_conditional_config()`` (path 5:
+     path 4's workload with a parameter per sample that conditions every
+     step; its propagator steps as modules, kernel 3 at its GroupNorms; its
+     zero-initialised gates filled from the generator too, so the
+     conditioning is live; one plain step from each bf16 carry against the
+     next, and another parameter giving another output). For each path it sets
      every launch count to 0, runs one predict, checks the output and that
      every kernel launched as often as the model's layer specs imply,
      compares the kernel path with the all-plain path in f32 on a small
@@ -88,9 +96,11 @@ CUDA PyTorch and nvcc. It imports nothing of JAX. In order it:
      steps/s, frames/s, validate ms, the backward's share in the plain
      recomputes and a profile of five train steps;
   7. trains the SW family at full width on a synthetic 96x192 corpus (12
-     training and 4 test cases x 24 frames) and the two-phase family on a
+     training and 4 test cases x 24 frames), the two-phase family on a
      61x121 linear-sloshing corpus (``make_sloshing_dir``, 20 training and
-     3 test cases x 16 frames): stage 1 (``Stage1Trainer``, bf16, batch 32,
+     3 test cases x 16 frames, each of its own depth) and the conditional
+     two-phase family on one of its own driving frequency per case
+     (``vary="freq"``): stage 1 (``Stage1Trainer``, bf16, batch 32,
      two epochs; the two-phase loss on denormalised fields) with one train
      step's launches and gradients against the plain path (as phase 6),
      then stage 2 (``Stage2Trainer`` on that checkpoint, batch 32, out_tw
@@ -563,6 +573,18 @@ def _gn_library(xd, scale, bias, groups, eps, swish, cast):
     return F.silu(y) if swish else y
 
 
+def _gn_library_casts(dev):
+    """Whether F.group_norm needs its weights cast to bf16 for a bf16 input
+    (it refuses f32 weights with bf16 input)."""
+    x0 = torch.zeros(1, 4, 4, 32, device=dev, dtype=torch.bfloat16)
+    try:
+        _gn_library(x0, torch.ones(32, device=dev), torch.zeros(32, device=dev), 32, 1e-6,
+                    False, False)
+        return False
+    except RuntimeError:
+        return True
+
+
 def check_group_norm(dev, gen, sites, train_sites, label="both NS2d paths", extras=True):
     """Kernel 3 at every GroupNorm site of the paths (sites: {(batch,
     spatial, C, groups, eps, swish): calls per predict}), at every site of a
@@ -584,14 +606,7 @@ def check_group_norm(dev, gen, sites, train_sites, label="both NS2d paths", extr
              (2, (32, 32), 64, 1, 1e-5, False), (1, (64, 64), 64, 8, 1e-5, True),
              (2, (64, 64), 96, 32, 1e-6, True), (2, (64, 64), 128, 32, 1e-6, True),
              (3, (128, 128), 64, 8, 1e-5, False)] if extras else []
-    # does F.group_norm take f32 weights with bf16 input?
-    x0 = torch.zeros(1, 4, 4, 32, device=dev, dtype=bf16)
-    try:
-        _gn_library(x0, torch.ones(32, device=dev), torch.zeros(32, device=dev), 32, 1e-6,
-                    False, False)
-        cast = False
-    except RuntimeError:
-        cast = True
+    cast = _gn_library_casts(dev)
     print(f"      library call: F.group_norm (+ F.silu at swish sites) on the NCHW view"
           f"{'; bf16 weights (F.group_norm refuses f32 weights with bf16 input)' if cast else ''}",
           flush=True)
@@ -701,6 +716,109 @@ def check_group_norm(dev, gen, sites, train_sites, label="both NS2d paths", extr
           f"{train['plain']:.4f} ms, library {train['lib']:.4f} ms", flush=True)
     return {"max_abs_err": max(errs), "ms": ms_sum, "device_ms": dev_sum, "plain_ms": plain_sum,
             **bound.result(), "library_ms": lib_sum}
+
+
+def cond_gn_sites(model, dev, batch, steps):
+    """The conditional propagator's GroupNorm calls in one predict of
+    `batch` samples and `steps` steps, as its layers call kernel 3 on the
+    card (its conditioning once, then every step): {(dtype, batch, spatial,
+    C, groups, eps, swish): calls per predict}."""
+    from lns_tpu_torch.ops import norms
+
+    cfg = model.cfg
+    with torch.no_grad():
+        z = model.encode(torch.zeros(1, cfg.Ly, cfg.Lx, cfg.in_channels, device=dev))
+        z = torch.zeros((batch,) + tuple(z.shape[1:]), device=dev, dtype=model.dtype)
+        with recording(norms, "fused_group_norm_swish") as once:
+            shared = model.conditioning(torch.full((batch,), 0.5, device=dev))
+        with recording(norms, "fused_group_norm_swish") as per_step:
+            model._step(z, shared)
+    sites = _gn_site_counts(once, with_dtype=True)
+    for site, n in _gn_site_counts(per_step, with_dtype=True).items():
+        sites[site] = sites.get(site, 0) + steps * n
+    return sites
+
+
+def check_cond_group_norm(dev, gen, sites, train_sites):
+    """Kernel 3 at the conditional propagator's GroupNorm sites (sites:
+    {(dtype, batch, spatial, C, groups, eps, swish): calls per predict};
+    train_sites: the same per stage-2 train step's forward): GN(1) over the
+    latent in bf16 (conv1) and in f32 (cond_conv1 and ffn, which the f32
+    FiLM branch promotes), GN(1) over one row per sample in f32 (cond_conv2
+    on the embedding's projection) and GN(32) in bf16 (out_proj). Each
+    shape in bf16 and in f32 against the plain version at
+    ``check_group_norm``'s bounds, with its launch plan, and its gradient
+    through ``GroupNormSwishFunction`` (the kernel's forward) bitwise equal
+    to plain autograd's for a seeded upstream gradient; timed in the dtype
+    the site runs in (CUDA events, device time by graph replays, the library
+    call ``F.group_norm``, the bound: bytes at the memory rate or ~8 f32
+    operations per element). Returns the kernel's result summed over one
+    predict."""
+    from lns_tpu_torch.kernels.group_norm import (fused_group_norm_swish, group_norm_plan,
+                                                  group_norm_swish_plain)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cast = _gn_library_casts(dev)
+    per_site = {site: [calls, 0] for site, calls in sites.items()}
+    for site, calls in train_sites.items():
+        per_site.setdefault(site, [0, 0])[1] = calls
+    errs, bound = [], Bound()
+    total = dict.fromkeys(("ms", "dev", "plain", "lib"), 0.0)
+    train = dict.fromkeys(("ms", "dev", "plain", "lib"), 0.0)
+    shapes = {site[1:] for site in per_site}
+    for b, spatial, c, g, eps, swish in sorted(shapes):
+        x = (torch.randn((b,) + spatial + (c,), generator=gen) * 2 + 0.5).to(dev)
+        scale = (torch.randn(c, generator=gen) * 0.1 + 1).to(dev)
+        bias = (torch.randn(c, generator=gen) * 0.1).to(dev)
+        s = x.numel() // (b * c)
+        tag = f"{b}x{'x'.join(map(str, spatial))}x{c} G{g} eps{eps:g}{' +swish' if swish else ''}"
+        for dt, tol, differ in ((f32, 1e-5, 1.0), (bf16, 1e-2, 0.02)):
+            xd = x.to(dt)
+            calls, train_calls = per_site.get((dt, b, spatial, c, g, eps, swish), (0, 0))
+            plan = group_norm_plan(dt, b, s, c, g)
+            print(f"      group_norm {str(dt)[6:]} {tag} (conditional propagator; {calls} calls "
+                  f"per predict, {train_calls} per train step): "
+                  + (f"split plan, {plan['chunks']} chunks" if plan["chunks"] else
+                     f"cluster {plan['cluster']}, {plan['blocks']} blocks of "
+                     f"{plan['smem_bytes']} bytes of shared memory, {plan['rows_per_block']} rows "
+                     f"each; the card holds {plan['max_active_clusters']} such clusters at once"),
+                  flush=True)
+            err, ms, plain_ms = compare(
+                f"group_norm {str(dt)[6:]} {tag} (conditional propagator)",
+                lambda: fused_group_norm_swish(xd, scale, bias, g, eps, swish),
+                lambda: group_norm_swish_plain(xd, scale, bias, g, eps, swish), tol,
+                max_differ=differ)
+            errs.append(err)
+            go = torch.randn(xd.shape, generator=gen).to(dev, dt)
+            grads = []
+            for fn in (fused_group_norm_swish, group_norm_swish_plain):
+                leaves = [t.clone().requires_grad_() for t in (xd, scale, bias)]
+                grads.append(torch.autograd.grad(fn(*leaves, g, eps, swish), leaves, go))
+            _check(all(torch.equal(a, b_) for a, b_ in zip(*grads)),
+                   f"group_norm {str(dt)[6:]} {tag} (conditional propagator): gradients w.r.t. "
+                   "x, scale, bias through GroupNormSwishFunction bitwise equal to plain "
+                   "autograd's")
+            if not (calls or train_calls):
+                continue
+            dms = graph_ms(lambda: fused_group_norm_swish(xd, scale, bias, g, eps, swish))
+            lms = cuda_ms(lambda: _gn_library(xd, scale, bias, g, eps, swish, cast and dt == bf16))
+            one = Bound().add(8 * xd.numel(), 2 * _nbytes(xd) + _nbytes(scale, bias),
+                              rate=PEAK_F32)
+            print(f"      group_norm {str(dt)[6:]} {tag} (conditional propagator): device "
+                  f"{dms:.4f} ms (CUDA graph of 20 calls), events {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, library {lms:.4f} ms, bound {one.ms:.4f} ms "
+                  f"({one.result()['bound_by']})", flush=True)
+            for acc, n in ((total, calls), (train, train_calls)):
+                for k, v in (("ms", ms), ("dev", dms), ("plain", plain_ms), ("lib", lms)):
+                    acc[k] += v * n
+            bound.add(8 * xd.numel(), 2 * _nbytes(xd) + _nbytes(scale, bias), calls, PEAK_F32)
+    for what, acc in (("predict (path 5)", total), ("stage-2 train step's forward", train)):
+        print(f"      group_norm per {what} at the conditional propagator's sites: kernel "
+              f"{acc['ms']:.4f} ms by CUDA events, {acc['dev']:.4f} ms device (CUDA graphs), "
+              f"plain {acc['plain']:.4f} ms, library {acc['lib']:.4f} ms"
+              + (f", bound {bound.ms:.4f} ms" if acc is total else ""), flush=True)
+    return {"max_abs_err": max(errs), "ms": total["ms"], "device_ms": total["dev"],
+            "plain_ms": total["plain"], **bound.result(), "library_ms": total["lib"]}
 
 
 def _axial_inputs(gen, dev, g_shape, h, w, d):
@@ -1002,7 +1120,7 @@ def call_sites(model, dev, batch=BATCH, steps=STEPS, chunk=CHUNK):
     n_chunks = -(-batch * steps // chunk)
     seen, hooks = [], []
     for name, m in model.named_modules():
-        if not name.startswith("vq_ae.") or not isinstance(m, (GroupNorm, FABlock2D)):
+        if not name.startswith(model.ae_name + ".") or not isinstance(m, (GroupNorm, FABlock2D)):
             continue
         part = name.split(".")[1]
 
@@ -1064,9 +1182,12 @@ def recording(module, name):
 
 def train_gn_sites(model, dev):
     """Every GroupNorm call of one stage-2 train step's forward
-    (``rollout_loss`` at batch S2_BATCH, ``out_tw`` propagator steps), as the
-    layers call kernel 3 on the card: {(batch, spatial, C, groups, eps,
-    swish): calls per train step}."""
+    (``rollout_loss`` at batch S2_BATCH, ``out_tw`` propagator steps; a
+    conditional model with a parameter per sample), as the layers call
+    kernel 3 on the card: {(batch, spatial, C, groups, eps, swish): calls
+    per train step}; with the dtype in front of each key
+    (``with_dtype``) for the conditional propagator, whose sites run in
+    bf16 and in f32."""
     from lns_tpu_torch.ops import norms
 
     cfg = model.cfg
@@ -1074,17 +1195,38 @@ def train_gn_sites(model, dev):
         z = model.encode(torch.zeros(1, cfg.Ly, cfg.Lx, cfg.in_channels, device=dev))
         z_in = torch.zeros((S2_BATCH, 1) + tuple(z.shape[1:]), device=dev)
         z_out = torch.zeros((S2_BATCH, cfg.out_tw) + tuple(z.shape[1:]), device=dev)
+        cond = torch.full((S2_BATCH,), 0.5, device=dev) if model.conditional else None
         with recording(norms, "fused_group_norm_swish") as calls:
-            model.rollout_loss(z_in, z_out)
+            model.rollout_loss(z_in, z_out, cond)
+    return _gn_site_counts(calls, with_dtype=model.conditional)
+
+
+def _gn_site_counts(calls, with_dtype=False):
+    """Recorded kernel-3 calls -> {(batch, spatial, C, groups, eps, swish):
+    calls}, keyed also by the input's dtype in front `with_dtype`."""
     sites = {}
     for x, scale, _, g, eps, swish, *_ in calls:
         site = (x.shape[0], tuple(x.shape[1:-1]), x.shape[-1], g, eps, bool(swish))
+        site = (x.dtype,) + site if with_dtype else site
         sites[site] = sites.get(site, 0) + 1
     return sites
 
 
-def expected_launches(cfg, n_chunks=None, encodes=1):
-    """Launches per predict that the layer specs imply: the rollout once;
+def train_step_gn(cfg):
+    """Kernel-3 launches in one stage-2 train step's forward: the
+    SimpleCNN's GN(1) twice per block and out_proj's GN(32) per step; the
+    conditional propagator's GN(1) three times per block (conv1,
+    cond_conv1, ffn) and GN(32) per step, and cond_conv2's GN(1) once per
+    block for the whole rollout (the conditioning is computed once)."""
+    nb, t = cfg.prop_n_block, cfg.out_tw
+    return (3 * nb + 1) * t + nb if cfg.is_conditional else (2 * nb + 1) * t
+
+
+def expected_launches(cfg, n_chunks=None, encodes=1, steps=None):
+    """Launches per predict that the layer specs imply: the rollout once
+    (kernel 1; a conditional propagator steps as modules, whose GroupNorms
+    launch kernel 3 ``train_step_gn``'s way over `steps` steps, the
+    autoencoder's counts alone when `steps` is None);
     per FAB block, once per encode or decode chunk, the FAB core (c-space)
     or the axial kernel (d-space), as ``_fab_impl_for`` picks from the
     block's dim and dim_head; the GroupNorm kernel once per GN site (two per
@@ -1107,10 +1249,15 @@ def expected_launches(cfg, n_chunks=None, encodes=1):
         return count(lambda s: s.kind == "fablock"
                      and _fab_impl_for(s.kw["dim"], s.kw["dim_head"]) == impl)
 
-    return {"prop_rollout": int(n_chunks > 0), "fab_core": fabs("batchedgram"),
-            "fab_axial_in_fused": fabs("batched"),
-            "group_norm": count(lambda s: {"resblock": 2, "hp_resblock": 2, "gn": 1,
-                                           "fablock": 1}.get(s.kind, 0))}
+    out = {"prop_rollout": int(n_chunks > 0), "fab_core": fabs("batchedgram"),
+           "fab_axial_in_fused": fabs("batched"),
+           "group_norm": count(lambda s: {"resblock": 2, "hp_resblock": 2, "gn": 1,
+                                          "fablock": 1}.get(s.kind, 0))}
+    if cfg.is_conditional:
+        out["prop_rollout"] = 0
+        if n_chunks > 0 and steps is not None:
+            out["group_norm"] += train_step_gn(cfg.replace(out_tw=steps))
+    return out
 
 
 # -- main -------------------------------------------------------------------
@@ -1164,21 +1311,24 @@ def _counted():
 
 def drive_path(label, model, expect, gen, dev, batch=BATCH, steps=STEPS, chunk=CHUNK):
     """One path (batch `batch`, `steps` steps, decode chunks of `chunk`
-    frames, or all at once when None): the launch counts of one predict, the
+    frames, or all at once when None; a conditional model with a parameter
+    per sample from `gen` in [0, 1]): the launch counts of one predict, the
     f32 kernel-vs-plain check, frames/s of both paths and the peak device
-    memory of one predict. Returns the launch counts."""
+    memory of one predict; a conditional model's steps too
+    (``check_cond_steps``). Returns the launch counts."""
     from lns_tpu_torch.models import LatentDynamics
 
     cfg = model.cfg
     print(f"-- {label}: predict, batch {batch}, {steps} steps, decode chunk "
           f"{chunk or 'none (all frames at once)'}, bf16", flush=True)
     x = torch.randn(batch, cfg.Ly, cfg.Lx, cfg.in_channels, generator=gen).to(dev)
+    cond = torch.rand(batch, generator=gen).to(dev) if model.conditional else None
     counted = _counted()
     for f in counted.values():
         f.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    y = model.predict(x, steps, decode_chunk=chunk)
+    y = model.predict(x, steps, cond, decode_chunk=chunk)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     launches = {k: f.launches for k, f in counted.items()}
@@ -1195,13 +1345,15 @@ def drive_path(label, model, expect, gen, dev, batch=BATCH, steps=STEPS, chunk=C
     # JAX package holds its own predict to 3e-4 (tests/test_torch_export.py)
     m32 = LatentDynamics(cfg, device=dev)
     m32.load_state_dict(model.state_dict())
-    xs = x[:2].float()
-    yk = m32.use_kernels(True).predict(xs, 4, decode_chunk=chunk)
-    yp = m32.use_kernels(False).predict(xs, 4, decode_chunk=chunk)
+    xs, cs = x[:2].float(), None if cond is None else cond[:2]
+    yk = m32.use_kernels(True).predict(xs, 4, cs, decode_chunk=chunk)
+    yp = m32.use_kernels(False).predict(xs, 4, cs, decode_chunk=chunk)
     err = (yk - yp).abs().max().item()
     _check(bool(torch.isfinite(yk).all()) and err <= 3e-4,
            f"{label}: f32 predict B2 4 steps, kernels vs plain: max_abs_err {err:.3e} <= 3e-4")
     del m32, yk, yp
+    if cond is not None:
+        check_cond_steps(label, model, x, cond, steps)
 
     # frames/s: each predict timed alone by CUDA events (it ends on the host
     # with a synchronize), paths alternated plain, kernel, kernel, plain; the
@@ -1211,11 +1363,11 @@ def drive_path(label, model, expect, gen, dev, batch=BATCH, steps=STEPS, chunk=C
     times, enqueue = {True: [], False: []}, {True: [], False: []}
     for flag in (False, True):
         model.use_kernels(flag)
-        model.predict(x, steps, decode_chunk=chunk)  # warm-up
+        model.predict(x, steps, cond, decode_chunk=chunk)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")  # the kernel path's predict waits for the card nowhere
     try:
-        model.predict(x, steps, decode_chunk=chunk)
+        model.predict(x, steps, cond, decode_chunk=chunk)
         sync = "none"
     except RuntimeError as e:
         sync = str(e).splitlines()[0]
@@ -1230,7 +1382,7 @@ def drive_path(label, model, expect, gen, dev, batch=BATCH, steps=STEPS, chunk=C
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             start.record()
-            model.predict(x, steps, decode_chunk=chunk)
+            model.predict(x, steps, cond, decode_chunk=chunk)
             end.record()
             enqueue[flag].append((time.perf_counter() - t0) * 1e3)
             torch.cuda.synchronize()
@@ -1244,9 +1396,57 @@ def drive_path(label, model, expect, gen, dev, batch=BATCH, steps=STEPS, chunk=C
               f"median {e[len(e) // 2]:.2f} ms (min {e[0]:.2f}, max {e[-1]:.2f})", flush=True)
     for flag, path in ((True, "kernel path"), (False, "plain path")):
         model.use_kernels(flag)
-        profile_device(lambda: model.predict(x, steps, decode_chunk=chunk), f"{label} {path}")
+        profile_device(lambda: model.predict(x, steps, cond, decode_chunk=chunk),
+                       f"{label} {path}")
     model.use_kernels(True)
     return launches
+
+
+def _open_gates(model, gen):
+    """Fill the zero-initialised gates (``cond_conv1.2``, ``cond_conv2.3``)
+    from `gen` as ``init_weights_`` fills a conv: at zero they make each
+    block's gated conv and FiLM scale vanish, and no check would see the
+    conditioning."""
+    with torch.no_grad():
+        for m in model.modules():
+            if getattr(m, "zero_init", False):
+                bound = 1.0 / math.sqrt(math.prod(m.weight.shape[1:]))
+                for p in (m.weight, m.bias):
+                    p.copy_(torch.rand(p.shape, generator=gen) * (2 * bound) - bound)
+    return model
+
+
+def check_cond_steps(label, model, x, cond, steps):
+    """A conditional model's bf16 rollout on the kernel path (its module
+    steps, kernel 3 at every GroupNorm), each step against one plain step
+    (``use_kernels(False)``) from the kernel path's own carry, within 2e-2 x
+    max|plain| (the bf16 bound of kernel 1's per-step check: an f32 sum in
+    another order moves a GroupNorm's rounded coefficients and whole
+    channels by an ulp); and every parameter moved by 0.5 (mod 1) gives
+    another prediction."""
+    with torch.no_grad():
+        z0 = model.encode(x).to(model.dtype)
+        zs = model.predict_latents(x, steps, cond)
+        shared = model.conditioning(cond)
+        model.use_kernels(False)
+        worst, differ = (0, 0.0), 0.0
+        for t in range(steps):
+            carry = z0 if t == 0 else zs[:, t - 1]
+            ref = model._step(carry, shared)
+            e = (zs[:, t].float() - ref.float()).abs().max().item() / ref.float().abs().max().item()
+            worst = max(worst, (t, e), key=lambda w: w[1])
+            differ = max(differ, (zs[:, t] != ref).float().mean().item())
+        model.use_kernels(True)
+        _check(bool(torch.isfinite(zs).all()) and worst[1] <= 2e-2,
+               f"{label}: every bf16 step of the kernel path against one plain step from its "
+               f"own carry ({steps} steps): max_abs_err <= {worst[1]:.2e} x max|plain| (<= "
+               f"2e-2; step {worst[0]}); at most {differ:.2%} of a step's elements differ")
+        other = model.predict(x, steps, (cond + 0.5) % 1.0)
+        same = model.predict(x, steps, cond)
+        gap = (other.float() - same.float()).abs().max().item()
+        _check(gap > 1e-2 * same.float().abs().max().item(),
+               f"{label}: every parameter moved by 0.5 (mod 1) moves the prediction by "
+               f"{gap:.3e} (> 1e-2 x max|y|): the conditioning is live")
 
 
 def profile_device(fn, label, top=8):
@@ -1361,7 +1561,7 @@ def check_gn_calls(where, calls, gen=None):
         _check(ok, msg)
 
 
-def _step_grads(model, z_in, z_out, use_kernel):
+def _step_grads(model, z_in, z_out, use_kernel, cond=None):
     """One train step's gradients w.r.t. every propagator parameter, and
     kernel 3's launches in its forward and in its backward."""
     from lns_tpu_torch.kernels.group_norm import fused_group_norm_swish
@@ -1369,7 +1569,7 @@ def _step_grads(model, z_in, z_out, use_kernel):
     model.use_kernels(use_kernel)
     params = dict(model.propagator.named_parameters())
     before = fused_group_norm_swish.launches
-    loss = model.rollout_loss(z_in, z_out)
+    loss = model.rollout_loss(z_in, z_out, cond)
     fwd = fused_group_norm_swish.launches - before
     grads = torch.autograd.grad(loss, list(params.values()))
     model.use_kernels(True)
@@ -2308,6 +2508,9 @@ SW_CASES, SW_CASE_LEN, SW_TRAIN_BATCH, SW_S1_EPOCHS, SW_S2_EPOCHS = 12, 24, 32, 
 # Stage 1: 320 training frames (10 steps of batch 32 per epoch), two epochs;
 # stage 2: in_tw 1, out_tw 5, 200 windows (6 steps of batch 32), three epochs
 TP_CASES, TP_CASE_LEN, TP_TRAIN_BATCH, TP_S1_EPOCHS, TP_S2_EPOCHS = 23, 16, 32, 2, 3
+# the conditional two-phase family: the same sizes on make_sloshing_dir(
+# vary="freq"), a driving frequency per case at a fixed depth, the corpus
+# its parameter comes from; its stage 2 validates each test case with it
 
 
 def _sw_train_config(tmp, **over):
@@ -2341,10 +2544,27 @@ def _tp_train_config(tmp, **over):
         overwrite_exist=True, **over)
 
 
+def _tpc_train_config(tmp, **over):
+    """``twophase_conditional_config()`` on a sloshing corpus of one
+    driving frequency per case under `tmp`, bf16, batch 32, validating only
+    before the first epoch and at the end."""
+    from lns_tpu_torch.config import twophase_conditional_config
+    from lns_tpu_torch.data.sloshing_solver import make_sloshing_dir
+
+    data = os.path.join(tmp, "sloshing_freq")
+    if not os.path.exists(data):
+        make_sloshing_dir(data, ncase=TP_CASES, case_len=TP_CASE_LEN, seed=3, vary="freq")
+    return twophase_conditional_config().replace(
+        data_dir=data, dataset_stat=os.path.join(tmp, "twophase_cond_stat.npz"),
+        case_len=TP_CASE_LEN, num_case=TP_CASES, batch_size=TP_TRAIN_BATCH,
+        mixed_precision=True, ckpt_every=1000, overwrite_exist=True, **over)
+
+
 # each family's training phases: its config on its corpus, the batch, the
 # epochs and the optimizer settings of the JAX package's convergence runs
-# (benchmarks/convergence_families.py: SW :117-128, two-phase :140-153;
-# cut: the corpus and the epochs), its channels and what its corpus is
+# (benchmarks/convergence_families.py: SW :117-128, two-phase and its
+# conditional family :140-153; cut: the corpus and the epochs), its channels
+# and what its corpus is
 FAMILIES = {
     "SW": dict(config=_sw_train_config, batch=SW_TRAIN_BATCH, epochs=(SW_S1_EPOCHS, SW_S2_EPOCHS),
                s1=dict(learning_rate=3e-5, beta1=0.5, beta2=0.9), s2=dict(learning_rate=3e-4),
@@ -2357,6 +2577,14 @@ FAMILIES = {
                       channels=("vx", "vy", "prs", "vof"),
                       corpus=f"{TP_CASES} cases x {TP_CASE_LEN} frames of 61x121x4 "
                              "(make_sloshing_dir, vary='depth')"),
+    "conditional two-phase": dict(config=_tpc_train_config, batch=TP_TRAIN_BATCH,
+                                  epochs=(TP_S1_EPOCHS, TP_S2_EPOCHS),
+                                  s1=dict(learning_rate=3e-5, beta1=0.5, beta2=0.9),
+                                  s2=dict(learning_rate=5e-4, in_tw=1, out_tw=5),
+                                  channels=("vx", "vy", "prs", "vof"),
+                                  corpus=f"{TP_CASES} cases x {TP_CASE_LEN} frames of 61x121x4, "
+                                         "a driving frequency each (make_sloshing_dir, "
+                                         "vary='freq')"),
 }
 
 
@@ -2508,22 +2736,36 @@ def drive_family_stage1(fam, dev, smi, tmp):
 def check_family_stage2_gradients(fam, trainer, m32):
     """One stage-2 train step's gradients w.r.t. every propagator
     parameter, kernel path against ``use_kernels(False)`` (TF32 off), on the
-    batch's first windows of the corpus, under the stage-1 phase's rules
-    (``_hold_gradients``); every parameter tensor with a nonzero gradient;
-    kernel 3 launched (2 n_block + 1) x out_tw times in the forward and
-    never in the backward."""
+    batch's first windows of the corpus (and, conditional, their
+    parameters), under the stage-1 phase's rules (``_hold_gradients``);
+    every parameter tensor with a nonzero gradient; kernel 3 launched
+    ``train_step_gn`` times in the forward and never in the backward. A
+    conditional model's gates start at zero, and with them the gradient of
+    all that feeds them (the conditioning MLP, each block's projection and
+    FiLM branch): it is held on copies with the gates filled from a seeded
+    generator. Returns the batch: (z_in, z_out) and, conditional, the
+    parameters."""
     import numpy as np
 
+    from lns_tpu_torch.models import LatentDynamics
+
     cfg = trainer.cfg
-    z_in, z_out = (torch.from_numpy(np.ascontiguousarray(a)).to(trainer.device)
-                   for a in trainer.train_ds.get_batch(np.arange(cfg.batch_size)))
-    per_step = 2 * cfg.prop_n_block + 1
-    for dt, model in (("f32", m32), ("bf16", trainer.model)):
+    batch = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(trainer.device)
+                  for a in trainer.train_ds.get_batch(np.arange(cfg.batch_size)))
+    z_in, z_out, *cond = batch
+    per_step = train_step_gn(cfg)
+    mbf = trainer.model
+    if cfg.is_conditional:
+        _open_gates(m32, torch.Generator().manual_seed(7))
+        mbf = LatentDynamics(cfg, dtype=torch.bfloat16, ae_dtype=torch.bfloat16,
+                             device=trainer.device)
+        mbf.load_state_dict(m32.state_dict())
+    for dt, model in (("f32", m32), ("bf16", mbf)):
         where = f"{fam} stage-2 {dt} train step (batch {z_in.shape[0]}, out_tw {cfg.out_tw})"
-        gk, fwd, bwd = _step_grads(model, z_in, z_out, True)
-        gp, fwd_p, _ = _step_grads(model, z_in, z_out, False)
+        gk, fwd, bwd = _step_grads(model, z_in, z_out, True, *cond)
+        gp, fwd_p, _ = _step_grads(model, z_in, z_out, False, *cond)
         gq, _, _ = _step_grads(model, z_in * (1 + (2 ** -23 if dt == "f32" else 2 ** -8)), z_out,
-                               False)
+                               False, *cond)
         if dt == "f32":
             g32 = gp
         _hold_gradients(where, dt, gk, gp, gq, g32)
@@ -2532,10 +2774,10 @@ def check_family_stage2_gradients(fam, trainer, m32):
         _check(all(v > 0 for v in top.values()),
                f"{where}: all {len(top)} parameter tensors have a nonzero gradient (smallest "
                f"max|g| {top[low]:.3e}, {low})")
-        _check(fwd == per_step * cfg.out_tw and bwd == 0 and fwd_p == 0,
-               f"{where}: kernel 3 launched {fwd} times in the forward (== {per_step} x out_tw "
+        _check(fwd == per_step and bwd == 0 and fwd_p == 0,
+               f"{where}: kernel 3 launched {fwd} times in the forward (== {per_step}, out_tw "
                f"{cfg.out_tw}), {bwd} in its backward, {fwd_p} on the plain path")
-    return z_in, z_out
+    return batch
 
 
 def drive_family_stage2(fam, dev, smi, tmp, ae_path):
@@ -2572,24 +2814,26 @@ def drive_family_stage2(fam, dev, smi, tmp, ae_path):
            f"(== {want['group_norm'] // encodes} encoder GN sites x {encodes} encode calls), no "
            f"other kernel; trainer built in {build_s:.2f} s ({len(trainer.train_ds)} windows, "
            f"{trainer.steps_per_epoch} steps per epoch)")
-    _check(_same_state(trainer.model.vq_ae, ae_path),
+    _check(_same_state(trainer.model.autoencoder, ae_path),
            f"{fam} stage-2: the stage-1 checkpoint loaded bit-identical")
     m32 = LatentDynamics(cfg, device=dev)
     m32.load_state_dict(trainer.model.state_dict())
-    z_in, z_out = check_family_stage2_gradients(fam, trainer, m32)
+    z_in, z_out, *cond = check_family_stage2_gradients(fam, trainer, m32)
     del m32
 
     step_events, val_ms, launches, secs = _timed_train(trainer)
     n_steps = epochs * trainer.steps_per_epoch
     n_val = len(trainer.val_ds)
-    want = {k: 2 * v * -(-n_val // 8) for k, v in expected_launches(cfg, n_chunks=1).items()}
-    want["group_norm"] += n_steps * (2 * cfg.prop_n_block + 1) * cfg.out_tw
+    steps = trainer.val_ds.eval_trajectories()[1].shape[1]
+    want = {k: 2 * v * -(-n_val // 8)
+            for k, v in expected_launches(cfg, n_chunks=1, steps=steps).items()}
+    want["group_norm"] += n_steps * train_step_gn(cfg)
     _check(launches == {k: want.get(k, 0) for k in launches},
            f"{fam} stage-2 training run: launches {({k: v for k, v in launches.items() if v})} "
-           f"== {({k: v for k, v in want.items() if v})} (2 validations of {n_val} cases, "
-           f"{n_steps} train steps)")
-    print(f"      {fam} stage-2 launches per train step: group_norm "
-          f"{(2 * cfg.prop_n_block + 1) * cfg.out_tw}", flush=True)
+           f"== {({k: v for k, v in want.items() if v})} (2 validations of {n_val} cases"
+           f"{', each with its parameter' if cond else ''}, {n_steps} train steps)")
+    print(f"      {fam} stage-2 launches per train step: group_norm {train_step_gn(cfg)}",
+          flush=True)
     _check_family_run(f"{fam} stage-2", cfg.log_dir, "loss",
                       ("val_seq_rel_l2",) + tuple(f"val_pred_loss_{c}" for c in spec["channels"]),
                       trainer.steps_per_epoch, epochs)
@@ -2607,9 +2851,8 @@ def drive_family_stage2(fam, dev, smi, tmp, ae_path):
            f"schedule step {resumed.sched.last_epoch} (== {n_steps}), and its parameters "
            "equal the saved ones bitwise")
     del resumed
-    profile_device(lambda: [trainer.train_step(z_in, z_out, 0, i) for i in range(3)],
+    profile_device(lambda: [trainer.train_step(z_in, z_out, 0, i, *cond) for i in range(3)],
                    f"{fam} stage-2 3 train steps (bf16, batch {batch})")
-    steps = trainer.val_ds.eval_trajectories()[1].shape[1]
     del trainer
     _print_steps(f"{fam} stage-2", step_events, secs, batch, smi)
     print(f"      {fam} stage-2 validate ({n_val} cases, {steps} steps, decoded at once): wall "
@@ -2622,11 +2865,13 @@ def run(dev, smi=""):
     """Phases 3-7 on `dev`; returns the per-kernel results."""
     import tempfile
 
-    from lns_tpu_torch.config import ns2d_config, sw_config, twophase_config
+    from lns_tpu_torch.config import (ns2d_config, sw_config, twophase_conditional_config,
+                                      twophase_config)
     from lns_tpu_torch.models import LatentDynamics
     from lns_tpu_torch.ops.initializers import init_weights_
 
     gen = torch.Generator().manual_seed(0)
+    cond_gen = torch.Generator().manual_seed(5)  # path 5's weights and GroupNorm inputs
     paths = []  # (label, model, expected launches, batch, steps, decode chunk)
     gn_sites, fab_sites = {}, {}  # summed over one predict of each NS2d path
     for label, cfg, size in (
@@ -2634,16 +2879,24 @@ def run(dev, smi=""):
             ("path 2 NS2d use_attn_enc", ns2d_config().replace(use_attn_enc=True),
              (BATCH, STEPS, CHUNK)),
             ("path 3 SW", sw_config(), (SW_BATCH, SW_STEPS, None)),
-            ("path 4 two-phase", twophase_config(), (TP_BATCH, TP_STEPS, None))):
+            ("path 4 two-phase", twophase_config(), (TP_BATCH, TP_STEPS, None)),
+            ("path 5 conditional two-phase", twophase_conditional_config(),
+             (TP_BATCH, TP_STEPS, None))):
         # initialised on the CPU from the seeded generator, then moved
+        g0 = cond_gen if cfg.is_conditional else gen
         model = init_weights_(LatentDynamics(cfg, dtype=torch.bfloat16, ae_dtype=torch.bfloat16,
-                                             device="cpu"), gen).to(dev)
+                                             device="cpu"), g0)
+        if cfg.is_conditional:
+            _open_gates(model, g0)
+        model = model.to(dev)
         b, steps, chunk = size
         gn, fab = call_sites(model, dev, b, steps, chunk)
-        expect = expected_launches(cfg, n_chunks=-(-b * steps // (chunk or b * steps)))
-        _check(sum(gn.values()) == expect["group_norm"],
-               f"{label}: GroupNorm calls found {sum(gn.values())} == spec count "
-               f"{expect['group_norm']}")
+        n_chunks = -(-b * steps // (chunk or b * steps))
+        expect = expected_launches(cfg, n_chunks=n_chunks, steps=steps)
+        ae_gn = expected_launches(cfg, n_chunks=n_chunks)["group_norm"]
+        _check(sum(gn.values()) == ae_gn,
+               f"{label}: autoencoder GroupNorm calls found {sum(gn.values())} == spec count "
+               f"{ae_gn}")
         for impl, k in (("batchedgram", "fab_core"), ("batched", "fab_axial_in_fused")):
             found = {s: c for s, c in fab.items() if s[-1] == impl}
             _check(sum(found.values()) == expect[k],
@@ -2654,6 +2907,14 @@ def run(dev, smi=""):
             continue
         if cfg.workload == "twophase":
             tp_gn = gn
+            continue
+        if cfg.is_conditional:  # its autoencoder's sites are path 4's
+            tpc_gn = cond_gn_sites(model, dev, b, steps)
+            _check(sum(tpc_gn.values()) == expect["group_norm"] - ae_gn,
+                   f"{label}: propagator GroupNorm calls found {sum(tpc_gn.values())} == "
+                   f"{steps} steps x {3 * cfg.prop_n_block + 1} + {cfg.prop_n_block} "
+                   f"({expect['group_norm'] - ae_gn}); kernel 3 in all "
+                   f"{expect['group_norm']} per predict, kernel 1 in none")
             continue
         for sites, new in ((gn_sites, gn), (fab_sites, fab)):
             for s, c in new.items():
@@ -2672,13 +2933,13 @@ def run(dev, smi=""):
     _check(sum(train_sites.values()) == (2 * cfg.prop_n_block + 1) * cfg.out_tw,
            f"stage-2 train step: GroupNorm calls found {train_sites} == "
            f"{2 * cfg.prop_n_block + 1} per step x out_tw {cfg.out_tw}")
-    sw, tp = paths[2][1], paths[3][1]
+    sw, tp, tpc = paths[2][1], paths[3][1], paths[4][1]
     fam_train_sites = {}
-    for fam, m in (("SW", sw), ("two-phase", tp)):
+    for fam, m in (("SW", sw), ("two-phase", tp), ("conditional two-phase", tpc)):
         found = fam_train_sites[fam] = train_gn_sites(m, dev)
-        _check(sum(found.values()) == (2 * m.cfg.prop_n_block + 1) * m.cfg.out_tw,
+        _check(sum(found.values()) == train_step_gn(m.cfg),
                f"{fam} stage-2 train step: GroupNorm calls found {found} == "
-               f"{2 * m.cfg.prop_n_block + 1} per step x out_tw {m.cfg.out_tw}")
+               f"{train_step_gn(m.cfg)} (out_tw {m.cfg.out_tw})")
     print("-- kernels against their plain versions (TF32 off)", flush=True)
     t0 = time.perf_counter()
     res = {"prop_rollout": check_rollout(dev, gen, 2, tp.propagator),
@@ -2691,8 +2952,12 @@ def run(dev, smi=""):
                _summed(check_group_norm(dev, gen, gn_sites, train_sites),
                        check_group_norm(dev, gen, sw_gn, fam_train_sites["SW"], label="SW",
                                         extras=False)),
-               check_group_norm(dev, gen, tp_gn, fam_train_sites["two-phase"],
-                                label="two-phase", extras=False))}
+               tp_res := check_group_norm(dev, gen, tp_gn, fam_train_sites["two-phase"],
+                                          label="two-phase", extras=False))}
+    # path 5: its autoencoder's sites are path 4's (checked and timed there,
+    # counted again per predict), and its propagator's
+    res["group_norm"] = _summed(_summed(res["group_norm"], tp_res), check_cond_group_norm(
+        dev, cond_gen, tpc_gn, fam_train_sites["conditional two-phase"]))
     check_fab_core_limits(dev, n, d)
     res["fab_axial_in_fused"], res["axial_kernel_apply_headmajor"] = check_axial(
         dev, gen, fab_shapes(fab_sites, "batched"), n, d)
@@ -2706,7 +2971,7 @@ def run(dev, smi=""):
     for label, model, expect, (b, steps, chunk) in paths:
         by_path[label] = drive_path(label, model, expect, gen, dev, b, steps, chunk)
         del model
-    del paths, sw, tp
+    del paths, sw, tp, tpc
     by_path["stage-2 training"] = drive_stage2(dev, smi)
     by_path["stage-1 training"] = drive_stage1(dev, smi)
     for fam in FAMILIES:

@@ -1,4 +1,5 @@
-"""Stage-1 training entry point (NS2d, SW and two-phase, e.g. configs/SW_stage1_ae.yml):
+"""Stage-1 training entry point (NS2d, SW and the two-phase families, e.g.
+configs/SW_stage1_ae.yml):
 
     python -m lns_tpu_torch.cli.train_stage1 --config configs/ns2d_stage1_ae.yml
 

@@ -1,4 +1,5 @@
-"""Stage-2 training entry point (NS2d, SW and two-phase, e.g. configs/SW_stage2_prop.yml):
+"""Stage-2 training entry point (NS2d, SW, two-phase and conditional two-phase, e.g.
+configs/SW_stage2_prop.yml or configs/twophase_stage2_cond_prop.yml):
 
     python -m lns_tpu_torch.cli.train_stage2 --config configs/ns2d_stage2_prop.yml
 

@@ -144,3 +144,15 @@ def twophase_config() -> Config:
         decoder_attn_heads=8, decoder_attn_dim=64, disable_coarse_attn=False,
         prop_n_block=4, prop_n_embd=128, dilation=2, in_tw=1, out_tw=5, noise_level=0.0,
     )
+
+
+def twophase_conditional_config() -> Config:
+    """The conditional two-phase family: ``twophase_config()`` with a
+    propagator conditioned on each case's driving frequency through FiLM
+    (``CondSimpleCNN``; the reference's configs/twophase_stage2_cond_prop.yml
+    as the JAX package spells it, benchmarks/convergence_families.py:146-147).
+    The autoencoder is the plain one, as the reference's conditional
+    trainer builds it (train_stage2_twophase_conditional.py:128); the
+    conditioning embedding is ``latent_dim`` wide (64), not
+    ``cond_emb_channels``, as the JAX package builds it."""
+    return twophase_config().replace(cond_channels=1, cond_emb_channels=64)

@@ -2,12 +2,14 @@
 counterpart of ``lns_tpu.data.twophase``.
 
 Mirrors dataset/twophase_flow_stage1.py and twophase_flow_stage2.py: per
-case vel [T, H, W, 2], prs [T, H, W], vof [T, H, W] (and a scalar ``freq``
-for the conditional variant, not ported here); rows clipped to 61; the
-seed-44 90/10 case split; global mean/std normalisation of vel and prs, vof
-left in [0, 1]; ``denormalize`` re-imposes the Dirichlet walls (zero
-velocity on all four borders) and clamps vof (twophase_flow_stage1.py:
-148-169).
+case vel [T, H, W, 2], prs [T, H, W], vof [T, H, W] and, for the conditional
+family, a scalar ``freq`` (the case's driving frequency, the propagator's
+conditioning parameter); rows clipped to 61; the seed-44 90/10 case split;
+global mean/std normalisation of vel and prs, vof left in [0, 1], the
+parameter scaled to [0, 1] over its range widened by 2 on each side
+(twophase_flow_stage2.py:296-297); ``denormalize`` re-imposes the Dirichlet
+walls (zero velocity on all four borders) and clamps vof
+(twophase_flow_stage1.py:148-169).
 
 Channels-last frames: [H, W, 4] = (vx, vy, prs, vof); the corpus is kept
 as f32 numpy.
@@ -34,6 +36,8 @@ def _split_indices(num_case: int, available: int):
 
 
 class _TankBase:
+    conditional = False  # whether each case carries its `freq`
+
     def __init__(self, cfg, train_mode: bool = True):
         self.cfg = cfg
         self.case_len = cfg.case_len
@@ -43,7 +47,7 @@ class _TankBase:
         train_idx, test_idx = _split_indices(cfg.num_case, len(f_lst))
         self.idxs = train_idx if train_mode else test_idx
 
-        fields = []
+        fields, params = [], []
         for i in self.idxs:
             d = np.load(os.path.join(cfg.data_dir, f_lst[i]))
             vel, prs, vof = d["vel"], d["prs"], d["vof"]
@@ -52,21 +56,38 @@ class _TankBase:
             assert self.case_len <= vel.shape[0]
             x = np.concatenate([vel, prs[..., None], vof[..., None]], axis=-1)
             fields.append(x[: self.case_len].astype(np.float32))
+            if self.conditional:
+                params.append(float(d["freq"]))
         # [N, T, H, W, 4]: the whole corpus in memory, as the reference keeps it
         self.fields = np.stack(fields, axis=0)
+        self.params_raw = np.asarray(params, np.float32) if self.conditional else None
         self.stats = self._load_or_compute_stats(cfg.dataset_stat)
 
     def _compute_stats(self) -> Dict[str, np.ndarray]:
         vel = self.fields[..., :2]
         prs = self.fields[..., 2]
-        return {"vel_mean": np.mean(vel), "vel_std": np.std(vel),
-                "prs_mean": np.mean(prs), "prs_std": np.std(prs),
-                "height": self.fields.shape[2], "width": self.fields.shape[3]}
+        stats = {"vel_mean": np.mean(vel), "vel_std": np.std(vel),
+                 "prs_mean": np.mean(prs), "prs_std": np.std(prs),
+                 "height": self.fields.shape[2], "width": self.fields.shape[3]}
+        if self.conditional:
+            stats.update(self._param_range())
+        return stats
+
+    def _param_range(self) -> Dict[str, np.ndarray]:
+        """The parameter's range widened by 2 on each side
+        (twophase_flow_stage2.py:296-297)."""
+        return {"param_min": np.min(self.params_raw) - 2.0,
+                "param_max": np.max(self.params_raw) + 2.0}
 
     def _load_or_compute_stats(self, stat_path):
         if stat_path and os.path.exists(stat_path):
             stats = np.load(stat_path, allow_pickle=True)
-            return {k: stats[k] for k in stats.files if k != "allow_pickle"}
+            out = {k: stats[k] for k in stats.files if k != "allow_pickle"}
+            if self.conditional and "param_min" not in out:
+                # a stats file without the range (a stage-1 run wrote it):
+                # the range of these cases is added, the file left as it is
+                out.update(self._param_range())
+            return out
         stats = self._compute_stats()
         if stat_path:
             np.savez(stat_path, **stats, allow_pickle=True)
@@ -83,6 +104,11 @@ class _TankBase:
         out[..., 2] = (x[..., 2] - float(self.stats["prs_mean"])) / float(self.stats["prs_std"])
         out[..., 3] = x[..., 3]
         return out
+
+    def normalize_param(self, p):
+        """The raw parameter -> [0, 1] over the widened range."""
+        lo, hi = float(self.stats["param_min"]), float(self.stats["param_max"])
+        return (p - lo) / (hi - lo)
 
     def denormalize(self, x):
         """[..., H, W, 4] -> physical units, zero velocity on the four walls,
@@ -192,3 +218,20 @@ class SimpleTankSloshingData(TankSloshingStage2):
         case, t_idx = self._times(indices)
         x = self.normalize(self.fields)[case, t_idx]
         return x[:, : self.in_tw], x[:, self.in_tw:]
+
+
+class ConditionalTankSloshingStage2(TankSloshingStage2):
+    """The conditional family's stage 2: each window also carries its
+    case's normalised parameter; train batches are (z_in, z_out, param
+    [b]) and ``eval_trajectories`` returns (x0, y, param [n])."""
+
+    conditional = True
+
+    def get_batch(self, indices: np.ndarray):
+        z_in, z_out = super().get_batch(indices)
+        case, _ = self._window(indices)
+        return z_in, z_out, self.normalize_param(self.params_raw[case])
+
+    def eval_trajectories(self):
+        x, y = super().eval_trajectories()
+        return x, y, self.normalize_param(self.params_raw)

@@ -1,6 +1,7 @@
 """Stage-1 autoencoder: the periodic square variant (NS2d), the
 half-periodic variant (SW) and the non-squared zero-padded variant
-(two-phase).
+(two-phase, and the conditional two-phase family, whose trainer builds the
+plain autoencoder: train_stage2_twophase_conditional.py:128).
 
 ``SimpleAutoencoder`` maps NHWC fields to the latent grid and back:
 encode = quant_conv(encoder(x)), decode = decoder(post_quant_conv(z)),
@@ -137,9 +138,6 @@ class SimpleAutoencoder(nn.Module):
 
     def __init__(self, cfg, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if cfg.is_conditional:
-            raise NotImplementedError("the conditional autoencoder (cond_channels) is not ported "
-                                      "yet; it comes with the conditional two-phase family")
         self.cfg = cfg
         self.encoder = SpecSequential(encoder_spec(cfg), cfg.in_channels, dtype)
         self.decoder = SpecSequential(decoder_spec(cfg), cfg.latent_dim, dtype)
@@ -166,3 +164,16 @@ class SimpleAutoencoder(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.decode(self.encode(x))
+
+
+class CondEncoder(nn.Module):
+    """The JAX package's ``CondEncoder`` (a parameter-conditioned encoder of
+    ``CondResidualBlock``s, used by ``ConditionalSimpleAutoencoder``) is not
+    ported: no path of the reference or of the JAX package builds it (the
+    conditional trainer takes the plain ``SimpleAutoencoder``). It raises."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError("CondEncoder / ConditionalSimpleAutoencoder (the "
+                                  "parameter-conditioned encoder) are not ported: no path of "
+                                  "the reference builds them; the conditional two-phase family "
+                                  "runs the plain SimpleAutoencoder")

@@ -12,8 +12,17 @@ card its GroupNorms launch kernel 3 through its autograd Function.
 launch of the rollout kernel (``kernels.prop_rollout``); with
 ``use_kernels(False)`` every kernel of the model is replaced by its plain
 PyTorch version, on any device. Parameters live under ``vq_ae`` and
-``propagator``, the reference trainer's state-dict names. The model is built
-on the card unless the caller names another device (``device="cpu"``).
+``propagator``, the reference trainer's state-dict names (``ae`` and
+``propagator`` for the conditional family, as its trainer names them). The
+model is built on the card unless the caller names another device
+(``device="cpu"``).
+
+A conditional model (``cfg.is_conditional``: a ``CondSimpleCNN``) takes
+each sample's parameter ``cond`` [b] in ``propagate``, ``rollout_loss``,
+``predict_latents`` and ``predict``; every other model takes none. Its
+conditioning (the embedding, its MLP, each block's projection and FiLM
+scale) depends on ``cond`` alone, so a rollout computes it once and each
+step reuses it.
 """
 
 from __future__ import annotations
@@ -32,7 +41,8 @@ from lns_tpu_torch.ops.losses import smooth_l1_loss
 
 
 class LatentDynamics(nn.Module):
-    """Autoencoder (``vq_ae``) + propagator; NHWC in and out."""
+    """Autoencoder (``vq_ae``; ``ae`` when conditional) + propagator; NHWC
+    in and out."""
 
     def __init__(self, cfg, dtype: Optional[torch.dtype] = None,
                  ae_dtype: Optional[torch.dtype] = None, device=None):
@@ -44,10 +54,19 @@ class LatentDynamics(nn.Module):
                                "the model on the CPU")
         self.cfg = cfg
         self.dtype = dtype
+        self.conditional = cfg.is_conditional
+        # the reference's conditional trainer names its autoencoder `ae`
+        # (lns_tpu/utils/torch_export.py: export_latent_dynamics)
+        self.ae_name = "ae" if self.conditional else "vq_ae"
         with device:  # the submodules' parameters are allocated there
-            self.vq_ae = SimpleAutoencoder(cfg, dtype=ae_dtype)
+            self.add_module(self.ae_name, SimpleAutoencoder(cfg, dtype=ae_dtype))
             self.propagator = build_propagator(cfg, dtype=dtype)
         self.use_kernel = True
+
+    @property
+    def autoencoder(self) -> SimpleAutoencoder:
+        """The frozen autoencoder (``vq_ae``, or ``ae`` when conditional)."""
+        return getattr(self, self.ae_name)
 
     def use_kernels(self, flag: bool) -> "LatentDynamics":
         """Route every kernel of the model (rollout, FAB core, GroupNorm)
@@ -58,44 +77,70 @@ class LatentDynamics(nn.Module):
         return self
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
-        return self.vq_ae.encode(x)
+        return self.autoencoder.encode(x)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
-        return self.vq_ae.decode(z)
+        return self.autoencoder.decode(z)
 
-    def propagate(self, z: torch.Tensor) -> torch.Tensor:
-        return self.propagator(z)
+    def conditioning(self, cond: Optional[torch.Tensor]):
+        """What a conditional propagator's steps share (``CondSimpleCNN.
+        conditioning``), None for any other; raises unless `cond` is given
+        exactly when the model is conditional."""
+        if self.conditional and cond is None:
+            raise ValueError("a conditional model (cond_channels) takes each sample's "
+                             "parameter: pass cond [b]")
+        if not self.conditional and cond is not None:
+            raise ValueError("cond given to a model that is not conditional (no cond_channels "
+                             "in its config)")
+        return self.propagator.conditioning(cond) if self.conditional else None
 
-    def rollout_loss(self, z_in: torch.Tensor, z_out: torch.Tensor, loss_fn=smooth_l1_loss,
+    def _step(self, z: torch.Tensor, shared) -> torch.Tensor:
+        """One propagator step, given ``conditioning``'s result."""
+        return self.propagator.step(z, shared) if self.conditional else self.propagator(z)
+
+    def propagate(self, z: torch.Tensor, cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self._step(z, self.conditioning(cond))
+
+    def rollout_loss(self, z_in: torch.Tensor, z_out: torch.Tensor,
+                     cond: Optional[torch.Tensor] = None, loss_fn=smooth_l1_loss,
                      remat: Optional[bool] = None) -> torch.Tensor:
         """The stage-2 training loss (reference train_stage2_ns2d.py:126-141):
         the propagator fed its own prediction ``t_out`` times, the loss of
         the stacked predictions against the latent targets, in f32.
 
-        z_in [b, 1, h, w, c], z_out [b, t_out, h, w, c]. The carry is cast to
+        z_in [b, 1, h, w, c], z_out [b, t_out, h, w, c], cond [b] for a
+        conditional model (its conditioning computed once). The carry is cast to
         the propagator's dtype when it has one. With `remat` (else
         ``cfg.remat``) each step is recomputed in the backward pass
         (``torch.utils.checkpoint``), which trades one more forward per
         step for activation memory that does not grow with ``t_out``."""
+        shared = self.conditioning(cond)  # once; autograd sums its gradient over the steps
         z = z_in[:, 0]  # only the time axis: a batch of 1 stays a batch
         if self.dtype is not None:
             z = z.to(self.dtype)
         use_remat = bool(self.cfg.remat) if remat is None else remat
         preds = []
         for _ in range(z_out.shape[1]):
-            z = checkpoint(self.propagate, z, use_reentrant=False) if use_remat \
-                else self.propagate(z)
+            z = checkpoint(self._step, z, shared, use_reentrant=False) if use_remat \
+                else self._step(z, shared)
             preds.append(z)
         return loss_fn(torch.stack(preds, dim=1).float(), z_out.float())
 
     @torch.no_grad()
-    def predict_latents(self, x: torch.Tensor, steps: int) -> torch.Tensor:
+    def predict_latents(self, x: torch.Tensor, steps: int,
+                        cond: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Encode once, roll the propagator `steps` times:
-        x [b, H, W, c] -> [b, steps, h, w, latent_dim]."""
+        x [b, H, W, c] -> [b, steps, h, w, latent_dim]; cond [b] for a
+        conditional model."""
+        shared = self.conditioning(cond)
         z = self.encode(x)
         if self.dtype is not None:
             z = z.to(self.dtype)  # the carry is in the propagator's dtype
-        if self.use_kernel:
+        # a conditional propagator steps as modules: kernel 1 computes the
+        # SimpleCNN and has no FiLM terms, and the JAX package takes its
+        # Pallas rollout for no conditional propagator either
+        # (lns_tpu/models/latent_dynamics.py: _pallas_rollout_ok)
+        if self.use_kernel and not self.conditional:
             # every padding mode, zeros too: the JAX package takes its XLA
             # scan in zeros mode because its Pallas rollout measured slower
             # on a TPU (lns_tpu/models/latent_dynamics.py: _pallas_rollout_ok);
@@ -108,20 +153,21 @@ class LatentDynamics(nn.Module):
             return zs.transpose(0, 1)
         zs = []
         for _ in range(steps):
-            z = self.propagate(z)
+            z = self._step(z, shared)
             zs.append(z)
         return torch.stack(zs, dim=1)
 
     @torch.no_grad()
-    def predict(self, x: torch.Tensor, steps: int, to_x: bool = True,
-                decode_chunk: Optional[int] = None) -> torch.Tensor:
+    def predict(self, x: torch.Tensor, steps: int, cond: Optional[torch.Tensor] = None,
+                to_x: bool = True, decode_chunk: Optional[int] = None) -> torch.Tensor:
         """Encode -> `steps` propagator steps -> decode:
-        x [b, H, W, c] -> [b, steps, H, W, c] (latents when not `to_x`).
+        x [b, H, W, c] -> [b, steps, H, W, c] (latents when not `to_x`);
+        cond [b] for a conditional model.
 
         The b * steps latents are decoded `decode_chunk` frames at a time
         (all at once when None); the last chunk is zero-padded to full size,
         as the JAX package does, so every chunk has one shape."""
-        zs = self.predict_latents(x, steps)
+        zs = self.predict_latents(x, steps, cond)
         if not to_x:
             return zs
         b, t = zs.shape[:2]

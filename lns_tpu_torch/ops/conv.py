@@ -123,6 +123,13 @@ class ConvND(nn.Module):
         return out
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.product(x)
+        if self.bias is not None:
+            out = out + self.bias.to(out.dtype)[:, None, None]
+        return out
+
+    def product(self, x: torch.Tensor) -> torch.Tensor:
+        """The convolution without its bias, in the activation dtype."""
         dt = self.dtype or x.dtype
         if self.upsample_2x:
             out = self._up2x(x, dt)
@@ -139,8 +146,6 @@ class ConvND(nn.Module):
                     x = pad_nd(x, self.pads, mode=self.padding_mode)
             out = F.conv2d(x.to(dt), self.weight.to(dt), None, self.stride,
                            conv_pad, self.dilation)
-        if self.bias is not None:
-            out = out + self.bias.to(dt)[:, None, None]
         return out
 
 

@@ -1,10 +1,37 @@
 """Rotary positional embeddings over continuous coordinates (reference:
-modules/embedding.py:163-208), as used by the factorized attention."""
+modules/embedding.py:163-208), as used by the factorized attention, and the
+sinusoidal embedding of a scalar parameter that conditions the conditional
+propagator (reference: modules/cond_utils.py:19-38)."""
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
+
+
+def fourier_freqs(dim: int, max_period: int = 10000, device=None) -> torch.Tensor:
+    """``exp(-log(max_period) arange(dim // 2) / (dim // 2))`` [dim // 2] f32,
+    as the jitted JAX ``fourier_embedding`` has it: XLA folds the constant,
+    the exponent's argument rounded in f32 and the exponential rounded once
+    from a wider value (an f32 ``exp`` misses it in the last bit at some
+    entries)."""
+    half = dim // 2
+    arg = torch.arange(half, dtype=torch.float32, device=device) * -math.log(max_period) / half
+    return torch.exp(arg.double()).float()
+
+
+def fourier_embedding(t: torch.Tensor, dim: int, max_period: int = 10000) -> torch.Tensor:
+    """[N] scalars -> [N, dim] f32: ``cos(t f) | sin(t f)``, f the
+    ``fourier_freqs``, zero-padded by one column when `dim` is odd
+    (``lns_tpu.ops.embedding.fourier_embedding``). The product with t, cos
+    and sin are f32, within an f32 ulp of XLA's."""
+    args = t.float()[:, None] * fourier_freqs(dim, max_period, t.device)[None]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
+    return emb
 
 
 def rotary_inv_freq(dim: int) -> torch.Tensor:

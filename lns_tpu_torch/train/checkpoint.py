@@ -6,8 +6,9 @@ carry the reference's key names, so the loaders read what the reference
 trainers and ``lns_tpu.utils.torch_export`` write: a stage-1 autoencoder
 (bare ``encoder.model...`` / ``quant_conv`` keys, ``export_autoencoder`` +
 ``save_torch_checkpoint``, or the port's stage-1 trainer) and a stage-2
-model (``vq_ae.`` / ``propagator.`` keys, ``export_latent_dynamics``),
-each loaded ``strict=True``. The JAX
+model (``vq_ae.`` / ``propagator.`` keys, ``export_latent_dynamics``; the
+conditional family's autoencoder under ``ae.``, as its reference trainer
+names it), each loaded ``strict=True``. The JAX
 package's flax msgpack and orbax formats are not read: a JAX-trained model
 reaches the port through ``torch_export``.
 
@@ -91,7 +92,7 @@ def load_autoencoder_checkpoint(path: str, ae: nn.Module) -> nn.Module:
 
 
 def load_latent_dynamics_checkpoint(path: str, model: nn.Module) -> nn.Module:
-    """Load a stage-2 ``model_*.pt`` (``vq_ae.`` and ``propagator.`` keys)
-    into `model`, strictly."""
+    """Load a stage-2 ``model_*.pt`` (``vq_ae.`` or, conditional, ``ae.``
+    keys, and ``propagator.`` keys) into `model`, strictly."""
     model.load_state_dict(load_torch_state_dict(path), strict=True)
     return model

@@ -8,10 +8,10 @@ validation and checkpoints every ``ckpt_every`` epochs, validation as the
 per-frame reconstruction rel-L2 on denormalised held-out trajectories. On
 the card every train step differentiates through the hand-written kernels
 2 and 3 (kernel 4 where the encoder has a d-space FAB) by their autograd
-Functions, and validation runs them under ``torch.no_grad``. The NS2d, SW
-and two-phase families (the conditional two-phase family raises, naming its
-slice); the two-phase loss is taken on denormalised fields
-(train_stage1_twophase.py:71-73). The trainer runs on one device (data
+Functions, and validation runs them under ``torch.no_grad``. The NS2d, SW,
+two-phase and conditional two-phase families (the last trains the plain
+two-phase autoencoder: its conditioning is the propagator's); the two-phase
+loss is taken on denormalised fields (train_stage1_twophase.py:71-73). The trainer runs on one device (data
 parallelism and the async checkpointer are not ported).
 """
 
@@ -33,13 +33,15 @@ from lns_tpu_torch.train.logging_utils import (MetricLogger, log_sequence, plot_
                                                prepare_training)
 from lns_tpu_torch.train.optim import stage1_optimizer
 
-STAGE1_DATASETS = {"ns2d": NS2DStage1, "sw": SWStage1, "twophase": TankSloshingStage1}
+STAGE1_DATASETS = {"ns2d": NS2DStage1, "sw": SWStage1, "twophase": TankSloshingStage1,
+                   "twophase_conditional": TankSloshingStage1}
 
 # per-workload field channel names, in the dataset's channel order
 # (reference: train_stage1_SW.py:119-131 logs vx / vy / prs losses;
 # train_stage1_twophase.py prints vx / vy / pressure / vof)
 CHANNEL_NAMES = {"ns2d": ("vorticity",), "sw": ("vx", "vy", "prs"),
-                 "twophase": ("vx", "vy", "prs", "vof")}
+                 "twophase": ("vx", "vy", "prs", "vof"),
+                 "twophase_conditional": ("vx", "vy", "prs", "vof")}
 
 
 def reconstruction_loss(model, x: torch.Tensor, denormalize=None) -> torch.Tensor:
@@ -67,9 +69,6 @@ class Stage1Trainer:
 
     def __init__(self, cfg, seed: int = 1234, use_wandb: bool = True,
                  config_path: Optional[str] = None, device=None):
-        if cfg.workload not in STAGE1_DATASETS:
-            raise NotImplementedError(f"stage-1 training of {cfg.workload!r} is not ported yet; "
-                                      "it comes with the conditional two-phase family")
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Stage1Trainer: no CUDA device; pass device=\"cpu\" to train on "
@@ -84,8 +83,9 @@ class Stage1Trainer:
         ds_cls = STAGE1_DATASETS[cfg.workload]
         self.train_ds = ds_cls(cfg, train_mode=True)
         self.val_ds = ds_cls(cfg, train_mode=False)
-        # the two-phase family takes its loss on denormalised fields
-        self._loss_denorm = self.train_ds.denormalize if cfg.workload == "twophase" else None
+        # the two-phase families take their loss on denormalised fields
+        self._loss_denorm = (self.train_ds.denormalize if cfg.workload.startswith("twophase")
+                             else None)
         with self.device:  # the parameters are allocated there
             self.model = SimpleAutoencoder(
                 cfg, dtype=torch.bfloat16 if cfg.mixed_precision else None)

@@ -8,10 +8,11 @@ rollout loss over ``out_tw`` steps; validation by the full-rollout
 ``LatentDynamics.predict`` with frame-wise and sequence-wise relative L2 on
 denormalised fields. On the card the encode pre-pass and validation run the
 hand-written kernels 1-3 under ``torch.no_grad``, and every train step's
-GroupNorms launch kernel 3 through its autograd Function. The NS2d, SW
-and two-phase families (the conditional two-phase family raises, naming
-its slice); the trainer runs on one device (data parallelism is not
-ported).
+GroupNorms launch kernel 3 through its autograd Function. The NS2d, SW,
+two-phase and conditional two-phase families: the conditional family's
+batches and validation trajectories carry each case's normalised
+parameter, which conditions every rollout step; the trainer runs on one
+device (data parallelism is not ported).
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from lns_tpu_torch.data import NS2DStage2, SWStage2, TankSloshingStage2, epoch_batches, to_device
+from lns_tpu_torch.data import (ConditionalTankSloshingStage2, NS2DStage2, SWStage2,
+                                TankSloshingStage2, epoch_batches, to_device)
 from lns_tpu_torch.models import LatentDynamics
 from lns_tpu_torch.ops.initializers import init_weights_
 from lns_tpu_torch.ops.losses import relative_lp_loss
@@ -33,7 +35,8 @@ from lns_tpu_torch.train.logging_utils import (MetricLogger, log_sequence, plot_
 from lns_tpu_torch.train.optim import stage2_optimizer
 from lns_tpu_torch.train.stage1 import CHANNEL_NAMES
 
-STAGE2_DATASETS = {"ns2d": NS2DStage2, "sw": SWStage2, "twophase": TankSloshingStage2}
+STAGE2_DATASETS = {"ns2d": NS2DStage2, "sw": SWStage2, "twophase": TankSloshingStage2,
+                   "twophase_conditional": ConditionalTankSloshingStage2}
 
 
 class Stage2Trainer:
@@ -46,15 +49,12 @@ class Stage2Trainer:
 
     ``cfg.mixed_precision``: bf16 activations through the frozen AE and the
     rollout; parameters, optimizer and loss in f32. ``cfg.device_data``:
-    the latent windows live on the device and batches are gathered there by
-    index; otherwise each batch is copied from pinned host memory without
-    waiting."""
+    the latent windows (and the conditional family's parameters) live on
+    the device and batches are gathered there by index; otherwise each
+    batch is copied from pinned host memory without waiting."""
 
     def __init__(self, cfg, seed: int = 1234, use_wandb: bool = True,
                  config_path: Optional[str] = None, device=None):
-        if cfg.workload not in STAGE2_DATASETS:
-            raise NotImplementedError(f"stage-2 training of {cfg.workload!r} is not ported yet; "
-                                      "it comes with the conditional two-phase family")
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Stage2Trainer: no CUDA device; pass device=\"cpu\" to train on "
@@ -75,9 +75,9 @@ class Stage2Trainer:
         if cfg.pretrained_checkpoint_path:
             print(f"Loading pretrained autoencoder from {cfg.pretrained_checkpoint_path}")
             checkpoint.load_autoencoder_checkpoint(cfg.pretrained_checkpoint_path,
-                                                   self.model.vq_ae)
+                                                   self.model.autoencoder)
             print("Pretrained autoencoder loaded successfully")
-        self.model.vq_ae.requires_grad_(False).eval()  # frozen
+        self.model.autoencoder.requires_grad_(False).eval()  # frozen
         print(f"Number of parameters: {sum(p.numel() for p in self.model.propagator.parameters())}")
 
         self.device_data = bool(cfg.device_data)
@@ -100,15 +100,16 @@ class Stage2Trainer:
         seed = np.random.SeedSequence([self.seed, epoch, step]).generate_state(1, np.uint64)[0]
         return torch.Generator(device=self.device).manual_seed(int(seed) >> 1)
 
-    def train_step(self, z_in: torch.Tensor, z_out: torch.Tensor, epoch: int,
-                   step: int) -> torch.Tensor:
-        """One optimizer step on a batch of windows; returns the loss (a 0-d
-        tensor on the device, not fetched)."""
+    def train_step(self, z_in: torch.Tensor, z_out: torch.Tensor, epoch: int, step: int,
+                   cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One optimizer step on a batch of windows (and, for the conditional
+        family, their parameters `cond` [b]); returns the loss (a 0-d tensor
+        on the device, not fetched)."""
         if self.noise_level > 0:
             g = self._noise_generator(epoch, step)
             z_in = z_in + self.noise_level * torch.randn(z_in.shape, generator=g,
                                                          device=z_in.device, dtype=z_in.dtype)
-        loss = self.model.rollout_loss(z_in, z_out)
+        loss = self.model.rollout_loss(z_in, z_out, cond)
         self.opt.zero_grad(set_to_none=True)
         loss.backward()
         self.opt.step()
@@ -119,8 +120,7 @@ class Stage2Trainer:
         cfg = self.cfg
         n = len(self.train_ds)
         if self.device_data:  # every window on the device; batches gathered there
-            z_in_all, z_out_all = (to_device(a, self.device)
-                                   for a in self.train_ds.get_batch(np.arange(n)))
+            windows = [to_device(a, self.device) for a in self.train_ds.get_batch(np.arange(n))]
         for epoch in range(self.start_epoch, cfg.epochs):
             # the data order is a function of (seed, epoch): a run resumed at
             # epoch k sees the batches a fresh run would
@@ -131,11 +131,12 @@ class Stage2Trainer:
             for step, idx in enumerate(epoch_batches(n, cfg.batch_size, rng, drop_last=True)):
                 if self.device_data:
                     i = to_device(idx, self.device)
-                    z_in, z_out = z_in_all.index_select(0, i), z_out_all.index_select(0, i)
+                    batch = [a.index_select(0, i) for a in windows]
                 else:
-                    z_in, z_out = (to_device(a, self.device)
-                                   for a in self.train_ds.get_batch(idx))
-                self.logger.log({"loss": self.train_step(z_in, z_out, epoch, step)})
+                    batch = [to_device(a, self.device) for a in self.train_ds.get_batch(idx)]
+                # (z_in, z_out), and the conditional family's parameters
+                z_in, z_out, *cond = batch
+                self.logger.log({"loss": self.train_step(z_in, z_out, epoch, step, *cond)})
         self._maybe_save_best(self.validate(cfg.epochs), cfg.epochs)
         self.save("final")
         self.logger.finish()
@@ -157,16 +158,18 @@ class Stage2Trainer:
     def validate(self, epoch, batch_size: int = 8) -> float:
         """Full autoregressive rollout of the validation cases: frame-wise
         and sequence-wise relative L2 on denormalised fields
-        (train_stage2_ns2d.py:238-293); returns the mean sequence-wise
-        error, also logged as ``val_seq_rel_l2``."""
+        (train_stage2_ns2d.py:238-293), the conditional family's each with
+        its case's parameter; returns the mean sequence-wise error, also
+        logged as ``val_seq_rel_l2``."""
         cfg = self.cfg
-        x0, y = self.val_ds.eval_trajectories()
+        x0, y, *cond = self.val_ds.eval_trajectories()
         n, steps = y.shape[0], y.shape[1]
         frame_errs, seq_errs = [], []
         sample_pred = sample_gt = None
         for i in range(0, n, batch_size):
             xb = torch.from_numpy(x0[i: i + batch_size, 0]).to(self.device)
-            yhat = self.model.predict(xb, steps, decode_chunk=cfg.decode_chunk)
+            cb = torch.from_numpy(cond[0][i: i + batch_size]).to(self.device) if cond else None
+            yhat = self.model.predict(xb, steps, cb, decode_chunk=cfg.decode_chunk)
             # denormalised in the prediction's dtype, as the JAX package does
             yhat_d = self.val_ds.denormalize(yhat).float()
             y_d = self.val_ds.denormalize(torch.from_numpy(y[i: i + batch_size]).to(self.device))
@@ -206,7 +209,8 @@ class Stage2Trainer:
         return val
 
     def save(self, epoch) -> None:
-        """``model_{epoch}.pt`` (the ``vq_ae.`` / ``propagator.`` state dict),
+        """``model_{epoch}.pt`` (the ``vq_ae.`` (conditional: ``ae.``) /
+        ``propagator.`` state dict),
         ``optim_{epoch}.pt`` (optimizer and schedule) and
         ``meta_{epoch}.json`` (the epoch to resume at, seed, best so far)."""
         ckpt = os.path.join(self.cfg.log_dir, "checkpoints")

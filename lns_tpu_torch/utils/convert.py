@@ -6,9 +6,10 @@ arrays) into the state dict of ``lns_tpu_torch.models.LatentDynamics``,
 which carries the reference's key names and OIHW / [out, in] layouts. It
 follows ``lns_tpu.utils.torch_export.export_latent_dynamics`` for the
 families this package runs (the periodic square NS2d autoencoder, the
-half-periodic SW autoencoder, the non-squared two-phase autoencoder and the
-plain SimpleCNN propagator), driven by
-the port's own layer specs, and imports no JAX.
+half-periodic SW autoencoder, the non-squared two-phase autoencoder, the
+plain SimpleCNN propagator and the conditional two-phase family's
+CondSimpleCNN, whose autoencoder lives under ``ae.``), driven by the port's
+own layer specs, and imports no JAX.
 """
 
 from __future__ import annotations
@@ -106,9 +107,29 @@ def _sequential(out, specs, params, prefix):
             raise NotImplementedError(f"layer kind {spec.kind!r} is not ported yet")
 
 
-def _propagator(out, cfg, params, prefix):
-    prefix = prefix + "." if prefix else ""
-    _conv(out, f"{prefix}in_proj", params["in_proj"])
+def _cond_blocks(out, cfg, params, prefix):
+    """The CondSimpleCNN's embedding MLP and blocks
+    (``torch_export.export_propagator``'s conditional keys)."""
+    _linear(out, f"{prefix}cond_emb_proj.0", params["cond_proj_fc1"])
+    _linear(out, f"{prefix}cond_emb_proj.2", params["cond_proj_fc2"])
+    for i in range(cfg.prop_n_block):
+        b, pf = params[f"net{i}"], f"{prefix}net.{i}"
+        _linear(out, f"{pf}.cond_emb", b["cond_emb"])
+        _norm(out, f"{pf}.conv1.0", b["conv1_gn"])
+        _conv(out, f"{pf}.conv1.1", b["conv1_a"])
+        _conv(out, f"{pf}.conv1.3", b["conv1_b"])
+        _norm(out, f"{pf}.cond_conv1.0", b["cond_conv1_gn"])
+        _conv(out, f"{pf}.cond_conv1.2", b["cond_conv1"])
+        _norm(out, f"{pf}.cond_conv2.0", b["cond_conv2_gn"])
+        _conv(out, f"{pf}.cond_conv2.1", b["cond_conv2_fc1"])
+        _conv(out, f"{pf}.cond_conv2.3", b["cond_conv2_fc2"])
+        _norm(out, f"{pf}.ffn.0", b["ffn_gn"])
+        _conv(out, f"{pf}.ffn.1", b["ffn_fc1"], bias=False)
+        _conv(out, f"{pf}.ffn.3", b["ffn_fc2"], bias=False)
+
+
+def _blocks(out, cfg, params, prefix):
+    """The SimpleCNN's blocks."""
     for i in range(cfg.prop_n_block):
         b, pf = params[f"net{i}"], f"{prefix}net.{i}"
         _norm(out, f"{pf}.conv.0", b["conv_gn"])
@@ -118,23 +139,29 @@ def _propagator(out, cfg, params, prefix):
         _norm(out, f"{pf}.ffn.0", b["ffn_gn"])
         _conv(out, f"{pf}.ffn.1", b["ffn_fc1"], bias=False)
         _conv(out, f"{pf}.ffn.3", b["ffn_fc2"], bias=False)
+
+
+def _propagator(out, cfg, params, prefix):
+    prefix = prefix + "." if prefix else ""
+    _conv(out, f"{prefix}in_proj", params["in_proj"])
+    (_cond_blocks if cfg.is_conditional else _blocks)(out, cfg, params, prefix)
     _norm(out, f"{prefix}out_proj.0.gn", params["out_gn"])
     _conv(out, f"{prefix}out_proj.1", params["out_proj"])
 
 
 def state_dict_from_jax(cfg, params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """``{'vq_ae', 'propagator'}`` (optionally under ``'params'``) -> the
-    state dict of ``LatentDynamics(cfg)``, f32 tensors on the CPU."""
-    if cfg.is_conditional:
-        raise NotImplementedError("the conditional two-phase model is not ported yet; it "
-                                  "comes with its own slice")
+    state dict of ``LatentDynamics(cfg)``, f32 tensors on the CPU; the
+    autoencoder's keys under ``ae.`` for a conditional config, as
+    ``export_latent_dynamics`` writes them, else ``vq_ae.``."""
     params = params.get("params", params)
     ae = params["vq_ae"]
+    pre = "ae" if cfg.is_conditional else "vq_ae"
     out: Dict[str, np.ndarray] = {}
-    _sequential(out, encoder_spec(cfg), ae["encoder"], "vq_ae.encoder.model")
-    _sequential(out, decoder_spec(cfg), ae["decoder"], "vq_ae.decoder.model")
-    _conv(out, "vq_ae.quant_conv", ae["quant_conv"])
-    _conv(out, "vq_ae.post_quant_conv", ae["post_quant_conv"])
+    _sequential(out, encoder_spec(cfg), ae["encoder"], f"{pre}.encoder.model")
+    _sequential(out, decoder_spec(cfg), ae["decoder"], f"{pre}.decoder.model")
+    _conv(out, f"{pre}.quant_conv", ae["quant_conv"])
+    _conv(out, f"{pre}.post_quant_conv", ae["post_quant_conv"])
     _propagator(out, cfg, params["propagator"], "propagator")
     return _tensors(out)
 
@@ -148,7 +175,8 @@ def sequential_state_dict(specs, params: Dict[str, Any], prefix: str = "") -> Di
 
 
 def propagator_state_dict(cfg, params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX ``SimpleCNN`` params -> the port's ``SimpleCNN`` state dict."""
+    """JAX ``SimpleCNN`` (``CondSimpleCNN`` for a conditional config) params
+    -> the port's propagator state dict."""
     out: Dict[str, np.ndarray] = {}
     _propagator(out, cfg, params, "")
     return _tensors(out)

@@ -460,14 +460,8 @@ def test_device_data_matches_host_batches(tmp_path, monkeypatch):
 
 def test_trainer_needs_cuda_unless_cpu(tmp_path):
     """Without a CUDA card the trainer refuses to build on its default
-    device and leaves no log directory behind; a workload the port does
-    not train yet (the conditional two-phase family: ``resolutions``
-    without ``periodic_direction``, and ``cond_channels``) raises, naming
-    it."""
+    device and leaves no log directory behind."""
     d = _data_cfg(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="'twophase_conditional' is not ported yet"):
-        stage1.Stage1Trainer(Config(d, resolutions=[32, 32], cond_channels=1), use_wandb=False,
-                             device="cpu")
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA card")
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -335,17 +335,6 @@ def test_twophase_full_size_keys_shapes_and_predict():
     assert model.propagator.padding_mode == "zeros"
 
 
-def test_conditional_config_raises():
-    """The conditional two-phase family (``cond_channels``) is not ported:
-    the model and both trainers raise, naming its slice."""
-    cfg = Config(graft._tiny_cond_cfg().to_dict())
-    with pytest.raises(NotImplementedError, match="conditional"):
-        LatentDynamics(cfg, device="cpu")
-    for trainer in (stage1.Stage1Trainer, stage2.Stage2Trainer):
-        with pytest.raises(NotImplementedError, match="conditional two-phase"):
-            trainer(cfg, use_wandb=False, device="cpu")
-
-
 # -- the propagator, the rollout and predict -----------------------------------------
 
 def test_zeros_propagator_step_and_rollout_match_jax():
