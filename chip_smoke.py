@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's NS2d, SW, two-phase and conditional two-phase
-inference rollouts and the stage-2 and stage-1 training of each family once
-on one CUDA card.
+inference rollouts, the stage-2 and stage-1 training of each family, its
+evaluate and convert entry points and its data-parallel training once on
+one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # everything below, on one card
+    python3 chip_smoke.py --ranks    # phase 8's 2- and 4-rank runs alone
 
 Run from the root of a checkout, on a machine with an NVIDIA Hopper card,
 CUDA PyTorch and nvcc. It imports nothing of JAX. In order it:
@@ -78,8 +80,13 @@ CUDA PyTorch and nvcc. It imports nothing of JAX. In order it:
      losses, a frozen AE, checkpoints and a resume; then validation on the
      trained weights against the plain path (every kernel call of its
      predict on its own input, ``validate`` on the plain path, and the f32
-     latents at its shape); prints train ms per step, steps/s, encode
-     frames/s, validate ms and a profile of five train steps;
+     latents at its shape); ``evaluate_checkpoint`` on the run's
+     ``model_best.pt`` equal to its ``meta_best.json`` value, its launches
+     one validation's, its frames/s, and in f32 the kernel path within 3e-4
+     of the plain path; ``model_best.pt`` and the AE's ``.pt`` through
+     ``.msgpack`` and back with ``lns_tpu_torch.cli.convert``, bitwise,
+     with no flax or msgpack module; prints train ms per step, steps/s,
+     encode frames/s, validate ms and a profile of five train steps;
   6. trains stage 1 at full NS2d width (``Stage1Trainer``, bf16, batch 32,
      the frames on the card) on the same synthetic corpus: one train step's
      launches (kernel 3 at every AE GroupNorm site and kernel 2 at each FAB
@@ -109,8 +116,20 @@ CUDA PyTorch and nvcc. It imports nothing of JAX. In order it:
      change under a one-ulp move of its input, bf16 at accuracy parity);
      launch counts, finite and falling losses, the per-channel validation
      losses, the final checkpoint resumed bitwise, train ms per step and a
-     profile of three steps each;
-  8. prints one JSON line of per-kernel results (launches per path, and ms
+     profile of three steps each; ``evaluate_checkpoint`` on each family's
+     ``model_best.pt`` equal to its ``meta_best.json`` value;
+  8. trains NS2d at full width with data parallelism (``lns_tpu_torch.
+     parallel``; 16 cases x 10 frames, batch 32, bf16, one epoch per run):
+     two plain stage-2 runs on cuDNN's default algorithms, printed as
+     bitwise alike or not; then, cuDNN held to its deterministic
+     algorithms, the host path (side-stream prefetch) against
+     ``device_data``, bitwise, and a process group of world size 1 over
+     NCCL in which each trainer (stage 2 and stage 1) wraps its loss
+     module in ``DistributedDataParallel`` and gives the plain trainer's
+     losses, parameters and launches bitwise; prints both step times and
+     the NCCL kernels' device time in one profiled step; two ranks where
+     there are two cards, else one line saying so;
+  9. prints one JSON line of per-kernel results (launches per path, and ms
      / plain_ms / bound_ms per predict, summed over one predict of each
      inference path), then the closing JSON line.
 
@@ -1285,6 +1304,9 @@ def main() -> int:
         print(msgs.strip())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if "--ranks" in sys.argv:  # the multi-rank runs alone
+        drive_ranks(dev, smi)
+        return 1 if _FAILS else 0
     check_tensor_cores()
 
     kernels = run(dev, smi)
@@ -1449,12 +1471,28 @@ def check_cond_steps(label, model, x, cond, steps):
                f"{gap:.3e} (> 1e-2 x max|y|): the conditioning is live")
 
 
+def _device_rows(prof):
+    """A profile's device-side entries as (ms, calls, name): an operator's
+    entry, or a user annotation's (the optimizer's step), repeats its
+    kernels' time, so only the kernels and copies are kept."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if (ev.device_type == DeviceType.CUDA and us > 0
+                and not getattr(ev, "is_user_annotation", False)):
+            rows.append((us / 1e3, ev.count, ev.key))
+    return rows
+
+
 def profile_device(fn, label, top=8):
     """fn() (one predict, or a few train steps, after the timed ones) under
     torch.profiler: its wall time by CUDA events, the device's busy time
     (every kernel and copy) and idle share, and the kernels that take the
     most device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1465,16 +1503,7 @@ def profile_device(fn, label, top=8):
         end.record()
         torch.cuda.synchronize()
     wall = start.elapsed_time(end)
-    # device-side entries only: an operator's entry, or a user annotation's
-    # (the optimizer's step), repeats its kernels' time
-    rows = []
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0)
-        if (ev.device_type == DeviceType.CUDA and us > 0
-                and not getattr(ev, "is_user_annotation", False)):
-            rows.append((us / 1e3, ev.count, ev.key))
+    rows = _device_rows(prof)
     busy, ops = sum(r[0] for r in rows), sum(r[1] for r in rows)
     print(f"      profile {label}: wall {wall:.2f} ms, device busy {busy:.2f} ms, idle "
           f"{max(0.0, 1 - busy / wall):.1%}, {ops} device ops", flush=True)
@@ -1968,6 +1997,9 @@ def drive_stage2(dev, smi):
                "equal the saved ones bitwise")
         del resumed
         check_stage2_validation(trainer, val[-1], tmp, dev)
+        evaluated = check_evaluate("stage-2 NS2d", cfg, ckpt, dev, smi, f32=True)
+        check_msgpack_round_trip("stage-2 NS2d", cfg, tmp,
+                                 ("dynamics", os.path.join(ckpt, "model_best.pt")), ("ae", ae_path))
         z_in, z_out = _s2_batch(trainer, dev)
         profile_device(lambda: [trainer.train_step(z_in, z_out, 0, i) for i in range(5)],
                        "stage-2 5 train steps (bf16, batch 32)")
@@ -1985,7 +2017,7 @@ def drive_stage2(dev, smi):
     print(f"      stage-2 validate ({n_val} cases, {steps} steps, decode chunk {CHUNK}): wall "
           f"{', '.join(f'{v:.1f}' for v in val_ms)} ms; {smi}", flush=True)
     print(f"      stage-2 phase wall {time.perf_counter() - t_phase:.1f} s; {smi}", flush=True)
-    return {k: prepass[k] + launches[k] for k in launches}
+    return {k: prepass[k] + launches[k] for k in launches}, evaluated
 
 
 # -- phase 6: stage-1 training ------------------------------------------------
@@ -2851,6 +2883,7 @@ def drive_family_stage2(fam, dev, smi, tmp, ae_path):
            f"schedule step {resumed.sched.last_epoch} (== {n_steps}), and its parameters "
            "equal the saved ones bitwise")
     del resumed
+    evaluated = check_evaluate(f"{fam} stage-2", cfg, ckpt, dev, smi)
     profile_device(lambda: [trainer.train_step(z_in, z_out, 0, i, *cond) for i in range(3)],
                    f"{fam} stage-2 3 train steps (bf16, batch {batch})")
     del trainer
@@ -2858,11 +2891,401 @@ def drive_family_stage2(fam, dev, smi, tmp, ae_path):
     print(f"      {fam} stage-2 validate ({n_val} cases, {steps} steps, decoded at once): wall "
           f"{', '.join(f'{v:.1f}' for v in val_ms)} ms; phase wall "
           f"{time.perf_counter() - t_phase:.1f} s; {smi}", flush=True)
-    return {k: prepass[k] + launches[k] for k in launches}
+    return {k: prepass[k] + launches[k] for k in launches}, evaluated
+
+
+# -- phase 8: the entry points around training, data parallelism ---------------
+
+def check_evaluate(where, cfg, ckpt_dir, dev, smi, f32=False):
+    """``evaluate_checkpoint`` (``lns_tpu_torch.cli.evaluate``) on the run's
+    ``model_best.pt``, kernels 1-3 in the trainer's dtype: every metric key,
+    ``seq_rel_l2`` equal to ``meta_best.json``'s ``val_seq_rel_l2`` (one
+    scoring function on the same weights), launches as one validation's;
+    frames/s of a second, timed evaluate of the loaded model. With `f32`,
+    the same weights in f32 scored on the kernel path and on the plain path,
+    every number within 3e-4 (relative). Returns the launches of the
+    evaluate call."""
+    from lns_tpu_torch.cli.evaluate import evaluate_checkpoint, evaluate_model, load_model
+    from lns_tpu_torch.train.stage2 import STAGE2_DATASETS
+
+    path = os.path.join(ckpt_dir, "model_best.pt")
+    with open(os.path.join(ckpt_dir, "meta_best.json")) as f:
+        best = json.load(f)
+    counted = _counted()
+    for fn in counted.values():
+        fn.launches = 0
+    metrics = evaluate_checkpoint(cfg, path, device=dev)
+    launches = {k: fn.launches for k, fn in counted.items()}
+    n, steps = metrics["num_trajectories"], metrics["rollout_steps"]
+    want = {k: 0 for k in launches}
+    for i in range(0, n, 8):  # evaluate's predict batches
+        chunks = -(-min(8, n - i) * steps // cfg.decode_chunk) if cfg.decode_chunk else 1
+        for k, v in expected_launches(cfg, n_chunks=chunks, steps=steps).items():
+            want[k] += v
+    keys = {"rollout_steps", "num_trajectories", "seq_rel_l2_per_channel", "seq_rel_l2",
+            "frame_rel_l2_vs_time", "training_best_checkpoint"}
+    _check(metrics.keys() == keys and metrics["seq_rel_l2"] == best["val_seq_rel_l2"]
+           and metrics["training_best_checkpoint"] == best and launches == want,
+           f"{where} evaluate_checkpoint(model_best.pt): seq_rel_l2 {metrics['seq_rel_l2']!r} == "
+           f"meta_best.json's val_seq_rel_l2 {best['val_seq_rel_l2']!r} (epoch {best['epoch']}), "
+           f"{n} trajectories x {steps} steps, the JAX CLI's keys, launches "
+           f"{({k: v for k, v in launches.items() if v})} == one validation's")
+    model = load_model(cfg, path, dev)
+    val_ds = STAGE2_DATASETS[cfg.workload](cfg, train_mode=False)
+    evaluate_model(model, val_ds, dev, 8, cfg.decode_chunk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    evaluate_model(model, val_ds, dev, 8, cfg.decode_chunk)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    print(f"      {where} evaluate: {n * steps} frames in {secs * 1e3:.1f} ms, "
+          f"{n * steps / secs:.1f} frames/s (host clock over evaluate_model after one untimed "
+          f"call: predict in batches of 8, denormalise, score; bf16, kernels 1-3); {smi}",
+          flush=True)
+    del model
+    if f32:
+        m32 = load_model(cfg.replace(mixed_precision=False), path, dev)
+        kern = evaluate_model(m32, val_ds, dev, 8, cfg.decode_chunk)
+        plain = evaluate_model(m32.use_kernels(False), val_ds, dev, 8, cfg.decode_chunk)
+        worst = max(abs(a - b) / abs(b) for k in ("seq_rel_l2_per_channel", "seq_rel_l2",
+                                                  "frame_rel_l2_vs_time")
+                    for a, b in zip(*(([m[k]] if isinstance(m[k], float) else m[k])
+                                      for m in (kern, plain))))
+        _check(worst <= 3e-4, f"{where} evaluate in f32, kernel path against the plain path: "
+               f"largest relative difference over every metric {worst:.3e} <= 3e-4 "
+               f"(seq_rel_l2 {kern['seq_rel_l2']:.6f} / {plain['seq_rel_l2']:.6f})")
+        del m32
+    return launches
+
+
+def check_msgpack_round_trip(where, cfg, tmp, *kind_paths):
+    """``.pt -> .msgpack -> .pt`` through ``lns_tpu_torch.cli.convert`` on
+    this machine: every parameter back bitwise, the rotary frequencies (a
+    constant the JAX tree does not hold) as ``torch_export`` computes them;
+    no flax, msgpack or JAX module imported on the way."""
+    import importlib.util
+
+    import numpy as np
+
+    from lns_tpu_torch.cli.convert import convert
+    from lns_tpu_torch.utils.convert import key_table
+
+    for kind, src in kind_paths:
+        mid, back = (os.path.join(tmp, f"round_trip_{kind}.{e}") for e in ("msgpack", "pt"))
+        convert(cfg, src, mid, kind)
+        convert(cfg, mid, back, kind)
+        a, b = (torch.load(p, weights_only=True) for p in (src, back))
+        rotary = {e.key: e.dim for e in key_table(cfg, kind) if e.path is None}
+        params = [k for k in a if k not in rotary]
+        _check(a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in params)
+               and all(np.array_equal(b[k].numpy(), 1.0 / (10000 ** (
+                   np.arange(0, d, 2, dtype=np.float32) / d))) for k, d in rotary.items()),
+               f"{where}: {os.path.basename(src)} -> .msgpack ({os.path.getsize(mid)} bytes) -> "
+               f".pt ({kind}): {len(params)} parameter tensors bitwise, {len(rotary)} rotary "
+               "buffers recomputed")
+    found = {m: importlib.util.find_spec(m) is not None for m in ("flax", "msgpack", "jax")}
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("flax", "msgpack", "jax"))
+    _check(not loaded, f"{where}: the conversion imported none of flax, msgpack, jax "
+           f"(installed here: {found})")
+
+
+# the data-parallel phase's corpus: 16 synthetic 64x64 cases of 10 frames
+# (the NS2d split: 14 training cases, 2 validation cases). Stage 2: 112
+# windows, 3 steps of the global batch 32 and a 9-step validation rollout;
+# stage 1: 140 frames, 5 steps of batch 32 (the last of 12)
+DDP_CASES, DDP_CASE_LEN, DDP_BATCH = 16, 10, 32
+
+# one rank of a multi-rank run (``check_ranks``): argv[1] is a JSON spec
+# (cfg, out, device, init). It trains stage 2, saves its parameters and, on
+# the card, times 10 steps and profiles one on its rows of one global batch
+# (rank 0 writes out/timing.json)
+_RANK_WORKER = r"""
+import json, os, sys
+import numpy as np
+import torch
+import chip_smoke
+from lns_tpu_torch.config import Config
+from lns_tpu_torch.parallel import ddp
+from lns_tpu_torch.train import checkpoint
+from lns_tpu_torch.train.stage2 import Stage2Trainer
+
+spec = json.loads(sys.argv[1])
+dev = ddp.init_from_env(spec["device"], init_method=spec["init"])
+cfg = Config(spec["cfg"])
+trainer = Stage2Trainer(cfg, seed=1234, use_wandb=False, device=dev)
+trainer.train()
+torch.save(checkpoint.state_dict_cpu(trainer.model),
+           os.path.join(spec["out"], f"rank{ddp.rank()}.pt"))
+if dev.type == "cuda":
+    rows = ddp.shard_rows(np.arange(cfg.batch_size), ddp.rank(), ddp.world_size())
+    batch = tuple(torch.from_numpy(a).to(dev) for a in trainer.train_ds.get_batch(rows)) + (0, 0)
+    ms = chip_smoke._step_ms(trainer, batch)
+    busy, ops, nccl = chip_smoke._profile_step(trainer, batch)
+    if ddp.is_main():
+        with open(os.path.join(spec["out"], "timing.json"), "w") as f:
+            json.dump(dict(ms=ms, busy=busy, ops=ops, nccl=nccl), f)
+ddp.shutdown()
+"""
+
+
+def check_ranks(tmp, cfg, world, ref_loss, smi, device=None):
+    """`world` ranks of stage-2 training on `cfg` (``_RANK_WORKER``: one
+    process per card over NCCL, or over gloo with ``device="cpu"``; a
+    ``file://`` rendezvous): every rank exits 0, their final parameters
+    are bitwise equal, and each step's loss (the mean over the ranks) is
+    within 1e-2 (relative) of `ref_loss`, one process's over the same
+    global batches (bf16: each rank's convs run at batch / world). Prints
+    rank 0's step ms and its NCCL kernels in one profiled step."""
+    ranks, log = os.path.join(tmp, f"ranks{world}"), os.path.join(tmp, f"world{world}")
+    os.makedirs(ranks)
+    spec = json.dumps(dict(cfg=cfg.replace(log_dir=log).to_dict(), out=ranks, device=device,
+                           init="file://" + os.path.join(tmp, f"rendezvous{world}")))
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen([sys.executable, "-c", _RANK_WORKER, spec], cwd=root,
+                              env=dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                                       LOCAL_RANK=str(r), PYTHONPATH=root))
+             for r in range(world)]
+    try:
+        codes = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    finals = [torch.load(os.path.join(ranks, f"rank{r}.pt"), weights_only=True)
+              for r in range(world) if codes[r] == 0]
+    loss = []
+    if os.path.exists(os.path.join(log, "metrics.jsonl")):
+        with open(os.path.join(log, "metrics.jsonl")) as f:
+            loss = [r["loss"] for r in map(json.loads, f) if "loss" in r]
+    worst = max((abs(a - b) / abs(b) for a, b in zip(loss, ref_loss)), default=float("inf"))
+    _check(codes == [0] * world and len(finals) == world
+           and all(torch.equal(v, f[k]) for f in finals[1:] for k, v in finals[0].items())
+           and len(loss) == len(ref_loss) and worst <= 1e-2,
+           f"{world} ranks over {'gloo' if device == 'cpu' else 'NCCL'}: exit codes {codes}, the "
+           f"ranks' final parameters bitwise equal, {len(loss)} step losses within {worst:.2e} "
+           f"(<= 1e-2, relative) of one process's over the same global batches ({loss} / "
+           f"{ref_loss})")
+    timing = os.path.join(ranks, "timing.json")
+    if os.path.exists(timing):
+        with open(timing) as f:
+            t = json.load(f)
+        print(f"      {world} ranks, stage-2 train step (bf16, global batch {cfg.batch_size}, "
+              f"{cfg.batch_size // world} per rank, 10 steps on one batch, median by CUDA "
+              f"events on rank 0): {t['ms']:.3f} ms; one profiled step on rank 0: device busy "
+              f"{t['busy']:.3f} ms in {t['ops']} device ops, NCCL kernels "
+              f"{sum(r[0] for r in t['nccl']):.4f} ms in {sum(r[1] for r in t['nccl'])} launches "
+              f"({'; '.join(f'{r[2][:60]} {r[0]:.4f} ms' for r in t['nccl']) or 'none'}); {smi}",
+              flush=True)
+
+
+def _ddp_run(cls, cfg, dev):
+    """One epoch of trainer `cls` on `cfg`, timed (``_timed_train``); returns
+    (trainer, step events, launches, losses)."""
+    trainer = cls(cfg, seed=1234, use_wandb=False, device=dev)
+    events, _, launches, _ = _timed_train(trainer)
+    key = "loss" if hasattr(trainer, "sched") else "rec_loss"
+    with open(os.path.join(cfg.log_dir, "metrics.jsonl")) as f:
+        loss = [r[key] for r in map(json.loads, f) if key in r]
+    return trainer, events, launches, loss
+
+
+def _bitwise(a, b):
+    """Two runs' losses and final parameters equal, bitwise."""
+    sa, sb = a[0].model.state_dict(), b[0].model.state_dict()
+    return a[3] == b[3] and sa.keys() == sb.keys() and all(torch.equal(v, sb[k])
+                                                           for k, v in sa.items())
+
+
+def _median_ms(events):
+    ms = sorted(s.elapsed_time(e) for s, e in events)
+    return ms[len(ms) // 2]
+
+
+def _step_ms(trainer, batch, n=10):
+    """Median ms of `n` train steps on one batch, each by CUDA events."""
+    events = []
+    for _ in range(n):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        trainer.train_step(*batch)
+        ev[1].record()
+        events.append(ev)
+    torch.cuda.synchronize()
+    return _median_ms(events)
+
+
+def _profile_step(trainer, batch):
+    """One profiled train step: (device busy ms, device ops, [(ms, calls,
+    name)] of its NCCL kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(*batch)
+        torch.cuda.synchronize()
+    rows = _device_rows(prof)
+    return (sum(r[0] for r in rows), sum(r[1] for r in rows),
+            [r for r in rows if "nccl" in r[2].lower()])
+
+
+def drive_ranks(dev, smi, worlds=(2, 4)):
+    """``python3 chip_smoke.py --ranks``: on a machine with several cards,
+    one plain stage-2 run of phase 8's configuration, then ``check_ranks``
+    at each world size in `worlds` that the cards allow."""
+    import tempfile
+
+    from lns_tpu_torch.train.stage2 import Stage2Trainer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _, s2 = ddp_configs(tmp)
+        _, events, _, losses = _ddp_run(Stage2Trainer, s2.replace(log_dir=os.path.join(tmp, "one")),
+                                        dev)
+        print(f"-- {DDP_CASES} cases x {DDP_CASE_LEN} frames, global batch {DDP_BATCH}, bf16: one "
+              f"process's step losses {losses}, step median {_median_ms(events):.3f} ms; {smi}",
+              flush=True)
+        for world in worlds:
+            if world <= torch.cuda.device_count():
+                t0 = time.perf_counter()
+                check_ranks(tmp, s2, world, losses, smi)
+                print(f"      {world} ranks: {time.perf_counter() - t0:.1f} s of wall", flush=True)
+
+
+def ddp_configs(tmp):
+    """The data-parallel phase's NS2d configs on a synthetic corpus under
+    `tmp`: stage 1, and stage 2 (input noise 0.01) on a seeded AE saved as
+    a stage-1 ``.pt``; bf16, one epoch."""
+    from lns_tpu_torch.config import ns2d_config
+    from lns_tpu_torch.data.synthetic import make_ns2d_npz
+    from lns_tpu_torch.models import LatentDynamics
+    from lns_tpu_torch.ops.initializers import init_weights_
+    from lns_tpu_torch.train import checkpoint
+
+    base = ns2d_config().replace(
+        data_dir=make_ns2d_npz(os.path.join(tmp, "ns2d.npz"), ncase=DDP_CASES,
+                               case_len=DDP_CASE_LEN, h=64, w=64),
+        case_len=DDP_CASE_LEN, num_case=DDP_CASES, dataset_stat=os.path.join(tmp, "stat.npz"),
+        batch_size=DDP_BATCH, epochs=1, learning_rate=5e-4, mixed_precision=True,
+        ckpt_every=1, decode_chunk=CHUNK, overwrite_exist=True)
+    ae = init_weights_(LatentDynamics(base, device="cpu"), torch.Generator().manual_seed(3))
+    ae_path = os.path.join(tmp, "ae.pt")
+    checkpoint.save(checkpoint.state_dict_cpu(ae.vq_ae), ae_path)
+    return base, base.replace(pretrained_checkpoint_path=ae_path, noise_level=0.01)
+
+
+def drive_ddp(dev, smi):
+    """Data-parallel training at world size 1 over NCCL (a ``file://``
+    rendezvous) at full NS2d width, bf16, batch 32, one epoch per run.
+    Two plain stage-2 runs first: where they are not bitwise alike (a
+    cuDNN algorithm with atomics), the comparisons below run on cuDNN's
+    deterministic algorithms, and the line says so. Checks: the host
+    path's side-stream prefetch gives the device_data path's losses,
+    parameters and launches bitwise; under the process group each
+    trainer's loss module is a ``DistributedDataParallel`` and its losses,
+    parameters and launches equal the plain trainer's, bitwise, in both
+    stages. Prints the step ms of both (10 steps each on one batch, plain,
+    DDP, DDP, plain) and one profiled step of each: device busy ms, device
+    ops and the NCCL kernels. With two or more cards, two ranks as well.
+    Returns the launches of each run."""
+    import tempfile
+
+    import numpy as np
+    from torch.nn.parallel import DistributedDataParallel
+
+    from lns_tpu_torch.parallel import ddp
+    from lns_tpu_torch.train.stage1 import Stage1Trainer
+    from lns_tpu_torch.train.stage2 import Stage2Trainer
+
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        base, s2 = ddp_configs(tmp)
+        print(f"-- data parallelism: {DDP_CASES} cases x {DDP_CASE_LEN} frames of 64x64, batch "
+              f"{DDP_BATCH}, bf16, one epoch per run (stage 2 with input noise 0.01)", flush=True)
+
+        def run(cls, cfg, label):
+            return _ddp_run(cls, cfg.replace(log_dir=os.path.join(tmp, label)), dev)
+
+        plain2, again = run(Stage2Trainer, s2, "plain2"), run(Stage2Trainer, s2, "again")
+        repeatable = _bitwise(plain2, again)
+        print(f"      two plain stage-2 runs on cuDNN's default algorithms: losses and parameters "
+              f"{'bitwise equal' if repeatable else 'NOT bitwise equal'} (losses {plain2[3]} / "
+              f"{again[3]}); the comparisons below on cuDNN's "
+              f"{'default' if repeatable else 'deterministic'} algorithms", flush=True)
+        del again
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = deterministic or not repeatable
+        try:
+            if not repeatable:
+                plain2 = run(Stage2Trainer, s2, "plain2_deterministic")
+            on_dev = run(Stage2Trainer, s2.replace(device_data=True), "device2")
+            _check(_bitwise(plain2, on_dev) and plain2[2] == on_dev[2],
+                   f"host path with side-stream prefetch against device_data over one epoch "
+                   f"({len(plain2[3])} steps): losses, parameters and launches bitwise equal")
+            out["stage-2 training, host path with prefetch"] = plain2[2]
+            out["stage-2 training, device_data"] = on_dev[2]
+            del on_dev
+            plain1 = run(Stage1Trainer, base, "plain1")
+            os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+            try:
+                rank_dev = ddp.init_from_env(dev, init_method="file://" + os.path.join(
+                    tmp, "rendezvous"))
+                _check(ddp.distributed() and torch.distributed.get_backend() == "nccl"
+                       and ddp.world_size() == 1 and rank_dev == torch.device("cuda", 0),
+                       f"init_from_env: NCCL process group of world size {ddp.world_size()} on "
+                       f"{rank_dev}")
+                for stage, plain, cls, cfg in ((2, plain2, Stage2Trainer, s2),
+                                               (1, plain1, Stage1Trainer, base)):
+                    par = run(cls, cfg, f"ddp{stage}")
+                    module = par[0].loss_module if stage == 2 else par[0].ddp_model
+                    _check(isinstance(module, DistributedDataParallel) and _bitwise(plain, par)
+                           and par[2] == plain[2],
+                           f"stage-{stage} DDP at world size 1 against the plain trainer over "
+                           f"the same {len(par[3])} batches: losses and parameters bitwise "
+                           f"equal, launches {({k: v for k, v in par[2].items() if v})} "
+                           "unchanged")
+                    out[f"stage-{stage} training, DDP world size 1"] = par[2]
+                    rows = par[0].train_ds.get_batch(np.arange(DDP_BATCH))
+                    batch = ((tuple(torch.from_numpy(a).to(dev) for a in rows) + (0, 0))
+                             if stage == 2 else (torch.from_numpy(rows).to(dev),))
+                    ms = {"plain": [], "DDP": []}
+                    for who in ("plain", "DDP", "DDP", "plain"):
+                        ms[who].append(_step_ms((plain if who == "plain" else par)[0], batch))
+                    prof = {who: _profile_step(t[0], batch) for who, t in (("plain", plain),
+                                                                           ("DDP", par))}
+                    nccl = prof["DDP"][2]
+                    print(f"      stage-{stage} train step (bf16, batch {DDP_BATCH}, 10 steps on "
+                          "one batch, median by CUDA events; rounds plain, DDP, DDP, plain): "
+                          f"DDP world 1 {', '.join(f'{v:.3f}' for v in ms['DDP'])} ms, plain "
+                          f"{', '.join(f'{v:.3f}' for v in ms['plain'])} ms; the runs' own "
+                          f"steps {_median_ms(par[1]):.3f} / {_median_ms(plain[1]):.3f} ms (n="
+                          f"{len(par[1])}); one profiled step: DDP device busy "
+                          f"{prof['DDP'][0]:.3f} ms in {prof['DDP'][1]} device ops, plain "
+                          f"{prof['plain'][0]:.3f} ms in {prof['plain'][1]}; NCCL kernels "
+                          f"{sum(r[0] for r in nccl):.4f} ms in {sum(r[1] for r in nccl)} "
+                          f"launches ({'; '.join(f'{r[2][:60]} {r[0]:.4f} ms' for r in nccl) or 'none'}"
+                          f"); {smi}", flush=True)
+                    del par
+            finally:
+                ddp.shutdown()
+                for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+                    os.environ.pop(k, None)
+            _check(not ddp.distributed(), "the process group is shut down after the phase")
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        ref_loss = plain2[3]
+        del plain1, plain2
+        if torch.cuda.device_count() >= 2:
+            check_ranks(tmp, s2, 2, ref_loss, smi)
+        else:
+            print(f"      two ranks not run: {torch.cuda.device_count()} card here, two needed",
+                  flush=True)
+    print(f"      data-parallel phase wall {time.perf_counter() - t_phase:.1f} s; {smi}",
+          flush=True)
+    return out
 
 
 def run(dev, smi=""):
-    """Phases 3-7 on `dev`; returns the per-kernel results."""
+    """Phases 3-8 on `dev`; returns the per-kernel results."""
     import tempfile
 
     from lns_tpu_torch.config import (ns2d_config, sw_config, twophase_conditional_config,
@@ -2972,12 +3395,14 @@ def run(dev, smi=""):
         by_path[label] = drive_path(label, model, expect, gen, dev, b, steps, chunk)
         del model
     del paths, sw, tp, tpc
-    by_path["stage-2 training"] = drive_stage2(dev, smi)
+    by_path["stage-2 training"], by_path["evaluate NS2d"] = drive_stage2(dev, smi)
     by_path["stage-1 training"] = drive_stage1(dev, smi)
     for fam in FAMILIES:
         with tempfile.TemporaryDirectory() as tmp:
             by_path[f"{fam} stage-1 training"], ae_path = drive_family_stage1(fam, dev, smi, tmp)
-            by_path[f"{fam} stage-2 training"] = drive_family_stage2(fam, dev, smi, tmp, ae_path)
+            by_path[f"{fam} stage-2 training"], by_path[f"evaluate {fam}"] = \
+                drive_family_stage2(fam, dev, smi, tmp, ae_path)
+    by_path.update(drive_ddp(dev, smi))
 
     src = "lns_tpu_torch/csrc/"
     kernels = [

@@ -10,9 +10,12 @@ through FiLM) families with
 hand-written kernels for its hot spots (``lns_tpu_torch.kernels``), and
 trains both stages of each: the autoencoder (stage 1,
 ``lns_tpu_torch.train.stage1``) and the propagator (stage 2,
-``lns_tpu_torch.train.stage2``, rollout BPTT against a frozen autoencoder).
-Public functions keep the JAX package's NHWC layout, so the two packages
-are tested against each other directly.
+``lns_tpu_torch.train.stage2``, rollout BPTT against a frozen autoencoder),
+on one device or data-parallel under ``torchrun``
+(``lns_tpu_torch.parallel``). ``lns_tpu_torch.cli`` holds the training,
+evaluate and convert entry points (flax msgpack read and written without
+flax). Public functions keep the JAX package's NHWC layout, so the two
+packages are tested against each other directly.
 
 Importing this package imports torch and numpy only.
 """

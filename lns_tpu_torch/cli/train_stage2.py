@@ -6,6 +6,12 @@ configs/SW_stage2_prop.yml or configs/twophase_stage2_cond_prop.yml):
 Trains on the CUDA card unless given ``--device cpu``. The config is YAML
 (PyYAML needed); without it, build a ``Config`` in code and call
 ``lns_tpu_torch.train.stage2.Stage2Trainer`` directly.
+
+Data-parallel over N devices (the batch_size in the config is the global
+batch; each process trains on one device, NCCL on the cards, gloo with
+``--device cpu``):
+
+    torchrun --nproc_per_node N -m lns_tpu_torch.cli.train_stage2 --config <yml>
 """
 
 from __future__ import annotations
@@ -14,14 +20,10 @@ from typing import Optional, Sequence
 
 
 def main(argv: Optional[Sequence[str]] = None):
-    from lns_tpu_torch.cli.common import parse_args
+    from lns_tpu_torch.cli.common import run_trainer
     from lns_tpu_torch.train.stage2 import Stage2Trainer
 
-    args, cfg = parse_args(__doc__, argv)
-    trainer = Stage2Trainer(cfg, seed=args.seed, use_wandb=not args.no_wandb,
-                            config_path=args.config, device=args.device)
-    trainer.train()
-    print("Running finished...")
+    run_trainer(Stage2Trainer, __doc__, argv)
 
 
 if __name__ == "__main__":

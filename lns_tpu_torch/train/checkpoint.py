@@ -8,9 +8,11 @@ trainers and ``lns_tpu.utils.torch_export`` write: a stage-1 autoencoder
 ``save_torch_checkpoint``, or the port's stage-1 trainer) and a stage-2
 model (``vq_ae.`` / ``propagator.`` keys, ``export_latent_dynamics``; the
 conditional family's autoencoder under ``ae.``, as its reference trainer
-names it), each loaded ``strict=True``. The JAX
-package's flax msgpack and orbax formats are not read: a JAX-trained model
-reaches the port through ``torch_export``.
+names it), each loaded ``strict=True``. A JAX-trained flax ``.msgpack``
+reaches the port through ``lns_tpu_torch.cli.convert`` (or is read
+directly by ``lns_tpu_torch.cli.evaluate``); the JAX package's orbax
+directories are not read. ``AsyncCheckpointer`` writes in the background
+(``cfg.async_checkpoint``).
 
 A stage-1 run writes, per saved epoch (``tag`` an epoch number or
 ``final``), ``vqgan_epoch_{tag}.pt`` (the autoencoder, as the reference
@@ -24,6 +26,7 @@ from __future__ import annotations
 
 import json
 import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -35,6 +38,38 @@ def save(obj: Any, path: str) -> None:
     tmp = path + ".tmp"
     torch.save(obj, tmp)
     os.replace(tmp, path)
+
+
+def _cpu_copy(obj: Any) -> Any:
+    """`obj` (tensors in dicts, lists and tuples) with every tensor copied
+    to the CPU, so later in-place updates do not reach it."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _cpu_copy(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_cpu_copy(v) for v in obj)
+    return obj
+
+
+class AsyncCheckpointer:
+    """Background saves (counterpart of ``lns_tpu.train.checkpoint.
+    AsyncCheckpointer``): ``save`` copies the object's tensors to the CPU,
+    then one worker thread writes them with ``save`` (atomically) while
+    training goes on. ``wait`` blocks until every save queued so far is on
+    disk and raises the first save's error, if any."""
+
+    def __init__(self):
+        self._pool = ThreadPoolExecutor(max_workers=1)
+        self._pending = []
+
+    def save(self, obj: Any, path: str) -> None:
+        self._pending.append(self._pool.submit(save, _cpu_copy(obj), path))
+
+    def wait(self) -> None:
+        pending, self._pending = self._pending, []
+        for f in pending:
+            f.result()
 
 
 def save_json(obj: Any, path: str) -> None:
@@ -51,12 +86,13 @@ def load_json(path: str) -> Any:
 
 
 def save_stage1(ckpt_dir: str, tag, ae: nn.Module, meta: dict,
-                optimizer: Optional[torch.optim.Optimizer] = None) -> None:
+                optimizer: Optional[torch.optim.Optimizer] = None, writer=save) -> None:
     """``vqgan_epoch_{tag}.pt``, ``meta_epoch_{tag}.json`` and, with an
-    optimizer, ``optim_epoch_{tag}.pt`` in `ckpt_dir`."""
-    save(state_dict_cpu(ae), os.path.join(ckpt_dir, f"vqgan_epoch_{tag}.pt"))
+    optimizer, ``optim_epoch_{tag}.pt`` in `ckpt_dir`; the ``.pt`` files
+    through `writer` (``save``, or an ``AsyncCheckpointer``'s)."""
+    writer(state_dict_cpu(ae), os.path.join(ckpt_dir, f"vqgan_epoch_{tag}.pt"))
     if optimizer is not None:
-        save(optimizer.state_dict(), os.path.join(ckpt_dir, f"optim_epoch_{tag}.pt"))
+        writer(optimizer.state_dict(), os.path.join(ckpt_dir, f"optim_epoch_{tag}.pt"))
     save_json(meta, os.path.join(ckpt_dir, f"meta_epoch_{tag}.json"))
 
 

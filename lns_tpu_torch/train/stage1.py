@@ -11,8 +11,16 @@ the card every train step differentiates through the hand-written kernels
 Functions, and validation runs them under ``torch.no_grad``. The NS2d, SW,
 two-phase and conditional two-phase families (the last trains the plain
 two-phase autoencoder: its conditioning is the propagator's); the two-phase
-loss is taken on denormalised fields (train_stage1_twophase.py:71-73). The trainer runs on one device (data
-parallelism and the async checkpointer are not ported).
+loss is taken on denormalised fields (train_stage1_twophase.py:71-73).
+
+Under a process group (``torchrun``) the trainer is data-parallel by the
+stage-2 trainer's rules (``lns_tpu_torch.train.stage2``): the autoencoder
+itself in ``DistributedDataParallel`` (every parameter takes a gradient),
+rank r's rows of each global batch, rank 0 alone logging, validating and
+saving. As the JAX package on a mesh, the host path then drops the last
+partial batch of an epoch (``drop_last=True``), which one process keeps,
+and with ``device_data`` each rank gathers from its own shard of the
+frames in the stratified order.
 """
 
 from __future__ import annotations
@@ -25,9 +33,11 @@ import torch
 
 from lns_tpu_torch.data import (NS2DStage1, SWStage1, TankSloshingStage1, epoch_batches,
                                 to_device)
+from lns_tpu_torch.data.prefetch import prefetch_to_device
 from lns_tpu_torch.models import SimpleAutoencoder
 from lns_tpu_torch.ops.initializers import init_weights_
 from lns_tpu_torch.ops.losses import relative_lp_loss
+from lns_tpu_torch.parallel import ddp
 from lns_tpu_torch.train import checkpoint
 from lns_tpu_torch.train.logging_utils import (MetricLogger, log_sequence, plot_error_curve,
                                                prepare_training)
@@ -65,7 +75,11 @@ class Stage1Trainer:
     ``cfg.mixed_precision``: bf16 activations; parameters, optimizer and
     loss in f32. ``cfg.device_data``: the training frames live on the
     device and batches are gathered there by index; otherwise each batch is
-    copied from pinned host memory without waiting."""
+    copied from pinned host memory on a side stream ahead of its step
+    (``prefetch_to_device``). ``cfg.async_checkpoint``: the ``.pt`` files
+    are written in the background. Under a process group the trainer is
+    data-parallel (see the module's docstring); `device` is then this
+    rank's (``ddp.init_from_env``)."""
 
     def __init__(self, cfg, seed: int = 1234, use_wandb: bool = True,
                  config_path: Optional[str] = None, device=None):
@@ -75,14 +89,20 @@ class Stage1Trainer:
                                "the CPU")
         self.cfg = cfg
         self.seed = seed
-        prepare_training(cfg.log_dir, bool(cfg.overwrite_exist), config_path=config_path,
-                         config_dict=cfg.to_dict())
-        self.logger = MetricLogger(cfg.log_dir, project=cfg.project_name, config=cfg.to_dict(),
-                                   use_wandb=use_wandb)
-
+        self.rank, self.world = ddp.rank(), ddp.world_size()
+        if cfg.batch_size % self.world:
+            raise ValueError(f"batch_size {cfg.batch_size} (the global batch) does not divide "
+                             f"over {self.world} ranks")
+        self.logger = self.val_ds = None  # rank 0's
         ds_cls = STAGE1_DATASETS[cfg.workload]
-        self.train_ds = ds_cls(cfg, train_mode=True)
-        self.val_ds = ds_cls(cfg, train_mode=False)
+        with ddp.main_first():  # rank 0 makes the run directory and the statistics files
+            if ddp.is_main():
+                prepare_training(cfg.log_dir, bool(cfg.overwrite_exist),
+                                 config_path=config_path, config_dict=cfg.to_dict())
+                self.logger = MetricLogger(cfg.log_dir, project=cfg.project_name,
+                                           config=cfg.to_dict(), use_wandb=use_wandb)
+                self.val_ds = ds_cls(cfg, train_mode=False)
+            self.train_ds = ds_cls(cfg, train_mode=True)
         # the two-phase families take their loss on denormalised fields
         self._loss_denorm = (self.train_ds.denormalize if cfg.workload.startswith("twophase")
                              else None)
@@ -97,54 +117,91 @@ class Stage1Trainer:
         # vqgan_epoch_best (the reference saves every ckpt_every only)
         self.best_val = float("inf")
         self.best_epoch = None
+        self._ckptr = checkpoint.AsyncCheckpointer() if cfg.async_checkpoint else None
+        self._save = self._ckptr.save if self._ckptr is not None else checkpoint.save
         if cfg.resume_training and cfg.resume_ckpt:
             self.load(cfg.resume_ckpt)
+        # reconstruction_loss calls the module: DDP wraps the autoencoder itself
+        self.ddp_model = ddp.wrap(self.model, self.device)
         print(f"Number of trainable parameters: {sum(p.numel() for p in self.model.parameters())}")
 
     # ------------------------------------------------------------------
     def _loss(self, x: torch.Tensor) -> torch.Tensor:
-        return reconstruction_loss(self.model, x, self._loss_denorm)
+        return reconstruction_loss(self.ddp_model, x, self._loss_denorm)
 
     def train_step(self, x: torch.Tensor) -> torch.Tensor:
-        """One optimizer step on a batch of frames; returns the loss (a 0-d
-        tensor on the device, not fetched)."""
+        """One optimizer step on this rank's rows of a global batch of
+        frames; returns the loss averaged over the ranks (a 0-d tensor on
+        the device, not fetched)."""
         loss = self._loss(x)
         self.opt.zero_grad(set_to_none=True)
         loss.backward()
         self.opt.step()
-        return loss.detach()
+        return ddp.mean_over_ranks(loss.detach())
+
+    def _batches(self, n: int, rng: np.random.Generator, frames):
+        """This rank's rows of one epoch's global batches of frames, on the
+        device. One process keeps an epoch's last partial batch; on several
+        ranks it is dropped and a device corpus is gathered per shard in the
+        stratified order, as the JAX package's mesh does."""
+        if self.device_data:
+            if self.world > 1:
+                order = (idx[self.rank] for idx in
+                         ddp.stratified_batches(rng, n, self.cfg.batch_size, self.world))
+            else:
+                order = epoch_batches(n, self.cfg.batch_size, rng, drop_last=False)
+            for idx in order:
+                yield frames.index_select(0, to_device(idx, self.device))
+            return
+        for (x,) in prefetch_to_device(
+                ((self.train_ds.get_batch(ddp.shard_rows(idx, self.rank, self.world)),)
+                 for idx in epoch_batches(n, self.cfg.batch_size, rng,
+                                          drop_last=self.world > 1)), self.device):
+            yield x
 
     def train(self):
         cfg = self.cfg
         n = len(self.train_ds)
-        if self.device_data:  # every frame on the device; batches gathered there
-            frames = to_device(self.train_ds.get_batch(np.arange(n)), self.device)
+        frames = None
+        if self.device_data:  # this rank's shard of the frames on the device
+            frames = to_device(self.train_ds.get_batch(ddp.corpus_shard(n, self.rank, self.world)),
+                               self.device)
         for epoch in range(self.start_epoch, cfg.epochs):
             # the data order is a function of (seed, epoch): a run resumed at
             # epoch k sees the batches a fresh run would
             rng = np.random.default_rng([self.seed, epoch])
             if epoch % cfg.ckpt_every == 0:
-                self._maybe_save_best(self.validate(epoch), epoch)
-                self.save(epoch)
-            for idx in epoch_batches(n, cfg.batch_size, rng, drop_last=False):
-                if self.device_data:
-                    x = frames.index_select(0, to_device(idx, self.device))
-                else:
-                    x = to_device(self.train_ds.get_batch(idx), self.device)
-                self.logger.log({"rec_loss": self.train_step(x)})
-        self._maybe_save_best(self.validate("final"), "final")
-        self.save("final")
-        self.logger.finish()
+                self._checkpoint(epoch, epoch)
+            for x in self._batches(n, rng, frames):
+                loss = self.train_step(x)
+                if self.logger is not None:
+                    self.logger.log({"rec_loss": loss})
+        self._checkpoint("final", "final")
+        if self._ckptr is not None:
+            self._ckptr.wait()
+        if self.logger is not None:
+            self.logger.finish()
+
+    def _checkpoint(self, epoch, tag) -> None:
+        """Validate on rank 0 (the other ranks wait for its result), keep
+        ``vqgan_epoch_best`` on every rank's record, and save ``tag``'s
+        files."""
+        val = ddp.broadcast_scalar(self.validate(epoch) if ddp.is_main() else None)
+        self._maybe_save_best(val, epoch)
+        if ddp.is_main():
+            self.save(tag)
 
     def _maybe_save_best(self, val: float, epoch) -> None:
         """Keep ``vqgan_epoch_best``: the AE with the lowest validation
-        reconstruction rel-L2 so far."""
+        reconstruction rel-L2 so far; written by rank 0."""
         if val >= self.best_val:
             return
         self.best_val, self.best_epoch = float(val), epoch
+        if not ddp.is_main():
+            return
         checkpoint.save_stage1(os.path.join(self.cfg.log_dir, "checkpoints"), "best", self.model,
                                {"epoch": self._next_epoch(epoch), "val_recon_loss": self.best_val,
-                                "seed": self.seed})
+                                "seed": self.seed}, writer=self._save)
 
     def _next_epoch(self, epoch) -> int:
         return self.cfg.epochs if epoch == "final" else int(epoch)
@@ -170,7 +227,7 @@ class Stage1Trainer:
     def validate(self, epoch) -> float:
         """Per-frame reconstruction rel-L2 on denormalised held-out
         trajectories (train_stage1_ns2d.py:99-148); returns its mean, also
-        logged as ``val_recon_loss``."""
+        logged as ``val_recon_loss``. Rank 0's."""
         cfg = self.cfg
         traj = self.val_ds.eval_trajectories()  # [n, t, h, w, c]
         nc, t = traj.shape[:2]
@@ -214,7 +271,7 @@ class Stage1Trainer:
             os.path.join(self.cfg.log_dir, "checkpoints"), epoch, self.model,
             {"epoch": self._next_epoch(epoch), "seed": self.seed,
              "best_val": None if self.best_val == float("inf") else self.best_val,
-             "best_epoch": self.best_epoch}, self.opt)
+             "best_epoch": self.best_epoch}, self.opt, writer=self._save)
 
     def load(self, model_path: str) -> None:
         """Resume from ``vqgan_epoch_{k}.pt`` (or start from any stage-1

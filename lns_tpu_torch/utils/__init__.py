@@ -1,1 +1,2 @@
-"""Checkpoint conversion from the JAX package's parameter trees."""
+"""Checkpoint conversion between the JAX package's parameter trees and the
+port's state dicts, and flax's msgpack format without flax."""

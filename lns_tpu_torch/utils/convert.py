@@ -1,4 +1,4 @@
-"""JAX parameter trees -> the port's state dicts.
+"""JAX parameter trees <-> the port's state dicts.
 
 ``state_dict_from_jax`` turns the JAX package's ``{'vq_ae', 'propagator'}``
 parameter tree (nested dicts of numpy arrays; ``np.asarray`` of the JAX
@@ -10,11 +10,20 @@ half-periodic SW autoencoder, the non-squared two-phase autoencoder, the
 plain SimpleCNN propagator and the conditional two-phase family's
 CondSimpleCNN, whose autoencoder lives under ``ae.``), driven by the port's
 own layer specs, and imports no JAX.
+
+Both directions read one table (``key_table``): each entry names a state
+dict key, the path of its leaf in the JAX tree and the layout between the
+two (``conv``: a pointwise JAX kernel is [in, out] and a spatial one HWIO,
+the port's OIHW either way; ``linear``: [in, out] against [out, in];
+``copy``; ``rotary``: a rotary embedding's frequencies, which the port
+keeps as a buffer and the JAX tree does not hold). ``state_dict_to_jax``
+is the inverse: a state dict back to the JAX tree (``lns_tpu_torch.cli.
+convert`` writes it as flax msgpack).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,165 +31,245 @@ import torch
 from lns_tpu_torch.models.specs import decoder_spec, encoder_spec
 
 
-def _conv(out, key, p, bias=True):
-    k = np.asarray(p["kernel"])
-    # [I, O] pointwise -> [O, I, 1, 1]; HWIO -> OIHW
-    out[key + ".weight"] = k.T[:, :, None, None] if k.ndim == 2 else k.transpose(3, 2, 0, 1)
+class Entry(NamedTuple):
+    """One state dict key: its JAX leaf's path (None for a leaf the JAX
+    tree does not hold), the layout between the two and, for ``rotary``,
+    the embedding's width."""
+    key: str
+    path: Optional[Tuple[str, ...]]
+    layout: str
+    dim: int = 0
+
+
+def _conv(t, key, path, bias=True):
+    t.append(Entry(key + ".weight", path + ("kernel",), "conv"))
     if bias:
-        out[key + ".bias"] = np.asarray(p["bias"])
+        t.append(Entry(key + ".bias", path + ("bias",), "copy"))
 
 
-def _linear(out, key, p, bias=True):
-    out[key + ".weight"] = np.asarray(p["kernel"]).T
+def _linear(t, key, path, bias=True):
+    t.append(Entry(key + ".weight", path + ("kernel",), "linear"))
     if bias:
-        out[key + ".bias"] = np.asarray(p["bias"])
+        t.append(Entry(key + ".bias", path + ("bias",), "copy"))
 
 
-def _norm(out, key, p):
-    out[key + ".weight"] = np.asarray(p["scale"])
-    out[key + ".bias"] = np.asarray(p["bias"])
+def _norm(t, key, path):
+    t.append(Entry(key + ".weight", path + ("scale",), "copy"))
+    t.append(Entry(key + ".bias", path + ("bias",), "copy"))
 
 
-def _rotary_inv_freq(dim: int) -> np.ndarray:
-    return 1.0 / (10000 ** (np.arange(0, dim, 2, dtype=np.float32) / dim))
+def _pooling(t, key, path):
+    _linear(t, f"{key}.to_in", path + ("to_in",), bias=False)
+    _norm(t, f"{key}.out_ffn.0", path + ("ffn_ln",))
+    _linear(t, f"{key}.out_ffn.1", path + ("ffn_fc1",), bias=False)
+    _linear(t, f"{key}.out_ffn.3", path + ("ffn_fc2",))
 
 
-def _pooling(out, key, p):
-    _linear(out, f"{key}.to_in", p["to_in"], bias=False)
-    _norm(out, f"{key}.out_ffn.0", p["ffn_ln"])
-    _linear(out, f"{key}.out_ffn.1", p["ffn_fc1"], bias=False)
-    _linear(out, f"{key}.out_ffn.3", p["ffn_fc2"])
-
-
-def _sequential(out, specs, params, prefix):
+def _sequential(t, specs, path, prefix):
     pre = prefix + "." if prefix else ""
     for spec in specs:
         if spec.kind in ("swish", "resize"):
             continue
-        p, kw, pf = params[spec.name], spec.kw, f"{pre}{spec.idx}"
+        p, kw, pf = path + (spec.name,), spec.kw, f"{pre}{spec.idx}"
         if spec.kind == "conv":
-            _conv(out, pf, p)
+            _conv(t, pf, p)
         elif spec.kind == "gn":
-            _norm(out, pf + (".gn" if kw.get("wrapper") else ""), p)
+            _norm(t, pf + (".gn" if kw.get("wrapper") else ""), p)
         elif spec.kind == "resblock":
-            _norm(out, f"{pf}.block.0.gn", p["gn1"])
-            _conv(out, f"{pf}.block.2", p["conv1"])
-            _norm(out, f"{pf}.block.3.gn", p["gn2"])
-            _conv(out, f"{pf}.block.5", p["conv2"])
+            _norm(t, f"{pf}.block.0.gn", p + ("gn1",))
+            _conv(t, f"{pf}.block.2", p + ("conv1",))
+            _norm(t, f"{pf}.block.3.gn", p + ("gn2",))
+            _conv(t, f"{pf}.block.5", p + ("conv2",))
             if kw["in_channels"] != kw["out_channels"]:
-                _conv(out, f"{pf}.channel_up", p["channel_up"])
+                _conv(t, f"{pf}.channel_up", p + ("channel_up",))
         elif spec.kind == "hp_conv":
-            _conv(out, pf, p["conv"])
+            _conv(t, pf, p + ("conv",))
         elif spec.kind == "hp_resblock":
-            _norm(out, f"{pf}.norm_act1.norm_act.0.gn", p["gn1"])
-            _conv(out, f"{pf}.conv1", p["conv1"]["conv"])
-            _norm(out, f"{pf}.norm_act2.norm_act.0.gn", p["gn2"])
-            _conv(out, f"{pf}.conv2", p["conv2"]["conv"])
+            _norm(t, f"{pf}.norm_act1.norm_act.0.gn", p + ("gn1",))
+            _conv(t, f"{pf}.conv1", p + ("conv1", "conv"))
+            _norm(t, f"{pf}.norm_act2.norm_act.0.gn", p + ("gn2",))
+            _conv(t, f"{pf}.conv2", p + ("conv2", "conv"))
             if kw["in_channels"] != kw["out_channels"]:
-                _conv(out, f"{pf}.channel_up", p["channel_up"])
+                _conv(t, f"{pf}.channel_up", p + ("channel_up",))
         elif spec.kind in ("down", "up"):
-            _conv(out, f"{pf}.conv_layer", p["conv"])
+            _conv(t, f"{pf}.conv_layer", p + ("conv",))
         elif spec.kind in ("hp_down", "hp_up"):
-            _conv(out, f"{pf}.conv_layer", p["conv"]["conv"])
+            _conv(t, f"{pf}.conv_layer", p + ("conv", "conv"))
         elif spec.kind == "sablock":
-            _norm(out, f"{pf}.ln", p["ln"])
-            _linear(out, f"{pf}.to_q", p["to_q"], bias=False)
-            _linear(out, f"{pf}.to_k", p["to_k"], bias=False)
-            _linear(out, f"{pf}.to_v", p["to_v"])
-            _linear(out, f"{pf}.proj_out", p["proj_out"])
+            _norm(t, f"{pf}.ln", p + ("ln",))
+            _linear(t, f"{pf}.to_q", p + ("to_q",), bias=False)
+            _linear(t, f"{pf}.to_k", p + ("to_k",), bias=False)
+            _linear(t, f"{pf}.to_v", p + ("to_v",))
+            _linear(t, f"{pf}.proj_out", p + ("proj_out",))
             if kw["use_pe"]:
-                out[f"{pf}.pe"] = np.asarray(p["pe"])
+                t.append(Entry(f"{pf}.pe", p + ("pe",), "copy"))
         elif spec.kind == "fablock":
-            _norm(out, f"{pf}.in_norm", p["in_norm"])
-            _conv(out, f"{pf}.in_proj", p["in_proj"], bias=False)
-            _conv(out, f"{pf}.to_in.0", p["to_in"], bias=False)
-            _pooling(out, f"{pf}.to_x.0", p["to_x"])
-            _pooling(out, f"{pf}.to_y.1", p["to_y"])
-            inv = _rotary_inv_freq(kw["dim_head"] * 2)  # kernel_multiplier 2
+            _norm(t, f"{pf}.in_norm", p + ("in_norm",))
+            _conv(t, f"{pf}.in_proj", p + ("in_proj",), bias=False)
+            _conv(t, f"{pf}.to_in.0", p + ("to_in",), bias=False)
+            _pooling(t, f"{pf}.to_x.0", p + ("to_x",))
+            _pooling(t, f"{pf}.to_y.1", p + ("to_y",))
             for axis in ("x", "y"):
                 lrk = f"{pf}.low_rank_kernel_{axis}"
-                _linear(out, f"{lrk}.to_qk", p[f"low_rank_kernel_{axis}"]["to_qk"], bias=False)
-                out[f"{lrk}.pos_emb.inv_freq"] = inv
-            _conv(out, f"{pf}.to_out.1", p["out_fc1"], bias=False)
-            _conv(out, f"{pf}.to_out.3", p["out_fc2"], bias=False)
+                _linear(t, f"{lrk}.to_qk", p + (f"low_rank_kernel_{axis}", "to_qk"), bias=False)
+                # kernel_multiplier 2
+                t.append(Entry(f"{lrk}.pos_emb.inv_freq", None, "rotary", kw["dim_head"] * 2))
+            _conv(t, f"{pf}.to_out.1", p + ("out_fc1",), bias=False)
+            _conv(t, f"{pf}.to_out.3", p + ("out_fc2",), bias=False)
         else:
             raise NotImplementedError(f"layer kind {spec.kind!r} is not ported yet")
 
 
-def _cond_blocks(out, cfg, params, prefix):
+def _cond_blocks(t, cfg, path, prefix):
     """The CondSimpleCNN's embedding MLP and blocks
     (``torch_export.export_propagator``'s conditional keys)."""
-    _linear(out, f"{prefix}cond_emb_proj.0", params["cond_proj_fc1"])
-    _linear(out, f"{prefix}cond_emb_proj.2", params["cond_proj_fc2"])
+    _linear(t, f"{prefix}cond_emb_proj.0", path + ("cond_proj_fc1",))
+    _linear(t, f"{prefix}cond_emb_proj.2", path + ("cond_proj_fc2",))
     for i in range(cfg.prop_n_block):
-        b, pf = params[f"net{i}"], f"{prefix}net.{i}"
-        _linear(out, f"{pf}.cond_emb", b["cond_emb"])
-        _norm(out, f"{pf}.conv1.0", b["conv1_gn"])
-        _conv(out, f"{pf}.conv1.1", b["conv1_a"])
-        _conv(out, f"{pf}.conv1.3", b["conv1_b"])
-        _norm(out, f"{pf}.cond_conv1.0", b["cond_conv1_gn"])
-        _conv(out, f"{pf}.cond_conv1.2", b["cond_conv1"])
-        _norm(out, f"{pf}.cond_conv2.0", b["cond_conv2_gn"])
-        _conv(out, f"{pf}.cond_conv2.1", b["cond_conv2_fc1"])
-        _conv(out, f"{pf}.cond_conv2.3", b["cond_conv2_fc2"])
-        _norm(out, f"{pf}.ffn.0", b["ffn_gn"])
-        _conv(out, f"{pf}.ffn.1", b["ffn_fc1"], bias=False)
-        _conv(out, f"{pf}.ffn.3", b["ffn_fc2"], bias=False)
+        b, pf = path + (f"net{i}",), f"{prefix}net.{i}"
+        _linear(t, f"{pf}.cond_emb", b + ("cond_emb",))
+        _norm(t, f"{pf}.conv1.0", b + ("conv1_gn",))
+        _conv(t, f"{pf}.conv1.1", b + ("conv1_a",))
+        _conv(t, f"{pf}.conv1.3", b + ("conv1_b",))
+        _norm(t, f"{pf}.cond_conv1.0", b + ("cond_conv1_gn",))
+        _conv(t, f"{pf}.cond_conv1.2", b + ("cond_conv1",))
+        _norm(t, f"{pf}.cond_conv2.0", b + ("cond_conv2_gn",))
+        _conv(t, f"{pf}.cond_conv2.1", b + ("cond_conv2_fc1",))
+        _conv(t, f"{pf}.cond_conv2.3", b + ("cond_conv2_fc2",))
+        _norm(t, f"{pf}.ffn.0", b + ("ffn_gn",))
+        _conv(t, f"{pf}.ffn.1", b + ("ffn_fc1",), bias=False)
+        _conv(t, f"{pf}.ffn.3", b + ("ffn_fc2",), bias=False)
 
 
-def _blocks(out, cfg, params, prefix):
-    """The SimpleCNN's blocks."""
+def _blocks(t, cfg, path, prefix, half_periodic):
+    """The SimpleCNN's blocks; half-periodic convs (SW's) nest their kernel
+    one level down (``{'conv': {'kernel', 'bias'}}``)."""
+    nest = ("conv",) if half_periodic else ()
     for i in range(cfg.prop_n_block):
-        b, pf = params[f"net{i}"], f"{prefix}net.{i}"
-        _norm(out, f"{pf}.conv.0", b["conv_gn"])
+        b, pf = path + (f"net{i}",), f"{prefix}net.{i}"
+        _norm(t, f"{pf}.conv.0", b + ("conv_gn",))
         for j, name in ((1, "conv1"), (3, "conv2"), (5, "conv3")):
-            p = b[name]
-            _conv(out, f"{pf}.conv.{j}", p if "kernel" in p else p["conv"])  # half-periodic
-        _norm(out, f"{pf}.ffn.0", b["ffn_gn"])
-        _conv(out, f"{pf}.ffn.1", b["ffn_fc1"], bias=False)
-        _conv(out, f"{pf}.ffn.3", b["ffn_fc2"], bias=False)
+            _conv(t, f"{pf}.conv.{j}", b + (name,) + nest)
+        _norm(t, f"{pf}.ffn.0", b + ("ffn_gn",))
+        _conv(t, f"{pf}.ffn.1", b + ("ffn_fc1",), bias=False)
+        _conv(t, f"{pf}.ffn.3", b + ("ffn_fc2",), bias=False)
 
 
-def _propagator(out, cfg, params, prefix):
+def _propagator(t, cfg, path, prefix, half_periodic):
     prefix = prefix + "." if prefix else ""
-    _conv(out, f"{prefix}in_proj", params["in_proj"])
-    (_cond_blocks if cfg.is_conditional else _blocks)(out, cfg, params, prefix)
-    _norm(out, f"{prefix}out_proj.0.gn", params["out_gn"])
-    _conv(out, f"{prefix}out_proj.1", params["out_proj"])
+    _conv(t, f"{prefix}in_proj", path + ("in_proj",))
+    if cfg.is_conditional:
+        _cond_blocks(t, cfg, path, prefix)
+    else:
+        _blocks(t, cfg, path, prefix, half_periodic)
+    _norm(t, f"{prefix}out_proj.0.gn", path + ("out_gn",))
+    _conv(t, f"{prefix}out_proj.1", path + ("out_proj",))
 
 
-def state_dict_from_jax(cfg, params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """``{'vq_ae', 'propagator'}`` (optionally under ``'params'``) -> the
-    state dict of ``LatentDynamics(cfg)``, f32 tensors on the CPU; the
-    autoencoder's keys under ``ae.`` for a conditional config, as
-    ``export_latent_dynamics`` writes them, else ``vq_ae.``."""
-    params = params.get("params", params)
-    ae = params["vq_ae"]
-    pre = "ae" if cfg.is_conditional else "vq_ae"
-    out: Dict[str, np.ndarray] = {}
-    _sequential(out, encoder_spec(cfg), ae["encoder"], f"{pre}.encoder.model")
-    _sequential(out, decoder_spec(cfg), ae["decoder"], f"{pre}.decoder.model")
-    _conv(out, f"{pre}.quant_conv", ae["quant_conv"])
-    _conv(out, f"{pre}.post_quant_conv", ae["post_quant_conv"])
-    _propagator(out, cfg, params["propagator"], "propagator")
-    return _tensors(out)
+def _autoencoder(t, cfg, path, prefix):
+    pre = prefix + "." if prefix else ""
+    _sequential(t, encoder_spec(cfg), path + ("encoder",), f"{pre}encoder.model")
+    _sequential(t, decoder_spec(cfg), path + ("decoder",), f"{pre}decoder.model")
+    _conv(t, f"{pre}quant_conv", path + ("quant_conv",))
+    _conv(t, f"{pre}post_quant_conv", path + ("post_quant_conv",))
+
+
+def key_table(cfg, kind: str = "dynamics") -> List[Entry]:
+    """The state dict keys of `kind` (``dynamics``: ``LatentDynamics(cfg)``,
+    its autoencoder under ``ae.`` for a conditional config as
+    ``export_latent_dynamics`` writes it, else ``vq_ae.``, and the
+    propagator under ``propagator.``; ``ae``: a stage-1 autoencoder's bare
+    keys, as ``export_autoencoder`` writes them), each with its JAX leaf."""
+    t: List[Entry] = []
+    if kind == "ae":
+        _autoencoder(t, cfg, (), "")
+    elif kind == "dynamics":
+        _autoencoder(t, cfg, ("vq_ae",), "ae" if cfg.is_conditional else "vq_ae")
+        _propagator(t, cfg, ("propagator",), "propagator", cfg.workload == "sw")
+    else:
+        raise ValueError(f"kind {kind!r}: 'ae' or 'dynamics'")
+    return t
+
+
+# -- the layouts ------------------------------------------------------------------
+
+def _array(a) -> np.ndarray:
+    """A JAX leaf as numpy (a bf16 tensor from the msgpack reader widened
+    to f32, exactly)."""
+    return a.float().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _to_port(e: Entry, params) -> np.ndarray:
+    if e.layout == "rotary":
+        return 1.0 / (10000 ** (np.arange(0, e.dim, 2, dtype=np.float32) / e.dim))
+    a = params
+    for name in e.path:
+        a = a[name]
+    a = _array(a)
+    if e.layout == "conv":  # [I, O] pointwise -> [O, I, 1, 1]; HWIO -> OIHW
+        return a.T[:, :, None, None] if a.ndim == 2 else a.transpose(3, 2, 0, 1)
+    return a.T if e.layout == "linear" else a
+
+
+def _to_jax(e: Entry, w: np.ndarray) -> np.ndarray:
+    if e.layout == "conv":  # a 1x1 kernel is a JAX Dense's [I, O]
+        return w[:, :, 0, 0].T if w.shape[2:] == (1, 1) else w.transpose(2, 3, 1, 0)
+    return w.T if e.layout == "linear" else w
+
+
+def _tensors(out: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {k: torch.tensor(np.array(v, dtype=np.float32)) for k, v in out.items()}
+
+
+def _from_table(table: List[Entry], params) -> Dict[str, torch.Tensor]:
+    return _tensors({e.key: _to_port(e, params) for e in table})
+
+
+def state_dict_from_jax(cfg, params: Dict[str, Any], kind: str = "dynamics"
+                        ) -> Dict[str, torch.Tensor]:
+    """A JAX parameter tree (optionally under ``'params'``) -> the state
+    dict of `kind` (``key_table``): ``{'vq_ae', 'propagator'}`` -> that of
+    ``LatentDynamics(cfg)``, an autoencoder's tree -> a stage-1 ``.pt``'s;
+    f32 tensors on the CPU."""
+    return _from_table(key_table(cfg, kind), params.get("params", params))
+
+
+def state_dict_to_jax(cfg, state: Dict[str, torch.Tensor], kind: str = "dynamics"
+                        ) -> Dict[str, Any]:
+    """The inverse of ``state_dict_from_jax``: a state dict of `kind` -> the
+    JAX parameter tree (nested dicts of f32 numpy arrays, the JAX layouts),
+    from the same ``key_table``. Every key of `state` must be in the table
+    and every table key that the JAX tree holds in `state`."""
+    table = key_table(cfg, kind)
+    known = {e.key for e in table}
+    extra = sorted(set(state) - known)
+    missing = sorted(e.key for e in table if e.path is not None and e.key not in state)
+    if extra or missing:
+        raise KeyError(f"state dict against the {kind} key table: unexpected {extra[:5]}, "
+                       f"missing {missing[:5]}")
+    tree: Dict[str, Any] = {}
+    for e in table:
+        if e.path is None:
+            continue
+        node = tree
+        for name in e.path[:-1]:
+            node = node.setdefault(name, {})
+        node[e.path[-1]] = _to_jax(e, state[e.key].detach().cpu().float().numpy())
+    return tree
 
 
 def sequential_state_dict(specs, params: Dict[str, Any], prefix: str = "") -> Dict[str, torch.Tensor]:
     """The JAX params of a spec-built stack (``{spec.name: ...}``) -> the
     state dict of the port's layers under ``{prefix}.{idx}``."""
-    out: Dict[str, np.ndarray] = {}
-    _sequential(out, specs, params, prefix)
-    return _tensors(out)
+    t: List[Entry] = []
+    _sequential(t, specs, (), prefix)
+    return _from_table(t, params)
 
 
 def propagator_state_dict(cfg, params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX ``SimpleCNN`` (``CondSimpleCNN`` for a conditional config) params
-    -> the port's propagator state dict."""
-    out: Dict[str, np.ndarray] = {}
-    _propagator(out, cfg, params, "")
-    return _tensors(out)
-
-
-def _tensors(out: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    return {k: torch.tensor(np.array(v, dtype=np.float32)) for k, v in out.items()}
+    -> the port's propagator state dict; its convs are half-periodic where
+    the tree nests their kernels."""
+    t: List[Entry] = []
+    _propagator(t, cfg, (), "", "kernel" not in params.get("net0", {}).get("conv1", {"kernel": 0}))
+    return _from_table(t, params)
