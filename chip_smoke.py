@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's NS2d, SW, two-phase and conditional two-phase
-inference rollouts, the stage-2 and stage-1 training of each family, its
-evaluate and convert entry points and its data-parallel training once on
-one CUDA card.
+"""Drive the PyTorch port's NS2d (also with the autoencoder's Fourier
+layers), SW, two-phase and conditional two-phase inference rollouts, the
+conditional encoder, the library blocks, the stage-2 and stage-1 training
+of each family, its evaluate and convert entry points and its
+data-parallel training once on one CUDA card.
 
     python3 chip_smoke.py            # everything below, on one card
     python3 chip_smoke.py --ranks    # phase 8's 2- and 4-rank runs alone
@@ -58,13 +59,32 @@ CUDA PyTorch and nvcc. It imports nothing of JAX. In order it:
      step; its propagator steps as modules, kernel 3 at its GroupNorms; its
      zero-initialised gates filled from the generator too, so the
      conditioning is live; one plain step from each bf16 carry against the
-     next, and another parameter giving another output). For each path it sets
+     next, and another parameter giving another output), and
+     ``fourier_config()`` (path 6: path 1 with the autoencoder's Fourier
+     layers, ``final_smoothing`` and ``fourier_resolutions`` [64, 32]:
+     FourierBasicBlocks at the encoder's 64x64 and 32x32 levels and after
+     the decoder's last conv, their FFTs cuFFT's; batch 32, 29 steps,
+     116-frame chunks). For each path it sets
      every launch count to 0, runs one predict, checks the output and that
      every kernel launched as often as the model's layer specs imply,
      compares the kernel path with the all-plain path in f32 on a small
      input, times frames/s of both and the host's enqueue time per predict,
      prints the peak device memory of one predict, and profiles one predict
-     of each (device busy and idle, largest kernels);
+     of each (device busy and idle, largest kernels, the FFTs' share).
+     Path 6 also: its f32 decode on the card against the CPU (cuFFT
+     against pocketfft, 3e-4), a profiled decode chunk (the FFTs' share)
+     and one stage-1 train step's gradients, kernel path against plain
+     (``check_fourier``). Path 7 (``drive_cond_encoder``):
+     ``ConditionalSimpleAutoencoder`` on ``twophase_conditional_config()``
+     at batch 32 in bf16, one forward and backward with its launch counts
+     (kernel 3 at every GroupNorm of the forward, none in the backward),
+     the f32 forward and the gradients against the plain path, kernel 3 at
+     each of the encoder's new GroupNorm sites against its plain version.
+     The library blocks (``drive_library``: the library propagators,
+     LABlock, CABlock, the FNO mixers, CondFourierBasicBlock, the 1D and
+     3D spectral convs, SirenNet, EmbeddingWrapper at sizes a user would
+     run): f32 on the card against the CPU, kernel path against plain,
+     bf16 with launch counts, kernel 3 at each of their GroupNorm sites;
   5. trains stage 2 at full NS2d width (``Stage2Trainer``, bf16): a
      synthetic corpus of 64 cases x 30 frames, a seeded AE saved as a
      stage-1 ``.pt`` and loaded (bitwise), the encode pre-pass (kernel 3 at
@@ -131,7 +151,8 @@ CUDA PyTorch and nvcc. It imports nothing of JAX. In order it:
      there are two cards, else one line saying so;
   9. prints one JSON line of per-kernel results (launches per path, and ms
      / plain_ms / bound_ms per predict, summed over one predict of each
-     inference path), then the closing JSON line.
+     inference path, kernel 3 also over path 7's encoder sites and the
+     library blocks' sites), then the closing JSON line.
 
 Any failed check or exception exits non-zero before the closing line.
 """
@@ -758,7 +779,8 @@ def cond_gn_sites(model, dev, batch, steps):
     return sites
 
 
-def check_cond_group_norm(dev, gen, sites, train_sites):
+def check_cond_group_norm(dev, gen, sites, train_sites, label="conditional propagator",
+                          per="predict (path 5)"):
     """Kernel 3 at the conditional propagator's GroupNorm sites (sites:
     {(dtype, batch, spatial, C, groups, eps, swish): calls per predict};
     train_sites: the same per stage-2 train step's forward): GN(1) over the
@@ -772,7 +794,8 @@ def check_cond_group_norm(dev, gen, sites, train_sites):
     the site runs in (CUDA events, device time by graph replays, the library
     call ``F.group_norm``, the bound: bytes at the memory rate or ~8 f32
     operations per element). Returns the kernel's result summed over one
-    predict."""
+    predict. Other sites (the conditional encoder's, the library blocks')
+    are held so too, under their `label`, their calls counted per `per`."""
     from lns_tpu_torch.kernels.group_norm import (fused_group_norm_swish, group_norm_plan,
                                                   group_norm_swish_plain)
 
@@ -795,15 +818,15 @@ def check_cond_group_norm(dev, gen, sites, train_sites):
             xd = x.to(dt)
             calls, train_calls = per_site.get((dt, b, spatial, c, g, eps, swish), (0, 0))
             plan = group_norm_plan(dt, b, s, c, g)
-            print(f"      group_norm {str(dt)[6:]} {tag} (conditional propagator; {calls} calls "
-                  f"per predict, {train_calls} per train step): "
+            print(f"      group_norm {str(dt)[6:]} {tag} ({label}; {calls} calls "
+                  f"per {per}, {train_calls} per train step): "
                   + (f"split plan, {plan['chunks']} chunks" if plan["chunks"] else
                      f"cluster {plan['cluster']}, {plan['blocks']} blocks of "
                      f"{plan['smem_bytes']} bytes of shared memory, {plan['rows_per_block']} rows "
                      f"each; the card holds {plan['max_active_clusters']} such clusters at once"),
                   flush=True)
             err, ms, plain_ms = compare(
-                f"group_norm {str(dt)[6:]} {tag} (conditional propagator)",
+                f"group_norm {str(dt)[6:]} {tag} ({label})",
                 lambda: fused_group_norm_swish(xd, scale, bias, g, eps, swish),
                 lambda: group_norm_swish_plain(xd, scale, bias, g, eps, swish), tol,
                 max_differ=differ)
@@ -814,7 +837,7 @@ def check_cond_group_norm(dev, gen, sites, train_sites):
                 leaves = [t.clone().requires_grad_() for t in (xd, scale, bias)]
                 grads.append(torch.autograd.grad(fn(*leaves, g, eps, swish), leaves, go))
             _check(all(torch.equal(a, b_) for a, b_ in zip(*grads)),
-                   f"group_norm {str(dt)[6:]} {tag} (conditional propagator): gradients w.r.t. "
+                   f"group_norm {str(dt)[6:]} {tag} ({label}): gradients w.r.t. "
                    "x, scale, bias through GroupNormSwishFunction bitwise equal to plain "
                    "autograd's")
             if not (calls or train_calls):
@@ -823,7 +846,7 @@ def check_cond_group_norm(dev, gen, sites, train_sites):
             lms = cuda_ms(lambda: _gn_library(xd, scale, bias, g, eps, swish, cast and dt == bf16))
             one = Bound().add(8 * xd.numel(), 2 * _nbytes(xd) + _nbytes(scale, bias),
                               rate=PEAK_F32)
-            print(f"      group_norm {str(dt)[6:]} {tag} (conditional propagator): device "
+            print(f"      group_norm {str(dt)[6:]} {tag} ({label}): device "
                   f"{dms:.4f} ms (CUDA graph of 20 calls), events {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, library {lms:.4f} ms, bound {one.ms:.4f} ms "
                   f"({one.result()['bound_by']})", flush=True)
@@ -831,8 +854,10 @@ def check_cond_group_norm(dev, gen, sites, train_sites):
                 for k, v in (("ms", ms), ("dev", dms), ("plain", plain_ms), ("lib", lms)):
                     acc[k] += v * n
             bound.add(8 * xd.numel(), 2 * _nbytes(xd) + _nbytes(scale, bias), calls, PEAK_F32)
-    for what, acc in (("predict (path 5)", total), ("stage-2 train step's forward", train)):
-        print(f"      group_norm per {what} at the conditional propagator's sites: kernel "
+    for what, acc in ((per, total), ("stage-2 train step's forward", train)):
+        if acc is train and not train_sites:
+            continue
+        print(f"      group_norm per {what} at the sites of the {label}: kernel "
               f"{acc['ms']:.4f} ms by CUDA events, {acc['dev']:.4f} ms device (CUDA graphs), "
               f"plain {acc['plain']:.4f} ms, library {acc['lib']:.4f} ms"
               + (f", bound {bound.ms:.4f} ms" if acc is total else ""), flush=True)
@@ -1249,8 +1274,9 @@ def expected_launches(cfg, n_chunks=None, encodes=1, steps=None):
     per FAB block, once per encode or decode chunk, the FAB core (c-space)
     or the axial kernel (d-space), as ``_fab_impl_for`` picks from the
     block's dim and dim_head; the GroupNorm kernel once per GN site (two per
-    ResidualBlock, one per GN layer and per FAB ``in_norm``) per encode or
-    decode chunk. `n_chunks` decode chunks (those of the main paths' predict
+    ResidualBlock, one per GN layer and per FAB ``in_norm``; none in a
+    ``FourierBasicBlock``, whose FFTs are cuFFT's) per encode or decode
+    chunk. `n_chunks` decode chunks (those of the main paths' predict
     when None) and `encodes` encoder calls; a ResidualBlock and a
     HalfPeriodicResBlock2d alike; with ``n_chunks=0`` (an encode
     pass alone) the rollout is not counted."""
@@ -1271,7 +1297,7 @@ def expected_launches(cfg, n_chunks=None, encodes=1, steps=None):
     out = {"prop_rollout": int(n_chunks > 0), "fab_core": fabs("batchedgram"),
            "fab_axial_in_fused": fabs("batched"),
            "group_norm": count(lambda s: {"resblock": 2, "hp_resblock": 2, "gn": 1,
-                                          "fablock": 1}.get(s.kind, 0))}
+                                          "fablock": 1, "fourier": 0}.get(s.kind, 0))}
     if cfg.is_conditional:
         out["prop_rollout"] = 0
         if n_chunks > 0 and steps is not None:
@@ -1491,8 +1517,9 @@ def _device_rows(prof):
 def profile_device(fn, label, top=8):
     """fn() (one predict, or a few train steps, after the timed ones) under
     torch.profiler: its wall time by CUDA events, the device's busy time
-    (every kernel and copy) and idle share, and the kernels that take the
-    most device time."""
+    (every kernel and copy) and idle share, the kernels that take the most
+    device time, and the FFTs' device time and share where there are any.
+    Returns {wall_ms, busy_ms, fft_ms}."""
     from torch.profiler import ProfilerActivity, profile
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1517,6 +1544,13 @@ def profile_device(fn, label, top=8):
         if found:
             print(f"        {label_k}: {sum(r[0] for r in found):.3f} ms of device time in "
                   f"{sum(r[1] for r in found)} calls", flush=True)
+    fft = [r for r in rows if "fft" in r[2].lower()]
+    if fft:  # the spectral layers' transforms (cuFFT, and torch.fft's own kernels)
+        fft_ms = sum(r[0] for r in fft)
+        print(f"        FFT (kernels named *fft*: cuFFT and torch.fft's): {fft_ms:.3f} ms of "
+              f"device time in {sum(r[1] for r in fft)} calls, {fft_ms / busy:.1%} of the "
+              "device's busy time", flush=True)
+    return {"wall_ms": wall, "busy_ms": busy, "fft_ms": sum(r[0] for r in fft)}
 
 
 # -- phase 5: stage-2 training ------------------------------------------------
@@ -3284,6 +3318,337 @@ def drive_ddp(dev, smi):
     return out
 
 
+# -- path 6 (the Fourier layers), path 7 (the conditional encoder) and the
+# library blocks --------------------------------------------------------------
+
+def fourier_config():
+    """Path 6: NS2d with the autoencoder's Fourier layers, the two switches of
+    the shipped autoencoder: ``fourier_resolutions`` [64, 32] puts a
+    ``FourierBasicBlock`` after the encoder's 64x64 (c64, modes 10x10) and
+    32x32 (c64, modes 6x6) levels, ``final_smoothing`` one after the
+    decoder's last 3x3 conv (64x64, c64, modes 16x16)."""
+    from lns_tpu_torch.config import ns2d_config
+
+    return ns2d_config().replace(final_smoothing=True, fourier_resolutions=[64, 32])
+
+
+def check_fourier(dev, smi):
+    """Path 6 beyond its predict (``drive_path``): the f32 decode of two
+    latents on the card (cuFFT) against the same model on the CPU (pocketfft)
+    within 3e-4; one decode chunk of CHUNK frames profiled in bf16 (the
+    FFTs' share of its device time); one stage-1 train step's gradients at
+    batch BATCH, kernel path against the plain path (``check_stage1_step``:
+    its launches, f32 and bf16 rules, every parameter's gradient nonzero,
+    the spectral banks' through ``torch.fft`` among them)."""
+    from lns_tpu_torch.models import SimpleAutoencoder
+    from lns_tpu_torch.ops.initializers import init_weights_
+
+    t0 = time.perf_counter()
+    cfg = fourier_config()
+    gen = torch.Generator().manual_seed(6)
+    print("-- path 6 NS2d Fourier layers: decode on the card against the CPU, a profiled "
+          f"decode chunk of {CHUNK} frames, one stage-1 train step (batch {BATCH})", flush=True)
+    cpu = init_weights_(SimpleAutoencoder(cfg), gen)
+    z = torch.randn(2, cfg.latent_resolution, cfg.latent_resolution, cfg.latent_dim,
+                    generator=gen)
+    m32 = SimpleAutoencoder(cfg).to(dev)
+    m32.load_state_dict(cpu.state_dict())
+    with torch.no_grad():
+        ref = cpu.use_kernels(False).decode(z)
+        out = m32.decode(z.to(dev)).cpu()
+    err = (out - ref).abs().max().item()
+    _check(tuple(out.shape) == (2, cfg.Ly, cfg.Lx, cfg.in_channels) and err <= 3e-4,
+           f"path 6: f32 decode of 2 latents, the card (kernels, cuFFT) against the CPU (plain, "
+           f"pocketfft): max_abs_err {err:.3e} <= 3e-4")
+    # each Fourier layer at the batch the predict gives it (the encoder's
+    # BATCH frames, a decode chunk's CHUNK), f32, the card against the CPU
+    for part, batch in (("encoder", BATCH), ("decoder", CHUNK)):
+        for i, spec in enumerate(getattr(cpu, part).specs):
+            if spec.kind != "fourier":
+                continue
+            res = cfg.resolution >> sum(s.kind == "down" for s in getattr(cpu, part).specs[:i])
+            c = spec.kw["in_planes"]
+            xf = torch.randn(batch, res, res, c, generator=gen).movedim(-1, 1)
+            with torch.no_grad():
+                want = getattr(cpu, part).model[i](xf)
+                got = getattr(m32, part).model[i](xf.to(dev)).cpu()
+            err = (got - want).abs().max().item() / want.abs().max().item()
+            _check(err <= 1e-5, f"path 6: {part} Fourier layer {i} ({batch}x{res}x{res}x{c}, "
+                   f"modes {spec.kw['modes']}), f32, the card against the CPU: max_abs_err "
+                   f"{err:.2e} x max|cpu| (<= 1e-5)")
+    model = SimpleAutoencoder(cfg, dtype=torch.bfloat16).to(dev)
+    model.load_state_dict(cpu.state_dict())
+    zc = torch.randn(CHUNK, cfg.latent_resolution, cfg.latent_resolution, cfg.latent_dim,
+                     generator=gen).to(dev, torch.bfloat16)
+    with torch.no_grad():
+        model.decode(zc)  # warm-up: cuFFT plans
+        prof = profile_device(lambda: model.decode(zc), f"path 6 decode chunk of {CHUNK} frames")
+    if prof:
+        print(f"      path 6 decode chunk of {CHUNK} frames (bf16, kernel path): FFTs "
+              f"{prof['fft_ms']:.3f} ms of {prof['busy_ms']:.3f} ms device busy "
+              f"({prof['fft_ms'] / prof['busy_ms']:.1%}); {smi}", flush=True)
+    x = torch.randn(BATCH, cfg.Ly, cfg.Lx, cfg.in_channels, generator=gen).to(dev)
+    check_stage1_step("path 6 NS2d Fourier layers", model, m32, x)
+    print(f"      path 6 checks took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _cond_ae_grads(model, x, p, target, use_kernel):
+    """The mean square reconstruction error of frames x under parameters p
+    and its gradient w.r.t. every parameter, on the kernel path or the
+    plain path."""
+    model.use_kernels(use_kernel)
+    params = dict(model.named_parameters())
+    loss = (model(x, p).float() - target).square().mean()
+    grads = torch.autograd.grad(loss, list(params.values()))
+    model.use_kernels(True)
+    return dict(zip(params, grads))
+
+
+def drive_cond_encoder(dev, smi):
+    """Path 7: ``ConditionalSimpleAutoencoder`` on ``twophase_conditional_config()``
+    (61x121x4 -> 7x15x64, a 64-wide parameter embedding; its encoder of
+    ``CondResidualBlock``s conditioned on each sample's parameter, the
+    two-phase decoder), weights from a seeded generator with the
+    zero-initialised conv2 of every block filled too (``_open_gates``).
+    At batch BATCH in bf16: one forward and backward with the launch counts
+    set to 0 before and read after (kernel 3 at every GroupNorm of the
+    forward, nothing in the backward), shapes, finite values and a nonzero
+    gradient for every parameter; the f32 forward at batch 2, kernel path
+    against the plain path, within 3e-4; the gradients at batch BATCH,
+    kernel path against the plain path (f32 and bf16, ``_hold_gradients``'
+    rules); kernel 3 at each of the encoder's GroupNorm sites against its
+    plain version (``check_cond_group_norm``); forward-and-backward ms of
+    both paths. Returns the launches and kernel 3's result at the
+    encoder's sites."""
+    from lns_tpu_torch.config import twophase_conditional_config
+    from lns_tpu_torch.models import ConditionalSimpleAutoencoder
+    from lns_tpu_torch.ops import norms
+    from lns_tpu_torch.ops.initializers import init_weights_
+
+    t0 = time.perf_counter()
+    cfg = twophase_conditional_config()
+    gen = torch.Generator().manual_seed(7)
+    label = "path 7 conditional encoder"
+    print(f"-- {label}: ConditionalSimpleAutoencoder, {cfg.Ly}x{cfg.Lx}x{cfg.in_channels} -> "
+          f"{cfg.latent_resolution}x15x{cfg.latent_dim}, embedding {cfg.cond_emb_channels}, "
+          f"batch {BATCH}, bf16, forward and backward", flush=True)
+    cpu = _open_gates(init_weights_(ConditionalSimpleAutoencoder(cfg), gen), gen)
+    model = ConditionalSimpleAutoencoder(cfg, dtype=torch.bfloat16).to(dev)
+    model.load_state_dict(cpu.state_dict())
+    m32 = ConditionalSimpleAutoencoder(cfg).to(dev)
+    m32.load_state_dict(cpu.state_dict())
+    x = torch.randn(BATCH, cfg.Ly, cfg.Lx, cfg.in_channels, generator=gen).to(dev)
+    p = torch.rand(BATCH, generator=gen).to(dev)
+    n_blocks = (len(cfg.encoder_channels) - 1) * cfg.encoder_res_blocks + 1
+    enc_gn = 2 * n_blocks + 1  # norm1 and norm2 per block, to_out's GN(32)
+    want = enc_gn + expected_launches(cfg, n_chunks=1, encodes=0)["group_norm"]
+
+    counted = _counted()
+    for f in counted.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    y = model(x, p)
+    fwd = {k: f.launches for k, f in counted.items()}
+    loss = (y.float() - x).square().mean()
+    loss.backward()
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counted.items()}
+    peak = torch.cuda.max_memory_allocated()
+    _check(tuple(y.shape) == tuple(x.shape) and bool(torch.isfinite(y).all())
+           and math.isfinite(loss.item()),
+           f"{label}: output {tuple(y.shape)} finite, loss {loss.item():.4f}")
+    _check(fwd == {k: (want if k == "group_norm" else 0) for k in counted} and launches == fwd,
+           f"{label}: launches in the forward {({k: v for k, v in fwd.items() if v})} == "
+           f"group_norm {want} ({enc_gn} in the encoder: 2 per CondResidualBlock x {n_blocks} "
+           "+ to_out's GN(32)), in the backward "
+           f"{sum(launches.values()) - sum(fwd.values())}")
+    top = {k: q.grad.abs().max().item() for k, q in model.named_parameters()}
+    low = min(top, key=top.get)
+    _check(all(math.isfinite(v) and v > 0 for v in top.values()),
+           f"{label}: all {len(top)} parameter tensors have a finite nonzero gradient "
+           f"(smallest max|g| {top[low]:.3e}, {low}); peak device memory "
+           f"{peak / 2**30:.3f} GiB")
+    model.zero_grad(set_to_none=True)
+
+    with torch.no_grad():
+        yk = m32.use_kernels(True)(x[:2], p[:2])
+        yp = m32.use_kernels(False)(x[:2], p[:2])
+    m32.use_kernels(True)
+    err = (yk - yp).abs().max().item()
+    _check(bool(torch.isfinite(yk).all()) and err <= 3e-4,
+           f"{label}: f32 forward at batch 2, kernels vs plain: max_abs_err {err:.3e} <= 3e-4")
+
+    # the gradients, kernel path against the plain path (and the plain
+    # path's own change under a one-ulp move of its input)
+    g32 = None
+    for dt, m, ulp in (("f32", m32, 2 ** -23), ("bf16", model, 2 ** -8)):
+        gk = _cond_ae_grads(m, x, p, x, True)
+        gp = _cond_ae_grads(m, x, p, x, False)
+        gq = _cond_ae_grads(m, x * (1 + ulp), p, x, False)
+        g32 = gp if dt == "f32" else g32
+        _hold_gradients(f"{label} {dt} (batch {BATCH})", dt, gk, gp, gq, g32)
+        del gk, gq
+
+    for flag, path in ((True, "kernel path"), (False, "plain path")):
+        model.use_kernels(flag)
+        ms = cuda_ms(lambda: (model(x, p).float() - x).square().mean().backward(), reps=3)
+        print(f"      {label} forward and backward, batch {BATCH}, bf16, {path}: {ms:.2f} ms; "
+              f"{smi}", flush=True)
+    model.use_kernels(True)
+    model.zero_grad(set_to_none=True)
+
+    with recording(norms, "fused_group_norm_swish") as calls, torch.no_grad():
+        model.encode(x, p)
+    sites = _gn_site_counts(calls, with_dtype=True)
+    del calls
+    _check(sum(sites.values()) == enc_gn,
+           f"{label}: the encoder's GroupNorm calls found {sites} == {enc_gn}")
+    res = check_cond_group_norm(dev, gen, sites, {}, label="conditional encoder",
+                                per=f"forward (path 7, batch {BATCH})")
+    print(f"      {label} took {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, res
+
+
+def _library_blocks(gen):
+    """Each library block at a size a user would run, with its inputs
+    (channel-first views of channels-last memory, as the paths give them):
+    the library propagators on the NS2d latent (batch BATCH, 8x8x16, width
+    128; ConditionalResNet 8 heads x 64 and a context of 4 tokens x 64),
+    LABlock and CABlock at 16x16 c64, the FNO mixers and
+    CondFourierBasicBlock at 64x64 c64 modes 16x16 (batch 8, a 64-wide
+    conditioning vector), SpectralConv1d at 1,024 x c64, SpectralConv3d at
+    16^3 x c32 (modes 6), SirenNet (2 -> 256 x 4 -> 64 on 256 points) and
+    EmbeddingWrapper (a SIREN, a table and a linear key) at batch BATCH."""
+    from lns_tpu_torch.models import ConditionalResNet, SimpleMLP, SimpleResNet
+    from lns_tpu_torch.ops import attention, embedding, fno, fourier_cond, spectral
+
+    def cl(*shape):  # [B, *spatial, C] memory as [B, C, *spatial]
+        return torch.randn(*shape, generator=gen).movedim(-1, 1)
+
+    b = BATCH
+    z, ctx = torch.randn(b, 8, 8, 16, generator=gen), torch.randn(b, 4, 64, generator=gen)
+    f16, f64, v = cl(b, 16, 16, 64), cl(8, 64, 64, 64), torch.randn(8, 64, generator=gen)
+    emb_keys = ["coef_emb", "case_emb", "vel_emb"]
+    emb_settings = [dict(encoder="siren", in_channels=2, hidden_channels=128, out_channels=64,
+                         num_layers=3),
+                    dict(encoder="embedding", in_channels=1, num_embeddings=16, out_channels=64),
+                    dict(encoder="linear", in_channels=3, out_channels=64)]
+    ctx_in = {"coef": torch.rand(b, 1, 2, generator=gen) * 2 - 1,
+              "case": torch.randint(0, 16, (b, 1), generator=gen).float(),
+              "vel": torch.randn(b, 3, generator=gen)}
+    return [("SimpleResNet", SimpleResNet(16, 128), (z,)),
+            ("ConditionalResNet", ConditionalResNet(16, 128, 64, heads=8, dim_head=64), (z, ctx)),
+            ("SimpleMLP", SimpleMLP(16, 8, 128), (z,)),
+            ("LABlock", attention.LABlock(64, 8, 8), (f16,)),
+            ("CABlock", attention.CABlock(64, 64, 8, 8), (f16, ctx)),
+            ("ResFNOMixerBlock ln", fno.ResFNOMixerBlock(64, 64, (16, 16), norm="ln"), (f64,)),
+            ("ResFNOMixerBlock in", fno.ResFNOMixerBlock(64, 64, (16, 16), norm="in"), (f64,)),
+            ("CondResFNOMixerBlock ln", fno.CondResFNOMixerBlock(64, 64, (16, 16), norm="ln"),
+             (f64, v)),
+            ("CondFourierBasicBlock", fourier_cond.CondFourierBasicBlock(64, 64, (16, 16)),
+             (f64, v)),
+            ("SpectralConv1d", spectral.SpectralConv1d(64, 64, 16), (cl(b, 1024, 64),)),
+            ("SpectralConv3d", spectral.SpectralConv3d(32, 32, 6, 6, 6), (cl(8, 16, 16, 16, 32),)),
+            ("SirenNet", embedding.SirenNet(2, 256, 64, 4), (torch.rand(b, 256, 2, generator=gen),)),
+            ("EmbeddingWrapper", embedding.EmbeddingWrapper(emb_keys, emb_settings), (ctx_in,))]
+
+
+def _to(a, dev, dt=None):
+    """A block's input on `dev`; field inputs (not the f32 conditioning
+    vectors, nor a context dict's values) cast to `dt`."""
+    if isinstance(a, dict):
+        return {k: v.to(dev) for k, v in a.items()}
+    return a.to(dev, dt) if dt is not None and a.dim() >= 3 else a.to(dev)
+
+
+def drive_library(dev, smi):
+    """The library blocks (``_library_blocks``), weights from a seeded
+    generator (the zero-initialised gates filled too): each in f32 on the
+    card against the same block on the CPU within 1e-4 x max|cpu| (cuFFT,
+    cuDNN and cuBLAS against the CPU's libraries); the blocks with a
+    GroupNorm also kernel path against plain path on the card, f32, within
+    1e-4 x max|plain|; then every block in bf16 (the fields cast, the
+    conditioning vectors f32) with the launch counts set to 0 before and
+    read after: shapes, finite values, within 5e-2 x max|f32| of the f32
+    output (a sanity bound for bf16 through a few layers), kernel 3 once
+    per GroupNorm module; kernel 3 at each of their GroupNorm sites against
+    its plain version (``check_cond_group_norm``). Returns the launches and
+    kernel 3's result at those sites."""
+    import copy
+
+    from lns_tpu_torch.ops import norms
+    from lns_tpu_torch.ops.initializers import init_weights_
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(8)
+    print(f"-- library blocks (batch {BATCH} unless stated): f32 card vs CPU, kernel vs plain, "
+          "bf16 with launch counts", flush=True)
+    blocks = []
+    for name, block, args in _library_blocks(gen):
+        block = _open_gates(init_weights_(block, gen), gen).eval()
+        with torch.no_grad():
+            ref = block(*args)
+            card = copy.deepcopy(block).to(dev)
+            dargs = tuple(_to(a, dev) for a in args)
+            out = card(*dargs)
+            err = (out.cpu() - ref).abs().max().item() / ref.abs().max().item()
+            _check(out.shape == ref.shape and bool(torch.isfinite(out).all()) and err <= 1e-4,
+                   f"library {name}: {tuple(out.shape)}, f32 on the card against the CPU: "
+                   f"max_abs_err {err:.2e} x max|cpu| (<= 1e-4)")
+            gns = sum(isinstance(m, norms.GroupNorm) for m in card.modules())
+            if gns:
+                for m in card.modules():
+                    if hasattr(m, "use_kernel"):
+                        m.use_kernel = False
+                plain = card(*dargs)
+                for m in card.modules():
+                    if hasattr(m, "use_kernel"):
+                        m.use_kernel = True
+                err = (out - plain).abs().max().item() / plain.abs().max().item()
+                _check(err <= 1e-4, f"library {name}: f32 on the card, kernel path ({gns} "
+                       f"GroupNorms) against plain: max_abs_err {err:.2e} x max|plain| (<= 1e-4)")
+        blocks.append((name, card, dargs, out, gns))
+
+    # the library fault SpectralConv1d steps round (ops.spectral.irfft_modes):
+    # cuFFT's batched 1D c2r at 2,048 transforms of 1,024 points, shown, not used
+    spec = torch.randn(2048, 513, dtype=torch.complex64, generator=gen)
+    spec[:, 16:] = 0
+    want = torch.fft.irfft(spec, n=1024, dim=1)
+    got = torch.fft.irfft(spec.to(dev), n=1024, dim=1).cpu()
+    print(f"      torch.fft.irfft on the card, 2,048 x 1,024 points (16 modes): "
+          f"{(got - want).abs().max().item() / want.abs().max().item():.2e} x max|cpu| from "
+          "the CPU's (the port's SpectralConv1d synthesises by matmul, irfft_modes)", flush=True)
+
+    counted = _counted()
+    for f in counted.values():
+        f.launches = 0
+    outs = {}
+    with recording(norms, "fused_group_norm_swish") as calls, torch.no_grad():
+        for name, card, dargs, _, _ in blocks:  # the SIREN stacks take coordinates in f32
+            dt = None if name in ("SirenNet", "EmbeddingWrapper") else torch.bfloat16
+            outs[name] = (dt, card(*(_to(a, dev, dt) for a in dargs)))
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counted.items()}
+    want = sum(g for *_, g in blocks)
+    _check(launches == {k: (want if k == "group_norm" else 0) for k in counted},
+           f"library blocks in bf16: launches {({k: v for k, v in launches.items() if v})} == "
+           f"group_norm {want} (one per GroupNorm module)")
+    for name, _, _, out32, _ in blocks:
+        dt, y = outs[name]
+        y = y.float()
+        err = (y - out32).abs().max().item() / out32.abs().max().item()
+        _check(y.shape == out32.shape and bool(torch.isfinite(y).all()) and err <= 5e-2,
+               f"library {name} {'bf16' if dt else 'f32, again'}: {tuple(y.shape)} finite, "
+               f"within {err:.2e} x max|f32| (<= 5e-2)")
+    sites = _gn_site_counts(calls, with_dtype=True)
+    del calls, outs
+    res = check_cond_group_norm(dev, gen, sites, {}, label="library blocks",
+                                per="bf16 forward of the library blocks")
+    print(f"      library blocks took {time.perf_counter() - t0:.1f} s; {smi}", flush=True)
+    return launches, res
+
+
 def run(dev, smi=""):
     """Phases 3-8 on `dev`; returns the per-kernel results."""
     import tempfile
@@ -3304,7 +3669,8 @@ def run(dev, smi=""):
             ("path 3 SW", sw_config(), (SW_BATCH, SW_STEPS, None)),
             ("path 4 two-phase", twophase_config(), (TP_BATCH, TP_STEPS, None)),
             ("path 5 conditional two-phase", twophase_conditional_config(),
-             (TP_BATCH, TP_STEPS, None))):
+             (TP_BATCH, TP_STEPS, None)),
+            ("path 6 NS2d Fourier layers", fourier_config(), (BATCH, STEPS, CHUNK))):
         # initialised on the CPU from the seeded generator, then moved
         g0 = cond_gen if cfg.is_conditional else gen
         model = init_weights_(LatentDynamics(cfg, dtype=torch.bfloat16, ae_dtype=torch.bfloat16,
@@ -3372,7 +3738,8 @@ def run(dev, smi=""):
                                               sw.cfg.decoder_attn_heads, sw.cfg.decoder_attn_dim,
                                               extras=False)),
            "group_norm": _summed(
-               _summed(check_group_norm(dev, gen, gn_sites, train_sites),
+               _summed(check_group_norm(dev, gen, gn_sites, train_sites,
+                                        label="NS2d paths 1, 2 and 6"),
                        check_group_norm(dev, gen, sw_gn, fam_train_sites["SW"], label="SW",
                                         extras=False)),
                tp_res := check_group_norm(dev, gen, tp_gn, fam_train_sites["two-phase"],
@@ -3395,6 +3762,10 @@ def run(dev, smi=""):
         by_path[label] = drive_path(label, model, expect, gen, dev, b, steps, chunk)
         del model
     del paths, sw, tp, tpc
+    check_fourier(dev, smi)
+    by_path["path 7 conditional encoder"], cond_enc_res = drive_cond_encoder(dev, smi)
+    by_path["library blocks"], library_res = drive_library(dev, smi)
+    res["group_norm"] = _summed(_summed(res["group_norm"], cond_enc_res), library_res)
     by_path["stage-2 training"], by_path["evaluate NS2d"] = drive_stage2(dev, smi)
     by_path["stage-1 training"] = drive_stage1(dev, smi)
     for fam in FAMILIES:

@@ -4,14 +4,16 @@ port's (the reference's) ``.pt``, both directions (counterpart of
 
     # flax msgpack -> .pt (loads strictly into the port and the reference)
     python -m lns_tpu_torch.cli.convert --config cfg.yml --input ae.msgpack \\
-        --output vqgan_epoch_final.pt [--kind ae|dynamics]
+        --output vqgan_epoch_final.pt [--kind ae|cond_ae|dynamics]
 
     # .pt -> flax msgpack (what the JAX package's load_pytree reads)
     python -m lns_tpu_torch.cli.convert --config cfg.yml --input model_best.pt \\
         --output model_best.msgpack --kind dynamics
 
 ``--kind ae`` is a stage-1 autoencoder (the JAX tree ``{encoder, decoder,
-quant_conv, post_quant_conv}``, the ``.pt``'s bare keys), ``dynamics`` a
+quant_conv, post_quant_conv}``, the ``.pt``'s bare keys; its Fourier layers
+included), ``cond_ae`` a ``ConditionalSimpleAutoencoder`` (the same tree,
+its encoder the ``CondEncoder``), ``dynamics`` a
 stage-2 model (``{vq_ae, propagator}``; ``vq_ae.`` / ``ae.`` and
 ``propagator.`` keys). Both directions read one key table
 (``lns_tpu_torch.utils.convert.key_table``); msgpack is read and written
@@ -60,7 +62,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     p.add_argument("--config", required=True)
     p.add_argument("--input", required=True)
     p.add_argument("--output", required=True)
-    p.add_argument("--kind", choices=["ae", "dynamics"], default="ae")
+    p.add_argument("--kind", choices=["ae", "cond_ae", "dynamics"], default="ae")
     args = p.parse_args(argv)
     convert(load_config(args.config), args.input, args.output, args.kind)
     direction = "torch -> msgpack" if args.input.endswith(".pt") else "msgpack -> torch"

@@ -1,7 +1,10 @@
 """Stage-1 autoencoder: the periodic square variant (NS2d), the
 half-periodic variant (SW) and the non-squared zero-padded variant
 (two-phase, and the conditional two-phase family, whose trainer builds the
-plain autoencoder: train_stage2_twophase_conditional.py:128).
+plain autoencoder: train_stage2_twophase_conditional.py:128), each with
+the optional Fourier layers (``final_smoothing``, ``fourier_resolutions``:
+``FourierBasicBlock``s); and ``ConditionalSimpleAutoencoder``, whose
+encoder is conditioned on a scalar parameter (``CondEncoder``).
 
 ``SimpleAutoencoder`` maps NHWC fields to the latent grid and back:
 encode = quant_conv(encoder(x)), decode = decoder(post_quant_conv(z)),
@@ -23,8 +26,11 @@ from torch import nn
 from lns_tpu_torch.models.specs import LayerSpec, decoder_spec, encoder_spec
 from lns_tpu_torch.ops.activations import Swish
 from lns_tpu_torch.ops.attention import SABlock
-from lns_tpu_torch.ops.conv import Conv1x1, ConvND
+from lns_tpu_torch.ops.conditioning import CondResidualBlock
+from lns_tpu_torch.ops.conv import Conv1x1, ConvND, Dense
+from lns_tpu_torch.ops.embedding import fourier_embedding
 from lns_tpu_torch.ops.factorized_attention import FABlock2D
+from lns_tpu_torch.ops.fno import FourierBasicBlock
 from lns_tpu_torch.ops.norms import GroupNorm, GroupNormWrapper
 from lns_tpu_torch.ops.resblocks import (DownSampleBlock, DownSampleBlock2dHalfPeriodic,
                                          HalfPeriodicResBlock2d, ResidualBlock, UpSampleBlock,
@@ -93,12 +99,14 @@ def build_layer(spec: LayerSpec, in_ch: int, dtype=None) -> nn.Module:
                        block_size=kw["block_size"])
     if kind == "fablock":
         return FABlock2D(kw["dim"], kw["dim_head"], kw["latent_dim"], kw["heads"], kw["dim_out"])
-    raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
+    if kind == "fourier":
+        return FourierBasicBlock(kw["in_planes"], kw["planes"], tuple(kw["modes"]))
+    raise ValueError(f"unknown layer kind {kind}")
 
 
 def _out_channels(spec: LayerSpec, in_ch: int) -> int:
     kw = spec.kw
-    for key in ("features", "out_channels", "dim_out"):
+    for key in ("features", "out_channels", "dim_out", "planes"):
         if key in kw:
             return kw[key]
     return in_ch
@@ -167,13 +175,74 @@ class SimpleAutoencoder(nn.Module):
 
 
 class CondEncoder(nn.Module):
-    """The JAX package's ``CondEncoder`` (a parameter-conditioned encoder of
-    ``CondResidualBlock``s, used by ``ConditionalSimpleAutoencoder``) is not
-    ported: no path of the reference or of the JAX package builds it (the
-    conditional trainer takes the plain ``SimpleAutoencoder``). It raises."""
+    """The scalar-parameter-conditioned encoder (reference:
+    modules/autoencoder2d_nonsquared.py:71-145; ``lns_tpu.models.
+    autoencoder.CondEncoder``): the parameter's Fourier embedding ->
+    ``embed`` (Dense -> swish -> Dense, f32); ``to_in`` (1x1 -> swish ->
+    conv3); per level ``CondResidualBlock``s (GroupNorm(1) norms, GELU)
+    conditioned on the embedding and a stride-2 ``DownSampleBlock`` between
+    levels; a last ``CondResidualBlock`` ``to_out_conv``; ``to_out``
+    (GN(32)+swish -> 1x1 to the latent width). x [B, C, H, W], param [B]."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("CondEncoder / ConditionalSimpleAutoencoder (the "
-                                  "parameter-conditioned encoder) are not ported: no path of "
-                                  "the reference builds them; the conditional two-phase family "
-                                  "runs the plain SimpleAutoencoder")
+    def __init__(self, cfg, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        channels = list(cfg.encoder_channels)
+        pm = "circular" if cfg.is_periodic else "zeros"
+        cond_ch = self.cond_ch = cfg.cond_emb_channels
+        self.embed = nn.Sequential(Dense(cond_ch, channels[0]), Swish(),
+                                   Dense(channels[0], cond_ch))
+        self.to_in = nn.Sequential(Conv1x1(cfg.in_channels, channels[0], dtype=dtype), Swish(),
+                                   ConvND(channels[0], channels[0], 3, padding=1,
+                                          padding_mode=pm, dtype=dtype))
+        levels = []
+        for i in range(len(channels) - 1):
+            blocks, in_ch = [], channels[i]
+            for _ in range(cfg.encoder_res_blocks):
+                blocks.append(CondResidualBlock(in_ch, channels[i + 1], cond_ch, norm=True,
+                                                padding_mode=pm, dtype=dtype))
+                in_ch = channels[i + 1]
+            level = [nn.ModuleList(blocks)]
+            if i != len(channels) - 2:
+                level.append(DownSampleBlock(channels[i + 1], pm, dtype=dtype))
+            levels.append(nn.ModuleList(level))
+        self.layers = nn.ModuleList(levels)
+        self.to_out_conv = CondResidualBlock(channels[-1], channels[-1], cond_ch, norm=True,
+                                             padding_mode=pm, dtype=dtype)
+        self.to_out = nn.Sequential(GroupNormWrapper(channels[-1], 32, 1e-6), Swish(),
+                                    Conv1x1(channels[-1], cfg.latent_dim, dtype=dtype))
+
+    def forward(self, x: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
+        emb = self.embed(fourier_embedding(param, self.cond_ch))
+        h = self.to_in(x)
+        for level in self.layers:
+            for block in level[0]:
+                h = block(h, emb)
+            if len(level) > 1:
+                h = level[1](h)
+        h = self.to_out_conv(h, emb)
+        return self.to_out[2](self.to_out[0](h, apply_swish=True))
+
+
+class ConditionalSimpleAutoencoder(nn.Module):
+    """The conditional-encoder autoencoder (reference:
+    modules/autoencoder2d_nonsquared.py:279-305): ``CondEncoder``, the
+    config's spec-built decoder, ``quant_conv`` and ``post_quant_conv``.
+    ``encode(x, param)`` and ``decode(z)`` take and return NHWC."""
+
+    def __init__(self, cfg, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.cfg = cfg
+        self.encoder = CondEncoder(cfg, dtype)
+        self.decoder = SpecSequential(decoder_spec(cfg), cfg.latent_dim, dtype)
+        self.quant_conv = Conv1x1(cfg.latent_dim, cfg.latent_dim, dtype=dtype)
+        self.post_quant_conv = Conv1x1(cfg.latent_dim, cfg.latent_dim, dtype=dtype)
+
+    use_kernels = SimpleAutoencoder.use_kernels
+    decode = SimpleAutoencoder.decode
+
+    def encode(self, x: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
+        """x [B, H, W, C], param [B] -> z [B, h, w, latent_dim]."""
+        return self.quant_conv(self.encoder(x.permute(0, 3, 1, 2), param)).permute(0, 2, 3, 1)
+
+    def forward(self, x: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
+        return self.decode(self.encode(x, param))

@@ -15,7 +15,9 @@ the conditional model ``cond_emb_proj.{0,2}``, ``net.{i}.cond_emb``,
 ``net.{i}.conv1.{0,1,3}``, ``net.{i}.cond_conv1.{0,2}``,
 ``net.{i}.cond_conv2.{0,1,3}`` and ``net.{i}.ffn.{0,1,3}``. ``forward``
 takes and returns NHWC latents [B, H, W, C]; the fused rollout kernel
-(``kernels.prop_rollout``) runs many steps of the SimpleCNN.
+(``kernels.prop_rollout``) runs many steps of the SimpleCNN. The library
+propagators ``SimpleResNet``, ``SimpleMLP`` and ``ConditionalResNet``
+(dead code in the reference, options in the JAX package) follow.
 """
 
 from __future__ import annotations
@@ -25,11 +27,13 @@ from typing import List, Optional, Tuple
 import torch
 from torch import nn
 
-from lns_tpu_torch.ops.activations import GELU, gelu
+from lns_tpu_torch.ops.activations import GELU, gelu, swish
+from lns_tpu_torch.ops.attention import CABlock, SABlock
 from lns_tpu_torch.ops.conv import Conv1x1, ConvND, Dense
 from lns_tpu_torch.ops.embedding import fourier_embedding
 from lns_tpu_torch.ops.initializers import zero_init
 from lns_tpu_torch.ops.norms import GroupNorm, GroupNormWrapper
+from lns_tpu_torch.ops.resblocks import ResidualBlock
 
 
 class DilatedResidualBlock(nn.Module):
@@ -185,6 +189,84 @@ class CondSimpleCNN(nn.Module):
 
     def forward(self, z: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
         return self.step(z, self.conditioning(param))
+
+
+# -- the library propagators (reference: modules/propagator.py; the JAX
+# package's lns_tpu/models/propagator.py:179-252). Each takes and returns
+# NHWC latents; parameters live under the JAX package's module names.
+
+class SimpleResNet(nn.Module):
+    """1x1 in_proj -> swish -> conv3 ``stem`` -> GN(32) ``gn_in`` -> three
+    ``ResidualBlock``s ``res{i}`` -> GN(32)+swish ``gn_out`` -> 1x1
+    ``out_proj``; circular padding when ``is_periodic``, else zeros."""
+
+    def __init__(self, latent_dim: int, propagator_dim: int, is_periodic: bool = True,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        pm = "circular" if is_periodic else "zeros"
+        self.in_proj = Conv1x1(latent_dim, propagator_dim, dtype=dtype)
+        self.stem = ConvND(propagator_dim, propagator_dim, 3, padding=1, padding_mode=pm,
+                           dtype=dtype)
+        self.gn_in = GroupNorm(32, propagator_dim, eps=1e-6)
+        for i in range(3):
+            self.add_module(f"res{i}", ResidualBlock(propagator_dim, propagator_dim, pm, dtype))
+        self.gn_out = GroupNorm(32, propagator_dim, eps=1e-6)
+        self.out_proj = Conv1x1(propagator_dim, latent_dim, dtype=dtype)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        h = self.gn_in(self.stem(swish(self.in_proj(z.permute(0, 3, 1, 2)))))
+        for i in range(3):
+            h = getattr(self, f"res{i}")(h)
+        return self.out_proj(self.gn_out(h, apply_swish=True)).permute(0, 2, 3, 1)
+
+
+class SimpleMLP(nn.Module):
+    """The latent flattened in H W C order (the NHWC latent's own) -> Dense
+    ``fc1`` -> swish -> ``fc2`` -> swish -> ``fc3``, added to the flattened
+    latent (a residual update)."""
+
+    def __init__(self, latent_dim: int, latent_resolution: int, propagator_dim: int):
+        super().__init__()
+        n = latent_resolution * latent_resolution * latent_dim
+        self.fc1 = Dense(n, propagator_dim)
+        self.fc2 = Dense(propagator_dim, propagator_dim)
+        self.fc3 = Dense(propagator_dim, n)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        flat = z.reshape(z.shape[0], 1, -1)
+        d = self.fc3(swish(self.fc2(swish(self.fc1(flat)))))
+        return (flat + d).reshape(z.shape)
+
+
+class ConditionalResNet(nn.Module):
+    """1x1 in_proj, then per block an ``SABlock`` ``sa{i}`` (no positional
+    embedding; when ``use_self_attn``), a ``CABlock`` ``ca{i}`` on the
+    context tokens [B, M, context_dim] and a ``ResidualBlock`` ``res{i}``;
+    GN(32)+swish ``gn_out`` -> 1x1 ``out_proj``."""
+
+    def __init__(self, latent_dim: int, propagator_dim: int, context_dim: int,
+                 n_blocks: int = 3, heads: int = 8, dim_head: int = 64,
+                 use_self_attn: bool = True, is_periodic: bool = True,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        pm = "circular" if is_periodic else "zeros"
+        self.n_blocks, self.use_self_attn = n_blocks, use_self_attn
+        self.in_proj = Conv1x1(latent_dim, propagator_dim, dtype=dtype)
+        for i in range(n_blocks):
+            if use_self_attn:
+                self.add_module(f"sa{i}", SABlock(propagator_dim, heads, dim_head))
+            self.add_module(f"ca{i}", CABlock(propagator_dim, context_dim, heads, dim_head))
+            self.add_module(f"res{i}", ResidualBlock(propagator_dim, propagator_dim, pm, dtype))
+        self.gn_out = GroupNorm(32, propagator_dim, eps=1e-6)
+        self.out_proj = Conv1x1(propagator_dim, latent_dim, dtype=dtype)
+
+    def forward(self, z: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        h = self.in_proj(z.permute(0, 3, 1, 2))
+        for i in range(self.n_blocks):
+            if self.use_self_attn:
+                h = getattr(self, f"sa{i}")(h)
+            h = getattr(self, f"res{i}")(getattr(self, f"ca{i}")(h, context))
+        return self.out_proj(self.gn_out(h, apply_swish=True)).permute(0, 2, 3, 1)
 
 
 # the SimpleCNN's padding per workload (lns_tpu/models/propagator.py:256)

@@ -43,6 +43,18 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return (xf * e).mul_(0.5).to(x.dtype)  # x e is exact in f32, and so is the halving
 
 
+ACTIVATION_REGISTRY = {"relu": torch.relu, "silu": swish, "gelu": gelu, "tanh": torch.tanh,
+                       "sigmoid": torch.sigmoid}
+
+
+def get_activation(name: str):
+    """The activation function of a block's ``activation`` name (the JAX
+    package's ``ACTIVATION_REGISTRY``; ``silu`` is ``swish``)."""
+    if name not in ACTIVATION_REGISTRY:
+        raise NotImplementedError(f"Activation {name} not implemented")
+    return ACTIVATION_REGISTRY[name]
+
+
 class Swish(nn.Module):
     """Stateless Swish layer; holds a torch Sequential index in the
     reference's layer stacks."""

@@ -1,7 +1,9 @@
-"""Pre-LN multi-head self-attention (reference: modules/basics.py:331-404).
+"""Pre-LN multi-head self-attention, its linear (no softmax) variant and
+cross-attention (reference: modules/basics.py:331-528).
 
-The decoder runs it on the coarse latent grid (64 tokens on NS2d), so a
-plain batched QK^T einsum and softmax is all it needs.
+The decoder runs self-attention on the coarse latent grid (64 tokens on
+NS2d), and the library blocks run on latent grids too, so a plain batched
+QK^T einsum and softmax is all they need.
 """
 
 from __future__ import annotations
@@ -27,6 +29,21 @@ def softmax_last(a: torch.Tensor, scale: float) -> torch.Tensor:
     return e.to(a.dtype) / e.sum(dim=-1, keepdim=True).to(a.dtype)
 
 
+def _tokens(x: torch.Tensor):
+    """x [B, C, H, W] -> ([B, H W, C] row-major tokens, (H, W)); a token
+    sequence [B, N, C] passes through with None."""
+    if x.dim() == 3:
+        return x, None
+    b, c, hh, ww = x.shape
+    return x.movedim(1, -1).reshape(b, hh * ww, c), (hh, ww)
+
+
+def _spatial(t: torch.Tensor, hw) -> torch.Tensor:
+    if hw is None:
+        return t
+    return t.reshape(t.shape[0], hw[0], hw[1], t.shape[-1]).movedim(-1, 1)
+
+
 class SABlock(nn.Module):
     """Self-attention over the row-major tokens of x [B, C, H, W] (or a
     token sequence [B, N, C]), optional learnable positional embedding of
@@ -49,20 +66,51 @@ class SABlock(nn.Module):
         b, n, _ = t.shape
         return t.reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
 
+    def _weights(self, q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+        return softmax_last(torch.einsum("bhid,bhjd->bhij", q, k), self.dim_head ** -0.5)
+
+    def _attend(self, hq: torch.Tensor, hkv: torch.Tensor) -> torch.Tensor:
+        q = self._split(self.to_q(hq))
+        k, v = self._split(self.to_k(hkv)), self._split(self.to_v(hkv))
+        out = torch.einsum("bhij,bhjd->bhid", self._weights(q, k), v)
+        return self.proj_out(out.transpose(1, 2).reshape(out.shape[0], hq.shape[1], -1))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        spatial = x.dim() == 4
-        if spatial:
-            b, c, hh, ww = x.shape
-            x = x.movedim(1, -1).reshape(b, hh * ww, c)
-        n = x.shape[1]
+        x, hw = _tokens(x)
         h = self.ln(x)
         if self.pe is not None:
-            h = h + self.pe[:, :n].to(h.dtype)
-        q, k, v = (self._split(f(h)) for f in (self.to_q, self.to_k, self.to_v))
-        attn = softmax_last(torch.einsum("bhid,bhjd->bhij", q, k), self.dim_head ** -0.5)
-        out = torch.einsum("bhij,bhjd->bhid", attn, v)
-        out = out.transpose(1, 2).reshape(out.shape[0], n, -1)
-        out = x + self.proj_out(out)
-        if spatial:
-            out = out.reshape(b, hh, ww, c).movedim(-1, 1)
-        return out
+            h = h + self.pe[:, :x.shape[1]].to(h.dtype)
+        return _spatial(x + self._attend(h, h), hw)
+
+
+class LABlock(SABlock):
+    """``SABlock`` without the softmax: the scaled QK^T weighs V as it is
+    (reference: modules/basics.py:407-478); the residual adds the tokens
+    before the LayerNorm."""
+
+    def _weights(self, q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+        a = torch.einsum("bhid,bhjd->bhij", q, k)
+        return a * float(torch.tensor(self.dim_head ** -0.5, dtype=a.dtype))  # a's constant
+
+
+class CABlock(SABlock):
+    """Cross-attention: queries from the field x [B, C, H, W] (or tokens
+    [B, N, C]), keys and values from context tokens y [B, M, context_dim],
+    each LayerNorm'd (``ln_x``, ``ln_y``); the residual adds the
+    *normalised* query, as the JAX block has it, and the output takes x's
+    layout back (reference: modules/basics.py:481-528). Projections keep
+    the Linear default init."""
+
+    def __init__(self, dim: int, context_dim: int, heads: int, dim_head: int):
+        super().__init__(dim, heads, dim_head)
+        del self.ln
+        hd = heads * dim_head
+        self.ln_x = LayerNorm(dim)
+        self.ln_y = LayerNorm(context_dim)
+        self.to_k = Dense(context_dim, hd, use_bias=False)
+        self.to_v = Dense(context_dim, hd)
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        x, hw = _tokens(x)
+        xq = self.ln_x(x)
+        return _spatial(xq + self._attend(xq, self.ln_y(y)), hw)

@@ -6,10 +6,14 @@ arrays) into the state dict of ``lns_tpu_torch.models.LatentDynamics``,
 which carries the reference's key names and OIHW / [out, in] layouts. It
 follows ``lns_tpu.utils.torch_export.export_latent_dynamics`` for the
 families this package runs (the periodic square NS2d autoencoder, the
-half-periodic SW autoencoder, the non-squared two-phase autoencoder, the
-plain SimpleCNN propagator and the conditional two-phase family's
-CondSimpleCNN, whose autoencoder lives under ``ae.``), driven by the port's
-own layer specs, and imports no JAX.
+half-periodic SW autoencoder, the non-squared two-phase autoencoder, each
+with its optional Fourier layers, the plain SimpleCNN propagator and the
+conditional two-phase family's CondSimpleCNN, whose autoencoder lives under
+``ae.``), driven by the port's own layer specs, and imports no JAX. The
+``ConditionalSimpleAutoencoder``'s encoder takes the reference's names
+(``lns_tpu.utils.torch_compat.convert_cond_encoder``); a library block
+(spectral and FNO blocks, attention, SIREN, the library propagators) its
+JAX module names, one to one.
 
 Both directions read one table (``key_table``): each entry names a state
 dict key, the path of its leaf in the JAX tree and the layout between the
@@ -76,12 +80,7 @@ def _sequential(t, specs, path, prefix):
         elif spec.kind == "gn":
             _norm(t, pf + (".gn" if kw.get("wrapper") else ""), p)
         elif spec.kind == "resblock":
-            _norm(t, f"{pf}.block.0.gn", p + ("gn1",))
-            _conv(t, f"{pf}.block.2", p + ("conv1",))
-            _norm(t, f"{pf}.block.3.gn", p + ("gn2",))
-            _conv(t, f"{pf}.block.5", p + ("conv2",))
-            if kw["in_channels"] != kw["out_channels"]:
-                _conv(t, f"{pf}.channel_up", p + ("channel_up",))
+            _resblock(t, pf, p, kw["in_channels"] != kw["out_channels"])
         elif spec.kind == "hp_conv":
             _conv(t, pf, p + ("conv",))
         elif spec.kind == "hp_resblock":
@@ -103,6 +102,8 @@ def _sequential(t, specs, path, prefix):
             _linear(t, f"{pf}.proj_out", p + ("proj_out",))
             if kw["use_pe"]:
                 t.append(Entry(f"{pf}.pe", p + ("pe",), "copy"))
+        elif spec.kind == "fourier":
+            _fourier(t, pf, p, len(kw["modes"]))
         elif spec.kind == "fablock":
             _norm(t, f"{pf}.in_norm", p + ("in_norm",))
             _conv(t, f"{pf}.in_proj", p + ("in_proj",), bias=False)
@@ -117,7 +118,91 @@ def _sequential(t, specs, path, prefix):
             _conv(t, f"{pf}.to_out.1", p + ("out_fc1",), bias=False)
             _conv(t, f"{pf}.to_out.3", p + ("out_fc2",), bias=False)
         else:
-            raise NotImplementedError(f"layer kind {spec.kind!r} is not ported yet")
+            raise ValueError(f"unknown layer kind {spec.kind}")
+
+
+def _resblock(t, key, path, channel_up):
+    """A ``ResidualBlock`` (the reference's ``block.{0,2,3,5}``) against the
+    JAX block's ``gn1``, ``conv1``, ``gn2``, ``conv2`` (and ``channel_up``)."""
+    _norm(t, f"{key}.block.0.gn", path + ("gn1",))
+    _conv(t, f"{key}.block.2", path + ("conv1",))
+    _norm(t, f"{key}.block.3.gn", path + ("gn2",))
+    _conv(t, f"{key}.block.5", path + ("conv2",))
+    if channel_up:
+        _conv(t, f"{key}.channel_up", path + ("channel_up",))
+
+
+def _fourier(t, key, path, ndim):
+    """A ``FourierBasicBlock``: its spectral banks (``weights`` in 1D,
+    ``weights1``-``2`` in 2D, ``weights1``-``4`` in 3D) and the 1x1 bypass
+    (``torch_export._put_fourier``)."""
+    names = ["weights"] if ndim == 1 else [f"weights{i + 1}" for i in range(2 if ndim == 2 else 4)]
+    for name in names:
+        t.append(Entry(f"{key}.fourier.{name}", path + ("fourier", name), "copy"))
+    _conv(t, f"{key}.conv", path + ("conv",))
+
+
+def _module(t, m, key, path):
+    """A library block, one to one: each submodule under its JAX module
+    name, convs, linears and norms in their layouts, every other parameter
+    (spectral banks, ``FreqLinear``, embedding tables, positional
+    embeddings) copied under its own name; a ``ResidualBlock`` under the
+    JAX block's names (``gn1``, ``conv1``, ``gn2``, ``conv2``,
+    ``channel_up``)."""
+    from lns_tpu_torch.ops.conv import Conv1x1, ConvND, Dense
+    from lns_tpu_torch.ops.embedding import Siren
+    from lns_tpu_torch.ops.norms import GroupNorm, LayerNorm
+    from lns_tpu_torch.ops.resblocks import ResidualBlock
+
+    pre = key + "." if key else ""
+    if isinstance(m, ResidualBlock):
+        _resblock(t, key, path, m.channel_up is not None)
+    elif isinstance(m, (ConvND, Conv1x1)):
+        _conv(t, key, path, bias=m.bias is not None)
+    elif isinstance(m, (Dense, Siren)):
+        _linear(t, key, path, bias=m.bias is not None)
+    elif isinstance(m, (GroupNorm, LayerNorm)):
+        _norm(t, key, path)
+    else:
+        for name, _ in m.named_parameters(recurse=False):
+            t.append(Entry(pre + name, path + (name,), "copy"))
+        for name, child in m.named_children():
+            _module(t, child, pre + name, path + (name,))
+
+
+def _cond_resblock(t, key, path, shortcut):
+    """A ``CondResidualBlock`` with its norms, under the JAX block's names
+    (the reference's too)."""
+    _norm(t, f"{key}.norm1", path + ("norm1",))
+    _conv(t, f"{key}.conv1", path + ("conv1",))
+    _linear(t, f"{key}.cond_emb", path + ("cond_emb",))
+    _norm(t, f"{key}.norm2", path + ("norm2",))
+    _conv(t, f"{key}.conv2", path + ("conv2",))
+    if shortcut:
+        _conv(t, f"{key}.shortcut", path + ("shortcut",))
+
+
+def _cond_encoder(t, cfg, path, prefix):
+    """``CondEncoder`` under the reference's names (``torch_compat.
+    convert_cond_encoder``): ``to_in.{0,2}``, ``embed.{0,2}``,
+    ``layers.{i}.0.{j}`` (its ``CondResidualBlock``s), ``layers.{i}.1.conv_layer``, ``to_out_conv``,
+    ``to_out.0.gn``, ``to_out.2``."""
+    channels = list(cfg.encoder_channels)
+    _conv(t, f"{prefix}.to_in.0", path + ("to_in_conv1",))
+    _conv(t, f"{prefix}.to_in.2", path + ("to_in_conv2",))
+    _linear(t, f"{prefix}.embed.0", path + ("embed_fc1",))
+    _linear(t, f"{prefix}.embed.2", path + ("embed_fc2",))
+    for i in range(len(channels) - 1):
+        in_ch = channels[i]
+        for j in range(cfg.encoder_res_blocks):
+            _cond_resblock(t, f"{prefix}.layers.{i}.0.{j}", path + (f"level{i}_res{j}",),
+                           in_ch != channels[i + 1])
+            in_ch = channels[i + 1]
+        if i != len(channels) - 2:
+            _conv(t, f"{prefix}.layers.{i}.1.conv_layer", path + (f"level{i}_down", "conv"))
+    _cond_resblock(t, f"{prefix}.to_out_conv", path + ("to_out_conv",), False)
+    _norm(t, f"{prefix}.to_out.0.gn", path + ("to_out_gn",))
+    _conv(t, f"{prefix}.to_out.2", path + ("to_out_proj",))
 
 
 def _cond_blocks(t, cfg, path, prefix):
@@ -166,28 +251,37 @@ def _propagator(t, cfg, path, prefix, half_periodic):
     _conv(t, f"{prefix}out_proj.1", path + ("out_proj",))
 
 
-def _autoencoder(t, cfg, path, prefix):
+def _autoencoder(t, cfg, path, prefix, conditional=False):
     pre = prefix + "." if prefix else ""
-    _sequential(t, encoder_spec(cfg), path + ("encoder",), f"{pre}encoder.model")
+    if conditional:
+        _cond_encoder(t, cfg, path + ("encoder",), f"{pre}encoder")
+    else:
+        _sequential(t, encoder_spec(cfg), path + ("encoder",), f"{pre}encoder.model")
     _sequential(t, decoder_spec(cfg), path + ("decoder",), f"{pre}decoder.model")
     _conv(t, f"{pre}quant_conv", path + ("quant_conv",))
     _conv(t, f"{pre}post_quant_conv", path + ("post_quant_conv",))
 
 
-def key_table(cfg, kind: str = "dynamics") -> List[Entry]:
+def key_table(cfg, kind="dynamics") -> List[Entry]:
     """The state dict keys of `kind` (``dynamics``: ``LatentDynamics(cfg)``,
     its autoencoder under ``ae.`` for a conditional config as
     ``export_latent_dynamics`` writes it, else ``vq_ae.``, and the
     propagator under ``propagator.``; ``ae``: a stage-1 autoencoder's bare
-    keys, as ``export_autoencoder`` writes them), each with its JAX leaf."""
+    keys, as ``export_autoencoder`` writes them; ``cond_ae``: a
+    ``ConditionalSimpleAutoencoder``'s, its encoder under the reference's
+    names; or a library block, an ``nn.Module``, whose keys follow its JAX
+    module names one to one, `cfg` unused), each with its JAX leaf."""
     t: List[Entry] = []
-    if kind == "ae":
-        _autoencoder(t, cfg, (), "")
+    if isinstance(kind, torch.nn.Module):
+        _module(t, kind, "", ())
+        t = [e._replace(key=e.key.lstrip(".")) for e in t]  # a bare conv, linear or norm
+    elif kind in ("ae", "cond_ae"):
+        _autoencoder(t, cfg, (), "", conditional=kind == "cond_ae")
     elif kind == "dynamics":
         _autoencoder(t, cfg, ("vq_ae",), "ae" if cfg.is_conditional else "vq_ae")
         _propagator(t, cfg, ("propagator",), "propagator", cfg.workload == "sw")
     else:
-        raise ValueError(f"kind {kind!r}: 'ae' or 'dynamics'")
+        raise ValueError(f"kind {kind!r}: 'ae', 'cond_ae', 'dynamics' or a library block")
     return t
 
 
@@ -225,17 +319,18 @@ def _from_table(table: List[Entry], params) -> Dict[str, torch.Tensor]:
     return _tensors({e.key: _to_port(e, params) for e in table})
 
 
-def state_dict_from_jax(cfg, params: Dict[str, Any], kind: str = "dynamics"
+def state_dict_from_jax(cfg, params: Dict[str, Any], kind="dynamics"
                         ) -> Dict[str, torch.Tensor]:
     """A JAX parameter tree (optionally under ``'params'``) -> the state
     dict of `kind` (``key_table``): ``{'vq_ae', 'propagator'}`` -> that of
-    ``LatentDynamics(cfg)``, an autoencoder's tree -> a stage-1 ``.pt``'s;
-    f32 tensors on the CPU."""
+    ``LatentDynamics(cfg)``, an autoencoder's tree -> a stage-1 ``.pt``'s,
+    a library block's tree -> that block's (`kind` the block); f32 tensors
+    on the CPU."""
     return _from_table(key_table(cfg, kind), params.get("params", params))
 
 
-def state_dict_to_jax(cfg, state: Dict[str, torch.Tensor], kind: str = "dynamics"
-                        ) -> Dict[str, Any]:
+def state_dict_to_jax(cfg, state: Dict[str, torch.Tensor], kind="dynamics"
+                      ) -> Dict[str, Any]:
     """The inverse of ``state_dict_from_jax``: a state dict of `kind` -> the
     JAX parameter tree (nested dicts of f32 numpy arrays, the JAX layouts),
     from the same ``key_table``. Every key of `state` must be in the table

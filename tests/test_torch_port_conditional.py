@@ -435,12 +435,15 @@ def test_conditional_rollout_loss_and_gradients_match_jax(cond_params, remat):
 
 
 def test_unported_and_misplaced_conditioning_raise():
-    """What is still not ported refuses: ``CondEncoder`` (the
-    parameter-conditioned encoder, on no path of the reference). A model
-    that is not conditional refuses ``cond``; a conditional one refuses to
-    step without it."""
-    with pytest.raises(NotImplementedError, match="CondEncoder"):
-        CondEncoder(Config(_cfg_dict()))
+    """``CondEncoder`` (the parameter-conditioned encoder, ported with the
+    library blocks) builds and encodes to the latent grid (its parity with
+    the JAX package: tests/test_torch_port_library.py). A model that is not
+    conditional refuses ``cond``; a conditional one refuses to step without
+    it."""
+    enc = CondEncoder(Config(_cfg_dict()))
+    with torch.no_grad():
+        h = enc(torch.zeros(1, 4, 31, 61), torch.tensor([0.5]))
+    assert tuple(h.shape) == (1, 16, 7, 15) and torch.isfinite(h).all()
     d = _cfg_dict()
     del d["cond_channels"], d["cond_emb_channels"]
     plain = LatentDynamics(Config(d), device="cpu")
