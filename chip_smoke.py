@@ -250,19 +250,23 @@ def _nbytes(*tensors):
 # -- phase 2b: the bf16 kernels run on tensor cores --------------------------
 
 # the redesigned kernels' bf16 entry points, by a piece of their SASS names
-# (kernels 4 and 5: axial_tc<bf16, rows first> and <bf16, columns first>)
+# (kernels 4 and 5: axial_tc<bf16, rows first> and <bf16, columns first>;
+# kernel 2: the statistics pass with both axial applies and the Gram, the
+# output pass with bb . m)
 TENSOR_CORE_KERNELS = {"prop_rollout": ("rollout_bf16",),
-                       "fab_core": ("fab_stats_bf16", "fab_apply_bf16"),
+                       "fab_core": ("fab_bb_stats_bf16", "fab_out_bf16"),
                        "fab_axial_in_fused": ("axial_tcI13__nv_bfloat16Lb1",),
                        "axial_kernel_apply_headmajor": ("axial_tcI13__nv_bfloat16Lb0",),
                        "bmm_blockdiag": ("bmm_bf16_kernel",)}
+# the kernels whose products must run on wgmma (HGMMA; HMMA alone fails)
+WGMMA_KERNELS = ("fab_core",)
 
 
 def check_tensor_cores():
     """Count the tensor-core instructions (HMMA, or HGMMA for wgmma) in the
     SASS of each redesigned kernel's bf16 instantiation, read with the
-    toolkit's cuobjdump from the built library; fails on a count of 0 or a
-    missing cuobjdump."""
+    toolkit's cuobjdump from the built library; fails on a count of 0 (of
+    HGMMA alone for the kernels in WGMMA_KERNELS) or a missing cuobjdump."""
     from lns_tpu_torch.kernels import _build
 
     try:
@@ -272,20 +276,22 @@ def check_tensor_cores():
         return
     sass = subprocess.run([tool, "-sass", str(_build.library_path())], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    per_fn, fn = {}, None
+    per_fn, fn = {}, None  # {function: [HMMA, HGMMA]}
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            per_fn.setdefault(fn, 0)
+            per_fn.setdefault(fn, [0, 0])
         elif fn is not None and ("HMMA" in line or "HGMMA" in line):
-            per_fn[fn] += 1
+            per_fn[fn][int("HGMMA" in line)] += 1
     for kernel, parts in TENSOR_CORE_KERNELS.items():
+        wgmma = kernel in WGMMA_KERNELS
         for part in parts:
-            found = {f: k for f, k in per_fn.items() if part in f}
+            found = {f: k[1] if wgmma else sum(k) for f, k in per_fn.items() if part in f}
             count = sum(found.values())
             _check(bool(found) and all(found.values()),
-                   f"tensor cores: {kernel} bf16 {part}: {count} HMMA/HGMMA in "
-                   f"{len(found)} instantiation(s) {sorted(found.values())}")
+                   f"tensor cores: {kernel} bf16 {part}: {count} "
+                   f"{'HGMMA' if wgmma else 'HMMA/HGMMA'} in {len(found)} instantiation(s) "
+                   f"{sorted(found.values())}")
 
 
 # -- phase 3: each kernel against its plain version --------------------------
@@ -530,7 +536,12 @@ def check_fab_core(dev, gen, sites, n, d, extras=True):
                         lambda: fab_fused_core(*a, mean_from=ms_),
                         lambda: fab_core_plain(*a, mean_from=ms_), tol,
                         max_differ=differ)[0])
+            if dt == torch.bfloat16 and not off:
+                print_fab_plan(b, h, w, c, d, w_o1.shape[-1], n)
             if dt == torch.bfloat16 and (b, h, w, c) in sites and not off:
+                runs = [fab_fused_core(*a, mean_from=mf) for _ in range(2)]
+                _check(torch.equal(*runs),
+                       f"fab_core bf16 b{b} {h}x{w} c{c}: two runs bitwise equal")
                 ms_sum += ms * sites[(b, h, w, c)]
                 plain_sum += plain_ms * sites[(b, h, w, c)]
                 # per (sample, head): k_y and k_x applied, the c x c Gram, the
@@ -543,6 +554,50 @@ def check_fab_core(dev, gen, sites, n, d, extras=True):
                           sites[(b, h, w, c)])
     return {"max_abs_err": max(errs), "ms": ms_sum, "plain_ms": plain_sum, **bound.result(),
             "library_ms": None}
+
+
+def check_fab_core_heads(dev, gen):
+    """Kernel 2 at head counts whose clusters are not 8 blocks (the
+    statistics pass clusters the largest divisor of n up to 8: n = 1, 3, 4,
+    12 take clusters of 1, 3, 4 and 6) and a d that is not a multiple of 4
+    (the moments pass pads it), in f32 and bf16 at ``check_fab_core``'s
+    bounds, bf16 with the block's mean."""
+    from lns_tpu_torch.kernels.fab_core import bf16_plan, fab_core_plain, fab_fused_core
+
+    for (b, h, w, c), n, d in (((2, 16, 16, 64), 1, 18), ((2, 16, 16, 64), 3, 18),
+                               ((2, 12, 24, 64), 4, 64), ((2, 24, 48, 64), 12, 64)):
+        kx = (torch.randn(b, n, h, h, generator=gen) / h).to(dev)
+        ky = (torch.randn(b, n, w, w, generator=gen) / w).to(dev)
+        w_in = (torch.randn(c, n, d, generator=gen) / c ** 0.5).to(dev)
+        w_o1 = (torch.randn(n, d, c, generator=gen) / d ** 0.5).to(dev)
+        u32 = torch.randn(b, h, w, c, generator=gen).to(dev)
+        for dt, tol, differ in ((torch.float32, 1e-4, 1.0), (torch.bfloat16, 1e-2, 0.02)):
+            a = [u32.to(dt), kx.to(dt), ky.to(dt), w_in, w_o1]
+            mf = None
+            if dt == torch.bfloat16:
+                a[0], mf = _block_mean_inputs(gen, dev, b, h, w, c, a[1], a[2])
+            label = f"fab_core {str(dt)[6:]} b{b} {h}x{w} c{c} n{n} d{d}"
+            if dt == torch.bfloat16:
+                label += f" (a cluster of {bf16_plan(h, w, c, d, c, n)['cluster']})"
+            compare(label, lambda: fab_fused_core(*a, mean_from=mf),
+                    lambda: fab_core_plain(*a, mean_from=mf), tol, max_differ=differ)
+
+
+def print_fab_plan(b, h, w, c, d, o, n):
+    """Kernel 2's bf16 launch plan at a shape: the statistics pass's cluster,
+    blocks, shared memory and clusters resident at once, its tile and ring,
+    the moments and output passes' blocks and shared memory, and the bb and
+    G scratch."""
+    from lns_tpu_torch.kernels.fab_core import bf16_plan
+
+    p = bf16_plan(h, w, c, d, o, n)
+    out_blocks = -(-h * w // 128) * -(-o // 64) * b
+    print(f"      fab_core plan b{b} {h}x{w} c{c} n{n}: statistics {n * b} blocks in clusters of "
+          f"{p['cluster']} ({p['active_clusters']} clusters at once), {p['stats_smem']} bytes "
+          f"of shared memory, {p['tiles']} tile(s) of {p['tile_cols']} columns, u ring "
+          f"{p['ring_stages']} x {p['ring_rows']} rows; moments {n * b} blocks, "
+          f"{p['moments_smem']} bytes; output {out_blocks} blocks, {p['out_smem']} bytes; "
+          f"scratch: bb {b * n * h * w * p['cp'] * 2} bytes, G {b * n * c * c * 4}", flush=True)
 
 
 def _off_16(t):
@@ -1536,7 +1591,13 @@ def profile_device(fn, label, top=8):
           f"{max(0.0, 1 - busy / wall):.1%}, {ops} device ops", flush=True)
     for ms, count, key in sorted(rows, reverse=True)[:top]:
         print(f"        {ms:9.3f} ms {count:6d}x  {key[:90]}")
-    for label_k, parts in (("kernel 2 (fab_stats, fab_apply)", ("fab_",)),
+    for label_k, parts in (("kernel 2 (fab_*)", ("fab_",)),
+                           ("kernel 2's mean pass (fab_block_mean_bf16)", ("fab_block_mean",)),
+                           ("kernel 2's statistics pass (fab_bb_stats_bf16)", ("fab_bb_stats",)),
+                           ("kernel 2's moments pass (fab_moments_bf16)", ("fab_moments",)),
+                           ("kernel 2's output pass (fab_out_bf16)", ("fab_out_bf16",)),
+                           ("kernel 2 in f32 (fab_stats_f32, fab_apply_f32)",
+                            ("fab_stats_f32", "fab_apply_f32")),
                            ("kernel 3 (gn_kernel; split plan gn_partials, gn_apply)",
                             ("::gn_kernel<", "::gn_partials<", "::gn_apply<")),
                            ("kernel 4 (axial_tc)", ("axial_tc",))):
@@ -3749,6 +3810,7 @@ def run(dev, smi=""):
     res["group_norm"] = _summed(_summed(res["group_norm"], tp_res), check_cond_group_norm(
         dev, cond_gen, tpc_gn, fam_train_sites["conditional two-phase"]))
     check_fab_core_limits(dev, n, d)
+    check_fab_core_heads(dev, gen)
     res["fab_axial_in_fused"], res["axial_kernel_apply_headmajor"] = check_axial(
         dev, gen, fab_shapes(fab_sites, "batched"), n, d)
     res["bmm_blockdiag"], res["transpose_hw"] = check_pipeline(dev, gen, n, d)

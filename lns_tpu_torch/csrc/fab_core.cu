@@ -17,76 +17,75 @@
 // block's GroupNorm(1)), coef [b, 2, c] (its sc, sh; f32) and the f32 row
 // sums of the unrounded kernels, sx [b, n, h] and sy [b, n, w]: mean_c =
 // sum_ij sx_i sy_j (bf16(x_ij sc) + sh) / N, from the GroupNorm output
-// before its last rounding, by a first pass over each sample's x
-// (fab_block_mean_bf16) into a [b, n, c] scratch that the statistics read
-// in place of their own mean. The variance stays max(E[phi^2] - mean^2, 0),
+// before its last rounding. The variance stays max(E[phi^2] - mean^2, 0),
 // as in _batched_gram_core.
 //
-// What bounds it on an H100: arithmetic. At 32x32, c = o = 64, 8 heads and
-// 116 samples one call is ~31 GFLOP (both axial applies, the Gram and the
-// c -> o product, the applies twice) against ~34 MB of u, k and out:
-// ~900 FLOP per byte, above the card's ~295 FLOP/B bf16 ridge, so only
-// tensor cores approach the floor.
+// What bounds it on an H100: the bf16 tensor-core rate. At SW's 48x96,
+// c = o = d = 64, 8 heads, b336 one call is ~437 GFLOP (both axial applies,
+// the Gram, the c -> o product; 0.442 ms at 989 TFLOP/s) against ~0.66 GB
+// of u, x, k and out (0.20 ms at 3.35 TB/s); at NS2d's 32x32 b116 ~24.5
+// GFLOP (0.025 ms) against ~0.05 GB (0.015 ms). This design adds the bb
+// scratch's write and read, 2 x 1.59 GB at 48x96 b336 (0.95 ms) and
+// 2 x 0.12 GB at 32x32 b116 (0.07 ms).
 //
-// Both dtypes run two passes, because a sample's bb does not fit in one
-// block's shared memory; bb never reaches device memory, and the head sum
-// is a loop inside a block (no atomics, no dependence on scheduling):
-//   stats  one block per (head, sample): bb tile by tile, the Gram summed
-//          over tiles, then m (in T) and the bias (f32) for its head into a
-//          small scratch ([b, n, c, o] / [b, n, o]);
-//   apply  one block per (tile, sample): for each head, recompute the tile's
-//          bb and add bb . m; subtract the summed bias, write the tile once.
+// bf16 design (four passes; sm_90a: TMA, mbarriers, clusters, wgmma from
+// hopper.cuh). The TPU kernel holds a sample's field per program and sums
+// the heads over a sequential grid axis; on the H100 a sample's bb does not
+// fit in a block, and the statistics must be complete before bb . m:
+//   mean     one block per sample (fab_block_mean_bf16): mean_c [b, n, c] of
+//            every head from one read of the sample's x (or u).
+//   stats    one block per (head, sample), the sample's heads one cluster
+//            (fab_bb_stats_bf16). A producer warpgroup (one thread issues;
+//            it hands its registers to the consumers) streams u's rows
+//            through a ring of shared memory by TMA; each stage is loaded
+//            once and multicast to every block of the cluster, so u is read
+//            from device memory once per sample per tile of L columns (once
+//            at NS2d's fields, 6 times at SW's 48x96), not once per head.
+//            Two consumer warpgroups run the products on wgmma (m64, f32
+//            accumulators) from shared memory, at _batched_gram_core's
+//            rounding points: a = bf16(u . k_y^T) a ring stage at a time as it
+//            lands ([c x L] per row, the stages taken by the warpgroups in
+//            turn), bb = bf16(k_x . a) a column at a time
+//            ([c x h], written over a), then G += bb^T bb (alternate 16-pixel
+//            steps per warpgroup, the two sums added once at the end). bb
+//            leaves once by TMA store to a scratch [b, n, h, w, cp] (cp: c
+//            padded to whole 64-channel atoms), G to a scratch [b, n, c, c]
+//            (f32); the axial applies are never recomputed.
+//   moments  one block per (head, sample) (fab_moments_bf16), several to an
+//            SM: E[phi^2] and the mean from G, mean_c and W_in, then m =
+//            bf16(W_in diag(inv) W_o1) [cp, o] and the bias, f32 on CUDA
+//            cores in 4 x 4 register blocks.
+//   out      one block per (128 pixels, 64 columns of o, sample)
+//            (fab_out_bf16): sum_n bb_n . m_n as one wgmma product with K = n
+//            cp in f32, a head per stage of a TMA ring filled by a producer
+//            warp; out = bf16(bf16(sum) - bf16(sum of the heads' biases, in
+//            head order)), staged in shared memory and stored by TMA.
+// Every wgmma stage is straight-line: accumulators set before the fence,
+// no other instruction touching them until the wait, no branch around a
+// product, and barrier waits polled inside their asm; otherwise ptxas
+// serializes each wgmma behind the last one. No atomics and no dependence
+// on scheduling: two runs give the same bits.
+// For w <= h k_y is applied first, for w > h k_x (as _batched_gram_core):
+// the kernels then work on the transposed field, whose rows and columns the
+// tensor maps' boxes read and write in place (no copy). Side lengths are
+// padded to 16 and c to 64 with zeros (TMA fills what lies outside a
+// tensor with zeros and stores none of it); the statistics divide by the
+// true h w. Shared memory per block: stats 72,832 bytes at 16x16 c64,
+// 210,048 at 32x32 and 224,384 at SW's 48x96 (plan_for: the widest tile,
+// then the deepest u ring that fits); moments 54,016 and out 116,096 at c =
+// d = o = 64. Limits, stated once in bf16_limit (the launcher refuses, the
+// wrapper raises with its text): c a multiple of 16 up to 128, o a multiple
+// of 16, h and w up to 128, and each pass's block within 227 KB.
 //
-// bf16: tensor cores (mma.sync m16n8k16, f32 accumulators; mma.cuh), at the
-// rounding points of _batched_gram_core. For w <= h (every NS2d field), in
-// the TPU kernel's order:
-//   a  = u . k_y^T  rounded to bf16    [h, 8, c] for a tile of 8 columns
-//   bb = k_x . a    rounded to bf16    [h, 8, c]
-//   G += bb^T bb    (f32)              m rounded to bf16; the bias summed
-//   out = bf16(bf16(sum_n bb . m_n) - bf16(sum_n bias_n))  over heads in f32
-// For w > h, _batched_gram_core applies k_x first. The kernels then run on
-// the transposed field: h and w swap, k_x and k_y swap, and u and out are
-// read and written through transposed pixel strides (Plan::sj, sm, oi, ol),
-// so a tile is 8 rows of the k_x-applied axis and nothing is copied.
-// Design. 512 threads (16 warps) per block, one block per SM. A tile is the
-// columns l0..l0+7 of the k_y-applied axis. Its a needs every row of u: u
-// is resident in shared memory where it fits (loaded once per block with
-// cp.async, then read by every tile and head; 32x32 and 16x16 at c64: on an
-// H100 0.58-0.60 ms at 32x32 c64 b116 against 0.81 with u streamed), else
-// it streams from L2 through a 2-stage cp.async ring of up to 16 rows. Each row of a
-// is one [c x w] . [w x 8] product per warp (k_y's fragments stay in
-// registers); then bb = k_x . a is [h x h] . [h x 8 c], warps l and l + 8
-// sharing column l. The Gram (stats; each warp half sums half the rows,
-// added in a fixed order) and bb . m (apply; o split between the two warps
-// of a column, accumulated in registers across the heads) read bb from
-// shared memory. The apply fetches the next head's k_y tile, m, bias and
-// (for h <= 64) k_x into registers while this head's bb . m runs. The
-// statistics' f32 epilogue runs on every thread (mean_c from the resident
-// u); its arrays overwrite the bf16 ones once every read of them has ended.
-// Side lengths are padded to 16 with zeros in shared memory (zero rows and
-// columns of k_x, k_y add nothing); the statistics divide by the true h w.
-// Shared memory per block (bf16 elements, hp, wp = h, w padded to 16):
-//   k_x hp (hp+8) + k_y tile 8 (wp+8) + a hp (8 (c+8) + 8)
-//   + u h wp (c+8) + bb 8 hp (c+8)          (u resident), or
-//   + max(ring 2 R wp (c+8), bb)             (u streamed)
-// plus the column sums of k_x, k_y (stats) or the bias sum (apply), f32:
-// 225,152 bytes at 32x32 c64 and 75,392 at 16x16 c64. Where no streamed
-// plan fits, a drops the 8-element pad between its tile columns (its rows
-// stay conflict-free; its writes take 4-way conflicts): 96x48 c64, and SW's
-// 48x96 c64 run transposed, take 231,872 bytes instead of 244,160. Limits,
-// stated once in bf16_limit (the launcher refuses, the wrapper raises with
-// its text): c a multiple of 16 up to 128, o a multiple of 16, h and w up
-// to 128, and the block within 227 KB. Each apply block covers oc = 64
-// columns of o (32 when the second-applied side exceeds 32).
-//
-// f32: the same two passes with f32 FMAs on CUDA cores, bb in tiles of
-// kTI = 2 rows, k_x applied first; f32 has no tensor-core form at the TPU
-// kernel's precision.
+// f32 (the check path, not timed): two passes of f32 FMAs on CUDA cores, bb
+// in tiles of kTI = 2 rows, k_x applied first; f32 has no tensor-core form
+// at the TPU kernel's precision.
 
 #include <algorithm>
 #include <cstdio>
 
 #include "common.cuh"
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -291,98 +290,101 @@ int launch_f32(const float* u, const float* kx, const float* ky, const float* w_
   return cudaGetLastError();
 }
 
-// ---- bf16: tensor cores ----------------------------------------------------
+// ---- bf16: Hopper kernels (TMA, mbarriers, clusters, wgmma) ----------------
 
-constexpr int kTcThreads = 512, kWarps = kTcThreads / 32;
-constexpr int kTL = 8;          // tile: columns of the k_y-applied axis, two warps each
-constexpr int kMaxSide = 128;   // h, w
-constexpr int kMaxC = 128;      // c
-constexpr int kGramUnits = 4;   // 16 x 32 Gram blocks per warp: (128 / 16) (128 / 32) / 8
-// a k_y tile [8][wp] is two elements per thread (.x: tid, .y: tid + 512),
-// packed in one register
-static_assert(kTL * kMaxSide == 2 * kTcThreads, "two k_y tile elements per thread");
-static_assert(kWarps == 2 * kTL, "warps w and w + 8 share column l0 + w of a tile");
+constexpr int kStatsWGs = 2;                         // statistics: consumer warpgroups
+constexpr int kConsumers = 128 * kStatsWGs;
+constexpr int kThreadsTc = kConsumers + 128;         // and a producer warpgroup
+constexpr int kOutConsumers = 256;                   // output: two consumer warpgroups
+constexpr int kThreadsOut = kOutConsumers + 32;      // and a producer warp
+constexpr int kMaxSide = 128;                   // h, w
+constexpr int kMaxC = 128;                      // c
+constexpr int kMaxCluster = 8;                  // the portable cluster size
+constexpr int kOutRows = 128;                   // output pass: pixels per block
+constexpr int kOutCols = 64;                    // output pass: o columns per block
+constexpr int kOutStages = 4;                   // output pass: ring stages (heads)
+constexpr int kBarBytes = 128, kAlign = 1024;
 
-// Shared-memory layout of both bf16 kernels; strides and offsets in bf16
-// elements. Every stride is an odd multiple of 16 bytes (conflict-free
-// ldmatrix) and every region starts on a 16-byte boundary:
-//   k_x [hp][ldk] | k_y tile [8][ldy] | a [hp][lda] | u | bb [8 hp][ldc]
-// u is either resident (all h rows, loaded once per block) or a 2-stage ring
-// of `rows` rows that bb then overwrites. In the apply pass m [c][ldm] and
-// the output staging [8 hp][ldm] reuse a's place.
+// The launch plan. The kernels' field is hk x wk with hk >= wk: for w > h
+// it is the transposed field (k_x applied first), read and written through
+// the tensor maps' boxes, never copied. The statistics pass's shared memory,
+// byte offsets from the first 1024-byte boundary in it (`base`):
+//   a     [c atoms][L][hp][64]      a, then bb in place, of one tile
+//   kx    [k atoms][hp][64]         k_x, rows i, K = j
+//   ky    [2][k atoms][L][64]       k_y tiles (double buffered)
+//   ring  [S][c atoms][R][wp][64]   u rows, multicast to the cluster
+// and at off_bar from the start of the dynamic shared memory the barriers
+// full[S], empty[S], kyfull[2], kyempty[2], kx. G [c, c] (f32) is staged
+// over a once the last tile is read.
 struct Plan {
-  int hp, wp, rows, resident;  // h, w padded to 16; u rows per stage; u held whole
-  int ldk, ldy, ldc, lda;      // strides: k_x, k_y tile, u / bb rows (c + 8), a
-  int ldac;                    // a's stride between tile columns: c + 8, or c (compact)
-  int sj, sm, oi, ol;          // pixel strides of u's (j, m) and out's (i, l)
-  int off_ky, off_a, off_u, off_bb;
-  int oc, ldm;                 // apply: o columns per block and m's stride
-  int stats_bytes, apply_bytes;
+  int hk, wk, transposed;
+  int hp, wp, cp, ca;        // hk, wk padded to 16; c padded to 64 and its 64-channel atoms
+  int kxa, kya;              // 64-wide K atoms of k_x and k_y
+  int L, tiles, R, S, nq;    // tile columns, tiles, u rows per stage, stages, stages per tile
+  int cs;                    // cluster size (heads sharing one u stream)
+  int off_kx, off_ky, off_ring, off_bar, stats_bytes, moments_bytes, out_bytes;
 };
 
-int round16(int v) { return (v + 15) / 16 * 16; }
+__host__ __device__ int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
-Plan make_plan(int h, int w, int c, int d, int o, int rows, bool resident, bool compact) {
+__host__ __device__ int round4(int v) { return (v + 3) / 4 * 4; }
+
+int moments_bytes(int c, int d, int o) {
+  const int dp = round4(d);
+  return 4 * (c * c + c * dp + dp * o + c + 2 * dp + c / 4 * dp);
+}
+
+Plan make_plan(int h, int w, int c, int d, int o, int n, int L, int R, int S) {
   Plan p;
-  p.hp = round16(h);
-  p.wp = round16(w);
-  p.rows = resident ? h : rows;
-  p.resident = resident;
-  p.ldk = p.hp + 8;
-  p.ldy = p.wp + 8;
-  p.ldc = c + 8;
-  p.ldac = compact ? c : p.ldc;
-  p.lda = kTL * p.ldac + 8;
-  p.sj = w;
-  p.sm = 1;
-  p.oi = w;
-  p.ol = 1;
-  p.oc = p.hp <= 32 ? 64 : 32;
-  p.ldm = p.oc + 8;
-  p.off_ky = p.hp * p.ldk;
-  p.off_a = p.off_ky + kTL * p.ldy;
-  p.off_u = p.off_a + p.hp * p.lda;
-  const int u = resident ? h * p.wp * p.ldc : 2 * rows * p.wp * p.ldc, bb = kTL * p.hp * p.ldc;
-  p.off_bb = resident ? p.off_u + u : p.off_u;
-  const int end = resident ? p.off_bb + bb : p.off_u + std::max(u, bb);
-  // f32 epilogue (aliases the rest): G, W_in, W_o1, mean_c, mean, inv and
-  // the partial sums; then sx, sy past its end
-  const int part = std::max(kTcThreads / (c / 8) * c, c / 4 * d);
-  const int epilogue = 4 * (c * c + c * d + d * o + c + 2 * d + part);
-  p.stats_bytes = std::max(2 * end, epilogue) + 4 * (p.hp + p.wp);
-  p.apply_bytes = 2 * std::max(end, p.off_a + kTL * p.hp * p.ldm) + 4 * p.oc;
+  p.transposed = w > h;
+  p.hk = std::max(h, w);
+  p.wk = std::min(h, w);
+  p.hp = round_up(p.hk, 16);
+  p.wp = round_up(p.wk, 16);
+  p.cp = round_up(c, 64);
+  p.ca = p.cp / 64;
+  p.kxa = (p.hp + 63) / 64;
+  p.kya = (p.wp + 63) / 64;
+  p.L = L;
+  p.tiles = (p.wk + L - 1) / L;
+  p.R = R;
+  p.S = S;
+  p.nq = (p.hp + R - 1) / R;
+  p.cs = 1;
+  for (int k = kMaxCluster; k > 1; --k)
+    if (n % k == 0) {
+      p.cs = k;
+      break;
+    }
+  const int a = p.ca * L * p.hp * 128;
+  p.off_kx = a;
+  p.off_ky = p.off_kx + p.kxa * p.hp * 128;
+  p.off_ring = p.off_ky + 2 * p.kya * L * 128;
+  const int end = p.off_ring + S * p.ca * R * p.wp * 128;
+  p.off_bar = round_up(std::max(kAlign + end, 4 * c * c), 16);  // G is staged over a
+  p.stats_bytes = p.off_bar + kBarBytes;
+  p.moments_bytes = moments_bytes(c, d, o);
+  p.out_bytes = kAlign + kOutStages * (p.ca * kOutRows * 128 + p.cp * 128) +
+                kOutRows * 128 + 4 * kOutCols + kBarBytes;
   return p;
 }
 
-int plan_smem(const Plan& p) { return std::max(p.stats_bytes, p.apply_bytes); }
+int plan_smem(const Plan& p) { return std::max({p.stats_bytes, p.moments_bytes, p.out_bytes}); }
 
-// The plan in the kernels' own (h, w), which for w > h is the transposed
-// field: u resident when it fits (each block then reads u from L2 once, not
-// once per tile or head); else the most u rows per ring stage (16, 8, 4, 2)
-// that fit, with a padded, then compact; else rows = 1 (which does not fit).
-Plan plan_kernel(int h, int w, int c, int d, int o) {
+// The widest tile (L columns: 32, 16, 8; no wider than wk needs) with the
+// deepest u ring that fits; else the narrowest plan (which does not fit).
+Plan plan_for(int h, int w, int c, int d, int o, int n) {
   const int limit = static_cast<int>(lns::kMaxDynamicSmem);
-  const Plan whole = make_plan(h, w, c, d, o, h, true, false);
-  if (plan_smem(whole) <= limit) return whole;
-  for (bool compact : {false, true})
-    for (int rows = kWarps; rows > 1; rows /= 2) {
-      const Plan p = make_plan(h, w, c, d, o, rows, false, compact);
+  const int wk = std::min(h, w);
+  const int rings[][2] = {{4, 4}, {4, 3}, {2, 4}, {2, 3}, {2, 2}, {1, 3}, {1, 2}};
+  for (int L : {32, 16, 8}) {
+    if (L > 8 && L / 2 >= wk) continue;
+    for (const auto& rs : rings) {
+      const Plan p = make_plan(h, w, c, d, o, n, L, rs[0], rs[1]);
       if (plan_smem(p) <= limit) return p;
     }
-  return make_plan(h, w, c, d, o, 1, false, true);
-}
-
-// The plan for a field h x w: k_y first for w <= h; for w > h the kernels
-// see the transposed field (h, w swapped), reading u and writing out through
-// transposed pixel strides.
-Plan plan_for(int h, int w, int c, int d, int o) {
-  if (w <= h) return plan_kernel(h, w, c, d, o);
-  Plan p = plan_kernel(w, h, c, d, o);
-  p.sj = 1;  // u'(j, m) = u[m][j], out'(i, l) = out[l][i], both [h][w] in memory
-  p.sm = w;
-  p.oi = 1;
-  p.ol = w;
-  return p;
+  }
+  return make_plan(h, w, c, d, o, n, 8, 1, 2);
 }
 
 // The bf16 kernels' limits, stated once: nullptr when they take the shape,
@@ -399,177 +401,34 @@ const char* bf16_limit(int h, int w, int c, int d, int o) {
   } else if (d < 1) {
     snprintf(msg, sizeof msg, "d >= 1, got %d", d);
   } else {
-    const int need = plan_smem(plan_for(h, w, c, d, o));
+    const int need = plan_smem(plan_for(h, w, c, d, o, 1));
     if (need <= limit) return nullptr;
     snprintf(msg, sizeof msg, "shared memory per block within %d bytes, needs %d", limit, need);
   }
   return msg;
 }
 
-// Rows r0.. of the sample's u [h, w, c] into `dst` [rows][wp][ldc] (zeros for
-// rows >= h and columns >= w), as 16-byte cp.async copies; not committed.
-__device__ __forceinline__ void copy_u_rows(const bf16* __restrict__ us, const Plan& p, bf16* dst,
-                                        int r0, int rows, int h, int w, int c) {
-  const int pieces = rows * p.wp * (c / 8);
-  for (int e = threadIdx.x; e < pieces; e += kTcThreads) {
-    const int c8 = (e % (c / 8)) * 8, rm = e / (c / 8), m = rm % p.wp, r = rm / p.wp;
-    const int j = r0 + r;
-    const bool valid = j < h && m < w;
-    lns::cp_async16(dst + (r * p.wp + m) * p.ldc + c8,
-                    valid ? us + (static_cast<size_t>(j) * p.sj + m * p.sm) * c + c8 : us, valid);
-  }
-}
-
-// One tile, one head: a = (u . k_y^T) into a_s (rows j < h; rows h..hp stay
-// zero), then bb = k_x . a into bb_s, row (l, i) = l hp + i, both rounded to
-// bf16. k_x and the k_y tile are in shared memory; u is resident in u_s (all
-// h rows, landed) or streams through it as a ring. Ends with bb_s complete
-// and the block in step. KF: k_y's fragments held in registers, 4 for
-// w <= 64 and 8 above (8 for every w made the kernels spill at w <= 64).
-template <int KF>
-__device__ __forceinline__ void tile_a_bb(const bf16* __restrict__ us, const Plan& p,
-                                          const bf16* kx_s, const bf16* ky_s, bf16* a_s,
-                                          bf16* u_s, bf16* bb_s, int h, int w, int c) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, g = lane / 4, t = lane % 4;
-  const int chunk = p.rows * p.wp * p.ldc, nq = (h + p.rows - 1) / p.rows, ct = c / 16;
-  if (!p.resident) {
-    copy_u_rows(us, p, u_s, 0, p.rows, h, w, c);
-    lns::cp_async_commit();
-  }
-  // k_y's fragments: B of a_j^T [c x TL] = u_j^T [c x w] . k_y^T [w x TL]
-  uint32_t kf[KF][2];
-#pragma unroll
-  for (int ks = 0; ks < KF; ++ks)
-    if (ks * 16 < p.wp) lns::ldsm_x2(kf[ks], ky_s + lns::bt_addr(lane, 0, ks * 16, p.ldy));
-  for (int q = 0; q < nq; ++q) {
-    if (!p.resident) {
-      if (q + 1 < nq)
-        copy_u_rows(us, p, u_s + (q + 1) % 2 * chunk, (q + 1) * p.rows, p.rows, h, w, c);
-      lns::cp_async_commit();
-      lns::cp_async_wait<1>();  // chunk q has landed
-      __syncthreads();
-    }
-    const bf16* chunk_s = u_s + (p.resident ? 0 : q % 2 * chunk);
-    for (int r = warp; r < p.rows; r += kWarps) {  // one row of u per warp, all channels
-      const int j = q * p.rows + r;
-      if (j >= h) break;
-      const bf16* ur = chunk_s + r * p.wp * p.ldc;  // u_j as [m][cc]
-      bf16* ar = a_s + j * p.lda;                   // a_j as [l][cc]
-#pragma unroll
-      for (int m0 = 0; m0 < kMaxC / 16; m0 += 4) {  // 4 independent 16-channel chains
-        if (m0 >= ct) break;
-        float acc[4][4] = {};
-#pragma unroll
-        for (int ks = 0; ks < KF; ++ks)
-          if (ks * 16 < p.wp) {
-#pragma unroll
-            for (int q4 = 0; q4 < 4; ++q4)
-              if (m0 + q4 < ct) {
-                uint32_t af[4];
-                lns::ldsm_x4_trans(af, ur + lns::at_addr(lane, ks * 16, (m0 + q4) * 16, p.ldc));
-                lns::mma_bf16(acc[q4], af, kf[ks][0], kf[ks][1]);
-              }
-          }
-#pragma unroll
-        for (int q4 = 0; q4 < 4; ++q4)
-          if (m0 + q4 < ct) {  // (cc, l = 2t), (cc, 2t+1), (cc+8, 2t), (cc+8, 2t+1)
-            const int cc = (m0 + q4) * 16 + g;
-            ar[2 * t * p.ldac + cc] = __float2bfloat16(acc[q4][0]);
-            ar[(2 * t + 1) * p.ldac + cc] = __float2bfloat16(acc[q4][1]);
-            ar[2 * t * p.ldac + cc + 8] = __float2bfloat16(acc[q4][2]);
-            ar[(2 * t + 1) * p.ldac + cc + 8] = __float2bfloat16(acc[q4][3]);
-          }
-      }
-    }
-    __syncthreads();  // a's rows are in place; a ring stage is free for chunk q + 2
-  }
-  // bb[i, l0 + col, :] = sum_j k_x[i, j] a[j, col, :]; warps col and col + 8
-  // take alternate 16 x 32 blocks of it
-  const int col = warp % kTL, nb = (c + 31) / 32;
-  for (int un = warp / kTL; un < p.hp / 16 * nb; un += 2) {
-    const int mt = un / nb, n0 = un % nb * 32;
-    const bool two = n0 + 16 < c;
-    float acc[4][4] = {};
-#pragma unroll 2
-    for (int ks = 0; ks < p.hp; ks += 16) {
-      uint32_t af[4], bfr[4];
-      lns::ldsm_x4(af, kx_s + lns::a_addr(lane, mt * 16, ks, p.ldk));
-      lns::ldsm_x4_trans(bfr, a_s + lns::b_addr(lane, ks, col * p.ldac + n0, p.lda));
-      lns::mma_bf16(acc[0], af, bfr[0], bfr[1]);
-      lns::mma_bf16(acc[1], af, bfr[2], bfr[3]);
-      if (two) {
-        lns::ldsm_x4_trans(bfr, a_s + lns::b_addr(lane, ks, col * p.ldac + n0 + 16, p.lda));
-        lns::mma_bf16(acc[2], af, bfr[0], bfr[1]);
-        lns::mma_bf16(acc[3], af, bfr[2], bfr[3]);
-      }
-    }
-    bf16* row = bb_s + (col * p.hp + mt * 16 + g) * p.ldc + n0 + 2 * t;
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-      if (nt < 2 || two) {
-        *reinterpret_cast<uint32_t*>(row + nt * 8) = lns::pack_bf16(acc[nt][0], acc[nt][1]);
-        *reinterpret_cast<uint32_t*>(row + 8 * p.ldc + nt * 8) =
-            lns::pack_bf16(acc[nt][2], acc[nt][3]);
-      }
-    }
-  __syncthreads();
-}
-
-// u resident: all of the sample's rows, once per block (waited before use)
-__device__ __forceinline__ void load_u_resident(const bf16* __restrict__ us, const Plan& p,
-                                                bf16* u_s, int h, int w, int c) {
-  if (!p.resident) return;
-  copy_u_rows(us, p, u_s, 0, h, h, w, c);
-  lns::cp_async_commit();
-}
-
-// k_x [h, h] of (sample, head) `sn` into kx_s, zero-padded to hp x hp
-__device__ __forceinline__ void load_kx(const bf16* __restrict__ kx, size_t sn, const Plan& p,
-                                        bf16* kx_s, int h) {
-  const bf16 zero = __float2bfloat16(0.f);
-  for (int e = threadIdx.x; e < p.hp * p.hp; e += kTcThreads) {
-    const int i = e / p.hp, j = e % p.hp;
-    kx_s[i * p.ldk + j] = i < h && j < h ? kx[(sn * h + i) * h + j] : zero;
-  }
-}
-
-// This thread's two elements of the k_y tile [8][wp] of rows l0.. of
-// (sample, head) `sn` (zeros outside k_y), and their place in ky_s.
-__device__ __forceinline__ __nv_bfloat162 fetch_ky_pair(const bf16* __restrict__ ky, size_t sn,
-                                                       const Plan& p, int l0, int w) {
-  bf16 v[2];
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    const int e = threadIdx.x + k * kTcThreads, l = e / p.wp, m = e % p.wp;
-    v[k] = l < kTL && l0 + l < w && m < w ? ky[(sn * w + l0 + l) * w + m] : __float2bfloat16(0.f);
-  }
-  return __halves2bfloat162(v[0], v[1]);
-}
-__device__ __forceinline__ void store_ky_pair(__nv_bfloat162 v, const Plan& p, bf16* ky_s) {
-  const int e0 = threadIdx.x, e1 = threadIdx.x + kTcThreads;
-  if (e0 < kTL * p.wp) ky_s[e0 / p.wp * p.ldy + e0 % p.wp] = v.x;
-  if (e1 < kTL * p.wp) ky_s[e1 / p.wp * p.ldy + e1 % p.wp] = v.y;
-}
-
-// a_s rows h..hp-1 (the padding of the contraction over k_x's columns) to zero
-__device__ __forceinline__ void zero_a_tail(const Plan& p, bf16* a_s, int h) {
-  const bf16 zero = __float2bfloat16(0.f);
-  for (int e = threadIdx.x; e < (p.hp - h) * p.lda; e += kTcThreads) a_s[h * p.lda + e] = zero;
+__device__ __forceinline__ uint8_t* align_smem(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + kAlign - 1) &
+                                    ~static_cast<uintptr_t>(kAlign - 1));
 }
 
 // The block's mean_c [b, n, c] (f32) as the jitted JAX FAB block feeds it
 // to _batched_gram_core: sum_px sx[n, j] sy[n, m] (bf16(x[px] sc) + sh) / N,
 // from the GroupNorm(1) output before its last rounding and the f32 row sums
-// of the unrounded kernels. One block per (sample, kHC heads) reads the
-// sample's x once for its heads (the statistics' blocks, one per head,
-// would read it n times): 8 channels and a run of pixels per thread, partial
-// sums added through shared memory in a fixed order. In the field's own
-// orientation: a channel mean does not depend on it.
-constexpr int kMeanThreads = 256, kHC = 4;
+// of the unrounded kernels. Without coef (mean_c from u alone, x = u) the
+// value is u itself, and without sx, sy the sums are those of the bf16
+// kernels (kx, ky: [b, n, h, kxp] and [b, n, w, kyp], rows padded), summed
+// here in order. One block per (sample, kHC heads) reads the sample's x
+// once for all its heads: 8 channels and a run of pixels per thread,
+// partial sums added through shared memory in a fixed order. In the
+// field's own orientation: a channel mean does not depend on it.
+constexpr int kMeanThreads = 256, kHC = 8;
 
 __global__ void __launch_bounds__(kMeanThreads)
 fab_block_mean_bf16(const bf16* __restrict__ x, const float* __restrict__ coef,
                     const float* __restrict__ sxg, const float* __restrict__ syg,
+                    const bf16* __restrict__ kx, const bf16* __restrict__ ky, int kxp, int kyp,
                     float* __restrict__ mean_b, int n, int h, int w, int c) {
   extern __shared__ float4 smem_mean[];
   float* sx = reinterpret_cast<float*>(smem_mean);  // [n, h]
@@ -577,22 +436,40 @@ fab_block_mean_bf16(const bf16* __restrict__ x, const float* __restrict__ coef,
   float* part = sy + n * w;                          // [groups, kHC, c]
   const int tid = threadIdx.x, s = blockIdx.x, n0 = blockIdx.y * kHC;
   const int c8n = c / 8, groups = kMeanThreads / c8n, c8 = tid % c8n * 8, grp = tid / c8n;
-  for (int e = tid; e < n * h; e += kMeanThreads) sx[e] = sxg[static_cast<size_t>(s) * n * h + e];
-  for (int e = tid; e < n * w; e += kMeanThreads) sy[e] = syg[static_cast<size_t>(s) * n * w + e];
-  float sc[8] = {}, sh[8] = {};
-  if (grp < groups)
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      sc[q] = coef[2 * static_cast<size_t>(s) * c + c8 + q];
-      sh[q] = coef[(2 * static_cast<size_t>(s) + 1) * c + c8 + q];
+  const size_t sn0 = static_cast<size_t>(s) * n;
+  for (int e = tid; e < n * h; e += kMeanThreads) {
+    if (sxg) {
+      sx[e] = sxg[sn0 * h + e];
+    } else {  // sum_i k_x[i, j]
+      const bf16* col = kx + (sn0 + e / h) * h * kxp + e % h;
+      float a = 0.f;
+      for (int i = 0; i < h; ++i) a += ld(col[static_cast<size_t>(i) * kxp]);
+      sx[e] = a;
     }
+  }
+  for (int e = tid; e < n * w; e += kMeanThreads) {
+    if (syg) {
+      sy[e] = syg[sn0 * w + e];
+    } else {
+      const bf16* col = ky + (sn0 + e / w) * w * kyp + e % w;
+      float a = 0.f;
+      for (int i = 0; i < w; ++i) a += ld(col[static_cast<size_t>(i) * kyp]);
+      sy[e] = a;
+    }
+  }
+  float sc[8], sh[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    sc[q] = coef && grp < groups ? coef[2 * static_cast<size_t>(s) * c + c8 + q] : 1.f;
+    sh[q] = coef && grp < groups ? coef[(2 * static_cast<size_t>(s) + 1) * c + c8 + q] : 0.f;
+  }
   __syncthreads();
   const bf16* xs = x + static_cast<size_t>(s) * h * w * c;
   const float inv_n = 1.f / static_cast<float>(h * w);
   const int hc = min(kHC, n - n0);
   float acc[kHC][8] = {};
   if (grp < groups)
-#pragma unroll 4
+#pragma unroll 2
     for (int px = grp; px < h * w; px += groups) {
       const int j = px / w, m = px % w;
       const uint4 xv =
@@ -620,7 +497,7 @@ fab_block_mean_bf16(const bf16* __restrict__ x, const float* __restrict__ coef,
     const int k = e / c, cc = e % c;
     float a = 0.f;
     for (int g = 0; g < groups; ++g) a += part[(g * kHC + k) * c + cc];
-    mean_b[(static_cast<size_t>(s) * n + n0 + k) * c + cc] = a * inv_n;
+    mean_b[(sn0 + n0 + k) * c + cc] = a * inv_n;
   }
 }
 
@@ -628,427 +505,646 @@ int block_mean_smem(int n, int h, int w, int c) {
   return 4 * (n * (h + w) + kMeanThreads / (c / 8) * kHC * c);
 }
 
-template <int KF>
-__global__ void __launch_bounds__(kTcThreads, 1)
-fab_stats_bf16(const bf16* __restrict__ u, const bf16* __restrict__ kx,
-               const bf16* __restrict__ ky, const bf16* __restrict__ w_in,
-               const float* __restrict__ w1, const float* __restrict__ mean_b,
-               bf16* __restrict__ m_out,
-               float* __restrict__ bias_out, int n, int h, int w, int c, int d, int o, float eps,
-               Plan p) {
-  extern __shared__ uint4 smem_fab[];
-  bf16* kx_s = reinterpret_cast<bf16*>(smem_fab);
-  bf16* ky_s = kx_s + p.off_ky;
-  bf16* a_s = kx_s + p.off_a;
-  bf16* u_s = kx_s + p.off_u;
-  bf16* bb_s = kx_s + p.off_bb;
-  // column sums of k_x and k_y (f32), kept past the epilogue's aliasing
-  float* sx = reinterpret_cast<float*>(reinterpret_cast<char*>(smem_fab) + p.stats_bytes) -
-              (p.hp + p.wp);
-  float* sy = sx + p.hp;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, g = lane / 4, t = lane % 4;
-  const int tid = threadIdx.x, hd = blockIdx.x, s = blockIdx.y;
-  const size_t sn = static_cast<size_t>(s) * n + hd;
-  const bf16* us = u + static_cast<size_t>(s) * h * w * c;
-
-  load_u_resident(us, p, u_s, h, w, c);
-  load_kx(kx, sn, p, kx_s, h);
-  zero_a_tail(p, a_s, h);
-  for (int m = tid; m < w; m += kTcThreads) sy[m] = 0.f;
-  lns::cp_async_wait<0>();
-  __syncthreads();
-  for (int j = tid; j < h; j += kTcThreads) {
-    float a = 0.f;
-    for (int i = 0; i < h; ++i) a += ld(kx_s[i * p.ldk + j]);
-    sx[j] = a;
-  }
-  // the Gram in 16 x 32 blocks: block warp % 8 + 8 k, over half of each
-  // tile's rows (warp / 8 says which)
-  const int cn = (c + 31) / 32, blocks = (c / 16) * cn, half = warp / kTL, kh = kTL * p.hp / 2;
-  float gacc[kGramUnits][4][4] = {};
-  // this thread's elements of a k_y tile [8][wp], fetched a tile ahead
-  __nv_bfloat162 kyr = fetch_ky_pair(ky, sn, p, 0, w);
-  for (int l0 = 0; l0 < w; l0 += kTL) {
-    store_ky_pair(kyr, p, ky_s);
-    __syncthreads();
-    if (l0 + kTL < w) kyr = fetch_ky_pair(ky, sn, p, l0 + kTL, w);
-    for (int m = tid; m < w; m += kTcThreads) {
-      float a = sy[m];
-      for (int l = 0; l < kTL; ++l) a += ld(ky_s[l * p.ldy + m]);
-      sy[m] = a;
-    }
-    tile_a_bb<KF>(us, p, kx_s, ky_s, a_s, u_s, bb_s, h, w, c);
-#pragma unroll 2
-    for (int ks = half * kh; ks < (half + 1) * kh; ks += 16) {
+// Step A of NR consecutive u rows j0.. of a ring stage (a warpgroup; their
+// rows row_bytes apart from u0): a_j^T [c x L] = u_j^T [c x wk] . k_y tile^T
+// [wk x L] per 64-channel atom, every row's products issued before one
+// wait, rounded to bf16 into a [ca][l][j].
+template <int L, int NR>
+__device__ __forceinline__ void step_a(const uint8_t* u0, int row_bytes, const uint8_t* kyt,
+                                       uint8_t* a_s, const Plan& p, int j0, int ca, int wt) {
+  constexpr int kR = L / 2;
+  float acc[NR][kR];
 #pragma unroll
-      for (int k = 0; k < kGramUnits; ++k) {
-        const int blk = warp % kTL + kTL * k;
-        if (blk >= blocks) continue;
-        const int m0 = blk / cn * 16, n0 = blk % cn * 32;
-        uint32_t af[4], bfr[4];
-        lns::ldsm_x4_trans(af, bb_s + lns::at_addr(lane, ks, m0, p.ldc));  // bb^T
-        lns::ldsm_x4_trans(bfr, bb_s + lns::b_addr(lane, ks, n0, p.ldc));
-        lns::mma_bf16(gacc[k][0], af, bfr[0], bfr[1]);
-        lns::mma_bf16(gacc[k][1], af, bfr[2], bfr[3]);
-        if (n0 + 16 < c) {
-          lns::ldsm_x4_trans(bfr, bb_s + lns::b_addr(lane, ks, n0 + 16, p.ldc));
-          lns::mma_bf16(gacc[k][2], af, bfr[0], bfr[1]);
-          lns::mma_bf16(gacc[k][3], af, bfr[2], bfr[3]);
+  for (int r = 0; r < NR; ++r) {
+#pragma unroll
+    for (int i = 0; i < kR; ++i) acc[r][i] = 0.f;
+    lns::wgmma_fence_regs(acc[r]);
+  }
+  for (int ks = 0; ks < p.wp / 16; ++ks) {
+    const uint64_t db = lns::desc_kmajor(kyt + (ks / 4) * L * 128 + (ks % 4) * 32);
+    lns::wgmma_fence();
+#pragma unroll
+    for (int r = 0; r < NR; ++r)
+      lns::wgmma<L, 1, 0>(acc[r], lns::desc_mnmajor(u0 + r * row_bytes + ks * 2048), db);
+    lns::wgmma_commit();
+  }
+  lns::wgmma_wait<0>();
+#pragma unroll
+  for (int r = 0; r < NR; ++r) lns::wgmma_fence_regs(acc[r]);
+  const int q = wt / 32, lane = wt % 32, cr = 16 * q + lane / 4, l2 = 2 * (lane % 4);
+#pragma unroll
+  for (int i = 0; i < kR; ++i) {
+    const int l = 8 * (i / 4) + l2 + i % 2, cc = cr + 8 * ((i % 4) / 2);
+    uint8_t* col = a_s + (ca * L + l) * p.hp * 128;
+#pragma unroll
+    for (int r = 0; r < NR; ++r)
+      *reinterpret_cast<bf16*>(col + lns::sw128(j0 + r, cc)) = __float2bfloat16(acc[r][i]);
+  }
+}
+
+// Step A of `rows` consecutive rows of a stage, in batches of as many rows
+// as keep the accumulators to 32 registers a thread (at most 4)
+template <int L>
+__device__ __forceinline__ void step_a_rows(const uint8_t* u0, int row_bytes, const uint8_t* kyt,
+                                            uint8_t* a_s, const Plan& p, int j0, int rows, int ca,
+                                            int wt) {
+  constexpr int kBatch = 64 / L < 4 ? 64 / L : 4;
+  int r = 0;
+  for (; r + kBatch <= rows; r += kBatch)
+    step_a<L, kBatch>(u0 + r * row_bytes, row_bytes, kyt, a_s, p, j0 + r, ca, wt);
+  for (; r < rows; ++r) step_a<L, 1>(u0 + r * row_bytes, row_bytes, kyt, a_s, p, j0 + r, ca, wt);
+}
+
+// bb^T rows i0.. of a column: acc (m64 x 16 NB) rounded to bf16 at [i][c]
+template <int NB>
+__device__ __forceinline__ void store_bb(uint8_t* blk, const float (&acc)[8 * NB], int i0,
+                                         int wt) {
+  const int q = wt / 32, lane = wt % 32, cr = 16 * q + lane / 4, i2 = i0 + 2 * (lane % 4);
+#pragma unroll
+  for (int k = 0; k < 8 * NB; ++k) {
+    const int i = 8 * (k / 4) + i2 + k % 2, cc = cr + 8 * ((k % 4) / 2);
+    *reinterpret_cast<bf16*>(blk + lns::sw128(i, cc)) = __float2bfloat16(acc[k]);
+  }
+}
+
+// Step B of column l (a warpgroup): bb^T [c x hk] = a_l^T [c x hk] .
+// k_x^T per channel atom, rounded to bf16 in place of a_l, as [i][c]; the
+// rows i in chunks of at most 64 (NB0 16-row steps, then NB1 more).
+template <int NB0, int NB1>
+__device__ __forceinline__ void step_b(uint8_t* blk, const uint8_t* kx_s, const Plan& p, int wg,
+                                       int wt) {
+  float acc0[8 * NB0], acc1[8 * (NB1 > 0 ? NB1 : 1)];
+#pragma unroll
+  for (int i = 0; i < 8 * NB0; ++i) acc0[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8 * (NB1 > 0 ? NB1 : 1); ++i) acc1[i] = 0.f;
+  lns::wgmma_fence_regs(acc0);
+  lns::wgmma_fence_regs(acc1);
+#pragma unroll
+  for (int ks = 0; ks < NB0 + NB1; ++ks) {  // K = hp = 16 (NB0 + NB1)
+    const uint64_t da = lns::desc_mnmajor(blk + ks * 2048);
+    const uint8_t* kb = kx_s + (ks / 4) * p.hp * 128 + (ks % 4) * 32;
+    lns::wgmma_fence();
+    lns::wgmma<16 * NB0, 1, 0>(acc0, da, lns::desc_kmajor(kb));
+    if constexpr (NB1 > 0) lns::wgmma<16 * NB1, 1, 0>(acc1, da, lns::desc_kmajor(kb + 64 * 128));
+    lns::wgmma_commit();
+  }
+  lns::wgmma_wait<0>();
+  lns::wgmma_fence_regs(acc0);
+  lns::wgmma_fence_regs(acc1);
+  lns::bar_sync(2 + wg, 128);  // every warp's part of a_l is read before any is overwritten
+  store_bb<NB0>(blk, acc0, 0, wt);
+  if constexpr (NB1 > 0) store_bb<NB1>(blk, acc1, 64, wt);
+}
+
+// Pass 2, one block per (head, sample), a cluster of cs heads of one sample:
+// for each tile of L columns, a = bf16(u . k_y^T) row by row as u's rows
+// stream in (multicast: each ring stage is read from device memory once per
+// cluster), bb = bf16(k_x . a) column by column, bb written to the scratch
+// once (TMA store) and its Gram summed into G [b, n, c, c] (f32) for pass 3.
+// CA: 64-channel atoms of c.
+template <int CA>
+__global__ void __launch_bounds__(kThreadsTc, 1)
+fab_bb_stats_bf16(const __grid_constant__ CUtensorMap map_u,
+                  const __grid_constant__ CUtensorMap map_kx,
+                  const __grid_constant__ CUtensorMap map_ky,
+                  const __grid_constant__ CUtensorMap map_bb, float* __restrict__ g_out, int n,
+                  int c, Plan p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align_smem(smem_raw);
+  uint8_t* a_s = base;
+  uint8_t* kx_s = base + p.off_kx;
+  uint8_t* ky_s = base + p.off_ky;
+  uint8_t* ring = base + p.off_ring;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw + p.off_bar);
+  uint64_t* empty = full + p.S;
+  uint64_t* kyfull = empty + p.S;
+  uint64_t* kyempty = kyfull + 2;
+  uint64_t* kxbar = kyempty + 2;
+  const int tid = threadIdx.x, hd = blockIdx.x, s = blockIdx.y;
+  const int sn = s * n + hd;
+  const uint32_t rank = p.cs > 1 ? lns::cluster_rank() : 0;
+  const int row_bytes = p.wp * 128, stage_bytes = CA * p.R * row_bytes;
+  const int ky_buf = p.kya * p.L * 128;
+
+  if (tid == 0) {
+    for (int i = 0; i < p.S; ++i) {
+      lns::mbar_init(&full[i], 1);
+      lns::mbar_init(&empty[i], p.cs);  // the stage's consumer warpgroup in every block
+    }
+    for (int i = 0; i < 2; ++i) {
+      lns::mbar_init(&kyfull[i], 1);
+      lns::mbar_init(&kyempty[i], kStatsWGs);
+    }
+    lns::mbar_init(kxbar, 1);
+    lns::mbar_fence_init();
+  }
+  __syncthreads();
+  if (p.cs > 1) lns::cluster_sync();  // every block's barriers exist before a multicast lands
+
+  // the warpgroup's role, provably uniform across each warp (so that the
+  // register hand-over below applies)
+  const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (role == kStatsWGs) {
+    // producer: k_x once, k_y tile by tile, u rows through the ring; one
+    // thread issues, its warpgroup gives its registers to the consumers
+    lns::setmaxnreg_dec<40>();
+    if (tid == kConsumers) {
+      lns::mbar_expect_tx(kxbar, p.kxa * p.hp * 128);
+      for (int ka = 0; ka < p.kxa; ++ka)
+        lns::tma_load(kx_s + ka * p.hp * 128, &map_kx, kxbar, 64 * ka, 0, sn, 0);
+      int f = 0;
+      for (int t = 0; t < p.tiles; ++t) {
+        const int kb = t & 1;
+        if (t >= 2) lns::mbar_wait(&kyempty[kb], ((t >> 1) - 1) & 1);
+        lns::mbar_expect_tx(&kyfull[kb], ky_buf);
+        for (int ka = 0; ka < p.kya; ++ka)
+          lns::tma_load(ky_s + kb * ky_buf + ka * p.L * 128, &map_ky, &kyfull[kb], 64 * ka,
+                        t * p.L, sn, 0);
+        for (int q = 0; q < p.nq; ++q, ++f) {
+          const int st = f % p.S;
+          if (f >= p.S) lns::mbar_wait(&empty[st], ((f / p.S) - 1) & 1);
+          lns::mbar_expect_tx(&full[st], stage_bytes);
+          if (f % p.cs != static_cast<int>(rank)) continue;  // another block fills this stage
+          for (int r = 0; r < p.R; ++r)
+            for (int ca = 0; ca < CA; ++ca) {
+              uint8_t* dst = ring + st * stage_bytes + (ca * p.R + r) * row_bytes;
+              const int j = q * p.R + r;
+              const int c1 = p.transposed ? j : 0, c2 = p.transposed ? 0 : j;
+              if (p.cs > 1)
+                lns::tma_load_multicast(dst, &map_u, &full[st], 64 * ca, c1, c2, s,
+                                        static_cast<uint16_t>((1 << p.cs) - 1));
+              else
+                lns::tma_load(dst, &map_u, &full[st], 64 * ca, c1, c2, s);
+            }
         }
       }
     }
-    __syncthreads();
-  }
-
-  // mean_c = sum_px sx[j] sy[m] u[px, :] / N: partial sums over pixels for 8
-  // channels per thread, from the resident u (else from L2); none where the
-  // block's mean is given
-  const int c8n = c / 8, groups = kTcThreads / c8n;
-  float mc[8] = {};
-  if (!mean_b && tid < groups * c8n) {
-    const int c8 = tid % c8n * 8, dj = groups / w, dm = groups % w;
-    int j = tid / c8n / w, m = tid / c8n % w;  // pixel px = j w + m
-#pragma unroll 4
-    for (int px = tid / c8n; px < h * w; px += groups) {
-      const uint4 v = p.resident
-          ? *reinterpret_cast<const uint4*>(u_s + (j * p.wp + m) * p.ldc + c8)
-          : *reinterpret_cast<const uint4*>(us + (static_cast<size_t>(j) * p.sj + m * p.sm) * c + c8);
-      const bf16* vb = reinterpret_cast<const bf16*>(&v);
-      const float wgt = sx[j] * sy[m];
+    if (p.cs > 1) lns::cluster_sync();  // no block leaves while its cluster may reach it
+  } else {
+    lns::setmaxnreg_inc<232>();
+    const int wg = role, wt = tid % 128;
+    float gacc[CA][CA][32];
 #pragma unroll
-      for (int q = 0; q < 8; ++q) mc[q] = fmaf(wgt, ld(vb[q]), mc[q]);
-      j += dj;
-      m += dm;
-      if (m >= w) {
-        m -= w;
-        ++j;
+    for (int x = 0; x < CA; ++x)
+#pragma unroll
+      for (int y = 0; y < CA; ++y)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) gacc[x][y][i] = 0.f;
+#pragma unroll
+    for (int x = 0; x < CA; ++x)
+#pragma unroll
+      for (int y = 0; y < CA; ++y) lns::wgmma_fence_regs(gacc[x][y]);
+    lns::mbar_wait(kxbar, 0);
+    int f = 0;
+    for (int t = 0; t < p.tiles; ++t) {
+      const int kb = t & 1, l0 = t * p.L;
+      const uint8_t* kyt = ky_s + kb * ky_buf;
+      lns::mbar_wait(&kyfull[kb], (t >> 1) & 1);
+      // step A: the ring's stages taken by the warpgroups in turn, each
+      // stage's rows by one warpgroup
+      for (int q = 0; q < p.nq; ++q, ++f) {
+        if (f % kStatsWGs != wg) continue;
+        const int st = f % p.S, j0 = q * p.R, rows = min(p.R, p.hp - j0);
+        lns::mbar_wait(&full[st], (f / p.S) & 1);
+        for (int ca = 0; ca < CA; ++ca) {
+          const uint8_t* u0 = ring + st * stage_bytes + ca * p.R * row_bytes;
+          if (p.L == 32) step_a_rows<32>(u0, row_bytes, kyt, a_s, p, j0, rows, ca, wt);
+          else if (p.L == 16) step_a_rows<16>(u0, row_bytes, kyt, a_s, p, j0, rows, ca, wt);
+          else step_a_rows<8>(u0, row_bytes, kyt, a_s, p, j0, rows, ca, wt);
+        }
+        lns::bar_sync(2 + wg, 128);  // the warpgroup's reads of the stage are done
+        if (p.cs > 1) {  // lane r releases the stage in cluster block r
+          if (wt < p.cs) lns::mbar_arrive_cluster(&empty[st], wt);
+        } else if (wt == 0) {
+          lns::mbar_arrive(&empty[st]);
+        }
       }
-    }
-  }
-  __syncthreads();  // every read of u (above) and of bb ends before G overwrites them
-
-  // f32 epilogue on every thread; its arrays alias everything but sx, sy
-  float* g_s = reinterpret_cast<float*>(smem_fab);  // [c, c]
-  float* win_s = g_s + c * c;                       // [c, d]
-  float* w1_s = win_s + c * d;                      // [d, o]: W_o1, then diag(inv) W_o1
-  float* meanc = w1_s + d * o;                      // [c]
-  float* mean_d = meanc + c;                        // [d]
-  float* inv_d = mean_d + d;                        // [d]
-  float* part = inv_d + d;                          // partial sums
-  for (int pass = 0; pass < 2; ++pass) {  // the first half's sums, then the second's added
-    if (half == pass) {
-#pragma unroll
-      for (int k = 0; k < kGramUnits; ++k) {
-        const int blk = warp % kTL + kTL * k;
-        if (blk >= blocks) continue;
-        const int r = blk / cn * 16 + g, n0 = blk % cn * 32 + 2 * t;
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          if (n0 + nt * 8 < c) {
-            float* gr = g_s + r * c + n0 + nt * 8;
-            const float* v = gacc[k][nt];
-            gr[0] = pass ? gr[0] + v[0] : v[0];
-            gr[1] = pass ? gr[1] + v[1] : v[1];
-            gr[8 * c] = pass ? gr[8 * c] + v[2] : v[2];
-            gr[8 * c + 1] = pass ? gr[8 * c + 1] + v[3] : v[3];
+      if (wt == 0) lns::mbar_arrive(&kyempty[kb]);
+      lns::fence_async_shared();  // a's stores, visible to wgmma
+      lns::bar_sync(1, kConsumers);
+      // step B: columns l of the tile split between the warpgroups
+      for (int l = wg; l < p.L; l += kStatsWGs)
+        for (int ca = 0; ca < CA; ++ca) {
+          uint8_t* blk = a_s + (ca * p.L + l) * p.hp * 128;
+          switch (p.hp / 16) {
+            case 1: step_b<1, 0>(blk, kx_s, p, wg, wt); break;
+            case 2: step_b<2, 0>(blk, kx_s, p, wg, wt); break;
+            case 3: step_b<3, 0>(blk, kx_s, p, wg, wt); break;
+            case 4: step_b<4, 0>(blk, kx_s, p, wg, wt); break;
+            case 5: step_b<4, 1>(blk, kx_s, p, wg, wt); break;
+            case 6: step_b<4, 2>(blk, kx_s, p, wg, wt); break;
+            case 7: step_b<4, 3>(blk, kx_s, p, wg, wt); break;
+            default: step_b<4, 4>(blk, kx_s, p, wg, wt); break;
           }
+        }
+      lns::fence_async_shared();  // bb's stores, visible to wgmma and the TMA store
+      lns::bar_sync(1, kConsumers);
+      if (tid == 0) {  // bb of the tile to the scratch, once; columns past wk are not stored
+        for (int l = 0; l < p.L && l0 + l < p.wk; ++l)
+          for (int ca = 0; ca < CA; ++ca) {
+            const uint8_t* blk = a_s + (ca * p.L + l) * p.hp * 128;
+            if (p.transposed)
+              lns::tma_store(&map_bb, blk, 64 * ca, 0, l0 + l, sn);
+            else
+              lns::tma_store(&map_bb, blk, 64 * ca, l0 + l, 0, sn);
+          }
+        lns::tma_store_commit();
+      }
+      // the Gram G += bb^T bb over the tile's pixels, alternate k16 steps per
+      // warpgroup (the two partial sums are added once, in order, at the end)
+#pragma unroll
+      for (int x = 0; x < CA; ++x)
+#pragma unroll
+        for (int y = 0; y < CA; ++y) lns::wgmma_fence_regs(gacc[x][y]);
+      for (int ks = wg; ks < p.L * p.hp / 16; ks += kStatsWGs) {
+        lns::wgmma_fence();
+#pragma unroll
+        for (int x = 0; x < CA; ++x)
+#pragma unroll
+          for (int y = 0; y < CA; ++y)
+            lns::wgmma<64, 1, 1>(gacc[x][y],
+                                 lns::desc_mnmajor(a_s + x * p.L * p.hp * 128 + ks * 2048),
+                                 lns::desc_mnmajor(a_s + y * p.L * p.hp * 128 + ks * 2048));
+        lns::wgmma_commit();
+      }
+      lns::wgmma_wait<0>();
+#pragma unroll
+      for (int x = 0; x < CA; ++x)
+#pragma unroll
+        for (int y = 0; y < CA; ++y) lns::wgmma_fence_regs(gacc[x][y]);
+      if (tid == 0) lns::tma_store_wait_read();
+      lns::bar_sync(1, kConsumers);  // the tile's bb is read before the next tile's a
+    }
+
+    // G: the warpgroups' sums added in order in shared memory (over a),
+    // then to the scratch [b, n, c, c] for the moments pass
+    float* g_s = reinterpret_cast<float*>(smem_raw);
+    {
+      const int q = wt / 32, lane = wt % 32, r0 = 16 * q + lane / 4, c2 = 2 * (lane % 4);
+      for (int pass = 0; pass < kStatsWGs; ++pass) {  // each warpgroup's sums, added in order
+        if (wg == pass)
+#pragma unroll
+          for (int x = 0; x < CA; ++x)
+#pragma unroll
+            for (int y = 0; y < CA; ++y)
+#pragma unroll
+              for (int i = 0; i < 32; ++i) {
+                const int r = 64 * x + r0 + 8 * ((i % 4) / 2);
+                const int cc = 64 * y + 8 * (i / 4) + c2 + i % 2;
+                float* gp = g_s + r * c + cc;
+                if (r < c && cc < c) *gp = pass ? *gp + gacc[x][y][i] : gacc[x][y][i];
+              }
+        lns::bar_sync(1, kConsumers);
       }
     }
-    __syncthreads();
+    float4* go = reinterpret_cast<float4*>(g_out + static_cast<size_t>(sn) * c * c);
+    for (int e = tid; e < c * c / 4; e += kConsumers)
+      go[e] = reinterpret_cast<const float4*>(g_s)[e];
+    if (p.cs > 1) lns::cluster_sync();
   }
-#pragma unroll 4
-  for (int e = tid; e < c * d; e += kTcThreads)
-    win_s[e] = ld(w_in[(static_cast<size_t>(e / d) * n + hd) * d + e % d]);
+}
+
+// Pass 3, one block per (head, sample): from G, the head's mean_c, W_in and
+// W_o1, the statistics E[phi^2] = W_in^T (G / N) W_in and mean = mean_c
+// W_in, inv = rsqrt(max(E[phi^2] - mean^2, 0) + eps), then m = bf16(W_in
+// diag(inv) W_o1) [cp, o] (zero rows past c) and the bias (mean inv) W_o1
+// (f32): f32 on CUDA cores in 4 x 4 register blocks, several blocks to an
+// SM so that their loads and barriers overlap.
+constexpr int kMomentThreads = 256;
+
+__global__ void __launch_bounds__(kMomentThreads)
+fab_moments_bf16(const float* __restrict__ g, const bf16* __restrict__ w_in,
+                 const float* __restrict__ w1, const float* __restrict__ mean_b,
+                 bf16* __restrict__ m_out, float* __restrict__ bias_out, int n, int c, int cp,
+                 int d, int o, int hw, float eps) {
+  extern __shared__ float4 smem_mom[];
+  const int tid = threadIdx.x, hd = blockIdx.x, s = blockIdx.y, sn = s * n + hd;
+  const int dp = round4(d);  // d padded with zero columns of W_in, rows of W_o1
+  float* g_s = reinterpret_cast<float*>(smem_mom);  // [c, c]
+  float* win_s = g_s + c * c;                       // [c, dp]
+  float* w1_s = win_s + c * dp;                     // [dp, o]: W_o1, then diag(inv) W_o1
+  float* meanc = w1_s + dp * o;                     // [c]
+  float* mean_d = meanc + c;                        // [dp]
+  float* inv_d = mean_d + dp;                       // [dp]
+  float* part = inv_d + dp;                         // [c / 4, dp]: E[phi^2] partial sums
+  // this head's W_in, W_o1, mean_c and G
+#pragma unroll 8
+  for (int e = tid; e < c * dp; e += kMomentThreads) {
+    const int dd = e % dp;
+    win_s[e] = dd < d ? ld(w_in[(static_cast<size_t>(e / dp) * n + hd) * d + dd]) : 0.f;
+  }
   const float* w1h = w1 + static_cast<size_t>(hd) * d * o;
 #pragma unroll 4
-  for (int e = tid; e < d * o / 4; e += kTcThreads)
-    reinterpret_cast<float4*>(w1_s)[e] = reinterpret_cast<const float4*>(w1h)[e];
-  if (!mean_b && tid < groups * c8n)
-#pragma unroll
-    for (int q = 0; q < 8; ++q) part[tid / c8n * c + tid % c8n * 8 + q] = mc[q];
+  for (int e = tid; e < dp * o / 4; e += kMomentThreads)  // o % 16 == 0: a float4 is in one row
+    reinterpret_cast<float4*>(w1_s)[e] = 4 * e < d * o
+        ? reinterpret_cast<const float4*>(w1h)[e] : make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int cc = tid; cc < c; cc += kMomentThreads)
+    meanc[cc] = mean_b[static_cast<size_t>(sn) * c + cc];
+  const float4* gi = reinterpret_cast<const float4*>(g + static_cast<size_t>(sn) * c * c);
+  for (int e = tid; e < c * c / 4; e += kMomentThreads) reinterpret_cast<float4*>(g_s)[e] = gi[e];
   __syncthreads();
-  const float inv_n = 1.f / static_cast<float>(h * w);
-  for (int cc = tid; cc < c; cc += kTcThreads) {  // or the block's (fab_block_mean_bf16)
-    float a = 0.f;
-    if (!mean_b)
-      for (int gi = 0; gi < groups; ++gi) a += part[gi * c + cc];
-    meanc[cc] = mean_b ? mean_b[sn * c + cc] : a * inv_n;
-  }
-  __syncthreads();
-  // E[phi^2] = W_in^T G W_in / N: 4 x 2 blocks of (G W_in)[ci, dd] per thread,
-  // reduced over ci in a fixed order through `part` [c / 4][d]
-  const int dq = (d + 1) / 2;
-  for (int e = tid; e < c / 4 * dq; e += kTcThreads) {
-    const int ci0 = e / dq * 4, dd0 = e % dq * 2;
-    float acc[4][2] = {};
+  const float inv_n = 1.f / static_cast<float>(hw);
+  // E[phi^2] = W_in^T G W_in / N: 4 x 4 blocks of (G W_in)[ci, dd] per
+  // thread, reduced over ci in a fixed order through `part` [c / 4][dp];
+  // the threads of the first rows also form mean = mean_c W_in
+  const int d4 = dp / 4;
+  for (int e = tid; e < c / 4 * d4; e += kMomentThreads) {
+    const int ci0 = e / d4 * 4, dd0 = e % d4 * 4;
+    float acc[4][4] = {}, macc[4] = {};
 #pragma unroll 4
     for (int cj = 0; cj < c; ++cj) {
       const float4 gv = *reinterpret_cast<const float4*>(g_s + cj * c + ci0);  // G symmetric
-      const float ga[4] = {gv.x, gv.y, gv.z, gv.w};
-      float wv[2];
-#pragma unroll
-      for (int b2 = 0; b2 < 2; ++b2) wv[b2] = dd0 + b2 < d ? win_s[cj * d + dd0 + b2] : 0.f;
+      const float4 wv = *reinterpret_cast<const float4*>(win_s + cj * dp + dd0);
+      const float ga[4] = {gv.x, gv.y, gv.z, gv.w}, wb[4] = {wv.x, wv.y, wv.z, wv.w};
 #pragma unroll
       for (int a2 = 0; a2 < 4; ++a2)
 #pragma unroll
-        for (int b2 = 0; b2 < 2; ++b2) acc[a2][b2] = fmaf(ga[a2], wv[b2], acc[a2][b2]);
+        for (int b2 = 0; b2 < 4; ++b2) acc[a2][b2] = fmaf(ga[a2], wb[b2], acc[a2][b2]);
+      if (ci0 == 0) {
+        const float mc = meanc[cj];
+#pragma unroll
+        for (int b2 = 0; b2 < 4; ++b2) macc[b2] = fmaf(mc, wb[b2], macc[b2]);
+      }
     }
 #pragma unroll
-    for (int b2 = 0; b2 < 2; ++b2)
-      if (dd0 + b2 < d) {
-        float sum = 0.f;
+    for (int b2 = 0; b2 < 4; ++b2) {
+      float sum = 0.f;
 #pragma unroll
-        for (int a2 = 0; a2 < 4; ++a2)
-          sum = fmaf(win_s[(ci0 + a2) * d + dd0 + b2], acc[a2][b2], sum);
-        part[ci0 / 4 * d + dd0 + b2] = sum;
-      }
+      for (int a2 = 0; a2 < 4; ++a2)
+        sum = fmaf(win_s[(ci0 + a2) * dp + dd0 + b2], acc[a2][b2], sum);
+      part[ci0 / 4 * dp + dd0 + b2] = sum;
+      if (ci0 == 0) mean_d[dd0 + b2] = macc[b2];
+    }
   }
   __syncthreads();
-  for (int dd = tid; dd < d; dd += kTcThreads) {
-    float mean = 0.f, ex2 = 0.f;
-#pragma unroll 8
-    for (int ci = 0; ci < c; ++ci) mean = fmaf(meanc[ci], win_s[ci * d + dd], mean);
-    for (int k = 0; k < c / 4; ++k) ex2 += part[k * d + dd];
-    const float var = fmaxf(ex2 * inv_n - mean * mean, 0.f);
-    mean_d[dd] = mean;
-    inv_d[dd] = rsqrtf(var + eps);
+  for (int dd = tid; dd < dp; dd += kMomentThreads) {
+    float ex2 = 0.f;
+    for (int k = 0; k < c / 4; ++k) ex2 += part[k * dp + dd];
+    const float mean = mean_d[dd], var = fmaxf(ex2 * inv_n - mean * mean, 0.f);
+    inv_d[dd] = dd < d ? rsqrtf(var + eps) : 0.f;
   }
   __syncthreads();
-  for (int e = tid; e < d * o; e += kTcThreads) w1_s[e] *= inv_d[e / o];  // diag(inv) W_o1
+  for (int e = tid; e < dp * o; e += kMomentThreads) w1_s[e] *= inv_d[e / o];  // diag(inv) W_o1
   __syncthreads();
-  // m = W_in (diag(inv) W_o1), 4 x 2 blocks per thread, in bf16
-  bf16* mo = m_out + sn * c * o;
-  const int oq = o / 2;
-  for (int e = tid; e < c / 4 * oq; e += kTcThreads) {
-    const int ci0 = e / oq * 4, oo0 = e % oq * 2;
-    float acc[4][2] = {};
+  // m = W_in (diag(inv) W_o1), 4 x 4 blocks per thread, in bf16 (rows c..cp
+  // zero); the threads of the first rows also form bias = mean (diag(inv) W_o1)
+  bf16* mo = m_out + static_cast<size_t>(sn) * cp * o;
+  const int o4 = o / 4;
+  for (int e = tid; e < c / 4 * o4; e += kMomentThreads) {
+    const int ci0 = e / o4 * 4, oo0 = e % o4 * 4;
+    float acc[4][4] = {}, bacc[4] = {};
 #pragma unroll 4
-    for (int dd = 0; dd < d; ++dd) {
-      const float2 v1 = *reinterpret_cast<const float2*>(w1_s + dd * o + oo0);
+    for (int dd = 0; dd < dp; ++dd) {
+      const float4 v = *reinterpret_cast<const float4*>(w1_s + dd * o + oo0);
+      const float vb[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
       for (int a2 = 0; a2 < 4; ++a2) {
-        const float wa = win_s[(ci0 + a2) * d + dd];
-        acc[a2][0] = fmaf(wa, v1.x, acc[a2][0]);
-        acc[a2][1] = fmaf(wa, v1.y, acc[a2][1]);
+        const float wa = win_s[(ci0 + a2) * dp + dd];
+#pragma unroll
+        for (int b2 = 0; b2 < 4; ++b2) acc[a2][b2] = fmaf(wa, vb[b2], acc[a2][b2]);
+      }
+      if (ci0 == 0) {
+        const float md = mean_d[dd];
+#pragma unroll
+        for (int b2 = 0; b2 < 4; ++b2) bacc[b2] = fmaf(md, vb[b2], bacc[b2]);
       }
     }
 #pragma unroll
     for (int a2 = 0; a2 < 4; ++a2)
-      *reinterpret_cast<uint32_t*>(mo + (ci0 + a2) * o + oo0) =
-          lns::pack_bf16(acc[a2][0], acc[a2][1]);
+      *reinterpret_cast<uint2*>(mo + (ci0 + a2) * o + oo0) =
+          make_uint2(lns::pack_bf16(acc[a2][0], acc[a2][1]),
+                     lns::pack_bf16(acc[a2][2], acc[a2][3]));
+    if (ci0 == 0)
+      *reinterpret_cast<float4*>(bias_out + static_cast<size_t>(sn) * o + oo0) =
+          make_float4(bacc[0], bacc[1], bacc[2], bacc[3]);
   }
-  for (int oo = tid; oo < o; oo += kTcThreads) {  // bias = (mean diag(inv)) W_o1
-    float acc = 0.f;
-#pragma unroll 8
-    for (int dd = 0; dd < d; ++dd) acc = fmaf(mean_d[dd], w1_s[dd * o + oo], acc);
-    bias_out[sn * o + oo] = acc;
-  }
+  for (int e = tid; e < (cp - c) * o / 2; e += kMomentThreads)
+    *reinterpret_cast<uint32_t*>(mo + c * o + 2 * e) = 0u;
 }
 
-// MT = hp / 16: m16 tiles of this warp's column in the bb . m product; each
-// block covers oc = 8 NT columns of o. The next head's k_y tile, bias and m
-// (and for hp <= 64 its k_x; larger k_x would take too many registers) are
-// fetched into registers while this head's bb . m runs. KF: as tile_a_bb.
-template <int MT, int KF>
-__global__ void __launch_bounds__(kTcThreads, 1)
-fab_apply_bf16(const bf16* __restrict__ u, const bf16* __restrict__ kx,
-               const bf16* __restrict__ ky, const bf16* __restrict__ m_in,
-               const float* __restrict__ bias_in, bf16* __restrict__ out, int n, int h, int w,
-               int c, int o, Plan p) {
-  constexpr int NT = MT <= 2 ? 8 : 4;
-  constexpr int OC = NT * 8;  // == p.oc
-  constexpr int NW = NT / 2;  // n8 tiles of o per warp: warps col, col + 8 split OC
-  constexpr bool kKxAhead = MT <= 4;
-  constexpr int KXR = kKxAhead ? (16 * MT * 16 * MT + kTcThreads - 1) / kTcThreads : 1;
-  constexpr int MR = (kMaxC * OC / 8 + kTcThreads - 1) / kTcThreads;  // 8 m's per thread
-  extern __shared__ uint4 smem_fab[];
-  bf16* kx_s = reinterpret_cast<bf16*>(smem_fab);
-  bf16* ky_s = kx_s + p.off_ky;
-  bf16* a_s = kx_s + p.off_a;
-  bf16* u_s = kx_s + p.off_u;
-  bf16* bb_s = kx_s + p.off_bb;
-  bf16* m_s = a_s;  // [c][OC + 8], once a is consumed
-  float* bsum = reinterpret_cast<float*>(reinterpret_cast<char*>(smem_fab) + p.apply_bytes) - OC;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, g = lane / 4, t = lane % 4;
-  const int col = warp % kTL, n8 = warp / kTL * NW;  // this warp's column and first n8 tile
-  const int tid = threadIdx.x, l0 = blockIdx.x * kTL, o0 = blockIdx.y * OC, s = blockIdx.z;
-  const bf16* us = u + static_cast<size_t>(s) * h * w * c;
-  const bf16 zero = __float2bfloat16(0.f);
-
-  bf16 kxr[KXR];
-  __nv_bfloat162 kyr;
-  float br;
-  uint4 mr[MR];
-  auto fetch = [&](int hd) {  // this thread's share of head hd's inputs
-    const size_t sn = static_cast<size_t>(s) * n + hd;
-    if constexpr (kKxAhead) {
-#pragma unroll
-      for (int k = 0; k < KXR; ++k) {
-        const int e = tid + k * kTcThreads, i = e / p.hp, j = e % p.hp;
-        kxr[k] = i < h && j < h ? kx[(sn * h + i) * h + j] : zero;
-      }
+// Pass 4, one block per (128 pixels, 64 columns of o, sample): out =
+// bf16(bf16(sum_n bb_n . m_n) - bf16(sum_n bias_n)), one product with K =
+// n cp in f32 (a head per ring stage), the bias summed over the heads in
+// order; the tile leaves by a TMA store.
+template <int CA>
+__global__ void __launch_bounds__(kThreadsOut, 1)
+fab_out_bf16(const __grid_constant__ CUtensorMap map_bbl, const __grid_constant__ CUtensorMap map_m,
+             const __grid_constant__ CUtensorMap map_out, const float* __restrict__ bias, int n,
+             int o) {
+  constexpr int kA = CA * kOutRows * 128, kB = CA * 64 * 128, kStage = kA + kB;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align_smem(smem_raw);
+  uint8_t* stage_out = base + kOutStages * kStage;
+  float* bsum = reinterpret_cast<float*>(stage_out + kOutRows * 128);
+  uint64_t* full = reinterpret_cast<uint64_t*>(bsum + kOutCols);
+  uint64_t* empty = full + kOutStages;
+  const int tid = threadIdx.x, px0 = blockIdx.x * kOutRows, o0 = blockIdx.y * kOutCols;
+  const int s = blockIdx.z;
+  if (tid == 0) {
+    for (int i = 0; i < kOutStages; ++i) {
+      lns::mbar_init(&full[i], 1);
+      lns::mbar_init(&empty[i], 2);
     }
-    kyr = fetch_ky_pair(ky, sn, p, l0, w);
-    br = tid < OC && o0 + tid < o ? bias_in[sn * o + o0 + tid] : 0.f;
-#pragma unroll
-    for (int k = 0; k < MR; ++k) {
-      const int e = tid + k * kTcThreads, cc = e / (OC / 8), c8 = e % (OC / 8) * 8;
-      mr[k] = cc < c && o0 + c8 < o
-          ? *reinterpret_cast<const uint4*>(m_in + (sn * c + cc) * o + o0 + c8)
-          : make_uint4(0, 0, 0, 0);
-    }
-  };
-
-  load_u_resident(us, p, u_s, h, w, c);
-  if (tid < OC) bsum[tid] = 0.f;
-  float acc[MT][NW][4] = {};
-  fetch(0);
-  for (int hd = 0; hd < n; ++hd) {
-    if constexpr (kKxAhead) {
-#pragma unroll
-      for (int k = 0; k < KXR; ++k) {  // k_x, zero-padded to hp x hp
-        const int e = tid + k * kTcThreads;
-        if (e < p.hp * p.hp) kx_s[e / p.hp * p.ldk + e % p.hp] = kxr[k];
-      }
-    } else {
-      load_kx(kx, static_cast<size_t>(s) * n + hd, p, kx_s, h);
-    }
-    store_ky_pair(kyr, p, ky_s);  // rows l0..l0+7
-    if (tid < OC) bsum[tid] += br;
-    zero_a_tail(p, a_s, h);  // m overwrote it
-    lns::cp_async_wait<0>();
-    __syncthreads();
-    tile_a_bb<KF>(us, p, kx_s, ky_s, a_s, u_s, bb_s, h, w, c);
-#pragma unroll
-    for (int k = 0; k < MR; ++k) {  // m_n, columns o0..o0+OC
-      const int e = tid + k * kTcThreads, cc = e / (OC / 8), c8 = e % (OC / 8) * 8;
-      if (cc < c) *reinterpret_cast<uint4*>(m_s + cc * p.ldm + c8) = mr[k];
-    }
-    if (hd + 1 < n) fetch(hd + 1);
-    __syncthreads();
-    // acc[(l = col, i), o] += bb[(l, i), :] . m[:, o]
-    for (int ks = 0; ks < c; ks += 16) {
-      uint32_t bfr[NW / 2][4];
-#pragma unroll
-      for (int np = 0; np < NW / 2; ++np)
-        lns::ldsm_x4_trans(bfr[np], m_s + lns::b_addr(lane, ks, (n8 + 2 * np) * 8, p.ldm));
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        uint32_t af[4];
-        lns::ldsm_x4(af, bb_s + lns::a_addr(lane, col * p.hp + mt * 16, ks, p.ldc));
-#pragma unroll
-        for (int np = 0; np < NW / 2; ++np) {
-          lns::mma_bf16(acc[mt][2 * np], af, bfr[np][0], bfr[np][1]);
-          lns::mma_bf16(acc[mt][2 * np + 1], af, bfr[np][2], bfr[np][3]);
-        }
-      }
-    }
-    __syncthreads();  // before the next head refills k_x, k_y, a (and the ring)
+    lns::mbar_fence_init();
   }
-  // out = bf16(bf16(acc) - bf16(sum of the heads' biases)): the head sum
-  // rounded once, the bias subtracted in bf16, as _batched_gram_core does;
-  // staged [8 hp][OC + 8]
-  bf16* st = a_s;
-  using lns::rnd;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NW; ++nt) {
-      const int oc = (n8 + nt) * 8 + 2 * t;
-      const float b0 = rnd<bf16>(bsum[oc]), b1 = rnd<bf16>(bsum[oc + 1]);
-      const float* v = acc[mt][nt];
-      bf16* r = st + (col * p.hp + mt * 16 + g) * p.ldm + oc;
-      *reinterpret_cast<uint32_t*>(r) = lns::pack_bf16(rnd<bf16>(v[0]) - b0, rnd<bf16>(v[1]) - b1);
-      *reinterpret_cast<uint32_t*>(r + 8 * p.ldm) =
-          lns::pack_bf16(rnd<bf16>(v[2]) - b0, rnd<bf16>(v[3]) - b1);
-    }
   __syncthreads();
-  for (int e = tid; e < h * kTL * (OC / 8); e += kTcThreads) {  // 16-byte stores
-    const int c8 = e % (OC / 8) * 8, il = e / (OC / 8), l = il % kTL, i = il / kTL;
-    if (l0 + l >= w || o0 + c8 >= o) continue;
-    const size_t px = static_cast<size_t>(s) * h * w + i * p.oi + (l0 + l) * p.ol;
-    *reinterpret_cast<uint4*>(out + px * o + o0 + c8) =
-        *reinterpret_cast<const uint4*>(st + (l * p.hp + i) * p.ldm + c8);
+  if (tid >= kOutConsumers) {
+    if (tid == kOutConsumers)
+      for (int hd = 0; hd < n; ++hd) {
+        const int st = hd % kOutStages;
+        if (hd >= kOutStages) lns::mbar_wait(&empty[st], ((hd / kOutStages) - 1) & 1);
+        lns::mbar_expect_tx(&full[st], kStage);
+        uint8_t* sa = base + st * kStage;
+        for (int ca = 0; ca < CA; ++ca)
+          lns::tma_load(sa + ca * kOutRows * 128, &map_bbl, &full[st], 64 * ca, px0, s * n + hd, 0);
+        lns::tma_load(sa + kA, &map_m, &full[st], o0, 0, s * n + hd, 0);
+      }
+    return;
+  }
+  const int wg = tid / 128, wt = tid % 128;
+  if (tid < kOutCols) {
+    float a = 0.f;
+    if (o0 + tid < o)
+      for (int hd = 0; hd < n; ++hd) a += bias[(static_cast<size_t>(s) * n + hd) * o + o0 + tid];
+    bsum[tid] = a;
+  }
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  lns::wgmma_fence_regs(acc);
+  for (int hd = 0; hd < n; ++hd) {
+    const int st = hd % kOutStages;
+    const uint8_t* sa = base + st * kStage;
+    lns::mbar_wait(&full[st], (hd / kOutStages) & 1);
+    lns::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < CA * 4; ++ks)
+      lns::wgmma<64, 0, 1>(acc,
+                           lns::desc_kmajor(sa + (ks / 4) * kOutRows * 128 + wg * 64 * 128 +
+                                            (ks % 4) * 32),
+                           lns::desc_mnmajor(sa + kA + ks * 2048));
+    lns::wgmma_commit();
+    lns::wgmma_wait<0>();
+    lns::wgmma_fence_regs(acc);
+    lns::bar_sync(2 + wg, 128);
+    if (wt == 0) lns::mbar_arrive(&empty[st]);
+  }
+  lns::bar_sync(1, kOutConsumers);  // bsum
+  using lns::rnd;
+  const int q = wt / 32, lane = wt % 32, r0 = 64 * wg + 16 * q + lane / 4, c2 = 2 * (lane % 4);
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    const int r = r0 + 8 * ((i % 4) / 2), cc = 8 * (i / 4) + c2;
+    const float b0 = rnd<bf16>(bsum[cc]), b1 = rnd<bf16>(bsum[cc + 1]);
+    *reinterpret_cast<uint32_t*>(stage_out + lns::sw128(r, cc)) =
+        lns::pack_bf16(rnd<bf16>(acc[i]) - b0, rnd<bf16>(acc[i + 1]) - b1);
+  }
+  lns::fence_async_shared();
+  lns::bar_sync(1, kOutConsumers);
+  if (tid == 0) {
+    lns::tma_store(&map_out, stage_out, o0, px0, s, 0);
+    lns::tma_store_commit();
+    lns::tma_store_wait_read();
   }
 }
 
-template <typename K>
-cudaError_t prepare(K kernel, int bytes) {
-  cudaError_t e = lns::allow_smem(kernel, bytes);
-  if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                              cudaSharedmemCarveoutMaxShared);
-}
-
-template <int MT, int KF>
-int launch_apply_bf16(const bf16* u, const bf16* kx, const bf16* ky, const bf16* m,
-                      const float* bias, bf16* out, int b, int n, int h, int w, int c, int o,
-                      const Plan& p, cudaStream_t stream) {
-  cudaError_t e = prepare(fab_apply_bf16<MT, KF>, p.apply_bytes);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((w + kTL - 1) / kTL, (o + p.oc - 1) / p.oc, b);
-  fab_apply_bf16<MT, KF><<<grid, kTcThreads, p.apply_bytes, stream>>>(u, kx, ky, m, bias, out, n,
-                                                                    h, w, c, o, p);
-  return cudaGetLastError();
-}
-
-// The block's mean inputs (all null: mean_c from u alone) and its scratch.
+// The block's mean inputs (x null: mean_c from u alone) and its scratch.
 struct MeanFrom {
   const bf16* x;
   const float *coef, *sx, *sy;
   float* mean;  // [b, n, c]
 };
 
-template <int KF>
-int launch_bf16_kf(const bf16* u, const bf16* kx, const bf16* ky, const bf16* w_in,
-                   const float* w1, const float* mean_b, bf16* m, float* bias, bf16* out, int b,
-                   int n, int h, int w, int c, int d, int o, float eps, const Plan& p,
-                   cudaStream_t stream) {
-  cudaError_t e = prepare(fab_stats_bf16<KF>, p.stats_bytes);
+template <typename K>
+cudaError_t cluster_config(K kernel, const Plan& p, int b, int n, cudaStream_t stream,
+                           cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  cudaError_t e = lns::allow_smem(kernel, p.stats_bytes);
   if (e != cudaSuccess) return e;
-  fab_stats_bf16<KF><<<dim3(n, b), kTcThreads, p.stats_bytes, stream>>>(
-      u, kx, ky, w_in, w1, mean_b, m, bias, n, h, w, c, d, o, eps, p);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-#define LNS_APPLY(MT) \
-  launch_apply_bf16<MT, KF>(u, kx, ky, m, bias, out, b, n, h, w, c, o, p, stream)
-  switch (p.hp / 16) {
-    case 1: return LNS_APPLY(1);
-    case 2: return LNS_APPLY(2);
-    case 3: return LNS_APPLY(3);
-    case 4: return LNS_APPLY(4);
-    case 5: return LNS_APPLY(5);
-    case 6: return LNS_APPLY(6);
-    case 7: return LNS_APPLY(7);
-    default: return LNS_APPLY(8);
-  }
-#undef LNS_APPLY
+  *cfg = {};
+  cfg->gridDim = dim3(n, b);
+  cfg->blockDim = dim3(kThreadsTc);
+  cfg->dynamicSmemBytes = p.stats_bytes;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = p.cs;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
 }
 
+// The tensor maps of both passes (kx, ky: the kernels' k_x, k_y, rows
+// padded to a multiple of 8 elements).
+struct Maps {
+  CUtensorMap u, kx, ky, bb, bbl, m, out;
+};
+
+cudaError_t make_maps(Maps* mp, const Plan& p, const bf16* u, const bf16* kx, const bf16* ky,
+                      const bf16* m, const bf16* bb, const bf16* out, int b, int n, int h, int w,
+                      int c, int o) {
+  using u64 = uint64_t;
+  const u64 B = b, N = n, H = h, W = w, C = c, CP = p.cp, O = o;
+  const u64 hk8 = round_up(p.hk, 8), wk8 = round_up(p.wk, 8), HW = H * W;
+  const uint32_t wp = p.wp, hp = p.hp, L = p.L;
+  cudaError_t e;
+  // u [b, h, w, c]: a row j of the kernels' field is one box
+  e = lns::make_map(&mp->u, u, {C, W, H, B}, {C * 2, W * C * 2, HW * C * 2},
+                    {64, p.transposed ? 1u : wp, p.transposed ? wp : 1u, 1});
+  if (e == cudaSuccess)
+    e = lns::make_map(&mp->kx, kx, {hk8, u64(p.hk), B * N, 1},
+                      {hk8 * 2, p.hk * hk8 * 2, B * N * p.hk * hk8 * 2}, {64, hp, 1, 1});
+  if (e == cudaSuccess)
+    e = lns::make_map(&mp->ky, ky, {wk8, u64(p.wk), B * N, 1},
+                      {wk8 * 2, p.wk * wk8 * 2, B * N * p.wk * wk8 * 2}, {64, L, 1, 1});
+  // bb [b n, h, w, cp] in the field's own orientation: one column l per box
+  if (e == cudaSuccess)
+    e = lns::make_map(&mp->bb, bb, {CP, W, H, B * N}, {CP * 2, W * CP * 2, HW * CP * 2},
+                      {64, p.transposed ? hp : 1u, p.transposed ? 1u : hp, 1});
+  if (e == cudaSuccess)
+    e = lns::make_map(&mp->bbl, bb, {CP, HW, B * N, 1},
+                      {CP * 2, HW * CP * 2, B * N * HW * CP * 2}, {64, kOutRows, 1, 1});
+  if (e == cudaSuccess)
+    e = lns::make_map(&mp->m, m, {O, CP, B * N, 1}, {O * 2, CP * O * 2, B * N * CP * O * 2},
+                      {64, static_cast<uint32_t>(p.cp), 1, 1});
+  if (e == cudaSuccess)
+    e = lns::make_map(&mp->out, out, {O, HW, B, 1}, {O * 2, HW * O * 2, B * HW * O * 2},
+                      {kOutCols, kOutRows, 1, 1});
+  return e;
+}
+
+template <int CA>
+int launch_passes(const Maps& mp, const bf16* w_in, const float* w1, const float* mean,
+                  float* g, bf16* m, float* bias, int b, int n, int h, int w, int c, int d, int o,
+                  float eps, const Plan& p, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t e = cluster_config(fab_bb_stats_bf16<CA>, p, b, n, stream, &cfg, &attr);
+  if (e != cudaSuccess) return e;
+  e = cudaLaunchKernelEx(&cfg, fab_bb_stats_bf16<CA>, mp.u, mp.kx, mp.ky, mp.bb, g, n, c, p);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  if (e == cudaSuccess) e = lns::allow_smem(fab_moments_bf16, p.moments_bytes);
+  if (e != cudaSuccess) return e;
+  fab_moments_bf16<<<dim3(n, b), kMomentThreads, p.moments_bytes, stream>>>(
+      g, w_in, w1, mean, m, bias, n, c, p.cp, d, o, h * w, eps);
+  e = cudaGetLastError();
+  if (e == cudaSuccess) e = lns::allow_smem(fab_out_bf16<CA>, p.out_bytes);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((h * w + kOutRows - 1) / kOutRows, (o + kOutCols - 1) / kOutCols, b);
+  fab_out_bf16<CA><<<grid, kThreadsOut, p.out_bytes, stream>>>(mp.bbl, mp.m, mp.out, bias, n, o);
+  return cudaGetLastError();
+}
+
+// kx [b, n, h, kxp], ky [b, n, w, kyp] (kxp, kyp: h, w rounded up to 8)
 int launch_bf16(const bf16* u, const bf16* kx, const bf16* ky, const bf16* w_in, const float* w1,
-                const MeanFrom& mf, bf16* m, float* bias, bf16* out, int b, int n, int h, int w,
-                int c, int d, int o, float eps, cudaStream_t stream) {
-  if (bf16_limit(h, w, c, d, o)) return cudaErrorInvalidValue;
-  if (!mf.x != !mf.coef || !mf.x != !mf.sx || !mf.x != !mf.sy || !mf.x != !mf.mean)
-    return cudaErrorInvalidValue;
-  if (mf.x) {
-    const int bytes = block_mean_smem(n, h, w, c);
-    cudaError_t e = lns::allow_smem(fab_block_mean_bf16, bytes);
-    if (e != cudaSuccess) return e;
-    fab_block_mean_bf16<<<dim3(b, (n + kHC - 1) / kHC), kMeanThreads, bytes, stream>>>(
-        mf.x, mf.coef, mf.sx, mf.sy, mf.mean, n, h, w, c);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-  }
-  const Plan p = plan_for(h, w, c, d, o);
-  if (w > h) {  // the transposed field: k_x applied first
-    std::swap(h, w);
-    std::swap(kx, ky);
-  }
-  return p.wp > 64 ? launch_bf16_kf<8>(u, kx, ky, w_in, w1, mf.mean, m, bias, out, b, n, h, w, c,
-                                       d, o, eps, p, stream)
-                   : launch_bf16_kf<4>(u, kx, ky, w_in, w1, mf.mean, m, bias, out, b, n, h, w, c,
-                                       d, o, eps, p, stream);
+                const MeanFrom& mf, float* g, bf16* m, float* bias, bf16* bb, bf16* out, int b,
+                int n, int h, int w, int c, int d, int o, float eps, cudaStream_t stream) {
+  if (bf16_limit(h, w, c, d, o) || !mf.mean || !bb || !g) return cudaErrorInvalidValue;
+  if (!mf.x != !mf.coef || !mf.x != !mf.sx || !mf.x != !mf.sy) return cudaErrorInvalidValue;
+  const int kxp = round_up(h, 8), kyp = round_up(w, 8);
+  const int bytes = block_mean_smem(n, h, w, c);
+  cudaError_t e = lns::allow_smem(fab_block_mean_bf16, bytes);
+  if (e != cudaSuccess) return e;
+  fab_block_mean_bf16<<<dim3(b, (n + kHC - 1) / kHC), kMeanThreads, bytes, stream>>>(
+      mf.x ? mf.x : u, mf.coef, mf.sx, mf.sy, kx, ky, kxp, kyp, mf.mean, n, h, w, c);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const Plan p = plan_for(h, w, c, d, o, n);
+  Maps mp;
+  e = p.transposed ? make_maps(&mp, p, u, ky, kx, m, bb, out, b, n, h, w, c, o)
+                   : make_maps(&mp, p, u, kx, ky, m, bb, out, b, n, h, w, c, o);
+  if (e != cudaSuccess) return e;
+  return p.ca == 1 ? launch_passes<1>(mp, w_in, w1, mf.mean, g, m, bias, b, n, h, w, c, d, o, eps,
+                                      p, stream)
+                   : launch_passes<2>(mp, w_in, w1, mf.mean, g, m, bias, b, n, h, w, c, d, o, eps,
+                                      p, stream);
+}
+
+// The launch plan of a shape, for chip_smoke.py: cluster size, tile
+// columns L, u rows per stage, stages, tiles, the statistics and output
+// passes' shared memory per block, the padded c, the clusters of the
+// statistics pass the card holds at once, the moments pass's shared memory.
+int plan_info(int h, int w, int c, int d, int o, int n, int* out) {
+  const Plan p = plan_for(h, w, c, d, o, n);
+  out[0] = p.cs;
+  out[1] = p.L;
+  out[2] = p.R;
+  out[3] = p.S;
+  out[4] = p.tiles;
+  out[5] = p.stats_bytes;
+  out[6] = p.out_bytes;
+  out[7] = p.cp;
+  out[8] = 0;
+  out[9] = p.moments_bytes;
+  if (bf16_limit(h, w, c, d, o)) return cudaSuccess;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t e = p.ca == 1 ? cluster_config(fab_bb_stats_bf16<1>, p, 1, n, nullptr, &cfg, &attr)
+                            : cluster_config(fab_bb_stats_bf16<2>, p, 1, n, nullptr, &cfg, &attr);
+  if (e != cudaSuccess) return e;
+  return p.ca == 1 ? cudaOccupancyMaxActiveClusters(&out[8], fab_bb_stats_bf16<1>, &cfg)
+                   : cudaOccupancyMaxActiveClusters(&out[8], fab_bb_stats_bf16<2>, &cfg);
 }
 
 }  // namespace
@@ -1058,19 +1154,26 @@ extern "C" const char* lns_fab_core_bf16_limit(int h, int w, int c, int d, int o
   return bf16_limit(h, w, c, d, o);
 }
 
-// x, coef, sx, sy: the block's mean inputs, mean_ws their [b, n, c] f32
-// scratch (bf16 only; all null for mean_c from u alone).
+// The bf16 launch plan of a shape (plan_info): 10 ints into out.
+extern "C" int lns_fab_core_bf16_plan(int h, int w, int c, int d, int o, int n, int* out) {
+  return plan_info(h, w, c, d, o, n, out);
+}
+
+// x, coef, sx, sy: the block's mean inputs (bf16 only; all null for mean_c
+// from u alone); bf16's scratch: mean_ws [b, n, c] f32, g_ws the Gram [b, n,
+// c, c] f32 and bb_ws [b, n, h, w, cp] bf16 (all null for f32). kx, ky:
+// bf16 [b, n, h, round8(h)] and [b, n, w, round8(w)]; f32 [b, n, h, h] and
+// [b, n, w, w]. m: [b, n, cp, o] (bf16) or [b, n, c, o] (f32).
 extern "C" int lns_fab_core(int dtype, const void* u, const void* kx, const void* ky,
                             const void* w_in, const void* w_o1, const void* x, const void* coef,
-                            const void* sx, const void* sy, void* mean_ws, void* m, void* bias,
-                            void* out,
-                            int b, int n, int h, int w, int c, int d, int o, float eps,
-                            void* stream) {
+                            const void* sx, const void* sy, void* mean_ws, void* g_ws, void* m,
+                            void* bias, void* bb_ws, void* out, int b, int n, int h, int w, int c,
+                            int d, int o, float eps, void* stream) {
   const float* w1 = static_cast<const float*>(w_o1);
   float* bf = static_cast<float*>(bias);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    if (x || coef || sx || sy || mean_ws) return cudaErrorInvalidValue;
+    if (x || coef || sx || sy || mean_ws || g_ws || bb_ws) return cudaErrorInvalidValue;
     return launch_f32(static_cast<const float*>(u), static_cast<const float*>(kx),
                       static_cast<const float*>(ky), static_cast<const float*>(w_in), w1,
                       static_cast<float*>(m), bf, static_cast<float*>(out), b, n, h, w, c, d, o,
@@ -1082,7 +1185,8 @@ extern "C" int lns_fab_core(int dtype, const void* u, const void* kx, const void
                        MeanFrom{static_cast<const bf16*>(x), static_cast<const float*>(coef),
                                 static_cast<const float*>(sx), static_cast<const float*>(sy),
                                 static_cast<float*>(mean_ws)},
-                       static_cast<bf16*>(m), bf, static_cast<bf16*>(out), b, n, h, w, c, d, o,
-                       eps, st);
+                       static_cast<float*>(g_ws), static_cast<bf16*>(m), bf,
+                       static_cast<bf16*>(bb_ws),
+                       static_cast<bf16*>(out), b, n, h, w, c, d, o, eps, st);
   return cudaErrorInvalidValue;
 }

@@ -1,6 +1,6 @@
 """FAB core: the factorized-attention block's axial applications, InstanceNorm
-statistics and folded out-projection, as a CUDA C++ kernel for Hopper
-(``csrc/fab_core.cu``).
+statistics and folded out-projection, as CUDA C++ kernels for Hopper
+(``csrc/fab_core.cu``, with the Hopper helpers of ``csrc/hopper.cuh``).
 
 Replaces ``lns_tpu/pallas_kernels/fab_core.py: fab_fused_core``
 (``_fused_kernel``), the drop-in for ``FABlock2D._batched_gram_core``
@@ -13,32 +13,47 @@ Replaces ``lns_tpu/pallas_kernels/fab_core.py: fab_fused_core``
     m_n    = W_in[:, n] diag(inv_n) W_o1[n],   bias_n = (mean_n inv_n) W_o1[n]
     out    = sum_n (bb_n . m_n - bias_n)
 
-What bounds it on an H100: arithmetic, not bytes. Per NS2d decode chunk
-(116 frames, 8 heads, c = 64) the 32x32 block is ~31 GFLOP against ~34 MB
-of u, k and out, above the card's bf16 ridge, so the kernel's products run
-on tensor cores in bf16.
+What bounds it on an H100: arithmetic at the card's bf16 tensor-core rate.
+One call at SW's 48x96, c = o = d = 64, 8 heads, b336 is ~437 GFLOP (0.442
+ms at 989 TFLOP/s) against ~0.66 GB of u, x, k and out (0.20 ms at 3.35
+TB/s); NS2d's 32x32 b116 is ~24.5 GFLOP (0.025 ms) against ~0.05 GB. The
+design below adds its bb scratch's write and read: 3.2 GB (0.95 ms) at SW's
+48x96, 0.24 GB (0.07 ms) at 32x32 b116.
 
-Design. The TPU kernel holds a sample's whole field per program and sums the
-heads over a sequential grid axis; on Hopper a sample's bb does not fit in a
-block's shared memory, so the kernel runs two passes and bb never reaches
-device memory:
-  1. statistics, one block per (head, sample): bb tile by tile, its Gram
-     summed across tiles, then m_n (in u's dtype) and bias_n (f32) to a
-     small scratch [b, n, c, o] / [b, n, o];
-  2. apply, one block per (tile of 8 columns, sample): recompute the tile's
-     bb for each head and add bb . m_n; write the output once.
-bf16 (``mma.sync`` m16n8k16, f32 accumulators, 512 threads per block): in
-``_batched_gram_core``'s order, k_y first for w <= h and k_x first for
-w > h (the kernels then walk the transposed field through transposed
-strides of u and out), with a, bb, m, the bias, the head sum and the output
-rounded to bf16 where it rounds them. u is resident in shared memory where
-it fits (32x32 and 16x16 at c64), else it streams from L2 through a 2-stage
-``cp.async`` ring. Shared memory per block: 225,152 bytes at 32x32 c64,
-75,392 at 16x16 c64, 231,872 at 48x96 c64. The wrapper raises for a bf16
-shape outside the kernel's limits, with the text of the C side's
-``lns_fab_core_bf16_limit``: c a multiple of 16 up to 128, o a multiple of
-16, h and w up to 128, and the block within the H100's 227 KB of shared
-memory. f32: the same passes as f32 FMAs on CUDA cores, k_x first.
+Design (bf16). The TPU kernel holds a sample's whole field per program and
+sums the heads over a sequential grid axis; on Hopper a sample's bb does not
+fit in a block, so the core runs four passes:
+  1. mean: one block per sample reads its x (or u) once for all heads and
+     forms mean_c [b, n, c] (``block_mean_c``, or ``rounded_mean_c``);
+  2. statistics: one block per (head, sample), the sample's heads in one
+     thread-block cluster (8 at every path shape). Its rows of u stream
+     through a ring of shared memory by TMA, each stage loaded once and
+     multicast to every block of the cluster, so u is read from device
+     memory once per sample (per tile of L columns of the first-applied
+     axis: once at NS2d's fields, 6 times at SW's 48x96). A producer
+     warpgroup issues the copies; two consumer warpgroups run both axial
+     applies and the Gram on ``wgmma`` from shared memory (a = bf16(u .
+     k_y^T) a ring stage of rows at a time, bb = bf16(k_x . a) column by
+     column over a, G += bb^T bb), write bb to a device scratch [b, n, h,
+     w, cp] once (TMA store) and G to a scratch [b, n, c, c];
+  3. moments: one block per (head, sample) forms E[phi^2], the mean, m_n
+     (bf16) and bias_n (f32) from G on CUDA cores, several blocks to an SM;
+  4. output: one block per (128 pixels, 64 columns of o, sample) runs
+     sum_n bb_n . m_n as one ``wgmma`` product with K = n cp in f32 (a head
+     per ring stage), subtracts the heads' bias summed in order, and writes
+     the tile once. No atomics: two runs give the same bits.
+The axial applies run once (bb is stored, not recomputed); bb is a bf16
+rounding point of ``_batched_gram_core``, so storing it changes no value.
+It applies k_y first for w <= h and k_x first for w > h (the kernels then
+walk the transposed field through their tensor maps' boxes, no copy), and
+rounds a, bb, m, the bias, the head sum and the output to bf16 where that
+function rounds them. The wrapper allocates the scratch (c padded to cp, a
+multiple of 64, in bb and m) and pads the rows of k_x, k_y to a multiple of
+8 elements (TMA's 16-byte strides). It raises for a bf16 shape outside the kernels' limits, with the
+text of the C side's ``lns_fab_core_bf16_limit``: c a multiple of 16 up to
+128, o a multiple of 16, h and w up to 128, and each pass's block within
+the H100's 227 KB of shared memory. f32: two passes of f32 FMAs on CUDA
+cores, k_x first (the check path, not timed).
 """
 
 from __future__ import annotations
@@ -198,39 +213,67 @@ def _fab_core(u, k_x, k_y, w_in, w_o1, eps: float, mean_from):
     if not 0 < b <= 65535:
         raise ValueError(f"fab_fused_core: batch {b}; the grid takes 1 to 65535")
     lib = _build.library()
-    if u.dtype == torch.bfloat16:
+    bf16 = u.dtype == torch.bfloat16
+    if bf16:
         limit = lib.lns_fab_core_bf16_limit(h, w, c, d, o)  # the kernel's own limits
         if limit:
             raise ValueError(f"fab_fused_core: bf16 at {h}x{w} c{c} d{d} o{o} needs "
                              f"{limit.decode()}")
-        if u.data_ptr() % 16:  # u's rows stream as 16-byte copies
+        if u.data_ptr() % 16:  # u's rows load by TMA, from a 16-byte boundary
             u = u.clone()
-    kx = k_x.to(u.dtype).contiguous()
-    ky = k_y.to(u.dtype).contiguous()
+    kx, ky = (_k_rows(k_x, u.dtype, bf16), _k_rows(k_y, u.dtype, bf16))
     wi = w_in.to(u.dtype).contiguous()
     w1 = w_o1.float().contiguous()
     if w1.data_ptr() % 16:  # read as 16-byte vectors
         w1 = w1.clone()
-    ptrs = [None] * 5
-    if mean_from is not None:
-        x, coef, kx_s, ky_s = mean_from
-        x = x.to(u.dtype).contiguous()
-        if x.data_ptr() % 16:  # read as 16-byte vectors, as u
-            x = x.clone()
-        mf = (x, coef.float().contiguous(), kx_s.float().contiguous(), ky_s.float().contiguous(),
-              torch.empty((b, n, c), device=u.device))  # the block's mean_c
-        ptrs = [t.data_ptr() for t in mf]
-    m = torch.empty((b, n, c, o), device=u.device, dtype=u.dtype)  # m_n, rounded to u's dtype
+    ptrs = [None] * 6
+    if bf16:  # the mean's inputs (x null: from u alone), its scratch and the Gram's
+        mf = [None] * 4
+        if mean_from is not None:
+            x, coef, kx_s, ky_s = mean_from
+            x = x.to(u.dtype).contiguous()
+            if x.data_ptr() % 16:  # read as 16-byte vectors, as u
+                x = x.clone()
+            mf = [x, coef.float().contiguous(), kx_s.float().contiguous(),
+                  ky_s.float().contiguous()]
+        mf += [torch.empty((b, n, c), device=u.device), torch.empty((b, n, c, c), device=u.device)]
+        ptrs = [t if t is None else t.data_ptr() for t in mf]
+    cp = -(-c // 64) * 64 if bf16 else c  # the kernels' c, padded to whole 64-channel atoms
+    m = torch.empty((b, n, cp, o), device=u.device, dtype=u.dtype)  # m_n, rounded to u's dtype
     bias = torch.empty((b, n, o), device=u.device, dtype=torch.float32)
+    bb = torch.empty((b, n, h, w, cp), device=u.device, dtype=u.dtype) if bf16 else None
     out = torch.empty((b, h, w, o), device=u.device, dtype=u.dtype)
     rc = lib.lns_fab_core(
         _build.DTYPE_CODE[u.dtype], u.data_ptr(), kx.data_ptr(), ky.data_ptr(),
         wi.data_ptr(), w1.data_ptr(), *ptrs, m.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), b, n, h, w, c, d, o, ctypes.c_float(eps),
-        torch.cuda.current_stream(u.device).cuda_stream)
+        bb.data_ptr() if bf16 else None, out.data_ptr(), b, n, h, w, c, d, o,
+        ctypes.c_float(eps), torch.cuda.current_stream(u.device).cuda_stream)
     _build.check(rc, "lns_fab_core")
     fab_fused_core.launches += 1
     return out
+
+
+def _k_rows(k, dtype, pad: bool):
+    """k [b, n, s, s] contiguous in `dtype`; with `pad`, its rows zero-padded
+    to a multiple of 8 elements (the bf16 kernels load it by TMA, whose
+    row strides are multiples of 16 bytes)."""
+    k = k.to(dtype).contiguous()
+    extra = -k.shape[-1] % 8
+    return torch.nn.functional.pad(k, (0, extra)) if pad and extra else k
+
+
+def bf16_plan(h, w, c, d, o, n) -> dict:
+    """The bf16 kernels' launch plan for a shape (``chip_smoke.py`` prints
+    it): the statistics pass's cluster size, tile columns, u rows per ring
+    stage and stages, tiles, its shared memory per block and the output
+    pass's, the padded c, the statistics clusters the card holds at once and
+    the moments pass's shared memory."""
+    out = (ctypes.c_int * 10)()
+    _build.check(_build.library().lns_fab_core_bf16_plan(h, w, c, d, o, n, out),
+                 "lns_fab_core_bf16_plan")
+    keys = ("cluster", "tile_cols", "ring_rows", "ring_stages", "tiles", "stats_smem",
+            "out_smem", "cp", "active_clusters", "moments_smem")
+    return dict(zip(keys, out))
 
 
 fab_fused_core.launches = 0

@@ -11,7 +11,8 @@ which the Hopper kernels share (each bound is stated beside its test):
 
   * GroupNorm(+swish) against ``lns_tpu.ops.norms.GroupNorm`` and
     ``lns_tpu.ops.activations.swish``, what the JAX models run;
-  * the c-space FAB core against ``FABlock2D._batched_gram_core``;
+  * the c-space FAB core against ``FABlock2D._batched_gram_core``, also in
+    the bf16 kernels' order of sums;
   * ``bmm_blockdiag`` and the fused rollout against the Pallas kernels in
     interpret mode.
 
@@ -213,6 +214,86 @@ def test_fab_core_plain_bf16_rounds_as_batched_gram_core(b, n, h, w, c):
     out = out.float().numpy()
     np.testing.assert_allclose(out, ref, rtol=0, atol=1e-2 * np.abs(ref).max())
     assert (out != ref).mean() <= 0.01
+
+
+def _fab_core_kernel_order(u, k_x, k_y, w_in, w_o1, eps=1e-5, mean_from=None):
+    """``fab_core_plain`` in the bf16 kernels' order of sums
+    (``csrc/fab_core.cu``): bb formed once and kept in the scratch's layout
+    [b, n, h, w, cp] (c zero-padded to whole 64-channel atoms); the Gram as
+    two partial sums over alternate 16-pixel steps (the two warpgroups, in
+    the kernels' pixel order: the k_y-applied axis outer, the other padded
+    to 16) added once; the output as one product over K = n cp in f32; the
+    heads' biases summed in head order in f32."""
+    dt = u.dtype
+    k_x, k_y, w_in = k_x.to(dt), k_y.to(dt), w_in.to(dt)
+    b, h, w, c = u.shape
+    n, d, o = w_o1.shape
+    cp = -(-c // 64) * 64
+    bb = fab_core._apply_pair(u, k_x, k_y)  # rounded to bf16 at a and bb
+    bk = torch.nn.functional.pad(bb, (0, cp - c))  # the kernels' field: [b, n, hk, wk, cp]
+    hk, wk = bk.shape[2:4]
+    hp = -(-hk // 16) * 16
+    px = torch.nn.functional.pad(bk.transpose(2, 3), (0, 0, 0, hp - hk))  # [b, n, wk, hp, cp]
+    steps = px.reshape(b, n, -1, 16, cp).float()
+    g = [torch.einsum("bnskc,bnske->bnce", steps[:, :, k::2], steps[:, :, k::2]) for k in (0, 1)]
+    gram = (g[0] + g[1])[:, :, :c, :c]
+    mean_c = (fab_core.rounded_mean_c(u, k_x, k_y) if mean_from is None
+              else fab_core.block_mean_c(u, mean_from))
+    wf, w1f = w_in.float(), w_o1.float()
+    mean = torch.einsum("bnc,cnd->bnd", mean_c, wf)
+    ex2 = torch.einsum("cnd,bnce,end->bnd", wf, gram, wf) / (h * w)
+    inv = torch.rsqrt((ex2 - mean.square()).clamp_min(0.0) + eps)
+    m = torch.einsum("cnd,bnd,ndo->bnco", wf, inv, w1f).to(dt)
+    m = torch.nn.functional.pad(m, (0, 0, 0, cp - c))  # [b, n, cp, o]
+    bias = torch.einsum("bnd,ndo->bno", mean * inv, w1f)
+    bsum = bias[:, 0]
+    for k in range(1, n):
+        bsum = bsum + bias[:, k]
+    scratch = bk if w <= h else bk.transpose(2, 3)  # [b, n, h, w, cp]
+    acc = scratch.permute(0, 2, 3, 1, 4).reshape(b, h * w, n * cp).float() @ \
+        m.reshape(b, n * cp, o).float()
+    out = acc.to(dt).float() - bsum.to(dt).float()[:, None]
+    return out.to(dt).reshape(b, h, w, o)
+
+
+@pytest.mark.parametrize("b,n,h,w,c,block_mean", [
+    (2, 8, 16, 16, 64, False), (2, 8, 16, 16, 64, True), (1, 4, 24, 48, 64, True),
+    (2, 4, 12, 24, 96, False), (2, 4, 15, 31, 32, True), (1, 2, 48, 96, 64, False)])
+def test_fab_core_kernel_order_bf16(b, n, h, w, c, block_mean):
+    """The bf16 kernels sum in another order than ``fab_core_plain`` (bb
+    stored once, the Gram in two partial sums, the heads as one K = n cp
+    product, the bias summed head by head): that order, emulated in plain
+    PyTorch, stays within the bounds ``chip_smoke.py`` holds the kernel to
+    (1e-2 x max|plain| and at most 2 % of the elements differing) against
+    ``fab_core_plain`` and, for mean_c from u, the jitted JAX
+    ``_batched_gram_core`` in bf16; the mean from the block's GroupNorm
+    inputs (``block_mean_c``) against ``fab_core_plain`` with the same."""
+    u, kx, ky, w_in, w_o1 = _fab_inputs(17, b, n, h, w, c)
+    bf = torch.bfloat16
+    args = [torch.from_numpy(a).to(bf) for a in (u, kx, ky, w_in)] + [torch.from_numpy(w_o1)]
+    mf = None
+    if block_mean:  # x, the GroupNorm(1)'s sc and sh, the kernels' f32 sums (as FABlock2D)
+        rng = np.random.default_rng(18)
+        x = torch.from_numpy(1.5 * rng.standard_normal((b, h, w, c)).astype(np.float32) + 0.3)
+        x = x.to(bf)
+        sc = torch.from_numpy(1 + 0.2 * rng.standard_normal((b, c)).astype(np.float32)).to(bf)
+        sh = torch.from_numpy(rng.standard_normal((b, c)).astype(np.float32)).to(bf)
+        args[0] = x * sc[:, None, None] + sh[:, None, None]
+        sums = [k.float().sum(2) * (1 + 0.05 * torch.from_numpy(
+            rng.standard_normal(k.shape[:3]).astype(np.float32))) for k in args[1:3]]
+        mf = (x, torch.stack([sc, sh], 1).float(), *sums)
+    out = _fab_core_kernel_order(*args, mean_from=mf)
+    assert out.dtype == bf and out.shape == (b, h, w, w_o1.shape[-1])
+    refs = [fab_core.fab_core_plain(*args, mean_from=mf).float().numpy()]
+    if not block_mean:
+        jref = jax.jit(JFABlock2D._batched_gram_core)(
+            *(jnp.asarray(a, jnp.bfloat16) for a in (u, kx, ky, w_in)), jnp.asarray(w_o1))
+        refs.append(np.asarray(jref.astype(jnp.float32)))
+    out = out.float().numpy()
+    assert np.isfinite(out).all()
+    for ref in refs:
+        np.testing.assert_allclose(out, ref, rtol=0, atol=1e-2 * np.abs(ref).max())
+        assert (out != ref).mean() <= 0.02
 
 
 def test_block_mean_reads_the_unrounded_group_norm():
