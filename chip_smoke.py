@@ -2,11 +2,12 @@
 """Drive the PyTorch port's NS2d (also with the autoencoder's Fourier
 layers), SW, two-phase and conditional two-phase inference rollouts, the
 conditional encoder, the library blocks, the stage-2 and stage-1 training
-of each family, its evaluate and convert entry points and its
-data-parallel training once on one CUDA card.
+of each family, its evaluate and convert entry points, its data-parallel
+training and predict, the corpus solvers and the debug and profiling
+helpers once on one CUDA card.
 
     python3 chip_smoke.py            # everything below, on one card
-    python3 chip_smoke.py --ranks    # phase 8's 2- and 4-rank runs alone
+    python3 chip_smoke.py --ranks    # the 2- and 4-rank runs of phases 8 and 9 alone
 
 Run from the root of a checkout, on a machine with an NVIDIA Hopper card,
 CUDA PyTorch and nvcc. It imports nothing of JAX. In order it:
@@ -149,7 +150,29 @@ CUDA PyTorch and nvcc. It imports nothing of JAX. In order it:
      losses, parameters and launches bitwise; prints both step times and
      the NCCL kernels' device time in one profiled step; two ranks where
      there are two cards, else one line saying so;
-  9. prints one JSON line of per-kernel results (launches per path, and ms
+  9. runs the predict data-parallel (``lns_tpu_torch.parallel.
+     sharded_predict``) at world size 1 over NCCL on paths 1, 3 and 5 at
+     full width: bitwise equal to ``model.predict``, with its launches of
+     kernels 1-3, timed beside it (``--ranks``: 2 and 4 ranks against one
+     process in f32, within 1e-3 x max|ref|); traces one path-1 predict
+     with ``utils.profiling.trace`` (kernels 1-3 named in the trace file),
+     uses ``Timer``, ``time_fn`` and ``measure_host_rtt`` on the card, and
+     checks that ``utils.debug.nan_debugging`` raises on a NaN planted in
+     the predict's input and ``assert_finite`` names a planted infinity;
+     then the corpus solvers: ``simulate_ns2d`` at full width (128 cases
+     of 64x64, two records of 200 steps) on the card against the CPU
+     (cuFFT against pocketfft, within 1e-4 x max|cpu|, the share of
+     differing elements printed), the generator CLI
+     (``python -m lns_tpu_torch.cli.generate_ns2d``) at its defaults with
+     its wall seconds, steps/s and the corpus's statistics (fewer records,
+     printed, where the solver's rate says the defaults take past 120 s;
+     the solver's step eager against the same steps replayed from a CUDA
+     graph, steps/s and bitwise equality printed),
+     ``make_sw_solver_store`` at its defaults (96x192, 77 cases, 100
+     records) with its wall seconds and a finite store, and one bf16
+     stage-1 train step at full NS2d width on the generated corpus
+     (kernels 2 and 3 launched as the specs imply, a finite loss);
+ 10. prints one JSON line of per-kernel results (launches per path, and ms
      / plain_ms / bound_ms per predict, summed over one predict of each
      inference path, kernel 3 also over path 7's encoder sites and the
      library blocks' sites), then the closing JSON line.
@@ -3184,6 +3207,28 @@ def _ddp_run(cls, cfg, dev):
     return trainer, events, launches, loss
 
 
+@contextlib.contextmanager
+def world_one(dev, tmp):
+    """A process group of world size 1 over NCCL on `dev` for the block
+    (torchrun's variables set, a ``file://`` rendezvous under `tmp`),
+    checked on entry; left, and the variables removed, on exit."""
+    from lns_tpu_torch.parallel import ddp
+
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    try:
+        rank_dev = ddp.init_from_env(dev, init_method="file://" + os.path.join(tmp, "rendezvous"))
+        _check(ddp.distributed() and torch.distributed.get_backend() == "nccl"
+               and ddp.world_size() == 1 and rank_dev == torch.device("cuda", 0),
+               f"init_from_env: NCCL process group of world size {ddp.world_size()} on "
+               f"{rank_dev}")
+        yield rank_dev
+    finally:
+        ddp.shutdown()
+        for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+            os.environ.pop(k, None)
+    _check(not ddp.distributed(), "the process group is shut down after the phase")
+
+
 def _bitwise(a, b):
     """Two runs' losses and final parameters equal, bitwise."""
     sa, sb = a[0].model.state_dict(), b[0].model.state_dict()
@@ -3223,10 +3268,97 @@ def _profile_step(trainer, batch):
             [r for r in rows if "nccl" in r[2].lower()])
 
 
+_PREDICT_WORKER = r"""
+import json, os, sys
+import numpy as np
+import torch
+import chip_smoke
+from lns_tpu_torch.parallel import ddp
+
+spec = json.loads(sys.argv[1])
+dev = ddp.init_from_env("cuda", init_method=spec["init"])
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+for label in chip_smoke.SHARDED_PATHS:
+    model, x, cond, steps, chunk = chip_smoke.sharded_case(label, dev)
+    y = ddp.sharded_predict(model, x, steps, cond, decode_chunk=chunk)
+    if ddp.is_main():
+        np.save(os.path.join(spec["out"], label.split()[1] + ".npy"), y.cpu().numpy())
+    del model, y
+ddp.shutdown()
+"""
+
+
+def sharded_case(label, dev):
+    """Path `label`'s model (f32, initialised from a seeded generator on
+    the CPU, then moved to `dev`) and its predict's input: (model, x,
+    cond, steps, decode chunk); the same in every process."""
+    from lns_tpu_torch.config import ns2d_config, sw_config, twophase_conditional_config
+    from lns_tpu_torch.models import LatentDynamics
+    from lns_tpu_torch.ops.initializers import init_weights_
+
+    cfg, (b, steps, chunk) = {
+        "path 1 NS2d": (ns2d_config(), (BATCH, STEPS, CHUNK)),
+        "path 3 SW": (sw_config(), (SW_BATCH, SW_STEPS, None)),
+        "path 5 conditional two-phase": (twophase_conditional_config(),
+                                         (TP_BATCH, TP_STEPS, None))}[label]
+    gen = torch.Generator().manual_seed(21)
+    model = init_weights_(LatentDynamics(cfg, device="cpu"), gen)
+    if cfg.is_conditional:
+        _open_gates(model, gen)
+    x = torch.randn(b, cfg.Ly, cfg.Lx, cfg.in_channels, generator=gen)
+    cond = torch.rand(b, generator=gen).to(dev) if cfg.is_conditional else None
+    return model.to(dev).eval(), x.to(dev), cond, steps, chunk
+
+
+def check_sharded_ranks(tmp, world, smi):
+    """``sharded_predict`` on `world` ranks over NCCL (``_PREDICT_WORKER``,
+    one process per card) at paths 1, 3 and 5's batch and steps, f32:
+    every rank exits 0 and rank 0's global result is within 1e-3 x max|ref|
+    of one process's ``model.predict`` (each rank runs batch / world rows,
+    so a convolution may take another algorithm); bitwise equality is
+    printed, not required."""
+    import numpy as np
+
+    out = os.path.join(tmp, f"predict{world}")
+    os.makedirs(out)
+    spec = json.dumps(dict(out=out, init="file://" + os.path.join(tmp, f"predict_rdv{world}")))
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", _PREDICT_WORKER, spec], cwd=root,
+                              env=dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                                       LOCAL_RANK=str(r), PYTHONPATH=root))
+             for r in range(world)]
+    try:
+        codes = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    wall = time.perf_counter() - t0
+    _check(codes == [0] * world, f"sharded_predict on {world} ranks: exit codes {codes}")
+    for label in SHARDED_PATHS:
+        path = os.path.join(out, label.split()[1] + ".npy")
+        if not os.path.exists(path):
+            continue
+        model, x, cond, steps, chunk = sharded_case(label, torch.device("cuda", 0))
+        ref = model.predict(x, steps, cond, decode_chunk=chunk).cpu()
+        y = torch.from_numpy(np.load(path))
+        err = (y - ref).abs().max().item() / ref.abs().max().item()
+        _check(y.shape == ref.shape and err <= 1e-3,
+               f"{label}: sharded_predict on {world} ranks (f32, B{x.shape[0]} x {steps} steps, "
+               f"{x.shape[0] // world} rows a rank) against one process: {err:.3e} x max|ref| "
+               f"(<= 1e-3), {'bitwise equal' if torch.equal(y, ref) else 'not bitwise equal'}")
+        del model
+    print(f"      sharded predict on {world} ranks: {wall:.1f} s of wall for the three paths "
+          f"(processes, builds and predicts); {smi}", flush=True)
+
+
 def drive_ranks(dev, smi, worlds=(2, 4)):
     """``python3 chip_smoke.py --ranks``: on a machine with several cards,
     one plain stage-2 run of phase 8's configuration, then ``check_ranks``
-    at each world size in `worlds` that the cards allow."""
+    and ``check_sharded_ranks`` at each world size in `worlds` that the
+    cards allow."""
     import tempfile
 
     from lns_tpu_torch.train.stage2 import Stage2Trainer
@@ -3243,6 +3375,7 @@ def drive_ranks(dev, smi, worlds=(2, 4)):
                 t0 = time.perf_counter()
                 check_ranks(tmp, s2, world, losses, smi)
                 print(f"      {world} ranks: {time.perf_counter() - t0:.1f} s of wall", flush=True)
+                check_sharded_ranks(tmp, world, smi)
 
 
 def ddp_configs(tmp):
@@ -3286,7 +3419,6 @@ def drive_ddp(dev, smi):
     import numpy as np
     from torch.nn.parallel import DistributedDataParallel
 
-    from lns_tpu_torch.parallel import ddp
     from lns_tpu_torch.train.stage1 import Stage1Trainer
     from lns_tpu_torch.train.stage2 import Stage2Trainer
 
@@ -3320,14 +3452,7 @@ def drive_ddp(dev, smi):
             out["stage-2 training, device_data"] = on_dev[2]
             del on_dev
             plain1 = run(Stage1Trainer, base, "plain1")
-            os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
-            try:
-                rank_dev = ddp.init_from_env(dev, init_method="file://" + os.path.join(
-                    tmp, "rendezvous"))
-                _check(ddp.distributed() and torch.distributed.get_backend() == "nccl"
-                       and ddp.world_size() == 1 and rank_dev == torch.device("cuda", 0),
-                       f"init_from_env: NCCL process group of world size {ddp.world_size()} on "
-                       f"{rank_dev}")
+            with world_one(dev, tmp):
                 for stage, plain, cls, cfg in ((2, plain2, Stage2Trainer, s2),
                                                (1, plain1, Stage1Trainer, base)):
                     par = run(cls, cfg, f"ddp{stage}")
@@ -3360,11 +3485,6 @@ def drive_ddp(dev, smi):
                           f"launches ({'; '.join(f'{r[2][:60]} {r[0]:.4f} ms' for r in nccl) or 'none'}"
                           f"); {smi}", flush=True)
                     del par
-            finally:
-                ddp.shutdown()
-                for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
-                    os.environ.pop(k, None)
-            _check(not ddp.distributed(), "the process group is shut down after the phase")
         finally:
             torch.backends.cudnn.deterministic = deterministic
         ref_loss = plain2[3]
@@ -3710,8 +3830,326 @@ def drive_library(dev, smi):
     return launches, res
 
 
+# -- phase 9: the sharded predict, the corpus solvers, the debug and
+# profiling helpers ------------------------------------------------------------
+
+# the paths whose predict runs sharded (the three families of the JAX
+# package's dryrun_multichip: NS2d, SW, conditional two-phase)
+SHARDED_PATHS = ("path 1 NS2d", "path 3 SW", "path 5 conditional two-phase")
+# the NS2d solver on the card against the CPU: full width (128 cases of
+# 64x64, the generator CLI's visc and dt), two records of 200 steps; f32,
+# cuFFT against pocketfft, bounded relative to max|cpu|
+NS_CASES, NS_N, NS_T_RECORD, NS_TOL = 128, 64, 0.05, 1e-4
+# the generator CLI at its defaults: 42 records of 4,000 steps
+GEN_RECORDS, GEN_STEPS_PER_REC, GEN_SPINUP = 42, 4000, 10
+GEN_LIMIT_S = 120  # past this (estimated from the solver's rate) fewer records are run
+# make_sw_solver_store at its defaults: 64 + 13 cases, 12 + 88 records of 25 RK4 steps
+SW_STORE_CASES, SW_STORE_RECORDS, SW_STORE_STEPS = 77, 100, 25
+
+
+def drive_sharded(dev, smi, paths, gen):
+    """``sharded_predict`` at world size 1 over NCCL on `paths` (paths 1, 3
+    and 5 at full width): each bitwise equal to ``model.predict`` on the
+    same input, its launches (every count set to 0 just before the sharded
+    predict and read just after) those the layer specs imply and the
+    predict's; both timed by CUDA events in rounds predict, sharded,
+    sharded, predict. Returns the launches per path."""
+    import tempfile
+
+    from lns_tpu_torch.parallel import ddp
+
+    out = {}
+    print("-- sharded predict (lns_tpu_torch.parallel.sharded_predict) at world size 1 over "
+          "NCCL, bf16", flush=True)
+    with tempfile.TemporaryDirectory() as tmp, world_one(dev, tmp):
+        for label, model, expect, (b, steps, chunk) in paths:
+            cfg = model.cfg
+            x = torch.randn(b, cfg.Ly, cfg.Lx, cfg.in_channels, generator=gen).to(dev)
+            cond = torch.rand(b, generator=gen).to(dev) if model.conditional else None
+            counted = _counted()
+            for f in counted.values():
+                f.launches = 0
+            ref = model.predict(x, steps, cond, decode_chunk=chunk)
+            plain = {k: f.launches for k, f in counted.items()}
+            for f in counted.values():
+                f.launches = 0
+            torch.cuda.synchronize()
+            y = ddp.sharded_predict(model, x, steps, cond, decode_chunk=chunk)
+            torch.cuda.synchronize()
+            launches = {k: f.launches for k, f in counted.items()}
+            want = {k: expect.get(k, 0) for k in launches}
+            _check(tuple(y.shape) == tuple(ref.shape) and torch.equal(y, ref),
+                   f"{label}: sharded_predict at world 1 (B{b} x {steps} steps) bitwise equal to "
+                   f"model.predict, shape {tuple(y.shape)}")
+            _check(launches == want == plain,
+                   f"{label}: sharded_predict launches {({k: v for k, v in launches.items() if v})}"
+                   f" == the specs' {({k: v for k, v in want.items() if v})} == model.predict's")
+            ms = {"predict": [], "sharded": []}
+            for who in ("predict", "sharded", "sharded", "predict"):
+                fn = (lambda: model.predict(x, steps, cond, decode_chunk=chunk)) \
+                    if who == "predict" else \
+                    (lambda: ddp.sharded_predict(model, x, steps, cond, decode_chunk=chunk))
+                ms[who].append(cuda_ms(fn, reps=REPS))
+            print(f"      {label}: sharded_predict world 1 {', '.join(f'{v:.3f}' for v in ms['sharded'])}"
+                  f" ms, model.predict {', '.join(f'{v:.3f}' for v in ms['predict'])} ms (mean of "
+                  f"{REPS} by CUDA events per round; rounds predict, sharded, sharded, predict); "
+                  f"{smi}", flush=True)
+            out[f"{label} sharded predict, world 1"] = launches
+    return out
+
+
+def check_debug_tools(dev, model, gen, smi):
+    """``utils.profiling.trace`` around one path-1 predict: the written
+    trace names kernels 1-3 (``rollout_bf16_kernel``, kernel 2's bf16
+    passes, ``gn_kernel`` / ``gn_partials``); ``Timer`` stopped on the
+    predict's output, ``measure_host_rtt`` and ``time_fn`` of one
+    propagator step on the card; ``utils.debug.nan_debugging`` raises
+    ``FloatingPointError`` on a NaN planted in the predict's input, naming
+    the first module whose output holds it, and ``assert_finite`` names a
+    NaN planted in a copy of the state dict."""
+    import glob
+    import tempfile
+
+    from lns_tpu_torch.utils import debug, profiling
+
+    cfg = model.cfg
+    x = torch.randn(BATCH, cfg.Ly, cfg.Lx, cfg.in_channels, generator=gen).to(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        model.predict(x, STEPS, decode_chunk=CHUNK)  # warm-up
+        torch.cuda.synchronize()
+        with profiling.trace(tmp):
+            model.predict(x, STEPS, decode_chunk=CHUNK)
+            torch.cuda.synchronize()
+        files = glob.glob(os.path.join(tmp, "*.pt.trace.json"))
+        names = set()
+        for path in files:
+            with open(path) as f:
+                names |= {e.get("name", "") for e in json.load(f)["traceEvents"]
+                          if e.get("cat") == "kernel"}
+        found = {k: sorted(n[:40] for n in names if any(p in n for p in pats))
+                 for k, pats in (("prop_rollout", ("rollout_bf16_kernel",)),
+                                 ("fab_core", ("fab_bb_stats_bf16", "fab_out_bf16")),
+                                 ("group_norm", ("gn_kernel", "gn_partials")))}
+        _check(len(files) == 1 and all(found.values()),
+               f"utils.profiling.trace around one path-1 predict: {len(files)} trace file, "
+               f"{len(names)} kernel names, kernels 1-3 among them {found}")
+    timer = profiling.Timer()
+    timer.start("path-1 predict")
+    y = model.predict(x, STEPS, decode_chunk=CHUNK)
+    timer.stop("path-1 predict", sync_value=y)
+    with torch.no_grad():
+        z = model.encode(x).to(model.dtype or torch.float32)
+        step_s = profiling.time_fn(model.propagate, z, n=20)
+    rtt = profiling.measure_host_rtt(20)
+    print(f"      profiling on the card: Timer '{timer.report()}'; time_fn of one propagator step "
+          f"(B{BATCH}, module path, 20 chained by CUDA events) {step_s * 1e3:.4f} ms; "
+          f"measure_host_rtt {rtt * 1e3:.4f} ms; {smi}", flush=True)
+    bad = x.clone()
+    bad[0, 0, 0, 0] = float("nan")
+    try:
+        with debug.nan_debugging():
+            model.predict(bad, 2, decode_chunk=CHUNK)
+        msg = "nothing raised"
+    except FloatingPointError as e:
+        msg = str(e)
+    _check(msg.startswith("NaN in the output of ") and not torch.is_anomaly_enabled(),
+           f"utils.debug.nan_debugging on a NaN planted in a path-1 predict's input on the "
+           f"card: {msg!r}; anomaly mode off again after")
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    debug.assert_finite(state, "state")
+    key = next(k for k, v in state.items() if v.is_floating_point())
+    state[key].view(-1)[0] = float("inf")
+    try:
+        debug.assert_finite(state, "state")
+        msg = "nothing raised"
+    except FloatingPointError as e:
+        msg = str(e)
+    _check(msg == f"non-finite values in state[{key!r}]",
+           f"utils.debug.assert_finite on the card's state dict with one infinity: {msg!r}")
+
+
+def graph_steps(dev, w0, visc, dt, smi, captured=200, rounds=10):
+    """The NS2d solver's step (``spectral_step``) on `w0`'s spectrum:
+    `captured` x `rounds` eager steps against the same steps as replays of
+    one CUDA graph of `captured` steps, both timed by the host clock
+    between synchronizes; prints steps/s of both and whether they agree
+    bitwise (a measurement for capturing the solver as a graph, which the
+    solver does not do)."""
+    import numpy as np
+
+    from lns_tpu_torch.data.ns2d_solver import spectral_step
+
+    step = spectral_step(w0.shape[-1], visc, dt, dev)
+    w_init = torch.fft.rfft2(torch.from_numpy(np.asarray(w0, np.float32)).to(dev))
+    w = w_init
+    for _ in range(3):  # cuFFT plans
+        w = step(w)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager = w_init
+    for _ in range(captured * rounds):
+        eager = step(eager)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    static = w_init.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            step(static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = static
+        for _ in range(captured):
+            out = step(out)
+    static.copy_(w_init)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        graph.replay()
+        static.copy_(out)
+    torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t0
+    n = captured * rounds
+    print(f"      NS2d solver step, {w0.shape[0]} cases x {w0.shape[-1]}x{w0.shape[-1]}: eager "
+          f"{n / eager_s:.1f} steps/s, as {rounds} replays of a CUDA graph of {captured} steps "
+          f"{n / graph_s:.1f} steps/s (host clock, {n} steps each), "
+          f"{'bitwise equal' if torch.equal(out, eager) else 'NOT bitwise equal'}; {smi}",
+          flush=True)
+    del graph
+
+
+def drive_solvers(dev, smi):
+    """The corpus solvers on the card: ``simulate_ns2d`` at full width
+    against the same function on the CPU (cuFFT against pocketfft; the
+    share of differing elements printed); the generator CLI
+    (``python -m lns_tpu_torch.cli.generate_ns2d``) at its defaults, or
+    with fewer records where the solver's rate says the defaults take past
+    ``GEN_LIMIT_S`` (the cut printed), with its wall seconds, steps/s and
+    the corpus's statistics; ``make_sw_solver_store`` at its defaults with
+    its wall seconds and a finite store; then one bf16 stage-1 train step
+    at full NS2d width on the generated corpus with kernels 2 and 3 (the
+    counts set to 0 just before it and read just after). Returns the
+    step's launches."""
+    import tempfile
+
+    import numpy as np
+
+    from lns_tpu_torch.config import ns2d_config
+    from lns_tpu_torch.data import shallow_water
+    from lns_tpu_torch.data.ns2d_solver import gaussian_random_field, simulate_ns2d
+    from lns_tpu_torch.data.sw_solver import make_sw_solver_store
+    from lns_tpu_torch.data.zarr_reader import open_zarr
+    from lns_tpu_torch.train.stage1 import Stage1Trainer
+
+    t_phase = time.perf_counter()
+    print("-- corpus solvers on the card", flush=True)
+    w0 = gaussian_random_field(np.random.default_rng(0), NS_N, NS_CASES)
+    kw = dict(visc=1e-4, t_record=NS_T_RECORD, n_records=2, dt=2.5e-4)
+    steps = 2 * int(round(NS_T_RECORD / kw["dt"]))
+    simulate_ns2d(w0[:2], **dict(kw, n_records=1), device=dev)  # cuFFT plans, warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = simulate_ns2d(w0, device=dev, **kw)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = simulate_ns2d(w0, device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    err = float(np.abs(card - cpu).max() / np.abs(cpu).max())
+    share = float((card != cpu).mean())
+    rate = steps / card_s
+    _check(card.shape == cpu.shape == (NS_CASES, 2, NS_N, NS_N) and np.isfinite(card).all()
+           and err <= NS_TOL,
+           f"simulate_ns2d {NS_CASES} cases x {NS_N}x{NS_N}, 2 records of {steps // 2} steps (visc "
+           f"1e-4, dt 2.5e-4): card against CPU {err:.3e} x max|cpu| (<= {NS_TOL}), "
+           f"{share:.2%} of elements differ; card {card_s:.3f} s ({rate:.1f} steps/s), CPU "
+           f"{cpu_s:.3f} s; {smi}")
+
+    graph_steps(dev, w0, kw["visc"], kw["dt"], smi)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        est = GEN_RECORDS * GEN_STEPS_PER_REC / rate
+        case_len = 30
+        if est > GEN_LIMIT_S:
+            records = max(3, int(GEN_LIMIT_S * rate / GEN_STEPS_PER_REC) - GEN_SPINUP)
+            case_len = max(1, records - 2)
+            print(f"      generator CLI: the defaults' {GEN_RECORDS} records would take ~{est:.0f} s "
+                  f"at {rate:.1f} steps/s (> {GEN_LIMIT_S} s): run with --case-len {case_len} "
+                  f"({GEN_SPINUP + case_len + 2} records)", flush=True)
+        out = os.path.join(tmp, "ns2d_solver.npz")
+        argv = [sys.executable, "-m", "lns_tpu_torch.cli.generate_ns2d", "--out", out]
+        if case_len != 30:
+            argv += ["--case-len", str(case_len)]
+        root = os.path.dirname(os.path.abspath(__file__))
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, cwd=root, env=dict(os.environ, PYTHONPATH=root),
+                              capture_output=True, text=True, timeout=900)
+        gen_s = time.perf_counter() - t0
+        n_steps = (GEN_SPINUP + case_len + 2) * GEN_STEPS_PER_REC
+        ok = proc.returncode == 0 and os.path.exists(out)
+        stats = "none"
+        if ok:
+            with np.load(out) as d:
+                center = d["all_sol_center"]
+                ok = center.shape == (case_len, 64, 64, 128) and bool(np.isfinite(center).all())
+                # the spectrum's decay: a red spectrum, low wavenumbers over high
+                spec = np.abs(np.fft.fft2(center[-1].transpose(2, 0, 1))).mean(axis=0)
+                stats = (f"mean {center.mean():.6f}, std {center.std():.6f}, |w_hat| at k=(1,1) "
+                         f"{spec[1, 1]:.3f} vs k=(20,20) {spec[20, 20]:.3f}")
+                ok = ok and spec[1, 1] > 10 * spec[20, 20]
+        _check(ok, f"python -m lns_tpu_torch.cli.generate_ns2d {' '.join(argv[4:])}: exit "
+               f"{proc.returncode}, {case_len} frames x 128 cases of 64x64, finite; {stats}; "
+               f"{gen_s:.1f} s of wall for {n_steps} steps ({n_steps / gen_s:.1f} steps/s, the "
+               f"process's start and torch's import included); its own line "
+               f"{proc.stdout.strip()[-120:]!r}{proc.stderr[-2000:] if proc.returncode else ''}; "
+               f"{smi}")
+
+        t0 = time.perf_counter()
+        try:
+            paths = make_sw_solver_store(os.path.join(tmp, "sw"), device=dev)
+            sw_ok = all(np.isfinite(open_zarr(p)[ch].read_all()).all() for p in paths[:2]
+                        for ch in shallow_water.CHANNELS)
+            msg = ""
+        except FloatingPointError as e:
+            sw_ok, msg = False, f" ({e})"
+        sw_s = time.perf_counter() - t0
+        _check(sw_ok, f"make_sw_solver_store at its defaults (96x192, {SW_STORE_CASES} cases, "
+               f"{SW_STORE_RECORDS} records of {SW_STORE_STEPS} RK4 steps) on the card: finite "
+               f"zarr stores{msg}; {sw_s:.1f} s of wall "
+               f"({SW_STORE_RECORDS * SW_STORE_STEPS / sw_s:.1f} RK4 steps/s, the store's "
+               f"writes included); {smi}")
+
+        launches = {}
+        if ok:
+            cfg = ns2d_config().replace(
+                data_dir=out, case_len=case_len, num_case=128,
+                dataset_stat=os.path.join(tmp, "stat.npz"), batch_size=32, epochs=1,
+                learning_rate=5e-4, mixed_precision=True, log_dir=os.path.join(tmp, "log"),
+                overwrite_exist=True)
+            trainer = Stage1Trainer(cfg, seed=1234, use_wandb=False, device=dev)
+            x = torch.from_numpy(trainer.train_ds.get_batch(np.arange(32))).to(dev)
+            counted = _counted()
+            for f in counted.values():
+                f.launches = 0
+            loss = trainer.train_step(x)
+            torch.cuda.synchronize()
+            launches = {k: f.launches for k, f in counted.items()}
+            want = expected_launches(cfg, n_chunks=1)
+            want["prop_rollout"] = 0
+            _check(launches == {k: want.get(k, 0) for k in launches}
+                   and launches["fab_core"] > 0 and launches["group_norm"] > 0
+                   and bool(torch.isfinite(loss)),
+                   f"stage-1 train step (bf16, batch 32) on the solver corpus: launches "
+                   f"{({k: v for k, v in launches.items() if v})} == the specs' "
+                   f"{({k: v for k, v in want.items() if v})}, loss {float(loss):.6f} finite")
+            del trainer
+    print(f"      solver phase wall {time.perf_counter() - t_phase:.1f} s; {smi}", flush=True)
+    return {"NS2d solver-corpus stage-1 step": launches}
+
+
 def run(dev, smi=""):
-    """Phases 3-8 on `dev`; returns the per-kernel results."""
+    """Phases 3-9 on `dev`; returns the per-kernel results."""
     import tempfile
 
     from lns_tpu_torch.config import (ns2d_config, sw_config, twophase_conditional_config,
@@ -3823,6 +4261,10 @@ def run(dev, smi=""):
     for label, model, expect, (b, steps, chunk) in paths:
         by_path[label] = drive_path(label, model, expect, gen, dev, b, steps, chunk)
         del model
+    shard_gen = torch.Generator().manual_seed(9)
+    by_path.update(drive_sharded(dev, smi, [p for p in paths if p[0] in SHARDED_PATHS],
+                                 shard_gen))
+    check_debug_tools(dev, paths[0][1], shard_gen, smi)
     del paths, sw, tp, tpc
     check_fourier(dev, smi)
     by_path["path 7 conditional encoder"], cond_enc_res = drive_cond_encoder(dev, smi)
@@ -3836,6 +4278,7 @@ def run(dev, smi=""):
             by_path[f"{fam} stage-2 training"], by_path[f"evaluate {fam}"] = \
                 drive_family_stage2(fam, dev, smi, tmp, ae_path)
     by_path.update(drive_ddp(dev, smi))
+    by_path.update(drive_solvers(dev, smi))
 
     src = "lns_tpu_torch/csrc/"
     kernels = [

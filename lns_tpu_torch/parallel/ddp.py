@@ -14,6 +14,12 @@ its rows of every global batch:
   on the devices (``device_data``), each rank gathering from its own
   contiguous shard with a permutation of its own per epoch.
 
+Inference shards the same way: ``sharded_predict`` runs each rank's rows of
+a global batch through ``LatentDynamics.predict`` on its own device and
+``gather_rows`` joins the ranks' results into the global batch on every
+rank (the JAX package's predict jitted with the batch sharded on the mesh,
+``__graft_entry__.py``'s ``dryrun_multichip``, and ``make_global_batch``).
+
 With no process group (one process, no torchrun environment) every helper
 is the single-device identity and ``wrap`` builds no wrapper.
 """
@@ -139,6 +145,34 @@ def shard_rows(idx, rank_: int, world: int):
                          "make batch_size a multiple of the world size")
     per = len(idx) // world
     return idx[rank_ * per: (rank_ + 1) * per]
+
+
+def gather_rows(local: torch.Tensor) -> torch.Tensor:
+    """The global batch on every rank: each rank's `local` rows joined
+    along the leading axis in rank order (``all_gather_into_tensor``; every
+    rank's `local` has one shape). The counterpart of ``make_global_batch``
+    (``lns_tpu/parallel/mesh.py:48-59``); at one process, `local` itself."""
+    if not distributed():
+        return local
+    local = local.contiguous()
+    out = local.new_empty((local.shape[0] * dist.get_world_size(),) + local.shape[1:])
+    dist.all_gather_into_tensor(out, local)
+    return out
+
+
+def sharded_predict(model, x: torch.Tensor, steps: int, cond=None,
+                    decode_chunk=None) -> torch.Tensor:
+    """``model.predict(x, steps, cond, decode_chunk=decode_chunk)`` over the
+    ranks: every rank holds the same global `x` [B, H, W, c] (and `cond`
+    [B]), runs its rows (``shard_rows``) on its own device and returns the
+    global result [B, steps, H, W, c] from ``gather_rows``. As the JAX
+    package's predict jitted with ``in_shardings=(rep, bsh[, bsh])``: B
+    must divide by the world size (``pad_to_multiple`` pads a batch that
+    does not). At one process this is ``model.predict``."""
+    r, world = rank(), world_size()
+    xs = shard_rows(x, r, world)
+    cs = None if cond is None else shard_rows(cond, r, world)
+    return gather_rows(model.predict(xs, steps, cs, decode_chunk=decode_chunk))
 
 
 def corpus_shard(n: int, rank_: int, world: int) -> np.ndarray:
