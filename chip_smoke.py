@@ -3,8 +3,8 @@
 layers), SW, two-phase and conditional two-phase inference rollouts, the
 conditional encoder, the library blocks, the stage-2 and stage-1 training
 of each family, its evaluate and convert entry points, its data-parallel
-training and predict, the corpus solvers and the debug and profiling
-helpers once on one CUDA card.
+training and predict, the corpus solvers, the debug and profiling
+helpers and the ports of the TPU probe scripts once on one CUDA card.
 
     python3 chip_smoke.py            # everything below, on one card
     python3 chip_smoke.py --ranks    # the 2- and 4-rank runs of phases 8 and 9 alone
@@ -16,7 +16,8 @@ CUDA PyTorch and nvcc. It imports nothing of JAX. In order it:
   2. builds the CUDA kernels from lns_tpu_torch/csrc (nvcc, sm_90a, one
      process per source), and counts the tensor-core instructions (HMMA /
      HGMMA, from the toolkit's cuobjdump) in the bf16 code of the kernels
-     that run on tensor cores (1, 2, 4, 5 and 6); a count of 0 fails;
+     that run on tensor cores (1, 2, 4, 5 and 6, and the probe's FAB
+     passes and interior dot); a count of 0 fails;
   3. holds each of the seven hand-written kernels against its plain PyTorch
      version on the card, at the shapes the paths give it (and, for the
      library kernels off the paths, at the TPU package's shapes; kernels 1,
@@ -172,10 +173,20 @@ CUDA PyTorch and nvcc. It imports nothing of JAX. In order it:
      records) with its wall seconds and a finite store, and one bf16
      stage-1 train step at full NS2d width on the generated corpus
      (kernels 2 and 3 launched as the specs imply, a finite loss);
- 10. prints one JSON line of per-kernel results (launches per path, and ms
-     / plain_ms / bound_ms per predict, summed over one predict of each
-     inference path, kernel 3 also over path 7's encoder sites and the
-     library blocks' sites), then the closing JSON line.
+ 10. runs the ports of the TPU probe scripts once, untimed, with their own
+     checks (``kernels/probe_layouts.py``, ``probe_fab_mega.py`` at b116,
+     ``probe_bw.py`` at one s) and their launch counts, then holds each of
+     their four kernels at its probe's shape against its plain version and
+     times it beside its bound and library call: ``blocked_copy`` at
+     [928, 2, 128, 2048] bf16 and at the reshapes (bitwise),
+     ``fab_mega_stats`` (G and s 1e-3 x max|plain|), ``fab_mega_apply``
+     and ``interior_dot`` (1e-2, at most 2 % differing); kernel 7 at the
+     probes' transpose bitwise, kernel 6 at their dot to its tolerances;
+ 11. prints one JSON line of per-kernel results (launches per path or
+     phase, and ms / plain_ms / bound_ms per predict, summed over one
+     predict of each inference path, kernel 3 also over path 7's encoder
+     sites and the library blocks' sites; the probe kernels' per call at
+     their probes' shapes), then the closing JSON line.
 
 Any failed check or exception exits non-zero before the closing line.
 """
@@ -275,12 +286,14 @@ def _nbytes(*tensors):
 # the redesigned kernels' bf16 entry points, by a piece of their SASS names
 # (kernels 4 and 5: axial_tc<bf16, rows first> and <bf16, columns first>;
 # kernel 2: the statistics pass with both axial applies and the Gram, the
-# output pass with bb . m)
+# output pass with bb . m; the probe's FAB passes and their interior dot)
 TENSOR_CORE_KERNELS = {"prop_rollout": ("rollout_bf16",),
                        "fab_core": ("fab_bb_stats_bf16", "fab_out_bf16"),
                        "fab_axial_in_fused": ("axial_tcI13__nv_bfloat16Lb1",),
                        "axial_kernel_apply_headmajor": ("axial_tcI13__nv_bfloat16Lb0",),
-                       "bmm_blockdiag": ("bmm_bf16_kernel",)}
+                       "bmm_blockdiag": ("bmm_bf16_kernel",),
+                       "fab_mega": ("fab_mega_stats_kernel", "fab_mega_apply_kernel",
+                                    "interior_dot_kernel")}
 # the kernels whose products must run on wgmma (HGMMA; HMMA alone fails)
 WGMMA_KERNELS = ("fab_core",)
 
@@ -1425,14 +1438,18 @@ def main() -> int:
 
 def _counted():
     """Every kernel wrapper by the name the kernels JSON line gives it."""
-    from lns_tpu_torch.kernels import axial, axial_pipeline, fab_core, group_norm, prop_rollout
+    from lns_tpu_torch.kernels import (axial, axial_pipeline, blocked_copy, fab_core, fab_mega,
+                                       group_norm, prop_rollout)
 
     return {"prop_rollout": prop_rollout.fused_rollout, "fab_core": fab_core.fab_fused_core,
             "group_norm": group_norm.fused_group_norm_swish,
             "fab_axial_in_fused": axial.fab_axial_in_fused,
             "axial_kernel_apply_headmajor": axial.axial_kernel_apply_headmajor,
             "bmm_blockdiag": axial_pipeline.bmm_blockdiag,
-            "transpose_hw": axial_pipeline.transpose_hw}
+            "transpose_hw": axial_pipeline.transpose_hw,
+            "blocked_copy": blocked_copy.blocked_copy,
+            "fab_mega_stats": fab_mega.fab_mega_stats, "fab_mega_apply": fab_mega.fab_mega_apply,
+            "interior_dot": fab_mega.interior_dot}
 
 
 def drive_path(label, model, expect, gen, dev, batch=BATCH, steps=STEPS, chunk=CHUNK):
@@ -4148,8 +4165,145 @@ def drive_solvers(dev, smi):
     return {"NS2d solver-corpus stage-1 step": launches}
 
 
+# -- phase 10: the probe kernels ---------------------------------------------
+
+# launches of one untimed run of the three probes (``probe_layouts.run``:
+# per dtype 2 copies, 3 products, 2 swaps; ``probe_fab_mega.run_pieces``: 2
+# interior dots, 1 swap, 2 copies, and ``run_passes``; ``probe_bw.run`` at
+# s = 2: 1 copy, 1 product)
+PROBE_LAUNCHES = {"bmm_blockdiag": 7, "transpose_hw": 5, "blocked_copy": 7, "fab_mega_stats": 1,
+                  "fab_mega_apply": 1, "interior_dot": 2}
+
+
+def check_probes(dev):
+    """The kernels of the TPU probe scripts' ports: each launch count set to
+    0, one untimed run of ``probe_layouts``, ``probe_fab_mega`` (pieces and
+    passes, b116) and ``probe_bw`` (s = 2) with their own checks, the counts
+    read; then each new kernel at its probe's shape held to its plain
+    version and timed beside its bound and library call (the copy and the
+    reshapes bitwise, kernel 7's uses bitwise, kernel 6's to its tolerances,
+    G and s 1e-3 x max|plain|, the apply pass and the interior dot 1e-2 with
+    at most 2 % differing). Returns (launches, {kernel: result})."""
+    from lns_tpu_torch.kernels import probe_bw, probe_fab_mega, probe_layouts
+    from lns_tpu_torch.kernels.axial_pipeline import (bmm_blockdiag, bmm_blockdiag_plain,
+                                                      transpose_hw, transpose_hw_plain)
+    from lns_tpu_torch.kernels.blocked_copy import blocked_copy, blocked_copy_plain
+    from lns_tpu_torch.kernels.fab_mega import (fab_mega_apply, fab_mega_apply_plain,
+                                                fab_mega_stats, fab_mega_stats_plain,
+                                                interior_dot, interior_dot_plain)
+
+    print("-- probe kernels against their plain versions (probe_layouts, probe_fab_mega, "
+          "probe_bw, untimed; then each new kernel at its probe's shape)", flush=True)
+    t0 = time.perf_counter()
+    counted = _counted()
+    for f in counted.values():
+        f.launches = 0
+    ok = all(r["ok"] for r in probe_layouts.run(dev, timed=False).values())
+    ok &= all(r["ok"] for r in probe_fab_mega.run_pieces(dev, timed=False).values())
+    ok &= all(r["ok"] for r in probe_fab_mega.run_passes(dev, timed=False).values())
+    ok &= probe_bw.run(dev, timed=False, samples=(2,))[1]
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counted.items()}
+    _check(ok, "probes: every form of probe_layouts, probe_fab_mega and probe_bw held to its "
+           "plain version")
+    _check(launches == {k: PROBE_LAUNCHES.get(k, 0) for k in launches},
+           f"probes: launches {({k: v for k, v in launches.items() if v})} == {PROBE_LAUNCHES}")
+
+    gen = torch.Generator().manual_seed(17)
+    bf = torch.bfloat16
+    res, errs = {}, {k: [] for k in ("blocked_copy", "interior_dot")}
+    x = torch.randn(probe_bw.SHAPE, generator=torch.Generator(dev).manual_seed(17),
+                    device=dev).to(bf)
+    b, g = x.shape[:2]
+    label = f"blocked_copy bf16 {list(x.shape)} s=2 ({b // 2 * g} blocks)"
+    err, ms, plain_ms = compare(label, lambda: blocked_copy(x, 2), lambda: blocked_copy_plain(x),
+                                0.0, max_differ=0.0)
+    errs["blocked_copy"].append(err)
+    y = torch.empty_like(x)
+    res["blocked_copy"] = {"ms": ms, "plain_ms": plain_ms,
+                           **Bound().add(0, 2 * _nbytes(x)).result(),
+                           "library_ms": cuda_ms(lambda: y.copy_(x))}
+    print(f"      {label}: {2 * _nbytes(x) / ms / 1e6:.1f} GB/s by events; Tensor.copy_ "
+          f"{res['blocked_copy']['library_ms']:.4f} ms", flush=True)
+    del x, y
+    for dt in (torch.float32, bf):  # the reshapes: a copy viewed anew, bitwise
+        for shape, view in (((128, 32, 64), (128, 2048)), ((128, 2048), (128, 32, 64)),
+                            ((32, 32, 64), (1024, 64)), ((32, 2048), (32, 32, 64))):
+            a = torch.randn(shape, generator=gen).to(dev, dt)
+            err, _, _ = compare(f"blocked_copy {str(dt)[6:]} {list(shape)} -> {list(view)}",
+                                lambda: blocked_copy(a.reshape(shape[0], 1, -1), 1).reshape(view),
+                                lambda: a.reshape(view).clone(), 0.0, max_differ=0.0)
+            errs["blocked_copy"].append(err)
+        a = torch.randn(1, 4, 32, 32, 64, generator=gen).to(dev, dt)  # kernel 7: bitwise
+        compare(f"transpose_hw {str(dt)[6:]} [1,4,32,32,64] (transpose_4d)",
+                lambda: transpose_hw(a), lambda: transpose_hw_plain(a), 0.0, max_differ=0.0)
+        k = torch.randn(1, 1, 128, 128, generator=gen).to(dev, dt)  # kernel 6: its tolerances
+        a = torch.randn(1, 1, 128, 2048, generator=gen).to(dev, dt)
+        compare(f"bmm_blockdiag {str(dt)[6:]} [1,1,128,2048] (rank3_dot)",
+                lambda: bmm_blockdiag(k, a), lambda: bmm_blockdiag_plain(k, a),
+                1e-5 if dt == torch.float32 else 1e-2)
+
+    u, u_t, kx, ky, m, bias = probe_fab_mega.inputs(dev)
+    bb, n, h, w, c = (getattr(probe_fab_mega, k) for k in "BNHWC")
+    flops = 2 * 2 * bb * n * h * w * w * c + 2 * bb * n * h * w * c * c  # two applies, Gram / b2 m
+    shape = f"b{bb} n{n} {h}x{w} c{c}"
+    gs, ss = fab_mega_stats(u_t, kx, ky)
+    gp, sp = fab_mega_stats_plain(u_t, kx, ky)
+    s_err = (ss - sp).abs().max().item()
+    _check(s_err <= 1e-3 * sp.abs().max().item(),
+           f"fab_mega_stats {shape} s: max_abs_err {s_err:.3e} <= 1e-3 x max|plain| "
+           f"({1e-3 * sp.abs().max().item():.3e})")
+    err, ms, plain_ms = compare(f"fab_mega_stats {shape} G", lambda: fab_mega_stats(u_t, kx, ky)[0],
+                                lambda: fab_mega_stats_plain(u_t, kx, ky)[0], 1e-3)
+    res["fab_mega_stats"] = {"max_abs_err": max(err, s_err), "ms": ms, "plain_ms": plain_ms,
+                             **Bound().add(flops, _nbytes(u_t, kx, ky, gs, ss)).result(),
+                             "library_ms": cuda_ms(lambda: probe_fab_mega.einsum_stats(u, kx, ky))}
+    out = fab_mega_apply(u_t, kx, ky, m, bias)
+    err, ms, plain_ms = compare(f"fab_mega_apply {shape}",
+                                lambda: fab_mega_apply(u_t, kx, ky, m, bias),
+                                lambda: fab_mega_apply_plain(u_t, kx, ky, m, bias), 1e-2,
+                                max_differ=0.02)
+    res["fab_mega_apply"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                             **Bound().add(flops, _nbytes(u_t, kx, ky, m, bias, out)).result(),
+                             "library_ms": cuda_ms(lambda: probe_fab_mega.einsum_full(
+                                 u, kx, ky, m, bias))}
+    for k in ("fab_mega_stats", "fab_mega_apply"):
+        print(f"      {k} {shape}: kernel {res[k]['ms']:.4f} ms, bound {res[k]['bound_ms']:.4f} ms "
+              f"({res[k]['bound_by']}), einsum chain {res[k]['library_ms']:.4f} ms", flush=True)
+    del u, u_t, kx, ky, m, bias, gs, ss, gp, sp, out
+    kx = (torch.randn(32, 32, generator=gen) / 32).to(dev, bf)  # the pieces A and B2
+    a = torch.randn(32, 32, 64, generator=gen).to(dev, bf)
+    err, ms, plain_ms = compare("interior_dot [32,32] . [32,32,64]", lambda: interior_dot(kx, a),
+                                lambda: interior_dot_plain(kx, a), 1e-2, max_differ=0.02)
+    errs["interior_dot"].append(err)
+    res["interior_dot"] = {"ms": ms, "plain_ms": plain_ms,
+                           **Bound().add(2 * 32 * 32 * 32 * 64, 2 * _nbytes(a) + _nbytes(kx))
+                           .result(),
+                           "library_ms": cuda_ms(lambda: torch.einsum("ih,lhc->ilc", kx, a))}
+    for k, e in errs.items():
+        res[k]["max_abs_err"] = max(e)
+    # shapes outside the kernels' limits raise naming the limit (the text
+    # from C), before anything launches
+    z = torch.zeros(2, 32, 32, 32, device=dev, dtype=bf)
+    zk = torch.zeros(2, 1, 32, 32, device=dev, dtype=bf)
+    for what, call, limit, fn in (
+            ("fab_mega_stats c32", lambda: fab_mega_stats(z, zk, zk), "c 64", fab_mega_stats),
+            ("interior_dot f32", lambda: interior_dot(kx.float(), a.float()), "bf16",
+             interior_dot),
+            ("blocked_copy s=0", lambda: blocked_copy(z, 0), "samples per block >= 1",
+             blocked_copy)):
+        before, msg = fn.launches, ""
+        try:
+            call()
+        except ValueError as e:
+            msg = str(e)
+        _check(limit in msg and fn.launches == before, f"{what} raises naming '{limit}': {msg}")
+    print(f"      the probe phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, res
+
+
 def run(dev, smi=""):
-    """Phases 3-9 on `dev`; returns the per-kernel results."""
+    """Phases 3-10 on `dev`; returns the per-kernel results."""
     import tempfile
 
     from lns_tpu_torch.config import (ns2d_config, sw_config, twophase_conditional_config,
@@ -4279,19 +4433,24 @@ def run(dev, smi=""):
                 drive_family_stage2(fam, dev, smi, tmp, ae_path)
     by_path.update(drive_ddp(dev, smi))
     by_path.update(drive_solvers(dev, smi))
+    by_path["probe kernels"], probe_res = check_probes(dev)
+    res.update(probe_res)
 
-    src = "lns_tpu_torch/csrc/"
+    src, tpu, probes = "lns_tpu_torch/csrc/", "lns_tpu/pallas_kernels/", "benchmarks/"
     kernels = [
-        ("prop_rollout", "cuda", src + "prop_rollout.cu", "prop_rollout.py:292"),
-        ("fab_core", "cuda", src + "fab_core.cu", "fab_core.py:170"),
-        ("group_norm", "cuda", src + "group_norm.cu", "group_norm.py:50"),
-        ("fab_axial_in_fused", "cuda", src + "axial.cu", "axial_fused.py:132"),
-        ("axial_kernel_apply_headmajor", "cuda", src + "axial.cu", "axial_attention.py:75"),
-        ("bmm_blockdiag", "cuda", src + "axial_pipeline.cu", "axial_pipeline.py:59"),
-        ("transpose_hw", "cuda", src + "axial_pipeline.cu", "axial_pipeline.py:87"),
+        ("prop_rollout", "cuda", src + "prop_rollout.cu", tpu + "prop_rollout.py:292"),
+        ("fab_core", "cuda", src + "fab_core.cu", tpu + "fab_core.py:170"),
+        ("group_norm", "cuda", src + "group_norm.cu", tpu + "group_norm.py:50"),
+        ("fab_axial_in_fused", "cuda", src + "axial.cu", tpu + "axial_fused.py:132"),
+        ("axial_kernel_apply_headmajor", "cuda", src + "axial.cu", tpu + "axial_attention.py:75"),
+        ("bmm_blockdiag", "cuda", src + "axial_pipeline.cu", tpu + "axial_pipeline.py:59"),
+        ("transpose_hw", "cuda", src + "axial_pipeline.cu", tpu + "axial_pipeline.py:87"),
+        ("blocked_copy", "cuda", src + "blocked_copy.cu", probes + "probe_pallas_bw.py:53"),
+        ("fab_mega_stats", "cuda", src + "fab_mega.cu", probes + "probe_fab_mega.py:167"),
+        ("fab_mega_apply", "cuda", src + "fab_mega.cu", probes + "probe_fab_mega.py:230"),
+        ("interior_dot", "cuda", src + "fab_mega.cu", probes + "probe_fab_mega.py:81"),
     ]
-    return [{"name": name, "route": route, "source": source,
-             "replaces": "lns_tpu/pallas_kernels/" + rep,
+    return [{"name": name, "route": route, "source": source, "replaces": rep,
              "launches": sum(counts[name] for counts in by_path.values()),
              "launches_by_path": {label: counts[name] for label, counts in by_path.items()},
              **res[name]} for name, route, source, rep in kernels]

@@ -29,9 +29,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "lns_axial_apply": [_I] * 3 + [_P] * 5 + [_I] * 6 + [ctypes.c_float, _P],
+    "lns_blocked_copy": [_P] * 2 + [_I] * 3 + [ctypes.c_longlong, _P],
     "lns_bmm": [_I] + [_P] * 3 + [_I] * 3 + [_P],
     "lns_fab_core": [_I] + [_P] * 15 + [_I] * 7 + [ctypes.c_float, _P],
+    "lns_fab_mega_apply": [_P] * 6 + [_I] * 2 + [_P],
+    "lns_fab_mega_stats": [_P] * 5 + [_I] * 2 + [_P],
     "lns_group_norm": [_I] + [_P] * 6 + [_I] * 4 + [ctypes.c_float, _I, _P],
+    "lns_interior_dot": [_P] * 3 + [_I, _P],
     "lns_prop_rollout": [_I] + [_P] * 14 + [_I] * 11 + [_P],
     "lns_transpose_hw": [_I] + [_P] * 2 + [_I] * 4 + [_P],
 }
@@ -150,6 +154,11 @@ def library() -> ctypes.CDLL:
         lib.lns_error_string.restype = ctypes.c_char_p
         lib.lns_axial_limit.argtypes = [ctypes.c_int] * 4
         lib.lns_axial_limit.restype = ctypes.c_char_p
+        lib.lns_blocked_copy_limit.argtypes = [ctypes.c_int] * 3 + [ctypes.c_longlong]
+        lib.lns_blocked_copy_limit.restype = ctypes.c_char_p
+        for name in ("lns_fab_mega_limit", "lns_interior_dot_limit"):
+            getattr(lib, name).argtypes = [ctypes.c_int] * 5
+            getattr(lib, name).restype = ctypes.c_char_p
         lib.lns_axial_plan.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
         lib.lns_axial_plan.restype = ctypes.c_int
         lib.lns_fab_core_bf16_limit.argtypes = [ctypes.c_int] * 5

@@ -1,0 +1,160 @@
+"""The FAB core's two passes that recompute the apply pair instead of storing
+it, and their interior dot: CUDA C++ for Hopper (``csrc/fab_mega.cu``).
+
+Replaces ``benchmarks/probe_fab_mega.py``:
+
+  * ``fab_mega_stats`` (``stats_pass``, ``_stats_kernel``): per sample and
+    head, ``a = bf16(ky . u_t)`` (contracting w), ``bb = kx . a`` in f32
+    (contracting h), ``b2 = bf16(bb)`` as [(i l), c], then the Gram matrix
+    ``G = b2^T b2`` and the column sums of b2, both f32;
+  * ``fab_mega_apply`` (``apply_pass``, ``_apply_kernel``): the same b2, then
+    ``b2 . m[b, n]`` in f32 summed over the heads in f32, minus ``bias[b]``,
+    rounded once. The bias is [B, C], as the probe's ``main()`` and
+    ``xla_full`` mean it (its Pallas kernel's block spec takes [B, 1, C]);
+  * ``interior_dot`` (the pieces A and B2 of ``run_pieces``):
+    ``kx [i, h] . a [l, h, c] -> [i, l, c]``, f32 sums, rounded once.
+
+The kernels take the probe's shape, h = w = 32 and c = 64 in bf16 (stated
+once, in C: ``lns_fab_mega_limit``, ``lns_interior_dot_limit``); the plain
+versions take any. Bound by operations on an H100: 16.8 MFLOP per sample
+and head. u stays in shared memory for all of a block's work, the products
+run on tensor cores (``mma.sync``) and the head-major values never reach
+device memory. Neither kernel is on a model's path: kernel 2
+(``fab_core.fab_fused_core``) is the FAB core the models run; these passes
+measure the design that recomputes bb in place of kernel 2's bb scratch.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from lns_tpu_torch.kernels import _build
+
+
+def _b2(u_t, kx, ky):
+    """The rounded apply pair as [b, n, (i l), c] f32 values."""
+    dt = u_t.dtype
+    a = torch.einsum("bnlw,bwhc->bnlhc", ky.to(dt).float(), u_t.float()).to(dt)
+    bb = torch.einsum("bnih,bnlhc->bnilc", kx.to(dt).float(), a.float())
+    b, n, i, l, c = bb.shape
+    return bb.to(dt).float().reshape(b, n, i * l, c)
+
+
+def fab_mega_stats_plain(u_t, kx, ky):
+    """Plain PyTorch version of ``fab_mega_stats``."""
+    b2 = _b2(u_t, kx, ky)
+    return b2.transpose(-1, -2) @ b2, b2.sum(-2)
+
+
+def fab_mega_apply_plain(u_t, kx, ky, m, bias):
+    """Plain PyTorch version of ``fab_mega_apply``."""
+    t = _b2(u_t, kx, ky) @ m.to(u_t.dtype).float()
+    return (t.sum(1) - bias.to(u_t.dtype).float()[:, None, :]).to(u_t.dtype)
+
+
+def interior_dot_plain(kx, a):
+    """Plain PyTorch version of ``interior_dot``."""
+    return torch.einsum("ih,lhc->ilc", kx.to(a.dtype).float(), a.float()).to(a.dtype)
+
+
+def _ready(t, dtype):
+    """t contiguous in `dtype`, from a 16-byte boundary (the kernels load
+    16-byte pieces)."""
+    t = t.to(dtype).contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def _limit(fn, name, dtype, *dims):
+    msg = fn(_build.DTYPE_CODE.get(dtype, -1), *dims)
+    if msg:
+        raise ValueError(f"{name}: {str(dtype)[6:]} at {list(dims)} needs {msg.decode()}")
+
+
+def _check_shapes(name, dev, expect):
+    for arg, (t, shape) in expect.items():
+        if tuple(t.shape) != shape or t.device != dev:
+            raise ValueError(f"{name}: {arg} must be {shape} on {dev}, "
+                             f"got {tuple(t.shape)} on {t.device}")
+
+
+def fab_mega_stats(u_t, kx, ky):
+    """u_t [b, w, h, c] (u with h and w swapped), kx [b, n, h, h],
+    ky [b, n, w, w] -> (G [b, n, c, c], s [b, n, c]), both f32. A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel on the
+    current stream or raises."""
+    if not _build.on_cuda(u_t, "fab_mega_stats", kx, ky):
+        return fab_mega_stats_plain(u_t, kx, ky)
+    if u_t.dim() != 4 or kx.dim() != 4:
+        raise ValueError("fab_mega_stats: u_t must be [b, w, h, c] and kx [b, n, h, h]")
+    b, w, h, c = u_t.shape
+    n = kx.shape[1]
+    _check_shapes("fab_mega_stats", u_t.device, {"kx": (kx, (b, n, h, h)),
+                                                 "ky": (ky, (b, n, w, w))})
+    lib = _build.library()
+    _limit(lib.lns_fab_mega_limit, "fab_mega_stats", u_t.dtype, b, h, w, c)
+    u_t, kx, ky = (_ready(t, u_t.dtype) for t in (u_t, kx, ky))
+    g = torch.empty((b, n, c, c), device=u_t.device, dtype=torch.float32)
+    s = torch.empty((b, n, c), device=u_t.device, dtype=torch.float32)
+    rc = lib.lns_fab_mega_stats(u_t.data_ptr(), kx.data_ptr(), ky.data_ptr(), g.data_ptr(),
+                                s.data_ptr(), b, n,
+                                torch.cuda.current_stream(u_t.device).cuda_stream)
+    _build.check(rc, "fab_mega_stats (lns_fab_mega_stats)")
+    fab_mega_stats.launches += 1
+    return g, s
+
+
+fab_mega_stats.launches = 0
+
+
+def fab_mega_apply(u_t, kx, ky, m, bias):
+    """u_t [b, w, h, c], kx [b, n, h, h], ky [b, n, w, w], m [b, n, c, c],
+    bias [b, c] -> [b, h * w, c] in u_t's dtype, rows (i, l). A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel on the
+    current stream or raises."""
+    if not _build.on_cuda(u_t, "fab_mega_apply", kx, ky, m, bias):
+        return fab_mega_apply_plain(u_t, kx, ky, m, bias)
+    if u_t.dim() != 4 or kx.dim() != 4:
+        raise ValueError("fab_mega_apply: u_t must be [b, w, h, c] and kx [b, n, h, h]")
+    b, w, h, c = u_t.shape
+    n = kx.shape[1]
+    _check_shapes("fab_mega_apply", u_t.device, {
+        "kx": (kx, (b, n, h, h)), "ky": (ky, (b, n, w, w)), "m": (m, (b, n, c, c)),
+        "bias": (bias, (b, c))})
+    lib = _build.library()
+    _limit(lib.lns_fab_mega_limit, "fab_mega_apply", u_t.dtype, b, h, w, c)
+    u_t, kx, ky, m, bias = (_ready(t, u_t.dtype) for t in (u_t, kx, ky, m, bias))
+    out = torch.empty((b, h * w, c), device=u_t.device, dtype=u_t.dtype)
+    rc = lib.lns_fab_mega_apply(u_t.data_ptr(), kx.data_ptr(), ky.data_ptr(), m.data_ptr(),
+                                bias.data_ptr(), out.data_ptr(), b, n,
+                                torch.cuda.current_stream(u_t.device).cuda_stream)
+    _build.check(rc, "fab_mega_apply (lns_fab_mega_apply)")
+    fab_mega_apply.launches += 1
+    return out
+
+
+fab_mega_apply.launches = 0
+
+
+def interior_dot(kx, a):
+    """kx [i, k] . a [l, k, c] -> [i, l, c] in a's dtype (kx cast to it). A
+    CPU tensor takes the plain version; a CUDA tensor launches the kernel on
+    the current stream or raises."""
+    if not _build.on_cuda(a, "interior_dot", kx):
+        return interior_dot_plain(kx, a)
+    if kx.dim() != 2 or a.dim() != 3:
+        raise ValueError("interior_dot: kx must be [i, k] and a [l, k, c]")
+    l_dim, k, c = a.shape
+    i = kx.shape[0]
+    _check_shapes("interior_dot", a.device, {"kx": (kx, (i, k))})
+    lib = _build.library()
+    _limit(lib.lns_interior_dot_limit, "interior_dot", a.dtype, l_dim, i, k, c)
+    kx, a = _ready(kx, a.dtype), _ready(a, a.dtype)
+    out = torch.empty((i, l_dim, c), device=a.device, dtype=a.dtype)
+    rc = lib.lns_interior_dot(kx.data_ptr(), a.data_ptr(), out.data_ptr(), l_dim,
+                              torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(rc, "interior_dot (lns_interior_dot)")
+    interior_dot.launches += 1
+    return out
+
+
+interior_dot.launches = 0
