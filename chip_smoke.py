@@ -16,8 +16,10 @@ CUDA PyTorch and nvcc. It imports nothing of JAX. In order it:
   2. builds the CUDA kernels from lns_tpu_torch/csrc (nvcc, sm_90a, one
      process per source), and counts the tensor-core instructions (HMMA /
      HGMMA, from the toolkit's cuobjdump) in the bf16 code of the kernels
-     that run on tensor cores (1, 2, 4, 5 and 6, and the probe's FAB
-     passes and interior dot); a count of 0 fails;
+     that run on tensor cores (1, 2, 4, 5 and 6, the probe's FAB passes and
+     interior dot, ``dot_general`` and the bf16 chains); a count of 0
+     fails; the f32 ``dot_general`` and ``chain_scr2_f32`` fail on any HMMA
+     (TF32) or on no FFMA;
   3. holds each of the seven hand-written kernels against its plain PyTorch
      version on the card, at the shapes the paths give it (and, for the
      library kernels off the paths, at the TPU package's shapes; kernels 1,
@@ -175,13 +177,21 @@ CUDA PyTorch and nvcc. It imports nothing of JAX. In order it:
      (kernels 2 and 3 launched as the specs imply, a finite loss);
  10. runs the ports of the TPU probe scripts once, untimed, with their own
      checks (``kernels/probe_layouts.py``, ``probe_fab_mega.py`` at b116,
-     ``probe_bw.py`` at one s) and their launch counts, then holds each of
-     their four kernels at its probe's shape against its plain version and
-     times it beside its bound and library call: ``blocked_copy`` at
-     [928, 2, 128, 2048] bf16 and at the reshapes (bitwise),
-     ``fab_mega_stats`` (G and s 1e-3 x max|plain|), ``fab_mega_apply``
-     and ``interior_dot`` (1e-2, at most 2 % differing); kernel 7 at the
-     probes' transpose bitwise, kernel 6 at their dot to its tolerances;
+     ``probe_bw.py`` at one s, ``probe_dots.py``'s 19 cases) and their
+     launch counts, then holds each of their six kernels at its probe's
+     shape against its plain version and times it beside its bound and
+     library call: ``blocked_copy`` at [928, 2, 128, 2048] bf16 and at the
+     reshapes (bitwise), ``fab_mega_stats`` (G and s 1e-3 x max|plain|),
+     ``fab_mega_apply`` and ``interior_dot`` (1e-2, at most 2 % differing);
+     kernel 7 at the probes' transpose bitwise, kernel 6 at their dot to
+     its tolerances; ``dot_general`` and ``dot_chain`` at each of the 19
+     cases of ``benchmarks/probe_mosaic_dots.py`` (bf16 outputs of one
+     product one ulp of max|plain| in at most 1 %, f32 1e-5, the moments
+     1e-3, the chains with bf16 intermediates 1e-2; each operand's feed
+     printed; each chain's two runs bitwise equal), ``dot_general`` also
+     off the probe's cases (the staged feed, ragged sizes, a transposed
+     view, f32 and mixed operands, the epilogues' clusters of 3 and 1),
+     and both refusing what their limits do not take;
  11. prints one JSON line of per-kernel results (launches per path or
      phase, and ms / plain_ms / bound_ms per predict, summed over one
      predict of each inference path, kernel 3 also over path 7's encoder
@@ -286,23 +296,31 @@ def _nbytes(*tensors):
 # the redesigned kernels' bf16 entry points, by a piece of their SASS names
 # (kernels 4 and 5: axial_tc<bf16, rows first> and <bf16, columns first>;
 # kernel 2: the statistics pass with both axial applies and the Gram, the
-# output pass with bb . m; the probe's FAB passes and their interior dot)
+# output pass with bb . m; the probe's FAB passes and their interior dot;
+# dot_general's bf16 kernel and the chains whose products include bf16 ones)
 TENSOR_CORE_KERNELS = {"prop_rollout": ("rollout_bf16",),
                        "fab_core": ("fab_bb_stats_bf16", "fab_out_bf16"),
                        "fab_axial_in_fused": ("axial_tcI13__nv_bfloat16Lb1",),
                        "axial_kernel_apply_headmajor": ("axial_tcI13__nv_bfloat16Lb0",),
                        "bmm_blockdiag": ("bmm_bf16_kernel",),
                        "fab_mega": ("fab_mega_stats_kernel", "fab_mega_apply_kernel",
-                                    "interior_dot_kernel")}
+                                    "interior_dot_kernel"),
+                       "mosaic_dots": ("dot_general_bf16",
+                                       *(f"dot_chain_kernelILi{c}E" for c in (0, 1, 2, 3, 4, 6)))}
 # the kernels whose products must run on wgmma (HGMMA; HMMA alone fails)
 WGMMA_KERNELS = ("fab_core",)
+# the f32 instantiations whose products must stay in full f32 on the CUDA
+# cores: FFMA, and no HMMA or HGMMA (which would mean TF32)
+CUDA_CORE_KERNELS = {"mosaic_dots": ("dot_general_f32", "dot_chain_kernelILi5E")}
 
 
 def check_tensor_cores():
     """Count the tensor-core instructions (HMMA, or HGMMA for wgmma) in the
     SASS of each redesigned kernel's bf16 instantiation, read with the
     toolkit's cuobjdump from the built library; fails on a count of 0 (of
-    HGMMA alone for the kernels in WGMMA_KERNELS) or a missing cuobjdump."""
+    HGMMA alone for the kernels in WGMMA_KERNELS) or a missing cuobjdump.
+    The f32 instantiations of CUDA_CORE_KERNELS fail on any HMMA or HGMMA,
+    or on no FFMA."""
     from lns_tpu_torch.kernels import _build
 
     try:
@@ -312,22 +330,31 @@ def check_tensor_cores():
         return
     sass = subprocess.run([tool, "-sass", str(_build.library_path())], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    per_fn, fn = {}, None  # {function: [HMMA, HGMMA]}
+    per_fn, fn = {}, None  # {function: [HMMA, HGMMA, FFMA]}
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            per_fn.setdefault(fn, [0, 0])
-        elif fn is not None and ("HMMA" in line or "HGMMA" in line):
-            per_fn[fn][int("HGMMA" in line)] += 1
+            per_fn.setdefault(fn, [0, 0, 0])
+        elif fn is not None:
+            for i, op in enumerate(("HMMA", "HGMMA", "FFMA")):
+                per_fn[fn][i] += op in line
     for kernel, parts in TENSOR_CORE_KERNELS.items():
         wgmma = kernel in WGMMA_KERNELS
         for part in parts:
-            found = {f: k[1] if wgmma else sum(k) for f, k in per_fn.items() if part in f}
+            found = {f: k[1] if wgmma else k[0] + k[1] for f, k in per_fn.items() if part in f}
             count = sum(found.values())
+            ffma = sum(k[2] for f, k in per_fn.items() if part in f)
             _check(bool(found) and all(found.values()),
                    f"tensor cores: {kernel} bf16 {part}: {count} "
                    f"{'HGMMA' if wgmma else 'HMMA/HGMMA'} in {len(found)} instantiation(s) "
-                   f"{sorted(found.values())}")
+                   f"{sorted(found.values())}; {ffma} FFMA")
+    for kernel, parts in CUDA_CORE_KERNELS.items():
+        for part in parts:
+            found = {f: k for f, k in per_fn.items() if part in f}
+            _check(bool(found) and all(k[0] + k[1] == 0 and k[2] > 0 for k in found.values()),
+                   f"CUDA cores: {kernel} f32 {part}: HMMA/HGMMA "
+                   f"{sum(k[0] + k[1] for k in found.values())}, FFMA "
+                   f"{sum(k[2] for k in found.values())} in {len(found)} instantiation(s)")
 
 
 # -- phase 3: each kernel against its plain version --------------------------
@@ -1439,7 +1466,7 @@ def main() -> int:
 def _counted():
     """Every kernel wrapper by the name the kernels JSON line gives it."""
     from lns_tpu_torch.kernels import (axial, axial_pipeline, blocked_copy, fab_core, fab_mega,
-                                       group_norm, prop_rollout)
+                                       group_norm, mosaic_dots, prop_rollout)
 
     return {"prop_rollout": prop_rollout.fused_rollout, "fab_core": fab_core.fab_fused_core,
             "group_norm": group_norm.fused_group_norm_swish,
@@ -1449,7 +1476,8 @@ def _counted():
             "transpose_hw": axial_pipeline.transpose_hw,
             "blocked_copy": blocked_copy.blocked_copy,
             "fab_mega_stats": fab_mega.fab_mega_stats, "fab_mega_apply": fab_mega.fab_mega_apply,
-            "interior_dot": fab_mega.interior_dot}
+            "interior_dot": fab_mega.interior_dot, "dot_general": mosaic_dots.dot_general,
+            "dot_chain": mosaic_dots.dot_chain}
 
 
 def drive_path(label, model, expect, gen, dev, batch=BATCH, steps=STEPS, chunk=CHUNK):
@@ -4167,24 +4195,27 @@ def drive_solvers(dev, smi):
 
 # -- phase 10: the probe kernels ---------------------------------------------
 
-# launches of one untimed run of the three probes (``probe_layouts.run``:
+# launches of one untimed run of the four probes (``probe_layouts.run``:
 # per dtype 2 copies, 3 products, 2 swaps; ``probe_fab_mega.run_pieces``: 2
 # interior dots, 1 swap, 2 copies, and ``run_passes``; ``probe_bw.run`` at
-# s = 2: 1 copy, 1 product)
+# s = 2: 1 copy, 1 product; ``probe_dots.run``: one launch per case, 12
+# single dots and 7 chains)
 PROBE_LAUNCHES = {"bmm_blockdiag": 7, "transpose_hw": 5, "blocked_copy": 7, "fab_mega_stats": 1,
-                  "fab_mega_apply": 1, "interior_dot": 2}
+                  "fab_mega_apply": 1, "interior_dot": 2, "dot_general": 12, "dot_chain": 7}
 
 
 def check_probes(dev):
     """The kernels of the TPU probe scripts' ports: each launch count set to
     0, one untimed run of ``probe_layouts``, ``probe_fab_mega`` (pieces and
-    passes, b116) and ``probe_bw`` (s = 2) with their own checks, the counts
-    read; then each new kernel at its probe's shape held to its plain
-    version and timed beside its bound and library call (the copy and the
-    reshapes bitwise, kernel 7's uses bitwise, kernel 6's to its tolerances,
-    G and s 1e-3 x max|plain|, the apply pass and the interior dot 1e-2 with
-    at most 2 % differing). Returns (launches, {kernel: result})."""
-    from lns_tpu_torch.kernels import probe_bw, probe_fab_mega, probe_layouts
+    passes, b116), ``probe_bw`` (s = 2) and ``probe_dots`` (its 19 cases)
+    with their own checks, the counts read; then each new kernel at its
+    probe's shape held to its plain version and timed beside its bound and
+    library call (the copy and the reshapes bitwise, kernel 7's uses
+    bitwise, kernel 6's to its tolerances, G and s 1e-3 x max|plain|, the
+    apply pass and the interior dot 1e-2 with at most 2 % differing;
+    ``dot_general`` and ``dot_chain`` per case, ``check_mosaic_dots``).
+    Returns (launches, {kernel: result})."""
+    from lns_tpu_torch.kernels import probe_bw, probe_dots, probe_fab_mega, probe_layouts
     from lns_tpu_torch.kernels.axial_pipeline import (bmm_blockdiag, bmm_blockdiag_plain,
                                                       transpose_hw, transpose_hw_plain)
     from lns_tpu_torch.kernels.blocked_copy import blocked_copy, blocked_copy_plain
@@ -4193,7 +4224,7 @@ def check_probes(dev):
                                                 interior_dot, interior_dot_plain)
 
     print("-- probe kernels against their plain versions (probe_layouts, probe_fab_mega, "
-          "probe_bw, untimed; then each new kernel at its probe's shape)", flush=True)
+          "probe_bw, probe_dots, untimed; then each new kernel at its probe's shape)", flush=True)
     t0 = time.perf_counter()
     counted = _counted()
     for f in counted.values():
@@ -4202,10 +4233,11 @@ def check_probes(dev):
     ok &= all(r["ok"] for r in probe_fab_mega.run_pieces(dev, timed=False).values())
     ok &= all(r["ok"] for r in probe_fab_mega.run_passes(dev, timed=False).values())
     ok &= probe_bw.run(dev, timed=False, samples=(2,))[1]
+    ok &= all(r["ok"] for r in probe_dots.run(dev, timed=False).values())
     torch.cuda.synchronize()
     launches = {k: f.launches for k, f in counted.items()}
-    _check(ok, "probes: every form of probe_layouts, probe_fab_mega and probe_bw held to its "
-           "plain version")
+    _check(ok, "probes: every form of probe_layouts, probe_fab_mega, probe_bw and probe_dots held "
+           "to its plain version")
     _check(launches == {k: PROBE_LAUNCHES.get(k, 0) for k in launches},
            f"probes: launches {({k: v for k, v in launches.items() if v})} == {PROBE_LAUNCHES}")
 
@@ -4298,8 +4330,108 @@ def check_probes(dev):
         except ValueError as e:
             msg = str(e)
         _check(limit in msg and fn.launches == before, f"{what} raises naming '{limit}': {msg}")
+    res.update(check_mosaic_dots(dev))
     print(f"      the probe phase took {time.perf_counter() - t0:.1f} s", flush=True)
     return launches, res
+
+
+def check_dot_general_edges(dev, x):
+    """``dot_general`` off the probe's cases, against its plain version: the
+    staged feed (a batch dim with unit stride; a base off 16 bytes), sizes
+    off the 64 x 64 x 32 tile, an operand given as a transposed view, f32
+    and mixed operands on the CUDA cores, sum_batch over a cluster of 3 and
+    the moments over a cluster of 1 (bf16 outputs one ulp of max|plain| in
+    at most 1 %, f32 1e-5, the moments 1e-3)."""
+    from lns_tpu_torch.kernels.mosaic_dots import dot_general, dot_general_plain
+
+    gen = torch.Generator().manual_seed(19)
+    bf = torch.bfloat16
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).to(dev, bf)
+
+    odd = rnd(1 + 37 * 45)[1:].view(37, 45)  # 2 bytes past a 16-byte boundary
+    cases = [
+        ("batch minor, staged", x["q"], x["q"], ((1,), (1,)), ((2,), (2,)), torch.float32, None),
+        ("37x45 . 45x70, staged", rnd(37, 45), rnd(45, 70), ((1,), (0,)), ((), ()), bf, None),
+        ("50x24 . 70x24, straight", rnd(50, 24), rnd(70, 24), ((1,), (1,)), ((), ()), bf, None),
+        ("a base off 16 bytes", odd, rnd(45, 70), ((1,), (0,)), ((), ()), bf, None),
+        ("a transposed view", x["u"][:, 0, :].t(), x["m"], ((1,), (0,)), ((), ()),
+         torch.float32, None),
+        ("f32 x f32", x["u"].float(), x["k2"].float(), ((2,), (1,)), ((), ()), torch.float32,
+         None),
+        ("bf16 x f32", x["u"], x["k2"].float(), ((2,), (1,)), ((), ()), torch.float32, None),
+        ("sum_batch, batch 3", x["q"][:3], x["q"][:3], ((2,), (2,)), ((0,), (0,)),
+         torch.float32, "sum_batch"),
+        ("moments, one row tile", x["q"][:2], x["m"], ((1,), (0,)), ((), ()), torch.float32,
+         "moments"),
+    ]
+    for label, a, b, contract, batch, out_dtype, epi in cases:
+        args = (a, b, contract, batch, out_dtype, epi)
+        rel, differ = ((1e-3, 1.0) if epi == "moments" else (2.0 ** -7, 0.01) if out_dtype == bf
+                       else (1e-5, 1.0))
+        dot_general(*args)
+        compare(f"dot_general {label} {list(a.shape)} . {list(b.shape)}; feeds "
+                f"{', '.join(dot_general.feeds)}", lambda: dot_general(*args),
+                lambda: dot_general_plain(*args), rel, max_differ=differ)
+
+
+def check_mosaic_dots(dev):
+    """``dot_general`` and ``dot_chain`` at the TPU probe's shapes: each of
+    the 19 cases held to its plain version (``probe_dots.tolerance``: bf16
+    outputs of one product one ulp of max|plain| in at most 1 %, f32 1e-5,
+    the moments 1e-3, the chains with bf16 intermediates 1e-2 and at most 2 %
+    of a bf16 output) and timed beside its bound and library call, printing
+    each operand's feed; each chain's two runs bitwise equal; each kernel
+    refusing what its limit (stated in C) does not take, before anything
+    launches. Returns {kernel: result} summed over its cases."""
+    from lns_tpu_torch.kernels import mosaic_dots, probe_dots
+
+    x = probe_dots.inputs(dev, seed=18)
+    res = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+           for k in ("dot_general", "dot_chain")}
+    bound_by = {k: {} for k in res}  # the bound's ms by what bounds it
+    for key, spec in mosaic_dots.CASES.items():
+        rel, differ = probe_dots.tolerance(key)
+        out = mosaic_dots.run_case(key, x)
+        feeds = probe_dots.feeds(key, out.is_cuda)
+        err, ms, plain_ms = compare(f"{spec.route} {key} ({spec.desc}); feeds {feeds}",
+                                    lambda: mosaic_dots.run_case(key, x),
+                                    lambda: mosaic_dots.run_case(key, x, plain=True), rel,
+                                    max_differ=differ)
+        if spec.route == "dot_chain":
+            _check(torch.equal(out, mosaic_dots.run_case(key, x)),
+                   f"dot_chain {key}: two runs bitwise equal")
+        bound_ms, by = probe_dots.bound_ms(*probe_dots.work(key, x, out))
+        row = res[spec.route]
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["ms"] += ms
+        row["plain_ms"] += plain_ms
+        row["bound_ms"] += bound_ms
+        row["library_ms"] += cuda_ms(probe_dots.library(key, x))
+        bound_by[spec.route][by] = bound_by[spec.route].get(by, 0.0) + bound_ms
+        print(f"      {key}: bound {bound_ms * 1e3:.3f} us ({by}; {bound_ms / ms:.2%} of the "
+              "kernel's time by events)", flush=True)
+    for k in res:
+        res[k]["bound_by"] = max(bound_by[k], key=bound_by[k].get)
+    check_dot_general_edges(dev, x)
+    # shapes and dtypes outside the kernels' limits raise naming the limit
+    # (the text from C), before anything launches
+    small = dict(x, u=x["u"][:, :16])
+    for what, call, limit, fn in (
+            ("dot_general f16", lambda: mosaic_dots.dot_general(x["u"].half(), x["k2"].half(),
+                                                                ((2,), (1,))),
+             "bf16 or f32 operands", mosaic_dots.dot_general),
+            ("dot_chain u [64, 16, 32]", lambda: mosaic_dots.dot_chain("apply_chain",
+                                                                      *small.values()),
+             "H = W = L = I = 32", mosaic_dots.dot_chain)):
+        before, msg = fn.launches, ""
+        try:
+            call()
+        except ValueError as e:
+            msg = str(e)
+        _check(limit in msg and fn.launches == before, f"{what} raises naming '{limit}': {msg}")
+    return res
 
 
 def run(dev, smi=""):
@@ -4449,6 +4581,8 @@ def run(dev, smi=""):
         ("fab_mega_stats", "cuda", src + "fab_mega.cu", probes + "probe_fab_mega.py:167"),
         ("fab_mega_apply", "cuda", src + "fab_mega.cu", probes + "probe_fab_mega.py:230"),
         ("interior_dot", "cuda", src + "fab_mega.cu", probes + "probe_fab_mega.py:81"),
+        ("dot_general", "cuda", src + "mosaic_dots.cu", probes + "probe_mosaic_dots.py:305"),
+        ("dot_chain", "cuda", src + "mosaic_dots.cu", probes + "probe_mosaic_dots.py:305"),
     ]
     return [{"name": name, "route": route, "source": source, "replaces": rep,
              "launches": sum(counts[name] for counts in by_path.values()),

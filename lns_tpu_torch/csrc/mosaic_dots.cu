@@ -1,0 +1,984 @@
+// The rank-3 dot orientations and FAB chains of the TPU probe
+// benchmarks/probe_mosaic_dots.py (its pallas_call at :305 over the nineteen
+// bodies of CASES, :46-229), at its shapes: C = 64, H = W = L = I = 32, bf16
+// inputs u [C,H,W], k2 [L,W], k3 [I,H], a3 [C,H,L], q [L,C,I], m [C,C].
+// Two kernels:
+//
+// dot_general: one strided contraction, the port's jax.lax.dot_general for
+//   operands of rank 3 or less with one contracting dim and at most one batch
+//   dim (12 of the 19 cases). The output is [batch, lhs free, rhs free]
+//   (JAX's order), stored contiguous, rounded once to its dtype; or, with the
+//   sum_batch epilogue, summed over the batch in the kernel ([lhs free, rhs
+//   free]); or, with the moments epilogue, phi = bf16(product) reduced to the
+//   [2, rhs free] f32 column sums of phi and of bf16(phi^2), in a fixed
+//   order. A free side's dims are (r1, r2), addressed by their strides, so a
+//   pair that cannot merge into one strided dim (rhs_interior's (C, L), with
+//   a split H between them) needs no copy. bf16 x bf16 runs on mma.sync
+//   m16n8k16 with f32 sums; any f32 operand puts the product in full f32 on
+//   the CUDA cores (no TF32, which keeps about three digits). How an operand
+//   reaches the tensor core (its feed, chosen on the host and returned to
+//   the caller):
+//     straight    the contracted dim has unit stride: 16-byte cp.async along
+//                 k into a [row][k] tile, ldmatrix;
+//     transposed  the inner free dim has unit stride (and a size that is a
+//                 multiple of 8): 16-byte cp.async along the rows into a
+//                 [k][row] tile, ldmatrix.trans;
+//     staged      neither (or a base or stride off 16 bytes): a gather, one
+//                 element a thread, into a [row][k] tile, ldmatrix.
+//   Block tile 64 x 64 of the output, depth 32 a stage, 4 warps of 32 x 32.
+//   sum_batch splits the batch, and the moments the output rows, over a
+//   cluster of up to 8 blocks, whose partial sums meet through DSMEM in rank
+//   order (two runs give the same bits).
+//
+// dot_chain: the seven chains, one launch of one cluster of 8 blocks each.
+//   Every stage rounds where the TPU body rounds and nowhere else (a
+//   dt-typed _dg rounds to bf16, an f32 dot does not, and
+//   preferred_element_type=bf16 is an f32 sum rounded once). No intermediate
+//   reaches device memory: the kernel reads the inputs and writes only the
+//   output. Each block owns a slice of one free dim of each stage's output;
+//   a stage that needs what its peers computed reads their slices through
+//   distributed shared memory (DSMEM) after a cluster barrier, and the
+//   cross-block sums run in rank order, so two runs give the same bits.
+//   The bf16 products run on mma.sync as in dot_general, the f32 ones in
+//   full f32 on the CUDA cores. Per chain (rank r of 8):
+//     0 apply_chain        block owns c [8r, 8r+8): a = bf16(u . k2) [c,h,l],
+//                          bb = bf16(k3 . a) [i,c,l]; DSMEM: block owns
+//                          i [4r, 4r+4) of t = bb . m, gathers bb[i, all c,
+//                          l]; out = bf16(2 t)                    [I,L,O] bf16
+//     1 chain_projf_f32    block owns h [4r, 4r+4): v = bf16(m^T u) [o,h,w],
+//                          a = bf16(v . k2) [o,h,l]; DSMEM: block owns
+//                          o [8r, 8r+8) of t = k3 . a, gathers a[o, all h,
+//                          l]; out = 2 t                           [I,O,L] f32
+//     2 chain_moments_f32  as 1; phi = bf16(k3 . a); each warp holds one o
+//                          whole, so the moments over (i, l) need no
+//                          cross-block sum                          [O,2] f32
+//     3 scr_bf16_f32       as 0 with out = bb . m                  [I,L,O] f32
+//     4 scr_f32_f32        as 0 with bb in f32 and out = bb . f32(m) on the
+//                          CUDA cores                               [I,L,O] f32
+//     5 chain_scr2_f32     all f32 on the CUDA cores: as 4 to the gather,
+//                          phi = bb . m, the block's column sums of phi and
+//                          phi^2 sent to every block's slot for its rank
+//                          (DSMEM), summed in rank order; mean, var =
+//                          max(s2/n - mean^2, 0), inv = rsqrt(var + 1e-5),
+//                          mm = (m inv) m^T and bias = (mean inv) m^T in
+//                          every block; out = (t - bias) + t, t = bb . mm
+//     6 transp_chain_f32   block owns y = q's dim 0 in [4r, 4r+4): a =
+//                          q . m (f32 sums) stored with its two leading
+//                          dims swapped, [x][y][m1]; DSMEM: block owns x in
+//                          [4r, 4r+4) of bb = a' . k2 (f32, CUDA cores),
+//                          gathers a'[x, all y, m1]       [32,64,32] f32
+//   Live set per block (bytes of shared memory, the limit that
+//   lns_dot_chain_limit states and the launch checks: 232,448):
+//     0, 3  u 20,480 + k2, k3 5,120 + m 9,216 + a 20,480 + bb 20,480
+//           + gathered bb 20,480 = 96,256
+//     4     the same with bb and its gather in f32: 120,832
+//     1, 2  u 17,408 + k2, k3 5,120 + m 9,216 + v 20,480 + a 20,480
+//           + gathered a 20,480 = 93,184
+//     5     u 16,384 + k2, k3 4,096 + m 8,192 + a / phi 32,768 + bb 32,768
+//           + gathered bb 32,768 + rank sums 4,096 + statistics 1,024
+//           + m inv 16,384 + mm 16,384 = 164,864
+//     6     q 20,480 + m 9,216 + k2 2,048 + a' 32,768 + gathered a' 32,768
+//           = 97,280
+//   The cluster as a whole holds each intermediate once (128 KB in bf16,
+//   256 KB in f32), which no single block's 227 KB could hold two of.
+//
+// What bounds them on an H100: neither bytes nor operations. lhs_minor moves
+// 264 KB (0.079 us at 3.35 TB/s) for 4.2 MFLOP (0.004 us at 989 TFLOP/s);
+// chain_scr2_f32 does 25.7 MFLOP in f32 (0.38 us at 67 TFLOP/s) on 8 SMs.
+// A launch costs more than either: these kernels are bound by launch latency
+// and by the few SMs a single case fills. Neither kernel is on a model's
+// path; they answer the TPU probe's two questions on this card (which
+// orientations reach the tensor cores, and how; whether a chain's
+// intermediates can stay on chip).
+
+#include <cooperative_groups.h>
+
+#include <algorithm>
+#include <cstdint>
+#include <cstdio>
+#include <type_traits>
+
+#include "common.cuh"
+#include "mma.cuh"
+
+namespace {
+
+namespace cg = cooperative_groups;
+using bf16 = __nv_bfloat16;
+
+// ---- dot_general ------------------------------------------------------------
+
+constexpr int kT = 64;            // block tile: kT output rows x kT output columns
+constexpr int kKT = 32;           // depth of one staged tile
+constexpr int kRK = kKT + 8;      // row stride of a [row][k] bf16 tile (80 bytes)
+constexpr int kKR = kT + 8;       // row stride of a [k][row] bf16 tile (144 bytes)
+constexpr int kFK = kKT + 1;      // row stride of a [row][k] f32 tile
+constexpr int kGThreads = 128;    // 4 warps, 2 x 2 pieces of 32 x 32
+constexpr int kTileElems = kT * kRK > kKT * kKR ? kT * kRK : kKT * kKR;
+constexpr int kRowGroups = 16;    // the moments' partial sums per column
+constexpr int kMaxCluster = 8;    // blocks that split sum_batch's batch or the moments' rows
+static_assert((kRowGroups * 2 + 2) * kT <= kT * kT, "the moments' sums fit the fold's tile");
+
+enum Feed { kStraight = 0, kTransposed = 1, kStaged = 2, kCudaCores = 3 };
+enum Epilogue { kStore = 0, kSumBatch = 1, kMoments = 2 };
+
+// An operand: element (batch b, row r = r1 r2 + (r % r2), depth k) at
+// p + b sb + r1 s1 + (r % r2) s2 + k sk (element strides).
+struct Operand {
+  const void* p;
+  long long sb, s1, s2, sk;
+  int r2, feed, bf;  // bf: 1 for bf16, 0 for f32
+  __device__ __forceinline__ long long at(int b, int r, int k) const {
+    return b * sb + (r / r2) * s1 + (r % r2) * s2 + k * sk;
+  }
+};
+
+struct DgParams {
+  Operand a, b;
+  void* out;
+  int nb, m, n, k, epi, out_bf;
+  int cl;  // blocks of a cluster that share one output tile (1 for a plain store)
+};
+
+// The [kT rows][kKT k] tile at (r0, k0) of operand o (batch bi) into shared
+// memory, zero past `rows` and `klen`, by the operand's feed.
+__device__ __forceinline__ void stage_bf16(bf16* s, const Operand& o, int bi, int r0, int rows,
+                                           int k0, int klen) {
+  const bf16* p = static_cast<const bf16*>(o.p);
+  if (o.feed == kTransposed) {  // s[k][row], 16-byte pieces along the rows
+    for (int e = threadIdx.x; e < kKT * (kT / 8); e += kGThreads) {
+      const int kk = e / (kT / 8), r = e % (kT / 8) * 8;
+      const bool valid = k0 + kk < klen && r0 + r < rows;
+      lns::cp_async16(s + kk * kKR + r, valid ? p + o.at(bi, r0 + r, k0 + kk) : p, valid);
+    }
+  } else if (o.feed == kStraight) {  // s[row][k], 16-byte pieces along k
+    for (int e = threadIdx.x; e < kT * (kKT / 8); e += kGThreads) {
+      const int r = e / (kKT / 8), kk = e % (kKT / 8) * 8;
+      const bool valid = r0 + r < rows && k0 + kk < klen;
+      lns::cp_async16(s + r * kRK + kk, valid ? p + o.at(bi, r0 + r, k0 + kk) : p, valid);
+    }
+  } else {  // staged: s[row][k], gathered one element a thread
+    for (int e = threadIdx.x; e < kT * kKT; e += kGThreads) {
+      const int r = e / kKT, kk = e % kKT;
+      s[r * kRK + kk] = r0 + r < rows && k0 + kk < klen ? p[o.at(bi, r0 + r, k0 + kk)]
+                                                        : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// The same tile as f32 values, s[row][k] (row stride kFK), for the CUDA cores.
+__device__ __forceinline__ void stage_f32(float* s, const Operand& o, int bi, int r0, int rows,
+                                          int k0, int klen) {
+  for (int e = threadIdx.x; e < kT * kKT; e += kGThreads) {
+    const int r = e / kKT, kk = e % kKT;
+    float v = 0.f;
+    if (r0 + r < rows && k0 + kk < klen) {
+      const long long i = o.at(bi, r0 + r, k0 + kk);
+      v = o.bf ? __bfloat162float(static_cast<const bf16*>(o.p)[i])
+               : static_cast<const float*>(o.p)[i];
+    }
+    s[r * kFK + kk] = v;
+  }
+}
+
+__device__ __forceinline__ void store_out(const DgParams& p, int bi, int m, int n, float v) {
+  if (m >= p.m || n >= p.n) return;
+  const long long i = (static_cast<long long>(bi) * p.m + m) * p.n + n;
+  if (p.out_bf) {
+    static_cast<bf16*>(p.out)[i] = __float2bfloat16(v);
+  } else {
+    static_cast<float*>(p.out)[i] = v;
+  }
+}
+
+// The moments' running sums of one output value: phi = bf16(v), phi^2
+// rounded to bf16 (the TPU body squares a bf16 array), summed in f32.
+__device__ __forceinline__ void add_moments(float v, float& s1, float& s2) {
+  const float phi = lns::rnd<bf16>(v);
+  s1 += phi;
+  s2 += lns::rnd<bf16>(phi * phi);  // exact in f32, then rounded once
+}
+
+// Fold the threads' column sums (row group rg, column col of the block's
+// tile; red is [kRowGroups][2][kT]) in row-group order into the block's
+// [2][kT] sums, then rank 0 adds the cluster's blocks' sums in rank order
+// (DSMEM) into out [2, n].
+__device__ __forceinline__ void fold_moments(const DgParams& p, float* red, int n0) {
+  cg::cluster_group cluster = cg::this_cluster();
+  float* mine = red + kRowGroups * 2 * kT;
+  __syncthreads();
+  if (threadIdx.x < 2 * kT) {
+    const int which = threadIdx.x / kT, col = threadIdx.x % kT;
+    float s = 0.f;
+    for (int rg = 0; rg < kRowGroups; ++rg) s += red[(rg * 2 + which) * kT + col];
+    mine[threadIdx.x] = s;
+  }
+  cluster.sync();  // every block's sums are whole
+  if (cluster.block_rank() == 0 && threadIdx.x < 2 * kT) {
+    const int which = threadIdx.x / kT, col = threadIdx.x % kT;
+    float s = 0.f;
+    for (int q = 0; q < p.cl; ++q) s += cluster.map_shared_rank(mine, q)[threadIdx.x];
+    if (n0 + col < p.n)
+      static_cast<float*>(p.out)[static_cast<long long>(which) * p.n + n0 + col] = s;
+  }
+  cluster.sync();  // no block leaves while rank 0 reads it
+}
+
+// sum_batch: each block of the cluster holds its batches' sum of the output
+// tile in red [kT][kT]; block r adds rows r, r + cl, ... over the blocks in
+// rank order (DSMEM) and stores them.
+__device__ __forceinline__ void fold_batches(const DgParams& p, float* red, int m0, int n0) {
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every block's tile is whole
+  for (int r = static_cast<int>(cluster.block_rank()); r < kT; r += p.cl)
+    for (int c = threadIdx.x; c < kT; c += kGThreads) {
+      float s = 0.f;
+      for (int q = 0; q < p.cl; ++q) s += cluster.map_shared_rank(red, q)[r * kT + c];
+      store_out(p, 0, m0 + r, n0 + c, s);
+    }
+  cluster.sync();
+}
+
+// The block's loops: a plain store takes one output tile of one batch (grid
+// (n tiles, m tiles, batch)); sum_batch's cluster of cl blocks (grid z)
+// splits the batch, block r taking batches r, r + cl, ...; the moments'
+// cluster splits the m tiles (grid (n tiles, 1, cl)). Fixed orders
+// throughout: no atomics.
+struct Loops {
+  int rank, b0, b_step, m_first, m_step;
+  __device__ __forceinline__ explicit Loops(const DgParams& p)
+      : rank(p.epi == kStore ? 0 : static_cast<int>(blockIdx.z)),
+        b0(p.epi == kStore ? static_cast<int>(blockIdx.z) : p.epi == kSumBatch ? rank : 0),
+        b_step(p.epi == kSumBatch ? p.cl : p.nb),
+        m_first(p.epi == kMoments ? rank * kT : static_cast<int>(blockIdx.y) * kT),
+        m_step(p.epi == kMoments ? p.cl * kT : p.m) {}
+};
+__global__ void __launch_bounds__(kGThreads) dot_general_bf16(const DgParams p) {
+  __shared__ uint4 as4[kTileElems / 8], bs4[kTileElems / 8];
+  __shared__ float red[kT * kT];
+  bf16* as = reinterpret_cast<bf16*>(as4);
+  bf16* bs = reinterpret_cast<bf16*>(bs4);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, g = lane / 4, t = lane % 4;
+  const int wm = warp / 2 * 32, wn = warp % 2 * 32, n0 = blockIdx.x * kT;
+  const bool moments = p.epi == kMoments;
+  const Loops lp(p);
+  float s1[4][2] = {}, s2[4][2] = {};
+  for (int m0 = lp.m_first; m0 < p.m; m0 += lp.m_step) {
+    float acc[2][4][4] = {};
+    for (int bi = lp.b0; bi < p.nb; bi += lp.b_step) {
+      for (int k0 = 0; k0 < p.k; k0 += kKT) {
+        __syncthreads();  // the previous tiles are consumed
+        stage_bf16(as, p.a, bi, m0, p.m, k0, p.k);
+        stage_bf16(bs, p.b, bi, n0, p.n, k0, p.k);
+        lns::cp_async_commit();
+        lns::cp_async_wait<0>();
+        __syncthreads();
+#pragma unroll
+        for (int ks = 0; ks < kKT / 16; ++ks) {
+          uint32_t af[2][4], bfr[4][2];
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            if (p.a.feed == kTransposed) {
+              lns::ldsm_x4_trans(af[mt], as + lns::at_addr(lane, ks * 16, wm + mt * 16, kKR));
+            } else {
+              lns::ldsm_x4(af[mt], as + lns::a_addr(lane, wm + mt * 16, ks * 16, kRK));
+            }
+          }
+          if (p.b.feed == kTransposed) {
+#pragma unroll
+            for (int np = 0; np < 2; ++np) {
+              uint32_t r[4];
+              lns::ldsm_x4_trans(r, bs + lns::b_addr(lane, ks * 16, wn + np * 16, kKR));
+              bfr[2 * np][0] = r[0];
+              bfr[2 * np][1] = r[1];
+              bfr[2 * np + 1][0] = r[2];
+              bfr[2 * np + 1][1] = r[3];
+            }
+          } else {
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) {
+              uint32_t r[2];
+              lns::ldsm_x2(r, bs + lns::bt_addr(lane, wn + nt * 8, ks * 16, kRK));
+              bfr[nt][0] = r[0];
+              bfr[nt][1] = r[1];
+            }
+          }
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt)
+              lns::mma_bf16(acc[mt][nt], af[mt], bfr[nt][0], bfr[nt][1]);
+        }
+      }
+    }
+    // C fragment: (row g (+ 8), columns 2t, 2t + 1) of each m16 n8 piece
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int mi = wm + mt * 16 + g + e / 2 * 8, ni = wn + nt * 8 + 2 * t + e % 2;
+          if (p.epi == kStore) {
+            store_out(p, blockIdx.z, m0 + mi, n0 + ni, acc[mt][nt][e]);
+          } else if (p.epi == kSumBatch) {
+            red[mi * kT + ni] = acc[mt][nt][e];
+          } else if (m0 + mi < p.m) {
+            add_moments(acc[mt][nt][e], s1[nt][e % 2], s2[nt][e % 2]);
+          }
+        }
+  }
+  if (p.epi == kSumBatch) fold_batches(p, red, blockIdx.y * kT, n0);
+  if (moments) {
+    const int rg = warp / 2 * 8 + g;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = wn + nt * 8 + 2 * t + j;
+        red[(rg * 2) * kT + col] = s1[nt][j];
+        red[(rg * 2 + 1) * kT + col] = s2[nt][j];
+      }
+    fold_moments(p, red, n0);
+  }
+}
+
+// The same contraction in full f32 on the CUDA cores (an operand in bf16 is
+// widened exactly). Thread (tr, tc) holds rows 4 tr .. 4 tr + 3 and columns
+// tc + 8 j of the tile; each output is one fmaf chain in k order.
+__global__ void __launch_bounds__(kGThreads) dot_general_f32(const DgParams p) {
+  __shared__ float as[kT * kFK];
+  __shared__ float bs[kT * kFK];
+  __shared__ float red[kT * kT];
+  const int tr = threadIdx.x / 8, tc = threadIdx.x % 8, n0 = blockIdx.x * kT;
+  const bool moments = p.epi == kMoments;
+  const Loops lp(p);
+  float s1[8] = {}, s2[8] = {};
+  for (int m0 = lp.m_first; m0 < p.m; m0 += lp.m_step) {
+    float acc[4][8] = {};
+    for (int bi = lp.b0; bi < p.nb; bi += lp.b_step) {
+      for (int k0 = 0; k0 < p.k; k0 += kKT) {
+        __syncthreads();
+        stage_f32(as, p.a, bi, m0, p.m, k0, p.k);
+        stage_f32(bs, p.b, bi, n0, p.n, k0, p.k);
+        __syncthreads();
+        for (int kk = 0; kk < kKT; ++kk) {
+          float a[4], b[8];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) a[i] = as[(tr * 4 + i) * kFK + kk];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) b[j] = bs[(tc + 8 * j) * kFK + kk];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int mi = tr * 4 + i, ni = tc + 8 * j;
+        if (p.epi == kStore) {
+          store_out(p, blockIdx.z, m0 + mi, n0 + ni, acc[i][j]);
+        } else if (p.epi == kSumBatch) {
+          red[mi * kT + ni] = acc[i][j];
+        } else if (m0 + mi < p.m) {
+          add_moments(acc[i][j], s1[j], s2[j]);
+        }
+      }
+  }
+  if (p.epi == kSumBatch) fold_batches(p, red, blockIdx.y * kT, n0);
+  if (moments) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      red[(tr * 2) * kT + tc + 8 * j] = s1[j];
+      red[(tr * 2 + 1) * kT + tc + 8 * j] = s2[j];
+    }
+    fold_moments(p, red, n0);
+  }
+}
+
+// The layout the wrapper passes: nb, m1, m2, n1, n2, k, then a's strides
+// (batch, m1, m2, k) and b's (batch, n1, n2, k), in elements.
+enum { kNb, kM1, kM2, kN1, kN2, kK, kSa, kSb = kSa + 4, kLayoutLen = kSb + 4 };
+
+// How an operand reaches the tensor core (the one statement of the rule).
+int feed_of(const void* p, const long long* s, int r2, int k, bool tensor_cores) {
+  if (!tensor_cores) return kCudaCores;
+  const bool base = reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  const bool b8 = s[0] % 8 == 0, r18 = s[1] % 8 == 0, r28 = s[2] % 8 == 0, k8 = s[3] % 8 == 0;
+  if (base && s[3] == 1 && k % 8 == 0 && b8 && r18 && r28) return kStraight;
+  if (base && s[2] == 1 && r2 % 8 == 0 && b8 && r18 && k8) return kTransposed;
+  return kStaged;
+}
+
+// ---- dot_chain ----------------------------------------------------------------
+
+constexpr int kP = 8;             // blocks of a chain's cluster
+constexpr int kCThreads = 256;    // 8 warps
+constexpr int kCW = kCThreads / 32;
+constexpr int kCh = 64;           // C (and O)
+constexpr int kS = 32;            // H = W = L = I
+constexpr int kL40 = kS + 8;      // bf16 row strides that ldmatrix reads without bank conflicts
+constexpr int kL72 = kCh + 8;
+constexpr int kL136 = 4 * kS + 8;
+enum Chain { kApply, kProjF, kMomentsF, kScrBf16, kScrF32, kScr2, kTransp, kChains };
+
+// Element (r, k) of a matrix in shared memory: (r / r2) s1 + (r % r2) s2 + k sk.
+struct View {
+  int r2, s1, s2, sk;
+  __device__ __forceinline__ int at(int r, int k) const {
+    return r / r2 * s1 + r % r2 * s2 + k * sk;
+  }
+};
+
+// out[m][n] = sum_k A(m, k) B(n, k) on mma.sync, bf16 operands in shared
+// memory, f32 sums. A with kAT is read by ldmatrix.trans (its rows have unit
+// stride, in runs of 8), else by ldmatrix (k has unit stride); B likewise.
+// Warps take tiles of 16 MT x 8 NT in turn; epi(m, n, v[m][n], v[m][n + 1]).
+template <bool kAT, bool kBT, int MT, int NT, class Epi>
+__device__ __forceinline__ void mma_gemm(const bf16* A, View va, const bf16* B, View vb, int M,
+                                         int N, int K, Epi&& epi) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, g = lane / 4, t = lane % 4;
+  const int tn = N / (8 * NT), tiles = M / (16 * MT) * tn;
+  for (int tile = warp; tile < tiles; tile += kCW) {
+    const int m0 = tile / tn * 16 * MT, n0 = tile % tn * 8 * NT;
+    float acc[MT][NT][4] = {};
+    for (int k0 = 0; k0 < K; k0 += 16) {
+      uint32_t af[MT][4], bfr[NT][2];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int m = m0 + mt * 16;
+        if constexpr (kAT) {
+          lns::ldsm_x4_trans(af[mt],
+                             A + va.at(m + (lane >> 3 & 1) * 8, k0 + (lane & 7) + (lane >> 4) * 8));
+        } else {
+          lns::ldsm_x4(af[mt], A + va.at(m + (lane & 15), k0 + (lane >> 4) * 8));
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; nt += 2) {
+        const int n = n0 + nt * 8;
+        if constexpr (kBT) {
+          uint32_t r[4];
+          lns::ldsm_x4_trans(r, B + vb.at(n + (lane >> 4) * 8, k0 + (lane & 15)));
+          bfr[nt][0] = r[0];
+          bfr[nt][1] = r[1];
+          bfr[nt + 1][0] = r[2];
+          bfr[nt + 1][1] = r[3];
+        } else {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            uint32_t r[2];
+            lns::ldsm_x2(r, B + vb.at(n + h * 8 + (lane & 7), k0 + (lane >> 3 & 1) * 8));
+            bfr[nt + h][0] = r[0];
+            bfr[nt + h][1] = r[1];
+          }
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) lns::mma_bf16(acc[mt][nt], af[mt], bfr[nt][0], bfr[nt][1]);
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          epi(m0 + mt * 16 + g + 8 * h, n0 + nt * 8 + 2 * t, acc[mt][nt][2 * h],
+              acc[mt][nt][2 * h + 1]);
+  }
+}
+
+// The same product in full f32 on the CUDA cores (bf16 operands widened
+// exactly): each thread takes 4 x 4 tiles in turn, one fmaf chain in k
+// order per output.
+template <class TA, class TB, class Epi>
+__device__ __forceinline__ void ffma_gemm(const TA* A, View va, const TB* B, View vb, int M, int N,
+                                          int K, Epi&& epi) {
+  const int tn = N / 4, tiles = M / 4 * tn;
+  for (int tile = threadIdx.x; tile < tiles; tile += kCThreads) {
+    const int m0 = tile / tn * 4, n0 = tile % tn * 4;
+    float acc[4][4] = {};
+    for (int k = 0; k < K; ++k) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = lns::ld(A[va.at(m0 + i, k)]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = lns::ld(B[vb.at(n0 + j, k)]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      epi(m0 + i, n0, acc[i][0], acc[i][1]);
+      epi(m0 + i, n0 + 2, acc[i][2], acc[i][3]);
+    }
+  }
+}
+
+// rows x cols bf16 (cols a multiple of 8) from global (row stride src_ld)
+// into shared memory (row stride dst_ld) by 16-byte cp.async
+__device__ __forceinline__ void load_rows(bf16* dst, int dst_ld, const bf16* src, int src_ld,
+                                          int rows, int cols) {
+  const int per_row = cols / 8;
+  for (int e = threadIdx.x; e < rows * per_row; e += kCThreads) {
+    const int r = e / per_row, c8 = e % per_row * 8;
+    lns::cp_async16(dst + r * dst_ld + c8, src + static_cast<size_t>(r) * src_ld + c8, true);
+  }
+}
+
+// Copy `rows` runs of `bytes` (a multiple of 16) from a peer's shared memory
+// into ours: run j from peer + src(j) to dst(j) (byte offsets).
+template <class Src, class Dst>
+__device__ __forceinline__ void pull(const unsigned char* peer, unsigned char* mine, int rows,
+                                     int bytes, Src src, Dst dst) {
+  const int per = bytes / 16;
+  for (int e = threadIdx.x; e < rows * per; e += kCThreads) {
+    const int j = e / per, v = e % per * 16;
+    *reinterpret_cast<uint4*>(mine + dst(j) + v) =
+        *reinterpret_cast<const uint4*>(peer + src(j) + v);
+  }
+}
+
+__device__ __forceinline__ void store2(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+__device__ __forceinline__ void store2(bf16* p, float v0, float v1) {
+  *reinterpret_cast<uint32_t*>(p) = lns::pack_bf16(v0, v1);
+}
+
+// Shared-memory bytes of each chain (the regions the kernel carves, in order).
+constexpr int kBf = 2, kF = 4;
+constexpr int chain_smem(int c) {
+  return c == kApply || c == kScrBf16
+             ? kBf * (8 * kS * kL40 + 2 * kS * kL40 + kCh * kL72 + 3 * 8 * kS * kL40)
+         : c == kScrF32
+             ? kBf * (8 * kS * kL40 + 2 * kS * kL40 + kCh * kL72 + 8 * kS * kL40) +
+                   kF * 2 * kS * 8 * kS
+         : c == kProjF || c == kMomentsF
+             ? kBf * (kCh * kL136 + 2 * kS * kL40 + kCh * kL72 + 3 * kCh * 4 * kL40)
+         : c == kScr2
+             ? kBf * (8 * kS * kS + 2 * kS * kS + kCh * kCh) + kF * 3 * 8 * kS * kS +
+                   kF * (kP * 2 * kCh + 4 * kCh + 2 * kCh * kCh)
+             : kBf * (4 * kCh * kL40 + kCh * kL72 + kS * kS) + kF * 2 * kS * 4 * kCh;
+}
+static_assert(chain_smem(kApply) == 96256 && chain_smem(kScrF32) == 120832 &&
+                  chain_smem(kProjF) == 93184 && chain_smem(kScr2) == 164864 &&
+                  chain_smem(kTransp) == 97280,
+              "the live sets stated above");
+static_assert(chain_smem(kScr2) <= lns::kMaxDynamicSmem, "a block's shared memory");
+
+// Chains 0, 3, 4: block r owns c [8r, 8r + 8) of a and bb, then i [4r, 4r + 4)
+// of the output.
+template <int kCase>
+__device__ __forceinline__ void chain_by_c(unsigned char* sm, cg::cluster_group& cluster,
+                                           const bf16* u, const bf16* k2, const bf16* k3,
+                                           const bf16* m, void* out) {
+  using BB = typename std::conditional<kCase == kScrF32, float, bf16>::type;
+  constexpr int kBL = kCase == kScrF32 ? kS : kL40;  // bb's row stride
+  const int r = static_cast<int>(cluster.block_rank()), c0 = 8 * r, i0 = 4 * r;
+  bf16* u_s = reinterpret_cast<bf16*>(sm);  // [c 8][h 32][kL40]
+  bf16* k2_s = u_s + 8 * kS * kL40;         // [l][kL40]
+  bf16* k3_s = k2_s + kS * kL40;            // [i][kL40]
+  bf16* m_s = k3_s + kS * kL40;             // [c][kL72]
+  bf16* a_s = m_s + kCh * kL72;             // [c 8][h 32][kL40]
+  BB* bb_s = reinterpret_cast<BB*>(a_s + 8 * kS * kL40);  // [i 32][c 8][kBL]
+  BB* g_s = bb_s + kS * 8 * kBL;                          // [i 4][c 64][kBL]
+  load_rows(u_s, kL40, u + c0 * kS * kS, kS, 8 * kS, kS);
+  load_rows(k2_s, kL40, k2, kS, kS, kS);
+  load_rows(k3_s, kL40, k3, kS, kS, kS);
+  load_rows(m_s, kL72, m, kCh, kCh, kCh);
+  lns::cp_async_commit();
+  lns::cp_async_wait<0>();
+  __syncthreads();
+  // a = bf16(u . k2): rows (c, h), columns l, depth w
+  mma_gemm<false, false, 2, 4>(u_s, View{8 * kS, 0, kL40, 1}, k2_s, View{kS, 0, kL40, 1}, 8 * kS,
+                               kS, kS, [&](int mi, int n, float v0, float v1) {
+                                 store2(a_s + mi * kL40 + n, v0, v1);
+                               });
+  __syncthreads();
+  // bb = k3 . a: rows i, columns (c, l), depth h; bf16 (rounded once) or f32
+  mma_gemm<false, true, 2, 4>(k3_s, View{kS, 0, kL40, 1}, a_s, View{kS, kS * kL40, 1, kL40}, kS,
+                              8 * kS, kS, [&](int i, int n, float v0, float v1) {
+                                store2(bb_s + (i * 8 + n / kS) * kBL + n % kS, v0, v1);
+                              });
+  cluster.sync();  // every block's bb is whole
+  // g[i][8p + c][l] = bb of peer p at [i0 + i][c][l]
+  for (int p = 0; p < kP; ++p)
+    pull(reinterpret_cast<const unsigned char*>(cluster.map_shared_rank(bb_s, p)),
+         reinterpret_cast<unsigned char*>(g_s), 4 * 8, kS * static_cast<int>(sizeof(BB)),
+         [&](int j) { return static_cast<int>(sizeof(BB)) * ((i0 + j / 8) * 8 + j % 8) * kBL; },
+         [&](int j) { return static_cast<int>(sizeof(BB)) * (j / 8 * kCh + 8 * p + j % 8) * kBL; });
+  cluster.sync();  // no block reads a peer after this
+  // out = bb . m: rows (i, l), columns o, depth c
+  const View vg{kS, kCh * kBL, 1, kBL}, vm{kCh, 0, 1, kL72};
+  if constexpr (kCase == kScrF32) {
+    float* o = static_cast<float*>(out) + i0 * kS * kCh;
+    ffma_gemm(g_s, vg, m_s, vm, 4 * kS, kCh, kCh,
+              [&](int mi, int n, float v0, float v1) { store2(o + mi * kCh + n, v0, v1); });
+  } else if constexpr (kCase == kApply) {
+    bf16* o = static_cast<bf16*>(out) + i0 * kS * kCh;
+    mma_gemm<true, true, 2, 4>(g_s, vg, m_s, vm, 4 * kS, kCh, kCh,
+                               [&](int mi, int n, float v0, float v1) {
+                                 store2(o + mi * kCh + n, v0 + v0, v1 + v1);
+                               });
+  } else {
+    float* o = static_cast<float*>(out) + i0 * kS * kCh;
+    mma_gemm<true, true, 2, 4>(g_s, vg, m_s, vm, 4 * kS, kCh, kCh,
+                               [&](int mi, int n, float v0, float v1) {
+                                 store2(o + mi * kCh + n, v0, v1);
+                               });
+  }
+}
+
+// Chains 1, 2: block r owns h [4r, 4r + 4) of v and a, then o [8r, 8r + 8)
+// of the output.
+template <int kCase>
+__device__ __forceinline__ void chain_by_h(unsigned char* sm, cg::cluster_group& cluster,
+                                           const bf16* u, const bf16* k2, const bf16* k3,
+                                           const bf16* m, float* out) {
+  const int r = static_cast<int>(cluster.block_rank()), h0 = 4 * r, o0 = 8 * r;
+  bf16* u_s = reinterpret_cast<bf16*>(sm);  // [c][(h 4, w 32)][kL136]
+  bf16* k2_s = u_s + kCh * kL136;
+  bf16* k3_s = k2_s + kS * kL40;
+  bf16* m_s = k3_s + kS * kL40;             // [c][kL72]
+  bf16* v_s = m_s + kCh * kL72;             // [o 64][h 4][kL40]
+  bf16* a_s = v_s + kCh * 4 * kL40;         // [o 64][h 4][kL40]
+  bf16* g_s = a_s + kCh * 4 * kL40;         // [o 8][h 32][kL40]
+  load_rows(u_s, kL136, u + h0 * kS, kS * kS, kCh, 4 * kS);
+  load_rows(k2_s, kL40, k2, kS, kS, kS);
+  load_rows(k3_s, kL40, k3, kS, kS, kS);
+  load_rows(m_s, kL72, m, kCh, kCh, kCh);
+  lns::cp_async_commit();
+  lns::cp_async_wait<0>();
+  __syncthreads();
+  // v = bf16(m^T . u): rows o, columns (h, w), depth c
+  mma_gemm<true, true, 2, 4>(m_s, View{kCh, 0, 1, kL72}, u_s, View{4 * kS, 0, 1, kL136}, kCh,
+                             4 * kS, kCh, [&](int o, int n, float v0, float v1) {
+                               store2(v_s + (o * 4 + n / kS) * kL40 + n % kS, v0, v1);
+                             });
+  __syncthreads();
+  // a = bf16(v . k2): rows (o, h), columns l, depth w
+  mma_gemm<false, false, 2, 4>(v_s, View{kCh * 4, 0, kL40, 1}, k2_s, View{kS, 0, kL40, 1},
+                               kCh * 4, kS, kS, [&](int mi, int n, float v0, float v1) {
+                                 store2(a_s + mi * kL40 + n, v0, v1);
+                               });
+  cluster.sync();
+  // g[o][4p + h][l] = a of peer p at [o0 + o][h][l]
+  for (int p = 0; p < kP; ++p)
+    pull(reinterpret_cast<const unsigned char*>(cluster.map_shared_rank(a_s, p)),
+         reinterpret_cast<unsigned char*>(g_s), 8 * 4, kS * kBf,
+         [&](int j) { return kBf * ((o0 + j / 4) * 4 + j % 4) * kL40; },
+         [&](int j) { return kBf * (j / 4 * kS + 4 * p + j % 4) * kL40; });
+  cluster.sync();
+  // t = k3 . a: rows i, columns (o, l), depth h; warp w's tile is o0 + w whole
+  const View vk3{kS, 0, kL40, 1}, vg{kS, kS * kL40, 1, kL40};
+  if constexpr (kCase == kProjF) {
+    float* o = out + o0 * kS;
+    mma_gemm<false, true, 2, 4>(k3_s, vk3, g_s, vg, kS, 8 * kS, kS,
+                                [&](int i, int n, float v0, float v1) {
+                                  store2(o + i * kCh * kS + n, v0 + v0, v1 + v1);
+                                });
+  } else {
+    float s1 = 0.f, s2 = 0.f;
+    mma_gemm<false, true, 2, 4>(k3_s, vk3, g_s, vg, kS, 8 * kS, kS,
+                                [&](int, int, float v0, float v1) {
+                                  add_moments(v0, s1, s2);
+                                  add_moments(v1, s1, s2);
+                                });
+    for (int off = 16; off > 0; off >>= 1) {
+      s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+      s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+    }
+    if (threadIdx.x % 32 == 0) store2(out + 2 * (o0 + threadIdx.x / 32), s1, s2);
+  }
+}
+
+// Chain 5, all f32 on the CUDA cores: block r owns c [8r, 8r + 8) of a and
+// bb, then i [4r, 4r + 4) of phi and the output.
+__device__ __forceinline__ void chain_scr2(unsigned char* sm, cg::cluster_group& cluster,
+                                           const bf16* u, const bf16* k2, const bf16* k3,
+                                           const bf16* m, float* out) {
+  const int r = static_cast<int>(cluster.block_rank()), c0 = 8 * r, i0 = 4 * r;
+  bf16* u_s = reinterpret_cast<bf16*>(sm);          // [c 8][h 32][w 32]
+  bf16* k2_s = u_s + 8 * kS * kS;                   // [l][w]
+  bf16* k3_s = k2_s + kS * kS;                      // [i][h]
+  bf16* m_s = k3_s + kS * kS;                       // [c][d]
+  float* a_s = reinterpret_cast<float*>(m_s + kCh * kCh);  // [c 8][h][l], then phi [(i l)][d]
+  float* bb_s = a_s + 8 * kS * kS;                  // [i 32][c 8][l]
+  float* g_s = bb_s + 8 * kS * kS;                  // [i 4][c 64][l]
+  float* red_s = g_s + 8 * kS * kS;                 // [rank][s1, s2][d]
+  float* st_s = red_s + kP * 2 * kCh;               // mean, inv, mean inv, bias [d]
+  float* winv_s = st_s + 4 * kCh;                   // [c][d]
+  float* mm_s = winv_s + kCh * kCh;                 // [c][o]
+  load_rows(u_s, kS, u + c0 * kS * kS, kS, 8 * kS, kS);
+  load_rows(k2_s, kS, k2, kS, kS, kS);
+  load_rows(k3_s, kS, k3, kS, kS, kS);
+  load_rows(m_s, kCh, m, kCh, kCh, kCh);
+  lns::cp_async_commit();
+  lns::cp_async_wait<0>();
+  __syncthreads();
+  ffma_gemm(u_s, View{8 * kS, 0, kS, 1}, k2_s, View{kS, 0, kS, 1}, 8 * kS, kS, kS,
+            [&](int mi, int n, float v0, float v1) { store2(a_s + mi * kS + n, v0, v1); });
+  __syncthreads();
+  ffma_gemm(k3_s, View{kS, 0, kS, 1}, a_s, View{kS, kS * kS, 1, kS}, kS, 8 * kS, kS,
+            [&](int i, int n, float v0, float v1) { store2(bb_s + i * 8 * kS + n, v0, v1); });
+  cluster.sync();
+  for (int p = 0; p < kP; ++p)  // g[i][8p + c][l] = bb of peer p at [i0 + i][c][l]
+    pull(reinterpret_cast<const unsigned char*>(cluster.map_shared_rank(bb_s, p)),
+         reinterpret_cast<unsigned char*>(g_s), 4, 8 * kS * kF,
+         [&](int j) { return kF * (i0 + j) * 8 * kS; },
+         [&](int j) { return kF * (j * kCh + 8 * p) * kS; });
+  cluster.sync();
+  const View vg{kS, kCh * kS, 1, kS};
+  float* phi_s = a_s;  // a is consumed
+  ffma_gemm(g_s, vg, m_s, View{kCh, 0, 1, kCh}, 4 * kS, kCh, kCh,
+            [&](int mi, int n, float v0, float v1) { store2(phi_s + mi * kCh + n, v0, v1); });
+  __syncthreads();
+  if (threadIdx.x < 2 * kCh) {  // this block's column sums of phi and phi^2, sent to every block
+    const int d = threadIdx.x % kCh;
+    float s = 0.f;
+    for (int row = 0; row < 4 * kS; ++row) {
+      const float v = phi_s[row * kCh + d];
+      s = __fadd_rn(s, threadIdx.x < kCh ? v : __fmul_rn(v, v));
+    }
+    for (int p = 0; p < kP; ++p) *cluster.map_shared_rank(red_s + r * 2 * kCh + threadIdx.x, p) = s;
+  }
+  cluster.sync();  // every block's sums are in every block
+  if (threadIdx.x < kCh) {
+    const int d = threadIdx.x;
+    float s1 = 0.f, s2 = 0.f;
+    for (int p = 0; p < kP; ++p) {  // rank order: every block the same bits
+      s1 = __fadd_rn(s1, red_s[p * 2 * kCh + d]);
+      s2 = __fadd_rn(s2, red_s[p * 2 * kCh + kCh + d]);
+    }
+    const float n = static_cast<float>(kS * kS);
+    const float mean = __fdiv_rn(s1, n);
+    const float var = fmaxf(__fsub_rn(__fdiv_rn(s2, n), __fmul_rn(mean, mean)), 0.f);
+    const float inv = __frsqrt_rn(__fadd_rn(var, 1e-5f));
+    st_s[d] = mean;
+    st_s[kCh + d] = inv;
+    st_s[2 * kCh + d] = __fmul_rn(mean, inv);
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < kCh * kCh; e += kCThreads)
+    winv_s[e] = __fmul_rn(__bfloat162float(m_s[e]), st_s[kCh + e % kCh]);
+  __syncthreads();
+  // mm = (m inv) . m^T: rows c, columns c', depth d
+  ffma_gemm(winv_s, View{kCh, 0, kCh, 1}, m_s, View{kCh, 0, kCh, 1}, kCh, kCh, kCh,
+            [&](int c, int n, float v0, float v1) { store2(mm_s + c * kCh + n, v0, v1); });
+  if (threadIdx.x < kCh) {  // bias = (mean inv) . m^T
+    float b = 0.f;
+    for (int d = 0; d < kCh; ++d)
+      b = fmaf(st_s[2 * kCh + d], __bfloat162float(m_s[threadIdx.x * kCh + d]), b);
+    st_s[3 * kCh + threadIdx.x] = b;
+  }
+  __syncthreads();
+  float* o = out + i0 * kS * kCh;
+  const float* bias = st_s + 3 * kCh;
+  ffma_gemm(g_s, vg, mm_s, View{kCh, 0, 1, kCh}, 4 * kS, kCh, kCh,
+            [&](int mi, int n, float v0, float v1) {
+              store2(o + mi * kCh + n, __fadd_rn(__fsub_rn(v0, bias[n]), v0),
+                     __fadd_rn(__fsub_rn(v1, bias[n + 1]), v1));
+            });
+}
+
+// Chain 6: block r owns y [4r, 4r + 4) of a = q . m, stored [x][y][m1];
+// then x [4r, 4r + 4) of bb = a' . k2.
+__device__ __forceinline__ void chain_transp(unsigned char* sm, cg::cluster_group& cluster,
+                                             const bf16* q, const bf16* k2, const bf16* m,
+                                             float* out) {
+  const int r = static_cast<int>(cluster.block_rank()), y0 = 4 * r, x0 = 4 * r;
+  bf16* q_s = reinterpret_cast<bf16*>(sm);  // [y 4][c 64][x kL40]
+  bf16* m_s = q_s + 4 * kCh * kL40;         // [c][kL72]
+  bf16* k2_s = m_s + kCh * kL72;            // [l][y]
+  float* s_s = reinterpret_cast<float*>(k2_s + kS * kS);  // a': [x 32][y 4][m1 64]
+  float* g_s = s_s + kS * 4 * kCh;                        // [x 4][y 32][m1 64]
+  load_rows(q_s, kL40, q + y0 * kCh * kS, kS, 4 * kCh, kS);
+  load_rows(m_s, kL72, m, kCh, kCh, kCh);
+  load_rows(k2_s, kS, k2, kS, kS, kS);
+  lns::cp_async_commit();
+  lns::cp_async_wait<0>();
+  __syncthreads();
+  // a = q . m: rows (y, x), columns m1, depth c, stored with y and x swapped
+  mma_gemm<true, true, 2, 4>(q_s, View{kS, kCh * kL40, 1, kL40}, m_s, View{kCh, 0, 1, kL72},
+                             4 * kS, kCh, kCh, [&](int mi, int n, float v0, float v1) {
+                               store2(s_s + (mi % kS * 4 + mi / kS) * kCh + n, v0, v1);
+                             });
+  cluster.sync();
+  for (int p = 0; p < kP; ++p)  // g[x][4p + y][m1] = a' of peer p at [x0 + x][y][m1]
+    pull(reinterpret_cast<const unsigned char*>(cluster.map_shared_rank(s_s, p)),
+         reinterpret_cast<unsigned char*>(g_s), 4, 4 * kCh * kF,
+         [&](int j) { return kF * (x0 + j) * 4 * kCh; },
+         [&](int j) { return kF * (j * kS + 4 * p) * kCh; });
+  cluster.sync();
+  // bb = a' . k2: rows (x, m1), columns l, depth y, in f32
+  float* o = out + x0 * kCh * kS;
+  ffma_gemm(g_s, View{kCh, kS * kCh, 1, kCh}, k2_s, View{kS, 0, kS, 1}, 4 * kCh, kS, kS,
+            [&](int mi, int n, float v0, float v1) { store2(o + mi * kS + n, v0, v1); });
+}
+
+template <int kCase>
+__global__ void __launch_bounds__(kCThreads, 1)
+dot_chain_kernel(const bf16* __restrict__ u, const bf16* __restrict__ k2,
+                 const bf16* __restrict__ k3, const bf16* __restrict__ q,
+                 const bf16* __restrict__ m, void* __restrict__ out) {
+  extern __shared__ uint4 smem_chain[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(smem_chain);
+  cg::cluster_group cluster = cg::this_cluster();
+  if constexpr (kCase == kApply || kCase == kScrBf16 || kCase == kScrF32) {
+    chain_by_c<kCase>(sm, cluster, u, k2, k3, m, out);
+  } else if constexpr (kCase == kProjF || kCase == kMomentsF) {
+    chain_by_h<kCase>(sm, cluster, u, k2, k3, m, static_cast<float*>(out));
+  } else if constexpr (kCase == kScr2) {
+    chain_scr2(sm, cluster, u, k2, k3, m, static_cast<float*>(out));
+  } else {
+    chain_transp(sm, cluster, q, k2, m, static_cast<float*>(out));
+  }
+}
+
+template <int kCase>
+cudaError_t launch_chain(const void* u, const void* k2, const void* k3, const void* q,
+                         const void* m, void* out, cudaStream_t stream) {
+  constexpr int smem = chain_smem(kCase);
+  cudaError_t e = lns::allow_smem(dot_chain_kernel<kCase>, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kP);
+  cfg.blockDim = dim3(kCThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kP;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, dot_chain_kernel<kCase>, static_cast<const bf16*>(u),
+                         static_cast<const bf16*>(k2), static_cast<const bf16*>(k3),
+                         static_cast<const bf16*>(q), static_cast<const bf16*>(m), out);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// dot_general's limits (the one statement of them): nullptr when it takes
+// the layout, dtypes and epilogue, else the limit they break. Dtype codes:
+// 0 f32, 1 bf16.
+extern "C" const char* lns_dot_general_limit(const long long* l, int a_dtype, int b_dtype,
+                                             int out_dtype, int epilogue) {
+  static thread_local char msg[200];
+  const long long m = l[kM1] * l[kM2], n = l[kN1] * l[kN2];
+  const long long mt = (m + kT - 1) / kT, nt = (n + kT - 1) / kT;
+  if (a_dtype < 0 || a_dtype > 1 || b_dtype < 0 || b_dtype > 1 || out_dtype < 0 || out_dtype > 1) {
+    snprintf(msg, sizeof msg, "bf16 or f32 operands and output, got dtype codes %d, %d, %d",
+             a_dtype, b_dtype, out_dtype);
+  } else if (epilogue < kStore || epilogue > kMoments) {
+    snprintf(msg, sizeof msg, "an epilogue of store, sum_batch or moments, got code %d", epilogue);
+  } else if (l[kNb] < 1 || l[kM1] < 1 || l[kM2] < 1 || l[kN1] < 1 || l[kN2] < 1 || l[kK] < 1) {
+    snprintf(msg, sizeof msg, "every size at least 1");
+  } else if (m > 2147483647LL || n > 2147483647LL || l[kK] > 2147483647LL) {
+    snprintf(msg, sizeof msg, "m, n and k below 2^31, got %lld, %lld, %lld", m, n, l[kK]);
+  } else if (epilogue == kMoments && (l[kNb] != 1 || out_dtype != 0)) {
+    snprintf(msg, sizeof msg, "the moments epilogue without a batch dim and with an f32 output");
+  } else if (epilogue != kMoments && mt > 65535) {
+    snprintf(msg, sizeof msg, "at most 65535 tiles of %d output rows (the grid's y), got %lld",
+             kT, mt);
+  } else if (epilogue == kStore && l[kNb] > 65535) {
+    snprintf(msg, sizeof msg, "a batch of at most 65535 (the grid's z), got %lld", l[kNb]);
+  } else if (nt > 2147483647LL) {
+    snprintf(msg, sizeof msg, "fewer than 2^31 tiles of %d output columns", kT);
+  } else {
+    return nullptr;
+  }
+  return msg;
+}
+
+// Launch dot_general; feeds (host memory, two ints) receives each operand's
+// feed (0 straight, 1 transposed, 2 staged, 3 f32 on the CUDA cores).
+extern "C" int lns_dot_general(const long long* l, int a_dtype, int b_dtype, int out_dtype,
+                               int epilogue, const void* a, const void* b, void* out, int* feeds,
+                               void* stream) {
+  if (lns_dot_general_limit(l, a_dtype, b_dtype, out_dtype, epilogue)) return cudaErrorInvalidValue;
+  const bool tc = a_dtype == 1 && b_dtype == 1;
+  DgParams p;
+  p.a = {a, l[kSa], l[kSa + 1], l[kSa + 2], l[kSa + 3], static_cast<int>(l[kM2]),
+         feed_of(a, l + kSa, static_cast<int>(l[kM2]), static_cast<int>(l[kK]), tc), a_dtype};
+  p.b = {b, l[kSb], l[kSb + 1], l[kSb + 2], l[kSb + 3], static_cast<int>(l[kN2]),
+         feed_of(b, l + kSb, static_cast<int>(l[kN2]), static_cast<int>(l[kK]), tc), b_dtype};
+  p.out = out;
+  p.nb = static_cast<int>(l[kNb]);
+  p.m = static_cast<int>(l[kM1] * l[kM2]);
+  p.n = static_cast<int>(l[kN1] * l[kN2]);
+  p.k = static_cast<int>(l[kK]);
+  p.epi = epilogue;
+  p.out_bf = out_dtype;
+  if (feeds) {
+    feeds[0] = p.a.feed;
+    feeds[1] = p.b.feed;
+  }
+  const int m_tiles = (p.m + kT - 1) / kT;
+  p.cl = epilogue == kSumBatch ? std::min(kMaxCluster, p.nb)
+         : epilogue == kMoments ? std::min(kMaxCluster, m_tiles) : 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((p.n + kT - 1) / kT, epilogue == kMoments ? 1 : m_tiles,
+                     epilogue == kStore ? p.nb : p.cl);
+  cfg.blockDim = dim3(kGThreads);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = p.cl;
+  cfg.attrs = &attr;
+  cfg.numAttrs = p.cl > 1;  // a cluster of one block launches without the attribute
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, tc ? dot_general_bf16 : dot_general_f32, p);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// dot_chain's limits: the chain's number, bf16 inputs (dtype code 1) and the
+// TPU probe's shape, C 64 and H = W = L = I = 32.
+extern "C" const char* lns_dot_chain_limit(int chain, int dtype, int c, int h, int w, int l,
+                                           int i) {
+  static thread_local char msg[200];
+  if (chain < 0 || chain >= kChains) {
+    snprintf(msg, sizeof msg, "a chain number in [0, %d), got %d", kChains, chain);
+  } else if (dtype != 1) {
+    snprintf(msg, sizeof msg, "bf16 inputs (the probe's dtype), got dtype code %d", dtype);
+  } else if (c != kCh || h != kS || w != kS || l != kS || i != kS) {
+    snprintf(msg, sizeof msg,
+             "C %d and H = W = L = I = %d (the probe's shape; a cluster of %d blocks of at most "
+             "%d bytes of shared memory), got C %d, H %d, W %d, L %d, I %d",
+             kCh, kS, kP, chain_smem(kScr2), c, h, w, l, i);
+  } else {
+    return nullptr;
+  }
+  return msg;
+}
+
+// Launch chain `chain` (one cluster of 8 blocks) on `stream`; q is read by
+// chain 6 only, u and k3 by the others.
+extern "C" int lns_dot_chain(int chain, const void* u, const void* k2, const void* k3,
+                             const void* q, const void* m, void* out, void* stream) {
+  if (lns_dot_chain_limit(chain, 1, kCh, kS, kS, kS, kS)) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (chain) {
+    case kApply: return launch_chain<kApply>(u, k2, k3, q, m, out, s);
+    case kProjF: return launch_chain<kProjF>(u, k2, k3, q, m, out, s);
+    case kMomentsF: return launch_chain<kMomentsF>(u, k2, k3, q, m, out, s);
+    case kScrBf16: return launch_chain<kScrBf16>(u, k2, k3, q, m, out, s);
+    case kScrF32: return launch_chain<kScrF32>(u, k2, k3, q, m, out, s);
+    case kScr2: return launch_chain<kScr2>(u, k2, k3, q, m, out, s);
+    default: return launch_chain<kTransp>(u, k2, k3, q, m, out, s);
+  }
+}

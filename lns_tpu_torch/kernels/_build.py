@@ -31,6 +31,8 @@ _SIGNATURES = {
     "lns_axial_apply": [_I] * 3 + [_P] * 5 + [_I] * 6 + [ctypes.c_float, _P],
     "lns_blocked_copy": [_P] * 2 + [_I] * 3 + [ctypes.c_longlong, _P],
     "lns_bmm": [_I] + [_P] * 3 + [_I] * 3 + [_P],
+    "lns_dot_chain": [_I] + [_P] * 7,
+    "lns_dot_general": [_P] + [_I] * 4 + [_P] * 5,
     "lns_fab_core": [_I] + [_P] * 15 + [_I] * 7 + [ctypes.c_float, _P],
     "lns_fab_mega_apply": [_P] * 6 + [_I] * 2 + [_P],
     "lns_fab_mega_stats": [_P] * 5 + [_I] * 2 + [_P],
@@ -80,6 +82,22 @@ def on_cuda(t: torch.Tensor, name: str, *inputs) -> bool:
                            "fused_group_norm_swish, and fab_axial_in_fused with the norm off, "
                            "stats=True and heads_last=True)")
     return True
+
+
+def ready(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """t contiguous in `dtype`, from a 16-byte boundary (the kernels that
+    take it load 16-byte pieces)."""
+    t = t.to(dtype).contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def check_shapes(name: str, dev, expect: dict) -> None:
+    """Raise unless each tensor of `expect` ({arg: (tensor, shape)}) has its
+    shape and lies on `dev`."""
+    for arg, (t, shape) in expect.items():
+        if tuple(t.shape) != tuple(shape) or t.device != dev:
+            raise ValueError(f"{name}: {arg} must be {tuple(shape)} on {dev}, "
+                             f"got {tuple(t.shape)} on {t.device}")
 
 
 def cuda_tool(name: str = "nvcc") -> str:
@@ -156,6 +174,10 @@ def library() -> ctypes.CDLL:
         lib.lns_axial_limit.restype = ctypes.c_char_p
         lib.lns_blocked_copy_limit.argtypes = [ctypes.c_int] * 3 + [ctypes.c_longlong]
         lib.lns_blocked_copy_limit.restype = ctypes.c_char_p
+        lib.lns_dot_chain_limit.argtypes = [ctypes.c_int] * 7
+        lib.lns_dot_chain_limit.restype = ctypes.c_char_p
+        lib.lns_dot_general_limit.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4
+        lib.lns_dot_general_limit.restype = ctypes.c_char_p
         for name in ("lns_fab_mega_limit", "lns_interior_dot_limit"):
             getattr(lib, name).argtypes = [ctypes.c_int] * 5
             getattr(lib, name).restype = ctypes.c_char_p

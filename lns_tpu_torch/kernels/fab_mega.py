@@ -57,24 +57,10 @@ def interior_dot_plain(kx, a):
     return torch.einsum("ih,lhc->ilc", kx.to(a.dtype).float(), a.float()).to(a.dtype)
 
 
-def _ready(t, dtype):
-    """t contiguous in `dtype`, from a 16-byte boundary (the kernels load
-    16-byte pieces)."""
-    t = t.to(dtype).contiguous()
-    return t.clone() if t.data_ptr() % 16 else t
-
-
 def _limit(fn, name, dtype, *dims):
     msg = fn(_build.DTYPE_CODE.get(dtype, -1), *dims)
     if msg:
         raise ValueError(f"{name}: {str(dtype)[6:]} at {list(dims)} needs {msg.decode()}")
-
-
-def _check_shapes(name, dev, expect):
-    for arg, (t, shape) in expect.items():
-        if tuple(t.shape) != shape or t.device != dev:
-            raise ValueError(f"{name}: {arg} must be {shape} on {dev}, "
-                             f"got {tuple(t.shape)} on {t.device}")
 
 
 def fab_mega_stats(u_t, kx, ky):
@@ -88,11 +74,11 @@ def fab_mega_stats(u_t, kx, ky):
         raise ValueError("fab_mega_stats: u_t must be [b, w, h, c] and kx [b, n, h, h]")
     b, w, h, c = u_t.shape
     n = kx.shape[1]
-    _check_shapes("fab_mega_stats", u_t.device, {"kx": (kx, (b, n, h, h)),
-                                                 "ky": (ky, (b, n, w, w))})
+    _build.check_shapes("fab_mega_stats", u_t.device, {"kx": (kx, (b, n, h, h)),
+                                                       "ky": (ky, (b, n, w, w))})
     lib = _build.library()
     _limit(lib.lns_fab_mega_limit, "fab_mega_stats", u_t.dtype, b, h, w, c)
-    u_t, kx, ky = (_ready(t, u_t.dtype) for t in (u_t, kx, ky))
+    u_t, kx, ky = (_build.ready(t, u_t.dtype) for t in (u_t, kx, ky))
     g = torch.empty((b, n, c, c), device=u_t.device, dtype=torch.float32)
     s = torch.empty((b, n, c), device=u_t.device, dtype=torch.float32)
     rc = lib.lns_fab_mega_stats(u_t.data_ptr(), kx.data_ptr(), ky.data_ptr(), g.data_ptr(),
@@ -117,12 +103,12 @@ def fab_mega_apply(u_t, kx, ky, m, bias):
         raise ValueError("fab_mega_apply: u_t must be [b, w, h, c] and kx [b, n, h, h]")
     b, w, h, c = u_t.shape
     n = kx.shape[1]
-    _check_shapes("fab_mega_apply", u_t.device, {
+    _build.check_shapes("fab_mega_apply", u_t.device, {
         "kx": (kx, (b, n, h, h)), "ky": (ky, (b, n, w, w)), "m": (m, (b, n, c, c)),
         "bias": (bias, (b, c))})
     lib = _build.library()
     _limit(lib.lns_fab_mega_limit, "fab_mega_apply", u_t.dtype, b, h, w, c)
-    u_t, kx, ky, m, bias = (_ready(t, u_t.dtype) for t in (u_t, kx, ky, m, bias))
+    u_t, kx, ky, m, bias = (_build.ready(t, u_t.dtype) for t in (u_t, kx, ky, m, bias))
     out = torch.empty((b, h * w, c), device=u_t.device, dtype=u_t.dtype)
     rc = lib.lns_fab_mega_apply(u_t.data_ptr(), kx.data_ptr(), ky.data_ptr(), m.data_ptr(),
                                 bias.data_ptr(), out.data_ptr(), b, n,
@@ -145,10 +131,10 @@ def interior_dot(kx, a):
         raise ValueError("interior_dot: kx must be [i, k] and a [l, k, c]")
     l_dim, k, c = a.shape
     i = kx.shape[0]
-    _check_shapes("interior_dot", a.device, {"kx": (kx, (i, k))})
+    _build.check_shapes("interior_dot", a.device, {"kx": (kx, (i, k))})
     lib = _build.library()
     _limit(lib.lns_interior_dot_limit, "interior_dot", a.dtype, l_dim, i, k, c)
-    kx, a = _ready(kx, a.dtype), _ready(a, a.dtype)
+    kx, a = _build.ready(kx, a.dtype), _build.ready(a, a.dtype)
     out = torch.empty((i, l_dim, c), device=a.device, dtype=a.dtype)
     rc = lib.lns_interior_dot(kx.data_ptr(), a.data_ptr(), out.data_ptr(), l_dim,
                               torch.cuda.current_stream(a.device).cuda_stream)

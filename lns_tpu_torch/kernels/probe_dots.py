@@ -1,0 +1,221 @@
+"""The TPU probe's nineteen dot orientations and FAB chains, on the card.
+
+    python3 -m lns_tpu_torch.kernels.probe_dots [case ...]
+
+Port of ``benchmarks/probe_mosaic_dots.py`` (all its cases by default, as its
+``main()``), at its shapes (C = 64, H = W = L = I = 32) on seeded
+``torch.randn`` inputs in bf16: twelve cases through ``dot_general``, seven
+through ``dot_chain`` (``csrc/mosaic_dots.cu``). Per case it prints PASS or
+FAIL against the plain version (``tolerance``; a chain's two runs bitwise equal
+too), its time by CUDA events and its device time by CUDA-graph replays, the
+bound (the case's operations at the H100's bf16 tensor-core and f32 rates,
+or its bytes at 3.35 TB/s, whichever is larger) with its share of the device
+time, the plain version's time, the library time (one ``torch.einsum`` for a
+single dot, on f32 copies of the operands where the output is f32; the plain
+version's einsum chain for the moments and the chains) and each operand's
+feed (straight, transposed, staged, or f32 on the CUDA cores). With no case
+named it then times the handoff of bb three ways at one sample and head
+(``handoffs``). Ends with one JSON line; exits 1 on a FAIL or where there is
+no CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import torch
+
+from lns_tpu_torch.kernels import _probe
+from lns_tpu_torch.kernels.mosaic_dots import (CASES, CHAIN_FEEDS, SHAPES, _letters, dot_general,
+                                               run_case)
+
+C, S = 64, 32
+# operations per chain, (bf16 on tensor cores, f32 on CUDA cores): 2 per
+# multiply-add of each product (the elementwise work left out)
+_APPLY, _PAIR = 2 * C * S * S * S, 2 * S * S * C * C  # one axial apply; one c -> o product
+CHAIN_FLOPS = {
+    "apply_chain": (2 * _APPLY + _PAIR, 0),
+    "chain_projf_f32": (_PAIR + 2 * _APPLY, 0),
+    "chain_moments_f32": (_PAIR + 2 * _APPLY, 0),
+    "scr_bf16_f32": (2 * _APPLY + _PAIR, 0),
+    "scr_f32_f32": (2 * _APPLY, _PAIR),
+    "chain_scr2_f32": (0, 2 * _APPLY + 2 * _PAIR + 2 * C ** 3 + 2 * C * C),
+    "transp_chain_f32": (_PAIR, _APPLY),
+}
+CHAIN_INPUTS = {k: ("u", "k2", "k3", "m") for k in CHAIN_FLOPS}
+CHAIN_INPUTS["transp_chain_f32"] = ("q", "m", "k2")
+
+BF16_ULP = 2.0 ** -7  # one bf16 ulp of max|plain| is at most 2^-7 x max|plain|
+
+
+def tolerance(key):
+    """(rel_tol x max|plain|, share of elements that may differ) of a case's
+    kernel against its plain version: bf16 outputs of one product one ulp in
+    at most 1 % (a sum in another order rounds the other way); f32 outputs
+    with no bf16 rounding after a sum 1e-5 (sum order; the tensor cores add
+    with their own alignment); the moments 1e-3 (a phi or phi^2 rounded the
+    other way moves its column's sum by its ulp); the chains with bf16
+    intermediates 1e-2 with at most 2 % differing (a rounding flip
+    propagates through the later products)."""
+    spec = CASES[key]
+    if key in ("apply_chain", "chain_projf_f32", "scr_bf16_f32", "scr_f32_f32"):
+        return 1e-2, 0.02 if spec.out_dtype == torch.bfloat16 else 1.0
+    if spec.epilogue == "moments" or key == "chain_moments_f32":
+        return 1e-3, 1.0
+    if spec.out_dtype == torch.bfloat16:
+        return BF16_ULP, 0.01
+    return 1e-5, 1.0
+
+
+def inputs(dev, seed: int = 0):
+    """The TPU probe's inputs, seeded normal values in bf16, by name."""
+    gen = torch.Generator().manual_seed(seed)
+    return {k: torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+            for k, shape in SHAPES.items()}
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def work(key, x, out):
+    """(bf16 FLOP, f32 FLOP, bytes) of one call of case `key`: its products'
+    operations, each input read once and the output written once."""
+    spec = CASES[key]
+    if spec.route == "dot_chain":
+        return (*CHAIN_FLOPS[key], _nbytes(*(x[k] for k in CHAIN_INPUTS[key]), out))
+    a, b = x[spec.lhs], x[spec.rhs]
+    # multiply-adds: out elements x k = a.numel() x (b.numel() / k) / batch
+    flops = 2 * a.numel() * (b.numel() // b.shape[spec.contract[1][0]])
+    if spec.batch[0]:
+        flops //= a.shape[spec.batch[0][0]]
+    ins = (a,) if a is b else (a, b)
+    return flops, 0, _nbytes(*ins, out)
+
+
+def bound_ms(bf16_flops, f32_flops, nbytes):
+    """The least time on an H100: the operations at their types' peaks, or
+    the bytes at the memory rate, whichever is larger; and which."""
+    ops = (bf16_flops / _probe.PEAK_BF16 + f32_flops / _probe.PEAK_F32) * 1e3
+    by_bytes = nbytes / _probe.PEAK_BYTES * 1e3
+    return max(ops, by_bytes), "operations" if ops >= by_bytes else "bytes"
+
+
+def library(key, x):
+    """One PyTorch call of the same function where there is one (a single
+    dot: torch.einsum, on f32 copies where the output is f32), else the
+    plain version's einsum chain."""
+    spec = CASES[key]
+    if spec.route == "dot_chain" or spec.epilogue == "moments":
+        return lambda: run_case(key, x, plain=True)
+    a, b = x[spec.lhs], x[spec.rhs]
+    eq = _letters(a, b, spec.contract, spec.batch)
+    if spec.epilogue == "sum_batch":
+        eq = eq.replace("->n", "->")
+    if spec.out_dtype == torch.float32:
+        a, b = a.float(), b.float()
+    return lambda: torch.einsum(eq, a, b)
+
+
+def feeds(key, on_card):
+    """How the case's operands reached the tensor cores (a chain's per stage)."""
+    spec = CASES[key]
+    if spec.route == "dot_chain":
+        return CHAIN_FEEDS[key]
+    if not on_card:
+        return "none (the plain version on the CPU)"
+    return f"lhs {spec.lhs} {dot_general.feeds[0]}, rhs {spec.rhs} {dot_general.feeds[1]}"
+
+
+def run(dev, keys=None, timed: bool = True, seed: int = 0):
+    """Each case in `keys` (all by default) on the kernels, held to its plain
+    version; with `timed`, a chain's second run bitwise, and every case's
+    times, bound and library time. Returns {case: {"ok", "route", "feeds",
+    ...}}."""
+    x = inputs(dev, seed)
+    res = {}
+    for key in keys or CASES:
+        spec = CASES[key]
+        out = run_case(key, x)
+        row = {"route": spec.route, "feeds": feeds(key, out.is_cuda)}
+        rel, differ = tolerance(key)
+        ok = _probe.held(f"{key} ({spec.desc}) {spec.route}", out, run_case(key, x, plain=True),
+                         rel, differ)
+        print(f"      {key}: feeds {row['feeds']}", flush=True)
+        if timed:
+            if spec.route == "dot_chain":
+                again = torch.equal(out, run_case(key, x))
+                print(f"{'PASS' if again else 'FAIL'} {key}: two runs bitwise equal", flush=True)
+                ok &= again
+            fn = lambda: run_case(key, x)  # noqa: E731
+            bound, by = bound_ms(*work(key, x, out))
+            row.update(ms=_probe.events_ms(fn), device_ms=_probe.graph_ms(fn),
+                       plain_ms=_probe.events_ms(lambda: run_case(key, x, plain=True)),
+                       library_ms=_probe.events_ms(library(key, x)), bound_ms=bound, bound_by=by)
+            print(f"      {key}: {row['ms']:.4f} ms by events, {row['device_ms']:.4f} ms device "
+                  f"(graph replays), bound {bound * 1e3:.3f} us ({by}; "
+                  f"{bound / row['device_ms']:.2%} of the device time), plain "
+                  f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms", flush=True)
+        row["ok"] = ok
+        res[key] = row
+    return res
+
+
+def handoffs(dev, seed: int = 1):
+    """bb handed from one product to the next three ways, at the one shape
+    the designs share (32x32, c 64, one sample, one head, bf16), by device
+    ms of CUDA-graph replays: ``dot_chain`` (apply_chain: bb through
+    distributed shared memory; chain_scr2_f32: the whole chain with its
+    statistics, in f32), ``fab_mega_stats`` + ``fab_mega_apply`` (bb
+    recomputed in each pass) and kernel 2 (``fab_fused_core``, d 64: bb
+    through a scratch in device memory, four launches). Each computes
+    another function; an indication, not a like-for-like comparison."""
+    from lns_tpu_torch.kernels.fab_core import fab_fused_core
+    from lns_tpu_torch.kernels.fab_mega import fab_mega_apply, fab_mega_stats
+    from lns_tpu_torch.kernels.mosaic_dots import dot_chain
+
+    x = inputs(dev, seed)
+    gen = torch.Generator().manual_seed(seed)
+    bf = torch.bfloat16
+    u = x["u"].permute(1, 2, 0).contiguous()[None]  # [1, h, w, c]
+    kx, ky = x["k3"][None, None], x["k2"][None, None]
+    m, bias = x["m"][None, None], torch.zeros(1, C, device=dev, dtype=bf)
+    w_in = (torch.randn(C, 1, C, generator=gen) / C ** 0.5).to(dev)
+    w_o1 = (torch.randn(1, C, C, generator=gen) / C ** 0.5).to(dev)
+    u_t = u.transpose(1, 2).contiguous()
+    forms = {
+        "dot_chain apply_chain (bb by DSMEM, 1 launch)":
+            lambda: dot_chain("apply_chain", *x.values()),
+        "dot_chain chain_scr2_f32 (with the statistics, f32, 1 launch)":
+            lambda: dot_chain("chain_scr2_f32", *x.values()),
+        "fab_mega_stats + fab_mega_apply (bb recomputed, 2 launches)":
+            lambda: (fab_mega_stats(u_t, kx, ky), fab_mega_apply(u_t, kx, ky, m, bias)),
+        "kernel 2 fab_fused_core (bb scratch, 4 launches)":
+            lambda: fab_fused_core(u.to(bf), kx, ky, w_in, w_o1),
+    }
+    res = {}
+    for label, fn in forms.items():
+        res[label] = _probe.graph_ms(fn)
+        print(f"      handoff: {label}: {res[label]:.4f} ms device (graph replays)", flush=True)
+    return res
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("cases", nargs="*", help="case names to run (default: all)")
+    cli = ap.parse_args()
+    unknown = [k for k in cli.cases if k not in CASES]
+    if unknown:
+        ap.error(f"unknown cases {unknown}; the cases are {list(CASES)}")
+    dev, smi = _probe.card("probe_dots")
+    res = run(dev, cli.cases or None)
+    slowest = max(res, key=lambda k: res[k]["device_ms"])
+    print(f"slowest by device time: {slowest} ({res[slowest]['device_ms']:.4f} ms); {smi}")
+    hand = handoffs(dev) if not cli.cases else {}
+    print(json.dumps({"probe": "probe_dots", "card": smi, "results": res, "handoffs": hand}))
+    return 0 if all(r["ok"] for r in res.values()) else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
