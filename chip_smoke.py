@@ -8,6 +8,8 @@ helpers and the ports of the TPU probe scripts once on one CUDA card.
 
     python3 chip_smoke.py            # everything below, on one card
     python3 chip_smoke.py --ranks    # the 2- and 4-rank runs of phases 8 and 9 alone
+    python3 chip_smoke.py --parent DIR  # phase 10 also times the tree at DIR's
+                                        # copy and statistics pass
 
 Run from the root of a checkout, on a machine with an NVIDIA Hopper card,
 CUDA PyTorch and nvcc. It imports nothing of JAX. In order it:
@@ -18,8 +20,12 @@ CUDA PyTorch and nvcc. It imports nothing of JAX. In order it:
      HGMMA, from the toolkit's cuobjdump) in the bf16 code of the kernels
      that run on tensor cores (1, 2, 4, 5 and 6, the probe's FAB passes and
      interior dot, ``dot_general`` and the bf16 chains); a count of 0
-     fails; the f32 ``dot_general`` and ``chain_scr2_f32`` fail on any HMMA
-     (TF32) or on no FFMA;
+     fails (of HGMMA for kernel 2 and ``fab_mega_stats``, on ``wgmma``);
+     the f32 ``dot_general`` and ``chain_scr2_f32`` fail on any HMMA
+     (TF32) or on no FFMA; the bulk route of ``blocked_copy`` must show
+     UBLKCP (TMA bulk copies), and ``csrc/fab_mega.cu`` compiled alone with
+     ``-Xptxas -v`` no note that ptxas serialized ``fab_mega_stats``'s
+     ``wgmma``;
   3. holds each of the seven hand-written kernels against its plain PyTorch
      version on the card, at the shapes the paths give it (and, for the
      library kernels off the paths, at the TPU package's shapes; kernels 1,
@@ -181,7 +187,12 @@ CUDA PyTorch and nvcc. It imports nothing of JAX. In order it:
      launch counts, then holds each of their six kernels at its probe's
      shape against its plain version and times it beside its bound and
      library call: ``blocked_copy`` at [928, 2, 128, 2048] bf16 and at the
-     reshapes (bitwise), ``fab_mega_stats`` (G and s 1e-3 x max|plain|),
+     reshapes (bitwise; at every s of ``probe_bw``'s sweep on both routes,
+     as C reports them: the bulk one for these rows, the per-thread one for
+     rows of odd bytes), ``fab_mega_stats`` (G and s 1e-3 x max|plain|, at
+     b116 n8, twice bitwise, and at b1 n1 and b3 n5), the device ms of both
+     (with ``--parent DIR``, a ``git archive`` of the parent commit, also
+     the parent tree's, by ``probe_axial.py --tree DIR``),
      ``fab_mega_apply`` and ``interior_dot`` (1e-2, at most 2 % differing);
      kernel 7 at the probes' transpose bitwise, kernel 6 at their dot to
      its tolerances; ``dot_general`` and ``dot_chain`` at each of the 19
@@ -303,12 +314,17 @@ TENSOR_CORE_KERNELS = {"prop_rollout": ("rollout_bf16",),
                        "fab_axial_in_fused": ("axial_tcI13__nv_bfloat16Lb1",),
                        "axial_kernel_apply_headmajor": ("axial_tcI13__nv_bfloat16Lb0",),
                        "bmm_blockdiag": ("bmm_bf16_kernel",),
-                       "fab_mega": ("fab_mega_stats_kernel", "fab_mega_apply_kernel",
-                                    "interior_dot_kernel"),
+                       "fab_mega": ("fab_mega_apply_kernel", "interior_dot_kernel"),
+                       "fab_mega_stats": ("fab_mega_stats_wgmma",),
                        "mosaic_dots": ("dot_general_bf16",
                                        *(f"dot_chain_kernelILi{c}E" for c in (0, 1, 2, 3, 4, 6)))}
 # the kernels whose products must run on wgmma (HGMMA; HMMA alone fails)
-WGMMA_KERNELS = ("fab_core",)
+WGMMA_KERNELS = ("fab_core", "fab_mega_stats")
+# the kernels that must copy by TMA bulk copies (UBLKCP in their SASS), and
+# the sources whose wgmma kernels ptxas must not serialize (its notes C7514,
+# C7515, C7520 naming one of them fail)
+BULK_COPY_KERNELS = ("blocked_copy_bulk",)
+UNSERIALIZED_WGMMA = {"fab_mega.cu": ("fab_mega_stats_wgmma",)}
 # the f32 instantiations whose products must stay in full f32 on the CUDA
 # cores: FFMA, and no HMMA or HGMMA (which would mean TF32)
 CUDA_CORE_KERNELS = {"mosaic_dots": ("dot_general_f32", "dot_chain_kernelILi5E")}
@@ -320,7 +336,8 @@ def check_tensor_cores():
     toolkit's cuobjdump from the built library; fails on a count of 0 (of
     HGMMA alone for the kernels in WGMMA_KERNELS) or a missing cuobjdump.
     The f32 instantiations of CUDA_CORE_KERNELS fail on any HMMA or HGMMA,
-    or on no FFMA."""
+    or on no FFMA; BULK_COPY_KERNELS on no UBLKCP; UNSERIALIZED_WGMMA on a
+    ptxas note that serializes one of its kernels' wgmma."""
     from lns_tpu_torch.kernels import _build
 
     try:
@@ -330,13 +347,13 @@ def check_tensor_cores():
         return
     sass = subprocess.run([tool, "-sass", str(_build.library_path())], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    per_fn, fn = {}, None  # {function: [HMMA, HGMMA, FFMA]}
+    per_fn, fn = {}, None  # {function: [HMMA, HGMMA, FFMA, UBLKCP]}
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            per_fn.setdefault(fn, [0, 0, 0])
+            per_fn.setdefault(fn, [0, 0, 0, 0])
         elif fn is not None:
-            for i, op in enumerate(("HMMA", "HGMMA", "FFMA")):
+            for i, op in enumerate(("HMMA", "HGMMA", "FFMA", "UBLKCP")):
                 per_fn[fn][i] += op in line
     for kernel, parts in TENSOR_CORE_KERNELS.items():
         wgmma = kernel in WGMMA_KERNELS
@@ -355,6 +372,32 @@ def check_tensor_cores():
                    f"CUDA cores: {kernel} f32 {part}: HMMA/HGMMA "
                    f"{sum(k[0] + k[1] for k in found.values())}, FFMA "
                    f"{sum(k[2] for k in found.values())} in {len(found)} instantiation(s)")
+    for part in BULK_COPY_KERNELS:
+        found = {f: k[3] for f, k in per_fn.items() if part in f}
+        _check(bool(found) and all(found.values()),
+               f"bulk copies: {part}: {sum(found.values())} UBLKCP in {len(found)} function(s)")
+    for source, parts in UNSERIALIZED_WGMMA.items():
+        notes = ptxas_notes(source)
+        for part in parts:
+            bad = [n for n in notes
+                   if part in n and any(c in n for c in ("C7514", "C7515", "C7520"))]
+            _check(not bad, f"wgmma: ptxas serializes none of {part}'s wgmma ({source}, "
+                            f"-Xptxas -v){': ' + bad[0] if bad else ''}")
+
+
+def ptxas_notes(source: str) -> list:
+    """ptxas's -v lines for one csrc/ source, compiled alone with the
+    library's flags into a scratch object (a few seconds)."""
+    import tempfile
+
+    from lns_tpu_torch.kernels import _build
+
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        out = subprocess.run([_build.cuda_tool(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                              os.path.join(tmp, "probe.o"), str(_build.SOURCE_DIR / source)],
+                             capture_output=True, text=True, timeout=600)
+    _check(out.returncode == 0, f"wgmma: nvcc -Xptxas -v {source} exit {out.returncode}")
+    return (out.stdout + out.stderr).splitlines()
 
 
 # -- phase 3: each kernel against its plain version --------------------------
@@ -4204,16 +4247,45 @@ PROBE_LAUNCHES = {"bmm_blockdiag": 7, "transpose_hw": 5, "blocked_copy": 7, "fab
                   "fab_mega_apply": 1, "interior_dot": 2, "dot_general": 12, "dot_chain": 7}
 
 
+def parent_ms(names):
+    """Device ms of `names` (``probe_axial.py``'s cases) in the tree that
+    ``--parent DIR`` names (a ``git archive`` of the parent commit), by
+    ``probe_axial.py --tree DIR`` in a process of its own, or None without
+    ``--parent``."""
+    if "--parent" not in sys.argv:
+        return None
+    tree = sys.argv[sys.argv.index("--parent") + 1]
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "lns_tpu_torch", "kernels",
+                          "probe_axial.py")
+    proc = subprocess.run([sys.executable, script, "--tree", tree, "--label", "parent", "--only",
+                           ",".join(names)], capture_output=True, text=True, timeout=600)
+    _check(proc.returncode == 0, f"probe_axial.py --tree {tree}: exit {proc.returncode}"
+                                 f"{'' if proc.returncode == 0 else ': ' + proc.stderr[-2000:]}")
+    if proc.returncode:
+        return None
+    times = json.loads(proc.stdout.strip().splitlines()[-1])["times"]
+    return {k: times[k]["device_ms"] for k in names}
+
+
+def _parent_text(parent, name):
+    if parent is None:
+        return "the parent tree not measured (python3 chip_smoke.py --parent DIR times it)"
+    return f"the parent tree {parent[name]:.4f} ms (probe_axial.py --tree)"
+
+
 def check_probes(dev):
     """The kernels of the TPU probe scripts' ports: each launch count set to
     0, one untimed run of ``probe_layouts``, ``probe_fab_mega`` (pieces and
     passes, b116), ``probe_bw`` (s = 2) and ``probe_dots`` (its 19 cases)
     with their own checks, the counts read; then each new kernel at its
     probe's shape held to its plain version and timed beside its bound and
-    library call (the copy and the reshapes bitwise, kernel 7's uses
-    bitwise, kernel 6's to its tolerances, G and s 1e-3 x max|plain|, the
-    apply pass and the interior dot 1e-2 with at most 2 % differing;
-    ``dot_general`` and ``dot_chain`` per case, ``check_mosaic_dots``).
+    library call (the copy and the reshapes bitwise, the copy on both
+    routes at every s and on rows of odd bytes, kernel 7's uses bitwise,
+    kernel 6's to its tolerances, G and s 1e-3 x max|plain| also at b1 n1
+    and b3 n5, the apply pass and the interior dot 1e-2 with at most 2 %
+    differing; the copy's and the statistics pass's device ms, and with
+    ``--parent DIR`` the parent tree's (``parent_ms``); ``dot_general`` and
+    ``dot_chain`` per case, ``check_mosaic_dots``).
     Returns (launches, {kernel: result})."""
     from lns_tpu_torch.kernels import probe_bw, probe_dots, probe_fab_mega, probe_layouts
     from lns_tpu_torch.kernels.axial_pipeline import (bmm_blockdiag, bmm_blockdiag_plain,
@@ -4250,6 +4322,8 @@ def check_probes(dev):
     label = f"blocked_copy bf16 {list(x.shape)} s=2 ({b // 2 * g} blocks)"
     err, ms, plain_ms = compare(label, lambda: blocked_copy(x, 2), lambda: blocked_copy_plain(x),
                                 0.0, max_differ=0.0)
+    _check(blocked_copy.route == "bulk", f"{label}: the bulk route (C reports "
+                                         f"{blocked_copy.route})")
     errs["blocked_copy"].append(err)
     y = torch.empty_like(x)
     res["blocked_copy"] = {"ms": ms, "plain_ms": plain_ms,
@@ -4257,7 +4331,35 @@ def check_probes(dev):
                            "library_ms": cuda_ms(lambda: y.copy_(x))}
     print(f"      {label}: {2 * _nbytes(x) / ms / 1e6:.1f} GB/s by events; Tensor.copy_ "
           f"{res['blocked_copy']['library_ms']:.4f} ms", flush=True)
-    del x, y
+    del y
+    # both routes at every s of the sweep, bitwise, on the route C reports:
+    # these rows take the bulk route; rows of a size that is no multiple of
+    # 16 bytes (odd ones too) the per-thread route
+    for name, a, route, samples in (
+            ("bf16 " + str(list(x.shape)), x, "bulk", probe_bw.SAMPLES),
+            ("uint8 [928, 2, 4099]", torch.randint(0, 256, (928, 2, 4099), generator=gen,
+                                                   dtype=torch.uint8).to(dev),
+             "threads", probe_bw.SAMPLES),
+            ("uint8 [5, 3, 7, 5]", (torch.rand(5, 3, 7, 5, generator=gen) * 100).to(dev, torch.uint8),
+             "threads", (1, 2, 4)),
+            ("bf16 [9, 2, 3, 7]", torch.randn(9, 2, 3, 7, generator=gen).to(dev, bf), "threads",
+             (1, 2, 4))):
+        row = math.prod(a.shape[2:]) * a.element_size()
+        for s in samples:
+            out = blocked_copy(a, s)
+            same = torch.equal(out, a)
+            _check(same and blocked_copy.route == route,
+                   f"blocked_copy {name} ({row}-byte rows) s={s}: {blocked_copy.route} route "
+                   f"(expected {route}), bitwise")
+            errs["blocked_copy"].append(0.0 if same else float("inf"))
+            del out
+    new_ms = graph_ms(lambda: blocked_copy(x, 2), calls=5)
+    parent = parent_ms(["blocked_copy bf16 [928,2,128,2048] s=2",
+                        "fab_mega_stats bf16 b116 n8 32x32 c64"])
+    print(f"      blocked_copy s=2 device: {new_ms:.4f} ms (this tree, bulk route); "
+          + _parent_text(parent, "blocked_copy bf16 [928,2,128,2048] s=2"), flush=True)
+    res["blocked_copy"]["device_ms"] = new_ms
+    del x
     for dt in (torch.float32, bf):  # the reshapes: a copy viewed anew, bitwise
         for shape, view in (((128, 32, 64), (128, 2048)), ((128, 2048), (128, 32, 64)),
                             ((32, 32, 64), (1024, 64)), ((32, 2048), (32, 32, 64))):
@@ -4285,11 +4387,30 @@ def check_probes(dev):
     _check(s_err <= 1e-3 * sp.abs().max().item(),
            f"fab_mega_stats {shape} s: max_abs_err {s_err:.3e} <= 1e-3 x max|plain| "
            f"({1e-3 * sp.abs().max().item():.3e})")
+    g2, s2 = fab_mega_stats(u_t, kx, ky)
+    _check(torch.equal(g2, gs) and torch.equal(s2, ss), f"fab_mega_stats {shape}: two runs bitwise")
     err, ms, plain_ms = compare(f"fab_mega_stats {shape} G", lambda: fab_mega_stats(u_t, kx, ky)[0],
                                 lambda: fab_mega_stats_plain(u_t, kx, ky)[0], 1e-3)
     res["fab_mega_stats"] = {"max_abs_err": max(err, s_err), "ms": ms, "plain_ms": plain_ms,
                              **Bound().add(flops, _nbytes(u_t, kx, ky, gs, ss)).result(),
                              "library_ms": cuda_ms(lambda: probe_fab_mega.einsum_stats(u, kx, ky))}
+    new_ms = graph_ms(lambda: fab_mega_stats(u_t, kx, ky))
+    print(f"      fab_mega_stats {shape} device: {new_ms:.4f} ms (this tree, a block per sample, "
+          "wgmma); " + _parent_text(parent, "fab_mega_stats bf16 b116 n8 32x32 c64"), flush=True)
+    res["fab_mega_stats"]["device_ms"] = new_ms
+    # the edges of the per-sample loop: one sample and head; 3 samples of 5
+    # heads (an odd head count: the kx, ky ring's two buffers in turn)
+    for eb, en in ((1, 1), (3, 5)):
+        eu = torch.randn(eb, w, h, c, generator=gen).to(dev, bf)
+        ekx = (torch.randn(eb, en, h, h, generator=gen) / h).to(dev, bf)
+        eky = (torch.randn(eb, en, w, w, generator=gen) / w).to(dev, bf)
+        eg, es = fab_mega_stats(eu, ekx, eky)
+        pg, ps = fab_mega_stats_plain(eu, ekx, eky)
+        e_g, e_s = (eg - pg).abs().max().item(), (es - ps).abs().max().item()
+        _check(e_g <= 1e-3 * pg.abs().max().item() and e_s <= 1e-3 * ps.abs().max().item(),
+               f"fab_mega_stats b{eb} n{en} {h}x{w} c{c}: G max_abs_err {e_g:.3e}, s {e_s:.3e} "
+               "<= 1e-3 x max|plain|")
+        res["fab_mega_stats"]["max_abs_err"] = max(res["fab_mega_stats"]["max_abs_err"], e_g, e_s)
     out = fab_mega_apply(u_t, kx, ky, m, bias)
     err, ms, plain_ms = compare(f"fab_mega_apply {shape}",
                                 lambda: fab_mega_apply(u_t, kx, ky, m, bias),

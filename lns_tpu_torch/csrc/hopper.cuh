@@ -1,6 +1,8 @@
-// Hopper (sm_90a) building blocks of the redesigned FAB core (fab_core.cu):
-// mbarriers, thread-block clusters, TMA tensor copies (with multicast to a
-// cluster), and warpgroup products (wgmma) from shared memory.
+// Hopper (sm_90a) building blocks of the redesigned kernels (fab_core.cu,
+// fab_mega.cu, blocked_copy.cu): mbarriers, thread-block clusters, TMA tensor
+// copies (with multicast to a cluster), 1-D bulk copies, stores of
+// 8 x 8 tiles from registers (stmatrix), and warpgroup products
+// (wgmma) from shared memory, or with A from registers.
 //
 // Shared-memory operands of wgmma are in the 128-byte swizzle layout that a
 // TMA copy with CU_TENSOR_MAP_SWIZZLE_128B writes: rows of 128 bytes (64
@@ -126,6 +128,32 @@ __device__ __forceinline__ void tma_store_commit() {
 __device__ __forceinline__ void tma_store_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
+
+// ---- 1-D bulk copies (TMA without a tensor map) ------------------------------
+// `bytes` a multiple of 16, both addresses on 16-byte boundaries.
+
+// bytes of global src into shared dst, completing on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+// bytes of shared src to global dst as part of this thread's open bulk group
+// (closed by tma_store_commit)
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_addr(src)), "r"(bytes)
+               : "memory");
+}
+// all but the newest N of this thread's committed bulk groups have finished
+// reading shared memory (their shared source may be written again)
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
 // shared-memory writes of this thread become visible to the async proxy
 // (TMA stores, wgmma operands)
 __device__ __forceinline__ void fence_async_shared() {
@@ -246,6 +274,37 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t a, uint64_t b
       : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
 }
 
+// D[64 x 64] += A . B with A (64 x 16, bf16) from registers: a[0..3] of
+// thread t hold rows 16 q + g and 16 q + g + 8, columns 2 u, 2 u + 1 and
+// 2 u + 8, 2 u + 9 (q = t / 32, lane = 4 g + u), in that order, as the
+// accumulators of two neighbouring n8 column blocks are laid out (so
+// pack(d[8 k .. 8 k + 7]) of an earlier product is the A of its columns
+// 16 k .. 16 k + 15); TB = 1 takes B MN-major
+template <int TB>
+__device__ __forceinline__ void wgmma_n64_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, "
+      "%9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
+      "%27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
+}
+
+// four 8 x 8 bf16 tiles from registers to shared memory: r[m] of lane
+// 4 g + u holds row g, columns 2 u, 2 u + 1 of tile m; lane 8 m + j gives the
+// address of the 16-byte row j of tile m
+__device__ __forceinline__ void stsm_x4(const void* row, uint32_t r0, uint32_t r1, uint32_t r2,
+                                        uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   smem_addr(row)),
+               "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
+}
 // D[64 x N] += A . B, f32 accumulators, N / 2 per thread (N in {8, 16, 32, 48, 64})
 template <int N, int TA, int TB>
 __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t a, uint64_t b) {

@@ -29,7 +29,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "lns_axial_apply": [_I] * 3 + [_P] * 5 + [_I] * 6 + [ctypes.c_float, _P],
-    "lns_blocked_copy": [_P] * 2 + [_I] * 3 + [ctypes.c_longlong, _P],
+    "lns_blocked_copy": [_P] * 2 + [_I] * 3 + [ctypes.c_longlong, ctypes.POINTER(_I), _P],
     "lns_bmm": [_I] + [_P] * 3 + [_I] * 3 + [_P],
     "lns_dot_chain": [_I] + [_P] * 7,
     "lns_dot_general": [_P] + [_I] * 4 + [_P] * 5,

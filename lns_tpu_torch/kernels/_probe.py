@@ -1,13 +1,17 @@
-"""What the card probes ``probe_bw``, ``probe_fab_mega`` and ``probe_layouts``
-share: the card and its kernel library, two clocks, and a check of a kernel
-against its plain version."""
+"""What the card probes (``probe_bw``, ``probe_fab_mega``, ``probe_layouts``,
+``probe_fab_core``) share: the card and its kernel library, two clocks, a
+check of a kernel against its plain version, device time by the profiler,
+and a library built from an edited copy of the sources."""
 
 from __future__ import annotations
 
+import shutil
 import subprocess
 import sys
 
 import torch
+
+from lns_tpu_torch.kernels import _build
 
 # the H100 SXM's published peaks (dense): bf16 tensor cores, f32 on CUDA
 # cores, HBM3 bytes. Shares are stated against these; a measured copy rate
@@ -22,8 +26,6 @@ def card(name: str):
     if not torch.cuda.is_available():
         print(f"{name}: no CUDA device; this probe runs only on the card", file=sys.stderr)
         raise SystemExit(1)
-    from lns_tpu_torch.kernels import _build
-
     _build.library()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -93,3 +95,58 @@ def held(name: str, out, ref, rel_tol: float = 0.0, max_differ: float = 1.0,
           f"{differ:.2%} of elements differ"
           + (f" (<= {max_differ:.0%})" if max_differ < 1 else ""), flush=True)
     return ok
+
+
+def kernel_ms(fn, keys, flush: bool = False, calls: int = 5) -> dict:
+    """Device ms per call of fn() of the kernels whose names contain each of
+    `keys` (summed over their launches), by ``torch.profiler`` over `calls`
+    calls after a warm-up one; with `flush`, each call follows a write of
+    128 MiB, which leaves none of its inputs in the 50 MB L2 (the write's
+    own kernel is not counted)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    buf = torch.empty(128 << 20, dtype=torch.uint8, device="cuda") if flush else None
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            if flush:
+                buf.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(keys, 0.0)
+    for e in prof.key_averages():
+        for key in keys:
+            if key in e.key:
+                out[key] += e.device_time_total / (1e3 * calls)
+    return out
+
+
+_SOURCE, _BUILD = _build.SOURCE_DIR, _build.BUILD_DIR  # the checkout's own
+
+
+def edited(src: str, edits, what: str) -> str:
+    """`src` with each (anchor, replacement) pair of `edits` applied in turn
+    to the first match of its anchor; raises if an anchor is not found."""
+    for anchor, new in edits:
+        if anchor not in src:
+            raise RuntimeError(f"{what}: anchor not found: {anchor!r}")
+        src = src.replace(anchor, new, 1)
+    return src
+
+
+def use_copy(tag: str, source: str, edits, extra: str = "", ptxas_verbose: bool = False) -> str:
+    """Build a copy of ``csrc/`` with `edits` applied to `source` (a file name
+    in ``csrc/``; ``edited``) and `extra` appended to it, into
+    ``lns_tpu_torch/_build/probe/<tag>/`` (git-ignored), and make it the
+    library the wrappers load (``_build.library()``); returns nvcc's
+    messages (with `ptxas_verbose`, registers and spills)."""
+    root = _BUILD / "probe" / tag
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(_SOURCE, root / "csrc")
+    src = edited((root / "csrc" / source).read_text(), edits, f"use_copy {tag}: {source}")
+    (root / "csrc" / source).write_text(src + extra)
+    _build.SOURCE_DIR, _build.BUILD_DIR, _build._lib = root / "csrc", root / "build", None
+    msgs = _build.build(ptxas_verbose=ptxas_verbose)
+    _build.library()
+    return msgs

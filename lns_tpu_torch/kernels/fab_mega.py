@@ -18,10 +18,12 @@ The kernels take the probe's shape, h = w = 32 and c = 64 in bf16 (stated
 once, in C: ``lns_fab_mega_limit``, ``lns_interior_dot_limit``); the plain
 versions take any. Bound by operations on an H100: 16.8 MFLOP per sample
 and head. u stays in shared memory for all of a block's work, the products
-run on tensor cores (``mma.sync``) and the head-major values never reach
-device memory. Neither kernel is on a model's path: kernel 2
-(``fab_core.fab_fused_core``) is the FAB core the models run; these passes
-measure the design that recomputes bb in place of kernel 2's bb scratch.
+run on tensor cores (the statistics pass a block per sample on ``wgmma``
+with u read once; the apply pass and the interior dot on ``mma.sync``)
+and the head-major values never reach device memory. Neither kernel is on
+a model's path: kernel 2 (``fab_core.fab_fused_core``) is the FAB core the
+models run; these passes measure the design that recomputes bb in place of
+kernel 2's bb scratch.
 """
 
 from __future__ import annotations
@@ -65,9 +67,9 @@ def _limit(fn, name, dtype, *dims):
 
 def fab_mega_stats(u_t, kx, ky):
     """u_t [b, w, h, c] (u with h and w swapped), kx [b, n, h, h],
-    ky [b, n, w, w] -> (G [b, n, c, c], s [b, n, c]), both f32. A CPU tensor
-    takes the plain version; a CUDA tensor launches the kernel on the
-    current stream or raises."""
+    ky [b, n, w, w] -> (G [b, n, c, c], s [b, n, c]), both f32: a block per
+    sample on ``wgmma``. A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel on the current stream or raises."""
     if not _build.on_cuda(u_t, "fab_mega_stats", kx, ky):
         return fab_mega_stats_plain(u_t, kx, ky)
     if u_t.dim() != 4 or kx.dim() != 4:

@@ -1,7 +1,10 @@
-"""Time kernels 4 and 5 (``csrc/axial.cu``) and kernel 2 (``csrc/fab_core.cu``)
-of one source tree on the card, for comparing two trees on one card.
+"""Time kernels 4 and 5 (``csrc/axial.cu``), kernel 2 (``csrc/fab_core.cu``),
+``blocked_copy`` (``csrc/blocked_copy.cu``) and ``fab_mega_stats``
+(``csrc/fab_mega.cu``) of one source tree on the card, for comparing two
+trees on one card.
 
     python3 lns_tpu_torch/kernels/probe_axial.py [--tree DIR] [--label NAME]
+        [--only NAME,...]
 
 ``--tree`` is the root of the checkout whose ``lns_tpu_torch`` is timed
 (default: the one this file is in), so an older tree is timed with this
@@ -11,6 +14,12 @@ prints the mean time of one call by CUDA events over back-to-back calls
 device time by CUDA-graph replays (20 calls in one graph, the host's cost
 taken out), then one JSON line with the card's name and power limit. Run
 trees in turns (parent, change, change, parent) in one call of the card.
+``--only`` keeps the cases whose names start with one of the names given
+(``blocked_copy``, ``fab_mega_stats``, ...). The copy runs at
+``probe_bw``'s shape, [928, 2, 128, 2048] bf16, for each s of its sweep,
+and the statistics pass at ``probe_fab_mega``'s, b116 n8 32x32 c64; both
+through their wrappers, which take the same arguments in every tree that
+has them.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=os.path.join(os.path.dirname(__file__), "..", ".."))
     ap.add_argument("--label", default="")
+    ap.add_argument("--only", default="")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.tree))
     import torch
@@ -33,7 +43,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("probe_axial: no CUDA device", file=sys.stderr)
         return 1
-    from lns_tpu_torch.kernels import _build, axial, fab_core
+    from lns_tpu_torch.kernels import _build, axial, blocked_copy, fab_core, fab_mega
 
     _build.library()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
@@ -95,8 +105,18 @@ def main() -> int:
         a = fab_inputs(b, h, w, c)
         cases.append((f"fab_core bf16 b{b} {h}x{w} c{c}",
                       lambda a=a: fab_core.fab_fused_core(*a)))
+    x = torch.randn(928, 2, 128, 2048, generator=gen).to(dev, bf)
+    for s in (2, 4, 8, 16, 29, 58):
+        cases.append((f"blocked_copy bf16 [928,2,128,2048] s={s}",
+                      lambda s=s: blocked_copy.blocked_copy(x, s)))
+    u_t, kx, ky = fab_inputs(116, 32, 32, 64)[:3]
+    cases.append(("fab_mega_stats bf16 b116 n8 32x32 c64",
+                  lambda: fab_mega.fab_mega_stats(u_t, kx, ky)))
+    only = tuple(filter(None, args.only.split(",")))
     out = {}
     for name, fn in cases:
+        if only and not name.startswith(only):
+            continue
         ev, dv = events_ms(fn), graph_ms(fn)
         out[name] = {"events_ms": ev, "device_ms": dv}
         print(f"{args.label} {name}: {ev:.4f} ms by events, {dv:.4f} ms device (graph)", flush=True)

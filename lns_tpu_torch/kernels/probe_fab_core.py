@@ -19,7 +19,7 @@ its GroupNorm inputs as ``FABlock2D`` gives it) it prints:
     and the producer's total and its waits for free ring stages.
 
 Each variant of ``VARIANTS`` (``base``: the source as it is) is built from a
-copy of ``csrc/`` into ``lns_tpu_torch/_build/probe_fab/`` (git-ignored) and
+copy of ``csrc/`` into ``lns_tpu_torch/_build/probe/`` (git-ignored) and
 timed and held to the plain version (1e-2 x max|plain|, at most 2 % of the
 elements differing) at every shape, variants in turn, then in reverse.
 """
@@ -28,14 +28,13 @@ from __future__ import annotations
 
 import ctypes
 import re
-import shutil
 import subprocess
 import sys
 import time
 
 import torch
 
-from lns_tpu_torch.kernels import _build
+from lns_tpu_torch.kernels import _build, _probe
 
 SHAPES = [(116, 16, 16, 64), (116, 32, 32, 64), (32, 32, 32, 64), (336, 24, 48, 64),
           (336, 48, 96, 64)]
@@ -112,27 +111,6 @@ def _inputs(gen, dev, b, h, w, c):
     u = x * sc[:, None, None] + sh[:, None, None]
     mf = (x, torch.stack([sc, sh], 1).float(), kx.float().sum(2), ky.float().sum(2))
     return u, kx, ky, w_in, w_o1, mf
-
-
-def _use_copy(name, edits, extra=""):
-    """Build a copy of csrc/ with `edits` applied (and `extra` appended to
-    fab_core.cu) and make it the library the wrappers load; returns nvcc's
-    messages (registers and spills)."""
-    root = _BASE_BUILD / "probe_fab" / name
-    shutil.rmtree(root, ignore_errors=True)
-    (root / "csrc").mkdir(parents=True)
-    for f in _BASE_SOURCE.iterdir():
-        shutil.copy(f, root / "csrc" / f.name)
-    src = (root / "csrc" / "fab_core.cu").read_text()
-    for anchor, new in edits:
-        if anchor not in src:
-            raise RuntimeError(f"probe_fab_core: anchor not found in fab_core.cu: {anchor!r}")
-        src = src.replace(anchor, new, 1)
-    (root / "csrc" / "fab_core.cu").write_text(src + extra)
-    _build.SOURCE_DIR, _build.BUILD_DIR, _build._lib = root / "csrc", root / "build", None
-    msgs = _build.build(ptxas_verbose=True)
-    _build.library()
-    return msgs
 
 
 def registers(msgs):
@@ -219,7 +197,8 @@ def sass_size():
 
 
 def phases(dev, name):
-    _use_copy(name + "_marked", VARIANTS[name] + MARKS, READER)
+    _probe.use_copy("probe_fab_core_" + name + "_marked", "fab_core.cu", VARIANTS[name] + MARKS,
+                    READER)
     lib = _build.library()
     lib.lns_fab_probe.argtypes = [ctypes.c_void_p, ctypes.c_int]
     from lns_tpu_torch.kernels import fab_core
@@ -246,7 +225,8 @@ def main():
     names = list(VARIANTS)
     for name in names + names[::-1]:
         print(f"variant {name}:")
-        registers(_use_copy(name, VARIANTS[name]))
+        registers(_probe.use_copy("probe_fab_core_" + name, "fab_core.cu", VARIANTS[name],
+                                  ptxas_verbose=True))
         sass_size()
         timings(dev, name)
     for name in names:
@@ -254,7 +234,6 @@ def main():
         phases(dev, name)
 
 
-_BASE_SOURCE, _BASE_BUILD = _build.SOURCE_DIR, _build.BUILD_DIR
 
 if __name__ == "__main__":
     main()

@@ -1,7 +1,7 @@
 """The FAB core without its bb scratch, on the card: the in-kernel forms of a
 fused apply pair, and the statistics and apply passes that recompute bb.
 
-    python3 -m lns_tpu_torch.kernels.probe_fab_mega
+    python3 -m lns_tpu_torch.kernels.probe_fab_mega [--phases]
 
 Port of ``benchmarks/probe_fab_mega.py`` at its shape (b 116, 8 heads,
 32x32, c 64, bf16). It prints:
@@ -23,18 +23,28 @@ Port of ``benchmarks/probe_fab_mega.py`` at its shape (b 116, 8 heads,
     at 32x32 b116 (8 heads, d 64): its total time and the device ms of its
     statistics and output passes. Kernel 2 computes another function (w_in,
     the normalisation, a bb scratch it writes once and reads back), so this
-    only indicates what recomputing bb in place of storing it costs.
+    only indicates what recomputing bb in place of storing it costs;
+  * the two statistics passes (``fab_mega_stats``, kernel 2's
+    ``fab_bb_stats``) by ``torch.profiler``'s device time per launch,
+    L2-warm (back to back: u_t's 15.2 MB stays in the 50 MB L2) and with
+    the L2 flushed before each launch;
+  * with ``--phases``, the statistics pass by phase (``phases``: a copy of
+    the sources with ``clock64()`` marks, as ``probe_fab_core.py`` marks
+    kernel 2).
 
-Exits 1 on a FAIL or where there is no CUDA device.
+Exits 1 on a FAIL or where there is no CUDA device. An earlier tree's
+statistics pass is timed beside this one's by ``probe_axial.py --tree``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
+import sys
 
 import torch
 
-from lns_tpu_torch.kernels import _probe
+from lns_tpu_torch.kernels import _build, _probe
 from lns_tpu_torch.kernels.axial_pipeline import transpose_hw, transpose_hw_plain
 from lns_tpu_torch.kernels.blocked_copy import blocked_copy, blocked_copy_plain
 from lns_tpu_torch.kernels.fab_mega import (fab_mega_apply, fab_mega_apply_plain, fab_mega_stats,
@@ -163,31 +173,28 @@ def run_passes(dev, timed: bool = True, seed: int = 0):
               flush=True)
         res[label].update(row)
     res["kernel 2"] = kernel2(dev, u, kx, ky)
+    res["statistics passes"] = stats_passes(dev, u, u_t, kx, ky)
     return res
 
 
-def kernel2(dev, u, kx, ky):
-    """Kernel 2 at the same u, kx, ky (w_in, w_o1 seeded, 8 heads, d 64, the
-    mean from the rounded bb): total time and its passes' device ms. Another
-    function than the two passes; an indication of the cost of recomputing
-    bb, not a like-for-like comparison."""
-    from torch.profiler import ProfilerActivity, profile
-
+def _kernel2_fn(dev, u, kx, ky):
+    """Kernel 2 at u, kx, ky with w_in, w_o1 seeded (8 heads, d 64, the mean
+    from the rounded bb)."""
     from lns_tpu_torch.kernels.fab_core import fab_fused_core
 
     gen = torch.Generator().manual_seed(2)
     w_in = (torch.randn(C, N, D, generator=gen) / C ** 0.5).to(dev)
     w_o1 = (torch.randn(N, D, C, generator=gen) / D ** 0.5).to(dev)
-    fn = lambda: fab_fused_core(u, kx, ky, w_in, w_o1)  # noqa: E731
-    row = {"ms": _probe.events_ms(fn), "device_ms": _probe.graph_ms(fn)}
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            fn()
-        torch.cuda.synchronize()
-    for e in prof.key_averages():
-        for key in ("fab_block_mean", "fab_bb_stats", "fab_moments", "fab_out"):
-            if key in e.key:
-                row[key] = row.get(key, 0.0) + e.device_time_total / 5e3
+    return lambda: fab_fused_core(u, kx, ky, w_in, w_o1)
+
+
+def kernel2(dev, u, kx, ky):
+    """Kernel 2 at the same u, kx, ky: total time and its passes' device ms.
+    Another function than the two passes; an indication of the cost of
+    recomputing bb, not a like-for-like comparison."""
+    fn = _kernel2_fn(dev, u, kx, ky)
+    row = {"ms": _probe.events_ms(fn), "device_ms": _probe.graph_ms(fn),
+           **_probe.kernel_ms(fn, ("fab_block_mean", "fab_bb_stats", "fab_moments", "fab_out"))}
     print(f"      kernel 2 (fab_fused_core, another function: w_in, the normalisation, the bb "
           f"scratch) b{B} {H}x{W} c{C}: {row['ms']:.4f} ms by events, {row['device_ms']:.4f} ms "
           "device; passes " + ", ".join(f"{k} {v:.4f}" for k, v in row.items()
@@ -195,9 +202,99 @@ def kernel2(dev, u, kx, ky):
     return row
 
 
+def stats_passes(dev, u, u_t, kx, ky):
+    """Device ms per launch of the two statistics passes at one shape,
+    L2-warm and with the L2 flushed before each launch: ``fab_mega_stats``
+    (a block per sample, wgmma) and kernel 2's ``fab_bb_stats`` (which also
+    writes bb to its scratch)."""
+    runs = {"fab_mega_stats (wgmma)": (lambda: fab_mega_stats(u_t, kx, ky),
+                                       "fab_mega_stats_wgmma"),
+            "kernel 2 fab_bb_stats": (_kernel2_fn(dev, u, kx, ky), "fab_bb_stats")}
+    out = {}
+    for label, (fn, key) in runs.items():
+        warm = _probe.kernel_ms(fn, (key,))[key]
+        cold = _probe.kernel_ms(fn, (key,), flush=True)[key]
+        out[label] = {"device_ms_l2_warm": warm, "device_ms_l2_flushed": cold}
+        print(f"      statistics pass {label} b{B} n{N} {H}x{W} c{C}: {warm:.4f} ms device "
+              f"L2-warm, {cold:.4f} ms with the L2 flushed before each launch", flush=True)
+    return out
+
+
+# the statistics pass by phase: (anchor, replacement) pairs of csrc/fab_mega.cu
+# that add clock64() marks; each warp sums the cycles between marks in
+# registers and adds them to g_phase once at the end
+PHASES = ["kx, ky waits", "u waits", "step 1", "tile barrier 1", "step 2",
+          "b2 and the Gram", "tile barrier 2", "epilogue"]
+MARKS = [
+    ("constexpr int kWG = 2; ",
+     "__device__ unsigned long long g_phase[16];\n"
+     "#define MARK(i) do { const long long c_ = clock64(); ph[i] += c_ - ph_last; "
+     "ph_last = c_; } while (0)\nconstexpr int kWG = 2; "),
+    ("                                           float& s0, float& s1, int wg, int wt) {",
+     "                                           float& s0, float& s1, int wg, int wt,\n"
+     "                                           long long (&ph)[8], long long& ph_last) {"),
+    ("    tc_step2(pb, kx_b, acc);\n    lns::wgmma_wait<0>();\n"
+     "    tc_gram(pb, acc, gacc, s0, s1, wg, wt);\n    lns::wgmma_wait<0>();",
+     "    tc_step2(pb, kx_b, acc);\n    lns::wgmma_wait<0>();\n    MARK(4);\n"
+     "    tc_gram(pb, acc, gacc, s0, s1, wg, wt);\n    lns::wgmma_wait<0>();\n    MARK(5);"),
+    ("  for (int hn = 0; hn < n; ++hn) {\n    const int kb = hn & 1;",
+     "  long long ph[8] = {}, ph_last = clock64();\n"
+     "  for (int hn = 0; hn < n; ++hn) {\n    const int kb = hn & 1;"),
+    ("    lns::mbar_wait(&kfull[kb], (hn >> 1) & 1);",
+     "    lns::mbar_wait(&kfull[kb], (hn >> 1) & 1);\n    MARK(0);"),
+    ("        tc_step1(u_s, ky_b + t * kTL * 128, a_s, (2 * it + wg) * kSlab, wt);",
+     "        MARK(1);\n"
+     "        tc_step1(u_s, ky_b + t * kTL * 128, a_s, (2 * it + wg) * kSlab, wt);\n"
+     "        MARK(2);"),
+    ("      lns::bar_sync(1, 128 * kWG);\n      tc_columns(a_s, kx_b, gacc, s0, s1, wg, wt);\n"
+     "      lns::bar_sync(1, 128 * kWG);",
+     "      lns::bar_sync(1, 128 * kWG);\n      MARK(3);\n"
+     "      tc_columns(a_s, kx_b, gacc, s0, s1, wg, wt, ph, ph_last);\n"
+     "      lns::bar_sync(1, 128 * kWG);\n      MARK(6);"),
+    ("        s_out[bn * kC + r0 + 8] = s1 + s_st[r0 + 8];\n      }\n    }\n  }\n}",
+     "        s_out[bn * kC + r0 + 8] = s1 + s_st[r0 + 8];\n      }\n    }\n    MARK(7);\n  }\n"
+     "  if (lane == 0) {\n"
+     "    for (int i = 0; i < 8; ++i) atomicAdd(&g_phase[i], (unsigned long long)ph[i]);\n"
+     "    atomicAdd(&g_phase[8], 1ull);\n  }\n}"),
+]
+READER = """
+extern "C" int lns_fab_mega_phases(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_phase, sizeof(unsigned long long) * 16);
+  unsigned long long z[16] = {};
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_phase, z, sizeof z);
+  return e;
+}
+"""
+
+
+def phases(dev, seed: int = 0):
+    """The statistics pass at (B, N) by phase: a copy of the sources with the
+    marks of MARKS (``_probe.use_copy``) made the library the wrappers load;
+    one launch after a warm-up one. Prints each phase's kilocycles per warp
+    (the sum over a warp's heads) and share. Returns {phase: cycles per
+    warp}."""
+    _probe.use_copy("probe_fab_mega_phases", "fab_mega.cu", MARKS, READER)
+    lib = _build.library()
+    lib.lns_fab_mega_phases.argtypes = [ctypes.c_void_p]
+    _, u_t, kx, ky, _, _ = inputs(dev, seed)
+    buf = (ctypes.c_ulonglong * 16)()
+    for _ in range(2):  # the first launch warms up
+        fab_mega_stats(u_t, kx, ky)
+        torch.cuda.synchronize()
+        _build.check(lib.lns_fab_mega_phases(buf), "lns_fab_mega_phases")
+    warps, total = max(buf[8], 1), sum(buf[i] for i in range(len(PHASES)))
+    out = {k: buf[i] / warps for i, k in enumerate(PHASES)}
+    print(f"      fab_mega_stats b{B} n{N} by phase ({buf[8]} warps), kilocycles per warp: "
+          + ", ".join(f"{k} {v / 1e3:.1f} ({buf[i] / total:.1%})"
+                      for i, (k, v) in enumerate(out.items())), flush=True)
+    return out
+
+
 def main() -> int:
     dev, smi = _probe.card("probe_fab_mega")
     res = {"pieces": run_pieces(dev), "passes": run_passes(dev)}
+    if "--phases" in sys.argv:  # last: it swaps the library for a marked copy
+        res["phases"] = {"fab_mega_stats": phases(dev)}
     print(json.dumps({"probe": "probe_fab_mega", "card": smi, "results": res}))
     ok = all(r["ok"] for part in res.values() for r in part.values() if "ok" in r)
     return 0 if ok else 1

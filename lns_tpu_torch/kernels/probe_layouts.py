@@ -20,9 +20,10 @@ TPU) can express inside one kernel. In bf16 and f32:
 Each is held to its plain version with the TPU probe's tolerance (the
 reshapes and the transpose exactly; ``rank3_dot`` rtol = atol = 2e-2;
 ``fused_axial`` rtol 5e-2, atol 5e-1) and prints PASS or FAIL, then its
-time by CUDA events and by CUDA-graph replays. Exits 1 on a FAIL or where
-there is no CUDA device. The inputs are seeded normal values of the TPU
-probe's shapes (the TPU probe draws them from ``jax.random``).
+time by CUDA events and by CUDA-graph replays beside its plain version's
+(the library calls: ``clone``, ``contiguous``, ``matmul``). Exits 1 on a
+FAIL or where there is no CUDA device. The inputs are seeded normal values
+of the TPU probe's shapes (the TPU probe draws them from ``jax.random``).
 """
 
 from __future__ import annotations
@@ -74,7 +75,9 @@ TOL = {"rank3_dot": (2e-2, 2e-2), "fused_axial": (5e-2, 5e-1)}
 def run(dev, timed: bool = True, seed: int = 0):
     """Every probe in bf16 and f32 on the kernels, held to the plain
     versions; with `timed`, the kernels' ms by CUDA events and by CUDA-graph
-    replays. Returns {"<probe>/<dtype>": {"ok", "ms", "device_ms"}}."""
+    replays, and the plain version's (its library calls). Returns
+    {"<probe>/<dtype>": {"ok", "ms", "device_ms", "library_ms",
+    "library_device_ms"}}."""
     gen = torch.Generator().manual_seed(seed)
     kern, plain = forms(KERNELS), forms(PLAIN)
     res = {}
@@ -86,10 +89,15 @@ def run(dev, timed: bool = True, seed: int = 0):
             ok = _probe.held(f"{name}/{tag}", out, ref, rtol, atol=atol)
             row = {"ok": ok}
             if timed:
+                lib = plain[name][0]
                 row["ms"] = _probe.events_ms(lambda: fn(*args))
                 row["device_ms"] = _probe.graph_ms(lambda: fn(*args))
+                row["library_ms"] = _probe.events_ms(lambda: lib(*args))
+                row["library_device_ms"] = _probe.graph_ms(lambda: lib(*args))
                 print(f"      {name}/{tag}: {row['ms']:.4f} ms by events, "
-                      f"{row['device_ms']:.4f} ms device (graph replays)", flush=True)
+                      f"{row['device_ms']:.4f} ms device (graph replays); the plain version's "
+                      f"library calls {row['library_ms']:.4f} / {row['library_device_ms']:.4f} ms",
+                      flush=True)
             res[f"{name}/{tag}"] = row
     return res
 

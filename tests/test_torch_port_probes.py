@@ -117,14 +117,45 @@ def _close(out, ref):
 
 # -- probe_pallas_bw: the blocked copy and kernel 6 --------------------------
 
-@pytest.mark.parametrize("s", [2, 4, 8])
-def test_blocked_copy_matches_pallas_copy(s):
+@pytest.mark.parametrize("s,shape,dtype", [
+    (2, (8, 2, 16, 128), jnp.bfloat16), (4, (8, 2, 16, 128), jnp.bfloat16),
+    (8, (8, 2, 16, 128), jnp.bfloat16),
+    # rows of 35 bytes: on the card the per-thread route's (not a multiple of 16)
+    (2, (8, 2, 7, 5), jnp.uint8)])
+def test_blocked_copy_matches_pallas_copy(s, shape, dtype):
     bw = _probe("probe_pallas_bw")
-    x = jax.random.normal(jax.random.key(0), (8, 2, 16, 128)).astype(jnp.bfloat16)
+    x = (jax.random.uniform(jax.random.key(0), shape) * 200).astype(dtype)
     ref = _t(bw.pallas_copy(x, s))
     xt = _t(x)
     out = blocked_copy.blocked_copy(xt, s)
-    assert out.dtype == torch.bfloat16 and torch.equal(out, ref) and torch.equal(out, xt)
+    assert out.dtype == xt.dtype and torch.equal(out, ref) and torch.equal(out, xt)
+    assert blocked_copy.blocked_copy.route == "plain"
+
+
+def _source_edits():
+    from lns_tpu_torch.kernels import probe_bw, probe_fab_core, probe_fab_mega
+
+    cases = {f"probe_bw {name}": ("blocked_copy.cu", edits)
+             for name, edits in probe_bw.VARIANTS.items()}
+    cases["probe_fab_mega phases"] = ("fab_mega.cu", probe_fab_mega.MARKS)
+    for name, edits in probe_fab_core.VARIANTS.items():
+        cases[f"probe_fab_core {name} + marks"] = ("fab_core.cu", edits + probe_fab_core.MARKS)
+    return cases
+
+
+@pytest.mark.parametrize("case", list(_source_edits()))
+def test_probe_source_edits_apply(case):
+    """Every edited copy of a kernel source that a card probe builds
+    (``_probe.use_copy``) finds its anchors in today's source, and changes
+    it; an anchor that is gone raises."""
+    from lns_tpu_torch.kernels import _build, _probe
+
+    source, edits = _source_edits()[case]
+    src = (_build.SOURCE_DIR / source).read_text()
+    out = _probe.edited(src, edits, case)
+    assert out != src and all(new in out for _, new in edits[-1:])
+    with pytest.raises(RuntimeError, match="anchor not found"):
+        _probe.edited(src, [("no such anchor", "")], case)
 
 
 def test_blocked_copy_any_dtype_and_view():
@@ -227,6 +258,53 @@ def test_fab_mega_stats_matches_pallas(mode):
     _f32_close(g, _t(g_ref), G_TOL)
     _f32_close(s, _t(s_ref)[:, :, 0], S_TOL)
     assert torch.equal(g, fab_mega.fab_mega_stats_plain(_t(u_t), _t(kx), _t(ky))[0])
+
+
+def _fab_mega_stats_kernel_order(u_t, kx, ky):
+    """``fab_mega_stats_plain`` in the order of sums of the kernel's wgmma
+    design (``csrc/fab_mega.cu``, ``fab_mega_stats_wgmma``): the rounded b2
+    as the plain version forms it; column l of b2 to warpgroup l % 2; G of
+    each warpgroup summed over its columns in ascending order, one column's
+    b2^T b2 (K = the 32 rows i) at a time, then the first warpgroup's + the
+    second's; s per thread of a quad (u: rows i = 8 k + 2 u, + 1) summed
+    over its columns in order, then k, then the pair, the quad's four added
+    as (u0 + u1) + (u2 + u3), then the two warpgroups'."""
+    b2 = fab_mega._b2(u_t, kx, ky)  # [b, n, (i l), c]
+    b, n, _, c = b2.shape
+    h, w = kx.shape[-1], ky.shape[-1]
+    b2 = b2.reshape(b, n, h, w, c)  # [b, n, i, l, c]
+    gs, ss = [], []
+    for wg in (0, 1):
+        g = torch.zeros(b, n, c, c)
+        part = torch.zeros(b, n, 4, c)  # per quad lane u
+        for l in range(wg, w, 2):
+            col = b2[:, :, :, l]  # [b, n, i, c]
+            g = g + col.transpose(-1, -2) @ col
+            for k in range(h // 8):
+                for e in (0, 1):
+                    part = part + col[:, :, 8 * k + e:8 * k + 8:2]
+        gs.append(g)
+        ss.append((part[:, :, 0] + part[:, :, 1]) + (part[:, :, 2] + part[:, :, 3]))
+    return gs[0] + gs[1], ss[0] + ss[1]
+
+
+@pytest.mark.parametrize("mode", ["rank3", "swap"])
+def test_fab_mega_stats_kernel_order(mode):
+    """The wgmma statistics pass sums in another order than
+    ``fab_mega_stats_plain`` (G split over two warpgroups' columns, s from
+    the b2 fragments each thread holds and a quad shuffle): that order,
+    emulated in plain PyTorch, against the JAX ``stats_pass`` in interpret
+    mode at G_TOL / S_TOL, and against the plain version."""
+    mega = _fab_mega()
+    _, u_t, kx, ky, _, _ = _pass_inputs(mega)
+    g_ref, s_ref = mega.stats_pass(u_t, kx, ky, mode)
+    g, s = _fab_mega_stats_kernel_order(_t(u_t), _t(kx), _t(ky))
+    assert g.dtype == s.dtype == torch.float32 and s.shape == (mega.B, mega.N, mega.C)
+    _f32_close(g, _t(g_ref), G_TOL)
+    _f32_close(s, _t(s_ref)[:, :, 0], S_TOL)
+    gp, sp = fab_mega.fab_mega_stats_plain(_t(u_t), _t(kx), _t(ky))
+    _f32_close(g, gp, G_TOL)
+    _f32_close(s, sp, S_TOL)
 
 
 @pytest.mark.parametrize("mode", ["rank3", "swap"])
