@@ -9,7 +9,7 @@ helpers and the ports of the TPU probe scripts once on one CUDA card.
     python3 chip_smoke.py            # everything below, on one card
     python3 chip_smoke.py --ranks    # the 2- and 4-rank runs of phases 8 and 9 alone
     python3 chip_smoke.py --parent DIR  # phase 10 also times the tree at DIR's
-                                        # copy and statistics pass
+                                        # copy, FAB passes and chains
 
 Run from the root of a checkout, on a machine with an NVIDIA Hopper card,
 CUDA PyTorch and nvcc. It imports nothing of JAX. In order it:
@@ -20,12 +20,11 @@ CUDA PyTorch and nvcc. It imports nothing of JAX. In order it:
      HGMMA, from the toolkit's cuobjdump) in the bf16 code of the kernels
      that run on tensor cores (1, 2, 4, 5 and 6, the probe's FAB passes and
      interior dot, ``dot_general`` and the bf16 chains); a count of 0
-     fails (of HGMMA for kernel 2 and ``fab_mega_stats``, on ``wgmma``);
+     fails (of HGMMA for kernel 2 and the two FAB passes, on ``wgmma``);
      the f32 ``dot_general`` and ``chain_scr2_f32`` fail on any HMMA
      (TF32) or on no FFMA; the bulk route of ``blocked_copy`` must show
      UBLKCP (TMA bulk copies), and ``csrc/fab_mega.cu`` compiled alone with
-     ``-Xptxas -v`` no note that ptxas serialized ``fab_mega_stats``'s
-     ``wgmma``;
+     ``-Xptxas -v`` no note that ptxas serialized either pass's ``wgmma``;
   3. holds each of the seven hand-written kernels against its plain PyTorch
      version on the card, at the shapes the paths give it (and, for the
      library kernels off the paths, at the TPU package's shapes; kernels 1,
@@ -190,10 +189,12 @@ CUDA PyTorch and nvcc. It imports nothing of JAX. In order it:
      reshapes (bitwise; at every s of ``probe_bw``'s sweep on both routes,
      as C reports them: the bulk one for these rows, the per-thread one for
      rows of odd bytes), ``fab_mega_stats`` (G and s 1e-3 x max|plain|, at
-     b116 n8, twice bitwise, and at b1 n1 and b3 n5), the device ms of both
+     b116 n8, twice bitwise, and at b1 n1 and b3 n5), ``fab_mega_apply``
+     (1e-2, at most 2 % differing, at b116 n8, twice bitwise, and at b1 n1
+     and b3 n3), the device ms of the copy, both passes and each chain
      (with ``--parent DIR``, a ``git archive`` of the parent commit, also
-     the parent tree's, by ``probe_axial.py --tree DIR``),
-     ``fab_mega_apply`` and ``interior_dot`` (1e-2, at most 2 % differing);
+     the parent tree's, by ``probe_axial.py --tree DIR``), ``interior_dot``
+     (1e-2, at most 2 % differing);
      kernel 7 at the probes' transpose bitwise, kernel 6 at their dot to
      its tolerances; ``dot_general`` and ``dot_chain`` at each of the 19
      cases of ``benchmarks/probe_mosaic_dots.py`` (bf16 outputs of one
@@ -314,17 +315,18 @@ TENSOR_CORE_KERNELS = {"prop_rollout": ("rollout_bf16",),
                        "fab_axial_in_fused": ("axial_tcI13__nv_bfloat16Lb1",),
                        "axial_kernel_apply_headmajor": ("axial_tcI13__nv_bfloat16Lb0",),
                        "bmm_blockdiag": ("bmm_bf16_kernel",),
-                       "fab_mega": ("fab_mega_apply_kernel", "interior_dot_kernel"),
+                       "fab_mega": ("interior_dot_kernel",),
                        "fab_mega_stats": ("fab_mega_stats_wgmma",),
+                       "fab_mega_apply": ("fab_mega_apply_wgmma",),
                        "mosaic_dots": ("dot_general_bf16",
                                        *(f"dot_chain_kernelILi{c}E" for c in (0, 1, 2, 3, 4, 6)))}
 # the kernels whose products must run on wgmma (HGMMA; HMMA alone fails)
-WGMMA_KERNELS = ("fab_core", "fab_mega_stats")
+WGMMA_KERNELS = ("fab_core", "fab_mega_stats", "fab_mega_apply")
 # the kernels that must copy by TMA bulk copies (UBLKCP in their SASS), and
 # the sources whose wgmma kernels ptxas must not serialize (its notes C7514,
 # C7515, C7520 naming one of them fail)
 BULK_COPY_KERNELS = ("blocked_copy_bulk",)
-UNSERIALIZED_WGMMA = {"fab_mega.cu": ("fab_mega_stats_wgmma",)}
+UNSERIALIZED_WGMMA = {"fab_mega.cu": ("fab_mega_stats_wgmma", "fab_mega_apply_wgmma")}
 # the f32 instantiations whose products must stay in full f32 on the CUDA
 # cores: FFMA, and no HMMA or HGMMA (which would mean TF32)
 CUDA_CORE_KERNELS = {"mosaic_dots": ("dot_general_f32", "dot_chain_kernelILi5E")}
@@ -4283,7 +4285,8 @@ def check_probes(dev):
     routes at every s and on rows of odd bytes, kernel 7's uses bitwise,
     kernel 6's to its tolerances, G and s 1e-3 x max|plain| also at b1 n1
     and b3 n5, the apply pass and the interior dot 1e-2 with at most 2 %
-    differing; the copy's and the statistics pass's device ms, and with
+    differing, the apply pass twice bitwise and also at b1 n1 and b3 n3;
+    the device ms of the copy, both passes and each chain, and with
     ``--parent DIR`` the parent tree's (``parent_ms``); ``dot_general`` and
     ``dot_chain`` per case, ``check_mosaic_dots``).
     Returns (launches, {kernel: result})."""
@@ -4294,6 +4297,7 @@ def check_probes(dev):
     from lns_tpu_torch.kernels.fab_mega import (fab_mega_apply, fab_mega_apply_plain,
                                                 fab_mega_stats, fab_mega_stats_plain,
                                                 interior_dot, interior_dot_plain)
+    from lns_tpu_torch.kernels.mosaic_dots import CHAINS
 
     print("-- probe kernels against their plain versions (probe_layouts, probe_fab_mega, "
           "probe_bw, probe_dots, untimed; then each new kernel at its probe's shape)", flush=True)
@@ -4355,7 +4359,9 @@ def check_probes(dev):
             del out
     new_ms = graph_ms(lambda: blocked_copy(x, 2), calls=5)
     parent = parent_ms(["blocked_copy bf16 [928,2,128,2048] s=2",
-                        "fab_mega_stats bf16 b116 n8 32x32 c64"])
+                        "fab_mega_stats bf16 b116 n8 32x32 c64",
+                        "fab_mega_apply bf16 b116 n8 32x32 c64",
+                        *(f"dot_chain {c}" for c in CHAINS)])
     print(f"      blocked_copy s=2 device: {new_ms:.4f} ms (this tree, bulk route); "
           + _parent_text(parent, "blocked_copy bf16 [928,2,128,2048] s=2"), flush=True)
     res["blocked_copy"]["device_ms"] = new_ms
@@ -4412,6 +4418,8 @@ def check_probes(dev):
                "<= 1e-3 x max|plain|")
         res["fab_mega_stats"]["max_abs_err"] = max(res["fab_mega_stats"]["max_abs_err"], e_g, e_s)
     out = fab_mega_apply(u_t, kx, ky, m, bias)
+    _check(torch.equal(fab_mega_apply(u_t, kx, ky, m, bias), out),
+           f"fab_mega_apply {shape}: two runs bitwise")
     err, ms, plain_ms = compare(f"fab_mega_apply {shape}",
                                 lambda: fab_mega_apply(u_t, kx, ky, m, bias),
                                 lambda: fab_mega_apply_plain(u_t, kx, ky, m, bias), 1e-2,
@@ -4420,6 +4428,25 @@ def check_probes(dev):
                              **Bound().add(flops, _nbytes(u_t, kx, ky, m, bias, out)).result(),
                              "library_ms": cuda_ms(lambda: probe_fab_mega.einsum_full(
                                  u, kx, ky, m, bias))}
+    new_ms = graph_ms(lambda: fab_mega_apply(u_t, kx, ky, m, bias))
+    lib_ms = graph_ms(lambda: probe_fab_mega.einsum_full(u, kx, ky, m, bias))
+    print(f"      fab_mega_apply {shape} device: {new_ms:.4f} ms (this tree, a block per sample, "
+          f"wgmma; its einsum chain {lib_ms:.4f} ms device); "
+          + _parent_text(parent, "fab_mega_apply bf16 b116 n8 32x32 c64"), flush=True)
+    res["fab_mega_apply"]["device_ms"] = new_ms
+    # the edges of the apply pass's ring of two slots: one sample and head;
+    # 3 samples of 3 heads (the slots and the heads out of step)
+    for eb, en in ((1, 1), (3, 3)):
+        ea = (torch.randn(eb, w, h, c, generator=gen).to(dev, bf),
+              (torch.randn(eb, en, h, h, generator=gen) / h).to(dev, bf),
+              (torch.randn(eb, en, w, w, generator=gen) / w).to(dev, bf),
+              (torch.randn(eb, en, c, c, generator=gen) / c).to(dev, bf),
+              torch.randn(eb, c, generator=gen).to(dev, bf))
+        e_err, _, _ = compare(f"fab_mega_apply b{eb} n{en} {h}x{w} c{c}",
+                              lambda ea=ea: fab_mega_apply(*ea),
+                              lambda ea=ea: fab_mega_apply_plain(*ea), 1e-2, reps=1,
+                              max_differ=0.02)
+        res["fab_mega_apply"]["max_abs_err"] = max(res["fab_mega_apply"]["max_abs_err"], e_err)
     for k in ("fab_mega_stats", "fab_mega_apply"):
         print(f"      {k} {shape}: kernel {res[k]['ms']:.4f} ms, bound {res[k]['bound_ms']:.4f} ms "
               f"({res[k]['bound_by']}), einsum chain {res[k]['library_ms']:.4f} ms", flush=True)
@@ -4433,6 +4460,8 @@ def check_probes(dev):
                            **Bound().add(2 * 32 * 32 * 32 * 64, 2 * _nbytes(a) + _nbytes(kx))
                            .result(),
                            "library_ms": cuda_ms(lambda: torch.einsum("ih,lhc->ilc", kx, a))}
+    print(f"      interior_dot device: {graph_ms(lambda: interior_dot(kx, a)):.4f} ms; its einsum "
+          f"{graph_ms(lambda: torch.einsum('ih,lhc->ilc', kx, a)):.4f} ms device", flush=True)
     for k, e in errs.items():
         res[k]["max_abs_err"] = max(e)
     # shapes outside the kernels' limits raise naming the limit (the text
@@ -4451,7 +4480,7 @@ def check_probes(dev):
         except ValueError as e:
             msg = str(e)
         _check(limit in msg and fn.launches == before, f"{what} raises naming '{limit}': {msg}")
-    res.update(check_mosaic_dots(dev))
+    res.update(check_mosaic_dots(dev, parent))
     print(f"      the probe phase took {time.perf_counter() - t0:.1f} s", flush=True)
     return launches, res
 
@@ -4497,13 +4526,14 @@ def check_dot_general_edges(dev, x):
                 lambda: dot_general_plain(*args), rel, max_differ=differ)
 
 
-def check_mosaic_dots(dev):
+def check_mosaic_dots(dev, parent=None):
     """``dot_general`` and ``dot_chain`` at the TPU probe's shapes: each of
     the 19 cases held to its plain version (``probe_dots.tolerance``: bf16
     outputs of one product one ulp of max|plain| in at most 1 %, f32 1e-5,
     the moments 1e-3, the chains with bf16 intermediates 1e-2 and at most 2 %
     of a bf16 output) and timed beside its bound and library call, printing
-    each operand's feed; each chain's two runs bitwise equal; each kernel
+    each operand's feed; each chain's two runs bitwise equal, its device ms
+    printed beside the parent tree's (`parent`, from ``parent_ms``); each kernel
     refusing what its limit (stated in C) does not take, before anything
     launches. Returns {kernel: result} summed over its cases."""
     from lns_tpu_torch.kernels import mosaic_dots, probe_dots
@@ -4523,6 +4553,9 @@ def check_mosaic_dots(dev):
         if spec.route == "dot_chain":
             _check(torch.equal(out, mosaic_dots.run_case(key, x)),
                    f"dot_chain {key}: two runs bitwise equal")
+            print(f"      dot_chain {key} device: "
+                  f"{graph_ms(lambda: mosaic_dots.run_case(key, x)):.4f} ms (this tree); "
+                  + _parent_text(parent, f"dot_chain {key}"), flush=True)
         bound_ms, by = probe_dots.bound_ms(*probe_dots.work(key, x, out))
         row = res[spec.route]
         row["max_abs_err"] = max(row["max_abs_err"], err)

@@ -71,21 +71,47 @@
 // (n16 products) and the Gram's per-pair waits and barriers keep it at
 // about a quarter of its bound (PERF.md; probe_fab_mega.py --phases).
 //
-// The apply pass: a block keeps its sample's u [32 w, 2048 (h c)] in shared
-// memory (cp.async, rows padded to 2,056 elements so ldmatrix finds eight
-// distinct banks) and walks the heads for one tile of 8 rows l, all
-// products on mma.sync m16n8k16 (f32 accumulators):
-//   1. a for the tile, transposed: a^T [(h c), l] = u^T . ky^T, M = 2048
-//      (256 rows a warp), N = 8, K = 32; rounded and stored [l][h][c];
-//   2. warp w takes l = l0 + w: bb [32 i, 64 c] = kx . a[l] (M 32, N 64,
-//      K 32), rounded to bf16 in registers;
-//   3. the m16n8 accumulator layout of two neighbouring n-tiles is the
-//      m16k16 A-fragment layout, so b2 . m takes b2 from registers; the
-//      block's [256, 64] f32 sum lives in registers across the heads, a
-//      fixed order with no atomics.
-// Grids: statistics (b); apply (4 l-tiles, b), each block loops over the
-// heads with u loaded once; interior dot ceil(l / 8). One block per SM
-// (shared memory) in the passes.
+// The apply pass (fab_mega_apply_wgmma, sm_90a) keeps the statistics pass's
+// plan: a block per sample (116 blocks, one wave at b116), u_t read once into
+// shared memory in the same per-h layout (load_u_slab), every product on
+// wgmma. Its head sum is what shapes it: a sample's [1024 (i l), 64 o] f32
+// sum is 256 KB, more than shared memory holds beside u, so the block loops
+// over tiles of TL columns l outside and the heads inside, the tile's sum in
+// the two warpgroups' registers across the heads (no atomics: each output
+// belongs to one warpgroup, summed over the heads in order). Per tile and
+// head (an "iteration"; kx, the tile's rows of ky and m come by TMA into a
+// ring of two slots, thread 0 issuing iteration j + 2's copies once j has
+// consumed its slot):
+//   1. a^T [c, l] as in the statistics pass (tc_step1, m64 nTL k16, u
+//      MN-major), rounded and stored K-major in pair blocks;
+//   2. per pair block (each warpgroup its TL / 4): bb [(l', i), c] for the
+//      pair's two columns l' at once, M = 64 = 2 x 32 i: A is kx as a block
+//      diagonal [(l', i), (l'', h)] = kx[i, h] if l' = l'' else 0, each warp
+//      holding its 16 rows' fragments in registers (ldmatrix from the slot's
+//      kx; the off-diagonal k steps zero), B the pair block (K-major, K =
+//      (l'', h)): m64 n64 k16 x 4, twice step 2's products, none of them
+//      stored;
+//   3. b2 = bf16(bb) packed in registers is the A of out [(l', i), o] +=
+//      b2 . m (m64 n64 k16 x 4, m MN-major by TMA), the tile's sum; pair
+//      j's b2 . m and pair j + 1's step 2 go in one commit group.
+// After a tile's last head its sum minus the bias is rounded once and goes
+// through shared memory (a's region, 16-byte chunks XOR-swizzled by row) to
+// 16-byte global stores. Shared memory at TL = 16: u_t 131,072, a tile's
+// pair blocks 65,536, two slots of kx 4,096 + m 8,192 + ky rows 2,048;
+// 226,320 bytes with the barriers and the 1 KB alignment (TL = 8: 32,768 of
+// pair blocks, slots of 13,312). Registers: the tile's sum, TL / 4 x 32 f32 a
+// thread (128 at TL = 16), beside step 1's 64 accumulators (kApplyHB = 8 h
+// a batch): ptxas spills about 250 bytes a thread at TL = 16, and still the
+// tile of 16 and batches of 8 measured faster than tiles of 8 or batches of
+// 4 (probe_fab_mega.py --variants). What bounds it: step 1's nTL products,
+// which read all of u from shared memory once per iteration (2 MB a sample
+// at TL = 16, 4 MB at TL = 8), and the waits and block barriers between
+// the steps (probe_fab_mega.py --phases); u itself is read from device
+// memory once.
+//
+// Grids: statistics and apply (b), each block looping over its heads with
+// u loaded once; interior dot ceil(l / 8). One block per SM (shared memory)
+// in the passes.
 
 #include <cstdio>
 
@@ -97,24 +123,16 @@ namespace {
 
 constexpr int kS = 32;             // h = w
 constexpr int kC = 64;             // c (and o)
-constexpr int kHC = kS * kC;       // a row of u_t: (h c)
-constexpr int kUP = kHC + 8;       // u's row stride in shared memory (elements)
-constexpr int kKP = kS + 8;        // kx, ky row stride
-constexpr int kCP = kC + 8;        // a, b2, m row stride
-constexpr int kLT = 8;             // l rows per tile (one per warp)
+constexpr int kKP = kS + 8;        // the interior dot's kx row stride
+constexpr int kCP = kC + 8;        // its a row stride
+constexpr int kLT = 8;             // its l rows per block (one per warp)
 constexpr int kAL = kS * kCP;      // a's stride between l rows
 constexpr int kThreads = 256;
 static_assert(kThreads / 32 == kLT, "one warp per l row of a tile");
 
 using bf16 = __nv_bfloat16;
 
-constexpr size_t kUBytes = sizeof(bf16) * kS * kUP;
-constexpr size_t kKBytes = sizeof(bf16) * 2 * kS * kKP;
-constexpr size_t kABytes = sizeof(bf16) * kLT * kAL;
-constexpr size_t kApplySmem = kUBytes + kKBytes + kABytes + sizeof(bf16) * kC * kCP;
-constexpr size_t kDotSmem = sizeof(bf16) * kS * kKP + kABytes;
-static_assert(kApplySmem <= lns::kMaxDynamicSmem,
-              "one block per SM");
+constexpr size_t kDotSmem = sizeof(bf16) * (kS * kKP + kLT * kAL);
 
 // rows x cols bf16 (cols a multiple of 8) from global (row stride src_ld) to
 // shared memory (row stride dst_ld) by 16-byte cp.async, all threads
@@ -127,41 +145,9 @@ __device__ __forceinline__ void load_rows(bf16* dst, int dst_ld, const bf16* src
   }
 }
 
-// Step 1: a[l0 .. l0 + 7] = bf16(ky[l0 ..] . u_t) into a_s [l][h][c]; warp w
-// computes the (h c) rows w * 256 .. w * 256 + 255 of a^T.
-__device__ __forceinline__ void apply_ky(const bf16* u_s, const bf16* ky_s, bf16* a_s, int l0) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, t = lane % 4;
-  uint32_t bk[2][2];  // ky^T [w, l], stored [l][w]: k16 x n8 for each half of w
-#pragma unroll
-  for (int ks = 0; ks < 2; ++ks) {
-    uint32_t r[2];
-    lns::ldsm_x2(r, ky_s + lns::bt_addr(lane, l0, ks * 16, kKP));
-    bk[ks][0] = r[0];
-    bk[ks][1] = r[1];
-  }
-#pragma unroll 4
-  for (int mt = 0; mt < kHC / 16 / kLT; ++mt) {
-    const int m0 = warp * (kHC / kLT) + mt * 16;
-    float acc[4] = {};
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks) {
-      uint32_t af[4];
-      lns::ldsm_x4_trans(af, u_s + lns::at_addr(lane, ks * 16, m0, kUP));
-      lns::mma_bf16(acc, af, bk[ks][0], bk[ks][1]);
-    }
-    // C fragment: (m = m0 + g (+ 8), n = l = 2t, 2t + 1); m = h * 64 + c
-    bf16* p = a_s + (m0 / kC) * kCP + m0 % kC + g;
-    p[(2 * t) * kAL] = __float2bfloat16(acc[0]);
-    p[(2 * t + 1) * kAL] = __float2bfloat16(acc[1]);
-    p[(2 * t) * kAL + 8] = __float2bfloat16(acc[2]);
-    p[(2 * t + 1) * kAL + 8] = __float2bfloat16(acc[3]);
-  }
-}
-
-// Step 2: this warp's bb [32 i, 64 c] = kx . a_l (a_l [h][c], stride kCP),
-// f32 accumulators acc[i-tile][c-tile][4].
-__device__ __forceinline__ void apply_kx(const bf16* kx_s, const bf16* a_l,
+// The interior dot of one l: this warp's bb [32 i, 64 c] = kx . a_l (a_l
+// [h][c], stride kCP), f32 accumulators acc[i-tile][c-tile][4].
+__device__ __forceinline__ void interior_kx(const bf16* kx_s, const bf16* a_l,
                                          float (&acc)[2][8][4]) {
   const int lane = threadIdx.x % 32;
 #pragma unroll
@@ -185,71 +171,6 @@ __device__ __forceinline__ void apply_kx(const bf16* kx_s, const bf16* a_l,
       for (int nt = 0; nt < 8; ++nt)
         lns::mma_bf16(acc[mt][nt], af[mt], bfr[nt / 2][nt % 2 * 2], bfr[nt / 2][nt % 2 * 2 + 1]);
   }
-}
-
-__global__ void __launch_bounds__(kThreads, 1)
-fab_mega_apply_kernel(const bf16* __restrict__ u_t, const bf16* __restrict__ kx,
-                      const bf16* __restrict__ ky, const bf16* __restrict__ m,
-                      const bf16* __restrict__ bias, bf16* __restrict__ out, int n) {
-  extern __shared__ uint4 smem_apply[];
-  bf16* u_s = reinterpret_cast<bf16*>(smem_apply);
-  bf16* kx_s = u_s + kS * kUP;
-  bf16* ky_s = kx_s + kS * kKP;
-  bf16* a_s = ky_s + kS * kKP;
-  bf16* m_s = a_s + kLT * kAL;  // [kC][kCP]
-  const int l0 = blockIdx.x * kLT, b = blockIdx.y;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, t = lane % 4;
-
-  load_rows(u_s, kUP, u_t + static_cast<size_t>(b) * kS * kHC, kHC, kS, kHC);
-  float out_acc[2][8][4] = {};  // rows (i, l0 + warp), columns o
-  for (int hn = 0; hn < n; ++hn) {
-    const size_t bn = static_cast<size_t>(b) * n + hn;
-    load_rows(kx_s, kKP, kx + bn * kS * kS, kS, kS, kS);
-    load_rows(ky_s, kKP, ky + bn * kS * kS, kS, kS, kS);
-    load_rows(m_s, kCP, m + bn * kC * kC, kC, kC, kC);
-    lns::cp_async_commit();
-    lns::cp_async_wait<0>();
-    __syncthreads();
-    apply_ky(u_s, ky_s, a_s, l0);
-    __syncthreads();
-    float acc[2][8][4];
-    apply_kx(kx_s, a_s + warp * kAL, acc);
-#pragma unroll
-    for (int ks = 0; ks < kC / 16; ++ks) {
-      uint32_t bfr[4][4];
-#pragma unroll
-      for (int np = 0; np < 4; ++np)
-        lns::ldsm_x4_trans(bfr[np], m_s + lns::b_addr(lane, ks * 16, np * 16, kCP));
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        // b2's A fragment for rows mt * 16 .., columns ks * 16 .. (C tiles 2ks, 2ks + 1)
-        const uint32_t af[4] = {lns::pack_bf16(acc[mt][2 * ks][0], acc[mt][2 * ks][1]),
-                                lns::pack_bf16(acc[mt][2 * ks][2], acc[mt][2 * ks][3]),
-                                lns::pack_bf16(acc[mt][2 * ks + 1][0], acc[mt][2 * ks + 1][1]),
-                                lns::pack_bf16(acc[mt][2 * ks + 1][2], acc[mt][2 * ks + 1][3])};
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-          lns::mma_bf16(out_acc[mt][nt], af, bfr[nt / 2][nt % 2 * 2],
-                        bfr[nt / 2][nt % 2 * 2 + 1]);
-      }
-    }
-    __syncthreads();  // kx, ky, m and a are consumed before the next head's loads
-  }
-  const bf16* bp = bias + static_cast<size_t>(b) * kC;
-  const int l = l0 + warp;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int i = mt * 16 + g, o = nt * 8 + 2 * t;
-      const float b0 = __bfloat162float(bp[o]), b1 = __bfloat162float(bp[o + 1]);
-      bf16* p = out + ((static_cast<size_t>(b) * kS + i) * kS + l) * kC + o;
-      *reinterpret_cast<uint32_t*>(p) =
-          lns::pack_bf16(out_acc[mt][nt][0] - b0, out_acc[mt][nt][1] - b1);
-      *reinterpret_cast<uint32_t*>(p + 8 * kS * kC) =
-          lns::pack_bf16(out_acc[mt][nt][2] - b0, out_acc[mt][nt][3] - b1);
-    }
 }
 
 // ---- the statistics pass on wgmma (sm_90a; TMA, mbarriers, hopper.cuh) ------
@@ -278,18 +199,21 @@ static_assert(kWG == 2 && kHB == 8 && kS / kSlab == 4 && kTL % (2 * kWG) == 0,
               "two warpgroups, a pair block's two columns, batches of 8 h in slabs of 8");
 static_assert(kStatsTcSmem <= lns::kMaxDynamicSmem, "one block per SM");
 
-// Step 1 of h = h0 .. h0 + kHB - 1 (a warpgroup): a^T [c, l] = u_h^T [c, w] .
-// ky_tile^T [w, l] (m64 n16 k16, u MN-major, ky K-major), rounded to bf16
-// and stored K-major for step 2: column l in half l / 2 % 2 of pair block
-// pair(l), rows c, its h along the row (the batch's kHB h of one (c, l) one
-// 16-byte piece; a store's 32 pieces fill every bank group four times)
+// Step 1 of h = h0 .. h0 + HB - 1 (a warpgroup) for a tile of TL columns l:
+// a^T [c, l] = u_h^T [c, w] . ky_tile^T [w, l] (m64 nTL k16, u MN-major, ky
+// K-major), rounded to bf16 and stored K-major for step 2: column l in half
+// l / 2 % 2 of pair block pair(l), rows c, its h along the row (the batch's
+// HB h of one (c, l) one 16-byte piece at HB = 8, a store's 32 pieces
+// filling every bank group four times; 8 bytes at HB = 4)
+template <int TL, int HB>
 __device__ __forceinline__ void tc_step1(const uint8_t* u_s, const uint8_t* kyt, uint8_t* a_s,
                                          int h0, int wt) {
-  float acc[kHB][8];
+  static_assert(HB == 4 || HB == 8, "batches of 4 or 8 h");
+  float acc[HB][TL / 2];
 #pragma unroll
-  for (int r = 0; r < kHB; ++r) {
+  for (int r = 0; r < HB; ++r) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) acc[r][i] = 0.f;
+    for (int i = 0; i < TL / 2; ++i) acc[r][i] = 0.f;
     lns::wgmma_fence_regs(acc[r]);
   }
   lns::wgmma_fence();
@@ -297,17 +221,17 @@ __device__ __forceinline__ void tc_step1(const uint8_t* u_s, const uint8_t* kyt,
   for (int ks = 0; ks < kS / 16; ++ks) {
     const uint64_t db = lns::desc_kmajor(kyt + ks * 32);
 #pragma unroll
-    for (int r = 0; r < kHB; ++r)
-      lns::wgmma<kTL, 1, 0>(acc[r], lns::desc_mnmajor(u_s + (h0 + r) * kBox + ks * 2048), db);
+    for (int r = 0; r < HB; ++r)
+      lns::wgmma<TL, 1, 0>(acc[r], lns::desc_mnmajor(u_s + (h0 + r) * kBox + ks * 2048), db);
   }
   lns::wgmma_commit();
   lns::wgmma_wait<0>();
 #pragma unroll
-  for (int r = 0; r < kHB; ++r) lns::wgmma_fence_regs(acc[r]);
+  for (int r = 0; r < HB; ++r) lns::wgmma_fence_regs(acc[r]);
   // acc[r][4 k + 2 hf + e]: row c = 16 q + 8 hf + g, column l = 8 k + 2 u + e, h = h0 + r
   const int q = wt / 32, lane = wt % 32, g = lane / 4, u = lane % 4;
 #pragma unroll
-  for (int k = 0; k < kTL / 8; ++k)
+  for (int k = 0; k < TL / 8; ++k)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int l = 8 * k + 2 * u + e;
@@ -315,9 +239,15 @@ __device__ __forceinline__ void tc_step1(const uint8_t* u_s, const uint8_t* kyt,
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
         const int i = 4 * k + 2 * hf + e;
-        *reinterpret_cast<uint4*>(pb + lns::sw128(16 * q + 8 * hf + g, (l / 2 % 2) * kS + h0)) =
-            make_uint4(lns::pack_bf16(acc[0][i], acc[1][i]), lns::pack_bf16(acc[2][i], acc[3][i]),
-                       lns::pack_bf16(acc[4][i], acc[5][i]), lns::pack_bf16(acc[6][i], acc[7][i]));
+        uint8_t* at = pb + lns::sw128(16 * q + 8 * hf + g, (l / 2 % 2) * kS + h0);
+        if constexpr (HB == 8) {
+          *reinterpret_cast<uint4*>(at) = make_uint4(
+              lns::pack_bf16(acc[0][i], acc[1][i]), lns::pack_bf16(acc[2][i], acc[3][i]),
+              lns::pack_bf16(acc[4][i], acc[5][i]), lns::pack_bf16(acc[6][i], acc[7][i]));
+        } else {
+          *reinterpret_cast<uint2*>(at) = make_uint2(lns::pack_bf16(acc[0][i], acc[1][i]),
+                                                     lns::pack_bf16(acc[2][i], acc[3][i]));
+        }
       }
     }
 }
@@ -479,7 +409,7 @@ fab_mega_stats_wgmma(const bf16* __restrict__ u_t, const __grid_constant__ CUten
           lns::fence_async_shared();  // every thread's pieces, visible to wgmma
           lns::bar_sync(1, 128 * kWG);
         }
-        tc_step1(u_s, ky_b + t * kTL * 128, a_s, (2 * it + wg) * kSlab, wt);
+        tc_step1<kTL, kHB>(u_s, ky_b + t * kTL * 128, a_s, (2 * it + wg) * kSlab, wt);
       }
       lns::fence_async_shared();  // a's stores, visible to wgmma
       lns::bar_sync(1, 128 * kWG);
@@ -531,6 +461,195 @@ fab_mega_stats_wgmma(const bf16* __restrict__ u_t, const __grid_constant__ CUten
   }
 }
 
+// ---- the apply pass on wgmma ---------------------------------------------
+
+constexpr int kApplyTile = 16;  // columns l of the apply pass's tile (8 or 16; PERF.md)
+constexpr int kApplyHB = 8;     // h of one step-1 batch in the apply pass (4 or 8; PERF.md)
+constexpr int kKRing = 2;       // the apply pass's slots of (kx, m, ky rows)
+
+// The apply pass's shared memory for a tile of TL columns, byte offsets from
+// the first 1024-byte boundary: u_t by h (as the statistics pass), the
+// tile's pair blocks (then the tile's output, [i][l][o] rows of 128 bytes),
+// kKRing slots of kx ([i rows][64 h, 32 used]), m ([c rows][64 o], an
+// MN-major B) and the tile's rows of ky ([l rows][64 w, 32 used]), the
+// slots' barriers
+template <int TL>
+struct ApplySmem {
+  static constexpr int kPairs = TL / 2;
+  static constexpr int kOffA = kS * kBox;
+  static constexpr int kOffSlot = kOffA + kPairs * kPair;
+  static constexpr int kM = kBox;                      // m in a slot
+  static constexpr int kKy = kM + 2 * kBox;            // ky's rows in a slot
+  static constexpr int kSlot = kKy + TL * 128;
+  static constexpr int kSlotTx = kSlot;                // bytes the copies of a slot bring
+  static constexpr int kOffBar = kOffSlot + kKRing * kSlot;
+  static constexpr size_t kBytes = 1024 + kOffBar + 8 * kKRing;
+  static_assert(TL == 8 || TL == 16, "a tile of 8 or 16 columns");
+  static_assert(kBytes <= lns::kMaxDynamicSmem, "one block per SM");
+  static_assert(kS * TL * 128 == kPairs * kPair, "the tile's output fits its pair blocks");
+};
+
+// A warpgroup's P pair blocks, pb0 + j kWG kPair: per pair, step 2, bb
+// [(l', i), c] = kxd . a_pair (kxd the block-diagonal kx, this warp's
+// fragments in ka; B the pair block, K-major, K = (l', h)); b2 = bf16(bb)
+// packed in registers (two neighbouring n8 accumulator blocks are one k16 A
+// fragment); acc[j] += b2 . m (m MN-major) in k order. Pipelined: pair j's
+// b2 . m and pair j + 1's step 2 are one commit group (two products in
+// flight per wait).
+template <int P>
+__device__ __forceinline__ void tc_apply_pairs(const uint8_t* pb0, const uint32_t (&ka)[4][4],
+                                               const uint8_t* m_s, float (&acc)[P][32]) {
+  float bb[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) bb[i] = 0.f;
+  lns::wgmma_fence_regs(bb);
+  lns::wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) lns::wgmma_n64_rs<0>(bb, ka[ks], lns::desc_kmajor(pb0 + ks * 32));
+  lns::wgmma_commit();
+  lns::wgmma_wait<0>();
+  lns::wgmma_fence_regs(bb);
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    uint32_t p[16];
+#pragma unroll
+    for (int m = 0; m < 16; ++m) p[m] = lns::pack_bf16(bb[2 * m], bb[2 * m + 1]);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) bb[i] = 0.f;
+    lns::wgmma_fence_regs(bb);
+    lns::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const uint32_t a[4] = {p[4 * ks], p[4 * ks + 1], p[4 * ks + 2], p[4 * ks + 3]};
+      lns::wgmma_n64_rs<1>(acc[j], a, lns::desc_mnmajor(m_s + ks * 2048));
+    }
+    if (j + 1 < P) {
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        lns::wgmma_n64_rs<0>(bb, ka[ks], lns::desc_kmajor(pb0 + (j + 1) * kWG * kPair + ks * 32));
+    }
+    lns::wgmma_commit();
+    lns::wgmma_wait<0>();
+    lns::wgmma_fence_regs(bb);
+  }
+}
+
+// One block per sample: u_t once into shared memory, then per tile of TL
+// columns l the heads in order, each step 1 (the warpgroups' batches of 8 h)
+// and then, per pair block of the warpgroup, step 2 and b2 . m into the
+// tile's sum; the tile's sum minus the bias rounded once and stored. Each
+// output belongs to one warpgroup and sums the heads in order (no atomics:
+// two runs give the same bits).
+template <int TL>
+__global__ void __launch_bounds__(kThreadsTc, 1)
+fab_mega_apply_wgmma(const bf16* __restrict__ u_t, const __grid_constant__ CUtensorMap map_kx,
+                     const __grid_constant__ CUtensorMap map_ky,
+                     const __grid_constant__ CUtensorMap map_m, const bf16* __restrict__ bias,
+                     bf16* __restrict__ out, int n) {
+  using L = ApplySmem<TL>;
+  extern __shared__ uint8_t smem_ap[];
+  uint8_t* base = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_ap) + 1023) &
+                                             ~static_cast<uintptr_t>(1023));
+  uint8_t* u_s = base;
+  uint8_t* a_s = base + L::kOffA;
+  uint64_t* kfull = reinterpret_cast<uint64_t*>(base + L::kOffBar);
+  const int tid = threadIdx.x, b = blockIdx.x, steps = (kS / TL) * n;
+  // iteration j (tile j / n, head j % n): kx, m and ky's rows into slot j %
+  // kKRing (thread 0), completing on its barrier
+  auto load = [&](int j) {
+    uint64_t* bar = &kfull[j % kKRing];
+    uint8_t* sl = base + L::kOffSlot + (j % kKRing) * L::kSlot;
+    const int bn = b * n + j % n;
+    lns::mbar_expect_tx(bar, L::kSlotTx);
+    lns::tma_load(sl, &map_kx, bar, 0, 0, bn, 0);
+    lns::tma_load(sl + L::kM, &map_m, bar, 0, 0, bn, 0);
+    lns::tma_load(sl + L::kKy, &map_ky, bar, 0, j / n * TL, bn, 0);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < kKRing; ++i) lns::mbar_init(&kfull[i], 1);
+    lns::mbar_fence_init();
+    for (int j = 0; j < kKRing && j < steps; ++j) load(j);
+  }
+  const bf16* u_b = u_t + static_cast<size_t>(b) * kS * kS * kC;
+#pragma unroll
+  for (int q = 0; q < kS / kSlab; ++q) {  // every slab in flight, one commit group each
+    load_u_slab(u_s, u_b, q, tid);
+    lns::cp_async_commit();
+  }
+  __syncthreads();  // the barriers exist before anyone waits on them
+  const int wg = tid / 128, wt = tid % 128, q = wt / 32, lane = wt % 32, g = lane / 4,
+            u = lane % 4;
+  for (int t = 0; t < kS / TL; ++t) {
+    float acc[TL / 4][32];  // the sum of pair block wg + 2 jj: rows (l', i), columns o
+#pragma unroll
+    for (int jj = 0; jj < TL / 4; ++jj) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[jj][i] = 0.f;
+      lns::wgmma_fence_regs(acc[jj]);
+    }
+    for (int hn = 0; hn < n; ++hn) {
+      const int j = t * n + hn;
+      const uint8_t* sl = base + L::kOffSlot + (j % kKRing) * L::kSlot;
+      lns::mbar_wait(&kfull[j % kKRing], (j / kKRing) & 1);
+      constexpr int kPer = kSlab / kApplyHB;  // batches of a slab
+#pragma unroll
+      for (int it = 0; it < 2 * kPer; ++it) {  // warpgroup wg's batch it: slab 2 (it / kPer) + wg
+        if (j == 0 && it % kPer == 0) {  // the first iteration waits for the slabs
+          if (it == 0) lns::cp_async_wait<2>();
+          if (it == kPer) lns::cp_async_wait<0>();
+          lns::fence_async_shared();  // every thread's pieces, visible to wgmma
+          lns::bar_sync(1, kThreadsTc);
+        }
+        tc_step1<TL, kApplyHB>(u_s, sl + L::kKy, a_s,
+                               (2 * (it / kPer) + wg) * kSlab + it % kPer * kApplyHB, wt);
+      }
+      lns::fence_async_shared();  // a's stores, visible to wgmma
+      lns::bar_sync(1, kThreadsTc);
+      // this warp's rows (l' = q / 2, i = 16 (q % 2) ..) of the block-diagonal
+      // kx: k steps 2 (q / 2) and 2 (q / 2) + 1 hold kx[i, h], the others zero
+      uint32_t kf[2][4], ka[4][4];
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        lns::ldsm_x4(kf[c], sl + lns::sw128(16 * (q % 2) + (lane & 15), 16 * c + (lane >> 4) * 8));
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) ka[ks][x] = ks / 2 == q / 2 ? kf[ks % 2][x] : 0u;
+      tc_apply_pairs<TL / 4>(a_s + wg * kPair, ka, sl + L::kM, acc);
+      lns::bar_sync(1, kThreadsTc);  // the pair blocks and the slot are consumed
+      if (tid == 0 && j + kKRing < steps) load(j + kKRing);
+    }
+    // the tile's output, rounded once, into a's region: row (i, l) of 128
+    // bytes, 16-byte chunk k at k ^ (i % 8) (each store's eight rows i in
+    // distinct banks); then 16-byte stores of whole rows
+#pragma unroll
+    for (int jj = 0; jj < TL / 4; ++jj) lns::wgmma_fence_regs(acc[jj]);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {  // the bias at columns o = 8 k + 2 u, + 1
+      const float2 bo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+          bias + static_cast<size_t>(b) * kC + 8 * k + 2 * u));
+#pragma unroll
+      for (int jj = 0; jj < TL / 4; ++jj) {
+        const int l = wg + 4 * jj + 2 * (q / 2);
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int i = 16 * (q % 2) + g + 8 * hf;
+          *reinterpret_cast<uint32_t*>(a_s + (i * TL + l) * 128 + ((k ^ (i & 7)) << 4) + 4 * u) =
+              lns::pack_bf16(acc[jj][4 * k + 2 * hf] - bo.x, acc[jj][4 * k + 2 * hf + 1] - bo.y);
+        }
+      }
+    }
+    lns::bar_sync(1, kThreadsTc);
+    for (int e = tid; e < kS * TL * 8; e += kThreadsTc) {
+      const int k = e % 8, l = e / 8 % TL, i = e / (8 * TL);
+      *reinterpret_cast<uint4*>(out + ((static_cast<size_t>(b) * kS + i) * kS + t * TL + l) * kC +
+                                8 * k) =
+          *reinterpret_cast<const uint4*>(a_s + (i * TL + l) * 128 + ((k ^ (i & 7)) << 4));
+    }
+    lns::bar_sync(1, kThreadsTc);  // the output is read before the next tile's step 1
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 interior_dot_kernel(const bf16* __restrict__ kx, const bf16* __restrict__ a,
                     bf16* __restrict__ out, int l_dim) {
@@ -549,7 +668,7 @@ interior_dot_kernel(const bf16* __restrict__ kx, const bf16* __restrict__ a,
   __syncthreads();
   if (warp >= rows) return;
   float acc[2][8][4];
-  apply_kx(kx_s, a_s + warp * kAL, acc);
+  interior_kx(kx_s, a_s + warp * kAL, acc);
   const int l = l0 + warp;
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
@@ -617,12 +736,26 @@ extern "C" int lns_fab_mega_stats(const void* u_t, const void* kx, const void* k
 extern "C" int lns_fab_mega_apply(const void* u_t, const void* kx, const void* ky, const void* m,
                                   const void* bias, void* out, int b, int n, void* stream) {
   if (lns_fab_mega_limit(1, b, kS, kS, kC) || n < 1) return cudaErrorInvalidValue;
-  cudaError_t e = lns::allow_smem(fab_mega_apply_kernel, kApplySmem);
+  constexpr int TL = kApplyTile;
+  using u64 = uint64_t;
+  const u64 BN = static_cast<u64>(b) * n, S = kS, C = kC;
+  CUtensorMap mkx, mky, mm;
+  // kx [b n, 32, 32]: one head's matrix, columns 32 .. 63 of the box zero;
+  // ky: the tile's TL rows of one head's; m [b n, 64 c, 64 o]: one head's
+  cudaError_t e = lns::make_map(&mkx, kx, {S, S, BN, 1}, {S * 2, S * S * 2, BN * S * S * 2},
+                                {64, static_cast<uint32_t>(kS), 1, 1});
+  if (e == cudaSuccess)
+    e = lns::make_map(&mky, ky, {S, S, BN, 1}, {S * 2, S * S * 2, BN * S * S * 2},
+                      {64, static_cast<uint32_t>(TL), 1, 1});
+  if (e == cudaSuccess)
+    e = lns::make_map(&mm, m, {C, C, BN, 1}, {C * 2, C * C * 2, BN * C * C * 2},
+                      {64, static_cast<uint32_t>(kC), 1, 1});
+  if (e == cudaSuccess) e = lns::allow_smem(fab_mega_apply_wgmma<TL>, ApplySmem<TL>::kBytes);
   if (e != cudaSuccess) return e;
-  fab_mega_apply_kernel<<<dim3(kS / kLT, b), kThreads, kApplySmem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(u_t), static_cast<const bf16*>(kx), static_cast<const bf16*>(ky),
-      static_cast<const bf16*>(m), static_cast<const bf16*>(bias), static_cast<bf16*>(out), n);
+  fab_mega_apply_wgmma<TL><<<b, kThreadsTc, ApplySmem<TL>::kBytes,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(u_t), mkx, mky, mm, static_cast<const bf16*>(bias),
+      static_cast<bf16*>(out), n);
   return cudaGetLastError();
 }
 

@@ -37,10 +37,19 @@
 //   reaches device memory: the kernel reads the inputs and writes only the
 //   output. Each block owns a slice of one free dim of each stage's output;
 //   a stage that needs what its peers computed reads their slices through
-//   distributed shared memory (DSMEM) after a cluster barrier, and the
-//   cross-block sums run in rank order, so two runs give the same bits.
-//   The bf16 products run on mma.sync as in dot_general, the f32 ones in
-//   full f32 on the CUDA cores. Per chain (rank r of 8):
+//   distributed shared memory (DSMEM) after a cluster barrier (pull_all: a
+//   thread's loads from the 8 peers issued together), and the
+//   cross-block sums run in a fixed order, so two runs give the same bits.
+//   The bf16 products run on mma.sync as in dot_general. The f32 ones run in
+//   full f32 on the CUDA cores (no TF32), register-blocked (ffma_tile): each
+//   of the 256 threads holds a 4 x 8 or 8 x 4 tile of the output, both
+//   operands are f32 k-major copies in shared memory (the bf16 inputs
+//   widened once as they land), so each k step reads 16-byte vectors, and
+//   every stride is a template parameter (no division or modulo in the k
+//   loop); each output stays one fmaf chain in k order, the first design's
+//   bits. The inputs come in commit groups in the order the stages need
+//   them, so the first product starts while the later inputs land. Per
+//   chain (rank r of 8):
 //     0 apply_chain        block owns c [8r, 8r+8): a = bf16(u . k2) [c,h,l],
 //                          bb = bf16(k3 . a) [i,c,l]; DSMEM: block owns
 //                          i [4r, 4r+4) of t = bb . m, gathers bb[i, all c,
@@ -55,13 +64,16 @@
 //     3 scr_bf16_f32       as 0 with out = bb . m                  [I,L,O] f32
 //     4 scr_f32_f32        as 0 with bb in f32 and out = bb . f32(m) on the
 //                          CUDA cores                               [I,L,O] f32
-//     5 chain_scr2_f32     all f32 on the CUDA cores: as 4 to the gather,
-//                          phi = bb . m, the block's column sums of phi and
-//                          phi^2 sent to every block's slot for its rank
-//                          (DSMEM), summed in rank order; mean, var =
-//                          max(s2/n - mean^2, 0), inv = rsqrt(var + 1e-5),
-//                          mm = (m inv) m^T and bias = (mean inv) m^T in
-//                          every block; out = (t - bias) + t, t = bb . mm
+//     5 chain_scr2_f32     all f32 on the CUDA cores: as 4 to the gather
+//                          (a = u . k2, bb = k3 . a), phi = bb . m kept in
+//                          registers, its column sums of phi and phi^2 in a
+//                          fixed tree (a thread's 4 rows in order, its
+//                          warp's 4 row groups by shuffles, the 8 warps,
+//                          then the 8 ranks, pushed by DSMEM, in every
+//                          block); mean, var = max(s2/n - mean^2, 0), inv =
+//                          rsqrt(var + 1e-5), mm = (m inv) m^T and bias =
+//                          (mean inv) m^T in every block; out = (t - bias)
+//                          + t, t = bb . mm
 //     6 transp_chain_f32   block owns y = q's dim 0 in [4r, 4r+4): a =
 //                          q . m (f32 sums) stored with its two leading
 //                          dims swapped, [x][y][m1]; DSMEM: block owns x in
@@ -71,25 +83,29 @@
 //   lns_dot_chain_limit states and the launch checks: 232,448):
 //     0, 3  u 20,480 + k2, k3 5,120 + m 9,216 + a 20,480 + bb 20,480
 //           + gathered bb 20,480 = 96,256
-//     4     the same with bb and its gather in f32: 120,832
+//     4     the same with bb and its gather in f32, and f32(m) 16,384:
+//           137,216
 //     1, 2  u 17,408 + k2, k3 5,120 + m 9,216 + v 20,480 + a 20,480
 //           + gathered a 20,480 = 93,184
-//     5     u 16,384 + k2, k3 4,096 + m 8,192 + a / phi 32,768 + bb 32,768
-//           + gathered bb 32,768 + rank sums 4,096 + statistics 1,024
-//           + m inv 16,384 + mm 16,384 = 164,864
+//     5     the raw inputs u 20,480 + k2, k3 5,120 + m 9,216 (then the
+//           column sums, the ranks' sums and the statistics, 9,216) + k2^T,
+//           k3^T 8,192 + three f32 regions of 32,768: u^T, then bb, then
+//           (m inv)^T and mm; a, then f32(m) and m^T; the gathered bb =
+//           141,312
 //     6     q 20,480 + m 9,216 + k2 2,048 + a' 32,768 + gathered a' 32,768
-//           = 97,280
+//           + k2^T 4,096 = 101,376
 //   The cluster as a whole holds each intermediate once (128 KB in bf16,
 //   256 KB in f32), which no single block's 227 KB could hold two of.
 //
 // What bounds them on an H100: neither bytes nor operations. lhs_minor moves
 // 264 KB (0.079 us at 3.35 TB/s) for 4.2 MFLOP (0.004 us at 989 TFLOP/s);
-// chain_scr2_f32 does 25.7 MFLOP in f32 (0.38 us at 67 TFLOP/s) on 8 SMs.
-// A launch costs more than either: these kernels are bound by launch latency
-// and by the few SMs a single case fills. Neither kernel is on a model's
-// path; they answer the TPU probe's two questions on this card (which
-// orientations reach the tensor cores, and how; whether a chain's
-// intermediates can stay on chip).
+// chain_scr2_f32 does 25.7 MFLOP in f32 (0.38 us at 67 TFLOP/s), on 8 SMs
+// 1.8 M fmaf a block (7.8 us at 128 fmaf a cycle and 1.83 GHz). A launch
+// costs more than the bound: these kernels are bound by launch latency, the
+// few SMs a single case fills, and in the f32 chains by the fmaf issue rate
+// of 8 SMs. Neither kernel is on a model's path; they answer the TPU probe's
+// two questions on this card (which orientations reach the tensor cores,
+// and how; whether a chain's intermediates can stay on chip).
 
 #include <cooperative_groups.h>
 
@@ -494,34 +510,102 @@ __device__ __forceinline__ void mma_gemm(const bf16* A, View va, const bf16* B, 
   }
 }
 
-// The same product in full f32 on the CUDA cores (bf16 operands widened
-// exactly): each thread takes 4 x 4 tiles in turn, one fmaf chain in k
-// order per output.
-template <class TA, class TB, class Epi>
-__device__ __forceinline__ void ffma_gemm(const TA* A, View va, const TB* B, View vb, int M, int N,
-                                          int K, Epi&& epi) {
-  const int tn = N / 4, tiles = M / 4 * tn;
-  for (int tile = threadIdx.x; tile < tiles; tile += kCThreads) {
-    const int m0 = tile / tn * 4, n0 = tile % tn * 4;
-    float acc[4][4] = {};
-    for (int k = 0; k < K; ++k) {
-      float a[4], b[4];
+// A k-major f32 operand in shared memory: element (r, k) at (r / R) S + k LD
+// + r % R floats, so that the rows of a thread's tile (a run within one R)
+// are one 16-byte-aligned vector at each k. Everything is known at compile
+// time: the k loop has no division or modulo.
+template <int R, int S, int LD>
+struct KMajor {
+  static_assert(R % 4 == 0 && S % 4 == 0 && LD % 4 == 0, "16-byte vectors");
+  static constexpr int kLD = LD;
+  __device__ __forceinline__ static int at(int r, int k) { return r / R * S + k * LD + r % R; }
+};
+
+// TN floats of a k-major operand at p into v, as 16-byte loads
+template <int TN>
+__device__ __forceinline__ void ld_vec(float (&v)[TN], const float* p) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = lns::ld(A[va.at(m0 + i, k)]);
+  for (int j = 0; j < TN; j += 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p + j);
+    v[j] = x.x;
+    v[j + 1] = x.y;
+    v[j + 2] = x.z;
+    v[j + 3] = x.w;
+  }
+}
+
+// out[m][n] = sum_k A(m, k) B(n, k) in full f32 on the CUDA cores, A and B
+// k-major in shared memory (KMajor LA, LB). Register-blocked: thread t takes
+// the TM x TN outputs at rows TM (t / (N / TN)), columns TN (t % (N / TN)),
+// the 256 threads covering M x N once (a warp's lanes along the columns: B's
+// vectors contiguous, A's broadcast to 32 / (N / TN) row tiles, a row's
+// stores contiguous); per k it reads TM / 4 + TN / 4 16-byte vectors for TM
+// TN fmaf. Each output is one fmaf chain in k order from 0, so any tiling
+// gives the same bits. epi(m0, n0, acc[TM][TN]), called once by every
+// thread.
+template <int M, int N, int K, int TM, int TN, class LA, class LB, class Epi>
+__device__ __forceinline__ void ffma_tile(const float* A, const float* B, Epi&& epi) {
+  static_assert((M / TM) * (N / TN) == kCThreads && M % TM == 0 && N % TN == 0,
+                "one tile a thread");
+  const int m0 = static_cast<int>(threadIdx.x) / (N / TN) * TM;
+  const int n0 = static_cast<int>(threadIdx.x) % (N / TN) * TN;
+  const float* a = A + LA::at(m0, 0);
+  const float* b = B + LB::at(n0, 0);
+  float acc[TM][TN];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = lns::ld(B[vb.at(n0 + j, k)]);
+  for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    float av[TM], bv[TN];
+    ld_vec(av, a + k * LA::kLD);
+    ld_vec(bv, b + k * LB::kLD);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
+    for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      epi(m0 + i, n0, acc[i][0], acc[i][1]);
-      epi(m0 + i, n0 + 2, acc[i][2], acc[i][3]);
+      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+  epi(m0, n0, acc);
+}
+
+// f32 copy of a bf16 matrix in shared memory: dst[r][c] (row stride dld)
+// from src[r][c] (row stride sld, rows of 16-byte pieces), or with kT the
+// transpose dst[c][r]; a thread takes 8 columns of one row at a time (the
+// warp's 32 rows of one piece: transposed stores of 32 consecutive floats)
+template <bool kT>
+__device__ __forceinline__ void widen(float* dst, int dld, const bf16* src, int sld, int rows,
+                                      int cols) {
+  for (int e = threadIdx.x; e < rows * cols / 8; e += kCThreads) {
+    const int r = e % rows, c8 = e / rows * 8;
+    const uint4 v = *reinterpret_cast<const uint4*>(src + r * sld + c8);
+    const bf16* x = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if constexpr (kT) {
+        dst[(c8 + j) * dld + r] = __bfloat162float(x[j]);
+      } else {
+        dst[r * dld + c8 + j] = __bfloat162float(x[j]);
+      }
     }
   }
 }
+
+// an epilogue that stores a thread's tile row by row into f32 o (row stride
+// ld), 16-byte stores
+template <int ld>
+struct StoreRows {
+  float* o;
+  template <int TM, int TN>
+  __device__ __forceinline__ void operator()(int m0, int n0, float (&acc)[TM][TN]) const {
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; j += 4)
+        *reinterpret_cast<float4*>(o + (m0 + i) * ld + n0 + j) =
+            make_float4(acc[i][j], acc[i][j + 1], acc[i][j + 2], acc[i][j + 3]);
+  }
+};
 
 // rows x cols bf16 (cols a multiple of 8) from global (row stride src_ld)
 // into shared memory (row stride dst_ld) by 16-byte cp.async
@@ -534,16 +618,22 @@ __device__ __forceinline__ void load_rows(bf16* dst, int dst_ld, const bf16* src
   }
 }
 
-// Copy `rows` runs of `bytes` (a multiple of 16) from a peer's shared memory
-// into ours: run j from peer + src(j) to dst(j) (byte offsets).
-template <class Src, class Dst>
-__device__ __forceinline__ void pull(const unsigned char* peer, unsigned char* mine, int rows,
-                                     int bytes, Src src, Dst dst) {
+// Copy `rows` runs of `bytes` (a multiple of 16) from every peer's shared
+// memory into ours, each thread's loads from all peers issued together: run
+// j of peer p from its base + src(j) to mine + dst(p, j) (byte offsets).
+template <class T, class Src, class Dst>
+__device__ __forceinline__ void pull_all(cg::cluster_group& cluster, T* base, unsigned char* mine,
+                                         int rows, int bytes, Src src, Dst dst) {
   const int per = bytes / 16;
   for (int e = threadIdx.x; e < rows * per; e += kCThreads) {
     const int j = e / per, v = e % per * 16;
-    *reinterpret_cast<uint4*>(mine + dst(j) + v) =
-        *reinterpret_cast<const uint4*>(peer + src(j) + v);
+    uint4 x[kP];
+#pragma unroll
+    for (int p = 0; p < kP; ++p)
+      x[p] = *reinterpret_cast<const uint4*>(
+          reinterpret_cast<const unsigned char*>(cluster.map_shared_rank(base, p)) + src(j) + v);
+#pragma unroll
+    for (int p = 0; p < kP; ++p) *reinterpret_cast<uint4*>(mine + dst(p, j) + v) = x[p];
   }
 }
 
@@ -561,19 +651,21 @@ constexpr int chain_smem(int c) {
              ? kBf * (8 * kS * kL40 + 2 * kS * kL40 + kCh * kL72 + 3 * 8 * kS * kL40)
          : c == kScrF32
              ? kBf * (8 * kS * kL40 + 2 * kS * kL40 + kCh * kL72 + 8 * kS * kL40) +
-                   kF * 2 * kS * 8 * kS
+                   kF * (2 * kS * 8 * kS + kCh * kCh)
          : c == kProjF || c == kMomentsF
              ? kBf * (kCh * kL136 + 2 * kS * kL40 + kCh * kL72 + 3 * kCh * 4 * kL40)
          : c == kScr2
-             ? kBf * (8 * kS * kS + 2 * kS * kS + kCh * kCh) + kF * 3 * 8 * kS * kS +
-                   kF * (kP * 2 * kCh + 4 * kCh + 2 * kCh * kCh)
-             : kBf * (4 * kCh * kL40 + kCh * kL72 + kS * kS) + kF * 2 * kS * 4 * kCh;
+             ? kBf * (8 * kS * kL40 + 2 * kS * kL40 + kCh * kL72) + kF * (2 * kS * kS) +
+                   kF * 3 * 8 * kS * kS
+             : kBf * (4 * kCh * kL40 + kCh * kL72 + kS * kS) + kF * (2 * kS * 4 * kCh + kS * kS);
 }
-static_assert(chain_smem(kApply) == 96256 && chain_smem(kScrF32) == 120832 &&
-                  chain_smem(kProjF) == 93184 && chain_smem(kScr2) == 164864 &&
-                  chain_smem(kTransp) == 97280,
+static_assert(chain_smem(kApply) == 96256 && chain_smem(kScrF32) == 137216 &&
+                  chain_smem(kProjF) == 93184 && chain_smem(kScr2) == 141312 &&
+                  chain_smem(kTransp) == 101376,
               "the live sets stated above");
-static_assert(chain_smem(kScr2) <= lns::kMaxDynamicSmem, "a block's shared memory");
+static_assert(chain_smem(kScr2) <= lns::kMaxDynamicSmem &&
+                  chain_smem(kScrF32) <= lns::kMaxDynamicSmem,
+              "a block's shared memory");
 
 // Chains 0, 3, 4: block r owns c [8r, 8r + 8) of a and bb, then i [4r, 4r + 4)
 // of the output.
@@ -591,38 +683,45 @@ __device__ __forceinline__ void chain_by_c(unsigned char* sm, cg::cluster_group&
   bf16* a_s = m_s + kCh * kL72;             // [c 8][h 32][kL40]
   BB* bb_s = reinterpret_cast<BB*>(a_s + 8 * kS * kL40);  // [i 32][c 8][kBL]
   BB* g_s = bb_s + kS * 8 * kBL;                          // [i 4][c 64][kBL]
-  load_rows(u_s, kL40, u + c0 * kS * kS, kS, 8 * kS, kS);
-  load_rows(k2_s, kL40, k2, kS, kS, kS);
+  float* mf_s = reinterpret_cast<float*>(g_s + 4 * kCh * kBL);  // chain 4: f32(m) [c][o]
+  load_rows(u_s, kL40, u + c0 * kS * kS, kS, 8 * kS, kS);  // three commit groups, in the
+  load_rows(k2_s, kL40, k2, kS, kS, kS);                    // order the stages need them
+  lns::cp_async_commit();
   load_rows(k3_s, kL40, k3, kS, kS, kS);
+  lns::cp_async_commit();
   load_rows(m_s, kL72, m, kCh, kCh, kCh);
   lns::cp_async_commit();
-  lns::cp_async_wait<0>();
+  lns::cp_async_wait<2>();
   __syncthreads();
   // a = bf16(u . k2): rows (c, h), columns l, depth w
   mma_gemm<false, false, 2, 4>(u_s, View{8 * kS, 0, kL40, 1}, k2_s, View{kS, 0, kL40, 1}, 8 * kS,
                                kS, kS, [&](int mi, int n, float v0, float v1) {
                                  store2(a_s + mi * kL40 + n, v0, v1);
                                });
+  lns::cp_async_wait<1>();
   __syncthreads();
   // bb = k3 . a: rows i, columns (c, l), depth h; bf16 (rounded once) or f32
   mma_gemm<false, true, 2, 4>(k3_s, View{kS, 0, kL40, 1}, a_s, View{kS, kS * kL40, 1, kL40}, kS,
                               8 * kS, kS, [&](int i, int n, float v0, float v1) {
                                 store2(bb_s + (i * 8 + n / kS) * kBL + n % kS, v0, v1);
                               });
+  lns::cp_async_wait<0>();
+  if constexpr (kCase == kScrF32) {
+    __syncthreads();
+    widen<false>(mf_s, kCh, m_s, kL72, kCh, kCh);
+  }
   cluster.sync();  // every block's bb is whole
   // g[i][8p + c][l] = bb of peer p at [i0 + i][c][l]
-  for (int p = 0; p < kP; ++p)
-    pull(reinterpret_cast<const unsigned char*>(cluster.map_shared_rank(bb_s, p)),
-         reinterpret_cast<unsigned char*>(g_s), 4 * 8, kS * static_cast<int>(sizeof(BB)),
-         [&](int j) { return static_cast<int>(sizeof(BB)) * ((i0 + j / 8) * 8 + j % 8) * kBL; },
-         [&](int j) { return static_cast<int>(sizeof(BB)) * (j / 8 * kCh + 8 * p + j % 8) * kBL; });
+  constexpr int kB = static_cast<int>(sizeof(BB));
+  pull_all(cluster, bb_s, reinterpret_cast<unsigned char*>(g_s), 4 * 8, kS * kB,
+           [&](int j) { return kB * ((i0 + j / 8) * 8 + j % 8) * kBL; },
+           [&](int p, int j) { return kB * (j / 8 * kCh + 8 * p + j % 8) * kBL; });
   cluster.sync();  // no block reads a peer after this
   // out = bb . m: rows (i, l), columns o, depth c
   const View vg{kS, kCh * kBL, 1, kBL}, vm{kCh, 0, 1, kL72};
-  if constexpr (kCase == kScrF32) {
-    float* o = static_cast<float*>(out) + i0 * kS * kCh;
-    ffma_gemm(g_s, vg, m_s, vm, 4 * kS, kCh, kCh,
-              [&](int mi, int n, float v0, float v1) { store2(o + mi * kCh + n, v0, v1); });
+  if constexpr (kCase == kScrF32) {  // rows (i, l), columns o, depth c, on the CUDA cores
+    ffma_tile<4 * kS, kCh, kCh, 4, 8, KMajor<kS, kCh * kS, kS>, KMajor<kCh, 0, kCh>>(
+        g_s, mf_s, StoreRows<kCh>{static_cast<float*>(out) + i0 * kS * kCh});
   } else if constexpr (kCase == kApply) {
     bf16* o = static_cast<bf16*>(out) + i0 * kS * kCh;
     mma_gemm<true, true, 2, 4>(g_s, vg, m_s, vm, 4 * kS, kCh, kCh,
@@ -652,31 +751,33 @@ __device__ __forceinline__ void chain_by_h(unsigned char* sm, cg::cluster_group&
   bf16* v_s = m_s + kCh * kL72;             // [o 64][h 4][kL40]
   bf16* a_s = v_s + kCh * 4 * kL40;         // [o 64][h 4][kL40]
   bf16* g_s = a_s + kCh * 4 * kL40;         // [o 8][h 32][kL40]
-  load_rows(u_s, kL136, u + h0 * kS, kS * kS, kCh, 4 * kS);
-  load_rows(k2_s, kL40, k2, kS, kS, kS);
-  load_rows(k3_s, kL40, k3, kS, kS, kS);
-  load_rows(m_s, kL72, m, kCh, kCh, kCh);
+  load_rows(u_s, kL136, u + h0 * kS, kS * kS, kCh, 4 * kS);  // three commit groups, in the
+  load_rows(m_s, kL72, m, kCh, kCh, kCh);                      // order the stages need them
   lns::cp_async_commit();
-  lns::cp_async_wait<0>();
+  load_rows(k2_s, kL40, k2, kS, kS, kS);
+  lns::cp_async_commit();
+  load_rows(k3_s, kL40, k3, kS, kS, kS);
+  lns::cp_async_commit();
+  lns::cp_async_wait<2>();
   __syncthreads();
   // v = bf16(m^T . u): rows o, columns (h, w), depth c
   mma_gemm<true, true, 2, 4>(m_s, View{kCh, 0, 1, kL72}, u_s, View{4 * kS, 0, 1, kL136}, kCh,
                              4 * kS, kCh, [&](int o, int n, float v0, float v1) {
                                store2(v_s + (o * 4 + n / kS) * kL40 + n % kS, v0, v1);
                              });
+  lns::cp_async_wait<1>();
   __syncthreads();
   // a = bf16(v . k2): rows (o, h), columns l, depth w
   mma_gemm<false, false, 2, 4>(v_s, View{kCh * 4, 0, kL40, 1}, k2_s, View{kS, 0, kL40, 1},
                                kCh * 4, kS, kS, [&](int mi, int n, float v0, float v1) {
                                  store2(a_s + mi * kL40 + n, v0, v1);
                                });
+  lns::cp_async_wait<0>();
   cluster.sync();
   // g[o][4p + h][l] = a of peer p at [o0 + o][h][l]
-  for (int p = 0; p < kP; ++p)
-    pull(reinterpret_cast<const unsigned char*>(cluster.map_shared_rank(a_s, p)),
-         reinterpret_cast<unsigned char*>(g_s), 8 * 4, kS * kBf,
-         [&](int j) { return kBf * ((o0 + j / 4) * 4 + j % 4) * kL40; },
-         [&](int j) { return kBf * (j / 4 * kS + 4 * p + j % 4) * kL40; });
+  pull_all(cluster, a_s, reinterpret_cast<unsigned char*>(g_s), 8 * 4, kS * kBf,
+           [&](int j) { return kBf * ((o0 + j / 4) * 4 + j % 4) * kL40; },
+           [&](int p, int j) { return kBf * (j / 4 * kS + 4 * p + j % 4) * kL40; });
   cluster.sync();
   // t = k3 . a: rows i, columns (o, l), depth h; warp w's tile is o0 + w whole
   const View vk3{kS, 0, kL40, 1}, vg{kS, kS * kL40, 1, kL40};
@@ -701,64 +802,117 @@ __device__ __forceinline__ void chain_by_h(unsigned char* sm, cg::cluster_group&
   }
 }
 
+// The sum of v over the four lanes that share lane % 8 (ffma_tile's four row
+// tiles of one column tile in a warp) in a tree fixed by the lane numbers:
+// (l + (l ^ 8)) then (. + (. ^ 16)), the same bits in all four lanes.
+__device__ __forceinline__ float lane_tree(float v) {
+  v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 8));
+  return __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 16));
+}
+
+// ((v0 + v1) + (v2 + v3)) + ((v4 + v5) + (v6 + v7)) of v[k stride]
+__device__ __forceinline__ float tree8(const float* v, int stride) {
+  return __fadd_rn(__fadd_rn(__fadd_rn(v[0], v[stride]), __fadd_rn(v[2 * stride], v[3 * stride])),
+                   __fadd_rn(__fadd_rn(v[4 * stride], v[5 * stride]),
+                             __fadd_rn(v[6 * stride], v[7 * stride])));
+}
+
 // Chain 5, all f32 on the CUDA cores: block r owns c [8r, 8r + 8) of a and
-// bb, then i [4r, 4r + 4) of phi and the output.
+// bb, then i [4r, 4r + 4) of phi and the output. The inputs are widened to
+// f32 k-major copies as their commit groups land (u and k2 first: the first
+// product starts while k3 and m are landing). phi is never stored: the
+// column sums of phi and phi^2 are taken from its product's registers in a
+// fixed tree over the block's 256 row groups of 4 rows (i, l), each summed
+// in row order (ffma_tile's rows: thread tree, lane_tree, the 8 warps by
+// tree8), then over the 8 blocks in rank order by tree8 in every block: the
+// same bits in every block and every run.
 __device__ __forceinline__ void chain_scr2(unsigned char* sm, cg::cluster_group& cluster,
                                            const bf16* u, const bf16* k2, const bf16* k3,
                                            const bf16* m, float* out) {
   const int r = static_cast<int>(cluster.block_rank()), c0 = 8 * r, i0 = 4 * r;
-  bf16* u_s = reinterpret_cast<bf16*>(sm);          // [c 8][h 32][w 32]
-  bf16* k2_s = u_s + 8 * kS * kS;                   // [l][w]
-  bf16* k3_s = k2_s + kS * kS;                      // [i][h]
-  bf16* m_s = k3_s + kS * kS;                       // [c][d]
-  float* a_s = reinterpret_cast<float*>(m_s + kCh * kCh);  // [c 8][h][l], then phi [(i l)][d]
-  float* bb_s = a_s + 8 * kS * kS;                  // [i 32][c 8][l]
-  float* g_s = bb_s + 8 * kS * kS;                  // [i 4][c 64][l]
-  float* red_s = g_s + 8 * kS * kS;                 // [rank][s1, s2][d]
-  float* st_s = red_s + kP * 2 * kCh;               // mean, inv, mean inv, bias [d]
-  float* winv_s = st_s + 4 * kCh;                   // [c][d]
-  float* mm_s = winv_s + kCh * kCh;                 // [c][o]
-  load_rows(u_s, kS, u + c0 * kS * kS, kS, 8 * kS, kS);
-  load_rows(k2_s, kS, k2, kS, kS, kS);
-  load_rows(k3_s, kS, k3, kS, kS, kS);
-  load_rows(m_s, kCh, m, kCh, kCh, kCh);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  bf16* u_s = reinterpret_cast<bf16*>(sm);           // [(c 8, h 32)][kL40], raw
+  bf16* k2_s = u_s + 8 * kS * kL40;                  // [l][kL40], raw
+  bf16* k3_s = k2_s + kS * kL40;                     // [i][kL40], raw
+  bf16* m_s = k3_s + kS * kL40;                      // [c][kL72], raw
+  float* k2t_s = reinterpret_cast<float*>(m_s + kCh * kL72);  // [w][l]
+  float* k3t_s = k2t_s + kS * kS;                    // [h][i]
+  float* r1_s = k3t_s + kS * kS;                     // u^T [w][(c, h)]; bb; (m inv)^T, mm
+  float* r2_s = r1_s + 8 * kS * kS;                  // a [(c, h)][l]; f32(m) [c][d], m^T [d][c]
+  float* g_s = r2_s + 8 * kS * kS;                   // [i 4][c 64][l]
+  float* ut_s = r1_s, *bb_s = r1_s, *winvt_s = r1_s, *mm_s = r1_s + kCh * kCh;
+  float* a_s = r2_s, *mf_s = r2_s, *mt_s = r2_s + kCh * kCh;
+  // the raw u is consumed by then: per-warp column sums [warp][s1, s2][d],
+  // the ranks' sums [rank][s1, s2][d], the statistics mean, inv, mean inv,
+  // bias [d]
+  float* part_s = reinterpret_cast<float*>(u_s);
+  float* red_s = part_s + kCW * 2 * kCh;
+  float* st_s = red_s + kP * 2 * kCh;
+  load_rows(u_s, kL40, u + c0 * kS * kS, kS, 8 * kS, kS);  // three commit groups, in the
+  load_rows(k2_s, kL40, k2, kS, kS, kS);                    // order the stages need them
   lns::cp_async_commit();
+  load_rows(k3_s, kL40, k3, kS, kS, kS);
+  lns::cp_async_commit();
+  load_rows(m_s, kL72, m, kCh, kCh, kCh);
+  lns::cp_async_commit();
+  lns::cp_async_wait<2>();
+  __syncthreads();
+  widen<true>(ut_s, 8 * kS, u_s, kL40, 8 * kS, kS);
+  widen<true>(k2t_s, kS, k2_s, kL40, kS, kS);
+  __syncthreads();
+  // a = u . k2: rows (c, h), columns l, depth w
+  ffma_tile<8 * kS, kS, kS, 8, 4, KMajor<8 * kS, 0, 8 * kS>, KMajor<kS, 0, kS>>(
+      ut_s, k2t_s, StoreRows<kS>{a_s});
+  lns::cp_async_wait<1>();
+  __syncthreads();
+  widen<true>(k3t_s, kS, k3_s, kL40, kS, kS);
+  __syncthreads();
+  // bb = k3 . a: rows i, columns (c, l), depth h
+  ffma_tile<kS, 8 * kS, kS, 4, 8, KMajor<kS, 0, kS>, KMajor<kS, kS * kS, kS>>(
+      k3t_s, a_s, StoreRows<8 * kS>{bb_s});
   lns::cp_async_wait<0>();
+  __syncthreads();  // a is consumed, m has landed
+  widen<false>(mf_s, kCh, m_s, kL72, kCh, kCh);
+  widen<true>(mt_s, kCh, m_s, kL72, kCh, kCh);
+  cluster.sync();  // every block's bb is whole
+  // g[i][8p + c][l] = bb of peer p at [i0 + i][c][l]
+  pull_all(cluster, bb_s, reinterpret_cast<unsigned char*>(g_s), 4, 8 * kS * kF,
+           [&](int j) { return kF * (i0 + j) * 8 * kS; },
+           [&](int p, int j) { return kF * (j * kCh + 8 * p) * kS; });
+  cluster.sync();  // no block reads a peer's bb after this
+  using LG = KMajor<kS, kCh * kS, kS>;  // g: rows (i, l), depth c
+  // phi = bb . m: rows (i, l), columns d, depth c; only its column sums
+  ffma_tile<4 * kS, kCh, kCh, 4, 8, LG, KMajor<kCh, 0, kCh>>(
+      g_s, mf_s, [&](int, int n0, float (&acc)[4][8]) {
+        float s[2][8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          s[0][j] = acc[0][j];
+          s[1][j] = __fmul_rn(acc[0][j], acc[0][j]);
+#pragma unroll
+          for (int i = 1; i < 4; ++i) {
+            s[0][j] = __fadd_rn(s[0][j], acc[i][j]);
+            s[1][j] = __fadd_rn(s[1][j], __fmul_rn(acc[i][j], acc[i][j]));
+          }
+          s[0][j] = lane_tree(s[0][j]);
+          s[1][j] = lane_tree(s[1][j]);
+        }
+        if (lane < 8)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            part_s[(warp * 2) * kCh + n0 + j] = s[0][j];
+            part_s[(warp * 2 + 1) * kCh + n0 + j] = s[1][j];
+          }
+      });
   __syncthreads();
-  ffma_gemm(u_s, View{8 * kS, 0, kS, 1}, k2_s, View{kS, 0, kS, 1}, 8 * kS, kS, kS,
-            [&](int mi, int n, float v0, float v1) { store2(a_s + mi * kS + n, v0, v1); });
-  __syncthreads();
-  ffma_gemm(k3_s, View{kS, 0, kS, 1}, a_s, View{kS, kS * kS, 1, kS}, kS, 8 * kS, kS,
-            [&](int i, int n, float v0, float v1) { store2(bb_s + i * 8 * kS + n, v0, v1); });
-  cluster.sync();
-  for (int p = 0; p < kP; ++p)  // g[i][8p + c][l] = bb of peer p at [i0 + i][c][l]
-    pull(reinterpret_cast<const unsigned char*>(cluster.map_shared_rank(bb_s, p)),
-         reinterpret_cast<unsigned char*>(g_s), 4, 8 * kS * kF,
-         [&](int j) { return kF * (i0 + j) * 8 * kS; },
-         [&](int j) { return kF * (j * kCh + 8 * p) * kS; });
-  cluster.sync();
-  const View vg{kS, kCh * kS, 1, kS};
-  float* phi_s = a_s;  // a is consumed
-  ffma_gemm(g_s, vg, m_s, View{kCh, 0, 1, kCh}, 4 * kS, kCh, kCh,
-            [&](int mi, int n, float v0, float v1) { store2(phi_s + mi * kCh + n, v0, v1); });
-  __syncthreads();
-  if (threadIdx.x < 2 * kCh) {  // this block's column sums of phi and phi^2, sent to every block
-    const int d = threadIdx.x % kCh;
-    float s = 0.f;
-    for (int row = 0; row < 4 * kS; ++row) {
-      const float v = phi_s[row * kCh + d];
-      s = __fadd_rn(s, threadIdx.x < kCh ? v : __fmul_rn(v, v));
-    }
-    for (int p = 0; p < kP; ++p) *cluster.map_shared_rank(red_s + r * 2 * kCh + threadIdx.x, p) = s;
+  if (threadIdx.x < 2 * kCh) {  // the block's sums over its 8 warps, sent to every block
+    const float v = tree8(part_s + threadIdx.x, 2 * kCh);
+    for (int p = 0; p < kP; ++p) *cluster.map_shared_rank(red_s + r * 2 * kCh + threadIdx.x, p) = v;
   }
   cluster.sync();  // every block's sums are in every block
   if (threadIdx.x < kCh) {
     const int d = threadIdx.x;
-    float s1 = 0.f, s2 = 0.f;
-    for (int p = 0; p < kP; ++p) {  // rank order: every block the same bits
-      s1 = __fadd_rn(s1, red_s[p * 2 * kCh + d]);
-      s2 = __fadd_rn(s2, red_s[p * 2 * kCh + kCh + d]);
-    }
+    const float s1 = tree8(red_s + d, 2 * kCh), s2 = tree8(red_s + kCh + d, 2 * kCh);
     const float n = static_cast<float>(kS * kS);
     const float mean = __fdiv_rn(s1, n);
     const float var = fmaxf(__fsub_rn(__fdiv_rn(s2, n), __fmul_rn(mean, mean)), 0.f);
@@ -768,26 +922,35 @@ __device__ __forceinline__ void chain_scr2(unsigned char* sm, cg::cluster_group&
     st_s[2 * kCh + d] = __fmul_rn(mean, inv);
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < kCh * kCh; e += kCThreads)
-    winv_s[e] = __fmul_rn(__bfloat162float(m_s[e]), st_s[kCh + e % kCh]);
-  __syncthreads();
-  // mm = (m inv) . m^T: rows c, columns c', depth d
-  ffma_gemm(winv_s, View{kCh, 0, kCh, 1}, m_s, View{kCh, 0, kCh, 1}, kCh, kCh, kCh,
-            [&](int c, int n, float v0, float v1) { store2(mm_s + c * kCh + n, v0, v1); });
+  for (int e = threadIdx.x; e < kCh * kCh; e += kCThreads)  // (m inv)^T [d][c]
+    winvt_s[e] = __fmul_rn(mt_s[e], st_s[kCh + e / kCh]);
   if (threadIdx.x < kCh) {  // bias = (mean inv) . m^T
     float b = 0.f;
-    for (int d = 0; d < kCh; ++d)
-      b = fmaf(st_s[2 * kCh + d], __bfloat162float(m_s[threadIdx.x * kCh + d]), b);
+    for (int d = 0; d < kCh; ++d) b = fmaf(st_s[2 * kCh + d], mf_s[threadIdx.x * kCh + d], b);
     st_s[3 * kCh + threadIdx.x] = b;
   }
   __syncthreads();
+  // mm = (m inv) . m^T: rows c, columns c', depth d
+  ffma_tile<kCh, kCh, kCh, 4, 4, KMajor<kCh, 0, kCh>, KMajor<kCh, 0, kCh>>(
+      winvt_s, mt_s, StoreRows<kCh>{mm_s});
+  __syncthreads();
+  // out = (t - bias) + t, t = bb . mm: rows (i, l), columns o, depth c
   float* o = out + i0 * kS * kCh;
   const float* bias = st_s + 3 * kCh;
-  ffma_gemm(g_s, vg, mm_s, View{kCh, 0, 1, kCh}, 4 * kS, kCh, kCh,
-            [&](int mi, int n, float v0, float v1) {
-              store2(o + mi * kCh + n, __fadd_rn(__fsub_rn(v0, bias[n]), v0),
-                     __fadd_rn(__fsub_rn(v1, bias[n + 1]), v1));
-            });
+  ffma_tile<4 * kS, kCh, kCh, 4, 8, LG, KMajor<kCh, 0, kCh>>(
+      g_s, mm_s, [&](int m0, int n0, float (&acc)[4][8]) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; j += 4) {
+            float v[4];
+#pragma unroll
+            for (int x = 0; x < 4; ++x)
+              v[x] = __fadd_rn(__fsub_rn(acc[i][j + x], bias[n0 + j + x]), acc[i][j + x]);
+            *reinterpret_cast<float4*>(o + (m0 + i) * kCh + n0 + j) =
+                make_float4(v[0], v[1], v[2], v[3]);
+          }
+      });
 }
 
 // Chain 6: block r owns y [4r, 4r + 4) of a = q . m, stored [x][y][m1];
@@ -801,28 +964,31 @@ __device__ __forceinline__ void chain_transp(unsigned char* sm, cg::cluster_grou
   bf16* k2_s = m_s + kCh * kL72;            // [l][y]
   float* s_s = reinterpret_cast<float*>(k2_s + kS * kS);  // a': [x 32][y 4][m1 64]
   float* g_s = s_s + kS * 4 * kCh;                        // [x 4][y 32][m1 64]
-  load_rows(q_s, kL40, q + y0 * kCh * kS, kS, 4 * kCh, kS);
-  load_rows(m_s, kL72, m, kCh, kCh, kCh);
+  float* k2t_s = g_s + 4 * kS * kCh;                      // f32 [y][l]
+  load_rows(q_s, kL40, q + y0 * kCh * kS, kS, 4 * kCh, kS);  // two commit groups, in the
+  load_rows(m_s, kL72, m, kCh, kCh, kCh);                    // order the stages need them
+  lns::cp_async_commit();
   load_rows(k2_s, kS, k2, kS, kS, kS);
   lns::cp_async_commit();
-  lns::cp_async_wait<0>();
+  lns::cp_async_wait<1>();
   __syncthreads();
   // a = q . m: rows (y, x), columns m1, depth c, stored with y and x swapped
   mma_gemm<true, true, 2, 4>(q_s, View{kS, kCh * kL40, 1, kL40}, m_s, View{kCh, 0, 1, kL72},
                              4 * kS, kCh, kCh, [&](int mi, int n, float v0, float v1) {
                                store2(s_s + (mi % kS * 4 + mi / kS) * kCh + n, v0, v1);
                              });
+  lns::cp_async_wait<0>();
+  __syncthreads();
+  widen<true>(k2t_s, kS, k2_s, kS, kS, kS);
   cluster.sync();
-  for (int p = 0; p < kP; ++p)  // g[x][4p + y][m1] = a' of peer p at [x0 + x][y][m1]
-    pull(reinterpret_cast<const unsigned char*>(cluster.map_shared_rank(s_s, p)),
-         reinterpret_cast<unsigned char*>(g_s), 4, 4 * kCh * kF,
-         [&](int j) { return kF * (x0 + j) * 4 * kCh; },
-         [&](int j) { return kF * (j * kS + 4 * p) * kCh; });
+  // g[x][4p + y][m1] = a' of peer p at [x0 + x][y][m1]
+  pull_all(cluster, s_s, reinterpret_cast<unsigned char*>(g_s), 4, 4 * kCh * kF,
+           [&](int j) { return kF * (x0 + j) * 4 * kCh; },
+           [&](int p, int j) { return kF * (j * kS + 4 * p) * kCh; });
   cluster.sync();
-  // bb = a' . k2: rows (x, m1), columns l, depth y, in f32
-  float* o = out + x0 * kCh * kS;
-  ffma_gemm(g_s, View{kCh, kS * kCh, 1, kCh}, k2_s, View{kS, 0, kS, 1}, 4 * kCh, kS, kS,
-            [&](int mi, int n, float v0, float v1) { store2(o + mi * kS + n, v0, v1); });
+  // bb = a' . k2: rows (x, m1), columns l, depth y, in f32 on the CUDA cores
+  ffma_tile<4 * kCh, kS, kS, 8, 4, KMajor<kCh, kS * kCh, kCh>, KMajor<kS, 0, kS>>(
+      g_s, k2t_s, StoreRows<kS>{out + x0 * kCh * kS});
 }
 
 template <int kCase>

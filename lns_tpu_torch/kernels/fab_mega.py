@@ -17,13 +17,15 @@ Replaces ``benchmarks/probe_fab_mega.py``:
 The kernels take the probe's shape, h = w = 32 and c = 64 in bf16 (stated
 once, in C: ``lns_fab_mega_limit``, ``lns_interior_dot_limit``); the plain
 versions take any. Bound by operations on an H100: 16.8 MFLOP per sample
-and head. u stays in shared memory for all of a block's work, the products
-run on tensor cores (the statistics pass a block per sample on ``wgmma``
-with u read once; the apply pass and the interior dot on ``mma.sync``)
-and the head-major values never reach device memory. Neither kernel is on
-a model's path: kernel 2 (``fab_core.fab_fused_core``) is the FAB core the
-models run; these passes measure the design that recomputes bb in place of
-kernel 2's bb scratch.
+and head. Both passes run a block per sample on ``wgmma`` with u read once
+into shared memory and the head-major values never in device memory: the
+statistics pass walks the heads; the apply pass walks tiles of 16 columns
+l, and in each the heads, keeping the tile's head sum in registers (b2
+from step 2's accumulators is the A operand of b2 . m; kx, ky's rows and
+m of the next iteration come by TMA). The interior dot runs on
+``mma.sync``. Neither kernel is on a model's path: kernel 2
+(``fab_core.fab_fused_core``) is the FAB core the models run; these passes
+measure the design that recomputes bb in place of kernel 2's bb scratch.
 """
 
 from __future__ import annotations
@@ -96,9 +98,9 @@ fab_mega_stats.launches = 0
 
 def fab_mega_apply(u_t, kx, ky, m, bias):
     """u_t [b, w, h, c], kx [b, n, h, h], ky [b, n, w, w], m [b, n, c, c],
-    bias [b, c] -> [b, h * w, c] in u_t's dtype, rows (i, l). A CPU tensor
-    takes the plain version; a CUDA tensor launches the kernel on the
-    current stream or raises."""
+    bias [b, c] -> [b, h * w, c] in u_t's dtype, rows (i, l): a block per
+    sample on ``wgmma``. A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel on the current stream or raises."""
     if not _build.on_cuda(u_t, "fab_mega_apply", kx, ky, m, bias):
         return fab_mega_apply_plain(u_t, kx, ky, m, bias)
     if u_t.dim() != 4 or kx.dim() != 4:

@@ -1,10 +1,11 @@
 """Time kernels 4 and 5 (``csrc/axial.cu``), kernel 2 (``csrc/fab_core.cu``),
-``blocked_copy`` (``csrc/blocked_copy.cu``) and ``fab_mega_stats``
-(``csrc/fab_mega.cu``) of one source tree on the card, for comparing two
+``blocked_copy`` (``csrc/blocked_copy.cu``), ``fab_mega_stats`` and
+``fab_mega_apply`` (``csrc/fab_mega.cu``) and the seven ``dot_chain`` chains
+(``csrc/mosaic_dots.cu``) of one source tree on the card, for comparing two
 trees on one card.
 
     python3 lns_tpu_torch/kernels/probe_axial.py [--tree DIR] [--label NAME]
-        [--only NAME,...]
+        [--only NAME,...] [--save FILE]
 
 ``--tree`` is the root of the checkout whose ``lns_tpu_torch`` is timed
 (default: the one this file is in), so an older tree is timed with this
@@ -15,11 +16,14 @@ device time by CUDA-graph replays (20 calls in one graph, the host's cost
 taken out), then one JSON line with the card's name and power limit. Run
 trees in turns (parent, change, change, parent) in one call of the card.
 ``--only`` keeps the cases whose names start with one of the names given
-(``blocked_copy``, ``fab_mega_stats``, ...). The copy runs at
-``probe_bw``'s shape, [928, 2, 128, 2048] bf16, for each s of its sweep,
-and the statistics pass at ``probe_fab_mega``'s, b116 n8 32x32 c64; both
-through their wrappers, which take the same arguments in every tree that
-has them.
+(``blocked_copy``, ``fab_mega_stats``, ``fab_mega_apply``, ``dot_chain``,
+...). The copy runs at ``probe_bw``'s shape, [928, 2, 128, 2048] bf16, for
+each s of its sweep, the two passes at ``probe_fab_mega``'s, b116 n8 32x32
+c64, and the chains at ``probe_dots``' (C 64, 32x32); all through their
+wrappers, which take the same arguments in every tree that has them, on
+inputs seeded the same way in every tree. ``--save`` writes each case's
+output of one call (``torch.save``, on the CPU) for comparing two trees'
+bits.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ def main() -> int:
     ap.add_argument("--tree", default=os.path.join(os.path.dirname(__file__), "..", ".."))
     ap.add_argument("--label", default="")
     ap.add_argument("--only", default="")
+    ap.add_argument("--save", default="")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.tree))
     import torch
@@ -43,7 +48,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("probe_axial: no CUDA device", file=sys.stderr)
         return 1
-    from lns_tpu_torch.kernels import _build, axial, blocked_copy, fab_core, fab_mega
+    from lns_tpu_torch.kernels import _build, axial, blocked_copy, fab_core, fab_mega, mosaic_dots
 
     _build.library()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
@@ -112,14 +117,28 @@ def main() -> int:
     u_t, kx, ky = fab_inputs(116, 32, 32, 64)[:3]
     cases.append(("fab_mega_stats bf16 b116 n8 32x32 c64",
                   lambda: fab_mega.fab_mega_stats(u_t, kx, ky)))
+    m = (torch.randn(116, 8, 64, 64, generator=gen) / 64).to(dev, bf)
+    bias = torch.randn(116, 64, generator=gen).to(dev, bf)
+    cases.append(("fab_mega_apply bf16 b116 n8 32x32 c64",
+                  lambda: fab_mega.fab_mega_apply(u_t, kx, ky, m, bias)))
+    xs = {k: torch.randn(shape, generator=gen).to(dev, bf)
+          for k, shape in mosaic_dots.SHAPES.items()}
+    for chain in mosaic_dots.CHAINS:
+        cases.append((f"dot_chain {chain}",
+                      lambda chain=chain: mosaic_dots.dot_chain(chain, *xs.values())))
     only = tuple(filter(None, args.only.split(",")))
-    out = {}
+    out, saved = {}, {}
     for name, fn in cases:
         if only and not name.startswith(only):
             continue
+        if args.save:
+            r = fn()
+            saved[name] = tuple(t.cpu() for t in r) if isinstance(r, tuple) else r.cpu()
         ev, dv = events_ms(fn), graph_ms(fn)
         out[name] = {"events_ms": ev, "device_ms": dv}
         print(f"{args.label} {name}: {ev:.4f} ms by events, {dv:.4f} ms device (graph)", flush=True)
+    if args.save:
+        torch.save(saved, args.save)
     print(json.dumps({"label": args.label, "tree": os.path.abspath(args.tree), "card": smi,
                       "times": out}))
     return 0

@@ -10,10 +10,11 @@ FAIL against the plain version (``tolerance``; a chain's two runs bitwise equal
 too), its time by CUDA events and its device time by CUDA-graph replays, the
 bound (the case's operations at the H100's bf16 tensor-core and f32 rates,
 or its bytes at 3.35 TB/s, whichever is larger) with its share of the device
-time, the plain version's time, the library time (one ``torch.einsum`` for a
-single dot, on f32 copies of the operands where the output is f32; the plain
-version's einsum chain for the moments and the chains) and each operand's
-feed (straight, transposed, staged, or f32 on the CUDA cores). With no case
+time, the plain version's time, the library time by events and by graph
+replays (one ``torch.einsum`` for a single dot, on f32 copies of the operands
+where the output is f32; the plain version's einsum chain for the moments and
+the chains) and each operand's feed (straight, transposed, staged, or f32 on
+the CUDA cores). With no case
 named it then times the handoff of bb three ways at one sample and head
 (``handoffs``). Ends with one JSON line; exits 1 on a FAIL or where there is
 no CUDA device.
@@ -150,13 +151,16 @@ def run(dev, keys=None, timed: bool = True, seed: int = 0):
                 ok &= again
             fn = lambda: run_case(key, x)  # noqa: E731
             bound, by = bound_ms(*work(key, x, out))
+            lib = library(key, x)
             row.update(ms=_probe.events_ms(fn), device_ms=_probe.graph_ms(fn),
                        plain_ms=_probe.events_ms(lambda: run_case(key, x, plain=True)),
-                       library_ms=_probe.events_ms(library(key, x)), bound_ms=bound, bound_by=by)
+                       library_ms=_probe.events_ms(lib), library_device_ms=_probe.graph_ms(lib),
+                       bound_ms=bound, bound_by=by)
             print(f"      {key}: {row['ms']:.4f} ms by events, {row['device_ms']:.4f} ms device "
                   f"(graph replays), bound {bound * 1e3:.3f} us ({by}; "
                   f"{bound / row['device_ms']:.2%} of the device time), plain "
-                  f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms", flush=True)
+                  f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms by events, "
+                  f"{row['library_device_ms']:.4f} ms device", flush=True)
         row["ok"] = ok
         res[key] = row
     return res

@@ -1,7 +1,7 @@
 """The FAB core without its bb scratch, on the card: the in-kernel forms of a
 fused apply pair, and the statistics and apply passes that recompute bb.
 
-    python3 -m lns_tpu_torch.kernels.probe_fab_mega [--phases]
+    python3 -m lns_tpu_torch.kernels.probe_fab_mega [--variants] [--phases]
 
 Port of ``benchmarks/probe_fab_mega.py`` at its shape (b 116, 8 heads,
 32x32, c 64, bf16). It prints:
@@ -18,22 +18,25 @@ Port of ``benchmarks/probe_fab_mega.py`` at its shape (b 116, 8 heads,
     most 2 % of the elements differing), each timed by CUDA events and by
     CUDA-graph replays beside its bound, its plain version and the torch
     einsum chain of the TPU probe's ``xla_stats`` / ``xla_full`` (the
-    library calls);
+    library calls, by events and by graph replays);
   * beside them kernel 2 (``fab_fused_core``, the FAB core the models run)
     at 32x32 b116 (8 heads, d 64): its total time and the device ms of its
     statistics and output passes. Kernel 2 computes another function (w_in,
     the normalisation, a bb scratch it writes once and reads back), so this
     only indicates what recomputing bb in place of storing it costs;
-  * the two statistics passes (``fab_mega_stats``, kernel 2's
-    ``fab_bb_stats``) by ``torch.profiler``'s device time per launch,
-    L2-warm (back to back: u_t's 15.2 MB stays in the 50 MB L2) and with
-    the L2 flushed before each launch;
-  * with ``--phases``, the statistics pass by phase (``phases``: a copy of
-    the sources with ``clock64()`` marks, as ``probe_fab_core.py`` marks
+  * both passes and kernel 2's statistics and output passes by
+    ``torch.profiler``'s device time per launch, L2-warm (back to back:
+    u_t's 15.2 MB stays in the 50 MB L2) and with the L2 flushed before
+    each launch;
+  * with ``--variants``, the apply pass as the source has it beside edited
+    copies (``VARIANTS``: its tile of 16 columns l against 8, step 1 in
+    batches of 8 h against 4), device ms in turns;
+  * with ``--phases``, both passes by phase (``phases``: a copy of the
+    sources with ``clock64()`` marks, as ``probe_fab_core.py`` marks
     kernel 2).
 
 Exits 1 on a FAIL or where there is no CUDA device. An earlier tree's
-statistics pass is timed beside this one's by ``probe_axial.py --tree``.
+passes are timed beside this one's by ``probe_axial.py --tree``.
 """
 
 from __future__ import annotations
@@ -132,8 +135,15 @@ def run_pieces(dev, timed: bool = True, seed: int = 1):
         if timed:
             res[name].update(ms=_probe.events_ms(lambda: fn(*args)),
                              device_ms=_probe.graph_ms(lambda: fn(*args)))
+            lib = ""
+            if name in DOTS:  # the library call of the interior dot: one einsum
+                einsum = lambda: torch.einsum("ih,lhc->ilc", args[1], args[0])  # noqa: E731
+                res[name].update(library_ms=_probe.events_ms(einsum),
+                                 library_device_ms=_probe.graph_ms(einsum))
+                lib = (f"; einsum {res[name]['library_ms']:.4f} ms by events, "
+                       f"{res[name]['library_device_ms']:.4f} ms device")
             print(f"      piece {name}: {res[name]['ms']:.4f} ms by events, "
-                  f"{res[name]['device_ms']:.4f} ms device", flush=True)
+                  f"{res[name]['device_ms']:.4f} ms device{lib}", flush=True)
     return res
 
 
@@ -173,7 +183,7 @@ def run_passes(dev, timed: bool = True, seed: int = 0):
               flush=True)
         res[label].update(row)
     res["kernel 2"] = kernel2(dev, u, kx, ky)
-    res["statistics passes"] = stats_passes(dev, u, u_t, kx, ky)
+    res["passes by profiler"] = profiled_passes(dev, u, u_t, kx, ky, m, bias)
     return res
 
 
@@ -202,20 +212,24 @@ def kernel2(dev, u, kx, ky):
     return row
 
 
-def stats_passes(dev, u, u_t, kx, ky):
-    """Device ms per launch of the two statistics passes at one shape,
-    L2-warm and with the L2 flushed before each launch: ``fab_mega_stats``
-    (a block per sample, wgmma) and kernel 2's ``fab_bb_stats`` (which also
-    writes bb to its scratch)."""
+def profiled_passes(dev, u, u_t, kx, ky, m, bias):
+    """Device ms per launch of the passes at one shape, L2-warm and with the
+    L2 flushed before each launch: ``fab_mega_stats`` and ``fab_mega_apply``
+    (a block per sample, wgmma), kernel 2's ``fab_bb_stats`` (which also
+    writes bb to its scratch) and ``fab_out``."""
+    k2 = _kernel2_fn(dev, u, kx, ky)
     runs = {"fab_mega_stats (wgmma)": (lambda: fab_mega_stats(u_t, kx, ky),
                                        "fab_mega_stats_wgmma"),
-            "kernel 2 fab_bb_stats": (_kernel2_fn(dev, u, kx, ky), "fab_bb_stats")}
+            "fab_mega_apply (wgmma)": (lambda: fab_mega_apply(u_t, kx, ky, m, bias),
+                                       "fab_mega_apply_wgmma"),
+            "kernel 2 fab_bb_stats": (k2, "fab_bb_stats"),
+            "kernel 2 fab_out": (k2, "fab_out")}
     out = {}
     for label, (fn, key) in runs.items():
         warm = _probe.kernel_ms(fn, (key,))[key]
         cold = _probe.kernel_ms(fn, (key,), flush=True)[key]
         out[label] = {"device_ms_l2_warm": warm, "device_ms_l2_flushed": cold}
-        print(f"      statistics pass {label} b{B} n{N} {H}x{W} c{C}: {warm:.4f} ms device "
+        print(f"      pass {label} b{B} n{N} {H}x{W} c{C}: {warm:.4f} ms device "
               f"L2-warm, {cold:.4f} ms with the L2 flushed before each launch", flush=True)
     return out
 
@@ -242,9 +256,9 @@ MARKS = [
      "  for (int hn = 0; hn < n; ++hn) {\n    const int kb = hn & 1;"),
     ("    lns::mbar_wait(&kfull[kb], (hn >> 1) & 1);",
      "    lns::mbar_wait(&kfull[kb], (hn >> 1) & 1);\n    MARK(0);"),
-    ("        tc_step1(u_s, ky_b + t * kTL * 128, a_s, (2 * it + wg) * kSlab, wt);",
+    ("        tc_step1<kTL, kHB>(u_s, ky_b + t * kTL * 128, a_s, (2 * it + wg) * kSlab, wt);",
      "        MARK(1);\n"
-     "        tc_step1(u_s, ky_b + t * kTL * 128, a_s, (2 * it + wg) * kSlab, wt);\n"
+     "        tc_step1<kTL, kHB>(u_s, ky_b + t * kTL * 128, a_s, (2 * it + wg) * kSlab, wt);\n"
      "        MARK(2);"),
     ("      lns::bar_sync(1, 128 * kWG);\n      tc_columns(a_s, kx_b, gacc, s0, s1, wg, wt);\n"
      "      lns::bar_sync(1, 128 * kWG);",
@@ -257,46 +271,129 @@ MARKS = [
      "    for (int i = 0; i < 8; ++i) atomicAdd(&g_phase[i], (unsigned long long)ph[i]);\n"
      "    atomicAdd(&g_phase[8], 1ull);\n  }\n}"),
 ]
+# the apply pass by phase, the same way (its own counters, g_aphase; the
+# MARK macro comes with MARKS)
+APPLY_PHASES = ["slot waits", "u waits", "step 1", "step 1 barrier",
+                "kx fragments and the first step 2", "b2 . m and the next step 2",
+                "iteration barrier", "epilogue"]
+APPLY_MARKS = [
+    ("constexpr int kKRing = 2; ",
+     "__device__ unsigned long long g_aphase[16];\nconstexpr int kKRing = 2; "),
+    ("                                               const uint8_t* m_s, float (&acc)[P][32]) {",
+     "                                               const uint8_t* m_s, float (&acc)[P][32],\n"
+     "                                               long long (&ph)[8], long long& ph_last) {"),
+    ("  lns::wgmma_fence_regs(bb);\n#pragma unroll\n  for (int j = 0; j < P; ++j) {",
+     "  lns::wgmma_fence_regs(bb);\n  MARK(4);\n#pragma unroll\n  for (int j = 0; j < P; ++j) {"),
+    ("    lns::wgmma_commit();\n    lns::wgmma_wait<0>();\n    lns::wgmma_fence_regs(bb);\n  }\n}",
+     "    lns::wgmma_commit();\n    lns::wgmma_wait<0>();\n    lns::wgmma_fence_regs(bb);\n"
+     "    MARK(5);\n  }\n}"),
+    ("  for (int t = 0; t < kS / TL; ++t) {\n    float acc[TL / 4][32];",
+     "  long long ph[8] = {}, ph_last = clock64();\n"
+     "  for (int t = 0; t < kS / TL; ++t) {\n    float acc[TL / 4][32];"),
+    ("      lns::mbar_wait(&kfull[j % kKRing], (j / kKRing) & 1);",
+     "      lns::mbar_wait(&kfull[j % kKRing], (j / kKRing) & 1);\n      MARK(0);"),
+    ("        tc_step1<TL, kApplyHB>(u_s, sl + L::kKy, a_s,",
+     "        MARK(1);\n        tc_step1<TL, kApplyHB>(u_s, sl + L::kKy, a_s,"),
+    ("                               (2 * (it / kPer) + wg) * kSlab + it % kPer * kApplyHB, wt);",
+     "                               (2 * (it / kPer) + wg) * kSlab + it % kPer * kApplyHB, wt);\n"
+     "        MARK(2);"),
+    ("      lns::fence_async_shared();  // a's stores, visible to wgmma\n"
+     "      lns::bar_sync(1, kThreadsTc);\n      // this warp's rows",
+     "      lns::fence_async_shared();  // a's stores, visible to wgmma\n"
+     "      lns::bar_sync(1, kThreadsTc);\n      MARK(3);\n      // this warp's rows"),
+    ("      tc_apply_pairs<TL / 4>(a_s + wg * kPair, ka, sl + L::kM, acc);",
+     "      tc_apply_pairs<TL / 4>(a_s + wg * kPair, ka, sl + L::kM, acc, ph, ph_last);"),
+    ("      if (tid == 0 && j + kKRing < steps) load(j + kKRing);",
+     "      if (tid == 0 && j + kKRing < steps) load(j + kKRing);\n      MARK(6);"),
+    ("    lns::bar_sync(1, kThreadsTc);  // the output is read before the next tile's step 1\n"
+     "  }\n}",
+     "    lns::bar_sync(1, kThreadsTc);  // the output is read before the next tile's step 1\n"
+     "    MARK(7);\n  }\n  if (lane == 0) {\n"
+     "    for (int i = 0; i < 8; ++i) atomicAdd(&g_aphase[i], (unsigned long long)ph[i]);\n"
+     "    atomicAdd(&g_aphase[8], 1ull);\n  }\n}"),
+]
 READER = """
-extern "C" int lns_fab_mega_phases(unsigned long long* out) {
-  cudaError_t e = cudaMemcpyFromSymbol(out, g_phase, sizeof(unsigned long long) * 16);
+extern "C" int lns_fab_mega_phases(unsigned long long* out, int apply) {
+  const void* sym = apply ? static_cast<const void*>(g_aphase) : static_cast<const void*>(g_phase);
+  cudaError_t e = cudaMemcpyFromSymbol(out, sym, sizeof(unsigned long long) * 16);
   unsigned long long z[16] = {};
-  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_phase, z, sizeof z);
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(sym, z, sizeof z);
   return e;
 }
 """
 
 
 def phases(dev, seed: int = 0):
-    """The statistics pass at (B, N) by phase: a copy of the sources with the
-    marks of MARKS (``_probe.use_copy``) made the library the wrappers load;
-    one launch after a warm-up one. Prints each phase's kilocycles per warp
-    (the sum over a warp's heads) and share. Returns {phase: cycles per
-    warp}."""
-    _probe.use_copy("probe_fab_mega_phases", "fab_mega.cu", MARKS, READER)
+    """Both passes at (B, N) by phase: a copy of the sources with the marks
+    of MARKS and APPLY_MARKS (``_probe.use_copy``) made the library the
+    wrappers load; one launch of each after a warm-up one. Prints each
+    phase's kilocycles per warp (the sum over a warp's heads, or its tiles
+    and heads) and share. Returns {pass: {phase: cycles per warp}}."""
+    _probe.use_copy("probe_fab_mega_phases", "fab_mega.cu", MARKS + APPLY_MARKS, READER)
     lib = _build.library()
-    lib.lns_fab_mega_phases.argtypes = [ctypes.c_void_p]
-    _, u_t, kx, ky, _, _ = inputs(dev, seed)
-    buf = (ctypes.c_ulonglong * 16)()
-    for _ in range(2):  # the first launch warms up
-        fab_mega_stats(u_t, kx, ky)
-        torch.cuda.synchronize()
-        _build.check(lib.lns_fab_mega_phases(buf), "lns_fab_mega_phases")
-    warps, total = max(buf[8], 1), sum(buf[i] for i in range(len(PHASES)))
-    out = {k: buf[i] / warps for i, k in enumerate(PHASES)}
-    print(f"      fab_mega_stats b{B} n{N} by phase ({buf[8]} warps), kilocycles per warp: "
-          + ", ".join(f"{k} {v / 1e3:.1f} ({buf[i] / total:.1%})"
-                      for i, (k, v) in enumerate(out.items())), flush=True)
-    return out
+    lib.lns_fab_mega_phases.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    _, u_t, kx, ky, m, bias = inputs(dev, seed)
+    res = {}
+    for name, names, apply, fn in (
+            ("fab_mega_stats", PHASES, 0, lambda: fab_mega_stats(u_t, kx, ky)),
+            ("fab_mega_apply", APPLY_PHASES, 1, lambda: fab_mega_apply(u_t, kx, ky, m, bias))):
+        buf = (ctypes.c_ulonglong * 16)()
+        for _ in range(2):  # the first launch warms up
+            fn()
+            torch.cuda.synchronize()
+            _build.check(lib.lns_fab_mega_phases(buf, apply), "lns_fab_mega_phases")
+        warps, total = max(buf[8], 1), sum(buf[i] for i in range(len(names)))
+        res[name] = {k: buf[i] / warps for i, k in enumerate(names)}
+        print(f"      {name} b{B} n{N} by phase ({buf[8]} warps), kilocycles per warp: "
+              + ", ".join(f"{k} {v / 1e3:.1f} ({buf[i] / total:.1%})"
+                          for i, (k, v) in enumerate(res[name].items())), flush=True)
+    return res
+
+
+# the apply pass's tile and step-1 batch as edited copies of
+# csrc/fab_mega.cu (the source's own are the ones its measurements chose;
+# PERF.md)
+APPLY_TILE = "constexpr int kApplyTile = 16;"
+APPLY_HB = "constexpr int kApplyHB = 8;"
+VARIANTS = {"tile 8": [(APPLY_TILE, "constexpr int kApplyTile = 8;")],
+            "step-1 batches of 4 h": [(APPLY_HB, "constexpr int kApplyHB = 4;")]}
+
+
+def variants(dev, seed: int = 0):
+    """The apply pass at (B, N) as the source has it and as each of VARIANTS
+    (built by ``_probe.use_copy``), device ms by CUDA-graph replays in turns
+    (source, variants, variants reversed, source), each held to the plain
+    version. Returns ({label: [ms, ms]}, ok)."""
+    _, u_t, kx, ky, m, bias = inputs(dev, seed)
+    ref = fab_mega_apply_plain(u_t, kx, ky, m, bias)
+    libs = {"source": _build.library()}
+    for name, edits in VARIANTS.items():
+        _probe.use_copy("probe_fab_mega_" + name.replace(" ", "_"), "fab_mega.cu", edits)
+        libs[name] = _build.library()
+    order = list(libs) + list(libs)[::-1]
+    res, ok = {}, True
+    for label in order:
+        _build._lib = libs[label]
+        ok &= _probe.held(f"fab_mega_apply {label}", fab_mega_apply(u_t, kx, ky, m, bias), ref,
+                          1e-2, 0.02)
+        res.setdefault(label, []).append(_probe.graph_ms(lambda: fab_mega_apply(u_t, kx, ky, m,
+                                                                               bias)))
+        print(f"      fab_mega_apply b{B} n{N} {label}: {res[label][-1]:.4f} ms device",
+              flush=True)
+    _build._lib = libs["source"]
+    return res, ok
 
 
 def main() -> int:
     dev, smi = _probe.card("probe_fab_mega")
     res = {"pieces": run_pieces(dev), "passes": run_passes(dev)}
-    if "--phases" in sys.argv:  # last: it swaps the library for a marked copy
-        res["phases"] = {"fab_mega_stats": phases(dev)}
-    print(json.dumps({"probe": "probe_fab_mega", "card": smi, "results": res}))
     ok = all(r["ok"] for part in res.values() for r in part.values() if "ok" in r)
+    if "--variants" in sys.argv:  # these swap the library for edited copies
+        res["variants"], v_ok = variants(dev)
+        ok &= v_ok
+    if "--phases" in sys.argv:
+        res["phases"] = phases(dev)
+    print(json.dumps({"probe": "probe_fab_mega", "card": smi, "results": res}))
     return 0 if ok else 1
 
 

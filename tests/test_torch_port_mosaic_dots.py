@@ -334,6 +334,52 @@ def test_wrappers_refuse_beyond_their_limit(kernel, monkeypatch):
             fn("rhs_minor", *x.values())
 
 
+def _tree(v):
+    """A balanced tree of sums over dim 0 (a power of two), adjacent pairs
+    first: ((v0 + v1) + (v2 + v3)) + ..."""
+    while v.shape[0] > 1:
+        v = v[0::2] + v[1::2]
+    return v[0]
+
+
+def _chain_scr2_kernel_order(x):
+    """``chain_scr2_f32`` with its statistics in the kernel's order
+    (``csrc/mosaic_dots.cu``, ``chain_scr2``): the column sums of phi and
+    phi^2 over the 1,024 rows (i, l) as 256 groups of 4 consecutive rows,
+    each summed in row order (a thread's tile), then a balanced tree of
+    adjacent pairs (its warp's 4 groups by shuffles, the 8 warps, the 8
+    blocks); the products in f32 (their order is the plain version's)."""
+    dg = mosaic_dots.dot_general_plain
+    uf, k2f, k3f, wf = (x[k].float() for k in ("u", "k2", "k3", "m"))
+    bb = dg(k3f, dg(uf, k2f, ((2,), (1,))), ((1,), (1,)))  # [I, C, L]
+    phi = dg(bb, wf, ((1,), (0,))).reshape(-1, 4, wf.shape[1])  # [(i l) / 4, 4, D]
+    s1, s2 = phi[:, 0], phi[:, 0] * phi[:, 0]
+    for r in range(1, 4):
+        s1, s2 = s1 + phi[:, r], s2 + phi[:, r] * phi[:, r]
+    s1, s2 = _tree(s1), _tree(s2)
+    n = 4 * phi.shape[0]
+    mean = s1 / n
+    inv = torch.rsqrt(torch.clamp(s2 / n - mean * mean, min=0.0) + 1e-5)
+    mm = dg(wf * inv, wf, ((1,), (1,)))
+    bias = dg((mean * inv)[None], wf, ((1,), (1,)))
+    t = dg(bb, mm, ((1,), (0,)))
+    return (t - bias[None]) + t
+
+
+def test_chain_scr2_kernel_order():
+    """chain 5's fixed-order statistics (the kernel's tree of sums, emulated
+    in plain PyTorch) against the TPU body ``k_chain_scr2`` in interpret
+    mode and against the plain version, at chain 5's tolerance on the card
+    (``probe_dots.tolerance``: 1e-5 x max|ref|)."""
+    rel, _ = probe_dots.tolerance("chain_scr2_f32")
+    out = _chain_scr2_kernel_order(_torch_inputs())
+    for ref in (_pallas("chain_scr2_f32"),
+                mosaic_dots.dot_chain_plain("chain_scr2_f32", *_torch_inputs().values())):
+        assert out.shape == ref.shape and out.dtype == ref.dtype
+        err = (out - ref).abs().max().item()
+        assert err <= rel * ref.abs().max().item(), (err, ref.abs().max().item())
+
+
 def test_probe_dots_untimed_on_cpu():
     """The card probe's untimed run, as chip_smoke.py drives it, on the CPU
     (the wrappers take their plain versions): every case passes its check

@@ -137,7 +137,10 @@ def _source_edits():
 
     cases = {f"probe_bw {name}": ("blocked_copy.cu", edits)
              for name, edits in probe_bw.VARIANTS.items()}
-    cases["probe_fab_mega phases"] = ("fab_mega.cu", probe_fab_mega.MARKS)
+    cases["probe_fab_mega phases"] = ("fab_mega.cu",
+                                      probe_fab_mega.MARKS + probe_fab_mega.APPLY_MARKS)
+    for name, edits in probe_fab_mega.VARIANTS.items():
+        cases[f"probe_fab_mega {name}"] = ("fab_mega.cu", edits)
     for name, edits in probe_fab_core.VARIANTS.items():
         cases[f"probe_fab_core {name} + marks"] = ("fab_core.cu", edits + probe_fab_core.MARKS)
     return cases
@@ -318,6 +321,55 @@ def test_fab_mega_apply_matches_pallas(mode):
     out = fab_mega.fab_mega_apply(*map(_t, (u_t, kx, ky, m, bias)))
     assert out.shape == ref.shape == (mega.B, mega.H * mega.W, mega.C)
     _bf16_close(out, ref)
+
+
+def _fab_mega_apply_kernel_order(u_t, kx, ky, m, bias):
+    """``fab_mega_apply_plain`` in the order of sums of the kernel's wgmma
+    design (``csrc/fab_mega.cu``, ``fab_mega_apply_wgmma``): the rounded b2
+    as the plain version forms it; each output (i, l, o) owned by one
+    warpgroup (the one of column l's pair block), its f32 sum running over
+    the heads in order, each head's b2 . m added as four k16 products (c in
+    steps of 16) in k order; then minus the bias, rounded once."""
+    b2 = fab_mega._b2(u_t, kx, ky)  # [b, n, (i l), c]
+    mf = m.to(u_t.dtype).float()
+    acc = torch.zeros(b2.shape[0], b2.shape[2], m.shape[-1])
+    for hn in range(b2.shape[1]):
+        for ks in range(0, b2.shape[-1], 16):
+            acc = acc + b2[:, hn, :, ks:ks + 16] @ mf[:, hn, ks:ks + 16]
+    return (acc - bias.to(u_t.dtype).float()[:, None, :]).to(u_t.dtype)
+
+
+@pytest.mark.parametrize("mode", ["rank3", "swap"])
+def test_fab_mega_apply_kernel_order(mode):
+    """The wgmma apply pass sums in another order than
+    ``fab_mega_apply_plain`` (the heads one after another into each
+    output's running sum, four k16 products a head): that order, emulated
+    in plain PyTorch, against the JAX ``apply_pass`` in interpret mode and
+    against the plain version, at the bf16 tolerance (``BF16_SHARE``)."""
+    mega = _fab_mega()
+    _, u_t, kx, ky, m, bias = _pass_inputs(mega)
+    ref = _t(mega.apply_pass(u_t, kx, ky, m, bias[:, None, :], mode))
+    args = [_t(a) for a in (u_t, kx, ky, m, bias)]
+    out = _fab_mega_apply_kernel_order(*args)
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    _bf16_close(out, ref)
+    _bf16_close(out, fab_mega.fab_mega_apply_plain(*args))
+
+
+@pytest.mark.parametrize("n", [1, 3])
+def test_fab_mega_apply_heads_match_pallas(n):
+    """The apply pass at 1 and 3 heads, the edges of the kernel's ring of
+    two slots (one head: every tile's slot in turn; three: the slots and
+    the heads out of step), against the JAX ``apply_pass``."""
+    mega = _fab_mega()
+    mega.N = n
+    _, u_t, kx, ky, m, bias = _pass_inputs(mega)
+    ref = _t(mega.apply_pass(u_t, kx, ky, m, bias[:, None, :], "rank3"))
+    args = [_t(a) for a in (u_t, kx, ky, m, bias)]
+    out = fab_mega.fab_mega_apply(*args)
+    assert out.shape == ref.shape == (mega.B, mega.H * mega.W, mega.C)
+    _bf16_close(out, ref)
+    _bf16_close(_fab_mega_apply_kernel_order(*args), ref)
 
 
 def test_interior_dot_ragged_l():
