@@ -18,8 +18,9 @@ CUDA PyTorch and nvcc. It imports nothing of JAX. In order it:
   2. builds the CUDA kernels from lns_tpu_torch/csrc (nvcc, sm_90a, one
      process per source), and counts the tensor-core instructions (HMMA /
      HGMMA, from the toolkit's cuobjdump) in the bf16 code of the kernels
-     that run on tensor cores (1, 2, 4, 5 and 6, the probe's FAB passes and
-     interior dot, ``dot_general`` and the bf16 chains); a count of 0
+     that run on tensor cores (1, 2, 4, 5 and 6, the probe's FAB passes,
+     ``dot_general`` at each of its block tiles and the bf16 chains); a
+     count of 0
      fails (of HGMMA for kernel 2 and the two FAB passes, on ``wgmma``);
      the f32 ``dot_general`` and ``chain_scr2_f32`` fail on any HMMA
      (TF32) or on no FFMA; the bulk route of ``blocked_copy`` must show
@@ -194,16 +195,20 @@ CUDA PyTorch and nvcc. It imports nothing of JAX. In order it:
      and b3 n3), the device ms of the copy, both passes and each chain
      (with ``--parent DIR``, a ``git archive`` of the parent commit, also
      the parent tree's, by ``probe_axial.py --tree DIR``), ``interior_dot``
-     (1e-2, at most 2 % differing);
+     (``dot_general``'s straight x transposed orientation; 1e-2, at most 2 %
+     differing, twice bitwise, its device ms beside the parent tree's);
      kernel 7 at the probes' transpose bitwise, kernel 6 at their dot to
      its tolerances; ``dot_general`` and ``dot_chain`` at each of the 19
      cases of ``benchmarks/probe_mosaic_dots.py`` (bf16 outputs of one
      product one ulp of max|plain| in at most 1 %, f32 1e-5, the moments
      1e-3, the chains with bf16 intermediates 1e-2; each operand's feed
-     printed; each chain's two runs bitwise equal), ``dot_general`` also
-     off the probe's cases (the staged feed, ragged sizes, a transposed
-     view, f32 and mixed operands, the epilogues' clusters of 3 and 1),
-     and both refusing what their limits do not take;
+     and each single dot's plan printed; each chain's two runs bitwise
+     equal; the device ms of each single dot and chain beside the parent
+     tree's), ``dot_general`` also off the probe's cases (every block tile
+     the rule picks, the staged feed, ragged sizes, K = 200 and K off 32,
+     a transposed view, f32 and mixed operands, sum_batch at batch 3 and
+     13, the moments at one and at three row tiles a rank; each twice
+     bitwise), and both refusing what their limits do not take;
  11. prints one JSON line of per-kernel results (launches per path or
      phase, and ms / plain_ms / bound_ms per predict, summed over one
      predict of each inference path, kernel 3 also over path 7's encoder
@@ -308,14 +313,14 @@ def _nbytes(*tensors):
 # the redesigned kernels' bf16 entry points, by a piece of their SASS names
 # (kernels 4 and 5: axial_tc<bf16, rows first> and <bf16, columns first>;
 # kernel 2: the statistics pass with both axial applies and the Gram, the
-# output pass with bb . m; the probe's FAB passes and their interior dot;
-# dot_general's bf16 kernel and the chains whose products include bf16 ones)
+# output pass with bb . m; the probe's FAB passes; dot_general's bf16
+# kernel, each of its block tiles, and the chains whose products include
+# bf16 ones)
 TENSOR_CORE_KERNELS = {"prop_rollout": ("rollout_bf16",),
                        "fab_core": ("fab_bb_stats_bf16", "fab_out_bf16"),
                        "fab_axial_in_fused": ("axial_tcI13__nv_bfloat16Lb1",),
                        "axial_kernel_apply_headmajor": ("axial_tcI13__nv_bfloat16Lb0",),
                        "bmm_blockdiag": ("bmm_bf16_kernel",),
-                       "fab_mega": ("interior_dot_kernel",),
                        "fab_mega_stats": ("fab_mega_stats_wgmma",),
                        "fab_mega_apply": ("fab_mega_apply_wgmma",),
                        "mosaic_dots": ("dot_general_bf16",
@@ -4242,11 +4247,11 @@ def drive_solvers(dev, smi):
 
 # launches of one untimed run of the four probes (``probe_layouts.run``:
 # per dtype 2 copies, 3 products, 2 swaps; ``probe_fab_mega.run_pieces``: 2
-# interior dots, 1 swap, 2 copies, and ``run_passes``; ``probe_bw.run`` at
-# s = 2: 1 copy, 1 product; ``probe_dots.run``: one launch per case, 12
-# single dots and 7 chains)
+# interior dots, each a ``dot_general`` launch, 1 swap, 2 copies, and
+# ``run_passes``; ``probe_bw.run`` at s = 2: 1 copy, 1 product;
+# ``probe_dots.run``: one launch per case, 12 single dots and 7 chains)
 PROBE_LAUNCHES = {"bmm_blockdiag": 7, "transpose_hw": 5, "blocked_copy": 7, "fab_mega_stats": 1,
-                  "fab_mega_apply": 1, "interior_dot": 2, "dot_general": 12, "dot_chain": 7}
+                  "fab_mega_apply": 1, "interior_dot": 2, "dot_general": 14, "dot_chain": 7}
 
 
 def parent_ms(names):
@@ -4297,7 +4302,7 @@ def check_probes(dev):
     from lns_tpu_torch.kernels.fab_mega import (fab_mega_apply, fab_mega_apply_plain,
                                                 fab_mega_stats, fab_mega_stats_plain,
                                                 interior_dot, interior_dot_plain)
-    from lns_tpu_torch.kernels.mosaic_dots import CHAINS
+    from lns_tpu_torch.kernels.mosaic_dots import CASES, CHAINS, dot_general
 
     print("-- probe kernels against their plain versions (probe_layouts, probe_fab_mega, "
           "probe_bw, probe_dots, untimed; then each new kernel at its probe's shape)", flush=True)
@@ -4361,7 +4366,9 @@ def check_probes(dev):
     parent = parent_ms(["blocked_copy bf16 [928,2,128,2048] s=2",
                         "fab_mega_stats bf16 b116 n8 32x32 c64",
                         "fab_mega_apply bf16 b116 n8 32x32 c64",
-                        *(f"dot_chain {c}" for c in CHAINS)])
+                        *(f"dot_chain {c}" for c in CHAINS),
+                        *(f"dot_general {k}" for k, c in CASES.items() if c.route == "dot_general"),
+                        "interior_dot [32,32] . [32,32,64]"])
     print(f"      blocked_copy s=2 device: {new_ms:.4f} ms (this tree, bulk route); "
           + _parent_text(parent, "blocked_copy bf16 [928,2,128,2048] s=2"), flush=True)
     res["blocked_copy"]["device_ms"] = new_ms
@@ -4453,15 +4460,25 @@ def check_probes(dev):
     del u, u_t, kx, ky, m, bias, gs, ss, gp, sp, out
     kx = (torch.randn(32, 32, generator=gen) / 32).to(dev, bf)  # the pieces A and B2
     a = torch.randn(32, 32, 64, generator=gen).to(dev, bf)
-    err, ms, plain_ms = compare("interior_dot [32,32] . [32,32,64]", lambda: interior_dot(kx, a),
-                                lambda: interior_dot_plain(kx, a), 1e-2, max_differ=0.02)
+    first = interior_dot(kx, a)
+    err, ms, plain_ms = compare("interior_dot [32,32] . [32,32,64] (dot_general; feeds "
+                                f"{', '.join(dot_general.feeds or ('none',))}; "
+                                f"{probe_dots.plan_text()})",
+                                lambda: interior_dot(kx, a), lambda: interior_dot_plain(kx, a),
+                                1e-2, max_differ=0.02)
+    _check(torch.equal(interior_dot(kx, a), first), "interior_dot [32,32] . [32,32,64]: two runs "
+                                                    "bitwise equal")
     errs["interior_dot"].append(err)
     res["interior_dot"] = {"ms": ms, "plain_ms": plain_ms,
                            **Bound().add(2 * 32 * 32 * 32 * 64, 2 * _nbytes(a) + _nbytes(kx))
                            .result(),
                            "library_ms": cuda_ms(lambda: torch.einsum("ih,lhc->ilc", kx, a))}
-    print(f"      interior_dot device: {graph_ms(lambda: interior_dot(kx, a)):.4f} ms; its einsum "
-          f"{graph_ms(lambda: torch.einsum('ih,lhc->ilc', kx, a)):.4f} ms device", flush=True)
+    new_ms = graph_ms(lambda: interior_dot(kx, a))
+    res["interior_dot"]["device_ms"] = new_ms
+    print(f"      interior_dot device: {new_ms:.4f} ms (this tree, dot_general); its einsum "
+          f"{graph_ms(lambda: torch.einsum('ih,lhc->ilc', kx, a)):.4f} ms device; "
+          + _parent_text(parent, "interior_dot [32,32] . [32,32,64]"), flush=True)
+    del first
     for k, e in errs.items():
         res[k]["max_abs_err"] = max(e)
     # shapes outside the kernels' limits raise naming the limit (the text
@@ -4486,44 +4503,78 @@ def check_probes(dev):
 
 
 def check_dot_general_edges(dev, x):
-    """``dot_general`` off the probe's cases, against its plain version: the
-    staged feed (a batch dim with unit stride; a base off 16 bytes), sizes
-    off the 64 x 64 x 32 tile, an operand given as a transposed view, f32
-    and mixed operands on the CUDA cores, sum_batch over a cluster of 3 and
-    the moments over a cluster of 1 (bf16 outputs one ulp of max|plain| in
-    at most 1 %, f32 1e-5, the moments 1e-3)."""
+    """``dot_general`` off the probe's cases, against its plain version, each
+    case twice bitwise: every block tile the rule (C ``tile_of``) picks,
+    checked against the plan C reports (32x32 at sides off the tile, 32x64,
+    64x32 and 64x64 on grids that fill half the card), K = 200 (the ring of 4
+    stages wraps) and K off 32, the staged feed (a batch dim with unit
+    stride; a base off 16 bytes), ragged sizes (rows of whole 16-byte pieces
+    and rows of odd ones), an operand given as a transposed view, f32 and
+    mixed operands on the CUDA cores, sum_batch over clusters of 3 and of 8
+    at batch 13 (not a multiple of the cluster: ranks of 1 and 2 batches),
+    the moments over a cluster of 1 and at three row tiles a rank (bf16
+    outputs one ulp of max|plain| in at most 1 %, f32 1e-5, the moments
+    1e-3)."""
+    from lns_tpu_torch.kernels import probe_dots
     from lns_tpu_torch.kernels.mosaic_dots import dot_general, dot_general_plain
 
     gen = torch.Generator().manual_seed(19)
-    bf = torch.bfloat16
+    bf, f32 = torch.bfloat16, torch.float32
 
     def rnd(*shape):
         return torch.randn(*shape, generator=gen).to(dev, bf)
 
     odd = rnd(1 + 37 * 45)[1:].view(37, 45)  # 2 bytes past a 16-byte boundary
+    none = ((), ())
+    # (label, a, b, contract, batch, out dtype, epilogue, the tile the rule picks or None)
     cases = [
-        ("batch minor, staged", x["q"], x["q"], ((1,), (1,)), ((2,), (2,)), torch.float32, None),
-        ("37x45 . 45x70, staged", rnd(37, 45), rnd(45, 70), ((1,), (0,)), ((), ()), bf, None),
-        ("50x24 . 70x24, straight", rnd(50, 24), rnd(70, 24), ((1,), (1,)), ((), ()), bf, None),
-        ("a base off 16 bytes", odd, rnd(45, 70), ((1,), (0,)), ((), ()), bf, None),
-        ("a transposed view", x["u"][:, 0, :].t(), x["m"], ((1,), (0,)), ((), ()),
-         torch.float32, None),
-        ("f32 x f32", x["u"].float(), x["k2"].float(), ((2,), (1,)), ((), ()), torch.float32,
+        ("1024x64 . 1024x64", rnd(1024, 64), rnd(1024, 64), ((1,), (1,)), none, bf, None,
+         "64x64"),
+        ("8192x32 . 20x32, rows of odd bytes", rnd(8192, 32), rnd(20, 32), ((1,), (1,)), none,
+         bf, None, "64x32"),
+        ("20x40 . 40x8192, K 40", rnd(20, 40), rnd(40, 8192), ((1,), (0,)), none, f32, None,
+         "32x64"),
+        ("50x24 . 70x24, straight", rnd(50, 24), rnd(70, 24), ((1,), (1,)), none, bf, None,
+         "32x32"),
+        ("96x200 . 200x80, K 200", rnd(96, 200), rnd(200, 80), ((1,), (0,)), none, bf, None,
          None),
-        ("bf16 x f32", x["u"], x["k2"].float(), ((2,), (1,)), ((), ()), torch.float32, None),
-        ("sum_batch, batch 3", x["q"][:3], x["q"][:3], ((2,), (2,)), ((0,), (0,)),
-         torch.float32, "sum_batch"),
-        ("moments, one row tile", x["q"][:2], x["m"], ((1,), (0,)), ((), ()), torch.float32,
-         "moments"),
+        ("96x200 . 200x80, K 200, f32 out", rnd(96, 200), rnd(200, 80), ((1,), (0,)), none, f32,
+         None, None),
+        ("batch minor, staged", x["q"], x["q"], ((1,), (1,)), ((2,), (2,)), f32, None, None),
+        ("37x45 . 45x70, staged", rnd(37, 45), rnd(45, 70), ((1,), (0,)), none, bf, None, None),
+        ("a base off 16 bytes", odd, rnd(45, 70), ((1,), (0,)), none, bf, None, None),
+        ("a transposed view", x["u"][:, 0, :].t(), x["m"], ((1,), (0,)), none, f32, None, None),
+        ("f32 x f32", x["u"].float(), x["k2"].float(), ((2,), (1,)), none, f32, None, "64x64"),
+        ("bf16 x f32", x["u"], x["k2"].float(), ((2,), (1,)), none, f32, None, "64x64"),
+        ("sum_batch, batch 3", x["q"][:3], x["q"][:3], ((2,), (2,)), ((0,), (0,)), f32,
+         "sum_batch", None),
+        ("sum_batch, batch 13, K 72", rnd(13, 48, 72), rnd(13, 40, 72), ((2,), (2,)),
+         ((0,), (0,)), f32, "sum_batch", None),
+        ("sum_batch, batch 13, bf16 out", rnd(13, 48, 72), rnd(13, 40, 72), ((2,), (2,)),
+         ((0,), (0,)), bf, "sum_batch", None),
+        ("moments, one row tile", x["q"][:2], x["m"], ((1,), (0,)), none, f32, "moments", None),
+        ("moments, three row tiles a rank", rnd(1480, 64), rnd(64, 48), ((1,), (0,)), none, f32,
+         "moments", "64x64"),
+        ("moments, 24 columns", rnd(1480, 64), rnd(64, 24), ((1,), (0,)), none, f32, "moments",
+         "64x32"),
     ]
-    for label, a, b, contract, batch, out_dtype, epi in cases:
+    tiles = set()
+    for label, a, b, contract, batch, out_dtype, epi, tile in cases:
         args = (a, b, contract, batch, out_dtype, epi)
         rel, differ = ((1e-3, 1.0) if epi == "moments" else (2.0 ** -7, 0.01) if out_dtype == bf
                        else (1e-5, 1.0))
-        dot_general(*args)
-        compare(f"dot_general {label} {list(a.shape)} . {list(b.shape)}; feeds "
-                f"{', '.join(dot_general.feeds)}", lambda: dot_general(*args),
-                lambda: dot_general_plain(*args), rel, max_differ=differ)
+        first = dot_general(*args)
+        plan = dot_general.plan or {"tile": None}
+        tiles.add(plan["tile"])
+        name = (f"dot_general {label} {list(a.shape)} . {list(b.shape)}; feeds "
+                f"{', '.join(dot_general.feeds or ('none',))}; {probe_dots.plan_text()}")
+        if tile is not None:
+            _check(plan["tile"] == tile, f"{name}: the rule's tile {tile}")
+        compare(name, lambda: dot_general(*args), lambda: dot_general_plain(*args), rel,
+                max_differ=differ, reps=1)
+        _check(torch.equal(dot_general(*args), first), f"dot_general {label}: two runs bitwise")
+    _check(tiles >= {"32x32", "32x64", "64x32", "64x64"},
+           f"dot_general: the edges take every tile the rule picks ({sorted(map(str, tiles))})")
 
 
 def check_mosaic_dots(dev, parent=None):
@@ -4532,8 +4583,9 @@ def check_mosaic_dots(dev, parent=None):
     outputs of one product one ulp of max|plain| in at most 1 %, f32 1e-5,
     the moments 1e-3, the chains with bf16 intermediates 1e-2 and at most 2 %
     of a bf16 output) and timed beside its bound and library call, printing
-    each operand's feed; each chain's two runs bitwise equal, its device ms
-    printed beside the parent tree's (`parent`, from ``parent_ms``); each kernel
+    each operand's feed (and a single dot's plan); each case's two runs
+    bitwise equal, its device ms printed beside the parent tree's (`parent`,
+    from ``parent_ms``); each kernel
     refusing what its limit (stated in C) does not take, before anything
     launches. Returns {kernel: result} summed over its cases."""
     from lns_tpu_torch.kernels import mosaic_dots, probe_dots
@@ -4550,12 +4602,11 @@ def check_mosaic_dots(dev, parent=None):
                                     lambda: mosaic_dots.run_case(key, x),
                                     lambda: mosaic_dots.run_case(key, x, plain=True), rel,
                                     max_differ=differ)
-        if spec.route == "dot_chain":
-            _check(torch.equal(out, mosaic_dots.run_case(key, x)),
-                   f"dot_chain {key}: two runs bitwise equal")
-            print(f"      dot_chain {key} device: "
-                  f"{graph_ms(lambda: mosaic_dots.run_case(key, x)):.4f} ms (this tree); "
-                  + _parent_text(parent, f"dot_chain {key}"), flush=True)
+        _check(torch.equal(out, mosaic_dots.run_case(key, x)),
+               f"{spec.route} {key}: two runs bitwise equal")
+        print(f"      {spec.route} {key} device: "
+              f"{graph_ms(lambda: mosaic_dots.run_case(key, x)):.4f} ms (this tree); "
+              + _parent_text(parent, f"{spec.route} {key}"), flush=True)
         bound_ms, by = probe_dots.bound_ms(*probe_dots.work(key, x, out))
         row = res[spec.route]
         row["max_abs_err"] = max(row["max_abs_err"], err)
@@ -4734,7 +4785,7 @@ def run(dev, smi=""):
         ("blocked_copy", "cuda", src + "blocked_copy.cu", probes + "probe_pallas_bw.py:53"),
         ("fab_mega_stats", "cuda", src + "fab_mega.cu", probes + "probe_fab_mega.py:167"),
         ("fab_mega_apply", "cuda", src + "fab_mega.cu", probes + "probe_fab_mega.py:230"),
-        ("interior_dot", "cuda", src + "fab_mega.cu", probes + "probe_fab_mega.py:81"),
+        ("interior_dot", "cuda", src + "mosaic_dots.cu", probes + "probe_fab_mega.py:81"),
         ("dot_general", "cuda", src + "mosaic_dots.cu", probes + "probe_mosaic_dots.py:305"),
         ("dot_chain", "cuda", src + "mosaic_dots.cu", probes + "probe_mosaic_dots.py:305"),
     ]

@@ -2,12 +2,15 @@
 // head-major values bb never reach device memory: a statistics pass (per
 // sample and head, the Gram matrix and the column sums of the rounded apply
 // pair) and an apply pass (the apply pair again, its product with a per-head
-// c x o matrix, summed over the heads); and the interior dot, their second
-// apply, on its own.
+// c x o matrix, summed over the heads). Their second apply on its own, the
+// interior dot kx [i, h] . a [l, h, c] -> bf16 [i, l, c] with f32 sums (the
+// forms of benchmarks/probe_fab_mega.py's `piece` that are an interior dot:
+// A, and B2, the same function with the same output memory), runs through
+// mosaic_dots.cu's dot_general (its straight x transposed orientation); its
+// limit stays here, lns_interior_dot_limit.
 //
-// Replaces benchmarks/probe_fab_mega.py: stats_pass (_stats_kernel),
-// apply_pass (_apply_kernel), and the forms of `piece` that are an interior
-// dot (A, and B2: the same function with the same output memory).
+// Replaces benchmarks/probe_fab_mega.py: stats_pass (_stats_kernel) and
+// apply_pass (_apply_kernel).
 //
 // Shapes: h = w = 32, c = 64, bf16 (the probe's; lns_fab_mega_limit and
 // lns_interior_dot_limit state them), any batch b and heads n:
@@ -18,8 +21,7 @@
 //   statistics: G = b2^T b2 [c, c] and s = the column sums of b2 [c], f32,
 //               per (b, n);
 //   apply:      out[b] = bf16(sum_n b2_n . m[b, n] - bias[b])  [(i l), o],
-//               f32 sums;
-//   interior dot: kx [i, h] . a [l, h, c] -> bf16 [i, l, c], f32 sums.
+//               f32 sums.
 //
 // What bounds them on an H100: operations. Per (b, n) 16.8 MFLOP (two
 // applies of 4.2 and the Gram or the c -> o product of 8.4) against 128 KB of
@@ -110,8 +112,7 @@
 // memory once.
 //
 // Grids: statistics and apply (b), each block looping over its heads with
-// u loaded once; interior dot ceil(l / 8). One block per SM (shared memory)
-// in the passes.
+// u loaded once. One block per SM (shared memory).
 
 #include <cstdio>
 
@@ -123,55 +124,8 @@ namespace {
 
 constexpr int kS = 32;             // h = w
 constexpr int kC = 64;             // c (and o)
-constexpr int kKP = kS + 8;        // the interior dot's kx row stride
-constexpr int kCP = kC + 8;        // its a row stride
-constexpr int kLT = 8;             // its l rows per block (one per warp)
-constexpr int kAL = kS * kCP;      // a's stride between l rows
-constexpr int kThreads = 256;
-static_assert(kThreads / 32 == kLT, "one warp per l row of a tile");
 
 using bf16 = __nv_bfloat16;
-
-constexpr size_t kDotSmem = sizeof(bf16) * (kS * kKP + kLT * kAL);
-
-// rows x cols bf16 (cols a multiple of 8) from global (row stride src_ld) to
-// shared memory (row stride dst_ld) by 16-byte cp.async, all threads
-__device__ __forceinline__ void load_rows(bf16* dst, int dst_ld, const bf16* src, int src_ld,
-                                          int rows, int cols) {
-  const int per_row = cols / 8;
-  for (int e = threadIdx.x; e < rows * per_row; e += kThreads) {
-    const int r = e / per_row, c8 = (e % per_row) * 8;
-    lns::cp_async16(dst + r * dst_ld + c8, src + static_cast<size_t>(r) * src_ld + c8, true);
-  }
-}
-
-// The interior dot of one l: this warp's bb [32 i, 64 c] = kx . a_l (a_l
-// [h][c], stride kCP), f32 accumulators acc[i-tile][c-tile][4].
-__device__ __forceinline__ void interior_kx(const bf16* kx_s, const bf16* a_l,
-                                         float (&acc)[2][8][4]) {
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < 2; ++ks) {
-    uint32_t af[2][4], bfr[4][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-      lns::ldsm_x4(af[mt], kx_s + lns::a_addr(lane, mt * 16, ks * 16, kKP));
-#pragma unroll
-    for (int np = 0; np < 4; ++np)
-      lns::ldsm_x4_trans(bfr[np], a_l + lns::b_addr(lane, ks * 16, np * 16, kCP));
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-        lns::mma_bf16(acc[mt][nt], af[mt], bfr[nt / 2][nt % 2 * 2], bfr[nt / 2][nt % 2 * 2 + 1]);
-  }
-}
 
 // ---- the statistics pass on wgmma (sm_90a; TMA, mbarriers, hopper.cuh) ------
 
@@ -650,38 +604,6 @@ fab_mega_apply_wgmma(const bf16* __restrict__ u_t, const __grid_constant__ CUten
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-interior_dot_kernel(const bf16* __restrict__ kx, const bf16* __restrict__ a,
-                    bf16* __restrict__ out, int l_dim) {
-  extern __shared__ uint4 smem_dot[];
-  bf16* kx_s = reinterpret_cast<bf16*>(smem_dot);
-  bf16* a_s = kx_s + kS * kKP;
-  const int l0 = blockIdx.x * kLT;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, t = lane % 4;
-  const int rows = l_dim - l0 < kLT ? l_dim - l0 : kLT;
-  load_rows(kx_s, kKP, kx, kS, kS, kS);
-  for (int r = 0; r < rows; ++r)
-    load_rows(a_s + r * kAL, kCP, a + static_cast<size_t>(l0 + r) * kS * kC, kC, kS, kC);
-  lns::cp_async_commit();
-  lns::cp_async_wait<0>();
-  __syncthreads();
-  if (warp >= rows) return;
-  float acc[2][8][4];
-  interior_kx(kx_s, a_s + warp * kAL, acc);
-  const int l = l0 + warp;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int i = mt * 16 + g, c = nt * 8 + 2 * t;
-      bf16* p = out + (static_cast<size_t>(i) * l_dim + l) * kC + c;
-      *reinterpret_cast<uint32_t*>(p) = lns::pack_bf16(acc[mt][nt][0], acc[mt][nt][1]);
-      *reinterpret_cast<uint32_t*>(p + static_cast<size_t>(8) * l_dim * kC) =
-          lns::pack_bf16(acc[mt][nt][2], acc[mt][nt][3]);
-    }
-}
-
 // dtype bf16, the [32, 32] x c 64 shape (`dims` names the two sides), and
 // `count` (the blocks' count: the batch b or the rows l) in [1, most]
 const char* shape_limit(const char* dims, int dtype, int h, int w, int c, const char* count_name,
@@ -708,9 +630,10 @@ extern "C" const char* lns_fab_mega_limit(int dtype, int b, int h, int w, int c)
   return shape_limit("h, w", dtype, h, w, c, "b (the grid's y)", b, 65535);
 }
 
-// The interior dot's: kx [i, k] . a [l, k, c].
+// The interior dot's, kx [i, k] . a [l, k, c], which dot_general
+// (mosaic_dots.cu) computes: l c below 2^31, dot_general's output columns.
 extern "C" const char* lns_interior_dot_limit(int dtype, int l, int i, int k, int c) {
-  return shape_limit("i, k", dtype, i, k, c, "l", l, 2147483647);
+  return shape_limit("i, k", dtype, i, k, c, "l", l, 2147483647 / kC);
 }
 
 extern "C" int lns_fab_mega_stats(const void* u_t, const void* kx, const void* ky, void* g,
@@ -756,13 +679,5 @@ extern "C" int lns_fab_mega_apply(const void* u_t, const void* kx, const void* k
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(u_t), mkx, mky, mm, static_cast<const bf16*>(bias),
       static_cast<bf16*>(out), n);
-  return cudaGetLastError();
-}
-
-extern "C" int lns_interior_dot(const void* kx, const void* a, void* out, int l, void* stream) {
-  if (lns_interior_dot_limit(1, l, kS, kS, kC)) return cudaErrorInvalidValue;
-  interior_dot_kernel<<<(l + kLT - 1) / kLT, kThreads, kDotSmem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(kx), static_cast<const bf16*>(a), static_cast<bf16*>(out), l);
   return cudaGetLastError();
 }

@@ -6,18 +6,20 @@
 //
 // dot_general: one strided contraction, the port's jax.lax.dot_general for
 //   operands of rank 3 or less with one contracting dim and at most one batch
-//   dim (12 of the 19 cases). The output is [batch, lhs free, rhs free]
-//   (JAX's order), stored contiguous, rounded once to its dtype; or, with the
-//   sum_batch epilogue, summed over the batch in the kernel ([lhs free, rhs
-//   free]); or, with the moments epilogue, phi = bf16(product) reduced to the
-//   [2, rhs free] f32 column sums of phi and of bf16(phi^2), in a fixed
-//   order. A free side's dims are (r1, r2), addressed by their strides, so a
-//   pair that cannot merge into one strided dim (rhs_interior's (C, L), with
-//   a split H between them) needs no copy. bf16 x bf16 runs on mma.sync
-//   m16n8k16 with f32 sums; any f32 operand puts the product in full f32 on
-//   the CUDA cores (no TF32, which keeps about three digits). How an operand
-//   reaches the tensor core (its feed, chosen on the host and returned to
-//   the caller):
+//   dim (12 of the 19 cases, and fab_mega.py's interior dot kx [i, h] . a
+//   [l, h, c], the straight x transposed orientation of rhs_interior). The
+//   output is [batch, lhs free, rhs free] (JAX's order), stored contiguous,
+//   rounded once to its dtype; or, with the sum_batch epilogue, summed over
+//   the batch in the kernel ([lhs free, rhs free]); or, with the moments
+//   epilogue, phi = bf16(product) reduced to the [2, rhs free] f32 column
+//   sums of phi and of bf16(phi^2), in a fixed order. A free side's dims are
+//   (r1, r2), addressed by their strides, so a pair that cannot merge into
+//   one strided dim (rhs_interior's (C, L), with a split H between them)
+//   needs no copy. bf16 x bf16 runs on mma.sync m16n8k16 with f32 sums; any
+//   f32 operand puts the product in full f32 on the CUDA cores (no TF32,
+//   which keeps about three digits; block tile 64 x 64, one k stage at a
+//   time). How an operand reaches the tensor core (its feed, chosen on the
+//   host and returned to the caller):
 //     straight    the contracted dim has unit stride: 16-byte cp.async along
 //                 k into a [row][k] tile, ldmatrix;
 //     transposed  the inner free dim has unit stride (and a size that is a
@@ -25,10 +27,47 @@
 //                 [k][row] tile, ldmatrix.trans;
 //     staged      neither (or a base or stride off 16 bytes): a gather, one
 //                 element a thread, into a [row][k] tile, ldmatrix.
-//   Block tile 64 x 64 of the output, depth 32 a stage, 4 warps of 32 x 32.
-//   sum_batch splits the batch, and the moments the output rows, over a
-//   cluster of up to 8 blocks, whose partial sums meet through DSMEM in rank
-//   order (two runs give the same bits).
+//   The bf16 kernel, 4 warps (2 x 2 of the block tile):
+//     ring        a block's stages, 32 deep, in order (its m tiles, in each
+//                 its batches, in each the k stages) stream through a ring
+//                 of 4 slots in shared memory, one cp.async commit group a
+//                 stage: the first 4 are in flight before the first wait
+//                 (cp.async.wait_group 3, empty groups past the end keeping
+//                 the count), and stage s + 4 is issued as soon as slot s is
+//                 consumed. At the probe's depths (K 32 or 64, sum_batch's 4
+//                 batches a block) a block's whole depth is one round trip;
+//                 K = 200 streams through the ring.
+//     tile        32 x 32, 32 x 64, 64 x 32 or 64 x 64, chosen per launch
+//                 from (m, n, batch, epilogue) by tile_of (stated once, in
+//                 C, beside feed_of, and returned to the caller): a side of
+//                 32 or fewer takes 32 (no tile half zeros), the moments the
+//                 largest tile, else the largest tile whose grid has at least
+//                 min(66, the grid of 32 x 32 tiles) blocks, half of the 132
+//                 SMs where the output has that many 32 x 32 tiles. At the
+//                 probe's shapes every case but the moments takes 32 x 32:
+//                 64 blocks (gram_batched 128, gram_b+sum 32), where a fixed
+//                 64 x 64 tile would give 16 or 32, those at a side of 32
+//                 half zeros.
+//     stores      the f32 tile rounded to the output dtype into shared
+//                 memory ([rows][cols + 8]: the fragments' writes fall in
+//                 distinct banks), then whole rows of the contiguous output
+//                 in 16-byte pieces, neighbouring threads on neighbouring
+//                 addresses (rows of odd bytes one element a thread), the
+//                 ragged edge masked.
+//     sum_batch   a cluster of min(8, batch) blocks per output tile splits
+//                 the batch (rank r takes batches r, r + 8, ...), each rank's
+//                 batches through its ring; rank r adds rows r, r + 8, ... of
+//                 the tile over the ranks in rank order through DSMEM (a
+//                 thread's loads from every rank issued together) and
+//                 stores 16-byte pieces. An output's f32 sums run in the
+//                 same order at any tile (a rank's batches in order, then
+//                 the ranks): gram_b+sum takes 4 tiles x 8 ranks = 32
+//                 blocks.
+//     moments     a cluster of up to 8 blocks splits the output rows (rank
+//                 r takes row tiles r, r + 8, ...), folded in a fixed order:
+//                 a thread's rows in order, 16 row groups, then the ranks in
+//                 rank order (DSMEM).
+//   Two runs give the same bits: fixed orders throughout, no atomics.
 //
 // dot_chain: the seven chains, one launch of one cluster of 8 blocks each.
 //   Every stage rounds where the TPU body rounds and nowhere else (a
@@ -101,11 +140,18 @@
 // 264 KB (0.079 us at 3.35 TB/s) for 4.2 MFLOP (0.004 us at 989 TFLOP/s);
 // chain_scr2_f32 does 25.7 MFLOP in f32 (0.38 us at 67 TFLOP/s), on 8 SMs
 // 1.8 M fmaf a block (7.8 us at 128 fmaf a cycle and 1.83 GHz). A launch
-// costs more than the bound: these kernels are bound by launch latency, the
-// few SMs a single case fills, and in the f32 chains by the fmaf issue rate
-// of 8 SMs. Neither kernel is on a model's path; they answer the TPU probe's
-// two questions on this card (which orientations reach the tensor cores,
-// and how; whether a chain's intermediates can stay on chip).
+// costs more than the bound: these kernels are bound by launch latency and,
+// in each block, by the serial round trips of its loads, products and
+// stores; the f32 chains also by the fmaf issue rate of 8 SMs. dot_general's
+// ring leaves one load round trip a block at the probe's depths, its tiles
+// spread a case over 32-128 SMs, and its stores leave in whole rows: what is
+// left is the launch, one round trip each way, each k stage's chain of
+// dependent mma.sync products (longer than its loads: probe_dots.py
+// --variants times copies without the products and with only the first
+// stage's loads) and (sum_batch, moments) the cluster barriers. Neither
+// kernel is on a model's path; they answer the TPU
+// probe's two questions on this card (which orientations reach the tensor
+// cores, and how; whether a chain's intermediates can stay on chip).
 
 #include <cooperative_groups.h>
 
@@ -124,16 +170,22 @@ using bf16 = __nv_bfloat16;
 
 // ---- dot_general ------------------------------------------------------------
 
-constexpr int kT = 64;            // block tile: kT output rows x kT output columns
+constexpr int kT = 64;            // the f32 kernel's block tile (kT x kT), the bf16 kernel's largest
 constexpr int kKT = 32;           // depth of one staged tile
 constexpr int kRK = kKT + 8;      // row stride of a [row][k] bf16 tile (80 bytes)
-constexpr int kKR = kT + 8;       // row stride of a [k][row] bf16 tile (144 bytes)
 constexpr int kFK = kKT + 1;      // row stride of a [row][k] f32 tile
-constexpr int kGThreads = 128;    // 4 warps, 2 x 2 pieces of 32 x 32
-constexpr int kTileElems = kT * kRK > kKT * kKR ? kT * kRK : kKT * kKR;
+constexpr int kGThreads = 128;    // 4 warps, 2 x 2 pieces of the block tile
+constexpr int kStages = 4;        // the bf16 kernel's ring of k stages
+constexpr int kFill = 66;         // blocks that fill half of the H100's 132 SMs
 constexpr int kRowGroups = 16;    // the moments' partial sums per column
 constexpr int kMaxCluster = 8;    // blocks that split sum_batch's batch or the moments' rows
 static_assert((kRowGroups * 2 + 2) * kT <= kT * kT, "the moments' sums fit the fold's tile");
+
+// bf16 elements of one operand's stage of `rows` rows: [rows][kRK] (k has
+// unit stride) or [kKT][rows + 8] (the rows have unit stride)
+__host__ __device__ constexpr int stage_elems(int rows) {
+  return rows * kRK > kKT * (rows + 8) ? rows * kRK : kKT * (rows + 8);
+}
 
 enum Feed { kStraight = 0, kTransposed = 1, kStaged = 2, kCudaCores = 3 };
 enum Epilogue { kStore = 0, kSumBatch = 1, kMoments = 2 };
@@ -156,31 +208,62 @@ struct DgParams {
   int cl;  // blocks of a cluster that share one output tile (1 for a plain store)
 };
 
-// The [kT rows][kKT k] tile at (r0, k0) of operand o (batch bi) into shared
-// memory, zero past `rows` and `klen`, by the operand's feed.
-__device__ __forceinline__ void stage_bf16(bf16* s, const Operand& o, int bi, int r0, int rows,
-                                           int k0, int klen) {
-  const bf16* p = static_cast<const bf16*>(o.p);
-  if (o.feed == kTransposed) {  // s[k][row], 16-byte pieces along the rows
-    for (int e = threadIdx.x; e < kKT * (kT / 8); e += kGThreads) {
-      const int kk = e / (kT / 8), r = e % (kT / 8) * 8;
-      const bool valid = k0 + kk < klen && r0 + r < rows;
-      lns::cp_async16(s + kk * kKR + r, valid ? p + o.at(bi, r0 + r, k0 + kk) : p, valid);
-    }
-  } else if (o.feed == kStraight) {  // s[row][k], 16-byte pieces along k
-    for (int e = threadIdx.x; e < kT * (kKT / 8); e += kGThreads) {
-      const int r = e / (kKT / 8), kk = e % (kKT / 8) * 8;
-      const bool valid = r0 + r < rows && k0 + kk < klen;
-      lns::cp_async16(s + r * kRK + kk, valid ? p + o.at(bi, r0 + r, k0 + kk) : p, valid);
-    }
-  } else {  // staged: s[row][k], gathered one element a thread
-    for (int e = threadIdx.x; e < kT * kKT; e += kGThreads) {
-      const int r = e / kKT, kk = e % kKT;
-      s[r * kRK + kk] = r0 + r < rows && k0 + kk < klen ? p[o.at(bi, r0 + r, k0 + kk)]
-                                                        : __float2bfloat16(0.f);
+// A thread's share of one operand's [TR rows][kKT k] stage in shared memory,
+// by the operand's feed: straight and transposed, its 16-byte pieces (one or
+// two a thread), their rows' offsets in the operand computed once a tile
+// (`tile`: the division by r2 happens there, never per stage), so that a
+// stage's addresses are a multiply-add each; staged, a gather of one
+// element a thread, zero past the edges.
+template <int TR>
+struct Pieces {
+  static constexpr int kN = TR * kKT / 8 / kGThreads;  // 16-byte pieces a thread
+  static_assert(kN * kGThreads * 8 == TR * kKT, "whole pieces a thread");
+  int kk[kN], at[kN];  // depth in the stage, offset in the slot
+  int r[kN];           // row in the tile
+  long long row[kN];   // the row's offset in the operand (batch 0, depth 0); -1 past the edge
+  __device__ __forceinline__ explicit Pieces(int feed) {
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+      const int e = threadIdx.x + j * kGThreads;
+      if (feed == kTransposed) {  // s[k][row], pieces along the rows
+        kk[j] = e / (TR / 8);
+        r[j] = e % (TR / 8) * 8;
+        at[j] = kk[j] * (TR + 8) + r[j];
+      } else {  // s[row][k], pieces along k
+        r[j] = e / (kKT / 8);
+        kk[j] = e % (kKT / 8) * 8;
+        at[j] = r[j] * kRK + kk[j];
+      }
     }
   }
-}
+  // the rows of the tile at r0 (of `rows`)
+  __device__ __forceinline__ void tile(const Operand& o, int r0, int rows) {
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+      const int i = r0 + r[j];
+      row[j] = i < rows ? (i / o.r2) * o.s1 + (i % o.r2) * o.s2 : -1;
+    }
+  }
+  // the stage at depth k0 of batch bi into s, one cp.async a piece (zero past
+  // the edges); staged: [row][k], element by element
+  __device__ __forceinline__ void load(bf16* s, const Operand& o, int bi, int r0, int rows, int k0,
+                                       int klen) const {
+    const bf16* p = static_cast<const bf16*>(o.p);
+    if (o.feed == kStaged) {
+      for (int e = threadIdx.x; e < TR * kKT; e += kGThreads) {
+        const int rr = e / kKT, k = e % kKT;
+        s[rr * kRK + k] = r0 + rr < rows && k0 + k < klen ? p[o.at(bi, r0 + rr, k0 + k)]
+                                                          : __float2bfloat16(0.f);
+      }
+      return;
+    }
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+      const bool valid = row[j] >= 0 && k0 + kk[j] < klen;
+      lns::cp_async16(s + at[j], valid ? p + (bi * o.sb + row[j] + (k0 + kk[j]) * o.sk) : p, valid);
+    }
+  }
+};
 
 // The same tile as f32 values, s[row][k] (row stride kFK), for the CUDA cores.
 __device__ __forceinline__ void stage_f32(float* s, const Operand& o, int bi, int r0, int rows,
@@ -207,6 +290,13 @@ __device__ __forceinline__ void store_out(const DgParams& p, int bi, int m, int 
   }
 }
 
+__device__ __forceinline__ void store2(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+__device__ __forceinline__ void store2(bf16* p, float v0, float v1) {
+  *reinterpret_cast<uint32_t*>(p) = lns::pack_bf16(v0, v1);
+}
+
 // The moments' running sums of one output value: phi = bf16(v), phi^2
 // rounded to bf16 (the TPU body squares a bf16 array), summed in f32.
 __device__ __forceinline__ void add_moments(float v, float& s1, float& s2) {
@@ -216,22 +306,23 @@ __device__ __forceinline__ void add_moments(float v, float& s1, float& s2) {
 }
 
 // Fold the threads' column sums (row group rg, column col of the block's
-// tile; red is [kRowGroups][2][kT]) in row-group order into the block's
-// [2][kT] sums, then rank 0 adds the cluster's blocks' sums in rank order
-// (DSMEM) into out [2, n].
+// tile of TN columns; red is [kRowGroups][2][TN]) in row-group order into the
+// block's [2][TN] sums, then rank 0 adds the cluster's blocks' sums in rank
+// order (DSMEM) into out [2, n].
+template <int TN>
 __device__ __forceinline__ void fold_moments(const DgParams& p, float* red, int n0) {
   cg::cluster_group cluster = cg::this_cluster();
-  float* mine = red + kRowGroups * 2 * kT;
+  float* mine = red + kRowGroups * 2 * TN;
   __syncthreads();
-  if (threadIdx.x < 2 * kT) {
-    const int which = threadIdx.x / kT, col = threadIdx.x % kT;
+  if (threadIdx.x < 2 * TN) {
+    const int which = threadIdx.x / TN, col = threadIdx.x % TN;
     float s = 0.f;
-    for (int rg = 0; rg < kRowGroups; ++rg) s += red[(rg * 2 + which) * kT + col];
+    for (int rg = 0; rg < kRowGroups; ++rg) s += red[(rg * 2 + which) * TN + col];
     mine[threadIdx.x] = s;
   }
   cluster.sync();  // every block's sums are whole
-  if (cluster.block_rank() == 0 && threadIdx.x < 2 * kT) {
-    const int which = threadIdx.x / kT, col = threadIdx.x % kT;
+  if (cluster.block_rank() == 0 && threadIdx.x < 2 * TN) {
+    const int which = threadIdx.x / TN, col = threadIdx.x % TN;
     float s = 0.f;
     for (int q = 0; q < p.cl; ++q) s += cluster.map_shared_rank(mine, q)[threadIdx.x];
     if (n0 + col < p.n)
@@ -240,9 +331,9 @@ __device__ __forceinline__ void fold_moments(const DgParams& p, float* red, int 
   cluster.sync();  // no block leaves while rank 0 reads it
 }
 
-// sum_batch: each block of the cluster holds its batches' sum of the output
-// tile in red [kT][kT]; block r adds rows r, r + cl, ... over the blocks in
-// rank order (DSMEM) and stores them.
+// The f32 kernel's sum_batch: each block of the cluster holds its batches'
+// sum of the output tile in red [kT][kT]; block r adds rows r, r + cl, ...
+// over the blocks in rank order (DSMEM) and stores them.
 __device__ __forceinline__ void fold_batches(const DgParams& p, float* red, int m0, int n0) {
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();  // every block's tile is whole
@@ -255,120 +346,268 @@ __device__ __forceinline__ void fold_batches(const DgParams& p, float* red, int 
   cluster.sync();
 }
 
-// The block's loops: a plain store takes one output tile of one batch (grid
-// (n tiles, m tiles, batch)); sum_batch's cluster of cl blocks (grid z)
-// splits the batch, block r taking batches r, r + cl, ...; the moments'
-// cluster splits the m tiles (grid (n tiles, 1, cl)). Fixed orders
-// throughout: no atomics.
+// The block's loops (tm rows a tile): a plain store takes one output tile of
+// one batch (grid (n tiles, m tiles, batch)); sum_batch's cluster of cl
+// blocks (grid z) splits the batch, block r taking batches r, r + cl, ...;
+// the moments' cluster splits the m tiles (grid (n tiles, 1, cl)). Fixed
+// orders throughout: no atomics.
 struct Loops {
   int rank, b0, b_step, m_first, m_step;
-  __device__ __forceinline__ explicit Loops(const DgParams& p)
+  __device__ __forceinline__ Loops(const DgParams& p, int tm)
       : rank(p.epi == kStore ? 0 : static_cast<int>(blockIdx.z)),
         b0(p.epi == kStore ? static_cast<int>(blockIdx.z) : p.epi == kSumBatch ? rank : 0),
         b_step(p.epi == kSumBatch ? p.cl : p.nb),
-        m_first(p.epi == kMoments ? rank * kT : static_cast<int>(blockIdx.y) * kT),
-        m_step(p.epi == kMoments ? p.cl * kT : p.m) {}
+        m_first(p.epi == kMoments ? rank * tm : static_cast<int>(blockIdx.y) * tm),
+        m_step(p.epi == kMoments ? p.cl * tm : p.m) {}
 };
+
+// The block's tile (its warps' f32 fragments acc) rounded to T into st
+// ([TM][TN + 8]), then stored row by row into the contiguous [batch, m, n]
+// output: 16-byte pieces, neighbouring threads on neighbouring addresses,
+// where the rows hold whole 16-byte pieces; else one element a thread, in
+// the same order. Nothing past m or n.
+template <typename T, int TM, int TN, int MT, int NT>
+__device__ __forceinline__ void store_tile(const DgParams& p, T* st, const float (&acc)[MT][NT][4],
+                                           int wm, int wn, int bi, int m0, int n0) {
+  constexpr int V = 16 / sizeof(T), kLd = TN + 8;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        store2(st + (wm + mt * 16 + g + 8 * h) * kLd + wn + nt * 8 + 2 * t, acc[mt][nt][2 * h],
+               acc[mt][nt][2 * h + 1]);
+  __syncthreads();
+  T* out = static_cast<T*>(p.out) + (static_cast<long long>(bi) * p.m + m0) * p.n + n0;
+  const int rows = p.m - m0 < TM ? p.m - m0 : TM, cols = p.n - n0 < TN ? p.n - n0 : TN;
+  if (p.n % V == 0) {
+    for (int e = threadIdx.x; e < rows * (TN / V); e += kGThreads) {
+      const int r = e / (TN / V), c = e % (TN / V) * V;
+      if (c < cols)
+        *reinterpret_cast<uint4*>(out + static_cast<long long>(r) * p.n + c) =
+            *reinterpret_cast<const uint4*>(st + r * kLd + c);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * TN; e += kGThreads) {
+      const int r = e / TN, c = e % TN;
+      if (c < cols) out[static_cast<long long>(r) * p.n + c] = st[r * kLd + c];
+    }
+  }
+}
+
+// sum_batch: each block of the cluster holds its batches' sum of the tile in
+// red ([TM][TN + 8] f32); block r adds rows r, r + cl, ... over the blocks in
+// rank order (DSMEM: a thread's loads from every peer issued together) and
+// stores them rounded to T, V = 16 / sizeof(T) columns a thread (one 16-byte
+// store where the rows hold whole 16-byte pieces).
+template <typename T, int TM, int TN>
+__device__ __forceinline__ void fold_tiles(const DgParams& p, float* red, int m0, int n0) {
+  constexpr int V = 16 / sizeof(T), kLd = TN + 8;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int rows = (TM - rank + p.cl - 1) / p.cl;
+  cluster.sync();  // every block's tile is whole
+  for (int e = threadIdx.x; e < rows * (TN / V); e += kGThreads) {
+    const int r = rank + e / (TN / V) * p.cl, c = e % (TN / V) * V;
+    float4 x[kMaxCluster][V / 4];
+#pragma unroll
+    for (int q = 0; q < kMaxCluster; ++q)
+      if (q < p.cl)
+#pragma unroll
+        for (int j = 0; j < V / 4; ++j)
+          x[q][j] = reinterpret_cast<const float4*>(cluster.map_shared_rank(red, q) + r * kLd + c)[j];
+    float s[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) s[j] = 0.f;
+#pragma unroll
+    for (int q = 0; q < kMaxCluster; ++q)
+      if (q < p.cl)
+#pragma unroll
+        for (int j = 0; j < V / 4; ++j) {
+          s[4 * j] += x[q][j].x;
+          s[4 * j + 1] += x[q][j].y;
+          s[4 * j + 2] += x[q][j].z;
+          s[4 * j + 3] += x[q][j].w;
+        }
+    if (m0 + r < p.m && n0 + c < p.n) {
+      T* dst = static_cast<T*>(p.out) + static_cast<long long>(m0 + r) * p.n + n0 + c;
+      if (p.n % V == 0) {
+        uint4 v;
+        T* e8 = reinterpret_cast<T*>(&v);
+#pragma unroll
+        for (int j = 0; j < V; ++j) e8[j] = lns::cvt<T>(s[j]);
+        *reinterpret_cast<uint4*>(dst) = v;
+      } else {
+        for (int j = 0; j < V && n0 + c + j < p.n; ++j) dst[j] = lns::cvt<T>(s[j]);
+      }
+    }
+  }
+  cluster.sync();  // no block leaves while a peer reads it
+}
+
+// bf16 x bf16 on mma.sync, block tile TM x TN (the rule: tile_of), warps 2 x
+// 2 of (TM / 2) x (TN / 2). The block's stages, in order (its m tiles, in
+// each its batches, in each the k stages of 32), stream through a ring of
+// kStages slots, one cp.async commit group a stage: the first kStages are
+// in flight before the first wait, and stage s + kStages is issued as soon
+// as slot s is consumed. At the probe's depths every stage of a block is in
+// flight at once.
+template <int TM, int TN>
 __global__ void __launch_bounds__(kGThreads) dot_general_bf16(const DgParams p) {
-  __shared__ uint4 as4[kTileElems / 8], bs4[kTileElems / 8];
-  __shared__ float red[kT * kT];
-  bf16* as = reinterpret_cast<bf16*>(as4);
-  bf16* bs = reinterpret_cast<bf16*>(bs4);
+  constexpr int kA = stage_elems(TM), kStage = kA + stage_elems(TN);
+  constexpr int kWM = TM / 2, kWN = TN / 2, MT = kWM / 16, NT = kWN / 8;
+  static_assert(sizeof(float) * (kRowGroups * 2 + 2) * TN <= sizeof(bf16) * kStages * kStage &&
+                    sizeof(float) * TM * (TN + 8) <= sizeof(bf16) * kStages * kStage,
+                "the epilogues' tiles fit the ring");
+  __shared__ uint4 ring4[kStages * kStage / 8];
+  bf16* ring = reinterpret_cast<bf16*>(ring4);
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, g = lane / 4, t = lane % 4;
-  const int wm = warp / 2 * 32, wn = warp % 2 * 32, n0 = blockIdx.x * kT;
+  const int wm = warp / 2 * kWM, wn = warp % 2 * kWN, n0 = blockIdx.x * TN;
   const bool moments = p.epi == kMoments;
-  const Loops lp(p);
-  float s1[4][2] = {}, s2[4][2] = {};
-  for (int m0 = lp.m_first; m0 < p.m; m0 += lp.m_step) {
-    float acc[2][4][4] = {};
-    for (int bi = lp.b0; bi < p.nb; bi += lp.b_step) {
-      for (int k0 = 0; k0 < p.k; k0 += kKT) {
-        __syncthreads();  // the previous tiles are consumed
-        stage_bf16(as, p.a, bi, m0, p.m, k0, p.k);
-        stage_bf16(bs, p.b, bi, n0, p.n, k0, p.k);
-        lns::cp_async_commit();
-        lns::cp_async_wait<0>();
-        __syncthreads();
-#pragma unroll
-        for (int ks = 0; ks < kKT / 16; ++ks) {
-          uint32_t af[2][4], bfr[4][2];
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            if (p.a.feed == kTransposed) {
-              lns::ldsm_x4_trans(af[mt], as + lns::at_addr(lane, ks * 16, wm + mt * 16, kKR));
-            } else {
-              lns::ldsm_x4(af[mt], as + lns::a_addr(lane, wm + mt * 16, ks * 16, kRK));
-            }
-          }
-          if (p.b.feed == kTransposed) {
-#pragma unroll
-            for (int np = 0; np < 2; ++np) {
-              uint32_t r[4];
-              lns::ldsm_x4_trans(r, bs + lns::b_addr(lane, ks * 16, wn + np * 16, kKR));
-              bfr[2 * np][0] = r[0];
-              bfr[2 * np][1] = r[1];
-              bfr[2 * np + 1][0] = r[2];
-              bfr[2 * np + 1][1] = r[3];
-            }
-          } else {
-#pragma unroll
-            for (int nt = 0; nt < 4; ++nt) {
-              uint32_t r[2];
-              lns::ldsm_x2(r, bs + lns::bt_addr(lane, wn + nt * 8, ks * 16, kRK));
-              bfr[nt][0] = r[0];
-              bfr[nt][1] = r[1];
-            }
-          }
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-            for (int nt = 0; nt < 4; ++nt)
-              lns::mma_bf16(acc[mt][nt], af[mt], bfr[nt][0], bfr[nt][1]);
+  const Loops lp(p, TM);
+  const int kc = (p.k + kKT - 1) / kKT;
+  const int batches = (p.nb - lp.b0 + lp.b_step - 1) / lp.b_step;
+  const int total = (p.m - lp.m_first + lp.m_step - 1) / lp.m_step * batches * kc;
+  Pieces<TM> pa(p.a.feed);
+  Pieces<TN> pb(p.b.feed);
+  pb.tile(p.b, n0, p.n);
+  // the next stage to issue: its k stage, batch and m tile (counters: no
+  // division per stage)
+  int ik = 0, ib = 0, m_next = lp.m_first;
+  // the next stage into slot (its number) % kStages as one commit group (an
+  // empty one past the end)
+  auto issue = [&](int s) {
+    if (s < total) {
+      if (ik == 0 && ib == 0) pa.tile(p.a, m_next, p.m);  // a new m tile
+      const int bi = lp.b0 + ib * lp.b_step;
+      bf16* slot = ring + s % kStages * kStage;
+      pa.load(slot, p.a, bi, m_next, p.m, ik * kKT, p.k);
+      pb.load(slot + kA, p.b, bi, n0, p.n, ik * kKT, p.k);
+      if (++ik == kc) {
+        ik = 0;
+        if (++ib == batches) {
+          ib = 0;
+          m_next += lp.m_step;
         }
       }
     }
-    // C fragment: (row g (+ 8), columns 2t, 2t + 1) of each m16 n8 piece
+    lns::cp_async_commit();
+  };
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+  for (int s = 0; s < kStages; ++s) issue(s);
+  int ck = 0, m_done = lp.m_first;  // the computed stage's k stage (the moments: and m tile)
+  float acc[MT][NT][4] = {};
+  float s1[NT][2] = {}, s2[NT][2] = {};
+  for (int s = 0; s < total; ++s) {
+    lns::cp_async_wait<kStages - 1>();  // this thread's copies of stage s have landed
+    __syncthreads();                     // and every thread's
+    const bf16* as = ring + s % kStages * kStage;
+    const bf16* bs = as + kA;
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
+    for (int ks = 0; ks < kKT / 16; ++ks) {
+      uint32_t af[MT][4], bfr[NT][2];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int mi = wm + mt * 16 + g + e / 2 * 8, ni = wn + nt * 8 + 2 * t + e % 2;
-          if (p.epi == kStore) {
-            store_out(p, blockIdx.z, m0 + mi, n0 + ni, acc[mt][nt][e]);
-          } else if (p.epi == kSumBatch) {
-            red[mi * kT + ni] = acc[mt][nt][e];
-          } else if (m0 + mi < p.m) {
-            add_moments(acc[mt][nt][e], s1[nt][e % 2], s2[nt][e % 2]);
-          }
+      for (int mt = 0; mt < MT; ++mt) {
+        if (p.a.feed == kTransposed) {
+          lns::ldsm_x4_trans(af[mt], as + lns::at_addr(lane, ks * 16, wm + mt * 16, TM + 8));
+        } else {
+          lns::ldsm_x4(af[mt], as + lns::a_addr(lane, wm + mt * 16, ks * 16, kRK));
         }
+      }
+      if (p.b.feed == kTransposed) {
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t r[4];
+          lns::ldsm_x4_trans(r, bs + lns::b_addr(lane, ks * 16, wn + np * 16, TN + 8));
+          bfr[2 * np][0] = r[0];
+          bfr[2 * np][1] = r[1];
+          bfr[2 * np + 1][0] = r[2];
+          bfr[2 * np + 1][1] = r[3];
+        }
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          uint32_t r[2];
+          lns::ldsm_x2(r, bs + lns::bt_addr(lane, wn + nt * 8, ks * 16, kRK));
+          bfr[nt][0] = r[0];
+          bfr[nt][1] = r[1];
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) lns::mma_bf16(acc[mt][nt], af[mt], bfr[nt][0], bfr[nt][1]);
+    }
+    if (moments && ++ck == kc) {  // an m tile is whole: its rows into the sums, in order
+      // C fragment: (row g (+ 8), columns 2t, 2t + 1) of each m16 n8 piece
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (m_done + wm + mt * 16 + g + e / 2 * 8 < p.m)
+              add_moments(acc[mt][nt][e], s1[nt][e % 2], s2[nt][e % 2]);
+            acc[mt][nt][e] = 0.f;
+          }
+      ck = 0;
+      m_done += lp.m_step;
+    }
+    if (s + kStages < total) __syncthreads();  // slot s % kStages is consumed
+    issue(s + kStages);
   }
-  if (p.epi == kSumBatch) fold_batches(p, red, blockIdx.y * kT, n0);
-  if (moments) {
+  __syncthreads();  // the ring is consumed: the epilogue reuses it
+  const int m0 = lp.m_first;
+  if (p.epi == kStore) {
+    if (p.out_bf) {
+      store_tile<bf16, TM, TN>(p, ring, acc, wm, wn, blockIdx.z, m0, n0);
+    } else {
+      store_tile<float, TM, TN>(p, reinterpret_cast<float*>(ring), acc, wm, wn, blockIdx.z, m0,
+                                n0);
+    }
+  } else if (p.epi == kSumBatch) {
+    float* red = reinterpret_cast<float*>(ring);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          store2(red + (wm + mt * 16 + g + 8 * h) * (TN + 8) + wn + nt * 8 + 2 * t,
+                 acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+    if (p.out_bf) {
+      fold_tiles<bf16, TM, TN>(p, red, m0, n0);
+    } else {
+      fold_tiles<float, TM, TN>(p, red, m0, n0);
+    }
+  } else {
+    float* red = reinterpret_cast<float*>(ring);
     const int rg = warp / 2 * 8 + g;
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int col = wn + nt * 8 + 2 * t + j;
-        red[(rg * 2) * kT + col] = s1[nt][j];
-        red[(rg * 2 + 1) * kT + col] = s2[nt][j];
+        red[(rg * 2) * TN + col] = s1[nt][j];
+        red[(rg * 2 + 1) * TN + col] = s2[nt][j];
       }
-    fold_moments(p, red, n0);
+    fold_moments<TN>(p, red, n0);
   }
 }
 
 // The same contraction in full f32 on the CUDA cores (an operand in bf16 is
-// widened exactly). Thread (tr, tc) holds rows 4 tr .. 4 tr + 3 and columns
-// tc + 8 j of the tile; each output is one fmaf chain in k order.
+// widened exactly), block tile kT x kT. Thread (tr, tc) holds rows 4 tr ..
+// 4 tr + 3 and columns tc + 8 j of the tile; each output is one fmaf chain in
+// k order.
 __global__ void __launch_bounds__(kGThreads) dot_general_f32(const DgParams p) {
   __shared__ float as[kT * kFK];
   __shared__ float bs[kT * kFK];
   __shared__ float red[kT * kT];
   const int tr = threadIdx.x / 8, tc = threadIdx.x % 8, n0 = blockIdx.x * kT;
   const bool moments = p.epi == kMoments;
-  const Loops lp(p);
+  const Loops lp(p, kT);
   float s1[8] = {}, s2[8] = {};
   for (int m0 = lp.m_first; m0 < p.m; m0 += lp.m_step) {
     float acc[4][8] = {};
@@ -412,7 +651,7 @@ __global__ void __launch_bounds__(kGThreads) dot_general_f32(const DgParams p) {
       red[(tr * 2) * kT + tc + 8 * j] = s1[j];
       red[(tr * 2 + 1) * kT + tc + 8 * j] = s2[j];
     }
-    fold_moments(p, red, n0);
+    fold_moments<kT>(p, red, n0);
   }
 }
 
@@ -428,6 +667,28 @@ int feed_of(const void* p, const long long* s, int r2, int k, bool tensor_cores)
   if (base && s[3] == 1 && k % 8 == 0 && b8 && r18 && r28) return kStraight;
   if (base && s[2] == 1 && r2 % 8 == 0 && b8 && r18 && k8) return kTransposed;
   return kStaged;
+}
+
+// The bf16 kernel's block tile (the one statement of the rule), from the
+// output's rows m, columns n, batch nb and epilogue; the f32 kernel's is
+// always kT x kT. A side of 32 or fewer takes 32 (no tile half zeros). The
+// moments take the largest tile (their cluster splits the rows, in a fixed
+// order). Otherwise the largest tile whose grid has at least min(kFill, the
+// grid of 32 x 32 tiles) blocks: half the card where the output has that
+// many 32 x 32 tiles (sum_batch: times its cluster), else every 32 x 32
+// tile a block. 64 rows before 64 columns on a tie.
+struct Tile {
+  int m, n;
+};
+Tile tile_of(long long m, long long n, long long nb, int epilogue) {
+  const int tm_max = m <= 32 ? 32 : 64, tn_max = n <= 32 ? 32 : 64;
+  if (epilogue == kMoments) return {tm_max, tn_max};
+  const long long per_tile = epilogue == kStore ? nb : std::min<long long>(kMaxCluster, nb);
+  auto blocks = [&](int tm, int tn) { return (m + tm - 1) / tm * ((n + tn - 1) / tn) * per_tile; };
+  const long long want = std::min<long long>(kFill, blocks(32, 32));
+  for (const Tile c : {Tile{64, 64}, Tile{64, 32}, Tile{32, 64}})
+    if (c.m <= tm_max && c.n <= tn_max && blocks(c.m, c.n) >= want) return c;
+  return {32, 32};
 }
 
 // ---- dot_chain ----------------------------------------------------------------
@@ -635,13 +896,6 @@ __device__ __forceinline__ void pull_all(cg::cluster_group& cluster, T* base, un
 #pragma unroll
     for (int p = 0; p < kP; ++p) *reinterpret_cast<uint4*>(mine + dst(p, j) + v) = x[p];
   }
-}
-
-__device__ __forceinline__ void store2(float* p, float v0, float v1) {
-  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
-}
-__device__ __forceinline__ void store2(bf16* p, float v0, float v1) {
-  *reinterpret_cast<uint32_t*>(p) = lns::pack_bf16(v0, v1);
 }
 
 // Shared-memory bytes of each chain (the regions the kernel carves, in order).
@@ -1044,25 +1298,34 @@ extern "C" const char* lns_dot_general_limit(const long long* l, int a_dtype, in
                                              int out_dtype, int epilogue) {
   static thread_local char msg[200];
   const long long m = l[kM1] * l[kM2], n = l[kN1] * l[kN2];
-  const long long mt = (m + kT - 1) / kT, nt = (n + kT - 1) / kT;
   if (a_dtype < 0 || a_dtype > 1 || b_dtype < 0 || b_dtype > 1 || out_dtype < 0 || out_dtype > 1) {
     snprintf(msg, sizeof msg, "bf16 or f32 operands and output, got dtype codes %d, %d, %d",
              a_dtype, b_dtype, out_dtype);
-  } else if (epilogue < kStore || epilogue > kMoments) {
+    return msg;
+  }
+  if (epilogue < kStore || epilogue > kMoments) {
     snprintf(msg, sizeof msg, "an epilogue of store, sum_batch or moments, got code %d", epilogue);
-  } else if (l[kNb] < 1 || l[kM1] < 1 || l[kM2] < 1 || l[kN1] < 1 || l[kN2] < 1 || l[kK] < 1) {
+    return msg;
+  }
+  if (l[kNb] < 1 || l[kM1] < 1 || l[kM2] < 1 || l[kN1] < 1 || l[kN2] < 1 || l[kK] < 1) {
     snprintf(msg, sizeof msg, "every size at least 1");
-  } else if (m > 2147483647LL || n > 2147483647LL || l[kK] > 2147483647LL) {
+    return msg;
+  }
+  if (m > 2147483647LL || n > 2147483647LL || l[kK] > 2147483647LL) {
     snprintf(msg, sizeof msg, "m, n and k below 2^31, got %lld, %lld, %lld", m, n, l[kK]);
-  } else if (epilogue == kMoments && (l[kNb] != 1 || out_dtype != 0)) {
+    return msg;
+  }
+  const Tile t = a_dtype == 1 && b_dtype == 1 ? tile_of(m, n, l[kNb], epilogue) : Tile{kT, kT};
+  const long long mt = (m + t.m - 1) / t.m, nt = (n + t.n - 1) / t.n;
+  if (epilogue == kMoments && (l[kNb] != 1 || out_dtype != 0)) {
     snprintf(msg, sizeof msg, "the moments epilogue without a batch dim and with an f32 output");
   } else if (epilogue != kMoments && mt > 65535) {
     snprintf(msg, sizeof msg, "at most 65535 tiles of %d output rows (the grid's y), got %lld",
-             kT, mt);
+             t.m, mt);
   } else if (epilogue == kStore && l[kNb] > 65535) {
     snprintf(msg, sizeof msg, "a batch of at most 65535 (the grid's z), got %lld", l[kNb]);
   } else if (nt > 2147483647LL) {
-    snprintf(msg, sizeof msg, "fewer than 2^31 tiles of %d output columns", kT);
+    snprintf(msg, sizeof msg, "fewer than 2^31 tiles of %d output columns", t.n);
   } else {
     return nullptr;
   }
@@ -1070,10 +1333,12 @@ extern "C" const char* lns_dot_general_limit(const long long* l, int a_dtype, in
 }
 
 // Launch dot_general; feeds (host memory, two ints) receives each operand's
-// feed (0 straight, 1 transposed, 2 staged, 3 f32 on the CUDA cores).
+// feed (0 straight, 1 transposed, 2 staged, 3 f32 on the CUDA cores), plan
+// (four ints) the block tile's rows and columns (tile_of), the blocks and
+// the cluster.
 extern "C" int lns_dot_general(const long long* l, int a_dtype, int b_dtype, int out_dtype,
                                int epilogue, const void* a, const void* b, void* out, int* feeds,
-                               void* stream) {
+                               int* plan, void* stream) {
   if (lns_dot_general_limit(l, a_dtype, b_dtype, out_dtype, epilogue)) return cudaErrorInvalidValue;
   const bool tc = a_dtype == 1 && b_dtype == 1;
   DgParams p;
@@ -1088,18 +1353,26 @@ extern "C" int lns_dot_general(const long long* l, int a_dtype, int b_dtype, int
   p.k = static_cast<int>(l[kK]);
   p.epi = epilogue;
   p.out_bf = out_dtype;
+  const Tile t = tc ? tile_of(p.m, p.n, p.nb, epilogue) : Tile{kT, kT};
+  const int m_tiles = (p.m + t.m - 1) / t.m;
+  p.cl = epilogue == kSumBatch ? std::min(kMaxCluster, p.nb)
+         : epilogue == kMoments ? std::min(kMaxCluster, m_tiles) : 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((p.n + t.n - 1) / t.n, epilogue == kMoments ? 1 : m_tiles,
+                     epilogue == kStore ? p.nb : p.cl);
+  cfg.blockDim = dim3(kGThreads);
+  cfg.stream = static_cast<cudaStream_t>(stream);
   if (feeds) {
     feeds[0] = p.a.feed;
     feeds[1] = p.b.feed;
   }
-  const int m_tiles = (p.m + kT - 1) / kT;
-  p.cl = epilogue == kSumBatch ? std::min(kMaxCluster, p.nb)
-         : epilogue == kMoments ? std::min(kMaxCluster, m_tiles) : 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((p.n + kT - 1) / kT, epilogue == kMoments ? 1 : m_tiles,
-                     epilogue == kStore ? p.nb : p.cl);
-  cfg.blockDim = dim3(kGThreads);
-  cfg.stream = static_cast<cudaStream_t>(stream);
+  if (plan) {
+    const long long blocks = 1LL * cfg.gridDim.x * cfg.gridDim.y * cfg.gridDim.z;
+    plan[0] = t.m;
+    plan[1] = t.n;
+    plan[2] = static_cast<int>(std::min(blocks, 2147483647LL));
+    plan[3] = p.cl;
+  }
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
   attr.val.clusterDim.x = 1;
@@ -1107,7 +1380,12 @@ extern "C" int lns_dot_general(const long long* l, int a_dtype, int b_dtype, int
   attr.val.clusterDim.z = p.cl;
   cfg.attrs = &attr;
   cfg.numAttrs = p.cl > 1;  // a cluster of one block launches without the attribute
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, tc ? dot_general_bf16 : dot_general_f32, p);
+  void (*kernel)(DgParams) = !tc          ? dot_general_f32
+                             : t.m == 32 ? (t.n == 32 ? dot_general_bf16<32, 32>
+                                                      : dot_general_bf16<32, 64>)
+                                         : (t.n == 32 ? dot_general_bf16<64, 32>
+                                                      : dot_general_bf16<64, 64>);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, p);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }

@@ -32,12 +32,11 @@ _SIGNATURES = {
     "lns_blocked_copy": [_P] * 2 + [_I] * 3 + [ctypes.c_longlong, ctypes.POINTER(_I), _P],
     "lns_bmm": [_I] + [_P] * 3 + [_I] * 3 + [_P],
     "lns_dot_chain": [_I] + [_P] * 7,
-    "lns_dot_general": [_P] + [_I] * 4 + [_P] * 5,
+    "lns_dot_general": [_P] + [_I] * 4 + [_P] * 6,
     "lns_fab_core": [_I] + [_P] * 15 + [_I] * 7 + [ctypes.c_float, _P],
     "lns_fab_mega_apply": [_P] * 6 + [_I] * 2 + [_P],
     "lns_fab_mega_stats": [_P] * 5 + [_I] * 2 + [_P],
     "lns_group_norm": [_I] + [_P] * 6 + [_I] * 4 + [ctypes.c_float, _I, _P],
-    "lns_interior_dot": [_P] * 3 + [_I, _P],
     "lns_prop_rollout": [_I] + [_P] * 14 + [_I] * 11 + [_P],
     "lns_transpose_hw": [_I] + [_P] * 2 + [_I] * 4 + [_P],
 }

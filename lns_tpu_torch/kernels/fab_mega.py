@@ -12,7 +12,9 @@ Replaces ``benchmarks/probe_fab_mega.py``:
     rounded once. The bias is [B, C], as the probe's ``main()`` and
     ``xla_full`` mean it (its Pallas kernel's block spec takes [B, 1, C]);
   * ``interior_dot`` (the pieces A and B2 of ``run_pieces``):
-    ``kx [i, h] . a [l, h, c] -> [i, l, c]``, f32 sums, rounded once.
+    ``kx [i, h] . a [l, h, c] -> [i, l, c]``, f32 sums, rounded once: one
+    orientation of ``mosaic_dots.dot_general`` (``csrc/mosaic_dots.cu``),
+    contracting ``((1,), (1,))``, which it launches.
 
 The kernels take the probe's shape, h = w = 32 and c = 64 in bf16 (stated
 once, in C: ``lns_fab_mega_limit``, ``lns_interior_dot_limit``); the plain
@@ -23,7 +25,7 @@ statistics pass walks the heads; the apply pass walks tiles of 16 columns
 l, and in each the heads, keeping the tile's head sum in registers (b2
 from step 2's accumulators is the A operand of b2 . m; kx, ky's rows and
 m of the next iteration come by TMA). The interior dot runs on
-``mma.sync``. Neither kernel is on a model's path: kernel 2
+``mma.sync`` in ``dot_general``. None is on a model's path: kernel 2
 (``fab_core.fab_fused_core``) is the FAB core the models run; these passes
 measure the design that recomputes bb in place of kernel 2's bb scratch.
 """
@@ -32,7 +34,7 @@ from __future__ import annotations
 
 import torch
 
-from lns_tpu_torch.kernels import _build
+from lns_tpu_torch.kernels import _build, mosaic_dots
 
 
 def _b2(u_t, kx, ky):
@@ -57,8 +59,9 @@ def fab_mega_apply_plain(u_t, kx, ky, m, bias):
 
 
 def interior_dot_plain(kx, a):
-    """Plain PyTorch version of ``interior_dot``."""
-    return torch.einsum("ih,lhc->ilc", kx.to(a.dtype).float(), a.float()).to(a.dtype)
+    """Plain PyTorch version of ``interior_dot``: ``dot_general``'s, in its
+    orientation."""
+    return mosaic_dots.dot_general_plain(kx.to(a.dtype), a, ((1,), (1,)), out_dtype=a.dtype)
 
 
 def _limit(fn, name, dtype, *dims):
@@ -126,9 +129,10 @@ fab_mega_apply.launches = 0
 
 
 def interior_dot(kx, a):
-    """kx [i, k] . a [l, k, c] -> [i, l, c] in a's dtype (kx cast to it). A
-    CPU tensor takes the plain version; a CUDA tensor launches the kernel on
-    the current stream or raises."""
+    """kx [i, k] . a [l, k, c] -> [i, l, c] in a's dtype (kx cast to it), JAX's
+    order: ``dot_general``'s straight x transposed orientation, which a CUDA
+    tensor launches on the current stream (or raises); a CPU tensor takes
+    the plain version."""
     if not _build.on_cuda(a, "interior_dot", kx):
         return interior_dot_plain(kx, a)
     if kx.dim() != 2 or a.dim() != 3:
@@ -136,13 +140,8 @@ def interior_dot(kx, a):
     l_dim, k, c = a.shape
     i = kx.shape[0]
     _build.check_shapes("interior_dot", a.device, {"kx": (kx, (i, k))})
-    lib = _build.library()
-    _limit(lib.lns_interior_dot_limit, "interior_dot", a.dtype, l_dim, i, k, c)
-    kx, a = _build.ready(kx, a.dtype), _build.ready(a, a.dtype)
-    out = torch.empty((i, l_dim, c), device=a.device, dtype=a.dtype)
-    rc = lib.lns_interior_dot(kx.data_ptr(), a.data_ptr(), out.data_ptr(), l_dim,
-                              torch.cuda.current_stream(a.device).cuda_stream)
-    _build.check(rc, "interior_dot (lns_interior_dot)")
+    _limit(_build.library().lns_interior_dot_limit, "interior_dot", a.dtype, l_dim, i, k, c)
+    out = mosaic_dots.dot_general(kx.to(a.dtype), a, ((1,), (1,)), out_dtype=a.dtype)
     interior_dot.launches += 1
     return out
 

@@ -11,9 +11,13 @@ over the nineteen bodies of its ``CASES``):
     ``out_dtype``; the ``"sum_batch"`` epilogue sums the batch in the kernel,
     the ``"moments"`` epilogue reduces phi = bf16(product) to the [2, rhs
     free] f32 sums of phi and bf16(phi^2) over the lhs free dims. bf16 x bf16
-    runs on tensor cores; an f32 operand puts the product in full f32 on the
-    CUDA cores. After a launch ``dot_general.feeds`` names how each operand
-    reached the tensor cores (``FEEDS``). 12 of the 19 cases.
+    runs on tensor cores, a block tile of 32 or 64 by 32 or 64 chosen per
+    launch (the rule is in C: ``tile_of``), every k stage of a block in a
+    ring in shared memory; an f32 operand puts the product in full f32 on
+    the CUDA cores. After a launch ``dot_general.feeds`` names how each
+    operand reached the tensor cores (``FEEDS``) and ``dot_general.plan``
+    gives the tile, the blocks and the cluster. 12 of the 19 cases, and
+    ``fab_mega.interior_dot``.
   * ``dot_chain``: the seven chains, one launch of one cluster of 8 blocks
     each, every intermediate in shared memory (a block's own slice, and its
     peers' through distributed shared memory), rounding where the TPU body
@@ -236,18 +240,20 @@ def dot_general(a, b, contract, batch=((), ()), out_dtype=f32, epilogue=None):
         raise ValueError(f"dot_general: {str(a.dtype)[6:]} x {str(b.dtype)[6:]} -> "
                          f"{str(out_dtype)[6:]} at {list(lay)} needs {msg.decode()}")
     out = torch.empty(out_shape, device=a.device, dtype=out_dtype)
-    feeds = (ctypes.c_int * 2)()
+    feeds, plan = (ctypes.c_int * 2)(), (ctypes.c_int * 4)()
     rc = lib.lns_dot_general(lay, _code(a), _code(b), out_code, EPILOGUES[epilogue],
-                             a.data_ptr(), b.data_ptr(), out.data_ptr(), feeds,
+                             a.data_ptr(), b.data_ptr(), out.data_ptr(), feeds, plan,
                              torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(rc, "dot_general (lns_dot_general)")
     dot_general.launches += 1
     dot_general.feeds = (FEEDS[feeds[0]], FEEDS[feeds[1]])
+    dot_general.plan = {"tile": f"{plan[0]}x{plan[1]}", "blocks": plan[2], "cluster": plan[3]}
     return out
 
 
 dot_general.launches = 0
 dot_general.feeds = None
+dot_general.plan = None  # {"tile": "rows x columns", "blocks": n, "cluster": n} of the last launch
 
 
 def dot_chain_plain(case, u, k2, k3, a3, q, m):

@@ -1,8 +1,9 @@
 """Time kernels 4 and 5 (``csrc/axial.cu``), kernel 2 (``csrc/fab_core.cu``),
 ``blocked_copy`` (``csrc/blocked_copy.cu``), ``fab_mega_stats`` and
-``fab_mega_apply`` (``csrc/fab_mega.cu``) and the seven ``dot_chain`` chains
-(``csrc/mosaic_dots.cu``) of one source tree on the card, for comparing two
-trees on one card.
+``fab_mega_apply`` (``csrc/fab_mega.cu``), the seven ``dot_chain`` chains and
+the twelve ``dot_general`` cases (``csrc/mosaic_dots.cu``) and the interior
+dot (``fab_mega.interior_dot``) of one source tree on the card, for comparing
+two trees on one card.
 
     python3 lns_tpu_torch/kernels/probe_axial.py [--tree DIR] [--label NAME]
         [--only NAME,...] [--save FILE]
@@ -17,9 +18,11 @@ taken out), then one JSON line with the card's name and power limit. Run
 trees in turns (parent, change, change, parent) in one call of the card.
 ``--only`` keeps the cases whose names start with one of the names given
 (``blocked_copy``, ``fab_mega_stats``, ``fab_mega_apply``, ``dot_chain``,
-...). The copy runs at ``probe_bw``'s shape, [928, 2, 128, 2048] bf16, for
-each s of its sweep, the two passes at ``probe_fab_mega``'s, b116 n8 32x32
-c64, and the chains at ``probe_dots``' (C 64, 32x32); all through their
+``dot_general``, ``interior_dot``, ...). The copy runs at ``probe_bw``'s
+shape, [928, 2, 128, 2048] bf16, for each s of its sweep, the two passes at
+``probe_fab_mega``'s, b116 n8 32x32 c64, the chains and the single dots
+(``dot_general <case>``, ``mosaic_dots.run_case``) at ``probe_dots``' (C
+64, 32x32) and the interior dot at [32,32] . [32,32,64]; all through their
 wrappers, which take the same arguments in every tree that has them, on
 inputs seeded the same way in every tree. ``--save`` writes each case's
 output of one call (``torch.save``, on the CPU) for comparing two trees'
@@ -126,6 +129,12 @@ def main() -> int:
     for chain in mosaic_dots.CHAINS:
         cases.append((f"dot_chain {chain}",
                       lambda chain=chain: mosaic_dots.dot_chain(chain, *xs.values())))
+    for key, spec in mosaic_dots.CASES.items():
+        if spec.route == "dot_general":
+            cases.append((f"dot_general {key}", lambda key=key: mosaic_dots.run_case(key, xs)))
+    ikx = (torch.randn(32, 32, generator=gen) / 32).to(dev, bf)
+    ia = torch.randn(32, 32, 64, generator=gen).to(dev, bf)
+    cases.append(("interior_dot [32,32] . [32,32,64]", lambda: fab_mega.interior_dot(ikx, ia)))
     only = tuple(filter(None, args.only.split(",")))
     out, saved = {}, {}
     for name, fn in cases:

@@ -1,6 +1,6 @@
 """The TPU probe's nineteen dot orientations and FAB chains, on the card.
 
-    python3 -m lns_tpu_torch.kernels.probe_dots [case ...]
+    python3 -m lns_tpu_torch.kernels.probe_dots [case ...] [--variants]
 
 Port of ``benchmarks/probe_mosaic_dots.py`` (all its cases by default, as its
 ``main()``), at its shapes (C = 64, H = W = L = I = 32) on seeded
@@ -13,11 +13,16 @@ or its bytes at 3.35 TB/s, whichever is larger) with its share of the device
 time, the plain version's time, the library time by events and by graph
 replays (one ``torch.einsum`` for a single dot, on f32 copies of the operands
 where the output is f32; the plain version's einsum chain for the moments and
-the chains) and each operand's feed (straight, transposed, staged, or f32 on
-the CUDA cores). With no case
-named it then times the handoff of bb three ways at one sample and head
-(``handoffs``). Ends with one JSON line; exits 1 on a FAIL or where there is
-no CUDA device.
+the chains), each operand's feed (straight, transposed, staged, or f32 on
+the CUDA cores) and a single dot's plan (its block tile, blocks and
+cluster). With no case named it then times the handoff of bb three ways at
+one sample and head (``handoffs``). With ``--variants`` it times the
+``dot_general`` cases, the interior dot (``fab_mega.interior_dot``) and a
+sweep of the depth K on the source beside edited copies of
+``csrc/mosaic_dots.cu`` (``VARIANTS``: other block-tile rules, a shorter
+ring; ``ABLATIONS``: no products, the first k stage's loads only), in
+turns, with the einsum at each depth and the launch floor. Ends with one JSON line;
+exits 1 on a FAIL or where there is no CUDA device.
 """
 
 from __future__ import annotations
@@ -27,9 +32,9 @@ import json
 
 import torch
 
-from lns_tpu_torch.kernels import _probe
+from lns_tpu_torch.kernels import _build, _probe
 from lns_tpu_torch.kernels.mosaic_dots import (CASES, CHAIN_FEEDS, SHAPES, _letters, dot_general,
-                                               run_case)
+                                               dot_general_plain, run_case)
 
 C, S = 64, 32
 # operations per chain, (bf16 on tensor cores, f32 on CUDA cores): 2 per
@@ -126,7 +131,16 @@ def feeds(key, on_card):
         return CHAIN_FEEDS[key]
     if not on_card:
         return "none (the plain version on the CPU)"
-    return f"lhs {spec.lhs} {dot_general.feeds[0]}, rhs {spec.rhs} {dot_general.feeds[1]}"
+    return (f"lhs {spec.lhs} {dot_general.feeds[0]}, rhs {spec.rhs} {dot_general.feeds[1]}; "
+            + plan_text())
+
+
+def plan_text():
+    """The last ``dot_general`` launch's block tile, blocks and cluster."""
+    plan = dot_general.plan
+    if plan is None:
+        return "no launch (the plain version on the CPU)"
+    return f"tile {plan['tile']}, {plan['blocks']} blocks, cluster {plan['cluster']}"
 
 
 def run(dev, keys=None, timed: bool = True, seed: int = 0):
@@ -205,9 +219,95 @@ def handoffs(dev, seed: int = 1):
     return res
 
 
+# edited copies of csrc/mosaic_dots.cu (pairs for _probe.use_copy) that
+# --variants times beside the source: two other block-tile rules (tile_of's
+# grid target) and a ring of two stages, each held to the plain version
+_WANT = "  const long long want = std::min<long long>(kFill, blocks(32, 32));"
+VARIANTS = {
+    # the largest tile a side allows: 64 x 64 unless a side is 32 or less
+    "largest tile": [(_WANT, "  const long long want = 1;")],
+    # half the grid of 32 x 32 tiles: 64 x 32 or 32 x 64 at the probe's shapes
+    "half the 32x32 grid": [(_WANT, "  const long long want = std::min<long long>(kFill, "
+                                    "(blocks(32, 32) + 1) / 2);")],
+    "ring of 2": [("constexpr int kStages = 4;", "constexpr int kStages = 2;")],
+}
+# and two ablations, timed only (their outputs are wrong by design): what a
+# k stage's products and its loads each cost
+_LOADS = ("      pa.load(slot, p.a, bi, m_next, p.m, ik * kKT, p.k);\n"
+          "      pb.load(slot + kA, p.b, bi, n0, p.n, ik * kKT, p.k);")
+ABLATIONS = {
+    "no products": [("for (int nt = 0; nt < NT; ++nt) lns::mma_bf16(acc[mt][nt], af[mt], "
+                     "bfr[nt][0], bfr[nt][1]);", "for (int nt = 0; nt < NT; ++nt) {}")],
+    "stage 0's loads only": [(_LOADS, "      if (ik == 0) {\n" + _LOADS + "\n      }")],
+}
+DEPTHS = (32, 64, 128, 256)
+
+
+def variants(dev, seed: int = 0):
+    """Each ``dot_general`` case, the interior dot [32,32] . [32,32,64] and a
+    sweep of the depth K (``DEPTHS``, proj_major's transposed x transposed
+    orientation and a straight x straight one, m 1024, n 64) on the
+    source's library and on each of VARIANTS and ABLATIONS (built by
+    ``_probe.use_copy``), timed by CUDA-graph replays in turns (source, the
+    copies, the copies reversed, source); every output but an ablation's
+    held to the plain version. Also the einsum at each depth and the launch
+    floor (``x.add_(1)`` on one element). Returns ({case: {library: [device
+    ms, ...]}}, {case: {library: plan}}, ok)."""
+    from lns_tpu_torch.kernels.fab_mega import interior_dot, interior_dot_plain
+
+    x = inputs(dev, seed)
+    gen = torch.Generator().manual_seed(seed)
+    bf = torch.bfloat16
+    kx = (torch.randn(32, 32, generator=gen) / 32).to(dev, bf)
+    a = torch.randn(32, 32, 64, generator=gen).to(dev, bf)
+    runs = {key: (lambda key=key: run_case(key, x), lambda key=key: run_case(key, x, plain=True),
+                  tolerance(key)) for key, spec in CASES.items() if spec.route == "dot_general"}
+    runs["interior_dot"] = (lambda: interior_dot(kx, a), lambda: interior_dot_plain(kx, a),
+                            tolerance("rhs_interior"))
+    one = torch.zeros(1, device=dev)
+    lib_ms = {"launch floor, x.add_(1) on one element": _probe.graph_ms(lambda: one.add_(1))}
+    for k in DEPTHS:
+        for label, (p, q, dims) in {
+                "transposed": ((k, 32, 32), (k, 64), ((0,), (0,))),
+                "straight": ((1024, k), (64, k), ((1,), (1,)))}.items():
+            lhs, rhs = (torch.randn(*s, generator=gen).to(dev, bf) for s in (p, q))
+            args = (lhs, rhs, dims, ((), ()), bf)
+            runs[f"K {k} {label}"] = (lambda args=args: dot_general(*args),
+                                      lambda args=args: dot_general_plain(*args), (BF16_ULP, 0.01))
+            eq = _letters(lhs, rhs, dims, ((), ()))
+            lib_ms[f"K {k} {label} einsum"] = _probe.graph_ms(
+                lambda eq=eq, lhs=lhs, rhs=rhs: torch.einsum(eq, lhs, rhs))
+    libs = {"source": _build.library()}
+    for name, edits in {**VARIANTS, **ABLATIONS}.items():
+        _probe.use_copy("probe_dots_" + name.replace(" ", "_").replace("'", ""), "mosaic_dots.cu",
+                        edits)
+        libs[name] = _build.library()
+    order = list(libs) + list(libs)[:0:-1] + ["source"]
+    times, plans, ok = {k: {n: [] for n in libs} for k in runs}, {k: {} for k in runs}, True
+    for name in order:
+        _build._lib = libs[name]
+        for key, (fn, plain, (rel, differ)) in runs.items():
+            if not times[key][name]:
+                out = fn()
+                if name not in ABLATIONS:
+                    ok &= _probe.held(f"{key} ({name})", out, plain(), rel, differ)
+                plans[key][name] = plan_text()
+            times[key][name].append(_probe.graph_ms(fn))
+    _build._lib = libs["source"]
+    for key in runs:
+        print(f"      variants {key}: " + "; ".join(
+            f"{name} {', '.join(f'{t:.4f}' for t in times[key][name])} ms ({plans[key][name]})"
+            for name in libs), flush=True)
+    for key, ms in lib_ms.items():
+        print(f"      {key}: {ms:.4f} ms device", flush=True)
+    return times, plans, lib_ms, ok
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("cases", nargs="*", help="case names to run (default: all)")
+    ap.add_argument("--variants", action="store_true",
+                    help="time the dot_general cases on edited copies of the source too")
     cli = ap.parse_args()
     unknown = [k for k in cli.cases if k not in CASES]
     if unknown:
@@ -217,8 +317,14 @@ def main() -> int:
     slowest = max(res, key=lambda k: res[k]["device_ms"])
     print(f"slowest by device time: {slowest} ({res[slowest]['device_ms']:.4f} ms); {smi}")
     hand = handoffs(dev) if not cli.cases else {}
-    print(json.dumps({"probe": "probe_dots", "card": smi, "results": res, "handoffs": hand}))
-    return 0 if all(r["ok"] for r in res.values()) else 1
+    ok = all(r["ok"] for r in res.values())
+    var = {}
+    if cli.variants:  # last: it swaps the library for edited copies
+        var["device_ms"], var["plans"], var["library_device_ms"], v_ok = variants(dev)
+        ok &= v_ok
+    print(json.dumps({"probe": "probe_dots", "card": smi, "results": res, "handoffs": hand,
+                      "variants": var}))
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

@@ -7,7 +7,8 @@ Port of ``benchmarks/probe_fab_mega.py`` at its shape (b 116, 8 heads,
 32x32, c 64, bf16). It prints:
 
   * the pieces, each held to its plain version: A, the interior rank-3 dot
-    ``kx [i, h] . a [l, h, c]`` (``interior_dot``); B, the swap of a's first
+    ``kx [i, h] . a [l, h, c]`` (``interior_dot``, one orientation of
+    ``mosaic_dots.dot_general``); B, the swap of a's first
     two dims (kernel 7, ``transpose_hw``, at [1, 1, 32, 32, 64]); C and D,
     the collapse [l, h, c] -> [(l h), c] and the split [l, h c] -> [l, h, c]
     (``blocked_copy``: on row-major memory the relayout is the identity);

@@ -218,7 +218,9 @@ def test_case_matches_pallas(key):
 
 # every orientation of a rank <= 3 contraction the probe uses, and ones it
 # does not: a batch dim that is the minor one (neither k nor a free dim has
-# unit stride: the staged feed), rank 1 and 2 operands, a transposed view
+# unit stride: the staged feed), rank 1 and 2 operands, a transposed view,
+# fab_mega's interior dot kx [32, 32] . a [l, 32, 64], and a depth of 200
+# (the kernel's ring of four 32-deep stages wraps; the last stage is ragged)
 _ORIENTATIONS = [(c.lhs, c.rhs, c.contract, c.batch) for c in mosaic_dots.CASES.values()
                  if c.route == "dot_general"] + [
     ("q", "q", ((1,), (1,)), ((2,), (2,))),
@@ -226,6 +228,8 @@ _ORIENTATIONS = [(c.lhs, c.rhs, c.contract, c.batch) for c in mosaic_dots.CASES.
     ("k2", "k3", ((0,), (1,)), ((), ())),
     ("m", "k3t", ((1,), (1,)), ((), ())),
     ("v", "u", ((0,), (2,)), ((), ())),
+    ("k3", "a_lhc", ((1,), (1,)), ((), ())),
+    ("w", "z", ((1,), (0,)), ((), ())),
 ]
 
 
@@ -234,6 +238,10 @@ def _operands():
     # a [32, 64] view with strides (1, 32)
     x["k3t"] = torch.from_numpy(_inputs()["u"][:, 0, :].copy()).t()
     x["v"] = x["k2"][0]
+    x["a_lhc"] = x["u"].reshape(32, 32, 64)  # the interior dot's a [l, h, c]
+    rng = np.random.default_rng(200)
+    x["w"] = torch.from_numpy(rng.standard_normal((24, 200)).astype(np.float32))
+    x["z"] = torch.from_numpy(rng.standard_normal((200, 40)).astype(np.float32))
     return x
 
 
@@ -378,6 +386,40 @@ def test_chain_scr2_kernel_order():
         assert out.shape == ref.shape and out.dtype == ref.dtype
         err = (out - ref).abs().max().item()
         assert err <= rel * ref.abs().max().item(), (err, ref.abs().max().item())
+
+
+def _sum_batch_kernel_order(a, b, contract, cluster=8):
+    """``dot_general``'s sum_batch in the kernel's order
+    (``csrc/mosaic_dots.cu``, ``fold_tiles``): rank r of a cluster of
+    min(8, batch) blocks sums its batches r, r + 8, ... in order (one
+    accumulator each, the batches' products in f32), then each output is the
+    ranks' sums added in rank order from 0. The order does not depend on the
+    block tile."""
+    full = mosaic_dots.dot_general_plain(a, b, contract, ((0,), (0,)))  # [batch, m, n]
+    cl = min(cluster, full.shape[0])
+    ranks = []
+    for r in range(cl):
+        acc = torch.zeros_like(full[0])
+        for bi in range(r, full.shape[0], cl):
+            acc = acc + full[bi]
+        ranks.append(acc)
+    out = torch.zeros_like(full[0])
+    for acc in ranks:
+        out = out + acc
+    return out
+
+
+def test_sum_batch_kernel_order():
+    """gram_b+sum in the kernel's order of its f32 sums (emulated in plain
+    PyTorch) against the TPU body in interpret mode and against the plain
+    version, at 1e-5 x max|plain|."""
+    x = _torch_inputs()
+    out = _sum_batch_kernel_order(x["q"], x["q"], ((2,), (2,)))
+    plain = mosaic_dots.run_case("gram_b+sum", x, plain=True)
+    for ref in (_pallas("gram_b+sum"), plain):
+        assert out.shape == ref.shape and out.dtype == ref.dtype
+        err = (out - ref).abs().max().item()
+        assert err <= 1e-5 * plain.abs().max().item(), (err, plain.abs().max().item())
 
 
 def test_probe_dots_untimed_on_cpu():

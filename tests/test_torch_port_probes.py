@@ -38,7 +38,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
-from lns_tpu_torch.kernels import (axial_pipeline, blocked_copy, fab_mega, probe_bw,
+from lns_tpu_torch.kernels import (axial_pipeline, blocked_copy, fab_mega, mosaic_dots, probe_bw,
                                    probe_fab_mega, probe_layouts)
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -133,10 +133,12 @@ def test_blocked_copy_matches_pallas_copy(s, shape, dtype):
 
 
 def _source_edits():
-    from lns_tpu_torch.kernels import probe_bw, probe_fab_core, probe_fab_mega
+    from lns_tpu_torch.kernels import probe_bw, probe_dots, probe_fab_core, probe_fab_mega
 
     cases = {f"probe_bw {name}": ("blocked_copy.cu", edits)
              for name, edits in probe_bw.VARIANTS.items()}
+    for name, edits in {**probe_dots.VARIANTS, **probe_dots.ABLATIONS}.items():
+        cases[f"probe_dots {name}"] = ("mosaic_dots.cu", edits)
     cases["probe_fab_mega phases"] = ("fab_mega.cu",
                                       probe_fab_mega.MARKS + probe_fab_mega.APPLY_MARKS)
     for name, edits in probe_fab_mega.VARIANTS.items():
@@ -370,6 +372,29 @@ def test_fab_mega_apply_heads_match_pallas(n):
     assert out.shape == ref.shape == (mega.B, mega.H * mega.W, mega.C)
     _bf16_close(out, ref)
     _bf16_close(_fab_mega_apply_kernel_order(*args), ref)
+
+
+@pytest.mark.parametrize("l_dim", [1, 11, 32])
+def test_interior_dot_is_dot_general(l_dim):
+    """The interior dot is one orientation of ``dot_general``: its plain
+    version equals ``dot_general_plain`` contracting ((1,), (1,)) bitwise,
+    and both match piece A of the TPU probe (``k_rank3_dot``) in interpret
+    mode at l rows, at the pieces' bf16 tolerance (``BF16_SHARE``)."""
+    mega = _fab_mega()
+    recorded = []
+    with mock.patch.object(mega, "piece", lambda *a: recorded.append(a)):
+        mega.run_pieces()
+    kernel = {r[0].split(" ")[0]: r[1] for r in recorded}["A"]
+    a = mega.mk(5, (l_dim, mega.H, mega.C))
+    kx = mega.mk(6, (mega.H, mega.H), 1 / mega.H)
+    ref = _t(pl.pallas_call(kernel, interpret=True, out_shape=jax.ShapeDtypeStruct(
+        (mega.H, l_dim, mega.C), jnp.bfloat16))(a, kx))
+    out = fab_mega.interior_dot_plain(_t(kx), _t(a))
+    want = mosaic_dots.dot_general_plain(_t(kx), _t(a), ((1,), (1,)), out_dtype=torch.bfloat16)
+    assert out.dtype == want.dtype == torch.bfloat16 and torch.equal(out, want)
+    assert torch.equal(fab_mega.interior_dot(_t(kx), _t(a)), out)
+    assert out.shape == ref.shape == (mega.H, l_dim, mega.C)
+    _bf16_close(out, ref)
 
 
 def test_interior_dot_ragged_l():
