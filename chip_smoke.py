@@ -164,8 +164,9 @@ CUDA PyTorch and nvcc. It imports nothing of JAX. In order it:
      full width: bitwise equal to ``model.predict``, with its launches of
      kernels 1-3, timed beside it (``--ranks``: 2 and 4 ranks against one
      process in f32, within 1e-3 x max|ref|); traces one path-1 predict
-     with ``utils.profiling.trace`` (kernels 1-3 named in the trace file),
-     uses ``Timer``, ``time_fn`` and ``measure_host_rtt`` on the card, and
+     with ``utils.profiling.trace`` (kernels 1-3 named in the trace file,
+     the predict's spans each holding its range on the profiler's clock),
+     uses ``Timer`` and ``time_fn`` on the card, and
      checks that ``utils.debug.nan_debugging`` raises on a NaN planted in
      the predict's input and ``assert_finite`` names a planted infinity;
      then the corpus solvers: ``simulate_ns2d`` at full width (128 cases
@@ -737,13 +738,13 @@ def check_fab_core_limits(dev, n, d):
                 torch.zeros(1, n, h, h, device=dev, dtype=bf),
                 torch.zeros(1, n, w, w, device=dev, dtype=bf),
                 torch.zeros(c, n, d, device=dev), torch.zeros(n, d, o, device=dev))
-        before = fab_fused_core.launches
+        before = _launched("fab_core.fab_fused_core")
         try:
             fab_fused_core(*args)
             msg = "no error"
         except ValueError as e:
             msg = str(e)
-        _check(limit in msg and fab_fused_core.launches == before,
+        _check(limit in msg and _launched("fab_core.fab_fused_core") == before,
                f"fab_core bf16 {h}x{w} c{c} o{o} raises naming '{limit}': {msg}")
 
 
@@ -906,14 +907,14 @@ def check_group_norm(dev, gen, sites, train_sites, label="both NS2d paths", extr
     # outside the limits: raises naming the limit the C side states, no launch
     limits = [((1, 8, 8, 60), 4, bf16, "C a multiple of 8")] if extras else []
     for (b, h, w, c), g, dt, limit in limits:
-        before = fused_group_norm_swish.launches
+        before = _launched("group_norm.fused_group_norm_swish")
         try:
             fused_group_norm_swish(torch.zeros(b, h, w, c, device=dev, dtype=dt),
                                    torch.ones(c, device=dev), torch.zeros(c, device=dev), g)
             msg = "no error"
         except ValueError as e:
             msg = str(e)
-        _check(limit in msg and fused_group_norm_swish.launches == before,
+        _check(limit in msg and _launched("group_norm.fused_group_norm_swish") == before,
                f"group_norm {str(dt)[6:]} {b}x{h}x{w}x{c} G{g} raises naming '{limit}': {msg}")
     print(f"      group_norm per predict (bf16, {label}): kernel {ms_sum:.4f} ms by CUDA "
           f"events, {dev_sum:.4f} ms device (CUDA graphs), plain {plain_sum:.4f} ms, library "
@@ -1196,7 +1197,7 @@ def check_axial(dev, gen, sites, n, d):
     for (g, h, w, dd), dt, limit in (((1, 129, 16, 64), bf16, "h, w in [1, 128]"),
                                      ((1, 128, 128, 64), bf16, "shared memory per block"),
                                      ((1, 128, 128, 8), torch.float32, "shared memory per block")):
-        before = axial.axial_kernel_apply_headmajor.launches
+        before = _launched("axial.axial_kernel_apply_headmajor")
         try:
             axial.axial_kernel_apply_headmajor(torch.zeros(g, h, h, device=dev, dtype=dt),
                                                torch.zeros(g, w, w, device=dev, dtype=dt),
@@ -1204,7 +1205,7 @@ def check_axial(dev, gen, sites, n, d):
             msg = "no error"
         except ValueError as e:
             msg = str(e)
-        _check(limit in msg and axial.axial_kernel_apply_headmajor.launches == before,
+        _check(limit in msg and _launched("axial.axial_kernel_apply_headmajor") == before,
                f"axial {str(dt)[6:]} {h}x{w} d{dd} raises naming '{limit}': {msg}")
     return ({"max_abs_err": max(errs4), "ms": ms4, "device_ms": dev4, "plain_ms": plain4,
              **bound4.result(), "library_ms": lib4}, {"max_abs_err": max(errs5), **res5})
@@ -1514,20 +1515,33 @@ def main() -> int:
 
 
 def _counted():
-    """Every kernel wrapper by the name the kernels JSON line gives it."""
-    from lns_tpu_torch.kernels import (axial, axial_pipeline, blocked_copy, fab_core, fab_mega,
-                                       group_norm, mosaic_dots, prop_rollout)
+    """Every kernel wrapper's key in the counter registry
+    (``utils.profiling``: ``<module>.<wrapper>``) by the name the kernels
+    JSON line gives it."""
+    return {"prop_rollout": "prop_rollout.fused_rollout", "fab_core": "fab_core.fab_fused_core",
+            "group_norm": "group_norm.fused_group_norm_swish",
+            "fab_axial_in_fused": "axial.fab_axial_in_fused",
+            "axial_kernel_apply_headmajor": "axial.axial_kernel_apply_headmajor",
+            "bmm_blockdiag": "axial_pipeline.bmm_blockdiag",
+            "transpose_hw": "axial_pipeline.transpose_hw",
+            "blocked_copy": "blocked_copy.blocked_copy",
+            "fab_mega_stats": "fab_mega.fab_mega_stats",
+            "fab_mega_apply": "fab_mega.fab_mega_apply", "interior_dot": "fab_mega.interior_dot",
+            "dot_general": "mosaic_dots.dot_general", "dot_chain": "mosaic_dots.dot_chain"}
 
-    return {"prop_rollout": prop_rollout.fused_rollout, "fab_core": fab_core.fab_fused_core,
-            "group_norm": group_norm.fused_group_norm_swish,
-            "fab_axial_in_fused": axial.fab_axial_in_fused,
-            "axial_kernel_apply_headmajor": axial.axial_kernel_apply_headmajor,
-            "bmm_blockdiag": axial_pipeline.bmm_blockdiag,
-            "transpose_hw": axial_pipeline.transpose_hw,
-            "blocked_copy": blocked_copy.blocked_copy,
-            "fab_mega_stats": fab_mega.fab_mega_stats, "fab_mega_apply": fab_mega.fab_mega_apply,
-            "interior_dot": fab_mega.interior_dot, "dot_general": mosaic_dots.dot_general,
-            "dot_chain": mosaic_dots.dot_chain}
+
+def _launched(key: str) -> int:
+    """The launches of the wrapper `key` so far (the counter registry)."""
+    from lns_tpu_torch.utils import profiling
+
+    return profiling.counters().get(f"{key}.launches", 0)
+
+
+def _launches(counted: dict, since: dict = None) -> dict:
+    """The launches of each wrapper of `counted` (``_counted()``) so far, or
+    since the counts `since` (an earlier call's result)."""
+    now = {k: _launched(key) for k, key in counted.items()}
+    return now if since is None else {k: v - since[k] for k, v in now.items()}
 
 
 def drive_path(label, model, expect, gen, dev, batch=BATCH, steps=STEPS, chunk=CHUNK):
@@ -1545,14 +1559,13 @@ def drive_path(label, model, expect, gen, dev, batch=BATCH, steps=STEPS, chunk=C
     x = torch.randn(batch, cfg.Ly, cfg.Lx, cfg.in_channels, generator=gen).to(dev)
     cond = torch.rand(batch, generator=gen).to(dev) if model.conditional else None
     counted = _counted()
-    for f in counted.values():
-        f.launches = 0
+    base = _launches(counted)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     y = model.predict(x, steps, cond, decode_chunk=chunk)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    launches = {k: f.launches for k, f in counted.items()}
+    launches = _launches(counted, base)
     print(f"      {label}: peak device memory of one predict {peak / 2**30:.3f} GiB "
           "(torch.cuda.max_memory_allocated, the model included)", flush=True)
     _check(tuple(y.shape) == (batch, steps, cfg.Ly, cfg.Lx, cfg.in_channels),
@@ -1806,16 +1819,15 @@ def check_gn_calls(where, calls, gen=None):
 def _step_grads(model, z_in, z_out, use_kernel, cond=None):
     """One train step's gradients w.r.t. every propagator parameter, and
     kernel 3's launches in its forward and in its backward."""
-    from lns_tpu_torch.kernels.group_norm import fused_group_norm_swish
-
+    key = "group_norm.fused_group_norm_swish"
     model.use_kernels(use_kernel)
     params = dict(model.propagator.named_parameters())
-    before = fused_group_norm_swish.launches
+    before = _launched(key)
     loss = model.rollout_loss(z_in, z_out, cond)
-    fwd = fused_group_norm_swish.launches - before
+    fwd = _launched(key) - before
     grads = torch.autograd.grad(loss, list(params.values()))
     model.use_kernels(True)
-    return dict(zip(params, grads)), fwd, fused_group_norm_swish.launches - before - fwd
+    return dict(zip(params, grads)), fwd, _launched(key) - before - fwd
 
 
 def check_stage2_gradients(trainer, m32, dev):
@@ -2120,13 +2132,12 @@ def drive_stage2(dev, smi):
               f"{cfg.resolution}x{cfg.resolution}, batch {S2_BATCH}, {S2_EPOCHS} epochs, "
               f"out_tw {cfg.out_tw}, bf16 activations", flush=True)
 
-        for f in counted.values():
-            f.launches = 0
+        base = _launches(counted)
         t0 = time.perf_counter()
         trainer = Stage2Trainer(cfg, seed=1234, use_wandb=False, device=dev)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
-        prepass = {k: f.launches for k, f in counted.items()}
+        prepass = _launches(counted, base)
         ds, n_frames = trainer.train_ds, trainer.train_ds.n_cases * S2_CASE_LEN
         print(f"      trainer built in {build_s:.2f} s ({len(ds)} windows, "
               f"{trainer.steps_per_epoch} steps per epoch, {len(trainer.val_ds)} validation "
@@ -2150,13 +2161,13 @@ def drive_stage2(dev, smi):
         check_stage2_gradients(trainer, m32, dev)
         del m32
         for name, call in _refusal_calls(dev).items():
-            before = counted[name].launches
+            before = _launched(counted[name])
             try:
                 call()
                 msg = "no error"
             except RuntimeError as e:
                 msg = str(e)
-            _check("has no gradient" in msg and counted[name].launches == before,
+            _check("has no gradient" in msg and _launched(counted[name]) == before,
                    f"stage-2: {name} under grad on a tensor that requires grad raises before "
                    f"launching: {msg}")
 
@@ -2251,13 +2262,13 @@ def _ae_step(model, x, use_kernel, denormalize=None):
     counted = _counted()
     model.use_kernels(use_kernel)
     params = dict(model.named_parameters())
-    before = {k: f.launches for k, f in counted.items()}
+    before = _launches(counted)
     loss = reconstruction_loss(model, x, denormalize)
-    mid = {k: f.launches for k, f in counted.items()}
+    mid = _launches(counted)
     grads = torch.autograd.grad(loss, list(params.values()))
     model.use_kernels(True)
     return (dict(zip(params, grads)), {k: mid[k] - before[k] for k in counted},
-            {k: f.launches - mid[k] for k, f in counted.items()})
+            _launches(counted, mid))
 
 
 def check_fab_calls(where, core_calls, axial_calls):
@@ -2602,11 +2613,10 @@ def check_handoff(cfg, path, frames, dev):
            f"stage-1 hand-off: vqgan_epoch_final.pt ({len(saved)} tensors) loaded strictly into "
            "LatentDynamics.vq_ae, bitwise")
     counted = _counted()
-    for f in counted.values():
-        f.launches = 0
+    base = _launches(counted)
     y = model.predict(frames, STEPS, decode_chunk=CHUNK)
     torch.cuda.synchronize()
-    launches = {k: f.launches for k, f in counted.items()}
+    launches = _launches(counted, base)
     want = expected_launches(cfg)
     _check(tuple(y.shape) == (frames.shape[0], STEPS) + tuple(frames.shape[1:])
            and bool(torch.isfinite(y).all())
@@ -2858,14 +2868,13 @@ def _timed_train(trainer):
         return v
 
     trainer.train_step, trainer.validate = timed_step, timed_validate
-    for f in counted.values():
-        f.launches = 0
+    base = _launches(counted)
     t0 = time.perf_counter()
     trainer.train()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     trainer.train_step, trainer.validate = step_fn, validate
-    return step_events, val_ms, {k: f.launches for k, f in counted.items()}, secs
+    return step_events, val_ms, _launches(counted, base), secs
 
 
 def _check_family_run(where, log_dir, loss_key, val_keys, steps_per_epoch, epochs):
@@ -3044,13 +3053,12 @@ def drive_family_stage2(fam, dev, smi, tmp, ae_path):
           f"{cfg.out_tw}, {epochs} epochs, lr {cfg.learning_rate:g}, bf16 activations",
           flush=True)
     counted = _counted()
-    for f in counted.values():
-        f.launches = 0
+    base = _launches(counted)
     t0 = time.perf_counter()
     trainer = Stage2Trainer(cfg, seed=1234, use_wandb=False, device=dev)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    prepass = {k: f.launches for k, f in counted.items()}
+    prepass = _launches(counted, base)
     frames = trainer.train_ds.fields.shape[0] * trainer.train_ds.fields.shape[1]
     encodes = -(-frames // 32)  # the pre-pass's calls of 32 frames
     want = expected_launches(cfg, n_chunks=0, encodes=encodes)
@@ -3125,10 +3133,9 @@ def check_evaluate(where, cfg, ckpt_dir, dev, smi, f32=False):
     with open(os.path.join(ckpt_dir, "meta_best.json")) as f:
         best = json.load(f)
     counted = _counted()
-    for fn in counted.values():
-        fn.launches = 0
+    base = _launches(counted)
     metrics = evaluate_checkpoint(cfg, path, device=dev)
-    launches = {k: fn.launches for k, fn in counted.items()}
+    launches = _launches(counted, base)
     n, steps = metrics["num_trajectories"], metrics["rollout_steps"]
     want = {k: 0 for k in launches}
     for i in range(0, n, 8):  # evaluate's predict batches
@@ -3720,16 +3727,15 @@ def drive_cond_encoder(dev, smi):
     want = enc_gn + expected_launches(cfg, n_chunks=1, encodes=0)["group_norm"]
 
     counted = _counted()
-    for f in counted.values():
-        f.launches = 0
+    base = _launches(counted)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     y = model(x, p)
-    fwd = {k: f.launches for k, f in counted.items()}
+    fwd = _launches(counted, base)
     loss = (y.float() - x).square().mean()
     loss.backward()
     torch.cuda.synchronize()
-    launches = {k: f.launches for k, f in counted.items()}
+    launches = _launches(counted, base)
     peak = torch.cuda.max_memory_allocated()
     _check(tuple(y.shape) == tuple(x.shape) and bool(torch.isfinite(y).all())
            and math.isfinite(loss.item()),
@@ -3897,15 +3903,14 @@ def drive_library(dev, smi):
           "the CPU's (the port's SpectralConv1d synthesises by matmul, irfft_modes)", flush=True)
 
     counted = _counted()
-    for f in counted.values():
-        f.launches = 0
+    base = _launches(counted)
     outs = {}
     with recording(norms, "fused_group_norm_swish") as calls, torch.no_grad():
         for name, card, dargs, _, _ in blocks:  # the SIREN stacks take coordinates in f32
             dt = None if name in ("SirenNet", "EmbeddingWrapper") else torch.bfloat16
             outs[name] = (dt, card(*(_to(a, dev, dt) for a in dargs)))
     torch.cuda.synchronize()
-    launches = {k: f.launches for k, f in counted.items()}
+    launches = _launches(counted, base)
     want = sum(g for *_, g in blocks)
     _check(launches == {k: (want if k == "group_norm" else 0) for k in counted},
            f"library blocks in bf16: launches {({k: v for k, v in launches.items() if v})} == "
@@ -3962,16 +3967,14 @@ def drive_sharded(dev, smi, paths, gen):
             x = torch.randn(b, cfg.Ly, cfg.Lx, cfg.in_channels, generator=gen).to(dev)
             cond = torch.rand(b, generator=gen).to(dev) if model.conditional else None
             counted = _counted()
-            for f in counted.values():
-                f.launches = 0
+            base = _launches(counted)
             ref = model.predict(x, steps, cond, decode_chunk=chunk)
-            plain = {k: f.launches for k, f in counted.items()}
-            for f in counted.values():
-                f.launches = 0
+            plain = _launches(counted, base)
+            base = _launches(counted)
             torch.cuda.synchronize()
             y = ddp.sharded_predict(model, x, steps, cond, decode_chunk=chunk)
             torch.cuda.synchronize()
-            launches = {k: f.launches for k, f in counted.items()}
+            launches = _launches(counted, base)
             want = {k: expect.get(k, 0) for k in launches}
             _check(tuple(y.shape) == tuple(ref.shape) and torch.equal(y, ref),
                    f"{label}: sharded_predict at world 1 (B{b} x {steps} steps) bitwise equal to "
@@ -3993,12 +3996,32 @@ def drive_sharded(dev, smi, paths, gen):
     return out
 
 
+def _span_offsets(spans, prof):
+    """Per span of ``utils.profiling`` (each the n-th of its name), the ns
+    from its start to its range's start in the profiler's events and from
+    the range's end to its end; None unless every span has one range of
+    its name and every ``lns.*`` range a span."""
+    ranges = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.name().startswith("lns.") and e.device_type() == torch.autograd.DeviceType.CPU:
+            ranges.setdefault(e.name(), []).append((e.start_ns(), e.start_ns() + e.duration_ns()))
+    named = {}
+    for r in sorted(spans, key=lambda r: r.start_ns):
+        named.setdefault(r.name, []).append(r)
+    if {k: len(v) for k, v in ranges.items()} != {k: len(v) for k, v in named.items()}:
+        return None
+    return [(start - r.start_ns, r.end_ns - end) for name, rs in named.items()
+            for r, (start, end) in zip(rs, sorted(ranges[name]))]
+
+
 def check_debug_tools(dev, model, gen, smi):
     """``utils.profiling.trace`` around one path-1 predict: the written
     trace names kernels 1-3 (``rollout_bf16_kernel``, kernel 2's bf16
-    passes, ``gn_kernel`` / ``gn_partials``); ``Timer`` stopped on the
-    predict's output, ``measure_host_rtt`` and ``time_fn`` of one
-    propagator step on the card; ``utils.debug.nan_debugging`` raises
+    passes, ``gn_kernel`` / ``gn_partials``), and the predict's spans
+    (``utils.profiling.span``, one per phase and decode chunk) each hold
+    their range in the profiler's events, the offsets printed; ``Timer``
+    stopped on the predict's output and ``time_fn`` of one propagator step
+    on the card; ``utils.debug.nan_debugging`` raises
     ``FloatingPointError`` on a NaN planted in the predict's input, naming
     the first module whose output holds it, and ``assert_finite`` names a
     NaN planted in a copy of the state dict."""
@@ -4012,9 +4035,12 @@ def check_debug_tools(dev, model, gen, smi):
     with tempfile.TemporaryDirectory() as tmp:
         model.predict(x, STEPS, decode_chunk=CHUNK)  # warm-up
         torch.cuda.synchronize()
-        with profiling.trace(tmp):
+        profiling.reset()
+        with profiling.trace(tmp) as prof:
             model.predict(x, STEPS, decode_chunk=CHUNK)
             torch.cuda.synchronize()
+        spans = profiling.spans()
+        offsets = _span_offsets(spans, prof)
         files = glob.glob(os.path.join(tmp, "*.pt.trace.json"))
         names = set()
         for path in files:
@@ -4028,6 +4054,14 @@ def check_debug_tools(dev, model, gen, smi):
         _check(len(files) == 1 and all(found.values()),
                f"utils.profiling.trace around one path-1 predict: {len(files)} trace file, "
                f"{len(names)} kernel names, kernels 1-3 among them {found}")
+    chunks = -(-BATCH * STEPS // CHUNK)
+    starts = sorted(a for a, _ in offsets or [(0, 0)])
+    _check(offsets is not None and len(spans) == 5 + chunks
+           and all(a >= 0 and b >= 0 for a, b in offsets),
+           f"utils.profiling spans of the traced predict: {len(spans)} (lns.predict, encode, "
+           f"propagate, pack, rollout, {chunks} decode chunks), each holding its range in the "
+           f"profiler's events; range start after the span's start: median "
+           f"{starts[len(starts) // 2] / 1e3:.1f} us, max {starts[-1] / 1e3:.1f} us")
     timer = profiling.Timer()
     timer.start("path-1 predict")
     y = model.predict(x, STEPS, decode_chunk=CHUNK)
@@ -4035,10 +4069,9 @@ def check_debug_tools(dev, model, gen, smi):
     with torch.no_grad():
         z = model.encode(x).to(model.dtype or torch.float32)
         step_s = profiling.time_fn(model.propagate, z, n=20)
-    rtt = profiling.measure_host_rtt(20)
     print(f"      profiling on the card: Timer '{timer.report()}'; time_fn of one propagator step "
-          f"(B{BATCH}, module path, 20 chained by CUDA events) {step_s * 1e3:.4f} ms; "
-          f"measure_host_rtt {rtt * 1e3:.4f} ms; {smi}", flush=True)
+          f"(B{BATCH}, module path, 20 chained by CUDA events) {step_s * 1e3:.4f} ms; {smi}",
+          flush=True)
     bad = x.clone()
     bad[0, 0, 0, 0] = float("nan")
     try:
@@ -4225,11 +4258,10 @@ def drive_solvers(dev, smi):
             trainer = Stage1Trainer(cfg, seed=1234, use_wandb=False, device=dev)
             x = torch.from_numpy(trainer.train_ds.get_batch(np.arange(32))).to(dev)
             counted = _counted()
-            for f in counted.values():
-                f.launches = 0
+            base = _launches(counted)
             loss = trainer.train_step(x)
             torch.cuda.synchronize()
-            launches = {k: f.launches for k, f in counted.items()}
+            launches = _launches(counted, base)
             want = expected_launches(cfg, n_chunks=1)
             want["prop_rollout"] = 0
             _check(launches == {k: want.get(k, 0) for k in launches}
@@ -4308,15 +4340,14 @@ def check_probes(dev):
           "probe_bw, probe_dots, untimed; then each new kernel at its probe's shape)", flush=True)
     t0 = time.perf_counter()
     counted = _counted()
-    for f in counted.values():
-        f.launches = 0
+    base = _launches(counted)
     ok = all(r["ok"] for r in probe_layouts.run(dev, timed=False).values())
     ok &= all(r["ok"] for r in probe_fab_mega.run_pieces(dev, timed=False).values())
     ok &= all(r["ok"] for r in probe_fab_mega.run_passes(dev, timed=False).values())
     ok &= probe_bw.run(dev, timed=False, samples=(2,))[1]
     ok &= all(r["ok"] for r in probe_dots.run(dev, timed=False).values())
     torch.cuda.synchronize()
-    launches = {k: f.launches for k, f in counted.items()}
+    launches = _launches(counted, base)
     _check(ok, "probes: every form of probe_layouts, probe_fab_mega, probe_bw and probe_dots held "
            "to its plain version")
     _check(launches == {k: PROBE_LAUNCHES.get(k, 0) for k in launches},
@@ -4486,17 +4517,18 @@ def check_probes(dev):
     z = torch.zeros(2, 32, 32, 32, device=dev, dtype=bf)
     zk = torch.zeros(2, 1, 32, 32, device=dev, dtype=bf)
     for what, call, limit, fn in (
-            ("fab_mega_stats c32", lambda: fab_mega_stats(z, zk, zk), "c 64", fab_mega_stats),
+            ("fab_mega_stats c32", lambda: fab_mega_stats(z, zk, zk), "c 64",
+             "fab_mega.fab_mega_stats"),
             ("interior_dot f32", lambda: interior_dot(kx.float(), a.float()), "bf16",
-             interior_dot),
+             "fab_mega.interior_dot"),
             ("blocked_copy s=0", lambda: blocked_copy(z, 0), "samples per block >= 1",
-             blocked_copy)):
-        before, msg = fn.launches, ""
+             "blocked_copy.blocked_copy")):
+        before, msg = _launched(fn), ""
         try:
             call()
         except ValueError as e:
             msg = str(e)
-        _check(limit in msg and fn.launches == before, f"{what} raises naming '{limit}': {msg}")
+        _check(limit in msg and _launched(fn) == before, f"{what} raises naming '{limit}': {msg}")
     res.update(check_mosaic_dots(dev, parent))
     print(f"      the probe phase took {time.perf_counter() - t0:.1f} s", flush=True)
     return launches, res
@@ -4626,16 +4658,16 @@ def check_mosaic_dots(dev, parent=None):
     for what, call, limit, fn in (
             ("dot_general f16", lambda: mosaic_dots.dot_general(x["u"].half(), x["k2"].half(),
                                                                 ((2,), (1,))),
-             "bf16 or f32 operands", mosaic_dots.dot_general),
+             "bf16 or f32 operands", "mosaic_dots.dot_general"),
             ("dot_chain u [64, 16, 32]", lambda: mosaic_dots.dot_chain("apply_chain",
                                                                       *small.values()),
-             "H = W = L = I = 32", mosaic_dots.dot_chain)):
-        before, msg = fn.launches, ""
+             "H = W = L = I = 32", "mosaic_dots.dot_chain")):
+        before, msg = _launched(fn), ""
         try:
             call()
         except ValueError as e:
             msg = str(e)
-        _check(limit in msg and fn.launches == before, f"{what} raises naming '{limit}': {msg}")
+        _check(limit in msg and _launched(fn) == before, f"{what} raises naming '{limit}': {msg}")
     return res
 
 

@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels for the rollout's hot spots.
 
-Each module holds a kernel's wrapper, its plain PyTorch version and a
-launch counter. A wrapper takes the plain version only for a CPU tensor;
+Each module holds a kernel's wrapper and its plain PyTorch version; a
+wrapper counts each launch, its scratch bytes and its host time in the
+counter registry of ``utils.profiling``. A wrapper takes the plain version only for a CPU tensor;
 for a CUDA tensor it launches the kernel or raises. The kernels have no
 backward kernel: under grad, with an input that requires grad,
 ``fab_fused_core``, ``fused_group_norm_swish`` and ``fab_axial_in_fused``

@@ -90,6 +90,14 @@ def ready(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return t.clone() if t.data_ptr() % 16 else t
 
 
+def copy_bytes(*pairs) -> int:
+    """Bytes of the copies of its arguments a wrapper hands its kernel: of
+    each (given, used) pair, used's when it is another tensor than given (a
+    cast, ``contiguous``, ``ready`` or an alignment clone, each of which
+    returns its argument when it has nothing to do)."""
+    return sum(used.nbytes for given, used in pairs if used is not given)
+
+
 def check_shapes(name: str, dev, expect: dict) -> None:
     """Raise unless each tensor of `expect` ({arg: (tensor, shape)}) has its
     shape and lies on `dev`."""

@@ -37,6 +37,7 @@ import functools
 import torch
 
 from lns_tpu_torch.kernels import _build
+from lns_tpu_torch.utils import profiling
 
 # the C entry points' dtype argument
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -121,16 +122,17 @@ def axial_plan(dtype: torch.dtype, g: int, h: int, w: int, d: int, d_tile: int =
 
 
 def launch(name, kx, ky, phi, dims, rows_first: bool, mode: int, eps: float,
-           stats_shape=None, d_tile: int = 0):
+           stats_shape=None, d_tile: int = 0, t0: int = 0):
     """One launch on phi's CUDA device: dims = (G, H, W, d, pixel stride);
     kx holds G [H, H] and ky G [W, W] matrices, phi G planes of H x W
     pixels, d channels each: head-major [G, H, W, d] (stride d) or heads
     last [B, H, W, n, d] with G = B n (stride n d). Returns out in phi's
     shape, and with mode ``_STATS`` the f32 stats [G, d, 2] in
     ``stats_shape``. ``d_tile`` 0 takes the kernel's rule; the plan probes
-    pass another. Counts nothing: the public wrappers count their launches.
-    Kept lean (no reshapes): at the paths' shapes the host's time per call
-    exceeds the kernel's."""
+    pass another. Counts the launch under ``axial.<name>``, with `t0` (the
+    wrapper's ``profiling.clock()``) its host time. Kept lean (no
+    reshapes): at the paths' shapes the host's time per call exceeds the
+    kernel's."""
     code = _DTYPE_CODE.get(phi.dtype)
     if code is None:
         raise TypeError(f"{name}: unsupported dtype {phi.dtype}")
@@ -141,6 +143,7 @@ def launch(name, kx, ky, phi, dims, rows_first: bool, mode: int, eps: float,
     limit = _limit(code, h, w, d)
     if limit:
         raise ValueError(f"{name}: {str(phi.dtype)[6:]} at {h}x{w} d{d} needs {limit}")
+    given = kx, ky, phi
     if not phi.is_contiguous() or phi.data_ptr() % 16:  # rows of 8 channels: 16-byte copies
         phi = phi.clone(memory_format=torch.contiguous_format)
     if kx.dtype != phi.dtype or not kx.is_contiguous():
@@ -156,6 +159,7 @@ def launch(name, kx, ky, phi, dims, rows_first: bool, mode: int, eps: float,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         _build.check(rc, f"{name} (lns_axial_apply)")
+    profiling.launched(f"axial.{name}", _build.copy_bytes(*zip(given, (kx, ky, phi))), t0)
     return out if stats is None else (out, stats)
 
 
@@ -214,6 +218,7 @@ def fab_axial_in_fused(kx, ky, phi, with_instance_norm: bool = True, eps: float 
 def _fab_axial_in(kx, ky, phi, with_instance_norm: bool, eps: float, stats: bool,
                   heads_last: bool):
     """The launch (or, for a CPU tensor, the plain version)."""
+    t0 = profiling.clock()
     if not _build.on_cuda(phi, "fab_axial_in_fused", kx, ky):
         return fab_axial_in_plain(kx, ky, phi, with_instance_norm, eps, stats, heads_last)
     if phi.dim() != 5:
@@ -226,13 +231,9 @@ def _fab_axial_in(kx, ky, phi, with_instance_norm: bool, eps: float, stats: bool
         raise ValueError(f"fab_axial_in_fused: kx, ky must be {(b, n, h, h)}, {(b, n, w, w)}, "
                          f"got {tuple(kx.shape)}, {tuple(ky.shape)}")
     mode = _STATS if stats else _NORM if with_instance_norm else _PLAIN
-    res = launch("fab_axial_in_fused", kx, ky, phi, (b * n, h, w, d, n * d if heads_last else d),
-                 True, mode, eps, (b, n, d, 2))
-    fab_axial_in_fused.launches += 1
-    return res
-
-
-fab_axial_in_fused.launches = 0
+    return launch("fab_axial_in_fused", kx, ky, phi,
+                  (b * n, h, w, d, n * d if heads_last else d), True, mode, eps, (b, n, d, 2),
+                  t0=t0)
 
 
 def axial_kernel_apply_headmajor(kx, ky, phi):
@@ -240,6 +241,7 @@ def axial_kernel_apply_headmajor(kx, ky, phi):
     phi [G, H, W, d] with G = B x heads -> [G, H, W, d] in phi's dtype.
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (kernel 4's source, columns first, no norm) or raises."""
+    t0 = profiling.clock()
     if not _build.on_cuda(phi, "axial_kernel_apply_headmajor", kx, ky):
         return axial_kernel_apply_headmajor_plain(kx, ky, phi)
     if phi.dim() != 4:
@@ -248,12 +250,8 @@ def axial_kernel_apply_headmajor(kx, ky, phi):
     if kx.shape != (g, h, h) or ky.shape != (g, w, w):
         raise ValueError(f"axial_kernel_apply_headmajor: kx, ky must be {(g, h, h)}, "
                          f"{(g, w, w)}, got {tuple(kx.shape)}, {tuple(ky.shape)}")
-    out = launch("axial_kernel_apply_headmajor", kx, ky, phi, (g, h, w, d, d), False, _PLAIN, 0.0)
-    axial_kernel_apply_headmajor.launches += 1
-    return out
-
-
-axial_kernel_apply_headmajor.launches = 0
+    return launch("axial_kernel_apply_headmajor", kx, ky, phi, (g, h, w, d, d), False, _PLAIN,
+                  0.0, t0=t0)
 
 
 def axial_kernel_apply(kx, ky, phi, heads: int):

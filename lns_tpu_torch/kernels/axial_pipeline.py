@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from lns_tpu_torch.kernels import _build
+from lns_tpu_torch.utils import profiling
 
 
 def blockdiag_embed(k, group: int):
@@ -50,6 +51,7 @@ def bmm_blockdiag(kb, x):
     """kb [B, G, M, M] @ x [B, G, M, N] -> [B, G, M, N] in x's dtype (kb is
     cast to it). A CPU tensor takes the plain version; a CUDA tensor
     launches the kernel on the current stream or raises."""
+    t0 = profiling.clock()
     if not _build.on_cuda(x, "bmm_blockdiag", kb):
         return bmm_blockdiag_plain(kb, x)
     if x.dtype not in _build.DTYPE_CODE:
@@ -62,6 +64,7 @@ def bmm_blockdiag(kb, x):
                          f"got {tuple(kb.shape)} on {kb.device}")
     if not 0 < b * g <= 65535:
         raise ValueError(f"bmm_blockdiag: {b * g} products; the grid takes 1 to 65535")
+    given = kb, x
     x = x.contiguous()
     kb = kb.to(x.dtype).contiguous()
     out = torch.empty_like(x)
@@ -69,11 +72,8 @@ def bmm_blockdiag(kb, x):
                                   out.data_ptr(), b * g, m, n,
                                   torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "bmm_blockdiag (lns_bmm)")
-    bmm_blockdiag.launches += 1
+    profiling.launched("axial_pipeline.bmm_blockdiag", _build.copy_bytes(*zip(given, (kb, x))), t0)
     return out
-
-
-bmm_blockdiag.launches = 0
 
 
 def transpose_hw_plain(x):
@@ -85,6 +85,7 @@ def transpose_hw(x):
     """[B, N, H, W, D] -> [B, N, W, H, D], any dtype. A CPU tensor takes
     the plain version; a CUDA tensor launches the kernel on the current
     stream or raises."""
+    t0 = profiling.clock()
     if not _build.on_cuda(x, "transpose_hw"):
         return transpose_hw_plain(x)
     if x.dim() != 5:
@@ -92,7 +93,7 @@ def transpose_hw(x):
     b, n, h, w, d = x.shape
     if b * n * h * w >= 2**31:
         raise ValueError("transpose_hw: more than 2**31 rows")
-    x = x.contiguous()
+    given, x = x, x.contiguous()
     out = torch.empty((b, n, w, h, d), dtype=x.dtype, device=x.device)
     row = d * x.element_size()
     vec = next(v for v in (16, 8, 4, 2, 1)
@@ -100,11 +101,8 @@ def transpose_hw(x):
     rc = _build.library().lns_transpose_hw(vec, x.data_ptr(), out.data_ptr(), b * n, h, w, row,
                                            torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "transpose_hw (lns_transpose_hw)")
-    transpose_hw.launches += 1
+    profiling.launched("axial_pipeline.transpose_hw", _build.copy_bytes((given, x)), t0)
     return out
-
-
-transpose_hw.launches = 0
 
 
 def axial_apply_pipeline(kx, ky, phi, group=None, final_transpose: bool = True):

@@ -25,6 +25,7 @@ import math
 import torch
 
 from lns_tpu_torch.kernels import _build
+from lns_tpu_torch.utils import profiling
 
 ROUTES = ("threads", "bulk")  # the C rule's codes 0 and 1
 
@@ -42,6 +43,7 @@ def blocked_copy(x, samples_per_block: int = 1):
     the route the C rule picks, or raises. ``blocked_copy.route`` is the
     route of the last call: "bulk" or "threads" as C reports it, or
     "plain"."""
+    t0 = profiling.clock()
     if not _build.on_cuda(x, "blocked_copy"):
         blocked_copy.route = "plain"
         return blocked_copy_plain(x, samples_per_block)
@@ -53,7 +55,7 @@ def blocked_copy(x, samples_per_block: int = 1):
     if limit:
         raise ValueError(f"blocked_copy: [{b}, {g}, {row} bytes] with {samples_per_block} "
                          f"samples per block needs {limit.decode()}")
-    x = x.contiguous()
+    given, x = x, x.contiguous()
     out = torch.empty_like(x)
     route = ctypes.c_int(-1)
     rc = _build.library().lns_blocked_copy(x.data_ptr(), out.data_ptr(), b, g, samples_per_block,
@@ -61,9 +63,8 @@ def blocked_copy(x, samples_per_block: int = 1):
                                            torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "blocked_copy (lns_blocked_copy)")
     blocked_copy.route = ROUTES[route.value]
-    blocked_copy.launches += 1
+    profiling.launched("blocked_copy.blocked_copy", _build.copy_bytes((given, x)), t0)
     return out
 
 
-blocked_copy.launches = 0
 blocked_copy.route = None

@@ -59,10 +59,32 @@ cores, k_x first (the check path, not timed).
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from lns_tpu_torch.kernels import _build
+from lns_tpu_torch.utils import profiling
+
+
+def scratch_shapes(b: int, n: int, h: int, w: int, c: int, o: int, dtype: torch.dtype) -> dict:
+    """The buffers the launch allocates besides its output, {name: (shape,
+    dtype)}: m_n (c padded to cp, whole 64-channel atoms, in bf16) and
+    bias_n; in bf16 also the bb scratch (c padded), the mean's mean_c and
+    the Gram."""
+    f32 = torch.float32
+    if dtype != torch.bfloat16:
+        return {"m": ((b, n, c, o), dtype), "bias": ((b, n, o), f32)}
+    cp = -(-c // 64) * 64
+    return {"m": ((b, n, cp, o), dtype), "bias": ((b, n, o), f32),
+            "bb": ((b, n, h, w, cp), dtype), "mean": ((b, n, c), f32),
+            "gram": ((b, n, c, c), f32)}
+
+
+def scratch_bytes(b: int, n: int, h: int, w: int, c: int, o: int, dtype: torch.dtype) -> dict:
+    """The bytes of each buffer of ``scratch_shapes``."""
+    return {k: math.prod(shape) * dt.itemsize
+            for k, (shape, dt) in scratch_shapes(b, n, h, w, c, o, dtype).items()}
 
 
 def rounded_mean_c(u, k_x, k_y):
@@ -191,6 +213,7 @@ def fab_fused_core(u, k_x, k_y, w_in, w_o1, eps: float = 1e-5, mean_from=None):
 
 def _fab_core(u, k_x, k_y, w_in, w_o1, eps: float, mean_from):
     """The launch (or, for a CPU tensor, the plain version), without grad."""
+    t0 = profiling.clock()
     if not _build.on_cuda(u, "fab_fused_core", k_x, k_y, w_in, w_o1, *(mean_from or ())):
         return fab_core_plain(u, k_x, k_y, w_in, w_o1, eps, mean_from)
     if u.dtype not in _build.DTYPE_CODE:
@@ -219,37 +242,38 @@ def _fab_core(u, k_x, k_y, w_in, w_o1, eps: float, mean_from):
         if limit:
             raise ValueError(f"fab_fused_core: bf16 at {h}x{w} c{c} d{d} o{o} needs "
                              f"{limit.decode()}")
-        if u.data_ptr() % 16:  # u's rows load by TMA, from a 16-byte boundary
-            u = u.clone()
+    given = u, k_x, k_y, w_in, w_o1
+    if bf16 and u.data_ptr() % 16:  # u's rows load by TMA, from a 16-byte boundary
+        u = u.clone()
     kx, ky = (_k_rows(k_x, u.dtype, bf16), _k_rows(k_y, u.dtype, bf16))
     wi = w_in.to(u.dtype).contiguous()
     w1 = w_o1.float().contiguous()
     if w1.data_ptr() % 16:  # read as 16-byte vectors
         w1 = w1.clone()
+    copies = _build.copy_bytes(*zip(given, (u, kx, ky, wi, w1)))
+    buf = {k: torch.empty(shape, device=u.device, dtype=dt)
+           for k, (shape, dt) in scratch_shapes(b, n, h, w, c, o, u.dtype).items()}
     ptrs = [None] * 6
     if bf16:  # the mean's inputs (x null: from u alone), its scratch and the Gram's
         mf = [None] * 4
         if mean_from is not None:
             x, coef, kx_s, ky_s = mean_from
-            x = x.to(u.dtype).contiguous()
-            if x.data_ptr() % 16:  # read as 16-byte vectors, as u
-                x = x.clone()
-            mf = [x, coef.float().contiguous(), kx_s.float().contiguous(),
+            xr = x.to(u.dtype).contiguous()
+            if xr.data_ptr() % 16:  # read as 16-byte vectors, as u
+                xr = xr.clone()
+            mf = [xr, coef.float().contiguous(), kx_s.float().contiguous(),
                   ky_s.float().contiguous()]
-        mf += [torch.empty((b, n, c), device=u.device), torch.empty((b, n, c, c), device=u.device)]
-        ptrs = [t if t is None else t.data_ptr() for t in mf]
-    cp = -(-c // 64) * 64 if bf16 else c  # the kernels' c, padded to whole 64-channel atoms
-    m = torch.empty((b, n, cp, o), device=u.device, dtype=u.dtype)  # m_n, rounded to u's dtype
-    bias = torch.empty((b, n, o), device=u.device, dtype=torch.float32)
-    bb = torch.empty((b, n, h, w, cp), device=u.device, dtype=u.dtype) if bf16 else None
+            copies += _build.copy_bytes(*zip(mean_from, mf))
+        ptrs = [t if t is None else t.data_ptr() for t in mf + [buf["mean"], buf["gram"]]]
     out = torch.empty((b, h, w, o), device=u.device, dtype=u.dtype)
     rc = lib.lns_fab_core(
         _build.DTYPE_CODE[u.dtype], u.data_ptr(), kx.data_ptr(), ky.data_ptr(),
-        wi.data_ptr(), w1.data_ptr(), *ptrs, m.data_ptr(), bias.data_ptr(),
-        bb.data_ptr() if bf16 else None, out.data_ptr(), b, n, h, w, c, d, o,
+        wi.data_ptr(), w1.data_ptr(), *ptrs, buf["m"].data_ptr(), buf["bias"].data_ptr(),
+        buf["bb"].data_ptr() if bf16 else None, out.data_ptr(), b, n, h, w, c, d, o,
         ctypes.c_float(eps), torch.cuda.current_stream(u.device).cuda_stream)
     _build.check(rc, "lns_fab_core")
-    fab_fused_core.launches += 1
+    profiling.launched("fab_core.fab_fused_core",
+                       copies + sum(t.nbytes for t in buf.values()), t0)
     return out
 
 
@@ -274,6 +298,3 @@ def bf16_plan(h, w, c, d, o, n) -> dict:
     keys = ("cluster", "tile_cols", "ring_rows", "ring_stages", "tiles", "stats_smem",
             "out_smem", "cp", "active_clusters", "moments_smem")
     return dict(zip(keys, out))
-
-
-fab_fused_core.launches = 0

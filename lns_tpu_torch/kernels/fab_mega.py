@@ -35,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from lns_tpu_torch.kernels import _build, mosaic_dots
+from lns_tpu_torch.utils import profiling
 
 
 def _b2(u_t, kx, ky):
@@ -75,6 +76,7 @@ def fab_mega_stats(u_t, kx, ky):
     ky [b, n, w, w] -> (G [b, n, c, c], s [b, n, c]), both f32: a block per
     sample on ``wgmma``. A CPU tensor takes the plain version; a CUDA tensor
     launches the kernel on the current stream or raises."""
+    t0 = profiling.clock()
     if not _build.on_cuda(u_t, "fab_mega_stats", kx, ky):
         return fab_mega_stats_plain(u_t, kx, ky)
     if u_t.dim() != 4 or kx.dim() != 4:
@@ -85,18 +87,17 @@ def fab_mega_stats(u_t, kx, ky):
                                                        "ky": (ky, (b, n, w, w))})
     lib = _build.library()
     _limit(lib.lns_fab_mega_limit, "fab_mega_stats", u_t.dtype, b, h, w, c)
-    u_t, kx, ky = (_build.ready(t, u_t.dtype) for t in (u_t, kx, ky))
+    given = u_t, kx, ky
+    u_t, kx, ky = (_build.ready(t, u_t.dtype) for t in given)
     g = torch.empty((b, n, c, c), device=u_t.device, dtype=torch.float32)
     s = torch.empty((b, n, c), device=u_t.device, dtype=torch.float32)
     rc = lib.lns_fab_mega_stats(u_t.data_ptr(), kx.data_ptr(), ky.data_ptr(), g.data_ptr(),
                                 s.data_ptr(), b, n,
                                 torch.cuda.current_stream(u_t.device).cuda_stream)
     _build.check(rc, "fab_mega_stats (lns_fab_mega_stats)")
-    fab_mega_stats.launches += 1
+    profiling.launched("fab_mega.fab_mega_stats", _build.copy_bytes(*zip(given, (u_t, kx, ky))),
+                       t0)
     return g, s
-
-
-fab_mega_stats.launches = 0
 
 
 def fab_mega_apply(u_t, kx, ky, m, bias):
@@ -104,6 +105,7 @@ def fab_mega_apply(u_t, kx, ky, m, bias):
     bias [b, c] -> [b, h * w, c] in u_t's dtype, rows (i, l): a block per
     sample on ``wgmma``. A CPU tensor takes the plain version; a CUDA tensor
     launches the kernel on the current stream or raises."""
+    t0 = profiling.clock()
     if not _build.on_cuda(u_t, "fab_mega_apply", kx, ky, m, bias):
         return fab_mega_apply_plain(u_t, kx, ky, m, bias)
     if u_t.dim() != 4 or kx.dim() != 4:
@@ -115,24 +117,25 @@ def fab_mega_apply(u_t, kx, ky, m, bias):
         "bias": (bias, (b, c))})
     lib = _build.library()
     _limit(lib.lns_fab_mega_limit, "fab_mega_apply", u_t.dtype, b, h, w, c)
-    u_t, kx, ky, m, bias = (_build.ready(t, u_t.dtype) for t in (u_t, kx, ky, m, bias))
+    given = u_t, kx, ky, m, bias
+    u_t, kx, ky, m, bias = (_build.ready(t, u_t.dtype) for t in given)
     out = torch.empty((b, h * w, c), device=u_t.device, dtype=u_t.dtype)
     rc = lib.lns_fab_mega_apply(u_t.data_ptr(), kx.data_ptr(), ky.data_ptr(), m.data_ptr(),
                                 bias.data_ptr(), out.data_ptr(), b, n,
                                 torch.cuda.current_stream(u_t.device).cuda_stream)
     _build.check(rc, "fab_mega_apply (lns_fab_mega_apply)")
-    fab_mega_apply.launches += 1
+    profiling.launched("fab_mega.fab_mega_apply",
+                       _build.copy_bytes(*zip(given, (u_t, kx, ky, m, bias))), t0)
     return out
-
-
-fab_mega_apply.launches = 0
 
 
 def interior_dot(kx, a):
     """kx [i, k] . a [l, k, c] -> [i, l, c] in a's dtype (kx cast to it), JAX's
     order: ``dot_general``'s straight x transposed orientation, which a CUDA
     tensor launches on the current stream (or raises); a CPU tensor takes
-    the plain version."""
+    the plain version. Its launch is counted twice: as its own and as
+    ``dot_general``'s."""
+    t0 = profiling.clock()
     if not _build.on_cuda(a, "interior_dot", kx):
         return interior_dot_plain(kx, a)
     if kx.dim() != 2 or a.dim() != 3:
@@ -141,9 +144,7 @@ def interior_dot(kx, a):
     i = kx.shape[0]
     _build.check_shapes("interior_dot", a.device, {"kx": (kx, (i, k))})
     _limit(_build.library().lns_interior_dot_limit, "interior_dot", a.dtype, l_dim, i, k, c)
-    out = mosaic_dots.dot_general(kx.to(a.dtype), a, ((1,), (1,)), out_dtype=a.dtype)
-    interior_dot.launches += 1
+    kc = kx.to(a.dtype)
+    out = mosaic_dots.dot_general(kc, a, ((1,), (1,)), out_dtype=a.dtype)
+    profiling.launched("fab_mega.interior_dot", _build.copy_bytes((kx, kc)), t0)
     return out
-
-
-interior_dot.launches = 0

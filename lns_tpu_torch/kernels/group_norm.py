@@ -35,6 +35,7 @@ import torch
 
 from lns_tpu_torch.kernels import _build
 from lns_tpu_torch.ops.activations import swish
+from lns_tpu_torch.utils import profiling
 
 # the C entry points' dtype argument
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -169,6 +170,7 @@ def fused_group_norm_swish(x, scale, bias, num_groups: int, eps: float = 1e-6,
 def _group_norm_swish(x, scale, bias, num_groups: int, eps: float, apply_swish: bool,
                       with_coef: bool = False):
     """The launch (or, for a CPU tensor, the plain version), without grad."""
+    t0 = profiling.clock()
     if not _build.on_cuda(x, "fused_group_norm_swish", scale, bias):
         return group_norm_swish_plain(x, scale, bias, num_groups, eps, apply_swish, with_coef)
     if x.dtype not in _DTYPE_CODE:
@@ -201,7 +203,8 @@ def _group_norm_swish(x, scale, bias, num_groups: int, eps: float, apply_swish: 
         b, s, c, num_groups, float(eps),
         int(bool(apply_swish)), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, f"lns_group_norm(B={b}, S={s}, C={c}, G={num_groups})")
-    fused_group_norm_swish.launches += 1
+    profiling.launched("group_norm.fused_group_norm_swish",
+                       ws_bytes + _build.copy_bytes((x, xk)), t0)
     return (out, coef) if with_coef else out
 
 
@@ -217,6 +220,3 @@ def group_norm_plan(dtype: torch.dtype, b: int, s: int, c: int, groups: int) -> 
                  "lns_group_norm_plan")
     return dict(zip(("cluster", "blocks", "smem_bytes", "max_active_clusters", "rows_per_block",
                      "chunks"), res))
-
-
-fused_group_norm_swish.launches = 0

@@ -38,6 +38,7 @@ from dataclasses import dataclass
 import torch
 
 from lns_tpu_torch.kernels import _build
+from lns_tpu_torch.utils import profiling
 
 C, H, W, L, I = 64, 32, 32, 32, 32
 # the TPU probe's inputs, all bf16
@@ -227,6 +228,7 @@ def dot_general(a, b, contract, batch=((), ()), out_dtype=f32, epilogue=None):
     ``"moments"``). Operands of rank <= 3, one contracting dim, at most one
     batch dim, any strides. A CPU tensor takes the plain version; a CUDA
     tensor launches the kernel on the current stream or raises."""
+    t0 = profiling.clock()
     if not _build.on_cuda(a, "dot_general", b):
         return dot_general_plain(a, b, contract, batch, out_dtype, epilogue)
     if b.device != a.device:
@@ -245,13 +247,12 @@ def dot_general(a, b, contract, batch=((), ()), out_dtype=f32, epilogue=None):
                              a.data_ptr(), b.data_ptr(), out.data_ptr(), feeds, plan,
                              torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(rc, "dot_general (lns_dot_general)")
-    dot_general.launches += 1
     dot_general.feeds = (FEEDS[feeds[0]], FEEDS[feeds[1]])
     dot_general.plan = {"tile": f"{plan[0]}x{plan[1]}", "blocks": plan[2], "cluster": plan[3]}
+    profiling.launched("mosaic_dots.dot_general", 0, t0)
     return out
 
 
-dot_general.launches = 0
 dot_general.feeds = None
 dot_general.plan = None  # {"tile": "rows x columns", "blocks": n, "cluster": n} of the last launch
 
@@ -305,6 +306,7 @@ def dot_chain(case, u, k2, k3, a3, q, m):
     raises."""
     if case not in CHAINS:
         raise ValueError(f"dot_chain: a chain of {CHAINS}, got {case!r}")
+    t0 = profiling.clock()
     if not _build.on_cuda(u, "dot_chain", k2, k3, a3, q, m):
         return dot_chain_plain(case, u, k2, k3, a3, q, m)
     args = {"u": u, "k2": k2, "k3": k3, "a3": a3, "q": q, "m": m}
@@ -318,18 +320,17 @@ def dot_chain(case, u, k2, k3, a3, q, m):
         raise ValueError(f"dot_chain: {case} {str(u.dtype)[6:]} at u {list(u.shape)} needs "
                          f"{msg.decode()}")
     _build.check_shapes("dot_chain", u.device, {k: (t, SHAPES[k]) for k, t in args.items()})
-    u, k2, k3, q, m = (_build.ready(t, u.dtype) for t in (u, k2, k3, q, m))
+    given = u, k2, k3, q, m
+    u, k2, k3, q, m = (_build.ready(t, u.dtype) for t in given)
     spec = CASES[case]
     out = torch.empty(spec.out_shape, device=u.device, dtype=spec.out_dtype)
     rc = lib.lns_dot_chain(CHAINS.index(case), u.data_ptr(), k2.data_ptr(), k3.data_ptr(),
                            q.data_ptr(), m.data_ptr(), out.data_ptr(),
                            torch.cuda.current_stream(u.device).cuda_stream)
     _build.check(rc, f"dot_chain {case} (lns_dot_chain)")
-    dot_chain.launches += 1
+    profiling.launched("mosaic_dots.dot_chain", _build.copy_bytes(*zip(given, (u, k2, k3, q, m))),
+                       t0)
     return out
-
-
-dot_chain.launches = 0
 
 
 def run_case(key, x: dict, plain: bool = False):

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from lns_tpu_torch.kernels import _build
+from lns_tpu_torch.utils import profiling
 
 _WRAP = {  # padding mode -> (wrap rows, wrap columns)
     "circular": (1, 1),
@@ -145,6 +146,7 @@ def fused_rollout(z0, packed: PackedSimpleCNN, steps: int, n_block: int,
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     on the current stream or raises."""
+    t0 = profiling.clock()
     if not _build.on_cuda(z0, "fused_rollout", *packed):
         return fused_rollout_plain(z0, packed, steps, n_block, dilation, padding_mode, groups)
     if padding_mode not in _WRAP:
@@ -177,6 +179,7 @@ def fused_rollout(z0, packed: PackedSimpleCNN, steps: int, n_block: int,
     # bf16 reads z0 and the weights as 16-byte vectors
     z, *weights = (t if t.data_ptr() % 16 == 0 else t.clone()
                    for t in (z0.to(dt).contiguous(), *packed))
+    copies = _build.copy_bytes((z0, z), *zip(packed, weights))
     out = torch.empty((steps, b, h, w, c_lat), device=z0.device, dtype=dt)
     ws_bytes = lib.lns_prop_rollout_workspace(_build.DTYPE_CODE[dt], b, h, w, c_lat, c)
     ws = torch.empty(ws_bytes, dtype=torch.uint8, device=z0.device) if ws_bytes else None
@@ -186,7 +189,7 @@ def fused_rollout(z0, packed: PackedSimpleCNN, steps: int, n_block: int,
         None if ws is None else ws.data_ptr(), b, h, w, c_lat, c, n_block, dilation, wrap_y,
         wrap_x, groups, steps, torch.cuda.current_stream(z0.device).cuda_stream)
     _build.check(rc, f"lns_prop_rollout(H*W={h * w}, C={c}, C_lat={c_lat}, groups={groups})")
-    fused_rollout.launches += 1
+    profiling.launched("prop_rollout.fused_rollout", ws_bytes + copies, t0)
     return out
 
 
@@ -200,6 +203,3 @@ def rollout_plan(b: int, h: int, w: int, c_lat: int, c: int, groups: int = 32) -
                  "lns_prop_rollout_plan")
     return dict(zip(("cluster", "blocks", "smem_bytes", "max_active_clusters", "tiles_per_warp"),
                     res))
-
-
-fused_rollout.launches = 0

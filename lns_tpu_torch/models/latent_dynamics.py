@@ -8,7 +8,15 @@ does; it runs the module step, never the fused rollout kernel, and on the
 card its GroupNorms launch kernel 3 through its autograd Function.
 
 ``predict`` encodes once, runs every propagator step, then decodes the
-(batch x steps) latents in chunks. On a CUDA device the steps run as one
+(batch x steps) latents in chunks. While spans record
+(``utils.profiling``: under a ``torch.profiler`` or ``recording()``) it
+opens one at each layer boundary: ``lns.predict`` (the root: batch, steps,
+to_x, decode_chunk, and every counter's change over the predict) over
+``lns.encode`` (frames), ``lns.propagate`` (the cast of the carry, and
+``lns.pack`` and ``lns.rollout`` (steps, path "kernel" or "loop") inside
+it, the transpose) and one ``lns.decode`` (frames; its ``nth`` the chunk's
+index) per decode call. ``predict_latents`` called alone is a predict of
+its own. On a CUDA device the steps run as one
 launch of the rollout kernel (``kernels.prop_rollout``); with
 ``use_kernels(False)`` every kernel of the model is replaced by its plain
 PyTorch version, on any device. Parameters live under ``vq_ae`` and
@@ -38,6 +46,7 @@ from lns_tpu_torch.kernels.prop_rollout import fused_rollout, pack_simple_cnn
 from lns_tpu_torch.models.autoencoder import SimpleAutoencoder
 from lns_tpu_torch.models.propagator import build_propagator
 from lns_tpu_torch.ops.losses import smooth_l1_loss
+from lns_tpu_torch.utils import profiling
 
 
 class LatentDynamics(nn.Module):
@@ -77,10 +86,12 @@ class LatentDynamics(nn.Module):
         return self
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
-        return self.autoencoder.encode(x)
+        with profiling.span("lns.encode", frames=x.shape[0]):
+            return self.autoencoder.encode(x)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
-        return self.autoencoder.decode(z)
+        with profiling.span("lns.decode", frames=z.shape[0]):
+            return self.autoencoder.decode(z)
 
     def conditioning(self, cond: Optional[torch.Tensor]):
         """What a conditional propagator's steps share (``CondSimpleCNN.
@@ -132,30 +143,41 @@ class LatentDynamics(nn.Module):
         """Encode once, roll the propagator `steps` times:
         x [b, H, W, c] -> [b, steps, h, w, latent_dim]; cond [b] for a
         conditional model."""
+        with profiling.span("lns.predict", root=True, batch=x.shape[0], steps=steps,
+                            to_x=False, decode_chunk=None):
+            return self._latents(x, steps, cond)
+
+    def _latents(self, x: torch.Tensor, steps: int, cond: Optional[torch.Tensor]) -> torch.Tensor:
+        """``predict_latents`` inside a predict's span."""
         shared = self.conditioning(cond)
         z = self.encode(x)
-        if self.dtype is not None:
-            z = z.to(self.dtype)  # the carry is in the propagator's dtype
-        # a conditional propagator steps as modules: kernel 1 computes the
-        # SimpleCNN and has no FiLM terms, and the JAX package takes its
-        # Pallas rollout for no conditional propagator either
-        # (lns_tpu/models/latent_dynamics.py: _pallas_rollout_ok)
-        if self.use_kernel and not self.conditional:
-            # every padding mode, zeros too: the JAX package takes its XLA
-            # scan in zeros mode because its Pallas rollout measured slower
-            # on a TPU (lns_tpu/models/latent_dynamics.py: _pallas_rollout_ok);
-            # on an H100 kernel 1 runs the two-phase rollout (B8 x 78 steps
-            # at 7x15) in about 13 ms against 220-280 ms for the plain step
-            # loop (chip_smoke.py; PERF.md's kernel table)
-            p = self.propagator
-            packed = pack_simple_cnn(p, self.dtype or torch.float32)
-            zs = fused_rollout(z, packed, steps, p.prop_n_block, p.dilation, p.padding_mode)
-            return zs.transpose(0, 1)
-        zs = []
-        for _ in range(steps):
-            z = self._step(z, shared)
-            zs.append(z)
-        return torch.stack(zs, dim=1)
+        with profiling.span("lns.propagate", steps=steps):
+            if self.dtype is not None:
+                z = z.to(self.dtype)  # the carry is in the propagator's dtype
+            # a conditional propagator steps as modules: kernel 1 computes the
+            # SimpleCNN and has no FiLM terms, and the JAX package takes its
+            # Pallas rollout for no conditional propagator either
+            # (lns_tpu/models/latent_dynamics.py: _pallas_rollout_ok)
+            if self.use_kernel and not self.conditional:
+                # every padding mode, zeros too: the JAX package takes its XLA
+                # scan in zeros mode because its Pallas rollout measured slower
+                # on a TPU (lns_tpu/models/latent_dynamics.py: _pallas_rollout_ok);
+                # on an H100 kernel 1 runs the two-phase rollout (B8 x 78 steps
+                # at 7x15) in about 13 ms against 220-280 ms for the plain step
+                # loop (chip_smoke.py; PERF.md's kernel table)
+                p = self.propagator
+                with profiling.span("lns.pack"):
+                    packed = pack_simple_cnn(p, self.dtype or torch.float32)
+                with profiling.span("lns.rollout", steps=steps, path="kernel"):
+                    zs = fused_rollout(z, packed, steps, p.prop_n_block, p.dilation,
+                                       p.padding_mode)
+                return zs.transpose(0, 1)
+            zs = []
+            with profiling.span("lns.rollout", steps=steps, path="loop"):
+                for _ in range(steps):
+                    z = self._step(z, shared)
+                    zs.append(z)
+            return torch.stack(zs, dim=1)
 
     @torch.no_grad()
     def predict(self, x: torch.Tensor, steps: int, cond: Optional[torch.Tensor] = None,
@@ -167,16 +189,18 @@ class LatentDynamics(nn.Module):
         The b * steps latents are decoded `decode_chunk` frames at a time
         (all at once when None); the last chunk is zero-padded to full size,
         as the JAX package does, so every chunk has one shape."""
-        zs = self.predict_latents(x, steps, cond)
-        if not to_x:
-            return zs
-        b, t = zs.shape[:2]
-        zflat = zs.reshape((b * t,) + zs.shape[2:])
-        if decode_chunk is None:
-            y = self.decode(zflat)
-        else:
-            n = b * t
-            pad = (-n) % decode_chunk
-            zpad = F.pad(zflat, (0, 0) * (zflat.dim() - 1) + (0, pad))
-            y = torch.cat([self.decode(c) for c in zpad.split(decode_chunk)])[:n]
-        return y.reshape((b, t) + y.shape[1:])
+        with profiling.span("lns.predict", root=True, batch=x.shape[0], steps=steps,
+                            to_x=to_x, decode_chunk=decode_chunk):
+            zs = self._latents(x, steps, cond)
+            if not to_x:
+                return zs
+            b, t = zs.shape[:2]
+            zflat = zs.reshape((b * t,) + zs.shape[2:])
+            if decode_chunk is None:
+                y = self.decode(zflat)
+            else:
+                n = b * t
+                pad = (-n) % decode_chunk
+                zpad = F.pad(zflat, (0, 0) * (zflat.dim() - 1) + (0, pad))
+                y = torch.cat([self.decode(c) for c in zpad.split(decode_chunk)])[:n]
+            return y.reshape((b, t) + y.shape[1:])

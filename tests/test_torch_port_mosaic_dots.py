@@ -58,6 +58,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from lns_tpu_torch.kernels import _build, mosaic_dots, probe_dots
+from lns_tpu_torch.utils import profiling
 
 ROOT = Path(__file__).resolve().parent.parent
 BF16_SHARE = 0.01
@@ -322,14 +323,15 @@ def test_wrappers_refuse_beyond_their_limit(kernel, monkeypatch):
     fn = getattr(mosaic_dots, kernel)
     call = {"dot_general": lambda: fn(x["u"], x["k2"], ((2,), (1,))),
             "dot_chain": lambda: fn("apply_chain", *x.values())}[kernel]
-    before = fn.launches
+    key = f"mosaic_dots.{kernel}.launches"
+    before = profiling.counters().get(key, 0)
     monkeypatch.setattr(_build, "library", lambda: _Library(b"C 64 (the probe's shape)"))
     with pytest.raises(ValueError, match=r"C 64 \(the probe's shape\)"):
         call()
     monkeypatch.setattr(_build, "library", lambda: _Library(None))
     with pytest.raises(_Launched):
         call()
-    assert fn.launches == before
+    assert profiling.counters().get(key, 0) == before
     if kernel == "dot_general":
         for bad in (lambda: fn(torch.ones(2, 2, 2, 2), x["k2"], ((3,), (1,))),
                     lambda: fn(x["u"], x["u"], ((0, 1), (0, 1))),
