@@ -238,6 +238,7 @@ SW_BATCH, SW_STEPS = 8, 42
 # the two-phase predict (path 4): batch 8 x 78 steps, the 624 frames decoded
 # at once (benchmarks/run_benchmarks.py:89, 113-116)
 TP_BATCH, TP_STEPS = 8, 78
+LATENTS_BATCH = 256  # NS2d's ensemble screened in latent space: kernel 1's sample plan
 REPS = 3  # timed predicts per path and round (two rounds per path)
 _FAILS: list = []
 
@@ -314,10 +315,12 @@ def _nbytes(*tensors):
 # the redesigned kernels' bf16 entry points, by a piece of their SASS names
 # (kernels 4 and 5: axial_tc<bf16, rows first> and <bf16, columns first>;
 # kernel 2: the statistics pass with both axial applies and the Gram, the
-# output pass with bb . m; the probe's FAB passes; dot_general's bf16
+# output pass with bb . m; kernel 1's sample plan on wgmma; the probe's FAB
+# passes; dot_general's bf16
 # kernel, each of its block tiles, and the chains whose products include
 # bf16 ones)
 TENSOR_CORE_KERNELS = {"prop_rollout": ("rollout_bf16",),
+                       "prop_rollout_samples": ("rollout_bf16_kernel_samples",),
                        "fab_core": ("fab_bb_stats_bf16", "fab_out_bf16"),
                        "fab_axial_in_fused": ("axial_tcI13__nv_bfloat16Lb1",),
                        "axial_kernel_apply_headmajor": ("axial_tcI13__nv_bfloat16Lb0",),
@@ -327,12 +330,13 @@ TENSOR_CORE_KERNELS = {"prop_rollout": ("rollout_bf16",),
                        "mosaic_dots": ("dot_general_bf16",
                                        *(f"dot_chain_kernelILi{c}E" for c in (0, 1, 2, 3, 4, 6)))}
 # the kernels whose products must run on wgmma (HGMMA; HMMA alone fails)
-WGMMA_KERNELS = ("fab_core", "fab_mega_stats", "fab_mega_apply")
+WGMMA_KERNELS = ("prop_rollout_samples", "fab_core", "fab_mega_stats", "fab_mega_apply")
 # the kernels that must copy by TMA bulk copies (UBLKCP in their SASS), and
 # the sources whose wgmma kernels ptxas must not serialize (its notes C7514,
 # C7515, C7520 naming one of them fail)
 BULK_COPY_KERNELS = ("blocked_copy_bulk",)
-UNSERIALIZED_WGMMA = {"fab_mega.cu": ("fab_mega_stats_wgmma", "fab_mega_apply_wgmma")}
+UNSERIALIZED_WGMMA = {"fab_mega.cu": ("fab_mega_stats_wgmma", "fab_mega_apply_wgmma"),
+                      "prop_rollout.cu": ("rollout_bf16_kernel_samples",)}
 # the f32 instantiations whose products must stay in full f32 on the CUDA
 # cores: FFMA, and no HMMA or HGMMA (which would mean TF32)
 CUDA_CORE_KERNELS = {"mosaic_dots": ("dot_general_f32", "dot_chain_kernelILi5E")}
@@ -488,6 +492,7 @@ def check_rollout(dev, gen, calls, tp_prop):
            f"{plan['max_active_clusters']} such clusters at once")
     err, ms, plain_ms, bound = _path_rollout("main path", z0, packed, STEPS, 3, 2, "circular")
     errs.append(err)
+    errs += check_rollout_sample_plan(dev, gen, packed_for)
 
     # SW's call (path 3): bf16, B8 x 42 steps at 12x24, C_lat 64, C 128, 4
     # residual blocks, dilation 3, half_periodic_x
@@ -532,6 +537,29 @@ def check_rollout(dev, gen, calls, tp_prop):
             "plain_ms": plain_ms * calls + sw_plain_ms + tp_plain_ms,
             "bound_ms": bound.ms * calls + sw_bound.ms + tp_bound.ms,
             "bound_by": bound.result()["bound_by"], "library_ms": None}
+
+
+def check_rollout_sample_plan(dev, gen, packed_for):
+    """Kernel 1's sample plan (a block per two samples, wgmma, weights
+    multicast to a cluster): the plan the C side reports at NS2d's B256
+    (samples) against B32 and SW's B8 (clusters); NS2d's B256 x 29 steps
+    circular, and B256 x 4 steps in zeros, half_periodic_x and
+    half_periodic_y, each step from the kernel's own carry against a plain
+    step at kernel 1's bound, two runs bitwise equal. Returns the errors."""
+    from lns_tpu_torch.kernels.prop_rollout import rollout_plan
+
+    for b, h, w, c_lat, want in ((LATENTS_BATCH, 8, 8, 16, "samples"), (BATCH, 8, 8, 16, "cluster"),
+                                 (SW_BATCH, 12, 24, 64, "cluster")):
+        plan = rollout_plan(b, h, w, c_lat, 128)
+        _check(plan["plan"] == want, f"prop_rollout bf16 B{b} {h}x{w} C_lat {c_lat} C128 takes the "
+                                     f"{want} plan: {plan}")
+    errs = []
+    for steps, pm in ((STEPS, "circular"), (4, "zeros"), (4, "half_periodic_x"),
+                      (4, "half_periodic_y")):
+        packed = packed_for(16, 128, torch.bfloat16)
+        z0 = torch.randn(LATENTS_BATCH, 8, 8, 16, generator=gen).to(dev)
+        errs.append(_path_rollout(f"sample plan, {pm}", z0, packed, steps, 3, 2, pm)[0])
+    return errs
 
 
 def _path_rollout(tag, z0, packed, steps, n_block, dil, pm):

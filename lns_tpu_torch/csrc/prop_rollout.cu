@@ -11,14 +11,58 @@
 //
 // What bounds it on an H100: tensor-core arithmetic in principle (~183
 // MFLOP per sample-step at NS2d's 8x8 latent, C 128: 0.17 ms for B32 x 29
-// steps at 989 TFLOP/s; the bytes, z0, the outputs and the weights once,
-// take ~1.4 us). In practice latency: every op of a step needs the whole
+// steps, 1.37 ms for B256 x 29, at 989 TFLOP/s; the bytes, z0, the outputs
+// and the weights once, take ~1.4 us). Every op of a step needs the whole
 // previous op of the same sample (GN statistics, 3x3 taps), so a sample's
-// work is a chain of ~20 small products per step, and the batch alone
-// (32 samples) cannot fill 132 SMs.
+// work is a chain of ~20 small products per step. Two bf16 plans, each its
+// own kernel body (they share Geo / tap_row, gelu and the rounding
+// helpers; their GN is the same arithmetic), chosen by the launcher from
+// the shape (uses_samples):
 //
-// bf16 design (rollout_bf16_kernel): one thread-block cluster of CL blocks
-// per sample (CL = 8 for B <= 8 and C a multiple of 128, else 4 for C a
+//  - the cluster plan (rollout_bf16_kernel) for a batch the card holds in
+//    one wave: too few samples to fill 132 SMs, so each sample's chain is
+//    split across a cluster of blocks; bound by the chain's latency
+//    (barriers, exchanges, the weight stream per block), not arithmetic;
+//  - the sample plan (rollout_bf16_kernel_samples) for a batch larger than
+//    the clusters the cluster plan holds at once (B256 at NS2d: 8 waves of
+//    the cluster plan): blocks own whole samples and share one weight
+//    stream, the whole batch in one wave; bound in principle by the
+//    tensor cores' rate and the weights' L2 traffic (multicast halves it),
+//    on the H100 at about a third of that bound, held by each warpgroup's
+//    chain of dependent products and its epilogues' latency (PERF.md).
+//
+// The rule (uses_samples): the sample plan where the shape fits it (C 128,
+// H W <= 64, C_lat 16: NS2d's latent) and B is more than
+// cudaOccupancyMaxActiveClusters of the cluster plan's launch (asked once
+// per device and shape); else the cluster plan.
+//
+// Sample-plan design (rollout_bf16_kernel_samples): a block of three
+// warpgroups owns kSampWGs = 2 samples, one per consumer warpgroup, and
+// computes all C output channels of every layer: each product is one m64 x
+// C tile (M = H W <= 64 rows of the sample, the rows past H W reading the
+// zero row and never stored) on wgmma with A from registers and B, a C x C
+// weight matrix (one 3x3 tap, or an FFN matrix) in shared memory: K = C in
+// 8 m64n128k16 steps. A 3x3 tap's A fragments are gathered with ldmatrix
+// as in the cluster plan (tap_row per lane); the FFN's intermediate and
+// the norms' outputs stay in registers in the accumulators' layout, which
+// is also the A fragments' (a product's output is the next product's A as
+// it stands); the convs' inputs go through shared memory (F, one buffer
+// per sample, written in place once a warpgroup's reads are done), and so
+// does the residual stream h, each thread touching only its own values.
+// GN(1) and GN(groups) reduce over a sample inside its warpgroup (shuffles,
+// partials in shared memory, named barriers): no cluster barrier and no
+// exchange of activations. The weights stream once per step for every
+// sample of a cluster of kSampCluster blocks: one thread of the producer
+// warpgroup keeps a ring of C x C chunks (32 KB each: C rows x 2 x 64
+// columns, MN-major, 128-byte swizzle) full by TMA, each chunk loaded by
+// one block and multicast to every block of the cluster; each consumer
+// warp releases a stage in every block of the cluster (mbarriers). in_w
+// and out_w (out_w padded to 64 columns) stay in shared memory for the
+// whole launch. NS2d B256: 128 blocks of 224,992 bytes (a ring of 4), one
+// wave, 87 chunks (2.85 MB) a step per cluster.
+//
+// Cluster-plan design (rollout_bf16_kernel): one thread-block cluster of CL
+// blocks per sample (CL = 8 for B <= 8 and C a multiple of 128, else 4 for C a
 // multiple of 64, else 2: 128 blocks at NS2d's B32). Block r owns output
 // channels [r C/CL, (r+1) C/CL) of every layer but the last. Each product is
 // an implicit GEMM on tensor cores (mma.sync m16n8k16, bf16 in, f32
@@ -83,7 +127,7 @@
 // group) owns one output channel for a run of positions and keeps their
 // accumulators in registers.
 //
-// Rounding (both): products accumulate in f32 and are rounded to the
+// Rounding (every kernel): products accumulate in f32 and are rounded to the
 // activation dtype, then the bias (rounded the same way) is added and the
 // sum rounded; GELU is computed in f32 and rounded; residual adds are
 // rounded; GN statistics are f32 single-pass with the variance clamped at 0.
@@ -92,8 +136,11 @@
 
 #include <algorithm>
 #include <cstdio>
+#include <mutex>
+#include <vector>
 
 #include "common.cuh"
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -829,6 +876,461 @@ __global__ void __launch_bounds__(kBfThreads, NT <= 2 ? 2 : 1) rollout_bf16_kern
   lns::cp_async_wait<0>();
 }
 
+// ---------------------------------------------------------------------------
+// bf16, the sample plan: a block owns whole samples; a cluster of blocks
+// shares one weight stream (TMA multicast); products on wgmma.
+
+constexpr int kSampWGs = 2;                         // consumer warpgroups = samples per block
+constexpr int kSampThreads = 128 * (kSampWGs + 1);  // and one producer warpgroup
+constexpr int kSampC = 128;                         // the C it is built for: N of m64n128k16
+constexpr int kSampRows = 64;                       // a sample is one m64 tile: H W <= 64
+constexpr int kSampLat = 16;                        // C_lat: K of the in-projection's one k16
+                                                    // step, the carry one A fragment
+constexpr int kSampLdf = kSampC + 8;                // row stride (elements) of the conv input F
+constexpr int kSampCluster = 2;                     // blocks sharing one weight stream
+constexpr int kSampMaxRing = 6;                     // ring stages at most
+constexpr int kChunk = kSampC * kSampC * 2;         // bytes of a C x C matrix (a 3x3 tap or
+constexpr int kHalf = kChunk / 2;                   // an FFN matrix): two 64-column halves
+constexpr int kChunksPerBlock = 29;                 // 3 x 9 conv taps and 2 FFN matrices
+// a warpgroup's GroupNorm scratch (floats): GN(1) partials [2][4 warps][2]
+// (double-buffered), GN(groups)'s per-column (mean, inv) [C][2]
+constexpr int kGnFloats = 2 * 4 * 2 + kSampC * 2;
+
+// The sample plan's shared memory, byte offsets from the first 1024-byte
+// boundary: the ring [ring][2 halves][C rows][64] (MN-major B operands,
+// 128-byte swizzle, as TMA writes them), out_w [C rows][64] (columns past
+// C_lat zero), in_w [2 halves][C_lat rows][64], then per sample F [P+1][C+8]
+// (row P zero) and h [64][C+8], per warpgroup the GN scratch, the barriers
+// full[ring], empty[ring].
+struct SampPlan {
+  int cl, ring;  // blocks per cluster, ring stages
+  int off_out, off_in, off_f, off_h, off_gn, off_bar;
+  int smem;      // bytes per block, with the alignment's slack
+};
+
+SampPlan make_samp_plan(int P) {
+  SampPlan s;
+  s.cl = kSampCluster;
+  const int fixed = kSampC * 128 + 2 * kSampLat * 128 + kSampWGs * (P + 1) * kSampLdf * 2 +
+                    kSampWGs * kSampRows * kSampLdf * 2 + kSampWGs * kGnFloats * 4;
+  s.ring = std::min(kSampMaxRing, (static_cast<int>(lns::kMaxDynamicSmem) - 1024 - fixed -
+                                   16 * kSampMaxRing) / kChunk);
+  s.off_out = s.ring * kChunk;
+  s.off_in = s.off_out + kSampC * 128;
+  s.off_f = s.off_in + 2 * kSampLat * 128;
+  s.off_h = s.off_f + kSampWGs * (P + 1) * kSampLdf * 2;
+  s.off_gn = s.off_h + kSampWGs * kSampRows * kSampLdf * 2;
+  s.off_bar = s.off_gn + kSampWGs * kGnFloats * 4;
+  s.smem = 1024 + s.off_bar + 16 * s.ring;
+  return s;
+}
+
+// Blocks of a sample-plan launch: B / kSampWGs, whole clusters.
+int samp_blocks(int B, int cl) {
+  const int blocks = (B + kSampWGs - 1) / kSampWGs;
+  return (blocks + cl - 1) / cl * cl;
+}
+
+// Values of a warpgroup's m64 x C tile are handled in pairs, as the wgmma
+// accumulators hold them: pair p (< 32) of thread (warp q, lane 4 g + u) is
+// row r0 + 8 (p % 2) (r0 = 16 q + g), columns 64 (p / 16) + 8 ((p % 16) / 2)
+// + 2 u and the next, accumulators acc[2 p] and acc[2 p + 1]. A
+// Frag holds 32 pairs as packed bf16, pair p at [p / 4][p % 4]: the four
+// pairs of [k] are the A fragment of columns 16 k .. 16 k + 15 (wgmma with
+// A from registers), so a product's output is the next product's A as it
+// stands. The residual stream h lives in shared memory ([64 rows][C + 8]
+// per sample, rows past H W zero) in the same places, and each thread reads
+// and writes only its own pairs there (hword), so h needs no barrier.
+using Frag = uint32_t[8][4];
+
+struct Lane {
+  int lane, q, u, r0;
+  int ay, ax;  // (y, x) of the row this lane addresses for ldmatrix (16 q + lane % 16);
+               // ay < 0 past H W
+};
+
+__device__ __forceinline__ int pair_row(const Lane& L, int p) { return L.r0 + 8 * (p & 1); }
+__device__ __forceinline__ int pair_col(const Lane& L, int p) {
+  return 64 * (p >> 4) + 8 * ((p & 15) >> 1) + 2 * L.u;
+}
+// pair p of this thread in a sample's [rows][C + 8] buffer (h or F)
+__device__ __forceinline__ uint32_t& hword(bf16* hs, const Lane& L, int p) {
+  return *reinterpret_cast<uint32_t*>(hs + pair_row(L, p) * kSampLdf + pair_col(L, p));
+}
+__device__ __forceinline__ float2 unpack2(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+// columns c, c + 1 of an f32 bias, each rounded to bf16
+__device__ __forceinline__ float2 bias2(const float* b, int c) {
+  const float2 v = __ldg(reinterpret_cast<const float2*>(b + c));
+  return make_float2(rnd<bf16>(v.x), rnd<bf16>(v.y));
+}
+
+// The weight stream: chunk f (in the order the consumers take them) lies in
+// stage f % depth.
+struct Ring {
+  const uint8_t* base;
+  uint64_t* full;
+  uint64_t* empty;
+  int depth, cl;
+};
+
+// acc += a . W, W the stream's chunk f (K = C in 8 k16 steps, each one
+// m64n128 wgmma over both 64-column halves), A in registers; then the warp
+// releases the chunk's stage in every block of the cluster. Straight-line
+// between the fences, so ptxas keeps the 8 wgmma in flight together.
+__device__ __forceinline__ void chunk_product(float (&acc)[64], const Frag& a, const Ring& r,
+                                              int f, int lane) {
+  const int st = f % r.depth;
+  const uint8_t* slot = r.base + st * kChunk;
+  lns::wgmma_fence_regs(acc);
+  lns::mbar_wait(&r.full[st], (f / r.depth) & 1);
+  lns::wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks)
+    lns::wgmma_n128_rs<1>(acc, a[ks], lns::desc_mnmajor_wide(slot + ks * 2048, kHalf));
+  lns::wgmma_commit();
+  lns::wgmma_wait<0>();
+  lns::wgmma_fence_regs(acc);
+  if (r.cl > 1) {
+    if (lane < r.cl) lns::mbar_arrive_cluster(&r.empty[st], lane);
+  } else if (lane == 0) {
+    lns::mbar_arrive(&r.empty[st]);
+  }
+}
+
+__device__ __forceinline__ void zero(float (&acc)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+}
+
+// acc = the 3x3 conv (dilation dil) of the sample's F, its taps the stream's
+// chunks f .. f + 8: each lane's ldmatrix row is tap_row of its (y, x).
+__device__ void conv_taps(float (&acc)[64], const bf16* F, const Geo& g, int dil, const Lane& L,
+                          const Ring& r, int& f) {
+  zero(acc);
+#pragma unroll 1
+  for (int t = 0; t < 9; ++t, ++f) {
+    const int dy = (t / 3 - 1) * dil, dx = (t % 3 - 1) * dil;
+    const bf16* arow = F + tap_row(g, L.ay, L.ax, dy, dx) * kSampLdf + ((L.lane >> 4) << 3);
+    Frag a;
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) lns::ldsm_x4(a[ks], arow + ks * 16);
+    chunk_product(acc, a, r, f, L.lane);
+  }
+}
+
+// GroupNorm(1)'s (mean, inv) of the sample's residual stream: f32
+// single-pass statistics over its P rows (rows past P hold zeros), the
+// variance clamped at 0; red [4 warps][2].
+__device__ float2 gn1_stats(bf16* hs, float* red, int P, const Lane& L, int bar) {
+  float a = 0.f, q = 0.f;
+#pragma unroll
+  for (int p = 0; p < 32; ++p) {
+    const float2 v = unpack2(hword(hs, L, p));
+    a += v.x;
+    a += v.y;
+    q = fmaf(v.x, v.x, q);
+    q = fmaf(v.y, v.y, q);
+  }
+  warp_sum2(a, q);
+  if (L.lane == 0) {
+    red[2 * L.q] = a;
+    red[2 * L.q + 1] = q;
+  }
+  lns::bar_sync(bar, 128);
+  a = red[0] + red[2] + red[4] + red[6];
+  q = red[1] + red[3] + red[5] + red[7];
+  const float n = static_cast<float>(P) * kSampC, mean = a / n;
+  return make_float2(mean, rsqrtf(fmaxf(q / n - mean * mean, 0.f) + 1e-5f));
+}
+
+// GroupNorm(groups)'s per-column (mean, inv) into cst [C][2] (groups of gs
+// channels: gs divides C / 4 = 32 by bf16_limit, so a group's columns are
+// lanes of one warp): thread wt sums column wt of h over the P rows, then
+// the group's lanes add their sums.
+__device__ void gng_stats(const bf16* hs, float* cst, int P, int gs, int wt, int bar) {
+  lns::bar_sync(bar, 128);  // every thread's h is in place
+  float a = 0.f, q = 0.f;
+  for (int row = 0; row < P; ++row) {
+    const float v = __bfloat162float(hs[row * kSampLdf + wt]);
+    a += v;
+    q = fmaf(v, v, q);
+  }
+  for (int off = 1; off < gs; off <<= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, off);
+    q += __shfl_xor_sync(0xffffffffu, q, off);
+  }
+  const float n = static_cast<float>(P) * gs, mean = a / n;
+  cst[2 * wt] = mean;
+  cst[2 * wt + 1] = rsqrtf(fmaxf(q / n - mean * mean, 0.f) + 1e-6f);
+  lns::bar_sync(bar, 128);
+}
+
+// o = the normalised residual stream, (x - mean) inv scale + bias rounded
+// to bf16, in h's layout: (mean, inv) per column from cst (PER_COL) or mi.
+template <bool PER_COL>
+__device__ __forceinline__ void gn_apply(bf16* hs, Frag& o, float2 mi, const float* cst,
+                                         const float* scale, const float* bias, const Lane& L) {
+#pragma unroll
+  for (int p = 0; p < 32; ++p) {
+    const int c = pair_col(L, p);
+    const float2 v = unpack2(hword(hs, L, p));
+    const float2 s = __ldg(reinterpret_cast<const float2*>(scale + c));
+    const float2 b = __ldg(reinterpret_cast<const float2*>(bias + c));
+    float2 m0 = mi, m1 = mi;
+    if (PER_COL) {
+      m0 = *reinterpret_cast<const float2*>(cst + 2 * c);
+      m1 = *reinterpret_cast<const float2*>(cst + 2 * c + 2);
+    }
+    const float t0 = (v.x - m0.x) * m0.y, t1 = (v.y - m1.x) * m1.y;
+    o[p >> 2][p & 3] = lns::pack_bf16(t0 * s.x + b.x, t1 * s.y + b.y);
+  }
+}
+
+// the pairs of o in rows < P into the sample's F
+__device__ __forceinline__ void store_f(bf16* F, const Frag& o, int P, const Lane& L) {
+#pragma unroll
+  for (int p = 0; p < 32; ++p)
+    if (pair_row(L, p) < P) hword(F, L, p) = o[p >> 2][p & 3];
+}
+
+// o = bf16(gelu(bf16(bf16(acc) + bias))) (bias null: none)
+__device__ __forceinline__ void gelu_pairs(const float (&acc)[64], const float* bias, Frag& o,
+                                           const Lane& L) {
+#pragma unroll
+  for (int p = 0; p < 32; ++p) {
+    const float2 b = bias ? bias2(bias, pair_col(L, p)) : make_float2(0.f, 0.f);
+    float v0 = rnd<bf16>(acc[2 * p]), v1 = rnd<bf16>(acc[2 * p + 1]);
+    if (bias) {
+      v0 = rnd<bf16>(v0 + b.x);
+      v1 = rnd<bf16>(v1 + b.y);
+    }
+    o[p >> 2][p & 3] = lns::pack_bf16(gelu(v0), gelu(v1));
+  }
+}
+
+// h = bf16(bf16(acc) + bias) (ADD: h = bf16(h + that)); rows past P stay zero
+template <bool ADD>
+__device__ __forceinline__ void residual_pairs(const float (&acc)[64], const float* bias,
+                                               bf16* hs, int P, const Lane& L) {
+#pragma unroll
+  for (int p = 0; p < 32; ++p) {
+    const float2 b = bias ? bias2(bias, pair_col(L, p)) : make_float2(0.f, 0.f);
+    float v0 = rnd<bf16>(acc[2 * p]), v1 = rnd<bf16>(acc[2 * p + 1]);
+    if (bias) {
+      v0 = rnd<bf16>(v0 + b.x);
+      v1 = rnd<bf16>(v1 + b.y);
+    }
+    if (ADD) {
+      const float2 old = unpack2(hword(hs, L, p));
+      v0 += old.x;
+      v1 += old.y;
+    }
+    hword(hs, L, p) = pair_row(L, p) < P ? lns::pack_bf16(v0, v1) : 0u;
+  }
+}
+
+// One block runs kSampWGs samples (warpgroup w the sample blockIdx.x *
+// kSampWGs + w; past B it computes on zeros and stores nothing) through
+// every step; warpgroup kSampWGs produces: one thread keeps the ring of
+// weight chunks full, each chunk loaded by TMA once per cluster, by block f
+// % cl, multicast to every block. The consumer warpgroups run each product
+// as one m64 x C wgmma tile (A from registers), the norms and epilogues on
+// their own registers and their sample's shared memory, synchronising only
+// among themselves (named barrier 1 + w); they meet the other warpgroups
+// only at the ring's stages.
+__global__ void __launch_bounds__(kSampThreads, 1)
+rollout_bf16_kernel_samples(const __grid_constant__ CUtensorMap map_conv,
+                            const __grid_constant__ CUtensorMap map_ffn, Params p, SampPlan sp) {
+  extern __shared__ uint8_t smem_raw[];
+  // the first 1024-byte boundary, reached by pointer arithmetic on smem_raw
+  // so that the compiler keeps every access below in the shared window
+  // (LDS / STS with 32-bit addresses, not generic 64-bit ones)
+  uint8_t* base = smem_raw + ((1024 - (lns::smem_addr(smem_raw) & 1023)) & 1023);
+  constexpr int C = kSampC, C_lat = kSampLat;
+  const Geo& g = p.geo;
+  const int P = g.P, tid = threadIdx.x;
+  uint8_t* ring = base;
+  uint8_t* out_s = base + sp.off_out;
+  uint8_t* in_s = base + sp.off_in;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + sp.off_bar);
+  uint64_t* empty = full + sp.ring;
+
+  if (tid == 0) {
+    for (int i = 0; i < sp.ring; ++i) {
+      lns::mbar_init(&full[i], 1);
+      lns::mbar_init(&empty[i], sp.cl * kSampWGs * 4);  // every consumer warp of the cluster
+    }
+    lns::mbar_fence_init();
+  }
+  {  // in_w and out_w into their swizzled layouts; the zero rows of F
+    const bf16* in_w = static_cast<const bf16*>(p.in_w);
+    for (int i = tid; i < C_lat * (C / 8); i += kSampThreads) {
+      const int r = i / (C / 8), c8 = i % (C / 8);
+      uint8_t* d = in_s + (c8 / 8) * C_lat * 128 + r * 128 + (((c8 % 8) ^ (r & 7)) << 4);
+      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(in_w + r * C + 8 * c8);
+    }
+    const bf16* out_w = static_cast<const bf16*>(p.out_w);
+    for (int i = tid; i < C * 8; i += kSampThreads) {
+      const int r = i / 8, c8 = i % 8;
+      *reinterpret_cast<uint4*>(out_s + r * 128 + ((c8 ^ (r & 7)) << 4)) =
+          8 * c8 < C_lat ? *reinterpret_cast<const uint4*>(out_w + r * C_lat + 8 * c8)
+                         : make_uint4(0, 0, 0, 0);
+    }
+    bf16* f0 = reinterpret_cast<bf16*>(base + sp.off_f);
+    for (int i = tid; i < kSampWGs * C / 2; i += kSampThreads) {
+      bf16* zero_row = f0 + ((i / (C / 2)) * (P + 1) + P) * kSampLdf;
+      reinterpret_cast<uint32_t*>(zero_row)[i % (C / 2)] = 0u;
+    }
+    lns::fence_async_shared();  // the weights' stores, visible to wgmma
+  }
+  __syncthreads();
+  if (sp.cl > 1) lns::cluster_sync();  // every block's barriers exist before a multicast lands
+
+  const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (role == kSampWGs) {
+    // producer: the chunks of every step in order, each stage refilled once
+    // every consumer warp of the cluster has released it; its warpgroup
+    // gives registers to the consumers (an SM quadrant holds two consumer
+    // warps and one producer warp: 2 x 224 + 56 of its 512 per lane)
+    lns::setmaxnreg_dec<56>();
+    if (tid == kSampWGs * 128) {
+      const uint32_t rank = sp.cl > 1 ? lns::cluster_rank() : 0;
+      const uint16_t mask = static_cast<uint16_t>((1 << sp.cl) - 1);
+      const int per_step = kChunksPerBlock * p.n_block;
+      int f = 0;
+      for (int step = 0; step < p.steps; ++step)
+        for (int c = 0; c < per_step; ++c, ++f) {
+          const int st = f % sp.ring;
+          if (f >= sp.ring) lns::mbar_wait(&empty[st], ((f / sp.ring) - 1) & 1);
+          lns::mbar_expect_tx(&full[st], kChunk);
+          if (f % sp.cl != static_cast<int>(rank)) continue;  // another block loads this chunk
+          const int i = c / kChunksPerBlock, j = c - kChunksPerBlock * i;
+          const CUtensorMap* map = j < 27 ? &map_conv : &map_ffn;
+          const int c2 = j < 27 ? j % 9 : 2 * i + j - 27, c3 = j < 27 ? 3 * i + j / 9 : 0;
+          for (int hf = 0; hf < 2; ++hf) {
+            uint8_t* dst = ring + st * kChunk + hf * kHalf;
+            if (sp.cl > 1)
+              lns::tma_load_multicast(dst, map, &full[st], 64 * hf, 0, c2, c3, mask);
+            else
+              lns::tma_load(dst, map, &full[st], 64 * hf, 0, c2, c3);
+          }
+        }
+    }
+  } else {
+    lns::setmaxnreg_inc<224>();
+    const int wg = role, wt = tid % 128, bar = 1 + wg;
+    Lane L;
+    L.lane = wt % 32;
+    L.q = wt / 32;
+    L.u = L.lane % 4;
+    L.r0 = 16 * L.q + L.lane / 4;
+    {
+      const int row = 16 * L.q + (L.lane & 15);
+      L.ay = row < P ? row / g.W : -1;
+      L.ax = row < P ? row % g.W : 0;
+    }
+    bf16* F = reinterpret_cast<bf16*>(base + sp.off_f) + wg * (P + 1) * kSampLdf;
+    bf16* hs = reinterpret_cast<bf16*>(base + sp.off_h) + wg * kSampRows * kSampLdf;
+    float* red1 = reinterpret_cast<float*>(base + sp.off_gn) + wg * kGnFloats;  // [2][4][2]
+    float* cst = red1 + 16;                                                     // [C][2]
+    const Ring r{ring, full, empty, sp.ring, sp.cl};
+    const int b = blockIdx.x * kSampWGs + wg;
+    const bool live = b < p.B;
+
+    // z0 as the in-projection's A fragments (rows past P, and samples past B, zero)
+    uint32_t z[4];
+    {
+      const bf16* z0 = static_cast<const bf16*>(p.z0) + static_cast<size_t>(b) * P * C_lat;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = L.r0 + 8 * (e & 1), col = 8 * (e >> 1) + 2 * L.u;
+        z[e] = live && row < P ? *reinterpret_cast<const uint32_t*>(z0 + row * C_lat + col) : 0u;
+      }
+    }
+    bf16* out = static_cast<bf16*>(p.out);
+    const int gs = C / p.groups;
+    int f = 0, n1 = 0;
+    Frag a;
+    float acc[64];
+    for (int step = 0; step < p.steps; ++step) {
+      // h = z @ in_w + in_b
+      zero(acc);
+      lns::wgmma_fence_regs(acc);
+      lns::wgmma_fence();
+      lns::wgmma_n128_rs<1>(acc, z, lns::desc_mnmajor_wide(in_s, C_lat * 128));
+      lns::wgmma_commit();
+      lns::wgmma_wait<0>();
+      lns::wgmma_fence_regs(acc);
+      residual_pairs<false>(acc, p.in_b, hs, P, L);
+
+#pragma unroll 1
+      for (int i = 0; i < p.n_block; ++i) {
+        const float* gs_ = p.gn_s + 2 * i * C;
+        const float* gb_ = p.gn_b + 2 * i * C;
+        const float* cb = p.conv_b + 3 * i * C;
+        // t = GN1(h) into F; the barrier in gn1_stats ends the last conv's reads of F
+        float2 mi = gn1_stats(hs, red1 + 8 * (n1++ & 1), P, L, bar);
+        gn_apply<false>(hs, a, mi, nullptr, gs_, gb_, L);
+        store_f(F, a, P, L);
+        lns::bar_sync(bar, 128);
+        // t = gelu(conv3(t)); t = gelu(conv3_dil(t)), each in place in F
+#pragma unroll 1
+        for (int j = 0; j < 2; ++j) {
+          conv_taps(acc, F, g, j ? p.dilation : 1, L, r, f);
+          gelu_pairs(acc, cb + j * C, a, L);
+          lns::bar_sync(bar, 128);  // every warp's reads of F are done
+          store_f(F, a, P, L);
+          lns::bar_sync(bar, 128);
+        }
+        // h = h + conv3(t)
+        conv_taps(acc, F, g, 1, L, r, f);
+        residual_pairs<true>(acc, cb + 2 * C, hs, P, L);
+        // h = h + gelu(GN1(h) @ ffn0) @ ffn1, all in registers
+        mi = gn1_stats(hs, red1 + 8 * (n1++ & 1), P, L, bar);
+        gn_apply<false>(hs, a, mi, nullptr, gs_ + C, gb_ + C, L);
+        zero(acc);
+        chunk_product(acc, a, r, f++, L.lane);
+        gelu_pairs(acc, nullptr, a, L);
+        zero(acc);
+        chunk_product(acc, a, r, f++, L.lane);
+        residual_pairs<true>(acc, nullptr, hs, P, L);
+      }
+      // z = GN(groups)(h) @ out_w + out_b (out_w padded to 64 columns)
+      gng_stats(hs, cst, P, gs, wt, bar);
+      gn_apply<true>(hs, a, make_float2(0.f, 0.f), cst, p.out_gn_s, p.out_gn_b, L);
+      float az[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) az[i] = 0.f;
+      lns::wgmma_fence_regs(az);
+      lns::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 8; ++ks)
+        lns::wgmma_n64_rs<1>(az, a[ks], lns::desc_mnmajor(out_s + ks * 2048));
+      lns::wgmma_commit();
+      lns::wgmma_wait<0>();
+      lns::wgmma_fence_regs(az);
+      bf16* o = out + (static_cast<size_t>(step) * p.B + b) * P * C_lat;
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {  // the n8 column blocks of C_lat
+        const int c = 8 * k + 2 * L.u;
+        const float2 bz = bias2(p.out_b, c);
+#pragma unroll
+        for (int rh = 0; rh < 2; ++rh) {
+          const int row = L.r0 + 8 * rh;
+          const float v0 = rnd<bf16>(rnd<bf16>(az[4 * k + 2 * rh]) + bz.x);
+          const float v1 = rnd<bf16>(rnd<bf16>(az[4 * k + 2 * rh + 1]) + bz.y);
+          const uint32_t v = row < P ? lns::pack_bf16(v0, v1) : 0u;
+          z[2 * k + rh] = v;
+          if (live && row < P) *reinterpret_cast<uint32_t*>(o + row * C_lat + c) = v;
+        }
+      }
+    }
+  }
+  if (sp.cl > 1) lns::cluster_sync();  // no block leaves while its cluster may reach it
+}
+
 // Blocks per sample: 8 while B x 8 blocks fill at most half the SMs, else
 // 4, else 2; C / CL must be a multiple of 16. (On the H100, 8 beat 4 by
 // ~10 % at NS2d's and ~30 % at SW's latent for B <= 8, and lost at B16,
@@ -875,6 +1377,19 @@ const char* bf16_limit(int B, int H, int W, int C_lat, int C, int groups) {
     return nullptr;
   }
   return msg;
+}
+
+cudaError_t cluster_plan_at_once(int B, int H, int W, int C_lat, int C, int* n);
+
+// The rule that chooses the bf16 plan, stated once: the sample plan where
+// the shape fits it (C 128, the N of one m64n128k16 wgmma; H W <= 64, one
+// m64 tile a sample; C_lat 16, NS2d's) and the batch is more than the
+// clusters the cluster plan holds at once (its launch would take more than
+// one wave); else the cluster plan. Shapes outside bf16_limit take neither.
+bool uses_samples(int B, int H, int W, int C_lat, int C) {
+  int n = 0;
+  return C == kSampC && H * W <= kSampRows && C_lat == kSampLat &&
+         cluster_plan_at_once(B, H, W, C_lat, C, &n) == cudaSuccess && B > n;
 }
 
 cudaLaunchConfig_t bf16_config(int blocks, int cl, int smem, cudaStream_t stream,
@@ -929,42 +1444,109 @@ Params shape_params(int B, int H, int W, int C_lat, int C) {
   return prm;
 }
 
+// Clusters of the cluster plan's launch at this shape that the card holds at
+// once (cudaOccupancyMaxActiveClusters), asked once per device and shape.
+cudaError_t cluster_plan_at_once(int B, int H, int W, int C_lat, int C, int* n) {
+  struct Seen {
+    int dev, P, C_lat, C, cl, n;
+  };
+  static std::mutex mu;
+  static std::vector<Seen> seen;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const Params prm = shape_params(B, H, W, C_lat, C);
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Seen& s : seen)
+    if (s.dev == dev && s.P == H * W && s.C_lat == C_lat && s.C == C && s.cl == prm.cl) {
+      *n = s.n;
+      return cudaSuccess;
+    }
+  e = dispatch_bf16(prm, nullptr, n);
+  if (e == cudaSuccess) seen.push_back({dev, H * W, C_lat, C, prm.cl, *n});
+  return e;
+}
+
+// Launch the sample-plan kernel on `stream` (n null), or count the clusters
+// of this launch the card holds at once (into n). The weights stream
+// through two tensor maps: conv_w as [3 n_block convs][9 taps][C in][C
+// out], ffn_w as [2 n_block][C][C], boxes of C rows x 64 output columns.
+cudaError_t run_samples(const Params& prm, cudaStream_t stream, int* n) {
+  const SampPlan sp = make_samp_plan(prm.geo.P);
+  cudaError_t e = lns::allow_smem(rollout_bf16_kernel_samples, sp.smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = bf16_config(samp_blocks(prm.B, sp.cl), sp.cl, sp.smem, stream, &attr);
+  cfg.blockDim = dim3(kSampThreads);
+  if (n) return cudaOccupancyMaxActiveClusters(n, rollout_bf16_kernel_samples, &cfg);
+  const uint64_t C = prm.C, nb = prm.n_block;
+  const uint32_t box = static_cast<uint32_t>(C);
+  CUtensorMap map_conv, map_ffn;
+  e = lns::make_map(&map_conv, prm.conv_w, {C, C, 9, 3 * nb}, {C * 2, C * C * 2, 9 * C * C * 2},
+                    {64, box, 1, 1});
+  if (e == cudaSuccess)
+    e = lns::make_map(&map_ffn, prm.ffn_w, {C, C, 2 * nb, 1},
+                      {C * 2, C * C * 2, 2 * nb * C * C * 2}, {64, box, 1, 1});
+  if (e != cudaSuccess) return e;
+  e = cudaLaunchKernelEx(&cfg, rollout_bf16_kernel_samples, map_conv, map_ffn, prm, sp);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // nullptr when the kernel of this dtype (0 f32, 1 bf16) takes the shape,
 // else the limit it breaks; for bf16 also when a cluster fits on no part of
-// the card (cudaOccupancyMaxActiveClusters).
+// the card (cudaOccupancyMaxActiveClusters). The bf16 limits are the cluster
+// plan's: the sample plan takes a subset of its shapes.
 extern "C" const char* lns_prop_rollout_limit(int dtype, int B, int H, int W, int C_lat, int C,
                                               int groups) {
   if (dtype == 0) return f32_limit(H * W, C_lat, C, groups);
   if (dtype != 1) return "dtype float32 or bfloat16";
   if (const char* msg = bf16_limit(B, H, W, C_lat, C, groups)) return msg;
   static thread_local char msg[200];
-  const Params prm = shape_params(B, H, W, C_lat, C);
   int n = 0;
-  const cudaError_t e = dispatch_bf16(prm, nullptr, &n);
+  const cudaError_t e = cluster_plan_at_once(B, H, W, C_lat, C, &n);
   if (e != cudaSuccess || n < 1) {
+    const int cl = cluster_for(B, C);
     snprintf(msg, sizeof msg, "a cluster of %d blocks of %d bytes of shared memory that the card "
-             "can hold (cudaOccupancyMaxActiveClusters: %d, %s)", prm.cl,
-             make_plan(H * W, C_lat, C, prm.cl).smem, n, cudaGetErrorString(e));
+             "can hold (cudaOccupancyMaxActiveClusters: %d, %s)", cl,
+             make_plan(H * W, C_lat, C, cl).smem, n, cudaGetErrorString(e));
     return msg;
   }
   return nullptr;
 }
 
-// The bf16 launch for this shape: out = {blocks per sample, blocks, shared
+// The bf16 launch for this shape: out = {blocks per cluster, blocks, shared
 // memory bytes per block, clusters the card holds at once, 16-row tiles per
-// warp}.
+// warp, plan (0 the cluster plan, 1 the sample plan), whole samples per
+// block (0 in the cluster plan: a cluster shares one sample), weight ring
+// stages}.
 extern "C" int lns_prop_rollout_plan(int B, int H, int W, int C_lat, int C, int groups,
                                      int* out) {
   if (bf16_limit(B, H, W, C_lat, C, groups)) return cudaErrorInvalidValue;
-  const Params prm = shape_params(B, H, W, C_lat, C);
+  Params prm = shape_params(B, H, W, C_lat, C);
+  if (uses_samples(B, H, W, C_lat, C)) {
+    const SampPlan sp = make_samp_plan(H * W);
+    out[0] = sp.cl;
+    out[1] = samp_blocks(B, sp.cl);
+    out[2] = sp.smem;
+    out[3] = 0;
+    out[4] = 1;
+    out[5] = 1;
+    out[6] = kSampWGs;
+    out[7] = sp.ring;
+    return run_samples(prm, nullptr, &out[3]);
+  }
   out[0] = prm.cl;
   out[1] = B * prm.cl;
   out[2] = make_plan(H * W, C_lat, C, prm.cl).smem;
   out[3] = 0;
   out[4] = tiles_needed(H * W, C_lat, C, prm.cl);
-  return dispatch_bf16(prm, nullptr, &out[3]);
+  out[5] = 0;
+  out[6] = 0;
+  out[7] = kStages;
+  return cluster_plan_at_once(B, H, W, C_lat, C, &out[3]);
 }
 
 // Bytes of workspace the launch of this shape needs: for f32 the
@@ -1004,6 +1586,7 @@ extern "C" int lns_prop_rollout(int dtype, const void* z0, const void* in_w, con
   }
   if (dtype == 1) {
     if (bf16_limit(B, H, W, C_lat, C, groups)) return cudaErrorInvalidValue;
+    if (uses_samples(B, H, W, C_lat, C)) return run_samples(prm, st, nullptr);
     prm.cl = cluster_for(B, C);
     return dispatch_bf16(prm, st, nullptr);
   }

@@ -9,19 +9,39 @@ stays on chip across steps. Padding: circular, zeros, half_periodic_x,
 half_periodic_y.
 
 What bounds it on an H100: in principle tensor-core arithmetic (~183 MFLOP
-per sample-step at NS2d, 0.17 ms for B32 x 29 steps at 989 TFLOP/s); in
-practice the latency of a chain of ~20 small dependent products per step.
-bf16: a thread-block cluster of CL blocks per sample (CL = 4 at B32, 8 for
-B <= 8), each block computing C/CL channels of every layer as implicit
-GEMMs on tensor cores (``mma.sync``), bf16 activations exchanged through
-distributed shared memory, weights streamed per slice through a
-``cp.async`` ring. It takes SW's 12x24 latent at C 128, C_lat 64 (222,112
-bytes of shared memory per block). f32 keeps one block per sample on CUDA
-cores (the check path); one sample's f32 activations live in shared memory
-where they fit (NS2d) and else in a global-memory workspace that this
-wrapper allocates (SW's 12x24: 517,888 bytes per sample). The wrapper
-raises for a shape outside a kernel's limits with the text of the C side's
-``lns_prop_rollout_limit``, and launches nothing.
+per sample-step at NS2d, 0.17 ms for B32 x 29 steps, 1.37 ms for B256 x 29,
+at 989 TFLOP/s); a sample's step is a chain of ~20 small dependent products.
+bf16 has two plans, each its own kernel body, chosen by the C launcher from
+the shape (no knob): where the shape fits the sample plan (C 128, H W <= 64,
+C_lat 16: NS2d's latent) and B is more than the clusters the cluster plan
+holds at once on the card (62 at NS2d's 8x8 on an H100), the sample plan;
+else the cluster plan.
+
+- The cluster plan (small B, bound by the chain's latency): a thread-block
+  cluster of CL blocks per sample (CL = 4 at B32, 8 for B <= 8), each block
+  computing C/CL channels of every layer as implicit GEMMs on tensor cores
+  (``mma.sync``), bf16 activations exchanged through distributed shared
+  memory, weights streamed per slice through a ``cp.async`` ring. It takes
+  SW's 12x24 latent at C 128, C_lat 64 (222,112 bytes of shared memory per
+  block).
+- The sample plan (large B, bound in principle by the tensor cores' rate
+  and the weights' L2 traffic, in practice by each warpgroup's chain of
+  dependent products and epilogues): a block owns two whole samples, one
+  per consumer warpgroup, each product one m64 x C ``wgmma`` tile with A
+  from registers; GN and the hand-offs stay inside the warpgroup; a
+  cluster of blocks shares one weight stream (TMA multicast into a ring of
+  C x C chunks); NS2d's B256 runs as 128 blocks in one wave.
+
+Each launch that takes the sample plan counts
+``prop_rollout.fused_rollout.sample_plan``, and the wrapper names the plan
+on the innermost open span (``lns.rollout``: plan, samples_per_block); it
+learns the plan from the C side (``rollout_plan``) once per device and
+shape. f32 keeps one block per sample on CUDA cores (the check path); one
+sample's f32 activations live in shared memory where they fit (NS2d) and
+else in a global-memory workspace that this wrapper allocates (SW's 12x24:
+517,888 bytes per sample). The wrapper raises for a shape outside a
+kernel's limits with the text of the C side's ``lns_prop_rollout_limit``,
+and launches nothing.
 """
 
 from __future__ import annotations
@@ -34,6 +54,11 @@ import torch.nn.functional as F
 
 from lns_tpu_torch.kernels import _build
 from lns_tpu_torch.utils import profiling
+
+# counter of the launches that took the sample plan (beside the wrapper's
+# ``.launches``)
+SAMPLE_PLAN = "prop_rollout.fused_rollout.sample_plan"
+_PLANS: dict = {}  # (device, B, H, W, C_lat, C, groups) -> rollout_plan
 
 _WRAP = {  # padding mode -> (wrap rows, wrap columns)
     "circular": (1, 1),
@@ -148,6 +173,7 @@ def fused_rollout(z0, packed: PackedSimpleCNN, steps: int, n_block: int,
     on the current stream or raises."""
     t0 = profiling.clock()
     if not _build.on_cuda(z0, "fused_rollout", *packed):
+        profiling.annotate(plan="plain", samples_per_block=None)
         return fused_rollout_plain(z0, packed, steps, n_block, dilation, padding_mode, groups)
     if padding_mode not in _WRAP:
         raise ValueError(f"fused_rollout: unsupported padding mode {padding_mode}")
@@ -176,7 +202,10 @@ def fused_rollout(z0, packed: PackedSimpleCNN, steps: int, n_block: int,
     if limit:  # the kernel's own limits
         raise ValueError(f"fused_rollout: {str(dt)[6:]} at B{b} {h}x{w} C_lat {c_lat} C {c} "
                          f"groups {groups} needs {limit.decode()}")
-    # bf16 reads z0 and the weights as 16-byte vectors
+    plan = (_plan_of(z0.device, b, h, w, c_lat, c, groups) if dt == torch.bfloat16
+            else {"plan": "f32", "samples_per_block": 1})
+    # bf16 reads z0 and the weights as 16-byte vectors (the sample plan's
+    # tensor maps need 16-byte boundaries too)
     z, *weights = (t if t.data_ptr() % 16 == 0 else t.clone()
                    for t in (z0.to(dt).contiguous(), *packed))
     copies = _build.copy_bytes((z0, z), *zip(packed, weights))
@@ -189,17 +218,35 @@ def fused_rollout(z0, packed: PackedSimpleCNN, steps: int, n_block: int,
         None if ws is None else ws.data_ptr(), b, h, w, c_lat, c, n_block, dilation, wrap_y,
         wrap_x, groups, steps, torch.cuda.current_stream(z0.device).cuda_stream)
     _build.check(rc, f"lns_prop_rollout(H*W={h * w}, C={c}, C_lat={c_lat}, groups={groups})")
+    if plan["plan"] == "samples":
+        profiling.count(SAMPLE_PLAN)
+    profiling.annotate(plan=plan["plan"], samples_per_block=plan["samples_per_block"])
     profiling.launched("prop_rollout.fused_rollout", ws_bytes + copies, t0)
     return out
 
 
 def rollout_plan(b: int, h: int, w: int, c_lat: int, c: int, groups: int = 32) -> dict:
-    """The bf16 kernel's launch at this shape (needs the card): blocks per
-    sample (the cluster), blocks, shared memory bytes per block, the
-    clusters the card holds at once (``cudaOccupancyMaxActiveClusters``),
-    and the 16-row tiles per warp it is built for."""
-    res = (ctypes.c_int * 5)()
+    """The bf16 kernel's launch at this shape on the current card: the plan
+    the C side chooses (``"cluster"`` or ``"samples"``), blocks per cluster,
+    blocks, shared memory bytes per block, the clusters of this launch the
+    card holds at once (``cudaOccupancyMaxActiveClusters``), the 16-row tiles
+    per warp it is built for, the samples a block computes (a fraction in
+    the cluster plan: 1 / cluster) and the weight ring's stages."""
+    res = (ctypes.c_int * 8)()
     _build.check(_build.library().lns_prop_rollout_plan(b, h, w, c_lat, c, groups, res),
                  "lns_prop_rollout_plan")
-    return dict(zip(("cluster", "blocks", "smem_bytes", "max_active_clusters", "tiles_per_warp"),
-                    res))
+    cluster, blocks, smem, at_once, tiles, samples, per_block, ring = res
+    return {"plan": "samples" if samples else "cluster", "cluster": cluster, "blocks": blocks,
+            "smem_bytes": smem, "max_active_clusters": at_once, "tiles_per_warp": tiles,
+            "samples_per_block": per_block if samples else 1 / cluster, "ring_stages": ring}
+
+
+def _plan_of(device, b, h, w, c_lat, c, groups) -> dict:
+    """``rollout_plan`` of a bf16 launch on `device`, asked of the C side
+    once per device and shape (the launcher makes the same choice itself)."""
+    key = (device, b, h, w, c_lat, c, groups)
+    plan = _PLANS.get(key)
+    if plan is None:
+        with torch.cuda.device(device):
+            plan = _PLANS[key] = rollout_plan(b, h, w, c_lat, c, groups)
+    return plan

@@ -13,8 +13,9 @@ card its GroupNorms launch kernel 3 through its autograd Function.
 opens one at each layer boundary: ``lns.predict`` (the root: batch, steps,
 to_x, decode_chunk, and every counter's change over the predict) over
 ``lns.encode`` (frames), ``lns.propagate`` (the cast of the carry, and
-``lns.pack`` and ``lns.rollout`` (steps, path "kernel" or "loop") inside
-it, the transpose) and one ``lns.decode`` (frames; its ``nth`` the chunk's
+``lns.pack`` and ``lns.rollout`` (steps, path "kernel" or "loop"; on the
+kernel path the wrapper adds plan and samples_per_block) inside it, the
+transpose) and one ``lns.decode`` (frames; its ``nth`` the chunk's
 index) per decode call. ``predict_latents`` called alone is a predict of
 its own. On a CUDA device the steps run as one
 launch of the rollout kernel (``kernels.prop_rollout``); with

@@ -15,7 +15,8 @@ and the program's own spans and counters.
   ``Span`` record to a bounded buffer (``spans()``, ``reset()``,
   ``dropped()``), and under a profiler also opens
   ``torch.profiler.record_function(name)``, so that the phase lands in the
-  same trace as the device's kernels;
+  same trace as the device's kernels; ``annotate(**attrs)`` adds attrs to
+  the innermost open span (kernel 1's wrapper names its plan there);
 - ``count(key, n)``, ``counters()``: one registry of integer counters,
   always on. Each kernel wrapper counts, per launch, under
   ``<module>.<wrapper>``: ``.launches``, ``.scratch_bytes`` (what it
@@ -234,6 +235,17 @@ def span(name: str, root: bool = False, **attrs):
     if not (_recording or torch.autograd._profiler_enabled()):
         return _OFF
     return _Open(name, root, attrs)
+
+
+def annotate(**attrs) -> None:
+    """Add `attrs` to the innermost span this thread has open (a wrapper's
+    account of how it ran, as kernel 1's plan on ``lns.rollout``); nothing
+    while spans are off or none is open."""
+    if not (_recording or torch.autograd._profiler_enabled()):
+        return
+    stack = getattr(_local, "stack", None)
+    if stack:
+        stack[-1].attrs.update(attrs)
 
 
 def spans() -> List[Span]:

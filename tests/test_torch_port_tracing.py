@@ -3,7 +3,9 @@ CPU, through a tiny NS2d ``LatentDynamics``: off without a profiler or
 ``recording()``; under a CPU ``torch.profiler`` one span per phase of
 ``predict`` in a tree that shares the predict's id, each containing its
 range in the profiler's events; no wrapper launching, counting scratch or
-host time on the CPU; kernel 2's scratch sized as at SW's 48x96 b336; and
+host time on the CPU (kernel 1's sample-plan counter included, its rollout
+span naming the plain plan); kernel 2's scratch sized as at SW's 48x96
+b336; and
 the benchmark's readers of the spans and counters
 (``portbench/metrics/{propagator,kernels}.*.py``) at a test's size."""
 
@@ -106,7 +108,8 @@ def test_predict_spans_form_its_tree_under_the_profiler(model):
     assert [(r.nth, r.attrs["frames"]) for r in decodes] == [(0, 2), (1, 2)]
     (enc,) = [r for r in records if r.name == "lns.encode"]
     (roll,) = [r for r in records if r.name == "lns.rollout"]
-    assert enc.attrs == {"frames": 2} and roll.attrs == {"steps": 2, "path": "kernel"}
+    assert enc.attrs == {"frames": 2} and roll.attrs == {
+        "steps": 2, "path": "kernel", "plan": "plain", "samples_per_block": None}
     for r in records:
         assert r.start_ns <= r.end_ns
         if r.parent is not None:
@@ -148,6 +151,56 @@ def test_no_wrapper_launches_on_the_cpu(model):
                 assert deltas.get(f"{w}.{k}", 0) == 0
     loop = [r for r in profiling.spans() if r.name == "lns.rollout"][-1]
     assert loop.attrs["path"] == "loop"
+
+
+def test_no_sample_plan_launch_on_the_cpu(model):
+    """Kernel 1's sample-plan counter stays at 0 through CPU predicts (the
+    plain version launches nothing), and its rollout span names the plain
+    plan."""
+    key = "prop_rollout.fused_rollout.sample_plan"
+    before = profiling.counters().get(key, 0)
+    profiling.reset()
+    with profiling.recording():
+        model.predict(_x(), 2, decode_chunk=2)
+        model.predict_latents(_x(), 3)
+    assert profiling.counters().get(key, 0) == before
+    roots = [r for r in profiling.spans() if r.name == "lns.predict"]
+    assert len(roots) == 2 and all(key not in r.attrs["counters"] for r in roots)
+    rolls = [r for r in profiling.spans() if r.name == "lns.rollout"]
+    assert [(r.attrs["plan"], r.attrs["samples_per_block"]) for r in rolls] == [("plain", None)] * 2
+
+
+def test_rollout_span_carries_the_plan_and_samples_per_block(model):
+    """Under the profiler as under ``recording()``, ``lns.rollout`` on the
+    kernel path carries the wrapper's plan and samples per block; the step
+    loop (kernels off) carries neither."""
+    records, _ = _profiled(model)
+    (roll,) = [r for r in records if r.name == "lns.rollout"]
+    assert {"plan", "samples_per_block"} <= set(roll.attrs)
+    profiling.reset()
+    with profiling.recording():
+        model.use_kernels(False).predict_latents(_x(), 2)
+    model.use_kernels(True)
+    (loop,) = [r for r in profiling.spans() if r.name == "lns.rollout"]
+    assert loop.attrs == {"steps": 2, "path": "loop"}
+
+
+def test_annotate_adds_to_the_innermost_open_span():
+    """``annotate`` adds its attrs to the innermost open span of the
+    thread, and does nothing while spans are off or outside every span."""
+    profiling.reset()
+    profiling.annotate(ignored=1)
+    with profiling.span("outside"):
+        pass
+    assert profiling.spans() == []
+    with profiling.recording():
+        profiling.annotate(ignored=2)
+        with profiling.span("outer", a=1):
+            with profiling.span("inner"):
+                profiling.annotate(plan="samples", samples_per_block=2)
+            profiling.annotate(b=3)
+    by = {r.name: r.attrs for r in profiling.spans()}
+    assert by == {"inner": {"plan": "samples", "samples_per_block": 2}, "outer": {"a": 1, "b": 3}}
 
 
 def test_launched_counts_into_one_registry():
