@@ -56,7 +56,7 @@ def read_seeds(cell, seeds, control_seeds, seconds, device, sync, log=print):
             model = H.build_model(cell, state, device)
             probe = H.Probe(model)
             for i in range(H.WARMUP):
-                model.predict(inputs[i % len(inputs)], **H.predict_args(cell))
+                model.predict(**inputs[i % len(inputs)], **H.predict_args(cell))
         else:
             model.load_state_dict(state, strict=True)
         reservoir = H.Reservoir(H.SAMPLES, seed)

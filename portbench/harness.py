@@ -9,13 +9,48 @@ gives it:
   Config(**widths)``), the precision it is served in, its source, what was
   reduced and assumed, and the name of its plain reference under
   ``reference/``;
+* ``reference/<name>.py``: the configuration's plain reference, a module
+  that keeps the contract below;
 * ``traffic/<traffic>.json``: batch, steps, whether the frames are decoded
-  and in what chunks, and how many distinct input batches the run cycles
-  through;
+  and in what chunks (``to_x``, ``decode_chunk``), how many distinct input
+  batches the run cycles through (``inputs``) and ``why``; for a
+  configuration whose propagator takes each sample's parameter, also
+  ``"cond": {"low": a, "high": b}``: each input batch then carries ``cond``
+  [batch], f32, drawn U(a, b), as the model takes it (the ``why`` says
+  whether raw or normalised);
 * ``metrics/<metric>.py``: a reader of one per-layer metric (``read(ctx)``,
   None where it finds nothing);
 * ``limits/<cell>.json``: each number that decides ``correct``, its limit
   and the readings the limit was set from.
+
+The contract of a reference module, which ``make_state_dict``,
+``work.predict_work``, ``judge.py`` and ``control.py`` hold to:
+
+* ``param_shapes(cfg)``: every parameter's state-dict name (the reference
+  trainer's) and shape, in the order the state dict is drawn;
+  ``init_kind(name, shape)``: how it is drawn, 'uniform', 'normal' or
+  'norm' (``make_state_dict``);
+* ``LNS(cfg, params, fp8=False, channel_fab=False)``: the model over the
+  state dict `params`, on the device they are on (``meta`` included):
+  ``encode`` x [B, H, W, C] -> z [B, h, w, c], ``step`` z -> z and
+  ``decode`` z -> x, all NHWC and float32. ``fp8`` computes it one precision
+  below the configuration's (the control); ``channel_fab`` picks the form
+  whose operations ``work.py`` counts. The latent grid is whatever
+  ``encode`` returns: nothing assumes it from the field's sides;
+* ``LNS.p``: every parameter by its state-dict name, the very tensors the
+  model computes with (``work.py`` records which of them a ``step`` reads:
+  kernel 1's weights);
+* ``LNS.calls``: what ``encode`` and ``decode`` ran of kernels 2 and 3, one
+  entry per call: ('gn', elements, channels) per autoencoder GroupNorm,
+  ('fab', b, h, w, c, heads, dim_head, dim_out) per factorized-attention
+  core. ``step`` records nothing;
+* for a configuration whose step takes each sample's parameter (its
+  traffic has ``cond``): ``step(z, cond)``, cond [B] one per row of z, and
+  ``conditioning(cond)``, what depends on the parameter alone (the
+  embedding, its MLP, each block's projection and FiLM scale), which
+  ``step`` computes once per call. By ``conditioning`` ``work.py`` knows
+  such a reference: it counts the conditioning once per sample of a
+  predict, not once per step, and its bytes once in kernel 1's.
 
 A run builds the model as a user's inference script does (bf16 activations,
 f32 parameters, kernels on), loads a state dict made on the device from the
@@ -148,13 +183,21 @@ def make_state_dict(reference, widths: dict, gen: torch.Generator, device) -> Di
     return out
 
 
-def make_inputs(cell: Cell, gen: torch.Generator, device) -> List[torch.Tensor]:
-    """The distinct input batches the window cycles through: fields
-    [batch, H, W, C], f32, standard normal, all made in one call."""
+def make_inputs(cell: Cell, gen: torch.Generator, device) -> List[Dict[str, torch.Tensor]]:
+    """The distinct input batches the window cycles through, each the
+    per-batch arguments of ``predict``: ``x`` [batch, H, W, C], f32,
+    standard normal, all made in one call; where the traffic has ``cond``,
+    also ``cond`` [batch], f32, U(low, high), all made in one call after."""
     w, t = cell.widths, cell.traffic
     x = torch.randn(t["inputs"], t["batch"], w["Ly"], w["Lx"], w["in_channels"],
                     generator=gen, device=device)
-    return list(x.unbind(0))
+    out = [{"x": xi} for xi in x.unbind(0)]
+    if "cond" in t:
+        lo, hi = t["cond"]["low"], t["cond"]["high"]
+        c = torch.rand(t["inputs"], t["batch"], generator=gen, device=device).mul_(hi - lo).add_(lo)
+        for inp, ci in zip(out, c.unbind(0)):
+            inp["cond"] = ci
+    return out
 
 
 def build_model(cell: Cell, state: Dict[str, torch.Tensor], device):
@@ -210,6 +253,7 @@ class Sample:
     z0: torch.Tensor
     zs: torch.Tensor
     y: Optional[torch.Tensor]
+    cond: Optional[torch.Tensor] = None
 
 
 class Reservoir:
@@ -241,6 +285,7 @@ class Window:
 
 
 def predict_args(cell: Cell) -> dict:
+    """The arguments of ``predict`` besides an input's own (``make_inputs``)."""
     t = cell.traffic
     return {"steps": t["steps"], "to_x": t["to_x"], "decode_chunk": t["decode_chunk"]}
 
@@ -255,10 +300,10 @@ def closed_loop(model, probe: Probe, inputs, cell: Cell, seconds: float, sync,
     t_start = time.perf_counter()
     deadline, i = t_start + seconds, first
     while True:
-        x = inputs[i % len(inputs)]
+        inp = inputs[i % len(inputs)]
         t0 = time.perf_counter()
         with probe.span("predict"):
-            y = model.predict(x, **args)
+            y = model.predict(**inp, **args)
         t1 = time.perf_counter()
         with probe.span("sync"):
             sync()
@@ -267,8 +312,9 @@ def closed_loop(model, probe: Probe, inputs, cell: Cell, seconds: float, sync,
         win.enqueue_s.append(t1 - t0)
         win.frames += y.shape[0] * y.shape[1]
         if reservoir is not None:
-            reservoir.offer(i, lambda: Sample(i, x, probe.z0, probe.zs if args["to_x"] else y,
-                                              y if args["to_x"] else None))
+            reservoir.offer(i, lambda: Sample(i, inp["x"], probe.z0,
+                                              probe.zs if args["to_x"] else y,
+                                              y if args["to_x"] else None, inp.get("cond")))
         i += 1
         if t2 >= deadline and win.count >= SAMPLES:
             win.wall_s = t2 - t_start

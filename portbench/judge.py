@@ -40,8 +40,9 @@ def worst_row(prog: torch.Tensor, ref: torch.Tensor) -> float:
     return float(torch.nan_to_num(err, nan=float("inf")).max())
 
 
-def _blocks(fn, x: torch.Tensor, n: int) -> torch.Tensor:
-    return torch.cat([fn(c) for c in x.split(n)])
+def _blocks(fn, x: torch.Tensor, n: int, *rest: torch.Tensor) -> torch.Tensor:
+    """fn over blocks of `n` rows of x and, row for row, of each of `rest`."""
+    return torch.cat([fn(*parts) for parts in zip(*(t.split(n) for t in (x,) + rest))])
 
 
 def _decode_block(widths: dict) -> int:
@@ -52,16 +53,19 @@ def _decode_block(widths: dict) -> int:
 
 def readings(ref, samples, widths: dict) -> Dict[str, float]:
     """The worst row of each stage over `samples` (``harness.Sample``: the
-    input, the encoder output, the rollout's latents [b * t or b, t, ...] and,
-    where decoded, the frames)."""
+    input, the encoder output, the rollout's latents [b * t or b, t, ...],
+    where decoded the frames, and where the model takes it each sample's
+    parameter, which every step of the sample is given)."""
     out: Dict[str, float] = {}
     with torch.no_grad():
         for s in samples:
             b = s.x.shape[0]
             zs = s.zs.reshape((b, -1) + tuple(s.z0.shape[1:]))
             carry = torch.cat([s.z0[:, None], zs[:, :-1]], 1).flatten(0, 1)
+            cond = () if s.cond is None else (s.cond.repeat_interleave(zs.shape[1]),)
             got = {"encoder": worst_row(s.z0, _blocks(ref.encode, s.x, 256)),
-                   "step": worst_row(zs.flatten(0, 1), _blocks(ref.step, carry, STEP_BLOCK))}
+                   "step": worst_row(zs.flatten(0, 1),
+                                     _blocks(ref.step, carry, STEP_BLOCK, *cond))}
             if s.y is not None:
                 yr = _blocks(ref.decode, zs.flatten(0, 1), _decode_block(widths))
                 got["decoder"] = worst_row(s.y.flatten(0, 1), yr)
@@ -72,24 +76,25 @@ def readings(ref, samples, widths: dict) -> Dict[str, float]:
 
 def control_samples(ctrl, samples, steps: int, decodes: bool, widths: dict) -> List:
     """The reference in a lower precision put in the program's place: for
-    each sample's input its own encode, its own rollout from its own carry
-    and its own decode, in the program's layout."""
+    each sample's input (and parameter) its own encode, its own rollout from
+    its own carry and its own decode, in the program's layout."""
     from harness import Sample
 
     out = []
     with torch.no_grad():
         for s in samples:
+            cond = () if s.cond is None else (s.cond,)
             z = z0 = ctrl.encode(s.x)
             zs = []
             for _ in range(steps):
-                z = _blocks(ctrl.step, z, STEP_BLOCK)
+                z = _blocks(ctrl.step, z, STEP_BLOCK, *cond)
                 zs.append(z)
             zs = torch.stack(zs, 1)
             y = None
             if decodes:
                 y = _blocks(ctrl.decode, zs.flatten(0, 1), _decode_block(widths))
                 y = y.reshape(zs.shape[:2] + y.shape[1:])
-            out.append(Sample(s.index, s.x, z0, zs.flatten(0, 1) if decodes else zs, y))
+            out.append(Sample(s.index, s.x, z0, zs.flatten(0, 1) if decodes else zs, y, s.cond))
     return out
 
 

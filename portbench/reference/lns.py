@@ -18,6 +18,10 @@ in float64 by ``portbench/tests/test_portbench_reference.py``:
 * a half-periodic 3x3, stride-1, pad-1 conv is a zero-padded conv plus the
   two wrapped boundary strips (``strip_conv``).
 
+It keeps the reference-module contract written in ``portbench/harness.py``'s
+docstring (``param_shapes``, ``init_kind``, ``LNS`` with ``encode``, ``step``
+and ``decode``, ``p`` and ``calls``); its step takes no parameter.
+
 The factorized attention's core is computed as published (in_proj, both
 axial kernels on the value, InstanceNorm2d, out_fc1: ``fab_core``). With
 ``channel_fab`` it runs in channel space instead (``fab_core_channel``:
@@ -54,8 +58,10 @@ def _variant(cfg) -> str:
     if cfg.get("periodic_direction"):
         return "half_periodic"
     if cfg.get("resolutions") is not None or not cfg.get("is_periodic"):
-        raise ValueError("the reference holds the periodic square (NS2d) and the "
-                         "half-periodic (SW) autoencoders only")
+        raise ValueError("reference/lns.py holds the periodic square (NS2d) and the "
+                         "half-periodic (SW) models only; another configuration brings its "
+                         "own reference module, reference/<name>.py named by its 'reference' "
+                         "key, keeping the contract in harness.py's docstring")
     return "periodic"
 
 

@@ -48,10 +48,11 @@ CACHES = {"TORCH_EXTENSIONS_DIR": "torch_extensions", "TRITON_CACHE_DIR": "trito
 @dataclass
 class Context:
     """What a per-layer metric's reader (``metrics/<name>.py``) reads: the
-    cell, the work of one predict (``work.predict_work``), the first part of
-    a traced run's window, untraced, on the host clock (``spans``), and its
-    last part under the profiler (``traced``, its reduced ``trace``, and the
-    frames the traced predicts passed to ``encode`` and ``decode``)."""
+    cell, the work of one predict (``work.predict_work``, counted with the
+    cell's own reference module), the first part of a traced run's window,
+    untraced, on the host clock (``spans``), and its last part under the
+    profiler (``traced``, its reduced ``trace``, and the frames the traced
+    predicts passed to ``encode`` and ``decode``)."""
     cell: object
     work: dict
     spans: object
@@ -93,7 +94,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t0: float) ->
     model = H.build_model(cell, state, device)
     probe = H.Probe(model)
     for i in range(H.WARMUP):
-        model.predict(inputs[i % len(inputs)], **H.predict_args(cell))
+        model.predict(**inputs[i % len(inputs)], **H.predict_args(cell))
     sync()
     setup_s = time.perf_counter() - t0
     smi = power_limit() if cuda else "no card"
@@ -127,8 +128,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t0: float) ->
         tr = reduce(prof)
         del prof
         t = cell.traffic
-        ctx = Context(cell, predict_work(cell.widths, t["batch"], t["steps"], t["to_x"]), spans,
-                      traced, tr, dict(probe.frames))
+        ctx = Context(cell, predict_work(ref_mod, cell.widths, t["batch"], t["steps"], t["to_x"]),
+                      spans, traced, tr, dict(probe.frames))
         result["attempted"] = spans.count + traced.count
         values = {}
         for m in cell.per_layer:

@@ -60,10 +60,14 @@ def test_benchmark_json_keeps_the_contract():
 
 
 def test_metric_files_agree_with_benchmark_json():
+    """A metric file states its layer, source and end-to-end metric as
+    BENCHMARK.json does, and the cells it was written for. The cells that
+    report it are BENCHMARK.json's list, to which a later configuration
+    adds its own without editing the file."""
     for m in H.load_spec()["per_layer"]:
         mod = H.load_metric(m["name"])
-        assert (mod.LAYER, mod.SOURCE, mod.MOVES, list(mod.WORKLOADS)) == (
-            m["layer"], m["source"], m["moves"], m["workloads"])
+        assert (mod.LAYER, mod.SOURCE, mod.MOVES) == (m["layer"], m["source"], m["moves"])
+        assert set(mod.WORKLOADS) <= set(m["workloads"])
         assert callable(mod.read)
 
 
@@ -143,7 +147,8 @@ def test_state_dict_and_inputs_come_from_the_seed():
     assert w.abs().max() <= 1 / 24 and w.abs().max() > 0.9 / 24
     gn = a["propagator.net.0.conv.0.weight"]
     assert (gn - 1).abs().max() <= 0.1 and a["vq_ae.decoder.model.2.pe"].std() < 0.03
-    x, y = (torch.stack(H.make_inputs(cell, H.generator(2**31 + 11, "cpu"), "cpu")) for _ in "xy")
+    x, y = (torch.stack([i["x"] for i in H.make_inputs(cell, H.generator(2**31 + 11, "cpu"), "cpu")])
+            for _ in "xy")
     assert torch.equal(x, y) and x.shape == (4, 32, 64, 64, 1)
 
 

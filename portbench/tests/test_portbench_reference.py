@@ -53,7 +53,7 @@ FLOPS = {"ns2d": (1.3451, 0.18298, 1.0228), "sw": (7.5474, 1.1230, 5.9846)}
 @pytest.mark.parametrize("config", sorted(FLOPS))
 def test_flop_counts(config):
     cell = _cell(config)
-    work = predict_work(cell.widths, 2, 3, True)
+    work = predict_work(lns, cell.widths, 2, 3, True)
     for got, want in zip((work["encode"], work["step"], work["decode"]), FLOPS[config]):
         assert round(got / 1e9, len(str(want).split(".")[1])) == want  # to the digits given
     assert work["flops"] == 2 * work["encode"] + 6 * work["step"] + 6 * work["decode"]
