@@ -16,8 +16,11 @@ to_x, decode_chunk, and every counter's change over the predict) over
 ``lns.pack`` and ``lns.rollout`` (steps, path "kernel" or "loop"; on the
 kernel path the wrapper adds plan and samples_per_block) inside it, the
 transpose) and one ``lns.decode`` (frames; its ``nth`` the chunk's
-index) per decode call. ``predict_latents`` called alone is a predict of
-its own. On a CUDA device the steps run as one
+index) per decode call; a conditional model's predict opens
+``lns.conditioning`` (batch) before ``lns.encode``. ``predict_latents``
+called alone is a predict of its own. The counter ``LOOP_STEPS`` (always
+on) adds the batch for each step the loop path takes: B x steps a predict
+there, 0 where kernel 1 ran. On a CUDA device the steps run as one
 launch of the rollout kernel (``kernels.prop_rollout``); with
 ``use_kernels(False)`` every kernel of the model is replaced by its plain
 PyTorch version, on any device. Parameters live under ``vq_ae`` and
@@ -36,6 +39,7 @@ step reuses it.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -48,6 +52,8 @@ from lns_tpu_torch.models.autoencoder import SimpleAutoencoder
 from lns_tpu_torch.models.propagator import build_propagator
 from lns_tpu_torch.ops.losses import smooth_l1_loss
 from lns_tpu_torch.utils import profiling
+
+LOOP_STEPS = "latent_dynamics.loop_steps"  # samples stepped by the module loop
 
 
 class LatentDynamics(nn.Module):
@@ -150,7 +156,9 @@ class LatentDynamics(nn.Module):
 
     def _latents(self, x: torch.Tensor, steps: int, cond: Optional[torch.Tensor]) -> torch.Tensor:
         """``predict_latents`` inside a predict's span."""
-        shared = self.conditioning(cond)
+        with (profiling.span("lns.conditioning", batch=x.shape[0]) if self.conditional
+              else contextlib.nullcontext()):
+            shared = self.conditioning(cond)
         z = self.encode(x)
         with profiling.span("lns.propagate", steps=steps):
             if self.dtype is not None:
@@ -178,6 +186,7 @@ class LatentDynamics(nn.Module):
                 for _ in range(steps):
                     z = self._step(z, shared)
                     zs.append(z)
+                    profiling.count(LOOP_STEPS, z.shape[0])
             return torch.stack(zs, dim=1)
 
     @torch.no_grad()

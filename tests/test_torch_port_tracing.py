@@ -4,8 +4,9 @@ CPU, through a tiny NS2d ``LatentDynamics``: off without a profiler or
 ``predict`` in a tree that shares the predict's id, each containing its
 range in the profiler's events; no wrapper launching, counting scratch or
 host time on the CPU (kernel 1's sample-plan counter included, its rollout
-span naming the plain plan); kernel 2's scratch sized as at SW's 48x96
-b336; and
+span naming the plain plan); a conditional predict's ``lns.conditioning``
+span and the module loop's step counter; kernel 2's scratch sized as at
+SW's 48x96 b336; and
 the benchmark's readers of the spans and counters
 (``portbench/metrics/{propagator,kernels}.*.py``) at a test's size."""
 
@@ -18,9 +19,9 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from lns_tpu_torch.config import ns2d_config
+from lns_tpu_torch.config import ns2d_config, twophase_conditional_config
 from lns_tpu_torch.kernels import fab_core
-from lns_tpu_torch.models import LatentDynamics
+from lns_tpu_torch.models import LatentDynamics, latent_dynamics
 from lns_tpu_torch.utils import profiling
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -31,7 +32,7 @@ WRAPPERS = ("prop_rollout.fused_rollout", "fab_core.fab_fused_core",
             "fab_mega.fab_mega_stats", "fab_mega.fab_mega_apply", "fab_mega.interior_dot",
             "mosaic_dots.dot_general", "mosaic_dots.dot_chain")
 METRICS = ("propagator.pack_ms", "kernels.wrapper_host_ms", "kernels.launches",
-           "kernels.scratch_mb")
+           "kernels.scratch_mb", "propagator.conditioning_ms", "propagator.loop_steps")
 SLACK_NS = 500_000  # a range may start or end this far outside its span (busy test hosts)
 
 
@@ -49,6 +50,24 @@ def model():
 
 def _x():
     return torch.randn(2, 32, 32, 1, generator=torch.Generator().manual_seed(1))
+
+
+@pytest.fixture(scope="module")
+def cond_model():
+    """The conditional two-phase family at test size (31x61x4 field, 7x15x16
+    latent, a 2 x 32 CondSimpleCNN), bf16."""
+    torch.manual_seed(0)
+    cfg = twophase_conditional_config().replace(
+        Ly=31, Lx=61, resolutions=[31, 61], latent_dim=16, encoder_channels=[32, 32, 32, 32],
+        decoder_channels=[32, 32, 32], decoder_attn_heads=2, decoder_attn_dim=16,
+        prop_n_block=2, prop_n_embd=32)
+    return LatentDynamics(cfg, dtype=torch.bfloat16, ae_dtype=torch.bfloat16,
+                          device="cpu").eval()
+
+
+def _cond_args():
+    gen = torch.Generator().manual_seed(2)
+    return torch.randn(3, 31, 61, 4, generator=gen), torch.rand(3, generator=gen) * 0.6 + 0.3
 
 
 def _profiled(model):
@@ -185,6 +204,50 @@ def test_rollout_span_carries_the_plan_and_samples_per_block(model):
     assert loop.attrs == {"steps": 2, "path": "loop"}
 
 
+def test_conditioning_span_once_per_conditional_predict(model, cond_model):
+    """A conditional predict opens one ``lns.conditioning`` (its batch),
+    under the predict and before ``lns.encode``; an unconditional one none."""
+    x, cond = _cond_args()
+    profiling.reset()
+    with profiling.recording():
+        cond_model.predict(x, 2, cond)
+        cond_model.predict_latents(x, 3, cond)
+        model.predict(_x(), 2, decode_chunk=2)
+        model.predict_latents(_x(), 2)
+    records = profiling.spans()
+    roots = sorted((r for r in records if r.name == "lns.predict"), key=lambda r: r.start_ns)
+    assert len(roots) == 4
+    for root, n in zip(roots, (1, 1, 0, 0)):
+        spans = [r for r in records if r.name == "lns.conditioning" and r.predict == root.id]
+        assert len(spans) == n
+        if n:
+            assert spans[0].parent == root.id and spans[0].attrs == {"batch": 3}
+            assert _children(records, root)[:2] == ["lns.conditioning", "lns.encode"]
+
+
+@pytest.mark.parametrize("path", ["kernel", "loop", "conditional"])
+def test_loop_steps_counts_the_samples_the_module_loop_steps(model, cond_model, path):
+    """``LOOP_STEPS`` changes by batch x steps over a predict whose steps
+    run as modules (kernels off, or a conditional propagator) and by 0
+    where the rollout took kernel 1's path; the root span carries it."""
+    key = latent_dynamics.LOOP_STEPS
+    before = profiling.counters().get(key, 0)
+    profiling.reset()
+    with profiling.recording():
+        if path == "conditional":
+            x, cond = _cond_args()
+            cond_model.predict_latents(x, 4, cond)
+        else:
+            model.use_kernels(path == "kernel").predict(_x(), 4, decode_chunk=4)
+    model.use_kernels(True)
+    want = {"kernel": 0, "loop": 2 * 4, "conditional": 3 * 4}[path]
+    assert profiling.counters().get(key, 0) - before == want
+    (root,) = [r for r in profiling.spans() if r.name == "lns.predict"]
+    assert root.attrs["counters"].get(key, 0) == want
+    (roll,) = [r for r in profiling.spans() if r.name == "lns.rollout"]
+    assert roll.attrs["path"] == ("kernel" if path == "kernel" else "loop")
+
+
 def test_annotate_adds_to_the_innermost_open_span():
     """``annotate`` adds its attrs to the innermost open span of the
     thread, and does nothing while spans are off or outside every span."""
@@ -256,6 +319,7 @@ def test_benchmark_reads_the_program_spans_on_the_cpu(monkeypatch):
     profiling.reset()
     r = run.run_cell(cell, 2**31 + 9, 0.4, True, torch.device("cpu"), 0.0)
     assert r["correct"] and r["metrics"]["propagator.pack_ms"]["value"] > 0
+    assert r["metrics"]["propagator.loop_steps"]["value"] == 0
     assert not {"kernels.launches", "kernels.scratch_mb", "kernels.wrapper_host_ms"} & set(
         r["metrics"])
 
@@ -267,3 +331,19 @@ def test_readers_read_nothing_from_a_program_without_spans(monkeypatch, name):
     H = _portbench(monkeypatch)
     monkeypatch.delattr(profiling, "spans")
     assert H.load_metric(name).read(SimpleNamespace(traced=H.Window())) is None
+
+
+def test_loop_steps_reader_reads_nothing_without_the_counter(monkeypatch):
+    """A program that records spans but has no ``LOOP_STEPS`` (the port
+    before it) reads nothing, where one that has it reads 0 without a
+    loop step."""
+    H = _portbench(monkeypatch)
+    reader = H.load_metric("propagator.loop_steps")
+    profiling.reset()
+    with profiling.recording():
+        with profiling.span("lns.predict", root=True):
+            pass
+    ctx = SimpleNamespace(traced=SimpleNamespace(count=1))
+    assert reader.read(ctx) == 0
+    monkeypatch.delattr(latent_dynamics, "LOOP_STEPS")
+    assert reader.read(ctx) is None
