@@ -34,7 +34,11 @@ CUDA PyTorch and nvcc. It imports nothing of JAX. In order it:
      one step against the plain version from its own carry at every step of
      the NS2d, the SW and the two-phase (zeros, 7x15) rollout, twice
      bitwise-identical, and in f32 at SW's latent (its activations in a
-     global workspace) and at the two-phase latent; kernel 3 in bf16 and
+     global workspace) and at the two-phase latent; its FiLM plan
+     (``check_cond_rollout``) on path 5's conditional propagator at B2048,
+     B1 and a ragged batch, each step from its own carry (also in the rms
+     distance, which a control with the f32 stretch in bf16 must fail),
+     twice bitwise-identical, B2048 x 78 timed; kernel 3 in bf16 and
      f32 at every GroupNorm site of the five paths (SW's 96x192 fields take
      its split plan; the conditional propagator's GN(1) sites in bf16 and
      f32, one of them over one row per sample, and its GN(32), each also
@@ -66,7 +70,8 @@ CUDA PyTorch and nvcc. It imports nothing of JAX. In order it:
      (path 4: batch 8, 78 steps, the 624 frames decoded at once, as its
      two-phase benchmark) and ``twophase_conditional_config()`` (path 5:
      path 4's workload with a parameter per sample that conditions every
-     step; its propagator steps as modules, kernel 3 at its GroupNorms; its
+     step; its propagator runs kernel 1's FiLM plan, one launch, after its
+     conditioning's GroupNorms on kernel 3; its
      zero-initialised gates filled from the generator too, so the
      conditioning is live; one plain step from each bf16 carry against the
      next, and another parameter giving another output), and
@@ -213,7 +218,9 @@ CUDA PyTorch and nvcc. It imports nothing of JAX. In order it:
  11. prints one JSON line of per-kernel results (launches per path or
      phase, and ms / plain_ms / bound_ms per predict, summed over one
      predict of each inference path, kernel 3 also over path 7's encoder
-     sites and the library blocks' sites; the probe kernels' per call at
+     sites and the library blocks' sites; kernel 1's FiLM plan,
+     ``prop_rollout_film``, per call at the conditional cell's B2048 x 78;
+     the probe kernels' per call at
      their probes' shapes), then the closing JSON line.
 
 Any failed check or exception exits non-zero before the closing line.
@@ -239,6 +246,12 @@ SW_BATCH, SW_STEPS = 8, 42
 # at once (benchmarks/run_benchmarks.py:89, 113-116)
 TP_BATCH, TP_STEPS = 8, 78
 LATENTS_BATCH = 256  # NS2d's ensemble screened in latent space: kernel 1's sample plan
+COND_BATCH = 2048  # the conditional cell's tank cases (twophase_cond.latents.b2048): the FiLM plan
+# the FiLM plan's per-step bound on its rms distance from the plain version,
+# relative to the plain step's rms: above the kernel's readings (at most
+# 0.92 % on an H100), below those of the same step with its f32 stretch in
+# bf16 (at least 1.12 %; check_cond_rollout, PERF.md)
+FILM_STEP_RMS = 1e-2
 REPS = 3  # timed predicts per path and round (two rounds per path)
 _FAILS: list = []
 
@@ -315,12 +328,13 @@ def _nbytes(*tensors):
 # the redesigned kernels' bf16 entry points, by a piece of their SASS names
 # (kernels 4 and 5: axial_tc<bf16, rows first> and <bf16, columns first>;
 # kernel 2: the statistics pass with both axial applies and the Gram, the
-# output pass with bb . m; kernel 1's sample plan on wgmma; the probe's FAB
+# output pass with bb . m; kernel 1's sample and FiLM plans on wgmma; the probe's FAB
 # passes; dot_general's bf16
 # kernel, each of its block tiles, and the chains whose products include
 # bf16 ones)
 TENSOR_CORE_KERNELS = {"prop_rollout": ("rollout_bf16",),
                        "prop_rollout_samples": ("rollout_bf16_kernel_samples",),
+                       "prop_rollout_film": ("rollout_film_kernel",),
                        "fab_core": ("fab_bb_stats_bf16", "fab_out_bf16"),
                        "fab_axial_in_fused": ("axial_tcI13__nv_bfloat16Lb1",),
                        "axial_kernel_apply_headmajor": ("axial_tcI13__nv_bfloat16Lb0",),
@@ -330,13 +344,14 @@ TENSOR_CORE_KERNELS = {"prop_rollout": ("rollout_bf16",),
                        "mosaic_dots": ("dot_general_bf16",
                                        *(f"dot_chain_kernelILi{c}E" for c in (0, 1, 2, 3, 4, 6)))}
 # the kernels whose products must run on wgmma (HGMMA; HMMA alone fails)
-WGMMA_KERNELS = ("prop_rollout_samples", "fab_core", "fab_mega_stats", "fab_mega_apply")
+WGMMA_KERNELS = ("prop_rollout_samples", "prop_rollout_film", "fab_core", "fab_mega_stats",
+                 "fab_mega_apply")
 # the kernels that must copy by TMA bulk copies (UBLKCP in their SASS), and
 # the sources whose wgmma kernels ptxas must not serialize (its notes C7514,
 # C7515, C7520 naming one of them fail)
 BULK_COPY_KERNELS = ("blocked_copy_bulk",)
 UNSERIALIZED_WGMMA = {"fab_mega.cu": ("fab_mega_stats_wgmma", "fab_mega_apply_wgmma"),
-                      "prop_rollout.cu": ("rollout_bf16_kernel_samples",)}
+                      "prop_rollout.cu": ("rollout_bf16_kernel_samples", "rollout_film_kernel")}
 # the f32 instantiations whose products must stay in full f32 on the CUDA
 # cores: FFMA, and no HMMA or HGMMA (which would mean TF32)
 CUDA_CORE_KERNELS = {"mosaic_dots": ("dot_general_f32", "dot_chain_kernelILi5E")}
@@ -560,6 +575,143 @@ def check_rollout_sample_plan(dev, gen, packed_for):
         z0 = torch.randn(LATENTS_BATCH, 8, 8, 16, generator=gen).to(dev)
         errs.append(_path_rollout(f"sample plan, {pm}", z0, packed, steps, 3, 2, pm)[0])
     return errs
+
+
+def check_cond_rollout(dev, gen, model):
+    """Kernel 1's FiLM plan (``fused_cond_rollout``: a block per sample at a
+    time, one m64 half per consumer warpgroup, wgmma, weights multicast to a
+    cluster, the batch walked persistently) on `model`'s conditional
+    propagator (bf16, its gates open), at 7x15: the launch the C side
+    reports at B2048 (the conditional cell's batch), B1 and a batch whose
+    last pass leaves blocks idle; at each (B2048 x 4, B1 x 78 and that
+    batch x 4 steps) every step from the kernel's own carry against one
+    plain step (``fused_cond_rollout_plain``) within 2e-2 x max|plain|
+    (kernel 1's per-step bound) and within FILM_STEP_RMS in the rms
+    distance, which the same steps with the f32 stretch in bf16
+    (``_film_bf16_stretch``, the control) must exceed, and two runs bitwise
+    equal; B2048 x 78 timed against the plain version and the bound; a
+    shape past the limit refused with the C side's text; one predict of
+    `model` naming plan "film" on ``lns.rollout``, launching the kernel
+    once and stepping no sample through the module loop. Returns the
+    kernel's result (largest error, per predict ms, plain ms, bound ms)."""
+    from lns_tpu_torch.kernels.prop_rollout import (cond_rollout_plan, cond_terms, film_takes,
+                                                    fused_cond_rollout, fused_cond_rollout_plain,
+                                                    pack_cond_simple_cnn)
+    from lns_tpu_torch.models import latent_dynamics
+    from lns_tpu_torch.utils import profiling
+
+    p = model.propagator
+    c_lat, c = p.in_proj.weight.shape[1], p.in_proj.weight.shape[0]
+    nb, dil = p.prop_n_block, p.dilation
+    packed = pack_cond_simple_cnn(p, torch.bfloat16)
+    plan = cond_rollout_plan(COND_BATCH, 7, 15)
+    ragged = plan["max_active_clusters"] * plan["cluster"] + 1  # two passes, some blocks idle
+    errs = []
+    for b, steps in ((COND_BATCH, 4), (1, TP_STEPS), (ragged, 4)):
+        pl = cond_rollout_plan(b, 7, 15)
+        idle = pl["blocks"] * pl["passes"] - b
+        print(f"      prop_rollout film B{b} 7x15: launch {pl}; {idle} idle block-passes",
+              flush=True)
+        z0 = torch.randn(b, 7, 15, c_lat, generator=gen).to(dev, torch.bfloat16)
+        cond = (torch.rand(b, generator=gen) * 0.6 + 0.3).to(dev)
+        with torch.no_grad():
+            e, cf = cond_terms(p.conditioning(cond))
+            label = f"prop_rollout film bf16 {steps} steps B{b} 7x15"
+            zs, zs2 = (fused_cond_rollout(z0, packed, e, cf, steps, nb, dil) for _ in range(2))
+            torch.cuda.synchronize()
+            _check(torch.equal(zs, zs2), f"{label}: two runs bitwise identical")
+            prev = torch.cat([z0[None], zs[:-1]]).reshape(-1, 7, 15, c_lat)
+            er, cr = e.repeat(1, steps, 1), cf.repeat(1, steps, 1)
+            one = fused_cond_rollout_plain(prev, packed, er, cr, 1, nb, dil)
+            one = one.reshape(zs.shape).float()
+            ctl = _film_bf16_stretch(prev, packed, er, cr, nb, dil).reshape(zs.shape).float()
+        err = (one - zs.float()).abs().amax(dim=(1, 2, 3, 4))
+        ratio = (err / one.abs().amax(dim=(1, 2, 3, 4))).max().item()
+        differ = (one != zs.float()).float().mean().item()
+        rms, ctl_rms = _rms_ratio(zs, one), _rms_ratio(ctl, one)
+        ctl_ratio = ((ctl - one).abs().amax(dim=(1, 2, 3, 4))
+                     / one.abs().amax(dim=(1, 2, 3, 4))).max().item()
+        _check(bool(torch.isfinite(zs).all()) and ratio <= 2e-2 and rms <= FILM_STEP_RMS,
+               f"{label}, every step from the kernel's own carry: max_abs_err <= {ratio:.2e} x "
+               f"max|plain| (<= 2e-2), rms distance <= {rms:.3e} x rms(plain) (<= "
+               f"{FILM_STEP_RMS:.0e}); {differ:.2%} of elements differ")
+        _check(ctl_rms > FILM_STEP_RMS,
+               f"{label}, the control (f32 stretch in bf16): rms distance >= {ctl_rms:.3e} x "
+               f"rms(plain) (> {FILM_STEP_RMS:.0e}), max_abs_err <= {ctl_ratio:.2e} x max|plain|")
+        errs.append(err.max().item())
+
+    b, steps = COND_BATCH, TP_STEPS
+    z0 = torch.randn(b, 7, 15, c_lat, generator=gen).to(dev, torch.bfloat16)
+    with torch.no_grad():
+        e, cf = cond_terms(p.conditioning(torch.rand(b, generator=gen).to(dev)))
+        ms = cuda_ms(lambda: fused_cond_rollout(z0, packed, e, cf, steps, nb, dil), 3)
+        plain_ms = cuda_ms(lambda: fused_cond_rollout_plain(z0, packed, e, cf, steps, nb, dil), 1)
+    rows = 7 * 15
+    flops = 2 * b * steps * rows * (2 * c_lat * c + nb * (3 * 9 + 2) * c * c)
+    bound = Bound().add(flops, _nbytes(z0, *packed, e, cf) + steps * _nbytes(z0))
+    print(f"      prop_rollout film bf16 {steps} steps B{b} 7x15: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound.ms:.4f} ms ({bound.result()['bound_by']}), "
+          f"{100 * bound.ms / ms:.1f} % of it", flush=True)
+
+    z = torch.zeros(2, 12, 24, c_lat, device=dev, dtype=torch.bfloat16)
+    try:
+        fused_cond_rollout(z, packed, e[:, :2].contiguous(), cf[:, :2].contiguous(), 1, nb,
+                           dil)
+        refused = "nothing"
+    except ValueError as exc:
+        refused = str(exc)
+    _check("H*W <= 128" in refused, f"prop_rollout film B2 12x24 refused: {refused}")
+    _check(not film_takes(z, c, "zeros") and film_takes(z0, c, "zeros"),
+           f"film_takes: B2 12x24 refused, B{b} 7x15 taken")
+
+    x = torch.randn(4, model.cfg.Ly, model.cfg.Lx, model.cfg.in_channels, generator=gen).to(dev)
+    key, launched = latent_dynamics.LOOP_STEPS, "prop_rollout.fused_cond_rollout.launches"
+    before = profiling.counters()
+    profiling.reset()
+    with profiling.recording():
+        model.predict_latents(x, 3, torch.rand(4, generator=gen).to(dev))
+    after = profiling.counters()
+    (roll,) = [r for r in profiling.spans() if r.name == "lns.rollout"]
+    _check(roll.attrs.get("plan") == "film" and roll.attrs.get("path") == "kernel"
+           and after.get(key, 0) == before.get(key, 0)
+           and after.get(launched, 0) - before.get(launched, 0) == 1,
+           f"conditional predict B4 x 3 steps: lns.rollout {roll.attrs}, loop_steps "
+           f"+{after.get(key, 0) - before.get(key, 0)}, FiLM launches "
+           f"+{after.get(launched, 0) - before.get(launched, 0)}")
+    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound.ms,
+            "bound_by": bound.result()["bound_by"], "library_ms": None}
+
+
+def _rms_ratio(out, ref):
+    """The largest over steps (the leading axis) of the rms distance of out
+    from ref relative to ref's rms."""
+    d = (out.float() - ref.float()).flatten(1)
+    return (d.norm(dim=1) / ref.float().flatten(1).norm(dim=1)).max().item()
+
+
+def _film_bf16_stretch(z, packed, e, c, n_block, dilation):
+    """The control of the FiLM plan's check: one step of
+    ``fused_cond_rollout_plain`` (bf16, zeros) with the f32 stretch in bf16:
+    u (conv1.3's product, its bias and e) rounded before its GN(1), that GN
+    and the GELU after it in bf16, and the FiLM product (h + g)(1 + c) from
+    the rounded residual, in bf16, as is its GN(1)."""
+    from lns_tpu_torch.kernels.prop_rollout import _conv3, _gn, _gn_module
+    from lns_tpu_torch.ops.activations import gelu
+
+    p, dt = packed, torch.bfloat16
+    ev, cv = (t.float()[:, :, None, None, :] for t in (e, c))
+    h = torch.matmul(z.to(dt), p.in_w) + p.in_b.to(dt)
+    for i in range(n_block):
+        t = _gn_module(h, p.gn_s[i, 0], p.gn_b[i, 0], 1, 1e-5)
+        t = gelu(_conv3(t, p.conv_w[i, 0], p.conv_b[i, 0], 1, "zeros"))
+        u = (_conv3(t, p.conv_w[i, 1], None, dilation, "zeros").float()
+             + p.conv_b[i, 1].to(dt).float() + ev[i]).to(dt)
+        u = gelu(_gn(u, p.gn_s[i, 1], p.gn_b[i, 1], 1, 1e-5))
+        g = _conv3(u, p.conv_w[i, 2], p.conv_b[i, 2], 1, "zeros")
+        f = _gn((h + g) * (1 + cv[i]).to(dt), p.gn_s[i, 2], p.gn_b[i, 2], 1, 1e-5)
+        h = (h + g) + torch.matmul(gelu(torch.matmul(f, p.ffn_w[i, 0])), p.ffn_w[i, 1])
+    h = _gn_module(h, p.out_gn_s, p.out_gn_b, 32, 1e-6)
+    return torch.matmul(h, p.out_w) + p.out_b.to(dt)
 
 
 def _path_rollout(tag, z0, packed, steps, n_block, dil, pm):
@@ -1465,9 +1617,12 @@ def train_step_gn(cfg):
 
 def expected_launches(cfg, n_chunks=None, encodes=1, steps=None):
     """Launches per predict that the layer specs imply: the rollout once
-    (kernel 1; a conditional propagator steps as modules, whose GroupNorms
-    launch kernel 3 ``train_step_gn``'s way over `steps` steps, the
-    autoencoder's counts alone when `steps` is None);
+    (kernel 1; a conditional propagator in a bf16 predict on the card,
+    ``cfg.mixed_precision``, runs kernel 1's FiLM plan once,
+    ``prop_rollout_film``, after its conditioning's GroupNorms; in f32 it
+    steps as modules, whose
+    GroupNorms launch kernel 3 ``train_step_gn``'s way over `steps` steps;
+    the autoencoder's counts alone when `steps` is None);
     per FAB block, once per encode or decode chunk, the FAB core (c-space)
     or the axial kernel (d-space), as ``_fab_impl_for`` picks from the
     block's dim and dim_head; the GroupNorm kernel once per GN site (two per
@@ -1497,7 +1652,10 @@ def expected_launches(cfg, n_chunks=None, encodes=1, steps=None):
                                           "fablock": 1, "fourier": 0}.get(s.kind, 0))}
     if cfg.is_conditional:
         out["prop_rollout"] = 0
-        if n_chunks > 0 and steps is not None:
+        if n_chunks > 0 and steps is not None and cfg.mixed_precision:
+            out["prop_rollout_film"] = 1
+            out["group_norm"] += cfg.prop_n_block  # cond_conv2's GN(1), once per predict
+        elif n_chunks > 0 and steps is not None:
             out["group_norm"] += train_step_gn(cfg.replace(out_tw=steps))
     return out
 
@@ -1546,7 +1704,9 @@ def _counted():
     """Every kernel wrapper's key in the counter registry
     (``utils.profiling``: ``<module>.<wrapper>``) by the name the kernels
     JSON line gives it."""
-    return {"prop_rollout": "prop_rollout.fused_rollout", "fab_core": "fab_core.fab_fused_core",
+    return {"prop_rollout": "prop_rollout.fused_rollout",
+            "prop_rollout_film": "prop_rollout.fused_cond_rollout",
+            "fab_core": "fab_core.fab_fused_core",
             "group_norm": "group_norm.fused_group_norm_swish",
             "fab_axial_in_fused": "axial.fab_axial_in_fused",
             "axial_kernel_apply_headmajor": "axial.axial_kernel_apply_headmajor",
@@ -1679,8 +1839,8 @@ def _open_gates(model, gen):
 
 
 def check_cond_steps(label, model, x, cond, steps):
-    """A conditional model's bf16 rollout on the kernel path (its module
-    steps, kernel 3 at every GroupNorm), each step against one plain step
+    """A conditional model's bf16 rollout on the kernel path (kernel 1's
+    FiLM plan where the card takes its shape), each step against one plain step
     (``use_kernels(False)``) from the kernel path's own carry, within 2e-2 x
     max|plain| (the bf16 bound of kernel 1's per-step check: an f32 sum in
     another order moves a GroupNorm's rounded coefficients and whole
@@ -3169,7 +3329,7 @@ def check_evaluate(where, cfg, ckpt_dir, dev, smi, f32=False):
     for i in range(0, n, 8):  # evaluate's predict batches
         chunks = -(-min(8, n - i) * steps // cfg.decode_chunk) if cfg.decode_chunk else 1
         for k, v in expected_launches(cfg, n_chunks=chunks, steps=steps).items():
-            want[k] += v
+            want[k] = want.get(k, 0) + v
     keys = {"rollout_steps", "num_trajectories", "seq_rel_l2_per_channel", "seq_rel_l2",
             "frame_rel_l2_vs_time", "training_best_checkpoint"}
     _check(metrics.keys() == keys and metrics["seq_rel_l2"] == best["val_seq_rel_l2"]
@@ -4731,7 +4891,9 @@ def run(dev, smi=""):
         b, steps, chunk = size
         gn, fab = call_sites(model, dev, b, steps, chunk)
         n_chunks = -(-b * steps // (chunk or b * steps))
-        expect = expected_launches(cfg, n_chunks=n_chunks, steps=steps)
+        # bf16 on the card: a conditional propagator runs kernel 1's FiLM plan
+        expect = expected_launches(cfg.replace(mixed_precision=True), n_chunks=n_chunks,
+                                   steps=steps)
         ae_gn = expected_launches(cfg, n_chunks=n_chunks)["group_norm"]
         _check(sum(gn.values()) == ae_gn,
                f"{label}: autoencoder GroupNorm calls found {sum(gn.values())} == spec count "
@@ -4748,12 +4910,14 @@ def run(dev, smi=""):
             tp_gn = gn
             continue
         if cfg.is_conditional:  # its autoencoder's sites are path 4's
+            # the module step's sites (the f32 predict and training step as modules)
             tpc_gn = cond_gn_sites(model, dev, b, steps)
-            _check(sum(tpc_gn.values()) == expect["group_norm"] - ae_gn,
+            loop_gn = expected_launches(cfg, n_chunks=n_chunks, steps=steps)["group_norm"]
+            _check(sum(tpc_gn.values()) == loop_gn - ae_gn,
                    f"{label}: propagator GroupNorm calls found {sum(tpc_gn.values())} == "
                    f"{steps} steps x {3 * cfg.prop_n_block + 1} + {cfg.prop_n_block} "
-                   f"({expect['group_norm'] - ae_gn}); kernel 3 in all "
-                   f"{expect['group_norm']} per predict, kernel 1 in none")
+                   f"({loop_gn - ae_gn}) as modules; the bf16 predict launches kernel 3 "
+                   f"{expect['group_norm']} times and kernel 1's FiLM plan once")
             continue
         for sites, new in ((gn_sites, gn), (fab_sites, fab)):
             for s, c in new.items():
@@ -4795,9 +4959,12 @@ def run(dev, smi=""):
                tp_res := check_group_norm(dev, gen, tp_gn, fam_train_sites["two-phase"],
                                           label="two-phase", extras=False))}
     # path 5: its autoencoder's sites are path 4's (checked and timed there,
-    # counted again per predict), and its propagator's
+    # counted again per predict), and its propagator's module-step sites
+    # (its f32 predict and its training step; the bf16 predict takes kernel
+    # 1's FiLM plan, held here on path 5's propagator)
     res["group_norm"] = _summed(_summed(res["group_norm"], tp_res), check_cond_group_norm(
         dev, cond_gen, tpc_gn, fam_train_sites["conditional two-phase"]))
+    res["prop_rollout_film"] = check_cond_rollout(dev, cond_gen, tpc)
     check_fab_core_limits(dev, n, d)
     check_fab_core_heads(dev, gen)
     res["fab_axial_in_fused"], res["axial_kernel_apply_headmajor"] = check_axial(
@@ -4836,6 +5003,9 @@ def run(dev, smi=""):
     src, tpu, probes = "lns_tpu_torch/csrc/", "lns_tpu/pallas_kernels/", "benchmarks/"
     kernels = [
         ("prop_rollout", "cuda", src + "prop_rollout.cu", tpu + "prop_rollout.py:292"),
+        # the JAX package steps a conditional propagator as modules (its scan)
+        ("prop_rollout_film", "cuda", src + "prop_rollout.cu",
+         "lns_tpu/models/latent_dynamics.py:175"),
         ("fab_core", "cuda", src + "fab_core.cu", tpu + "fab_core.py:170"),
         ("group_norm", "cuda", src + "group_norm.cu", tpu + "group_norm.py:50"),
         ("fab_axial_in_fused", "cuda", src + "axial.cu", tpu + "axial_fused.py:132"),

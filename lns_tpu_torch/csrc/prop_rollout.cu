@@ -36,6 +36,11 @@
 // cudaOccupancyMaxActiveClusters of the cluster plan's launch (asked once
 // per device and shape); else the cluster plan.
 //
+// A third bf16 body, the FiLM plan (rollout_film_kernel, its own entry
+// point lns_prop_rollout_film), runs the conditional propagator
+// (CondSimpleCNN) on the sample plan's design: its notes are at the body,
+// below the sample plan's launcher.
+//
 // Sample-plan design (rollout_bf16_kernel_samples): a block of three
 // warpgroups owns kSampWGs = 2 samples, one per consumer warpgroup, and
 // computes all C output channels of every layer: each product is one m64 x
@@ -1493,6 +1498,609 @@ cudaError_t run_samples(const Params& prm, cudaStream_t stream, int* n) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16, the FiLM plan (rollout_film_kernel): every step of the conditional
+// propagator (CondSimpleCNN, the conditional two-phase family's) in one
+// launch, on the sample plan's design.
+//
+// It replaces no Pallas kernel: the JAX package steps its conditional
+// propagator as modules (lns_tpu/models/latent_dynamics.py:
+// _pallas_rollout_ok), and so did the port, at ~25 elementwise, cast and
+// norm passes per block per step over the [B, H W, C] activation (about
+// 945 ms of the ~1.02 s predict at B2048 x 78 on an H100, PERF.md). Each
+// step:
+//   h = z @ in_w + in_b
+//   n_block x [ t = gelu(conv3(GN1(h)));  u = (bf16(conv3_dil(t)) + bias) + e  (f32)
+//               g = conv3(bf16(gelu(GN1(u))))  (GN1 and gelu in f32)
+//               t = GN1((h + g)(1 + c))  (f32);  h = bf16(h + g) + gelu(t @ ffn0) @ ffn1 ]
+//   z = GN(32)(h) @ out_w + out_b
+// with e, c [n_block, B, C] f32 each sample's projection and FiLM scale
+// (CondSimpleCNN.conditioning, once per predict). It rounds where the
+// module step does: a product and its bias each to bf16, u and the FiLM
+// branch unrounded in f32, x + g rounded where it is the residual and read
+// unrounded by the FiLM product, the bf16 GELU as ops.activations.gelu
+// computes it (erfc, its result rounded before the last product); every
+// GroupNorm's statistics single-pass in f32, the bf16 ones (conv1.0, GN(32))
+// applied as the module's kernel 3 does (sc and sh rounded to bf16), the
+// f32 ones (cond_conv1.0, ffn.0) as the plain version's _gn.
+//
+// What bounds it on an H100: the products, ~0.40 GFLOP a sample-step at
+// 7x15, C 128, n_block 4 (twelve 3x3 convs, eight C x C matrices, the two
+// projections): ~65 ms for B2048 x 78 steps at 989 TFLOP/s (~79 ms with
+// the rows padded to two m64 tiles); and the weights' L2 traffic, 29 C x C
+// chunks (32 KB) per block per step for every sample, ~310 GB a predict at
+// clusters of 2 (~50 ms at L2 rates). Device memory sees z0, the outputs
+// and the weights once.
+//
+// Design: a block of three warpgroups owns one sample at a time and walks
+// the batch persistently (passes of gridDim.x samples, the grid sized so
+// that every pass is as full as the batch allows): each step's 29 n_block
+// chunks stream through the sample plan's mbarrier ring, loaded once per
+// cluster of kFilmCluster blocks by TMA multicast, while the activations
+// never leave shared memory and registers across all the steps. The
+// sample's H W <= 128 rows are two m64 tiles, one per consumer warpgroup
+// (rows past H W read the zero row of F and are never stored); each
+// product is the warpgroup's m64 x C wgmma chain with A from registers,
+// through the sample plan's helpers (conv_taps, chunk_product, the Frag
+// and Lane layout). The dilated taps reach across the halves (+-32 rows at
+// 7x15, dilation 2), so the conv input F is shared by both warpgroups:
+// every write of F and every GroupNorm reduction ends at a named barrier
+// over the 256 consumer threads (film_stats, bar 1); GN(32)'s column sums
+// meet there too. The f32 stretch (u, its GN and GELU, the FiLM product
+// and its GN) stays in the accumulators' registers. The in-projection is 4
+// k16 steps with the carry as A (C_lat 64), the out-projection 8 m64n64k16
+// steps; in_w and out_w stay in shared memory for the launch.
+//
+// What the card taught (H100, B2048 x 78; PERF.md): the body takes ~290 ms,
+// ~22 % of its bound, and the epilogues hold it, not the tensor cores: a
+// copy without the products ran ~165 ms, one without the GELUs ~170 ms.
+// Two consumer warps per scheduler, in step at the sample's barriers, hide
+// little latency. The GELUs' erfc is therefore branch-free (erfc_abs), the
+// consumers take 240 registers (no spills), and a bias is a template
+// parameter of an epilogue. Clusters of 4 ran slower (~361 against ~333
+// ms), and pipelining a conv's taps (wait<1>) gained nothing.
+//
+// Shared memory (P = H W): the ring, ring x 32 KB; out_w 16 KB; in_w 16 KB;
+// F (P + 1) x (C + 8) bf16 (28,832 bytes at 7x15); h 128 x (C + 8) bf16
+// (34,816); the GroupNorm scratch 2,688; the barriers. At 7x15: a ring of
+// 4, 231,264 bytes with the alignment's slack (a ring of 3 at H W 128). No
+// atomics: two runs give the same bits.
+
+constexpr int kFilmWGs = 2;                          // consumer warpgroups: one m64 half each
+constexpr int kFilmThreads = 128 * (kFilmWGs + 1);   // and one producer warpgroup
+constexpr int kFilmRows = 64 * kFilmWGs;             // a sample's rows: H W <= 128
+constexpr int kFilmLat = 64;                         // C_lat: K of the in-projection, N of
+                                                     // the out-projection
+constexpr int kFilmGroups = 32;                      // the out-projection's GroupNorm
+constexpr int kFilmCluster = 2;                      // blocks sharing one weight stream
+constexpr int kFilmMaxRing = 6;
+// GN scratch (floats): GN(1) partials [2][8 warps][2] (double-buffered);
+// GN(32)'s per-group partials [2 halves][32][2]; per warpgroup the
+// per-column (mean, inv) [C][2]
+constexpr int kFilmGnFloats = 2 * 8 * 2 + kFilmWGs * kFilmGroups * 2 + kFilmWGs * kSampC * 2;
+
+struct FilmParams {
+  const bf16* z0;        // [B, P, C_lat]
+  const bf16* in_w;      // [C_lat, C]
+  const float* in_b;     // [C]
+  const float* gn_s;     // [n_block, 3, C]  (conv1.0, cond_conv1.0, ffn.0)
+  const float* gn_b;     // [n_block, 3, C]
+  const float* conv_b;   // [n_block, 3, C]  (conv1.1, conv1.3, cond_conv1.2)
+  const float* out_gn_s;  // [C]
+  const float* out_gn_b;  // [C]
+  const bf16* out_w;     // [C, C_lat]
+  const float* out_b;    // [C_lat]
+  const float* e;        // [n_block, B, C] each sample's projection of the embedding
+  const float* c;        // [n_block, B, C] each sample's FiLM scale
+  bf16* out;             // [steps, B, P, C_lat]
+  int B, n_block, dilation, steps, passes;
+  Geo geo;
+};
+
+// The FiLM plan's shared memory, byte offsets from the first 1024-byte
+// boundary: the ring, out_w [C rows][64] and in_w [2 halves][C_lat rows][64]
+// (MN-major, 128-byte swizzle), F [P+1][C+8] (row P zero), h [128][C+8]
+// (rows past P zero), the GN scratch, the barriers full[ring], empty[ring].
+struct FilmPlan {
+  int cl, ring;
+  int off_out, off_in, off_f, off_h, off_gn, off_bar;
+  int smem;  // bytes per block, with the alignment's slack
+};
+
+FilmPlan make_film_plan(int P) {
+  FilmPlan s;
+  s.cl = kFilmCluster;
+  const int fixed = kSampC * 128 + 2 * kFilmLat * 128 + (P + 1) * kSampLdf * 2 +
+                    kFilmRows * kSampLdf * 2 + kFilmGnFloats * 4;
+  s.ring = std::min(kFilmMaxRing, (static_cast<int>(lns::kMaxDynamicSmem) - 1024 - fixed -
+                                   16 * kFilmMaxRing) / kChunk);
+  s.off_out = s.ring * kChunk;
+  s.off_in = s.off_out + kSampC * 128;
+  s.off_f = s.off_in + 2 * kFilmLat * 128;
+  s.off_h = s.off_f + (P + 1) * kSampLdf * 2;
+  s.off_gn = s.off_h + kFilmRows * kSampLdf * 2;
+  s.off_bar = s.off_gn + kFilmGnFloats * 4;
+  s.smem = 1024 + s.off_bar + 16 * s.ring;
+  return s;
+}
+
+// erfc(|y|), branch-free: Numerical Recipes' erfcc (a Chebyshev fit,
+// fractional error under 1.2e-7 everywhere), k exp(P(k) - y^2) with k = 1 /
+// (1 + |y| / 2). CUDA's erfcf and erff branch on the argument's range,
+// which diverges inside a warp: with them the GELUs took ~38 % of the FiLM
+// plan's time at B2048 x 78, this form ~10 % less (PERF.md).
+__device__ __forceinline__ float erfc_abs(float y) {
+  const float t = fabsf(y);
+  const float k = __fdividef(1.f, fmaf(0.5f, t, 1.f));
+  float p = 0.17087277f;
+  p = fmaf(p, k, -0.82215223f);
+  p = fmaf(p, k, 1.48851587f);
+  p = fmaf(p, k, -1.13520398f);
+  p = fmaf(p, k, 0.27886807f);
+  p = fmaf(p, k, -0.18628806f);
+  p = fmaf(p, k, 0.09678418f);
+  p = fmaf(p, k, 0.37409196f);
+  p = fmaf(p, k, 1.00002368f);
+  p = fmaf(p, k, -1.26551223f);
+  return k * __expf(p - t * t);
+}
+
+// bf16 GELU as the module computes it (ops.activations.gelu): 0.5 x erfc(-x
+// c) with c = bf16(1 / sqrt 2), erfc flushed to 0 below f32's normal range
+// and rounded to bf16 before the product; the result is rounded once, by
+// the caller's pack_bf16
+__device__ __forceinline__ float gelu_bf16(float x) {
+  const float y = x * 0.70703125f, m = erfc_abs(y);
+  const float e = y > 0.f ? 2.f - m : m;  // erfc(-y)
+  return x * rnd<bf16>(e > 1.1754942e-38f ? e : 0.f) * 0.5f;
+}
+
+// f32 GELU as torch computes it (F.gelu): x 0.5 (1 + erf(x / sqrt 2)), erf
+// rounded to f32 (as 1 - erfc) before the sum
+__device__ __forceinline__ float gelu_f32(float x) {
+  const float y = x * 0.70710678118654752f, erf_abs = 1.f - erfc_abs(y);
+  return x * 0.5f * (y > 0.f ? 1.f + erf_abs : 1.f - erf_abs);
+}
+
+// o = bf16(gelu_bf16(bf16(bf16(acc) + bias))) (BIAS false: of bf16(acc)).
+// BIAS is a template parameter: a run-time test of the pointer put each
+// pair in its own basic block.
+template <bool BIAS>
+__device__ __forceinline__ void film_gelu_pairs(const float (&acc)[64], const float* bias,
+                                                Frag& o, const Lane& L) {
+#pragma unroll
+  for (int p = 0; p < 32; ++p) {
+    float v0 = rnd<bf16>(acc[2 * p]), v1 = rnd<bf16>(acc[2 * p + 1]);
+    if (BIAS) {
+      const float2 b = bias2(bias, pair_col(L, p));
+      v0 = rnd<bf16>(v0 + b.x);
+      v1 = rnd<bf16>(v1 + b.y);
+    }
+    o[p >> 2][p & 3] = lns::pack_bf16(gelu_bf16(v0), gelu_bf16(v1));
+  }
+}
+
+// GroupNorm(1)'s (mean, inv) over the sample from each consumer thread's
+// partial sums (a, q) over its pairs in rows < P: the 8 consumer warps'
+// sums meet in red at a named barrier over both warpgroups, and every
+// thread adds them in warp order, so both halves use the same statistics.
+// The barrier also ends every read of F before it.
+__device__ __forceinline__ float2 film_stats(float a, float q, float* red, int P, const Lane& L,
+                                             int wg) {
+  warp_sum2(a, q);
+  if (L.lane == 0) {
+    red[2 * (4 * wg + L.q)] = a;
+    red[2 * (4 * wg + L.q) + 1] = q;
+  }
+  lns::bar_sync(1, 2 * 128);
+  a = 0.f;
+  q = 0.f;
+#pragma unroll
+  for (int w = 0; w < 8; ++w) {
+    a += red[2 * w];
+    q += red[2 * w + 1];
+  }
+  const float n = static_cast<float>(P) * kSampC, mean = a / n;
+  return make_float2(mean, rsqrtf(fmaxf(q / n - mean * mean, 0.f) + 1e-5f));
+}
+
+// o = the residual stream normalised as the module's bf16 GroupNorm does it
+// (kernel 3's bf16 arithmetic, group_norm_swish_plain): sc = inv scale, sh =
+// bias - mean sc in f32, each rounded to bf16, then y = bf16(bf16(h sc) +
+// sh); (mean, inv) per column from cst (PER_COL) or mi
+template <bool PER_COL>
+__device__ __forceinline__ void gn_apply_sc(bf16* hs, Frag& o, float2 mi, const float* cst,
+                                            const float* scale, const float* bias,
+                                            const Lane& L) {
+#pragma unroll
+  for (int p = 0; p < 32; ++p) {
+    const int c = pair_col(L, p);
+    const float2 v = unpack2(hword(hs, L, p));
+    const float2 s = __ldg(reinterpret_cast<const float2*>(scale + c));
+    const float2 b = __ldg(reinterpret_cast<const float2*>(bias + c));
+    float2 m0 = mi, m1 = mi;
+    if (PER_COL) {
+      m0 = *reinterpret_cast<const float2*>(cst + 2 * c);
+      m1 = *reinterpret_cast<const float2*>(cst + 2 * c + 2);
+    }
+    const float sc0 = __fmul_rn(m0.y, s.x), sc1 = __fmul_rn(m1.y, s.y);
+    const float sh0 = rnd<bf16>(__fsub_rn(b.x, __fmul_rn(m0.x, sc0)));
+    const float sh1 = rnd<bf16>(__fsub_rn(b.y, __fmul_rn(m1.x, sc1)));
+    o[p >> 2][p & 3] = lns::pack_bf16(rnd<bf16>(v.x * rnd<bf16>(sc0)) + sh0,
+                                      rnd<bf16>(v.y * rnd<bf16>(sc1)) + sh1);
+  }
+}
+
+// partial sums (a, q) of the f32 values v in rows < P
+__device__ __forceinline__ float2 film_sums(const float (&v)[64], int P, const Lane& L) {
+  float a = 0.f, q = 0.f;
+#pragma unroll
+  for (int p = 0; p < 32; ++p) {  // a select, not a branch per pair
+    const bool in = pair_row(L, p) < P;
+    const float v0 = in ? v[2 * p] : 0.f, v1 = in ? v[2 * p + 1] : 0.f;
+    a += v0;
+    a += v1;
+    q = fmaf(v0, v0, q);
+    q = fmaf(v1, v1, q);
+  }
+  return make_float2(a, q);
+}
+
+// partial sums (a, q) of the sample's residual stream over this thread's
+// pairs (rows past P hold zeros)
+__device__ __forceinline__ float2 h_sums(bf16* hs, const Lane& L) {
+  float a = 0.f, q = 0.f;
+#pragma unroll
+  for (int p = 0; p < 32; ++p) {
+    const float2 v = unpack2(hword(hs, L, p));
+    a += v.x;
+    a += v.y;
+    q = fmaf(v.x, v.x, q);
+    q = fmaf(v.y, v.y, q);
+  }
+  return make_float2(a, q);
+}
+
+// o = the f32 values v normalised, (v - mean) inv scale + bias in f32, then
+// (GELU in f32 first) rounded to bf16
+template <bool GELU>
+__device__ __forceinline__ void film_norm(const float (&v)[64], Frag& o, float2 mi,
+                                          const float* scale, const float* bias, const Lane& L) {
+#pragma unroll
+  for (int p = 0; p < 32; ++p) {
+    const int c = pair_col(L, p);
+    const float2 s = __ldg(reinterpret_cast<const float2*>(scale + c));
+    const float2 b = __ldg(reinterpret_cast<const float2*>(bias + c));
+    float t0 = (v[2 * p] - mi.x) * mi.y * s.x + b.x;
+    float t1 = (v[2 * p + 1] - mi.x) * mi.y * s.y + b.y;
+    if (GELU) {
+      t0 = gelu_f32(t0);
+      t1 = gelu_f32(t1);
+    }
+    o[p >> 2][p & 3] = lns::pack_bf16(t0, t1);
+  }
+}
+
+// One block runs one sample at a time (the sample pass * gridDim.x +
+// blockIdx.x of each pass; past B it computes on zeros and stores
+// nothing) through every step: consumer warpgroup w holds rows [64 w, 64 w
+// + 64) of every product; warpgroup kFilmWGs produces, one thread keeping
+// the ring of weight chunks full (each chunk loaded once per cluster, by
+// block f % cl, multicast to every block).
+__global__ void __launch_bounds__(kFilmThreads, 1)
+rollout_film_kernel(const __grid_constant__ CUtensorMap map_conv,
+                    const __grid_constant__ CUtensorMap map_ffn, FilmParams p, FilmPlan sp) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (lns::smem_addr(smem_raw) & 1023)) & 1023);
+  constexpr int C = kSampC, C_lat = kFilmLat;
+  const Geo& g = p.geo;
+  const int P = g.P, tid = threadIdx.x;
+  uint8_t* ring = base;
+  uint8_t* out_s = base + sp.off_out;
+  uint8_t* in_s = base + sp.off_in;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + sp.off_bar);
+  uint64_t* empty = full + sp.ring;
+
+  if (tid == 0) {
+    for (int i = 0; i < sp.ring; ++i) {
+      lns::mbar_init(&full[i], 1);
+      lns::mbar_init(&empty[i], sp.cl * kFilmWGs * 4);  // every consumer warp of the cluster
+    }
+    lns::mbar_fence_init();
+  }
+  {  // in_w and out_w into their swizzled layouts; the zero row of F
+    for (int i = tid; i < C_lat * (C / 8); i += kFilmThreads) {
+      const int r = i / (C / 8), c8 = i % (C / 8);
+      uint8_t* d = in_s + (c8 / 8) * C_lat * 128 + r * 128 + (((c8 % 8) ^ (r & 7)) << 4);
+      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(p.in_w + r * C + 8 * c8);
+    }
+    for (int i = tid; i < C * 8; i += kFilmThreads) {
+      const int r = i / 8, c8 = i % 8;
+      *reinterpret_cast<uint4*>(out_s + r * 128 + ((c8 ^ (r & 7)) << 4)) =
+          *reinterpret_cast<const uint4*>(p.out_w + r * C_lat + 8 * c8);
+    }
+    bf16* f0 = reinterpret_cast<bf16*>(base + sp.off_f);
+    for (int i = tid; i < C / 2; i += kFilmThreads)
+      reinterpret_cast<uint32_t*>(f0 + P * kSampLdf)[i] = 0u;
+    lns::fence_async_shared();  // the weights' stores, visible to wgmma
+  }
+  __syncthreads();
+  if (sp.cl > 1) lns::cluster_sync();  // every block's barriers exist before a multicast lands
+
+  const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (role == kFilmWGs) {
+    // producer: the chunks of every pass and step in order, each stage
+    // refilled once every consumer warp of the cluster has released it; its
+    // warpgroup keeps the fewest registers, and the consumers take 240
+    lns::setmaxnreg_dec<24>();
+    if (tid == kFilmWGs * 128) {
+      const uint32_t rank = sp.cl > 1 ? lns::cluster_rank() : 0;
+      const uint16_t mask = static_cast<uint16_t>((1 << sp.cl) - 1);
+      const int per_step = kChunksPerBlock * p.n_block;
+      int f = 0;
+      for (int pass = 0; pass < p.passes; ++pass)
+        for (int step = 0; step < p.steps; ++step)
+          for (int c = 0; c < per_step; ++c, ++f) {
+            const int st = f % sp.ring;
+            if (f >= sp.ring) lns::mbar_wait(&empty[st], ((f / sp.ring) - 1) & 1);
+            lns::mbar_expect_tx(&full[st], kChunk);
+            if (f % sp.cl != static_cast<int>(rank)) continue;  // another block loads it
+            const int i = c / kChunksPerBlock, j = c - kChunksPerBlock * i;
+            const CUtensorMap* map = j < 27 ? &map_conv : &map_ffn;
+            const int c2 = j < 27 ? j % 9 : 2 * i + j - 27, c3 = j < 27 ? 3 * i + j / 9 : 0;
+            for (int hf = 0; hf < 2; ++hf) {
+              uint8_t* dst = ring + st * kChunk + hf * kHalf;
+              if (sp.cl > 1)
+                lns::tma_load_multicast(dst, map, &full[st], 64 * hf, 0, c2, c3, mask);
+              else
+                lns::tma_load(dst, map, &full[st], 64 * hf, 0, c2, c3);
+            }
+          }
+    }
+  } else {
+    lns::setmaxnreg_inc<240>();  // 2 x 128 x 240 + 128 x 24 of the SM's 65,536: no spills
+    const int wg = role, wt = tid % 128;
+    Lane L;
+    L.lane = wt % 32;
+    L.q = wt / 32;
+    L.u = L.lane % 4;
+    L.r0 = 64 * wg + 16 * L.q + L.lane / 4;
+    {
+      const int row = 64 * wg + 16 * L.q + (L.lane & 15);
+      L.ay = row < P ? row / g.W : -1;
+      L.ax = row < P ? row % g.W : 0;
+    }
+    bf16* F = reinterpret_cast<bf16*>(base + sp.off_f);
+    bf16* hs = reinterpret_cast<bf16*>(base + sp.off_h);
+    float* red1 = reinterpret_cast<float*>(base + sp.off_gn);  // [2][8][2]
+    float* gpart = red1 + 32;                                  // [2 halves][32 groups][2]
+    float* cst = gpart + kFilmWGs * kFilmGroups * 2 + wg * C * 2;  // this warpgroup's [C][2]
+    const Ring r{ring, full, empty, sp.ring, sp.cl};
+    const int gsz = C / kFilmGroups;
+    bf16* out = p.out;
+    int f = 0, n1 = 0;
+    Frag a;
+    float acc[64];
+    for (int pass = 0; pass < p.passes; ++pass) {
+      const int b = pass * gridDim.x + blockIdx.x;
+      const bool live = b < p.B;
+      const int bs = live ? b : 0;  // the sample whose e, c a dead one reads
+      // z0 as the in-projection's A fragments (rows past P, and samples past B, zero)
+      uint32_t z[4][4];
+      {
+        const bf16* z0 = p.z0 + static_cast<size_t>(bs) * P * C_lat;
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = L.r0 + 8 * (e & 1), col = 16 * ks + 8 * (e >> 1) + 2 * L.u;
+            z[ks][e] = live && row < P
+                           ? *reinterpret_cast<const uint32_t*>(z0 + row * C_lat + col) : 0u;
+          }
+      }
+      for (int step = 0; step < p.steps; ++step) {
+        // h = z @ in_w + in_b
+        zero(acc);
+        lns::wgmma_fence_regs(acc);
+        lns::wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          lns::wgmma_n128_rs<1>(acc, z[ks],
+                                lns::desc_mnmajor_wide(in_s + ks * 2048, C_lat * 128));
+        lns::wgmma_commit();
+        lns::wgmma_wait<0>();
+        lns::wgmma_fence_regs(acc);
+        residual_pairs<false>(acc, p.in_b, hs, P, L);
+
+#pragma unroll 1
+        for (int i = 0; i < p.n_block; ++i) {
+          const float* gs_ = p.gn_s + 3 * i * C;
+          const float* gb_ = p.gn_b + 3 * i * C;
+          const float* cb = p.conv_b + 3 * i * C;
+          const size_t ec = (static_cast<size_t>(i) * p.B + bs) * C;
+          // t = GN1(h) into F (film_stats' barrier ends the last conv's reads of F)
+          float2 s = h_sums(hs, L);
+          float2 mi = film_stats(s.x, s.y, red1 + 16 * (n1++ & 1), P, L, wg);
+          gn_apply_sc<false>(hs, a, mi, nullptr, gs_, gb_, L);
+          store_f(F, a, P, L);
+          lns::bar_sync(1, 2 * 128);
+          // t = gelu(conv1.1(t)), in place in F
+          conv_taps(acc, F, g, 1, L, r, f);
+          film_gelu_pairs<true>(acc, cb, a, L);
+          lns::bar_sync(1, 2 * 128);  // every warp's reads of F are done
+          store_f(F, a, P, L);
+          lns::bar_sync(1, 2 * 128);
+          // u = (bf16(conv1.3 product) + bf16(bias)) + e, f32
+          conv_taps(acc, F, g, p.dilation, L, r, f);
+#pragma unroll
+          for (int q = 0; q < 32; ++q) {
+            const int c = pair_col(L, q);
+            const float2 bb = bias2(cb + C, c);
+            const float2 ee = __ldg(reinterpret_cast<const float2*>(p.e + ec + c));
+            acc[2 * q] = (rnd<bf16>(acc[2 * q]) + bb.x) + ee.x;
+            acc[2 * q + 1] = (rnd<bf16>(acc[2 * q + 1]) + bb.y) + ee.y;
+          }
+          // bf16(gelu(GN1(u))) into F: cond_conv1.2's input
+          s = film_sums(acc, P, L);
+          mi = film_stats(s.x, s.y, red1 + 16 * (n1++ & 1), P, L, wg);
+          film_norm<true>(acc, a, mi, gs_ + C, gb_ + C, L);
+          store_f(F, a, P, L);
+          lns::bar_sync(1, 2 * 128);
+          // g = cond_conv1.2(.); h = bf16(h + g); t = (h + g)(1 + c), f32
+          conv_taps(acc, F, g, 1, L, r, f);
+#pragma unroll
+          for (int q = 0; q < 32; ++q) {
+            const int c = pair_col(L, q);
+            const float2 bb = bias2(cb + 2 * C, c);
+            const float2 cc = __ldg(reinterpret_cast<const float2*>(p.c + ec + c));
+            const float2 x = unpack2(hword(hs, L, q));
+            const float x0 = x.x + rnd<bf16>(rnd<bf16>(acc[2 * q]) + bb.x);
+            const float x1 = x.y + rnd<bf16>(rnd<bf16>(acc[2 * q + 1]) + bb.y);
+            const bool in = pair_row(L, q) < P;
+            hword(hs, L, q) = in ? lns::pack_bf16(x0, x1) : 0u;
+            acc[2 * q] = x0 * (1.f + cc.x);
+            acc[2 * q + 1] = x1 * (1.f + cc.y);
+          }
+          // h = h + gelu(GN1(t) @ ffn0) @ ffn1, the FFN in registers
+          s = film_sums(acc, P, L);
+          mi = film_stats(s.x, s.y, red1 + 16 * (n1++ & 1), P, L, wg);
+          film_norm<false>(acc, a, mi, gs_ + 2 * C, gb_ + 2 * C, L);
+          zero(acc);
+          chunk_product(acc, a, r, f++, L.lane);
+          film_gelu_pairs<false>(acc, nullptr, a, L);
+          zero(acc);
+          chunk_product(acc, a, r, f++, L.lane);
+          residual_pairs<true>(acc, nullptr, hs, P, L);
+        }
+
+        // z = GN(32)(h) @ out_w + out_b: column sums over this half's rows,
+        // each group's (gsz lanes') sums into gpart, both halves added in order
+        lns::bar_sync(2 + wg, 128);  // this half's h is in place
+        {
+          float sa = 0.f, sq = 0.f;
+          const bf16* col = hs + 64 * wg * kSampLdf + wt;
+          for (int row = 0; row < 64; ++row) {
+            const float v = __bfloat162float(col[row * kSampLdf]);
+            sa += v;
+            sq = fmaf(v, v, sq);
+          }
+          for (int off = 1; off < gsz; off <<= 1) {
+            sa += __shfl_xor_sync(0xffffffffu, sa, off);
+            sq += __shfl_xor_sync(0xffffffffu, sq, off);
+          }
+          if (wt % gsz == 0) {
+            gpart[2 * (wg * kFilmGroups + wt / gsz)] = sa;
+            gpart[2 * (wg * kFilmGroups + wt / gsz) + 1] = sq;
+          }
+        }
+        lns::bar_sync(1, 2 * 128);
+        {
+          const int gi = wt / gsz;
+          const float sa = gpart[2 * gi] + gpart[2 * (kFilmGroups + gi)];
+          const float sq = gpart[2 * gi + 1] + gpart[2 * (kFilmGroups + gi) + 1];
+          const float n = static_cast<float>(P) * gsz, mean = sa / n;
+          cst[2 * wt] = mean;
+          cst[2 * wt + 1] = rsqrtf(fmaxf(sq / n - mean * mean, 0.f) + 1e-6f);
+        }
+        lns::bar_sync(2 + wg, 128);
+        gn_apply_sc<true>(hs, a, make_float2(0.f, 0.f), cst, p.out_gn_s, p.out_gn_b, L);
+        float az[32];
+#pragma unroll
+        for (int k = 0; k < 32; ++k) az[k] = 0.f;
+        lns::wgmma_fence_regs(az);
+        lns::wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 8; ++ks)
+          lns::wgmma_n64_rs<1>(az, a[ks], lns::desc_mnmajor(out_s + ks * 2048));
+        lns::wgmma_commit();
+        lns::wgmma_wait<0>();
+        lns::wgmma_fence_regs(az);
+        bf16* o = out + (static_cast<size_t>(step) * p.B + bs) * P * C_lat;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {  // the n8 column blocks of C_lat
+          const int c = 8 * k + 2 * L.u;
+          const float2 bz = bias2(p.out_b, c);
+#pragma unroll
+          for (int rh = 0; rh < 2; ++rh) {
+            const int row = L.r0 + 8 * rh;
+            const float v0 = rnd<bf16>(az[4 * k + 2 * rh]) + bz.x;
+            const float v1 = rnd<bf16>(az[4 * k + 2 * rh + 1]) + bz.y;
+            const uint32_t v = row < P ? lns::pack_bf16(v0, v1) : 0u;
+            z[k >> 1][2 * (k & 1) + rh] = v;
+            if (live && row < P) *reinterpret_cast<uint32_t*>(o + row * C_lat + c) = v;
+          }
+        }
+      }
+    }
+  }
+  if (sp.cl > 1) lns::cluster_sync();  // no block leaves while its cluster may reach it
+}
+
+// Clusters of the FiLM plan's launch that the card holds at once
+// (cudaOccupancyMaxActiveClusters), asked once per device and H W.
+cudaError_t film_at_once(int P, int* n) {
+  struct Seen {
+    int dev, P, n;
+  };
+  static std::mutex mu;
+  static std::vector<Seen> seen;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Seen& s : seen)
+    if (s.dev == dev && s.P == P) {
+      *n = s.n;
+      return cudaSuccess;
+    }
+  const FilmPlan sp = make_film_plan(P);
+  e = lns::allow_smem(rollout_film_kernel, sp.smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = bf16_config(sp.cl, sp.cl, sp.smem, nullptr, &attr);
+  cfg.blockDim = dim3(kFilmThreads);
+  e = cudaOccupancyMaxActiveClusters(n, rollout_film_kernel, &cfg);
+  if (e == cudaSuccess) seen.push_back({dev, P, *n});
+  return e;
+}
+
+// The FiLM plan's limits, stated once: nullptr when it takes the shape.
+const char* film_limit(int B, int H, int W, int C_lat, int C, int groups) {
+  static thread_local char msg[240];
+  if (B < 1 || H < 1 || W < 1) {
+    snprintf(msg, sizeof msg, "B, H, W >= 1, got %d, %d, %d", B, H, W);
+  } else if (C != kSampC || C_lat != kFilmLat) {
+    snprintf(msg, sizeof msg, "C %d and C_lat %d (the N of its m64n128k16 and m64n64k16 "
+             "products), got C %d, C_lat %d", kSampC, kFilmLat, C, C_lat);
+  } else if (H * W > kFilmRows) {
+    snprintf(msg, sizeof msg, "H*W <= %d (two m64 tiles a sample), got %d", kFilmRows, H * W);
+  } else if (groups != kFilmGroups) {
+    snprintf(msg, sizeof msg, "groups %d (CondSimpleCNN's out_proj), got %d", kFilmGroups,
+             groups);
+  } else if (make_film_plan(H * W).ring < 2) {
+    snprintf(msg, sizeof msg, "a weight ring of 2 stages in %zu bytes of shared memory",
+             lns::kMaxDynamicSmem);
+  } else {
+    return nullptr;
+  }
+  return msg;
+}
+
+// The FiLM plan's grid: {clusters the card holds at once, blocks, passes}.
+// Every pass is as full as the batch allows: passes = ceil(B / the blocks
+// the card holds), then the fewest whole clusters that cover B in that
+// many passes.
+cudaError_t film_grid(int B, int P, int cl, int* at_once, int* blocks, int* passes) {
+  const cudaError_t e = film_at_once(P, at_once);
+  if (e != cudaSuccess) return e;
+  if (*at_once < 1) return cudaErrorInvalidConfiguration;
+  const int most = *at_once * cl;
+  *passes = (B + most - 1) / most;
+  const int need = (B + *passes - 1) / *passes;
+  *blocks = (need + cl - 1) / cl * cl;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // nullptr when the kernel of this dtype (0 f32, 1 bf16) takes the shape,
@@ -1591,6 +2199,71 @@ extern "C" int lns_prop_rollout(int dtype, const void* z0, const void* in_w, con
     return dispatch_bf16(prm, st, nullptr);
   }
   return cudaErrorInvalidValue;
+}
+
+// nullptr when the FiLM plan (bf16) takes the shape, else the limit it
+// breaks: the shape alone, asking nothing of the card, so that the rollout
+// driver's choice is read from its input. Where the card holds none of the
+// plan's clusters, the launch fails (lns_prop_rollout_film returns the
+// occupancy query's error, or cudaErrorInvalidConfiguration).
+extern "C" const char* lns_prop_rollout_film_limit(int B, int H, int W, int C_lat, int C,
+                                                   int groups) {
+  return film_limit(B, H, W, C_lat, C, groups);
+}
+
+// The FiLM plan's launch for this shape: out = {blocks per cluster, blocks,
+// shared memory bytes per block, clusters the card holds at once, weight
+// ring stages, passes (samples each block walks)}.
+extern "C" int lns_prop_rollout_film_plan(int B, int H, int W, int* out) {
+  if (film_limit(B, H, W, kFilmLat, kSampC, kFilmGroups)) return cudaErrorInvalidValue;
+  const FilmPlan sp = make_film_plan(H * W);
+  out[0] = sp.cl;
+  out[2] = sp.smem;
+  out[4] = sp.ring;
+  return film_grid(B, H * W, sp.cl, &out[3], &out[1], &out[5]);
+}
+
+// The conditional propagator's rollout (bf16, zero padding), the FiLM plan.
+extern "C" int lns_prop_rollout_film(const void* z0, const void* in_w, const void* in_b,
+                                     const void* gn_s, const void* gn_b, const void* conv_w,
+                                     const void* conv_b, const void* ffn_w, const void* out_gn_s,
+                                     const void* out_gn_b, const void* out_w, const void* out_b,
+                                     const void* e_, const void* c_, void* out, int B, int H,
+                                     int W, int n_block, int dilation, int steps, void* stream) {
+  if (film_limit(B, H, W, kFilmLat, kSampC, kFilmGroups) || n_block < 1 || dilation < 1)
+    return cudaErrorInvalidValue;
+  const FilmPlan sp = make_film_plan(H * W);
+  int at_once = 0, blocks = 0, passes = 0;
+  cudaError_t e = film_grid(B, H * W, sp.cl, &at_once, &blocks, &passes);
+  if (e != cudaSuccess) return e;
+  // the weights as the sample plan streams them (run_samples): conv_w as [3
+  // n_block convs][9 taps][C in][C out], ffn_w as [2 n_block][C][C], boxes
+  // of C rows x 64 output columns
+  const uint64_t C = kSampC, nb = n_block;
+  CUtensorMap map_conv, map_ffn;
+  e = lns::make_map(&map_conv, conv_w, {C, C, 9, 3 * nb}, {C * 2, C * C * 2, 9 * C * C * 2},
+                    {64, kSampC, 1, 1});
+  if (e == cudaSuccess)
+    e = lns::make_map(&map_ffn, ffn_w, {C, C, 2 * nb, 1}, {C * 2, C * C * 2, 2 * nb * C * C * 2},
+                      {64, kSampC, 1, 1});
+  if (e != cudaSuccess) return e;
+  FilmParams prm{static_cast<const bf16*>(z0), static_cast<const bf16*>(in_w),
+                 static_cast<const float*>(in_b), static_cast<const float*>(gn_s),
+                 static_cast<const float*>(gn_b), static_cast<const float*>(conv_b),
+                 static_cast<const float*>(out_gn_s), static_cast<const float*>(out_gn_b),
+                 static_cast<const bf16*>(out_w), static_cast<const float*>(out_b),
+                 static_cast<const float*>(e_), static_cast<const float*>(c_),
+                 static_cast<bf16*>(out), B, n_block, dilation, steps, passes,
+                 Geo{H, W, H * W, 0, 0}};
+  e = lns::allow_smem(rollout_film_kernel, sp.smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg =
+      bf16_config(blocks, sp.cl, sp.smem, static_cast<cudaStream_t>(stream), &attr);
+  cfg.blockDim = dim3(kFilmThreads);
+  e = cudaLaunchKernelEx(&cfg, rollout_film_kernel, map_conv, map_ffn, prm, sp);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
 }
 
 extern "C" const char* lns_error_string(int code) {

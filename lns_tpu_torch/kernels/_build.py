@@ -38,6 +38,7 @@ _SIGNATURES = {
     "lns_fab_mega_stats": [_P] * 5 + [_I] * 2 + [_P],
     "lns_group_norm": [_I] + [_P] * 6 + [_I] * 4 + [ctypes.c_float, _I, _P],
     "lns_prop_rollout": [_I] + [_P] * 14 + [_I] * 11 + [_P],
+    "lns_prop_rollout_film": [_P] * 15 + [_I] * 6 + [_P],
     "lns_transpose_hw": [_I] + [_P] * 2 + [_I] * 4 + [_P],
 }
 
@@ -206,6 +207,10 @@ def library() -> ctypes.CDLL:
         lib.lns_prop_rollout_workspace.restype = ctypes.c_longlong
         lib.lns_prop_rollout_plan.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
         lib.lns_prop_rollout_plan.restype = ctypes.c_int
+        lib.lns_prop_rollout_film_limit.argtypes = [ctypes.c_int] * 6
+        lib.lns_prop_rollout_film_limit.restype = ctypes.c_char_p
+        lib.lns_prop_rollout_film_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        lib.lns_prop_rollout_film_plan.restype = ctypes.c_int
         _lib = lib
     return _lib
 

@@ -21,7 +21,11 @@ index) per decode call; a conditional model's predict opens
 called alone is a predict of its own. The counter ``LOOP_STEPS`` (always
 on) adds the batch for each step the loop path takes: B x steps a predict
 there, 0 where kernel 1 ran. On a CUDA device the steps run as one
-launch of the rollout kernel (``kernels.prop_rollout``); with
+launch of the rollout kernel (``kernels.prop_rollout``): a conditional
+propagator's through its FiLM plan (``fused_cond_rollout``, ``plan="film"``
+on ``lns.rollout``) where its carry is bf16 at a shape that plan takes
+(``film_takes``: C 128, C_lat 64, H W <= 128, zero padding), as modules
+otherwise (f32, the CPU, another shape); with
 ``use_kernels(False)`` every kernel of the model is replaced by its plain
 PyTorch version, on any device. Parameters live under ``vq_ae`` and
 ``propagator``, the reference trainer's state-dict names (``ae`` and
@@ -47,7 +51,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from lns_tpu_torch.kernels.prop_rollout import fused_rollout, pack_simple_cnn
+from lns_tpu_torch.kernels.prop_rollout import (cond_terms, film_takes, fused_cond_rollout,
+                                                 fused_rollout, pack_cond_simple_cnn,
+                                                 pack_simple_cnn)
 from lns_tpu_torch.models.autoencoder import SimpleAutoencoder
 from lns_tpu_torch.models.propagator import build_propagator
 from lns_tpu_torch.ops.losses import smooth_l1_loss
@@ -163,10 +169,22 @@ class LatentDynamics(nn.Module):
         with profiling.span("lns.propagate", steps=steps):
             if self.dtype is not None:
                 z = z.to(self.dtype)  # the carry is in the propagator's dtype
-            # a conditional propagator steps as modules: kernel 1 computes the
-            # SimpleCNN and has no FiLM terms, and the JAX package takes its
-            # Pallas rollout for no conditional propagator either
-            # (lns_tpu/models/latent_dynamics.py: _pallas_rollout_ok)
+            p = self.propagator
+            # a conditional propagator whose carry takes kernel 1's FiLM plan
+            # (a CUDA bf16 carry at a shape its C limit takes) runs every
+            # step in one launch; any other (the CPU, f32, another shape)
+            # steps as modules, as the JAX package does for every
+            # conditional propagator (lns_tpu/models/latent_dynamics.py:
+            # _pallas_rollout_ok)
+            if self.use_kernel and self.conditional and film_takes(
+                    z, p.in_proj.weight.shape[0], p.padding_mode):
+                with profiling.span("lns.pack"):
+                    packed = pack_cond_simple_cnn(p, z.dtype)
+                    e, c = cond_terms(shared)
+                with profiling.span("lns.rollout", steps=steps, path="kernel"):
+                    zs = fused_cond_rollout(z, packed, e, c, steps, p.prop_n_block, p.dilation,
+                                            p.padding_mode)
+                return zs.transpose(0, 1)
             if self.use_kernel and not self.conditional:
                 # every padding mode, zeros too: the JAX package takes its XLA
                 # scan in zeros mode because its Pallas rollout measured slower
@@ -174,7 +192,6 @@ class LatentDynamics(nn.Module):
                 # on an H100 kernel 1 runs the two-phase rollout (B8 x 78 steps
                 # at 7x15) in about 13 ms against 220-280 ms for the plain step
                 # loop (chip_smoke.py; PERF.md's kernel table)
-                p = self.propagator
                 with profiling.span("lns.pack"):
                     packed = pack_simple_cnn(p, self.dtype or torch.float32)
                 with profiling.span("lns.rollout", steps=steps, path="kernel"):
